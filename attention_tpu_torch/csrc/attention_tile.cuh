@@ -1,5 +1,6 @@
-// The blocked online-softmax tile loops shared by the port's two attention
-// kernels (flash_fwd.cu and ragged_paged.cu).
+// The blocked online-softmax tile loops shared by the port's attention
+// kernels (flash_fwd.cu, ragged_paged.cu, and decode.cu and paged_decode.cu
+// through decode_rows.cuh).
 //
 // One CTA of THREADS threads owns BM query rows and walks the key/value
 // stream a tile at a time: S = Q·Kᵀ for the tile, the running row max / row
@@ -31,6 +32,10 @@
 //
 // In both, P is rounded to bf16 before the P·V product for bf16 inputs, as
 // the reference rounds `p.astype(v.dtype)`; the row sum uses the unrounded P.
+//
+// Both walk the key tiles a `TileWalk` names: every tile up to n_end, or,
+// for a decode band, the sink tiles and then the band's tiles only, so the
+// loop bounds skip what the TPU kernels skipped by clamping their DMAs.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -76,6 +81,38 @@ inline size_t smem_bytes(int dk, int dv) {
                           (size_t)BN * (v_stride(dv) + QT_STRIDE));
 }
 
+constexpr float LN2 = 0.6931471805599453f;
+
+// The key tiles of width W that a CTA visits, in order: those covering the
+// pinned columns [0, sink_end), then every tile from the one holding
+// kv_begin up to the one holding column n_end - 1.  A tile holding both a
+// sink column and kv_begin is visited once.  Without a band (kv_begin 0)
+// this is every tile below n_end.
+struct TileWalk {
+  int sink_tiles, first, count;
+  __device__ TileWalk(int n_end, int kv_begin, int sink_end, int W) {
+    const int nt = (max(n_end, 0) + W - 1) / W;
+    first = min(kv_begin / W, nt);
+    sink_tiles = min((sink_end + W - 1) / W, first);
+    count = sink_tiles + nt - first;
+  }
+  // first column of the t-th visited tile
+  __device__ int col(int t, int W) const {
+    return (t < sink_tiles ? t : first + t - sink_tiles) * W;
+  }
+};
+
+// The optional parts of a Problem, off: no band (every tile below n_end is
+// visited) and a normalized output.  A Problem that wants partials returns
+// an fp32 row from acc_row, which then receives the unnormalized output,
+// and takes each row's max (log2 domain) and sum through put_stats.
+struct ProblemBase {
+  int kv_begin = 0;
+  int sink_end = 0;
+  __device__ float* acc_row(int) const { return nullptr; }
+  __device__ void put_stats(int, float, float) const {}
+};
+
 __device__ __forceinline__ float row_max8(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -95,8 +132,10 @@ __device__ __forceinline__ float4 lds4(const float* p) {
 }
 
 // One CTA's attention over the rows and key/value stream a Problem
-// describes.  A Problem provides:
-//   n_end               columns [0, n_end) are visited (masked beyond)
+// describes.  A Problem derives from ProblemBase and provides:
+//   n_end               columns below n_end are visited (masked beyond),
+//                       the tiles `TileWalk` names from n_end, kv_begin
+//                       and sink_end
 //   q_row(r), o_row(r)  pointers to query / output row r of the CTA, or
 //                       nullptr for a row the CTA does not own
 //   k_row(c), v_row(c)  pointers to key / value row c, or nullptr (zeros)
@@ -140,7 +179,9 @@ __device__ void attend(const Problem& pb, int dk, int dv, float qscale,
       for (int e = 0; e < 4; ++e) o[i][q][e] = 0.f;
   }
 
-  for (int j0 = 0; j0 < pb.n_end; j0 += BN) {
+  const TileWalk walk(pb.n_end, pb.kv_begin, pb.sink_end, BN);
+  for (int t = 0; t < walk.count; ++t) {
+    const int j0 = walk.col(t, BN);
     // the previous tile's readers are done with Kt/Vs/Pt (and, on the
     // first pass, Qt is complete)
     __syncthreads();
@@ -240,7 +281,20 @@ __device__ void attend(const Problem& pb, int dk, int dv, float qscale,
 
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
-    T* dst = pb.o_row(RPT * tr + i);
+    const int r = RPT * tr + i;
+    float* acc = pb.acc_row(r);
+    if (acc != nullptr) {
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 4 * tc + 32 * q + e;
+          if (col < dv) acc[col] = o[i][q][e];
+        }
+      if (tc == 0) pb.put_stats(r, mrow[i], lrow[i]);
+      continue;
+    }
+    T* dst = pb.o_row(r);
     if (dst == nullptr) continue;
     // a row that attended nothing has l == 0 and an all-zero accumulator
     const float l = lrow[i] == 0.f ? 1.f : lrow[i];
@@ -355,11 +409,12 @@ __device__ void attend_mma(const Problem& pb, float qscale, float cap2) {
   const int wr = (threadIdx.x >> 5) * 16;  // this warp's first row
   const int g = lane >> 2;                 // fragment row (and row + 8)
   const int tq = lane & 3;                 // fragment column pair
-  const int ntiles = (pb.n_end + MMA_BN - 1) / MMA_BN;
+  const TileWalk walk(pb.n_end, pb.kv_begin, pb.sink_end, MMA_BN);
+  const int ntiles = walk.count;
 
   // copy tile t into buffer t & 1, as one commit group
   auto prefetch = [&](int t) {
-    const int j0 = t * MMA_BN;
+    const int j0 = walk.col(t, MMA_BN);
     __nv_bfloat16* K = Kb + (t & 1) * KV_STRIDE;
     load_rows<DK, true>(K, MMA_BN, [&](int r) {
       return j0 + r < pb.n_end ? pb.k_row(j0 + r) : nullptr;
@@ -397,7 +452,7 @@ __device__ void attend_mma(const Problem& pb, float qscale, float cap2) {
       cp_async_wait<0>();
     }
     __syncthreads();  // tile t has landed for every thread
-    const int j0 = t * MMA_BN;
+    const int j0 = walk.col(t, MMA_BN);
     const __nv_bfloat16* Ks = Kb + (t & 1) * KV_STRIDE;
     const __nv_bfloat16* Vs = Ks + MMA_BN * DKP;
 
@@ -487,7 +542,18 @@ __device__ void attend_mma(const Problem& pb, float qscale, float cap2) {
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    __nv_bfloat16* dst = pb.o_row(wr + g + 8 * i);
+    const int r = wr + g + 8 * i;
+    float* acc = pb.acc_row(r);
+    if (acc != nullptr) {
+#pragma unroll
+      for (int j = 0; j < OT; ++j) {
+        acc[j * 8 + 2 * tq] = o[j][2 * i];
+        acc[j * 8 + 2 * tq + 1] = o[j][2 * i + 1];
+      }
+      if (tq == 0) pb.put_stats(r, mrow[i], lrow[i]);
+      continue;
+    }
+    __nv_bfloat16* dst = pb.o_row(r);
     if (dst == nullptr) continue;
     // a row that attended nothing has l == 0 and an all-zero accumulator
     const float inv = lrow[i] == 0.f ? 1.f : 1.f / lrow[i];

@@ -1,0 +1,95 @@
+// Decode against a dense KV cache for Hopper (sm_90a): one token, or a
+// chunk of S appended tokens, per sequence.
+//
+// Replaces the TPU kernel `_decode_kernel` (attention_tpu/ops/decode.py:90,
+// launched by `flash_decode` at :355 and `flash_decode_chunk` at :489),
+// online max mode.  q (B, H, S, d) against caches k (B, Hkv, N, d) and
+// v (B, Hkv, N, dv) with per-sequence lengths lens (B,) taken after the S
+// rows were appended; row (g, s) of kv head h sits at position
+// lens[b] - S + s, causal within the chunk, with the optional window band
+// and pinned sinks, and softcap.  Rows, band and loop bounds are those of
+// decode_rows.cuh.
+//
+// What bounds it on the H100: a step reads each sequence's live cache rows
+// once per kv head (2·len·d values) and does 4·group·S·len·d operations on
+// them, 2·group·S operations per byte in bf16: about 8 at group 8 and S = 1,
+// far below the ~295 where the tensor cores become the limit.  So it is
+// bound by the bytes of the cache it reads (3.35 TB/s).  The design reads
+// those rows once per (sequence, kv head) for the whole GQA group, and the
+// loop bounds skip every row past the length and below the band, so the
+// bytes scale with the used prefix (or the window), not with the capacity.
+// What it does not yet do: at the serving geometry (B = 8, Hkv = 4) the
+// grid is 32 CTAs on 132 SMs, so a long cache streams through a quarter of
+// the card; a split of the key axis across CTAs with a merge
+// ("flash-decoding") is later work.
+#include "decode_rows.cuh"
+
+namespace {
+
+// a dense (B, Hkv, N, d) cache, any element strides with a contiguous last
+// dim
+struct DenseSource {
+  const void* k;
+  const void* v;
+  long long skb, skh, skn, svb, svh, svn;
+
+  template <typename T>
+  struct Rows {
+    const T* k;
+    const T* v;
+    long long skn, svn;
+    __device__ const T* k_row(int c) const { return k + c * skn; }
+    __device__ const T* v_row(int c) const { return v + c * svn; }
+  };
+
+  template <typename T>
+  __device__ Rows<T> rows(int b, int kvh) const {
+    return {static_cast<const T*>(k) + b * skb + kvh * skh,
+            static_cast<const T*>(v) + b * svb + kvh * svh, skn, svn};
+  }
+};
+
+}  // namespace
+
+// Plain C entry point, loaded through ctypes.  dtype: 0 = fp32, 1 = bf16.
+// q and o are (B, H, S, d) and the caches (B, Hkv, N, d), each with element
+// strides (batch, head, row) and a contiguous last dim; lens is (B,) int32
+// on the device.  window <= 0 means none (sinks then ignored); softcap <= 0
+// means none.  A negative length reads as 0.  Returns cudaGetLastError().
+extern "C" int decode_fwd(const void* q, const void* k, const void* v,
+                          const void* lens, void* o, int dtype, int B, int H,
+                          int Hkv, int S, int N, int dk, int dv,
+                          long long sqb, long long sqh, long long sqs,
+                          long long skb, long long skh, long long skn,
+                          long long svb, long long svh, long long svn,
+                          long long sob, long long soh, long long sos,
+                          int window, int sinks, float scale, float softcap,
+                          void* stream) {
+  atk::DecodeArgs a{};
+  a.q = q;
+  a.o = o;
+  a.lens = static_cast<const int*>(lens);
+  a.H = H;
+  a.Hkv = Hkv;
+  a.S = S;
+  a.dk = dk;
+  a.dv = dv;
+  a.n_cap = N;
+  a.window = window > 0 ? window : 0;
+  a.sinks = window > 0 ? sinks : 0;
+  a.sqb = sqb;
+  a.sqh = sqh;
+  a.sqs = sqs;
+  a.sob = sob;
+  a.soh = soh;
+  a.sos = sos;
+  a.qscale = scale * atk::LOG2E;
+  a.cap2 = softcap > 0.f ? softcap * atk::LOG2E : 0.f;
+  const DenseSource src{k, v, skb, skh, skn, svb, svh, svn};
+  const bool mma_ok = atk::rows_aligned(a) && skb % 8 == 0 &&
+                      skh % 8 == 0 && skn % 8 == 0 && svb % 8 == 0 &&
+                      svh % 8 == 0 && svn % 8 == 0 && atk::aligned16(k) &&
+                      atk::aligned16(v);
+  return (int)atk::dispatch_decode(a, src, B, dtype, mma_ok,
+                                   static_cast<cudaStream_t>(stream));
+}

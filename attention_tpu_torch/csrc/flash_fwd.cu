@@ -3,8 +3,11 @@
 // Replaces the TPU kernel `_flash_kernel` (attention_tpu/ops/flash.py:310,
 // launched by `_flash_call`), online max mode, normalized output.  Computes
 // softmax(Q Kᵀ · scale) V for q (B, H, m, dk), k (B, Hkv, n, dk),
-// v (B, Hkv, n, dv); q head h reads kv head h / (H / Hkv).  Causal masking
-// uses global positions q_offset = kv_offset = 0 (row i sees columns <= i);
+// v (B, Hkv, n, dv); q head h reads kv head h / (H / Hkv).  Only the first
+// kv_valid key rows are attended (a cache filled up to there).  Causal
+// masking uses global positions: query row i sits at q_offset + i, key row
+// j at kv_offset + j, and row i sees the keys at or before it (cached
+// prefill passes q_offset = the cache's length, kv_valid = its new length);
 // softcap maps the scaled scores through cap·tanh(s/cap) before masking.
 //
 // What bounds it on the H100: at the testcase and serving shapes it does
@@ -37,17 +40,17 @@ struct FlashArgs {
   // element strides (batch, head, row) of q, k, v, o
   long long sqb, sqh, sqm, skb, skh, skn, svb, svh, svn, sob, soh, som;
   float qscale, cap2;
-  int causal;
+  int causal, q_offset, kv_offset, kv_valid;
 };
 
 template <typename T>
-struct FlashProblem {
+struct FlashProblem : atk::ProblemBase {
   const T* q;
   const T* k;
   const T* v;
   T* o;
   long long sqm, skn, svn, som;
-  int m0, m, n, n_end;
+  int m0, m, n_end, kv_valid, q_offset, kv_offset;
   bool causal;
 
   __device__ const T* q_row(int r) const {
@@ -61,7 +64,8 @@ struct FlashProblem {
   __device__ const T* k_row(int c) const { return k + c * skn; }
   __device__ const T* v_row(int c) const { return v + c * svn; }
   __device__ bool keep(int r, int c) const {
-    return c < n && (!causal || c <= m0 + r);
+    return c < kv_valid &&
+           (!causal || c + kv_offset <= m0 + r + q_offset);
   }
 };
 
@@ -83,9 +87,14 @@ __device__ FlashProblem<T> flash_problem(const FlashArgs& a) {
   pb.som = a.som;
   pb.m0 = blockIdx.x * BM;
   pb.m = a.m;
-  pb.n = a.n;
+  pb.kv_valid = min(a.kv_valid, a.n);
+  pb.q_offset = a.q_offset;
+  pb.kv_offset = a.kv_offset;
   pb.causal = a.causal != 0;
-  pb.n_end = pb.causal ? min(a.n, pb.m0 + BM) : a.n;
+  // causal: no key past the block's last row
+  pb.n_end = pb.causal ? max(0, min(pb.kv_valid, pb.m0 + BM + a.q_offset -
+                                                     a.kv_offset))
+                       : pb.kv_valid;
   return pb;
 }
 
@@ -149,8 +158,9 @@ bool mma_ok(const FlashArgs& a) {
 
 // Plain C entry point, loaded through ctypes.  dtype: 0 = fp32, 1 = bf16.
 // Strides are in elements, (batch, head, row) for each of q, k, v, o; the
-// last dim of every tensor is contiguous.  softcap <= 0 means none.
-// Returns cudaGetLastError() after the launch (or the refusal).
+// last dim of every tensor is contiguous.  softcap <= 0 means none;
+// kv_valid is cut to n.  Returns cudaGetLastError() after the launch (or
+// the refusal).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          int dtype, int B, int H, int Hkv, int m, int n,
                          int dk, int dv, long long sqb, long long sqh,
@@ -158,14 +168,16 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          long long skn, long long svb, long long svh,
                          long long svn, long long sob, long long soh,
                          long long som, float scale, float softcap,
-                         int causal, void* stream) {
+                         int causal, int q_offset, int kv_offset,
+                         int kv_valid, void* stream) {
   if (dk < 1 || dv < 1 || dk > atk::MAX_HEAD_DIM || dv > atk::MAX_HEAD_DIM ||
       H % Hkv != 0 || m < 1 || n < 1)
     return (int)cudaErrorInvalidValue;
   const FlashArgs a{q,   k,   v,   o,   H,   Hkv, m,   n,
                     dk,  dv,  sqb, sqh, sqm, skb, skh, skn,
                     svb, svh, svn, sob, soh, som, scale * atk::LOG2E,
-                    softcap > 0.f ? softcap * atk::LOG2E : 0.f, causal};
+                    softcap > 0.f ? softcap * atk::LOG2E : 0.f, causal,
+                    q_offset, kv_offset, kv_valid};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch_fma<float>(a, B, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;

@@ -37,7 +37,7 @@ using atk::BM;
 using atk::THREADS;
 
 template <typename T>
-struct RaggedProblem {
+struct RaggedProblem : atk::ProblemBase {
   const T* q;       // at (head kvh*group, token cu[s])
   T* o;             // same for the output
   long long sqh, sqt, soh, sot;

@@ -1,18 +1,28 @@
 """The continuous-batching serving engine: the port of
-`attention_tpu.engine.engine`, single device, ``step_mode="ragged"``.
+`attention_tpu.engine.engine`, single device.
 
-Every step packs decode tokens and prefill chunks onto one token axis
-(`ScheduledStep.pack`) and makes ONE model call over per-layer
-`RaggedPagedStep` caches: each layer appends its K/V rows through the
-page tables and runs one ragged kernel launch.  Memory is one page-id
-space across all layers (one `PagePool`/`BlockAllocator`, one table row
-per request); the per-layer pools live on the model's device and are
-updated in place.  The step's only device sync is `_fetch_logits`,
-which copies just the logits rows that sampling needs.
+``step_mode="ragged"`` (the default): every step packs decode tokens and
+prefill chunks onto one token axis (`ScheduledStep.pack`) and makes ONE
+model call over per-layer `RaggedPagedStep` caches: each layer appends
+its K/V rows through the page tables and runs one ragged kernel launch.
+``step_mode="two_call"``: the JAX engine's fixed-shape pair, kept as the
+ragged step's parity oracle: a ``(max_decode_batch, 1)`` decode call and
+a ``(max_prefill_rows, prefill_chunk)`` prefill call over per-layer
+`PagedKV` caches (the paged decode kernel), padded with inactive rows
+(an all ``-1`` table and length ``-1``: they append nothing, read
+nothing and come out NaN, and the engine never reads them).  Both modes
+hand their logits rows to the same `_post_decode`/`_post_prefill`, so
+their token streams agree by construction.
 
-The JAX engine's ``two_call`` mode, ``async_steps``, mesh sharding,
-journal, prefix store and chaos hooks are not ported: asking for them
-raises `NotImplementedError`.  Sampling with temperature > 0 draws from
+Memory is one page-id space across all layers (one
+`PagePool`/`BlockAllocator`, one table row per request); the per-layer
+pools live on the model's device and are updated in place.  A model
+call's only device sync is `_fetch_logits`, which copies just the logits
+rows that sampling needs.
+
+The JAX engine's ``async_steps``, mesh sharding, journal, prefix store
+and chaos hooks are not ported: asking for them raises
+`NotImplementedError`.  Sampling with temperature > 0 draws from
 a per-request `torch.Generator` seeded from ``SamplingParams.seed``, so
 sampled streams are deterministic (but differ from the JAX engine's).
 """
@@ -47,7 +57,7 @@ from attention_tpu_torch.engine.scheduler import (
     Scheduler,
 )
 from attention_tpu_torch.models.decode import warp_logits
-from attention_tpu_torch.ops.paged import OutOfPagesError, PagePool
+from attention_tpu_torch.ops.paged import OutOfPagesError, PagedKV, PagePool
 from attention_tpu_torch.ops.ragged_paged import (
     RaggedPagedStep,
     packed_bucket,
@@ -77,10 +87,10 @@ class EngineConfig:
     mesh_shards: int = 0
 
     def validate(self) -> None:
-        if self.step_mode != "ragged":
-            raise NotImplementedError(
-                f"step_mode {self.step_mode!r} is not ported yet; the "
-                "port serves step_mode='ragged'")
+        if self.step_mode not in ("ragged", "two_call"):
+            raise ValueError(
+                f"unknown step_mode {self.step_mode!r}; one of "
+                "['ragged', 'two_call']")
         if self.async_steps:
             raise NotImplementedError("async_steps is not ported yet")
         if self.mesh_shards:
@@ -105,7 +115,8 @@ class EngineConfig:
 
 class ServingEngine:
     """Deterministic continuous-batching engine over a `TinyDecoder`
-    (its weights and device included); one model call per busy step."""
+    (its weights and device included); one model call per busy step
+    (``ragged``), or one per non-empty half of it (``two_call``)."""
 
     def __init__(self, model, config: EngineConfig, *,
                  on_token: Callable[[Request, int], None] | None = None,
@@ -255,10 +266,19 @@ class ServingEngine:
         timed_out = self._expire_deadlines()
         sched = self.scheduler.schedule(self._step)
         total = sched.num_decode_tokens + sched.num_prefill_tokens
-        if not sched.is_empty:
-            width = self._run_ragged(sched)
-            pad_tokens = width - total
-            occupancy = total / width
+        if self.config.step_mode == "ragged":
+            if not sched.is_empty:
+                width = self._run_ragged(sched)
+                pad_tokens = width - total
+                occupancy = total / width
+        else:
+            if sched.decode:
+                self._run_decode(sched.decode)
+            if sched.prefill:
+                self._run_prefill(sched.prefill)
+            pad_tokens = self._baseline_pad(sched)
+            if total:
+                occupancy = total / (total + pad_tokens)
         wall_s = time.perf_counter() - t0
         m = StepMetrics(
             step=self._step,
@@ -312,6 +332,9 @@ class ServingEngine:
 
     # -- batch lowering ---------------------------------------------------
 
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
     def _fetch_logits(self, rows: torch.Tensor) -> np.ndarray:
         """The step's only device sync: copy the needed logits rows to
         the host."""
@@ -340,19 +363,15 @@ class ServingEngine:
         width = packed_bucket(max(total, q_tile))
         batch = sched.pack(width=width, slots=slots,
                            table_width=cfg.table_width)
-
-        def dev(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(a).to(self.device)
-
         tables, kv_lens, cu, dist, pos, slot = (
-            dev(a) for a in (batch.tables, batch.kv_lens, batch.cu_q_lens,
-                             batch.distribution, batch.token_pos,
-                             batch.token_slot))
+            self._dev(a) for a in (batch.tables, batch.kv_lens,
+                                   batch.cu_q_lens, batch.distribution,
+                                   batch.token_pos, batch.token_slot))
         caches = tuple(
             RaggedPagedStep(self._k_pools[layer], self._v_pools[layer],
                             tables, kv_lens, cu, dist, pos, slot, q_tile)
             for layer in range(model.depth))
-        return dev(batch.tokens).long(), caches, batch
+        return self._dev(batch.tokens).long(), caches, batch
 
     def _run_ragged(self, sched: ScheduledStep) -> int:
         """Run the whole step as one packed model call; returns the
@@ -374,8 +393,64 @@ class ServingEngine:
             self._post_prefill(req, real, picked[num_decode + s])
         return batch.width
 
+    def _baseline_pad(self, sched: ScheduledStep) -> int:
+        """Pad tokens the two-call lowering dispatches for this step."""
+        pad = 0
+        if sched.decode:
+            pad += self.config.max_decode_batch - len(sched.decode)
+        if sched.prefill:
+            pad += (self.config.max_prefill_rows * self.config.prefill_chunk
+                    - sched.num_prefill_tokens)
+        return pad
+
+    def _apply(self, tokens: np.ndarray, tables: np.ndarray,
+               lens: np.ndarray, rows: list[int]) -> np.ndarray:
+        """One two-call model call over per-layer `PagedKV` caches;
+        returns, for each request ``i``, the logits at its token
+        ``rows[i]``."""
+        tables, lens = self._dev(tables), self._dev(lens)
+        caches = tuple(
+            PagedKV(self._k_pools[layer], self._v_pools[layer], tables, lens)
+            for layer in range(self.model.depth))
+        with torch.no_grad():
+            logits, _ = self.model(self._dev(tokens).long(), caches)
+            picked = logits[torch.arange(len(rows), device=self.device),
+                            torch.tensor(rows, device=self.device)]
+        self.model_calls += 1
+        return self._fetch_logits(picked)
+
+    def _run_decode(self, reqs: list[Request]) -> None:
+        d = self.config.max_decode_batch
+        tokens = np.zeros((d, 1), np.int32)
+        tables = np.full((d, self.config.table_width), -1, np.int32)
+        lens = np.full((d,), -1, np.int32)  # -1 = inactive pad row
+        for i, req in enumerate(reqs):
+            lens[i] = req.computed_tokens
+            tokens[i, 0] = req.feed_pending()
+            tables[i, :len(req.pages)] = req.pages
+        logits = self._apply(tokens, tables, lens, [0] * len(reqs))
+        for i, req in enumerate(reqs):
+            self._post_decode(req, logits[i])
+
+    def _run_prefill(self, items: list[tuple[Request, int]]) -> None:
+        # the pad tokens past `real` are appended too; the scheduler
+        # claimed pages up to the chunk's padded end for them
+        p, s = self.config.max_prefill_rows, self.config.prefill_chunk
+        tokens = np.zeros((p, s), np.int32)
+        tables = np.full((p, self.config.table_width), -1, np.int32)
+        lens = np.full((p,), -1, np.int32)
+        for i, (req, real) in enumerate(items):
+            c = req.computed_tokens
+            tokens[i, :real] = req.tokens[c:c + real]
+            tables[i, :len(req.pages)] = req.pages
+            lens[i] = c
+        logits = self._apply(tokens, tables, lens,
+                             [real - 1 for _, real in items])
+        for i, (req, real) in enumerate(items):
+            self._post_prefill(req, real, logits[i])
+
     def _post_decode(self, req: Request, logits_row: np.ndarray) -> None:
-        """Consume one decode request's logits row."""
+        """Consume one decode request's logits row (both step modes)."""
         if not np.isfinite(logits_row).all():
             # non-finite logits never reach sampling: un-feed the pending
             # token so the request retries (bounded, then falls through)
@@ -392,7 +467,8 @@ class ServingEngine:
 
     def _post_prefill(self, req: Request, real: int,
                       last_row: np.ndarray) -> None:
-        """Consume one prefill chunk's last logits row."""
+        """Consume one prefill chunk's last logits row (both step
+        modes)."""
         if (req.computed_tokens + real >= len(req.tokens)
                 and not req.output_tokens
                 and not np.isfinite(last_row).all()):

@@ -1,9 +1,40 @@
-"""Sampling warp: the port of `attention_tpu.models.decode.warp_logits`
-(the token loops `generate*` come in a later slice)."""
+"""Autoregressive generation: the port of `attention_tpu.models.decode`.
+
+Prefill runs the prompt once through the model over fresh caches (the
+flash kernel with ``q_offset``/``kv_valid``), then a Python token loop
+makes one decode step per token (the decode kernel on dense caches, the
+paged decode kernel on paged ones), where the JAX package ran a
+``lax.scan`` under one jit.  Each loop runs ``steps`` decode steps, as
+the scan does, so the returned caches hold prompt + ``steps`` rows.
+
+Sampling (temperature > 0) draws from the caller's `torch.Generator`, on
+the model's device, where the JAX package split a key: seeded streams
+are deterministic, but not the JAX package's.  ``int8_cache``,
+``rolling_cache`` and beam search are not ported yet.
+"""
 
 from __future__ import annotations
 
 import torch
+
+from attention_tpu_torch.models.attention_layer import RaggedKVCache
+from attention_tpu_torch.ops.paged import PagePool, paged_from_dense
+
+
+def prefill(model, tokens: torch.Tensor, capacity: int,
+            cache_dtype: torch.dtype | None = None):
+    """Run the (B, S) prompt through the model once, filling fresh dense
+    caches of ``capacity`` rows.  Returns ``(last_logits (B, vocab),
+    caches)``."""
+    caches = model.init_caches(tokens.shape[0], capacity, cache_dtype)
+    logits, caches = model(tokens, caches)
+    return logits[:, -1], caches
+
+
+def decode_step(model, token: torch.Tensor, caches):
+    """One decode step: token (B,) -> (logits (B, vocab), caches)."""
+    logits, caches = model(token[:, None], caches)
+    return logits[:, -1], caches
 
 
 def warp_logits(logits: torch.Tensor, *, temperature: float,
@@ -26,3 +57,189 @@ def warp_logits(logits: torch.Tensor, *, temperature: float,
         cutoff = cutoff.amin(dim=-1, keepdim=True)
         logits = logits.masked_fill(logits < cutoff, float("-inf"))
     return logits
+
+
+def _select_token(logits: torch.Tensor, generator, *, temperature, top_k,
+                  top_p) -> torch.Tensor:
+    """(B, V) logits -> (B,) next tokens: greedy argmax when
+    ``generator`` is None, else a draw from the warped distribution."""
+    if generator is None:
+        return logits.argmax(dim=-1)
+    probs = torch.softmax(warp_logits(logits, temperature=temperature,
+                                      top_k=top_k, top_p=top_p), dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def _validate_sampling(model, temperature, top_k, top_p, generator):
+    """The sampling knobs' contract, shared by the generate functions.
+    Returns the generator, or None for greedy decoding."""
+    if temperature < 0.0:
+        raise ValueError(f"temperature must be >= 0, got {temperature}")
+    if temperature > 0.0 and generator is None:
+        raise ValueError("temperature > 0 requires a torch.Generator")
+    if top_p is not None and not (0.0 < top_p <= 1.0):
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    if top_k is not None and not (1 <= top_k <= model.vocab):
+        raise ValueError(
+            f"top_k must be in [1, vocab={model.vocab}], got {top_k}")
+    if temperature == 0.0:
+        if top_k is not None or top_p is not None:
+            # would otherwise be silently ignored — fail loudly instead
+            raise ValueError(
+                "top_k/top_p require temperature > 0 (temperature == 0 "
+                "is greedy argmax)")
+        return None
+    return generator
+
+
+def _resolve_capacity(s: int, steps: int, capacity: int | None) -> int:
+    """The dense-cache capacity contract: default to the smallest
+    128-multiple holding prompt + steps; reject a caller value that is
+    short (the cache would overflow and NaN-poison) or off the 128-row
+    granule."""
+    if capacity is None:
+        return -(-(s + steps) // 128) * 128
+    if capacity < s + steps or capacity % 128:
+        raise ValueError(
+            f"capacity {capacity} must be a 128-multiple >= {s + steps}")
+    return capacity
+
+
+def _validate_lengths(prompt_lengths, s_max: int) -> torch.Tensor:
+    """(B,) int32 prompt lengths on the host, each in [1, s_max]."""
+    lengths = torch.as_tensor(prompt_lengths).to("cpu", torch.int32)
+    if bool(((lengths < 1) | (lengths > s_max)).any()):
+        raise ValueError(
+            f"prompt_lengths must be in [1, {s_max}], got "
+            f"{lengths.tolist()}")
+    return lengths
+
+
+def _unported(int8_cache: bool, rolling_cache: bool) -> None:
+    if int8_cache:
+        raise NotImplementedError("int8_cache is not ported yet")
+    if rolling_cache:
+        raise NotImplementedError("rolling_cache is not ported yet")
+
+
+def _token_loop(model, last_logits, caches, steps: int, generator,
+                **knobs):
+    """Pick the first token from the prefill's logits, then ``steps``
+    decode steps, each feeding the token picked last.  Returns
+    ((B, steps) tokens, final caches)."""
+    tok = _select_token(last_logits, generator, **knobs)
+    out = []
+    for _ in range(steps):
+        out.append(tok)
+        logits, caches = decode_step(model, tok, caches)
+        tok = _select_token(logits, generator, **knobs)
+    return torch.stack(out, dim=1), caches
+
+
+def _prompt(model, prompt) -> torch.Tensor:
+    return torch.as_tensor(prompt).to(model.device, torch.long)
+
+
+def _padded_prefill(model, prompt, lengths, capacity):
+    """One causal prefill of right-padded prompts over dense caches (pad
+    keys sit past every valid query); returns each sequence's logits at
+    its last valid token, and the caches."""
+    caches = model.init_caches(prompt.shape[0], capacity)
+    logits, caches = model(prompt, caches)
+    lens = lengths.to(model.device)
+    last = logits[torch.arange(prompt.shape[0], device=model.device),
+                  lens.long() - 1]
+    return last, caches, lens
+
+
+@torch.no_grad()
+def generate(model, prompt, *, steps: int, capacity: int | None = None,
+             int8_cache: bool = False, rolling_cache: bool = False,
+             temperature: float = 0.0, top_k: int | None = None,
+             top_p: float | None = None,
+             generator: torch.Generator | None = None) -> torch.Tensor:
+    """Autoregressive generation: (B, S) prompt -> (B, steps)
+    continuation.  Prefill, then ``steps`` decode steps on dense caches.
+    ``temperature == 0`` (default) is greedy; ``temperature > 0``
+    samples from ``generator``, optionally truncated by ``top_k`` and/or
+    nucleus ``top_p``."""
+    _unported(int8_cache, rolling_cache)
+    generator = _validate_sampling(model, temperature, top_k, top_p,
+                                   generator)
+    prompt = _prompt(model, prompt)
+    capacity = _resolve_capacity(prompt.shape[1], steps, capacity)
+    last, caches = prefill(model, prompt, capacity)
+    return _token_loop(model, last, caches, steps, generator,
+                       temperature=temperature, top_k=top_k, top_p=top_p)[0]
+
+
+@torch.no_grad()
+def generate_ragged(model, prompt, prompt_lengths, *, steps: int,
+                    capacity: int | None = None, temperature: float = 0.0,
+                    top_k: int | None = None, top_p: float | None = None,
+                    generator: torch.Generator | None = None
+                    ) -> torch.Tensor:
+    """Batched generation over prompts of different lengths: (B, S_max)
+    right-padded prompts and their (B,) true lengths -> (B, steps);
+    sequence b's continuation starts right after its
+    ``prompt_lengths[b]``-th token.  One padded prefill, then decode
+    steps on a `RaggedKVCache`, each sequence at its own position.
+    Greedy output per sequence equals `generate` on the trimmed
+    prompt."""
+    generator = _validate_sampling(model, temperature, top_k, top_p,
+                                   generator)
+    prompt = _prompt(model, prompt)
+    b, s_max = prompt.shape
+    lengths = _validate_lengths(prompt_lengths, s_max)
+    capacity = _resolve_capacity(s_max, steps, capacity)
+    last, caches, lens = _padded_prefill(model, prompt, lengths, capacity)
+    caches = tuple(RaggedKVCache.from_prefill(c, lens) for c in caches)
+    return _token_loop(model, last, caches, steps, generator,
+                       temperature=temperature, top_k=top_k, top_p=top_p)[0]
+
+
+@torch.no_grad()
+def generate_paged(model, prompt, prompt_lengths, *, steps: int,
+                   num_pages: int | None = None, page_size: int = 128,
+                   temperature: float = 0.0, top_k: int | None = None,
+                   top_p: float | None = None,
+                   generator: torch.Generator | None = None):
+    """Ragged batched generation on paged KV caches: (B, S_max) padded
+    prompts -> ((B, steps) tokens, the final per-layer `PagedKV` caches,
+    the per-layer `PagePool`s).
+
+    Prefill runs on dense caches, which are then scattered into one page
+    pool per layer (`paged_from_dense`), each sequence claiming the pages
+    for prompt + steps up front; the decode steps append through the
+    page table.  Greedy output equals `generate_ragged`.  When sequence b
+    completes, free its pages with
+    ``pools[l].free([p for p in caches[l].page_table[b].tolist() if p >=
+    0])``."""
+    generator = _validate_sampling(model, temperature, top_k, top_p,
+                                   generator)
+    prompt = _prompt(model, prompt)
+    b, s_max = prompt.shape
+    lengths = _validate_lengths(prompt_lengths, s_max)
+    capacity = -(-(s_max + steps) // page_size) * page_size
+    if capacity % 128:
+        raise ValueError(f"page_size {page_size} must be a 128-multiple")
+    pages_per_seq = capacity // page_size
+    if num_pages is None:
+        num_pages = b * pages_per_seq
+    last, caches, lens = _padded_prefill(model, prompt, lengths, capacity)
+    pools = [PagePool(num_pages) for _ in caches]
+    paged = tuple(
+        paged_from_dense(c.k, c.v, lens, pool, num_pages=num_pages,
+                         page_size=page_size,
+                         total_pages_per_seq=pages_per_seq)
+        for c, pool in zip(caches, pools))
+    del caches  # frees the dense copies before the token loop
+    toks, final = _token_loop(model, last, paged, steps, generator,
+                              temperature=temperature, top_k=top_k,
+                              top_p=top_p)
+    return toks, final, pools
+
+
+def generate_beam(*args, **kwargs):
+    """Beam search is not ported yet."""
+    raise NotImplementedError("generate_beam is not ported yet")

@@ -16,7 +16,10 @@ from torch import nn
 from torch.nn import functional as F
 
 from attention_tpu_torch.device import resolve_device
-from attention_tpu_torch.models.attention_layer import GQASelfAttention
+from attention_tpu_torch.models.attention_layer import (
+    GQASelfAttention,
+    KVCache,
+)
 
 RMS_EPS = 1e-6  # flax.linen.RMSNorm's default epsilon
 
@@ -74,11 +77,12 @@ class TinyDecoder(nn.Module):
     """Decoder-only LM: embed -> ``depth`` blocks -> norm -> logits.
 
     ``forward(tokens)`` runs the uncached causal forward (the flash
-    kernel); ``forward(tokens, caches)`` with one `RaggedPagedStep` per
-    layer runs one packed serving step (the ragged kernel) and returns
-    ``(logits, caches)``.  Options of the JAX model that this slice does
-    not port (window, sinks, MoE, context or tensor parallelism, remat)
-    raise `NotImplementedError`."""
+    kernel); ``forward(tokens, caches)`` with one cache per layer
+    (`KVCache`, `RaggedKVCache`, `PagedKV` or the serving engine's
+    `RaggedPagedStep`) runs a cached step and returns ``(logits,
+    caches)``.  Options of the JAX model that the port does not have
+    yet (window, sinks, MoE, context or tensor parallelism, remat) raise
+    `NotImplementedError`."""
 
     def __init__(self, vocab: int = 256, dim: int = 256, depth: int = 2,
                  num_q_heads: int = 8, num_kv_heads: int = 2,
@@ -127,6 +131,18 @@ class TinyDecoder(nn.Module):
                 new_caches.append(c)
         logits = self.head(self.norm(x).float())
         return logits if caches is None else (logits, tuple(new_caches))
+
+    def init_caches(self, batch: int, capacity: int,
+                    cache_dtype: torch.dtype | None = None,
+                    rolling: bool = False) -> tuple:
+        """Fresh per-layer dense `KVCache`s of ``capacity`` rows on the
+        model's device, in ``cache_dtype`` (default: the model's)."""
+        if rolling:
+            raise NotImplementedError("rolling caches are not ported yet")
+        return tuple(
+            KVCache.create(batch, self.num_kv_heads, capacity, self.head_dim,
+                           cache_dtype or self.dtype, self.device)
+            for _ in range(self.depth))
 
 
 def init_params(model: TinyDecoder, seed: int) -> dict[str, torch.Tensor]:

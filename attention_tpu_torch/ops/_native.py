@@ -33,6 +33,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 KERNELS = {
     "flash_fwd": "flash_fwd.cu",
     "ragged_paged": "ragged_paged.cu",
+    "decode": "decode.cu",
+    "paged_decode": "paged_decode.cu",
 }
 
 #: ctypes argument types of the kernels' C entry points

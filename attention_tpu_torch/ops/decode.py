@@ -1,0 +1,176 @@
+"""Decode against a dense KV cache: the port of `attention_tpu.ops.decode`.
+
+`flash_decode` scores one new token per sequence, `flash_decode_chunk` S
+appended tokens per sequence (the speculative-verify and ragged-append
+primitive), both against (B, Hkv, N, d) caches with per-sequence
+lengths, GQA, ``softcap`` and the ``window``/``sinks`` band.  For CUDA
+tensors they launch the Hopper kernel ``csrc/decode.cu`` (which replaces
+the TPU kernel `_decode_kernel`); for CPU tensors they run
+`flash_decode_plain`.  The band contract (`check_band`): the window
+``[len - w, len)`` per row plus the pinned first ``sinks`` rows; on the
+card the kernel's loop bounds skip every key tile past the length and
+below the band, where the TPU kernel clamped its DMA index maps
+(`banded_block_clamp`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from attention_tpu_torch.ops import _native
+from attention_tpu_torch.ops._native import DTYPE_CODES, MAX_HEAD_DIM, F, \
+    I, L, P
+from attention_tpu_torch.ops.reference import check_softcap, \
+    decode_reference
+
+KERNEL = "decode"
+_ARGTYPES = [P] * 5 + [I] * 8 + [L] * 12 + [I, I, F, F, P]
+
+
+def check_band(window, sinks) -> None:
+    """The decode-side window/sinks contract (mirrors
+    flash_attention's): sinks require a window, both >= 1."""
+    if sinks is not None:
+        if window is None:
+            raise ValueError("sinks require window= (see flash_attention)")
+        if sinks < 1:
+            raise ValueError(f"sinks must be >= 1, got {sinks}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+
+
+def lengths_tensor(lengths, b: int, device) -> torch.Tensor:
+    """(B,) contiguous int32 lengths on ``device`` from an int, a 0-d
+    tensor (broadcast) or a (B,) tensor."""
+    if isinstance(lengths, int):
+        return torch.full((b,), lengths, dtype=torch.int32, device=device)
+    lens = torch.as_tensor(lengths).to(device=device, dtype=torch.int32)
+    if lens.dim() == 0:
+        return lens.expand(b).contiguous()
+    if tuple(lens.shape) != (b,):
+        raise ValueError(f"lengths must be a scalar or ({b},), got "
+                         f"{tuple(lens.shape)}")
+    return lens.contiguous()
+
+
+def _validate(q, k_cache, v_cache, *, chunk: bool) -> None:
+    want = 4 if chunk else 3
+    if q.dim() != want or k_cache.dim() != 4 or v_cache.dim() != 4:
+        form = "(B,H,S,d)" if chunk else "(B,H,d)"
+        raise ValueError(
+            f"expected q {form}, caches (B,Hkv,N,d): got "
+            f"Q{tuple(q.shape)} K{tuple(k_cache.shape)} "
+            f"V{tuple(v_cache.shape)}")
+    b, h, d = q.shape[0], q.shape[1], q.shape[-1]
+    bk, hkv, n, dk = k_cache.shape
+    if bk != b or tuple(v_cache.shape[:3]) != (b, hkv, n) or dk != d:
+        raise ValueError(
+            f"cache shapes inconsistent: Q{tuple(q.shape)} "
+            f"K{tuple(k_cache.shape)} V{tuple(v_cache.shape)}")
+    if h % hkv:
+        raise ValueError(f"q heads {h} not a multiple of kv heads {hkv}")
+
+
+def _launch(q4, k_cache, v_cache, lens, *, scale, softcap, window,
+            sinks) -> torch.Tensor:
+    dtype = q4.dtype
+    if (dtype not in DTYPE_CODES or k_cache.dtype != dtype
+            or v_cache.dtype != dtype):
+        raise TypeError(
+            f"decode kernel takes float32 or bfloat16 q/caches of one "
+            f"dtype, got {q4.dtype}/{k_cache.dtype}/{v_cache.dtype}")
+    if not (q4.device == k_cache.device == v_cache.device):
+        raise ValueError("q and the caches must be on one device")
+    b, h, s_new, d = q4.shape
+    hkv, n, dv = k_cache.shape[1], k_cache.shape[2], v_cache.shape[-1]
+    if max(d, dv) > MAX_HEAD_DIM:
+        raise ValueError(f"head dims {d}/{dv} exceed {MAX_HEAD_DIM}")
+    q4, k_cache, v_cache = (t if t.stride(-1) == 1 else t.contiguous()
+                            for t in (q4, k_cache, v_cache))
+    # (B, S, H, dv) storage: the attention layer's head merge is a view
+    out = torch.empty((b, s_new, h, dv), dtype=dtype,
+                      device=q4.device).transpose(1, 2)
+    fn = _native.function(KERNEL, "decode_fwd", _ARGTYPES)
+    with torch.cuda.device(q4.device):
+        stream = torch.cuda.current_stream(q4.device).cuda_stream
+        err = fn(q4.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                 lens.data_ptr(), out.data_ptr(), DTYPE_CODES[dtype], b, h,
+                 hkv, s_new, n, d, dv, *q4.stride()[:3],
+                 *k_cache.stride()[:3], *v_cache.stride()[:3],
+                 *out.stride()[:3], window or 0, sinks or 0, float(scale),
+                 float(softcap or 0.0), stream)
+    _native.check(KERNEL, err)
+    _native.count_launch(KERNEL)
+    return out
+
+
+def flash_decode_plain(q, k_cache, v_cache, lengths, *, scale=None,
+                       softcap=None, window=None, sinks=None
+                       ) -> torch.Tensor:
+    """The plain PyTorch version of `flash_decode` (3-D ``q``) and
+    `flash_decode_chunk` (4-D ``q``)."""
+    chunk = q.dim() == 4
+    _validate(q, k_cache, v_cache, chunk=chunk)
+    check_band(window, sinks)
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    lens = lengths_tensor(lengths, q.shape[0], q.device)
+    q4 = q if chunk else q[:, :, None]
+    out = decode_reference(q4, k_cache, v_cache, lens, scale=scale,
+                           softcap=softcap, window=window, sinks=sinks)
+    return out if chunk else out[:, :, 0]
+
+
+def _decode(q, k_cache, v_cache, lengths, *, chunk, scale, softcap,
+            window, sinks, max_mode) -> torch.Tensor:
+    if max_mode != "online":
+        raise NotImplementedError(
+            f"max_mode={max_mode!r} is not ported yet; only 'online'")
+    check_softcap(softcap)
+    check_band(window, sinks)
+    _validate(q, k_cache, v_cache, chunk=chunk)
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k_cache, v_cache, lengths, scale=scale,
+                                  softcap=softcap, window=window, sinks=sinks)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode runs on cuda or cpu, not "
+                         f"{q.device.type}")
+    lens = lengths_tensor(lengths, q.shape[0], q.device)
+    out = _launch(q if chunk else q[:, :, None], k_cache, v_cache, lens,
+                  scale=scale, softcap=softcap, window=window, sinks=sinks)
+    return out if chunk else out[:, :, 0]
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, lengths, *,
+                 scale: float | None = None, softcap: float | None = None,
+                 window: int | None = None, sinks: int | None = None,
+                 max_mode: str = "online") -> torch.Tensor:
+    """softmax(q K[:len]ᵀ · scale) V[:len] per sequence: q (B, H, d),
+    caches (B, Hkv, N, d|dv), ``lengths`` an int, a 0-d or a (B,)
+    tensor of valid rows -> (B, H, dv).  ``softcap`` caps the scaled
+    scores; ``window`` attends only the last ``window`` valid rows
+    (each query sits at its sequence's ``len - 1``), ``sinks``
+    additionally the first ``sinks`` rows.  A length of 0 gives a zero
+    row."""
+    return _decode(q, k_cache, v_cache, lengths, chunk=False, scale=scale,
+                   softcap=softcap, window=window, sinks=sinks,
+                   max_mode=max_mode)
+
+
+def flash_decode_chunk(q: torch.Tensor, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, new_lengths, *,
+                       scale: float | None = None,
+                       softcap: float | None = None,
+                       window: int | None = None, sinks: int | None = None,
+                       max_mode: str = "online") -> torch.Tensor:
+    """S appended tokens per sequence in one cache stream: q (B, H, S,
+    d), the S rows already in the caches, ``new_lengths`` the lengths
+    after the append -> (B, H, S, dv).  Token s of sequence b sits at
+    position ``new_lengths[b] - S + s`` and attends its causal prefix,
+    with the window band per row."""
+    return _decode(q, k_cache, v_cache, new_lengths, chunk=True,
+                   scale=scale, softcap=softcap, window=window, sinks=sinks,
+                   max_mode=max_mode)

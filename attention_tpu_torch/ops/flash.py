@@ -1,9 +1,10 @@
 """Forward flash attention: the port of `attention_tpu.ops.flash`.
 
-`flash_attention` keeps the JAX entry point's keywords for the set this
-slice supports (``scale``, ``causal``, ``softcap``, GQA over 2-D, 3-D
-and 4-D inputs).  For a CUDA tensor it launches the hand-written Hopper
-kernel ``csrc/flash_fwd.cu`` (which replaces the TPU kernel
+`flash_attention` keeps the JAX entry point's keywords for the set the
+port supports (``scale``, ``causal``, ``softcap``, the offsets
+``q_offset``/``kv_offset`` and ``kv_valid`` of cached prefill, GQA over
+2-D, 3-D and 4-D inputs).  For a CUDA tensor it launches the hand-written
+Hopper kernel ``csrc/flash_fwd.cu`` (which replaces the TPU kernel
 `_flash_kernel`); for a CPU tensor it runs `flash_attention_plain`, the
 plain PyTorch version of the same function.  The remaining keywords of
 the JAX entry point raise `NotImplementedError` until a later slice
@@ -30,7 +31,7 @@ from attention_tpu_torch.ops.reference import (
 
 KERNEL = "flash_fwd"
 _ARGTYPES = [P, P, P, P, I, I, I, I, I, I, I, I,
-             *([L] * 12), F, F, I, P]
+             *([L] * 12), F, F, I, I, I, I, P]
 
 
 def _canon(q, k, v):
@@ -65,19 +66,23 @@ def _unsupported(**features) -> None:
         if value is not None:
             raise NotImplementedError(
                 f"flash_attention({name}=...) is not ported yet; the "
-                "port supports scale, causal and softcap")
+                "port supports scale, causal, softcap, q_offset, "
+                "kv_offset and kv_valid")
 
 
 def flash_attention_plain(q, k, v, *, scale=None, causal=False,
-                          softcap=None) -> torch.Tensor:
+                          softcap=None, q_offset=0, kv_offset=0,
+                          kv_valid=None) -> torch.Tensor:
     """The plain PyTorch version of `flash_attention` (same inputs,
     same output dtype: ``v.dtype``)."""
     _canon(q, k, v)
     return attention_reference(q, k, v, scale=scale, causal=causal,
-                               softcap=softcap)
+                               softcap=softcap, q_offset=q_offset,
+                               kv_offset=kv_offset, kv_valid=kv_valid)
 
 
-def _launch(q4, k4, v4, *, scale, causal, softcap) -> torch.Tensor:
+def _launch(q4, k4, v4, *, scale, causal, softcap, q_offset, kv_offset,
+            kv_valid) -> torch.Tensor:
     dtype = q4.dtype
     if dtype not in DTYPE_CODES or k4.dtype != dtype or v4.dtype != dtype:
         raise TypeError(
@@ -103,7 +108,8 @@ def _launch(q4, k4, v4, *, scale, causal, softcap) -> torch.Tensor:
                  DTYPE_CODES[dtype], b, h, hkv, m, n, dk, dv,
                  *q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3],
                  *o4.stride()[:3], float(scale),
-                 float(softcap or 0.0), int(causal), stream)
+                 float(softcap or 0.0), int(causal), q_offset, kv_offset,
+                 kv_valid, stream)
     _native.check(KERNEL, err)
     _native.count_launch(KERNEL)
     return o4
@@ -130,13 +136,15 @@ def flash_attention(
 
     Accepts (m, d), (h, m, d) or (b, h, m, d) inputs with dk != dv
     allowed; for 3-D/4-D inputs the KV head count may divide the Q head
-    count (GQA).  ``causal`` masks with global positions starting at 0
-    for both Q and KV; ``softcap`` applies cap·tanh(s/cap) to the scaled
-    scores before masking.  Output dtype is ``v.dtype``.  CUDA tensors
-    run the Hopper kernel; CPU tensors run `flash_attention_plain`."""
+    count (GQA).  ``kv_valid`` (int) attends only the first ``kv_valid``
+    key rows.  ``causal`` masks with global positions: query row i sits
+    at ``q_offset + i`` and key row j at ``kv_offset + j`` (ints, default
+    0).  ``softcap`` applies cap·tanh(s/cap) to the scaled scores before
+    masking.  A row that sees no key comes out zero.  Output dtype is
+    ``v.dtype``.  CUDA tensors run the Hopper kernel; CPU tensors run
+    `flash_attention_plain`."""
     _unsupported(window=window, sinks=sinks, q_segment_ids=q_segment_ids,
-                 kv_segment_ids=kv_segment_ids, q_offset=q_offset,
-                 kv_offset=kv_offset, kv_valid=kv_valid)
+                 kv_segment_ids=kv_segment_ids)
     if max_mode != "online":
         raise NotImplementedError(
             f"max_mode={max_mode!r} is not ported yet; only 'online'")
@@ -144,11 +152,16 @@ def flash_attention(
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     q4, k4, v4 = _canon(q, k, v)
+    n = k.shape[-2]
+    offsets = dict(q_offset=int(q_offset or 0), kv_offset=int(kv_offset or 0),
+                   kv_valid=n if kv_valid is None
+                   else min(max(int(kv_valid), 0), n))
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale=scale, causal=causal,
-                                     softcap=softcap)
+                                     softcap=softcap, **offsets)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device.type}")
-    o4 = _launch(q4, k4, v4, scale=scale, causal=causal, softcap=softcap)
+    o4 = _launch(q4, k4, v4, scale=scale, causal=causal, softcap=softcap,
+                 **offsets)
     return o4[(0,) * (4 - q.dim())]

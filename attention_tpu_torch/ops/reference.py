@@ -1,10 +1,12 @@
 """Plain PyTorch attention: the arithmetic the port's kernels must match.
 
 `attention_reference` is the counterpart of `attention_tpu.ops.reference.
-attention_xla` (plus the causal mask and GQA head grouping the flash
-kernel takes), and `ragged_paged_reference` the counterpart of the
-packed-step oracle `ragged_paged_reference` there, here in the caller's
-working dtype.  Both compute scores, softmax and sums in float32 and
+attention_xla` (plus the causal mask with offsets, the ``kv_valid`` cut
+and the GQA head grouping the flash kernel takes), `decode_reference`
+the arithmetic of the decode kernels (one token or an appended chunk per
+sequence against a dense cache, with the window band and sinks), and
+`ragged_paged_reference` the counterpart of the packed-step oracle
+`ragged_paged_reference` there, here in the caller's working dtype.  Both compute scores, softmax and sums in float32 and
 round the probabilities to the value dtype before the P·V product, as
 the JAX package does; the output has the value dtype.  They are the
 plain versions the kernel wrappers take for CPU tensors and that
@@ -78,6 +80,19 @@ def _softmax_pv(scores: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.matmul(p.float(), v.float()).to(v.dtype)
 
 
+def _partials_pv(scores: torch.Tensor, v: torch.Tensor):
+    """The unnormalized form of `_softmax_pv`: (sum of exp(s - max)·v in
+    float32, row max, row sum), max -inf and sum 0 for a row with
+    nothing to attend.  P is rounded to ``v.dtype`` for the product,
+    the sum uses it unrounded."""
+    row_max = scores.amax(dim=-1)
+    safe = torch.where(torch.isfinite(row_max), row_max,
+                       torch.zeros_like(row_max))
+    p = torch.exp(scores - safe[..., None])
+    out = torch.matmul(p.to(v.dtype).float(), v.float())
+    return out, row_max, p.sum(dim=-1)
+
+
 def attention_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -86,14 +101,18 @@ def attention_reference(
     scale: float | None = None,
     causal: bool = False,
     softcap: float | None = None,
+    q_offset: int = 0,
+    kv_offset: int = 0,
+    kv_valid: int | None = None,
 ) -> torch.Tensor:
     """softmax(q kᵀ · scale) v over the last two axes.
 
     Shapes: q (..., m, dk), k (..., n, dk), v (..., n, dv).  With three
     or more axes the head axis (-3) of q may be a multiple of k's (GQA:
-    q head h reads kv head h // group).  ``causal`` masks column j > row
-    i (global positions start at 0 for both); ``softcap`` maps the
-    scaled scores through cap·tanh(s/cap) before masking."""
+    q head h reads kv head h // group).  Only the first ``kv_valid``
+    key rows are attended.  ``causal`` masks key j against query i when
+    ``kv_offset + j > q_offset + i``; ``softcap`` maps the scaled scores
+    through cap·tanh(s/cap) before masking."""
     check_softcap(softcap)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
@@ -104,12 +123,56 @@ def attention_reference(
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if softcap is not None:
         scores = softcap * torch.tanh(scores / softcap)
+    m, n = scores.shape[-2:]
+    row = torch.arange(m, device=q.device)[:, None]
+    col = torch.arange(n, device=q.device)[None, :]
+    masked = col >= (n if kv_valid is None else kv_valid)
     if causal:
-        m, n = scores.shape[-2:]
-        row = torch.arange(m, device=q.device)[:, None]
-        col = torch.arange(n, device=q.device)[None, :]
-        scores = scores.masked_fill(col > row, float("-inf"))
-    return _softmax_pv(scores, v)
+        masked = masked | (col + kv_offset > row + q_offset)
+    return _softmax_pv(scores.masked_fill(masked, float("-inf")), v)
+
+
+def decode_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    scale: float,
+    softcap: float | None = None,
+    window: int | None = None,
+    sinks: int | None = None,
+    partials: bool = False,
+):
+    """The S tokens appended last to each sequence, against its dense
+    cache: q (B, H, S, d), k (B, Hkv, N, d), v (B, Hkv, N, dv), lengths
+    (B,) after the append (a negative length reads as 0).  Row (b, h,
+    s) sits at position ``lengths[b] - S + s`` and sees the cache rows
+    at or before it; with ``window`` only the last ``window`` of them
+    plus the first ``sinks``.  Returns (B, H, S, dv) in ``v.dtype``, or
+    with ``partials`` the float32 (unnormalized output, row max, row
+    sum) of `_partials_pv`."""
+    check_softcap(softcap)
+    b, h, s_new = q.shape[:3]
+    hkv, n = k.shape[1], k.shape[2]
+    if h != hkv:
+        k = k.repeat_interleave(h // hkv, dim=1)
+        v = v.repeat_interleave(h // hkv, dim=1)
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    lens = lengths.to(device=q.device, dtype=torch.int64).clamp(min=0)
+    pos = lens[:, None] - s_new + torch.arange(s_new, device=q.device)
+    pos = pos[:, None, :, None]                         # (B, 1, S, 1)
+    col = torch.arange(n, device=q.device)
+    keep = col <= pos
+    if window is not None:
+        band = col > pos - window
+        if sinks is not None:
+            band = band | (col < sinks)
+        keep = keep & band
+    scores = scores.masked_fill(~keep, float("-inf"))
+    return _partials_pv(scores, v) if partials else _softmax_pv(scores, v)
 
 
 def ragged_paged_reference(

@@ -8,36 +8,50 @@ It needs one CUDA card, ``nvcc`` and ``nvidia-smi``, and imports
 nothing of JAX.  Every phase raises on a failure, so the script exits
 non-zero unless all of them pass:
 
-1. build   both CUDA kernels from ``attention_tpu_torch/csrc`` (one
-           ``nvcc`` each, started together); print the card's name and
-           power limit.
-2. kernels each kernel against its plain PyTorch version on the card,
-           under the limits of `reference.mismatch`: flash in f32 with
-           dk != dv and ragged edges, in bf16 causal GQA with softcap,
-           at the op path's shape, and at the served model's causal
-           forward (32 q / 4 kv heads, sequence 4096); ragged on a step
-           that the port's own scheduler packed at the serving
-           geometry, with decode, prefill, pad and one poisoned slot.
-           Each kernel must give the same bits on a second call, and
-           the plain output with a planted fault (its last key tile
-           dropped, or its scale 2% off) must fail the same check.
-3. op path the ``scale4`` testcase (m = n = 8192, dk = dv = 128) from
-           the port's generator, through ``cli run --backend flash`` in
-           f32 and bf16: both must print ``Correct!``.
-4. serving `TinyDecoder` at the BASELINE.md config-5 attention geometry
-           (32 q / 4 kv heads, head_dim 128, dim 4096), depth 4, vocab
-           32000, rope, softcap 50, bf16, random weights from a seed,
-           serving 8 greedy requests (prompts of 128-1024 tokens, 32
-           output tokens each) through `ServingEngine`, then the same
-           run once more under `torch.profiler` for device time by
-           kernel; then a small f32 model's logits and greedy streams
-           on the card against the same model on the CPU (plain
-           versions), each side's logits the same bits twice.
+1. build    all four CUDA kernels from ``attention_tpu_torch/csrc`` (one
+            ``nvcc`` each, started together); print the card's name and
+            power limit.
+2. kernels  each kernel against its plain PyTorch version on the card,
+            under the limits of `reference.mismatch`: flash in f32 with
+            dk != dv and ragged edges, in bf16 causal GQA with softcap,
+            at the op path's shape, at the served model's causal forward
+            (32 q / 4 kv heads, sequence 4096) and as a cached prefill
+            (512 rows into a 1152-row cache, ``kv_valid``); ragged on a
+            step that the port's own scheduler packed at the serving
+            geometry, with decode, prefill, pad and one poisoned slot;
+            decode and paged decode at the serving geometry on 8
+            sequences of lengths 0 to 4096 (one token, with softcap, with
+            a 512-row window and 4 sinks, chunks of 4 and of 256, the
+            paged partials, an empty and a poisoned sequence), in f32
+            and bf16.  Each kernel must give the same bits on a second
+            call, and the plain output with a planted fault (its last
+            key tile dropped, or its scale 2% off) must fail the check.
+3. op path  the ``scale4`` testcase (m = n = 8192, dk = dv = 128) from
+            the port's generator, through ``cli run --backend flash`` in
+            f32 and bf16: both must print ``Correct!``.
+4. generate `TinyDecoder` at the BASELINE.md config-5 attention geometry
+            (32 q / 4 kv heads, head_dim 128, dim 4096), depth 4, vocab
+            32000, rope, softcap 50, bf16, random weights from a seed:
+            greedy `generate` on 8 prompts of 512 tokens, then
+            `generate_ragged` and `generate_paged` on the serving trace's
+            8 prompts (128-1024 tokens), 32 steps each; every logit
+            finite, the flash kernel for each prefill and the decode (or
+            paged) kernel for each step, nothing else.
+5. serving  the same model serving 8 greedy requests (the same prompts,
+            32 output tokens each) through `ServingEngine` in
+            ``step_mode="ragged"`` (the ragged kernel) and then
+            ``"two_call"`` (the paged kernel); then the ragged run once
+            more under `torch.profiler` for device time by kernel.
+6. reference a small f32 model on the card against the same model on
+            the CPU (plain versions): logits, each side the same bits
+            twice; greedy engine streams in both step modes; greedy
+            tokens of the three generate functions.
 
-Launch counts are reset just before the op path and just before the
-serving run and read just after each.  Kernel times are CUDA-event
-medians after warm-up.  The second-to-last stdout line is the
-``{"kernels": [...]}`` record, the last ``{"ok": true, "device": ...}``.
+Launch counts are reset just before each run of a path (op path, each
+generate function, each serving run) and read just after it.  Kernel
+times are CUDA-event medians after warm-up.  The second-to-last stdout
+line is the ``{"kernels": [...]}`` record, the last ``{"ok": true,
+"device": ...}``.
 """
 
 from __future__ import annotations
@@ -60,6 +74,8 @@ PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # the widest key tile of the kernels' loops (attend_mma's 64 rows)
 KEY_TILE = 64
+# the decode cases' lengths: 8 sequences from empty to the full capacity
+DECODE_LENS = [0, 1, 517, 1024, 2047, 3000, 4095, 4096]
 SERVE_MODEL = dict(vocab=32000, dim=4096, depth=4, num_q_heads=32,
                    num_kv_heads=4, rope=True, softcap=50.0)
 SERVE_ENGINE = dict(step_mode="ragged", page_size=128, num_pages=512,
@@ -69,6 +85,8 @@ SERVE_ENGINE = dict(step_mode="ragged", page_size=128, num_pages=512,
 # the __graft_entry__.entry() model
 SMALL_MODEL = dict(vocab=256, dim=256, depth=2, num_q_heads=8,
                    num_kv_heads=2, rope=True, softcap=50.0)
+# decode steps of the generate phase
+GEN_STEPS = 32
 
 
 def emit(**record) -> None:
@@ -125,11 +143,56 @@ def rejected(planted: dict, want: torch.Tensor) -> dict:
     return out
 
 
-def same_bits(a: torch.Tensor, b: torch.Tensor) -> None:
-    """Two calls on the same inputs must give the same bits."""
-    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
-    if not torch.equal(a.view(ints), b.view(ints)):
-        raise AssertionError("two calls on the same inputs differ")
+def same_bits(a, b) -> None:
+    """Two calls on the same inputs must give the same bits (tensors or
+    tuples of tensors)."""
+    for x, y in zip(*((t,) if torch.is_tensor(t) else t for t in (a, b))):
+        ints = {2: torch.int16, 4: torch.int32}[x.element_size()]
+        if not torch.equal(x.view(ints), y.view(ints)):
+            raise AssertionError("two calls on the same inputs differ")
+
+
+def decode_work(lens, s_new, h, hkv, d, item, window=None, sinks=None):
+    """(bytes, operations) one decode call needs on these lengths: q read
+    and the output written once, each sequence's K/V rows that any of its
+    rows sees read once per kv head, every visible (row, key) pair scored
+    and summed.  Row s of a sequence of length L sits at L - S + s."""
+    nbytes = 2 * len(lens) * h * s_new * d * item
+    pairs = 0
+    for length in lens:
+        length, lo = max(length, 0), max(length, 0)
+        for s in range(s_new):
+            pos = length - s_new + s
+            if pos < 0:
+                continue
+            first = 0 if window is None else max(pos - window + 1, 0)
+            pairs += pos - first + 1 + min(sinks or 0, first)
+            lo = min(lo, first)
+        rows = length - lo + min(sinks or 0, lo)
+        nbytes += 2 * hkv * rows * d * item
+    return nbytes, 4.0 * d * h * pairs
+
+
+def hold(kernels, kernel, case, *, run, plain, faults, work, dtype,
+         library=None, view=lambda out: out, **extra) -> dict:
+    """Hold one kernel case against its plain version: the same bits on
+    a second call, within `reference.mismatch` of the plain output (after
+    ``view``), each planted fault rejected; then time the kernel, the
+    plain version and, where one exists, the one library call."""
+    got = run()
+    same_bits(got, run())
+    want = view(plain())
+    err, ratio = held(view(got), want)
+    faults = rejected({k: view(f()) for k, f in faults.items()}, want)
+    b_ms, b_by = bound_ms(*work, dtype)
+    rec = dict(ms=time_ms(run), plain_ms=time_ms(plain), bound_ms=b_ms,
+               bound_by=b_by,
+               library_ms=None if library is None else time_ms(library))
+    kernels[kernel]["max_abs_err"] = max(kernels[kernel]["max_abs_err"], err)
+    emit(phase="kernels", kernel=kernel, case=case, max_abs_err=err,
+         share_of_limit=ratio, planted_faults_share_of_limit=faults,
+         **rec, **extra)
+    return rec
 
 
 def phase_build(ops) -> None:
@@ -306,6 +369,152 @@ def phase_kernels(kernels, serve_model):
     return step, q
 
 
+def phase_decode_kernels(kernels) -> None:
+    """The decode, paged decode and cached-prefill flash cases at the
+    serving geometry (32 q / 4 kv heads, d 128): 8 sequences whose
+    lengths run from 0 to the full 4096-row capacity."""
+    from torch.nn import functional as F
+
+    from attention_tpu_torch.ops.decode import (
+        flash_decode,
+        flash_decode_chunk,
+        flash_decode_plain,
+    )
+    from attention_tpu_torch.ops.flash import (
+        flash_attention,
+        flash_attention_plain,
+    )
+    from attention_tpu_torch.ops.paged import (
+        PagedKV,
+        paged_flash_decode,
+        paged_flash_decode_plain,
+    )
+
+    h, hkv, n, d, page = 32, 4, 4096, 128, 128
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device="cuda")
+    b = len(DECODE_LENS)
+    # the longest sequence's last key tile dropped
+    cut = lens.clone()
+    cut[-1] -= KEY_TILE
+    scale_off = 1.02 * d ** -0.5
+    decode_rec = paged_rec = None
+    for dtype in (torch.float32, torch.bfloat16):
+        k, v = randn(b, hkv, n, d, dtype=dtype), randn(b, hkv, n, d,
+                                                       dtype=dtype)
+        item = k.element_size()
+        for s_new, kw in ((0, {}), (0, {"softcap": 50.0}),
+                          (0, {"window": 512, "sinks": 4}),
+                          (4, {"softcap": 50.0})):
+            q = randn(b, h, *([s_new] if s_new else []), d, dtype=dtype)
+            fn = flash_decode_chunk if s_new else flash_decode
+            library = None
+            if not s_new and not kw:
+                mask = (torch.arange(n, device="cuda") < lens[:, None])
+                library = lambda: F.scaled_dot_product_attention(  # noqa
+                    q[:, :, None], k, v, attn_mask=mask[:, None, None],
+                    enable_gqa=True)
+            rec = hold(
+                kernels, "decode", f"{str(dtype)[6:]}_S{s_new or 1}_"
+                f"{'_'.join(kw) or 'plain'}",
+                run=lambda: fn(q, k, v, lens, **kw),
+                plain=lambda: flash_decode_plain(q, k, v, lens, **kw),
+                faults={"dropped_last_key_tile": lambda: flash_decode_plain(
+                    q, k, v, cut, **kw),
+                    "scale_off_2pct": lambda: flash_decode_plain(
+                        q, k, v, lens, scale=scale_off, **kw)},
+                work=decode_work(DECODE_LENS, s_new or 1, h, hkv, d, item,
+                                 kw.get("window"), kw.get("sinks")),
+                dtype=dtype, library=library, lengths=DECODE_LENS)
+            if dtype is torch.bfloat16 and not s_new and not kw:
+                decode_rec = rec
+
+        # the same caches behind a shuffled page table; sequence 0 (length
+        # 0) has an all -1 table row, sequence 1 is poisoned (length -1)
+        per = n // page
+        perm = torch.randperm(b * per, generator=gen, device="cuda")
+
+        def pool(x):
+            out = torch.empty(b * per, hkv, page, d, dtype=x.dtype,
+                              device="cuda")
+            out[perm] = x.view(b, hkv, per, page, d).transpose(1, 2) \
+                .reshape(b * per, hkv, page, d)
+            return out
+
+        table = perm.view(b, per).to(torch.int32)
+        table[0] = -1
+        plens = lens.clone()
+        plens[1] = -1
+        cache = PagedKV(pool(k), pool(v), table.contiguous(), plens)
+        pcut = cache._replace(lengths=torch.where(
+            torch.arange(b, device="cuda") == b - 1, cut, plens))
+        for s_new, bsz, kw in ((0, b, {"softcap": 50.0}),
+                               (0, b, {"window": 512, "sinks": 4}),
+                               (0, b, {"return_stats": True}),
+                               (256, 2, {"softcap": 50.0})):
+            # chunk: the two-call prefill's (2, 256) rows, on the last two
+            # sequences
+            c, cc = cache, pcut
+            if bsz != b:
+                c, cc = (PagedKV(x.k_pool, x.v_pool, x.page_table[-bsz:],
+                                 x.lengths[-bsz:]) for x in (cache, pcut))
+            q = randn(bsz, h, *([s_new] if s_new else []), d, dtype=dtype)
+            stats = kw.get("return_stats", False)
+
+            def view(out, stats=stats):
+                if not stats:
+                    return out
+                o, _, l_ = out
+                return (o / l_.clamp(min=1e-30)[..., None]).to(dtype)
+
+            lens_here = [max(x, 0) for x in c.lengths.tolist()]
+            rec = hold(
+                kernels, "paged_decode", f"{str(dtype)[6:]}_S{s_new or 1}_"
+                f"{'_'.join(kw)}",
+                run=lambda: paged_flash_decode(q, c, **kw),
+                plain=lambda: paged_flash_decode_plain(q, c, **kw),
+                faults={"dropped_last_key_tile": lambda: (
+                    paged_flash_decode_plain(q, cc, **kw)),
+                    "scale_off_2pct": lambda: paged_flash_decode_plain(
+                        q, c, scale=scale_off, **kw)},
+                work=decode_work(lens_here, s_new or 1, h, hkv, d, item,
+                                 kw.get("window"), kw.get("sinks")),
+                dtype=dtype, view=view, lengths=c.lengths.tolist())
+            out = paged_flash_decode(q, c, **kw)
+            if not stats and bsz == b and not (
+                    (out[0] == 0).all() and out[1].isnan().all()
+                    and not out[2:].isnan().any()):
+                raise AssertionError("the empty row is not 0 or the "
+                                     "poisoned row not NaN")
+            if dtype is torch.bfloat16 and not s_new and "softcap" in kw:
+                paged_rec = rec
+
+        # cached prefill: 512 new rows at the start of a 1152-row cache
+        m, cap = 512, 1152
+        q = randn(b, h, m, d, dtype=dtype)
+        kc, vc = (randn(b, hkv, cap, d, dtype=dtype) for _ in range(2))
+        kw = dict(causal=True, q_offset=0, kv_valid=m, softcap=50.0)
+        hold(kernels, "flash_fwd", f"{str(dtype)[6:]}_cached_prefill",
+             run=lambda: flash_attention(q, kc, vc, **kw),
+             plain=lambda: flash_attention_plain(q, kc, vc, **kw),
+             faults={"dropped_last_key_tile": lambda: flash_attention_plain(
+                 q, kc, vc, **dict(kw, kv_valid=m - KEY_TILE)),
+                 "scale_off_2pct": lambda: flash_attention_plain(
+                     q, kc, vc, scale=scale_off, **kw)},
+             work=(2 * (b * h * m + b * hkv * m) * d * item,
+                   4.0 * d * b * h * m * (m + 1) / 2),
+             dtype=dtype,
+             library=lambda: F.scaled_dot_product_attention(
+                 q, kc[:, :, :m], vc[:, :, :m], is_causal=True,
+                 enable_gqa=True))
+    kernels["decode"].update(decode_rec)
+    kernels["paged_decode"].update(paged_rec)
+
+
 def phase_op_path(ops, kernels) -> None:
     from attention_tpu_torch import cli
     from attention_tpu_torch.core.testcase import (
@@ -379,6 +588,96 @@ def phase_op_path(ops, kernels) -> None:
                            torch.bfloat16)[0])
 
 
+@contextlib.contextmanager
+def watched(model):
+    """CUDA events around every forward call of ``model``, and a count,
+    kept on the card, of the non-finite logits those calls returned."""
+    calls = []
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+
+    def pre(mod, args):
+        calls.append([torch.cuda.Event(enable_timing=True)])
+        calls[-1][0].record()
+
+    def post(mod, args, out):
+        logits = out[0] if isinstance(out, tuple) else out
+        bad.add_((~torch.isfinite(logits)).sum())
+        calls[-1].append(torch.cuda.Event(enable_timing=True))
+        calls[-1][1].record()
+
+    hooks = (model.register_forward_pre_hook(pre),
+             model.register_forward_hook(post))
+    try:
+        yield calls, bad
+    finally:
+        for hk in hooks:
+            hk.remove()
+
+
+def trace_prompts(vocab: int):
+    """The serving trace's 8 prompts (128-1024 tokens) right-padded into
+    one (8, S_max) batch, with their lengths."""
+    from attention_tpu_torch.engine import synthetic_trace
+
+    prompts = [e["prompt"] for e in synthetic_trace(
+        8, vocab=vocab, seed=SEED, prompt_len_min=128, prompt_len_max=1024,
+        max_tokens=GEN_STEPS, arrival_every=0)]
+    lens = [len(p) for p in prompts]
+    batch = np.zeros((len(prompts), max(lens)), np.int64)
+    for i, p in enumerate(prompts):
+        batch[i, :len(p)] = p
+    return torch.from_numpy(batch).cuda(), torch.tensor(lens)
+
+
+def phase_generate(ops, kernels, model) -> None:
+    """The three generate functions at full width, greedy, 32 steps:
+    `generate` on 8 equal prompts of 512 tokens, `generate_ragged` and
+    `generate_paged` on the serving trace's prompts."""
+    from attention_tpu_torch.models import decode as gen
+
+    equal = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, model.vocab, (8, 512))).cuda()
+    ragged, lens = trace_prompts(model.vocab)
+    runs = {
+        "generate": lambda: gen.generate(model, equal, steps=GEN_STEPS),
+        "generate_ragged": lambda: gen.generate_ragged(
+            model, ragged, lens, steps=GEN_STEPS),
+        "generate_paged": lambda: gen.generate_paged(
+            model, ragged, lens, steps=GEN_STEPS)[0],
+    }
+    kernel_of = {"generate": "decode", "generate_ragged": "decode",
+                 "generate_paged": "paged_decode"}
+    tokens = {}
+    for name, run in runs.items():
+        with watched(model) as (calls, bad):
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ops.launch_counts()
+        step_ms = [a.elapsed_time(b) for a, b in calls[1:]]
+        want = {"flash_fwd": model.depth,
+                kernel_of[name]: GEN_STEPS * model.depth}
+        if {k: v for k, v in launches.items() if v} != want:
+            raise AssertionError(f"{name} launches {launches}, want {want}")
+        if toks.shape != (8, GEN_STEPS) or int(bad):
+            raise AssertionError(f"{name}: tokens {tuple(toks.shape)}, "
+                                 f"{int(bad)} non-finite logits")
+        kernels[kernel_of[name]]["launches"] += launches[kernel_of[name]]
+        tokens[name] = toks
+        emit(phase="generate", run=name, wall_ms=wall * 1e3,
+             prefill_ms=calls[0][0].elapsed_time(calls[0][1]),
+             decode_step_ms=statistics.median(step_ms),
+             tokens_per_s=toks.numel() / wall, launches=launches,
+             prompt_tokens=int(lens.sum()) if name != "generate"
+             else equal.numel())
+    share = (tokens["generate_ragged"] == tokens["generate_paged"]) \
+        .float().mean().item()
+    emit(phase="generate", ragged_vs_paged_equal_token_share=share)
+
+
 def phase_serving(ops, kernels, model) -> None:
     from attention_tpu_torch.engine import (
         EngineConfig,
@@ -390,34 +689,50 @@ def phase_serving(ops, kernels, model) -> None:
     trace = synthetic_trace(8, vocab=model.vocab, seed=SEED,
                             prompt_len_min=128, prompt_len_max=1024,
                             max_tokens=32, arrival_every=0)
-    eng = ServingEngine(model, EngineConfig(**SERVE_ENGINE))
-    ops.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    summary, outputs = replay(eng, trace, max_steps=500)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    busy = sum(1 for s in eng.metrics.steps
-               if s.decode_tokens or s.prefill_tokens)
-    if not all(len(outputs.get(e["id"], [])) == 32 for e in trace):
-        raise AssertionError(f"unfinished requests: "
-                             f"{ {k: len(v) for k, v in outputs.items()} }")
-    if launches["ragged_paged"] != busy * model.depth \
-            or eng.model_calls != busy:
-        raise AssertionError(f"launches {launches} != {busy} busy steps "
-                             f"x depth {model.depth}")
-    if eng.nonfinite_events:
-        raise AssertionError(f"{eng.nonfinite_events} non-finite logits")
-    kernels["ragged_paged"]["launches"] = launches["ragged_paged"]
-    emit(phase="serving", steps=summary["num_steps"], busy_steps=busy,
-         launches=launches, prompt_tokens=summary["prompt_tokens"],
-         output_tokens=summary["output_tokens"], wall_s=wall,
-         output_tokens_per_s=summary["output_tokens"] / wall,
-         median_step_ms=summary["median_step_ms"],
-         mean_host_overhead_ms=summary["mean_host_overhead_ms"],
-         pad_tokens=summary["pad_tokens_total"],
-         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    streams = {}
+    for mode, kernel in (("ragged", "ragged_paged"),
+                         ("two_call", "paged_decode")):
+        eng = ServingEngine(model, EngineConfig(**dict(SERVE_ENGINE,
+                                                       step_mode=mode)))
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary, outputs = replay(eng, trace, max_steps=500)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        if not all(len(outputs.get(e["id"], [])) == 32 for e in trace):
+            raise AssertionError(f"{mode}: unfinished requests: "
+                                 f"{ {k: len(v) for k, v in outputs.items()} }")
+        # one model call per busy step (two_call: per non-empty half of
+        # it), one kernel launch per layer per call, and no other kernel
+        calls = sum(bool(m.decode_tokens) + bool(m.prefill_tokens)
+                    if mode == "two_call"
+                    else bool(m.decode_tokens or m.prefill_tokens)
+                    for m in eng.metrics.steps)
+        if eng.model_calls != calls or {
+                k: v for k, v in launches.items() if v} != {
+                kernel: calls * model.depth}:
+            raise AssertionError(f"{mode}: launches {launches} for "
+                                 f"{eng.model_calls} model calls")
+        if eng.nonfinite_events:
+            raise AssertionError(f"{mode}: {eng.nonfinite_events} "
+                                 "non-finite logits")
+        kernels[kernel]["launches"] += launches[kernel]
+        streams[mode] = outputs
+        emit(phase="serving", step_mode=mode, steps=summary["num_steps"],
+             model_calls=eng.model_calls, launches=launches,
+             prompt_tokens=summary["prompt_tokens"],
+             output_tokens=summary["output_tokens"], wall_s=wall,
+             output_tokens_per_s=summary["output_tokens"] / wall,
+             median_step_ms=summary["median_step_ms"],
+             mean_host_overhead_ms=summary["mean_host_overhead_ms"],
+             pad_tokens=summary["pad_tokens_total"],
+             peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    same = [a == b for e in trace for a, b in zip(
+        streams["ragged"][e["id"]], streams["two_call"][e["id"]])]
+    emit(phase="serving", two_call_vs_ragged_equal_token_share=sum(same)
+         / len(same))
 
 
 def phase_reference() -> None:
@@ -433,6 +748,7 @@ def phase_reference() -> None:
         synthetic_trace,
     )
     from attention_tpu_torch.models import TinyDecoder, init_params
+    from attention_tpu_torch.models import decode as gen
 
     cpu = TinyDecoder(dtype=torch.float32, device="cpu", **SMALL_MODEL)
     cpu.load_state_dict(init_params(cpu, SEED))
@@ -462,11 +778,35 @@ def phase_reference() -> None:
     trace = synthetic_trace(6, vocab=SMALL_MODEL["vocab"], seed=SEED,
                             prompt_len_min=4, prompt_len_max=300,
                             max_tokens=12)
-    cfg = EngineConfig(num_pages=32, max_seq_len=512, prefill_chunk=64)
-    streams = [replay(ServingEngine(m, cfg), trace)[1] for m in (cpu, gpu)]
-    if streams[0] != streams[1]:
-        raise AssertionError("greedy streams differ between card and CPU")
-    emit(phase="reference", greedy_streams_equal=True, requests=len(trace))
+    streams = [replay(ServingEngine(m, EngineConfig(
+        num_pages=32, max_seq_len=512, prefill_chunk=64, step_mode=mode)),
+        trace)[1] for m in (cpu, gpu) for mode in ("ragged", "two_call")]
+    if any(st != streams[0] for st in streams):
+        raise AssertionError("greedy engine streams differ between card "
+                             "and CPU or between step modes")
+    emit(phase="reference", engine_streams_equal=True, requests=len(trace),
+         step_modes=["ragged", "two_call"])
+
+    # the three generate functions: equal prompts through all three, and
+    # ragged prompts through the ragged and paged ones, card and CPU
+    prompts = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
+        0, SMALL_MODEL["vocab"], (3, 100)))
+    full, ragged = torch.full((3,), 100), torch.tensor([100, 37, 64])
+    toks = []
+    for m in (cpu, gpu):
+        toks += [gen.generate(m, prompts, steps=12),
+                 gen.generate_ragged(m, prompts, full, steps=12),
+                 gen.generate_paged(m, prompts, full, steps=12)[0]]
+    raggeds = [gen.generate_ragged(m, prompts, ragged, steps=12)
+               for m in (cpu, gpu)]
+    raggeds += [gen.generate_paged(m, prompts, ragged, steps=12)[0]
+                for m in (cpu, gpu)]
+    if any(not torch.equal(t.cpu(), toks[0]) for t in toks) or any(
+            not torch.equal(t.cpu(), raggeds[0]) for t in raggeds):
+        raise AssertionError("greedy generate streams differ between the "
+                             "functions or between card and CPU")
+    emit(phase="reference", generate_streams_equal=True,
+         functions=["generate", "generate_ragged", "generate_paged"])
 
 
 def phase_profile(model) -> None:
@@ -542,21 +882,23 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = {
-        "flash_fwd": dict(
-            name="flash_fwd", route="cuda",
-            source="attention_tpu_torch/csrc/flash_fwd.cu",
-            replaces="attention_tpu/ops/flash.py:310", max_abs_err=0.0),
-        "ragged_paged": dict(
-            name="ragged_paged", route="cuda",
-            source="attention_tpu_torch/csrc/ragged_paged.cu",
-            replaces="attention_tpu/ops/ragged_paged.py:201",
-            max_abs_err=0.0, library_ms=None),
-    }
+        name: dict(name=name, route="cuda",
+                   source=f"attention_tpu_torch/csrc/{src}",
+                   replaces=replaces, launches=0, max_abs_err=0.0)
+        for name, src, replaces in (
+            ("flash_fwd", "flash_fwd.cu", "attention_tpu/ops/flash.py:310"),
+            ("ragged_paged", "ragged_paged.cu",
+             "attention_tpu/ops/ragged_paged.py:201"),
+            ("decode", "decode.cu", "attention_tpu/ops/decode.py:90"),
+            ("paged_decode", "paged_decode.cu",
+             "attention_tpu/ops/paged.py:213"))}
     phase_build(ops)
     model = TinyDecoder(dtype=torch.bfloat16, device="cuda", **SERVE_MODEL)
     model.load_state_dict(init_params(model, SEED))
     step, q = phase_kernels(kernels, model)
+    phase_decode_kernels(kernels)
     phase_op_path(ops, kernels)
+    phase_generate(ops, kernels, model)
     phase_serving(ops, kernels, model)
     phase_profile(model)
     phase_reference()
@@ -567,7 +909,7 @@ def main() -> int:
         ms=time_ms(lambda: ragged_paged_attention(q, step, softcap=50.0)),
         plain_ms=time_ms(lambda: ragged_paged_attention_plain(
             q, step, softcap=50.0)),
-        bound_ms=b_ms, bound_by=b_by)
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
     emit(kernels=list(kernels.values()))
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),

@@ -15,8 +15,12 @@ import pytest
 import torch
 
 from attention_tpu_torch.ops import launch_counts
+from attention_tpu_torch.ops.decode import flash_decode, \
+    flash_decode_chunk, flash_decode_plain
 from attention_tpu_torch.ops.flash import flash_attention, \
     flash_attention_plain
+from attention_tpu_torch.ops.paged import PagedKV, paged_flash_decode, \
+    paged_flash_decode_plain
 from attention_tpu_torch.ops.ragged_paged import (
     RaggedPagedStep,
     packed_bucket,
@@ -56,6 +60,96 @@ def test_flash_kernel_matches_plain(gen, shapes, kw, dtype):
     assert launch_counts()["flash_fwd"] == before + 1
     assert got.dtype == dtype and got.device.type == "cuda"
     assert _share_of_limit(got, flash_attention_plain(q, k, v, **kw)) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_offsets_match_plain(gen, dtype):
+    """Cached prefill: 300 new rows at offset 200 of a 1152-row cache."""
+    q = torch.randn(2, 8, 300, 128, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(2, 2, 1152, 128, generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    kw = dict(causal=True, q_offset=200, kv_valid=500, softcap=20.0)
+    got = flash_attention(q, k, v, **kw)
+    assert _share_of_limit(got, flash_attention_plain(q, k, v, **kw)) <= 1
+
+
+def _decode_case(gen, dtype, s_new):
+    """B = 5 sequences of lengths 0 .. the full capacity, 8 q / 2 kv
+    heads, d 128, 1024 rows; q (B, H, S, d) for S > 0, else (B, H, d)."""
+    b, h, hkv, n, d = 5, 8, 2, 1024, 128
+    q = torch.randn(b, h, *([s_new] if s_new else []), d, generator=gen,
+                    device="cuda").to(dtype)
+    k, v = (torch.randn(b, hkv, n, d, generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    lens = torch.tensor([0, 1, 300, 777, n], dtype=torch.int32,
+                        device="cuda")
+    return q, k, v, lens
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s_new,kw", [
+    (0, {}), (0, {"softcap": 30.0}), (0, {"window": 100, "sinks": 4}),
+    (4, {"softcap": 30.0}), (40, {"window": 64, "sinks": 4})],
+    ids=["decode", "softcap", "window_sinks", "chunk4", "chunk40_window"])
+def test_decode_kernel_matches_plain(gen, dtype, s_new, kw):
+    q, k, v, lens = _decode_case(gen, dtype, s_new)
+    fn = flash_decode_chunk if s_new else flash_decode
+    before = launch_counts()["decode"]
+    got = fn(q, k, v, lens, **kw)
+    assert launch_counts()["decode"] == before + 1
+    assert _share_of_limit(got, flash_decode_plain(q, k, v, lens, **kw)) <= 1
+    assert (got[0] == 0).all()      # length 0: a zero row
+
+
+def _paged(k, v, lens, page=128):
+    """The dense (B, Hkv, N, d) caches behind a shuffled page table."""
+    b, hkv, n, d = k.shape
+    per = n // page
+    perm = torch.randperm(b * per, device="cuda")
+    table = perm.view(b, per).to(torch.int32).contiguous()
+
+    def pool(x):
+        out = torch.empty(b * per, hkv, page, d, dtype=x.dtype,
+                          device="cuda")
+        out[perm] = x.view(b, hkv, per, page, d).transpose(1, 2).reshape(
+            b * per, hkv, page, d)
+        return out
+
+    return PagedKV(pool(k), pool(v), table, lens)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s_new,kw", [
+    (0, {"softcap": 30.0}), (0, {"window": 100, "sinks": 4}),
+    (0, {"return_stats": True}), (256, {"softcap": 30.0})],
+    ids=["decode", "window_sinks", "stats", "chunk256"])
+def test_paged_kernel_matches_plain(gen, dtype, s_new, kw):
+    q, k, v, lens = _decode_case(gen, dtype, s_new)
+    cache = _paged(k, v, lens)
+    if s_new:   # sequence 1 too short for the chunk: poison it
+        cache = cache._replace(lengths=torch.tensor(
+            [0, -1, 300, 777, 1024], dtype=torch.int32, device="cuda"))
+    before = launch_counts()["paged_decode"]
+    got = paged_flash_decode(q, cache, **kw)
+    assert launch_counts()["paged_decode"] == before + 1
+    want = paged_flash_decode_plain(q, cache, **kw)
+    if kw.get("return_stats"):
+        (o, m, l_), (wo, wm, wl) = got, want
+        # normalized, the partials meet the kernels' usual limits
+        norm = (o / l_.clamp(min=1e-30)[..., None]).to(dtype)
+        wnorm = (wo / wl.clamp(min=1e-30)[..., None]).to(dtype)
+        assert _share_of_limit(norm, wnorm) <= 1
+        assert torch.equal(m.isneginf(), wm.isneginf())
+        fin = wm.isfinite()
+        assert ((m - wm)[fin].abs() <= 1e-5 * wm[fin].abs().clamp(min=1)
+                ).all()
+        assert ((l_ - wl).abs() <= 1e-5 * wl.clamp(min=1)).all()
+        return
+    assert _share_of_limit(got, want) <= 1
+    if s_new:
+        assert got[1].isnan().all() and not got[2:].isnan().any()
+    else:
+        assert (got[0] == 0).all()
 
 
 def test_flash_wrapper_raises_instead_of_falling_back(gen):

@@ -92,8 +92,7 @@ def test_engine_sampled_streams_are_deterministic(small_pair):
 
 def test_unported_engine_modes_raise(small_pair):
     model = small_pair[2]
-    for kw in ({"step_mode": "two_call"}, {"async_steps": True},
-               {"mesh_shards": 2}):
+    for kw in ({"async_steps": True}, {"mesh_shards": 2}):
         with pytest.raises(NotImplementedError):
             ServingEngine(model, EngineConfig(**ENGINE, **kw))
     with pytest.raises(NotImplementedError):

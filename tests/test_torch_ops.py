@@ -123,7 +123,7 @@ def test_mismatch_rejects_planted_faults(dtype):
 
 def test_flash_unported_features_raise():
     q = torch.zeros(8, 16)
-    for kw in ({"window": 4}, {"kv_valid": 3}, {"max_mode": "flashd"}):
+    for kw in ({"window": 4}, {"sinks": 2}, {"max_mode": "flashd"}):
         with pytest.raises(NotImplementedError):
             flash_attention(q, q, q, causal=True, **kw)
 
@@ -249,6 +249,8 @@ def test_port_imports_no_jax():
         "import attention_tpu_torch, attention_tpu_torch.cli\n"
         "import attention_tpu_torch.engine, attention_tpu_torch.models\n"
         "import attention_tpu_torch.models.convert, chip_smoke\n"
+        "import attention_tpu_torch.models.decode\n"
+        "import attention_tpu_torch.ops.decode, attention_tpu_torch.ops.paged\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'attention_tpu')\n"
         "       and sys.modules[m] is not None]\n"
