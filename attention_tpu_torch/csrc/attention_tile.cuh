@@ -36,12 +36,19 @@
 // Both walk the key tiles a `TileWalk` names: every tile up to n_end, or,
 // for a decode band, the sink tiles and then the band's tiles only, so the
 // loop bounds skip what the TPU kernels skipped by clamping their DMAs.
+//
+// `attend_mma` takes its key/value tiles from a loader (`Bf16Rows` unless
+// the Problem names another as `Tiles`): the quantized caches' loaders
+// (quant_tiles.cuh) stage raw bytes and per-row scales, dequantize them into
+// the same bf16 tiles, and scale the score and probability columns.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace atk {
 
@@ -392,19 +399,68 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, int rows,
   }
 }
 
+// The default loader of `attend_mma`: bf16 rows that the Problem points at
+// (k_row, v_row), copied by cp.async straight into the tiles.  A loader
+// provides:
+//   SCALED               whether score column c is multiplied by
+//                        k_scale(stage, c) and probability column c by
+//                        v_scale(stage, c) (after the row sum took it);
+//                        only a SCALED loader defines the two
+//   stage_bytes<DK, DV>  shared bytes it stages per buffer besides the tiles
+//   prefetch             start the copies of the tile whose first column is
+//                        j0 (the caller closes the commit group)
+//   land                 called by every thread once the copies landed and
+//                        a barrier passed: make the K and V tiles ready
+struct Bf16Rows {
+  static constexpr bool SCALED = false;
+  template <int DK, int DV>
+  __host__ __device__ static constexpr int stage_bytes() {
+    return 0;
+  }
+  template <int DK, int DV, typename Problem>
+  __device__ static void prefetch(const Problem& pb, __nv_bfloat16* K,
+                                  __nv_bfloat16* V, unsigned char*, int j0) {
+    load_rows<DK, true>(K, MMA_BN, [&](int r) {
+      return j0 + r < pb.n_end ? pb.k_row(j0 + r) : nullptr;
+    });
+    load_rows<DV, true>(V, MMA_BN, [&](int r) {
+      return j0 + r < pb.n_end ? pb.v_row(j0 + r) : nullptr;
+    });
+  }
+  template <int DK, int DV>
+  __device__ static void land(__nv_bfloat16*, __nv_bfloat16*,
+                              const unsigned char*) {}
+};
+
+// P::Tiles where P names one, else Bf16Rows
+template <typename P, typename = void>
+struct tiles_of {
+  using type = Bf16Rows;
+};
+template <typename P>
+struct tiles_of<P, std::void_t<typename P::Tiles>> {
+  using type = typename P::Tiles;
+};
+
 // The Problem interface of `attend`, for bf16 rows whose pointers and
-// strides are 16-byte aligned (the launcher checks).
+// strides are 16-byte aligned (the launcher checks), or for the rows of
+// the Problem's own loader (`Tiles`).  Dynamic shared memory:
+// smem_bytes_mma(DK, DV) plus twice the loader's stage_bytes.
 template <int DK, int DV, typename Problem>
 __device__ void attend_mma(const Problem& pb, float qscale, float cap2) {
+  using Tiles = typename tiles_of<Problem>::type;
   constexpr int DKP = DK + 8;
   constexpr int DVP = DV + 8;
   constexpr int NT = MMA_BN / 8;  // score n-tiles per tile
   constexpr int OT = DV / 8;      // output n-tiles
+  constexpr int STAGE = Tiles::template stage_bytes<DK, DV>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  // buffer b: K tile at Kb + b * KV_STRIDE, V tile right after it
+  // buffer b: K tile at Kb + b * KV_STRIDE, V tile right after it, and the
+  // loader's staging area at Sb + b * STAGE
   __nv_bfloat16* Kb = Qs + BM * DKP;
   constexpr int KV_STRIDE = MMA_BN * (DKP + DVP);
+  unsigned char* Sb = reinterpret_cast<unsigned char*>(Kb + 2 * KV_STRIDE);
   const int lane = threadIdx.x & 31;
   const int wr = (threadIdx.x >> 5) * 16;  // this warp's first row
   const int g = lane >> 2;                 // fragment row (and row + 8)
@@ -414,14 +470,10 @@ __device__ void attend_mma(const Problem& pb, float qscale, float cap2) {
 
   // copy tile t into buffer t & 1, as one commit group
   auto prefetch = [&](int t) {
-    const int j0 = walk.col(t, MMA_BN);
     __nv_bfloat16* K = Kb + (t & 1) * KV_STRIDE;
-    load_rows<DK, true>(K, MMA_BN, [&](int r) {
-      return j0 + r < pb.n_end ? pb.k_row(j0 + r) : nullptr;
-    });
-    load_rows<DV, true>(K + MMA_BN * DKP, MMA_BN, [&](int r) {
-      return j0 + r < pb.n_end ? pb.v_row(j0 + r) : nullptr;
-    });
+    Tiles::template prefetch<DK, DV>(pb, K, K + MMA_BN * DKP,
+                                     Sb + (t & 1) * STAGE,
+                                     walk.col(t, MMA_BN));
     cp_async_commit();
   };
 
@@ -453,8 +505,10 @@ __device__ void attend_mma(const Problem& pb, float qscale, float cap2) {
     }
     __syncthreads();  // tile t has landed for every thread
     const int j0 = walk.col(t, MMA_BN);
-    const __nv_bfloat16* Ks = Kb + (t & 1) * KV_STRIDE;
-    const __nv_bfloat16* Vs = Ks + MMA_BN * DKP;
+    __nv_bfloat16* Ks = Kb + (t & 1) * KV_STRIDE;
+    __nv_bfloat16* Vs = Ks + MMA_BN * DKP;
+    const unsigned char* St = Sb + (t & 1) * STAGE;
+    Tiles::template land<DK, DV>(Ks, Vs, St);
 
     float s[NT][4];
 #pragma unroll
@@ -480,6 +534,8 @@ __device__ void attend_mma(const Problem& pb, float qscale, float cap2) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[j][e] * qscale;
+        if constexpr (Tiles::SCALED)
+          x *= Tiles::k_scale(St, j * 8 + 2 * tq + (e & 1));
         // softcap acts on the scaled scores, before masking
         if (cap2 > 0.f) x = cap2 * tanhf(x / cap2);
         const bool keep =
@@ -518,6 +574,14 @@ __device__ void attend_mma(const Problem& pb, float qscale, float cap2) {
     for (int j = 0; j < OT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
+    if constexpr (Tiles::SCALED) {
+      // the value scales fold into P's columns, after the row sum
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] *= Tiles::v_scale(St, j * 8 + 2 * tq + (e & 1));
+    }
 
     // P (two score n-tiles per k16 step) as the A operand, V transposed
 #pragma unroll

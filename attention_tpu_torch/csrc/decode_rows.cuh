@@ -45,6 +45,7 @@ struct DecodeArgs {
 
 template <typename T, typename Rows>
 struct DecodeProblem : ProblemBase {
+  using Tiles = typename tiles_of<Rows>::type;  // attend_mma's loader
   const T* q;  // each at (b, first head of the group, token 0)
   T* o;
   float* acc;
@@ -145,8 +146,11 @@ template <typename T, int NJ, int DK, int DV, typename Source>
 cudaError_t launch_decode(const DecodeArgs& a, const Source& src, int B,
                           cudaStream_t stream) {
   auto kernel = decode_kernel<T, NJ, DK, DV, Source>;
+  using Tiles = typename tiles_of<typename Source::template Rows<T>>::type;
   const size_t smem =
-      NJ > 0 ? smem_bytes(a.dk, a.dv) : smem_bytes_mma(a.dk, a.dv);
+      NJ > 0 ? smem_bytes(a.dk, a.dv)
+             : smem_bytes_mma(a.dk, a.dv) +
+                   2 * (size_t)Tiles::template stage_bytes<DK, DV>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -155,16 +159,20 @@ cudaError_t launch_decode(const DecodeArgs& a, const Source& src, int B,
   return cudaGetLastError();
 }
 
+// What every decode kernel refuses.
+inline bool decode_args_ok(const DecodeArgs& a, int B) {
+  return a.dk >= 1 && a.dv >= 1 && a.dk <= MAX_HEAD_DIM &&
+         a.dv <= MAX_HEAD_DIM && B >= 1 && a.Hkv >= 1 && a.H % a.Hkv == 0 &&
+         a.S >= 1 && a.window >= 0 && a.sinks >= 0 && a.n_cap >= 0;
+}
+
 // Refuse what the kernels do not take, then pick the loop: fp32 FMA for
 // f32 and for bf16 at other head dims, tensor cores for bf16 at head dims
 // 64/128 when the caller found the rows 16-byte aligned (mma_ok).
 template <typename Source>
 cudaError_t dispatch_decode(const DecodeArgs& a, const Source& src, int B,
                             int dtype, bool mma_ok, cudaStream_t s) {
-  if (a.dk < 1 || a.dv < 1 || a.dk > MAX_HEAD_DIM || a.dv > MAX_HEAD_DIM ||
-      B < 1 || a.Hkv < 1 || a.H % a.Hkv != 0 || a.S < 1 || a.window < 0 ||
-      a.sinks < 0 || a.n_cap < 0)
-    return cudaErrorInvalidValue;
+  if (!decode_args_ok(a, B)) return cudaErrorInvalidValue;
   using bf16 = __nv_bfloat16;
   if (dtype == 1 && mma_ok && (a.dk == 64 || a.dk == 128) &&
       (a.dv == 64 || a.dv == 128)) {

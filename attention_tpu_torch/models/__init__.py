@@ -3,7 +3,10 @@
 from attention_tpu_torch.models.attention_layer import (  # noqa: F401
     GQASelfAttention,
 )
-from attention_tpu_torch.models.convert import params_from_jax  # noqa: F401
+from attention_tpu_torch.models.convert import (  # noqa: F401
+    params_from_jax,
+    quant_cache_from_jax,
+)
 from attention_tpu_torch.models.transformer import (  # noqa: F401
     MLP,
     TinyDecoder,

@@ -13,14 +13,19 @@ The layer dispatches on ``cache``:
   sequence's own length; the decode kernel, in chunk mode for S > 1;
 * `PagedKV`: rows appended through the page table; the paged decode
   kernel, in chunk mode for S > 1;
+* `QuantKVCache` (int8, one length for the batch, from
+  `KVCache.quantize` after a prefill): the S new rows quantized in at
+  ``length``; the int8 decode kernel, in chunk mode (speculative
+  verify) for S > 1;
 * `RaggedPagedStep`: the serving engine's packed step, the ragged
   kernel.
 
-Dense caches are updated in place and returned with their new length.
-Writing past a dense cache's capacity makes that output NaN, loudly.
-The JAX layer's int8 and rolling caches, window/sinks, context
-parallelism (``cp_axis``) and head-sharded serving (``tp_axis``) are
-not ported.
+Dense and int8 caches are updated in place and returned with their new
+length.  Writing past a dense cache's capacity makes that output NaN,
+loudly (an int8 cache poisons the scales it writes, to the same end).
+The JAX layer's rolling caches, window/sinks (with the int8 cache's
+sink read rotation), context parallelism (``cp_axis``) and head-sharded
+serving (``tp_axis``) are not ported.
 """
 
 from __future__ import annotations
@@ -37,6 +42,13 @@ from attention_tpu_torch.ops.paged import (
     paged_append,
     paged_append_chunk,
     paged_flash_decode,
+)
+from attention_tpu_torch.ops.quant import (
+    QuantizedKV,
+    flash_decode_quantized,
+    flash_decode_quantized_chunk,
+    quantize_kv,
+    update_quantized_kv,
 )
 from attention_tpu_torch.ops.ragged_paged import (
     RaggedPagedStep,
@@ -62,6 +74,21 @@ class KVCache(NamedTuple):
         shape = (batch, num_kv_heads, capacity, head_dim)
         return cls(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device), 0)
+
+    def quantize(self) -> "QuantKVCache":
+        """One-shot int8 conversion (after a prefill): about half the
+        bytes of a bf16 cache for the rest of the decode loop."""
+        return QuantKVCache(quantize_kv(self.k, self.v), self.length)
+
+
+class QuantKVCache(NamedTuple):
+    """int8 decode cache: `QuantizedKV` (int8 values and per-token
+    scales) and the valid length shared by the batch.  The serving flow
+    is a bf16 prefill, `KVCache.quantize`, then int8 decode steps (S ==
+    1) or speculative-verify chunks (S > 1)."""
+
+    kv: QuantizedKV
+    length: int
 
 
 class RaggedKVCache(NamedTuple):
@@ -152,6 +179,8 @@ class GQASelfAttention(nn.Module):
             out, cache = self._ragged_attention(q, k, v, cache)
         elif isinstance(cache, PagedKV):
             out, cache = self._paged_attention(q, k, v, cache)
+        elif isinstance(cache, QuantKVCache):
+            out, cache = self._quantized_attention(q, k, v, cache)
         else:
             raise NotImplementedError(
                 f"cache type {type(cache).__name__} is not ported yet")
@@ -218,3 +247,18 @@ class GQASelfAttention(nn.Module):
             out = paged_flash_decode(q[:, :, 0], cache,
                                      softcap=self.softcap)[:, :, None]
         return out.to(q.dtype), cache
+
+    def _quantized_attention(self, q, k, v, cache: QuantKVCache):
+        """Quantize the S new rows in at ``cache.length``, then the int8
+        decode kernel: one token for S == 1, the chunk mode for S > 1.
+        The output is bf16 (cast back to q's dtype); an overflowing
+        write poisons its scales, so the output reads NaN."""
+        kv = update_quantized_kv(cache.kv, k, v, cache.length)
+        new_len = cache.length + q.shape[2]
+        if q.shape[2] == 1:
+            out = flash_decode_quantized(q[:, :, 0], kv, new_len,
+                                         softcap=self.softcap)[:, :, None]
+        else:
+            out = flash_decode_quantized_chunk(q, kv, new_len,
+                                               softcap=self.softcap)
+        return out.to(q.dtype), QuantKVCache(kv, new_len)

@@ -5,7 +5,8 @@ dicts of numpy arrays (``jax.device_get`` of ``model.init(...)
 ["params"]``) and returns the port's ``state_dict``.  The mapping:
 ``DenseGeneral``/``Dense`` kernels (in, ..., out) become ``nn.Linear``
 weights (out, in) by flattening the feature axes and transposing,
-``Embed`` embeddings and ``RMSNorm`` scales carry over unchanged.  This
+``Embed`` embeddings and ``RMSNorm`` scales carry over unchanged.
+`quant_cache_from_jax` carries a quantized KV cache across.  This
 module imports neither JAX nor flax: the caller hands over numpy.
 """
 
@@ -13,6 +14,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from attention_tpu_torch.ops import quant
 
 
 def _linear(kernel) -> torch.Tensor:
@@ -46,3 +49,25 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
         sd[pre + "mlp.down.weight"] = _linear(
             blk["MLP_0"]["Dense_1"]["kernel"])
     return sd
+
+
+def quant_cache_from_jax(kv):
+    """The port's quantized cache from a JAX package one (`QuantizedKV`,
+    `Int4KV` or `Int4TokKV` of numpy arrays, told apart by type name):
+    the same int8 bytes, and the scales as one float32 per token, (B,
+    Hkv, N) in token order.  The JAX scales repeat each value over 8
+    sublanes (row 0 is taken), or for the token-paired layout hold the
+    even tokens' scales in rows 0-7 and the odd ones' in rows 8-15 (rows
+    0 and 8 are interleaved).  Tensors on the CPU."""
+    kind = {"QuantizedKV": quant.QuantizedKV, "Int4KV": quant.Int4KV,
+            "Int4TokKV": quant.Int4TokKV}[type(kv).__name__]
+
+    def scales(s):
+        s = np.asarray(s, np.float32)
+        if kind is quant.Int4TokKV:
+            s = np.stack([s[:, :, 0], s[:, :, 8]], axis=-1)
+            return s.reshape(*s.shape[:2], -1)
+        return s[:, :, 0]
+
+    return kind(*(torch.from_numpy(np.array(x)) for x in (
+        kv.k_q, scales(kv.k_scale), kv.v_q, scales(kv.v_scale))))

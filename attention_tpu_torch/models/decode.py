@@ -3,14 +3,16 @@
 Prefill runs the prompt once through the model over fresh caches (the
 flash kernel with ``q_offset``/``kv_valid``), then a Python token loop
 makes one decode step per token (the decode kernel on dense caches, the
-paged decode kernel on paged ones), where the JAX package ran a
-``lax.scan`` under one jit.  Each loop runs ``steps`` decode steps, as
-the scan does, so the returned caches hold prompt + ``steps`` rows.
+paged decode kernel on paged ones, the int8 decode kernel on the caches
+``int8_cache=True`` quantizes once after the prefill), where the JAX
+package ran a ``lax.scan`` under one jit.  Each loop runs ``steps``
+decode steps, as the scan does, so the returned caches hold prompt +
+``steps`` rows.
 
 Sampling (temperature > 0) draws from the caller's `torch.Generator`, on
 the model's device, where the JAX package split a key: seeded streams
-are deterministic, but not the JAX package's.  ``int8_cache``,
-``rolling_cache`` and beam search are not ported yet.
+are deterministic, but not the JAX package's.  ``rolling_cache`` and
+beam search are not ported yet.
 """
 
 from __future__ import annotations
@@ -116,9 +118,9 @@ def _validate_lengths(prompt_lengths, s_max: int) -> torch.Tensor:
 
 
 def _unported(int8_cache: bool, rolling_cache: bool) -> None:
-    if int8_cache:
-        raise NotImplementedError("int8_cache is not ported yet")
     if rolling_cache:
+        if int8_cache:
+            raise ValueError("rolling_cache and int8_cache are exclusive")
         raise NotImplementedError("rolling_cache is not ported yet")
 
 
@@ -159,16 +161,19 @@ def generate(model, prompt, *, steps: int, capacity: int | None = None,
              top_p: float | None = None,
              generator: torch.Generator | None = None) -> torch.Tensor:
     """Autoregressive generation: (B, S) prompt -> (B, steps)
-    continuation.  Prefill, then ``steps`` decode steps on dense caches.
-    ``temperature == 0`` (default) is greedy; ``temperature > 0``
-    samples from ``generator``, optionally truncated by ``top_k`` and/or
-    nucleus ``top_p``."""
+    continuation.  Prefill, then ``steps`` decode steps on dense caches;
+    ``int8_cache=True`` quantizes them once after the prefill and runs
+    the steps against the int8 caches.  ``temperature == 0`` (default)
+    is greedy; ``temperature > 0`` samples from ``generator``,
+    optionally truncated by ``top_k`` and/or nucleus ``top_p``."""
     _unported(int8_cache, rolling_cache)
     generator = _validate_sampling(model, temperature, top_k, top_p,
                                    generator)
     prompt = _prompt(model, prompt)
     capacity = _resolve_capacity(prompt.shape[1], steps, capacity)
     last, caches = prefill(model, prompt, capacity)
+    if int8_cache:
+        caches = tuple(c.quantize() for c in caches)
     return _token_loop(model, last, caches, steps, generator,
                        temperature=temperature, top_k=top_k, top_p=top_p)[0]
 

@@ -78,11 +78,11 @@ class TinyDecoder(nn.Module):
 
     ``forward(tokens)`` runs the uncached causal forward (the flash
     kernel); ``forward(tokens, caches)`` with one cache per layer
-    (`KVCache`, `RaggedKVCache`, `PagedKV` or the serving engine's
-    `RaggedPagedStep`) runs a cached step and returns ``(logits,
-    caches)``.  Options of the JAX model that the port does not have
-    yet (window, sinks, MoE, context or tensor parallelism, remat) raise
-    `NotImplementedError`."""
+    (`KVCache`, `RaggedKVCache`, `PagedKV`, `QuantKVCache` or the
+    serving engine's `RaggedPagedStep`) runs a cached step and returns
+    ``(logits, caches)``.  Options of the JAX model that the port does
+    not have yet (window, sinks, MoE, context or tensor parallelism,
+    remat) raise `NotImplementedError`."""
 
     def __init__(self, vocab: int = 256, dim: int = 256, depth: int = 2,
                  num_q_heads: int = 8, num_kv_heads: int = 2,

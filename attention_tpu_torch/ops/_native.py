@@ -35,6 +35,8 @@ KERNELS = {
     "ragged_paged": "ragged_paged.cu",
     "decode": "decode.cu",
     "paged_decode": "paged_decode.cu",
+    "quant_decode": "quant_decode.cu",
+    "quant_tok4": "quant_tok4_decode.cu",
 }
 
 #: ctypes argument types of the kernels' C entry points

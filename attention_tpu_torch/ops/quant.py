@@ -1,0 +1,406 @@
+"""Quantized KV caches and decode against them: the port of
+`attention_tpu.ops.quant`.
+
+Three storage formats, each with one float32 scale per cached token
+(symmetric absmax: ``scale = amax / 127`` for int8, ``amax / 7`` for
+int4, 1 for an all-zero row), stored (B, Hkv, N) in token order:
+
+* `QuantizedKV`: int8 values (B, Hkv, N, d);
+* `Int4KV`: feature-dim int4, (B, Hkv, N, d/2) bytes, byte f holding
+  feature f in its low nibble and feature f + d/2 in its high nibble;
+* `Int4TokKV`: token-paired int4, (B, Hkv, N/2, d) bytes, byte row r
+  holding token 2r in its low nibbles and token 2r + 1 in its high ones.
+
+The quantized values are bit-identical to the JAX package's; the JAX
+package repeats each scale over 8 (or 16) sublanes, a TPU tiling rule,
+which the port does not (`models.convert.quant_cache_from_jax` takes its
+scales across).
+
+A per-token scale commutes out of both products, so the decode kernels
+never dequantize with a multiply per value: scores are ``(q·K_q)·s_K``
+per column, the output ``(P·s_V)·V_q``.  The arithmetic, kernel and
+plain version alike: q pre-scaled by ``scale·log2(e)`` and rounded to
+bf16; float32 scores times the key scale, then softcap (in log2 units)
+and the mask; an exp2 softmax whose row sum takes P unscaled; P times the
+value scale rounded to bf16 for the product with the integer values; a
+bf16 output whatever q's dtype.  A length of 0 gives a zero row.  For
+CUDA tensors `flash_decode_quantized`, `flash_decode_quantized_chunk` and
+`flash_decode_int4` launch ``csrc/quant_decode.cu`` (which replaces the
+TPU kernel `_decode_q_kernel`), `flash_decode_int4_tok` launches
+``csrc/quant_tok4_decode.cu`` (which replaces `_decode_tok4_kernel`);
+for CPU tensors they run `quant_decode_plain`.  The kernels take head
+dims 32, 64 and 128.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from attention_tpu_torch.ops import _native
+from attention_tpu_torch.ops._native import F, I, L, P
+from attention_tpu_torch.ops.decode import check_band, lengths_tensor
+from attention_tpu_torch.ops.reference import check_softcap
+
+LOG2E = math.log2(math.e)
+#: head dims the kernels take
+KERNEL_HEAD_DIMS = (32, 64, 128)
+_ARGTYPES = [P] * 7 + [I] * 6 + [L] * 12 + [I, I, F, P]
+
+
+class QuantizedKV(NamedTuple):
+    """int8 KV cache: values (B, Hkv, N, d) int8, per-token float32
+    scales (B, Hkv, N)."""
+
+    k_q: torch.Tensor
+    k_scale: torch.Tensor
+    v_q: torch.Tensor
+    v_scale: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.k_q.shape[2]
+
+    @property
+    def head_dim(self) -> int:
+        return self.k_q.shape[3]
+
+
+class Int4KV(NamedTuple):
+    """Feature-dim int4 KV cache: values (B, Hkv, N, d/2) int8, two
+    nibbles per byte, per-token float32 scales (B, Hkv, N)."""
+
+    k_q: torch.Tensor
+    k_scale: torch.Tensor
+    v_q: torch.Tensor
+    v_scale: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.k_q.shape[2]
+
+    @property
+    def head_dim(self) -> int:
+        return 2 * self.k_q.shape[3]
+
+
+class Int4TokKV(NamedTuple):
+    """Token-paired int4 KV cache: values (B, Hkv, N/2, d) int8, tokens
+    2r and 2r + 1 in the low and high nibbles of byte row r, per-token
+    float32 scales (B, Hkv, N)."""
+
+    k_q: torch.Tensor
+    k_scale: torch.Tensor
+    v_q: torch.Tensor
+    v_scale: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return 2 * self.k_q.shape[2]
+
+    @property
+    def head_dim(self) -> int:
+        return self.k_q.shape[3]
+
+
+def _absmax_rows(x: torch.Tensor, qmax: int):
+    """Symmetric per-token absmax: (..., N, d) -> (int8 values in
+    [-qmax, qmax], float32 scales (..., N))."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.where(amax == 0.0, 1.0, amax / qmax)
+    q = torch.round(xf / scale[..., None]).clamp(-qmax, qmax)
+    return q.to(torch.int8), scale
+
+
+def _pack_nibbles(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Two int4 value tensors -> one int8 byte each, lo in the low
+    nibble."""
+    return ((lo.to(torch.int32) & 0xF) | (hi.to(torch.int32) << 4)).to(
+        torch.int8)
+
+
+def _unpack_nibbles(packed: torch.Tensor):
+    """int8 bytes -> (low, high) signed nibbles as int32: the low one
+    re-signed (>= 8 -> -16), the high one an arithmetic shift."""
+    p = packed.to(torch.int32)
+    return ((p & 0xF) ^ 8) - 8, p >> 4
+
+
+def _quant_rows(x: torch.Tensor):
+    """(..., N, d) -> (int8 values, (..., N) scales)."""
+    return _absmax_rows(x, 127)
+
+
+def _quant_rows_int4(x: torch.Tensor):
+    """(..., N, d) -> (packed (..., N, d/2) int8, (..., N) scales)."""
+    d = x.shape[-1]
+    if d % 2:
+        raise ValueError(f"head_dim {d} must be even for int4 packing")
+    q, scale = _absmax_rows(x, 7)
+    return _pack_nibbles(q[..., :d // 2], q[..., d // 2:]), scale
+
+
+def _quant_rows_int4_tok(x: torch.Tensor):
+    """(..., N, d) -> (token-paired (..., N/2, d) int8, (..., N)
+    scales)."""
+    n = x.shape[-2]
+    if n % 2:
+        raise ValueError(f"cache length {n} must be even for token pairing")
+    q, scale = _absmax_rows(x, 7)
+    return _pack_nibbles(q[..., 0::2, :], q[..., 1::2, :]), scale
+
+
+def quantize_kv(k: torch.Tensor, v: torch.Tensor) -> QuantizedKV:
+    """Quantize full (B, Hkv, N, d) K/V caches to the int8 format."""
+    return QuantizedKV(*_quant_rows(k), *_quant_rows(v))
+
+
+def quantize_kv_int4(k: torch.Tensor, v: torch.Tensor) -> Int4KV:
+    """Quantize full (B, Hkv, N, d) K/V caches to the feature-dim int4
+    format.  An opt-in trade of accuracy for bytes: about 30 times
+    int8's output error, outside the ±0.02 contract."""
+    return Int4KV(*_quant_rows_int4(k), *_quant_rows_int4(v))
+
+
+def quantize_kv_int4_tok(k: torch.Tensor, v: torch.Tensor) -> Int4TokKV:
+    """Quantize full (B, Hkv, N, d) K/V caches to the token-paired int4
+    format (the same values and error as `quantize_kv_int4`).  N must be
+    a multiple of 256, as in the JAX package."""
+    n = k.shape[-2]
+    if n % 256:
+        raise ValueError(
+            f"token-paired int4 needs a 256-multiple cache capacity, got "
+            f"{n} (use the feature-dim layout for smaller caches)")
+    return Int4TokKV(*_quant_rows_int4_tok(k), *_quant_rows_int4_tok(v))
+
+
+def update_quantized_kv(cache: QuantizedKV, k_new: torch.Tensor,
+                        v_new: torch.Tensor, index: int) -> QuantizedKV:
+    """Quantize S new rows (B, Hkv, S, d) and write them at ``index``,
+    in place; returns ``cache``.  A write past the capacity (index + S >
+    capacity) lands clamped at the end, as JAX's dynamic_update_slice
+    does, and NaN-poisons the scales it writes, so every output that
+    reads them comes out NaN."""
+    s_new = k_new.shape[2]
+    k_q, k_s = _quant_rows(k_new)
+    v_q, v_s = _quant_rows(v_new)
+    if index + s_new > cache.capacity:
+        k_s = torch.full_like(k_s, float("nan"))
+        v_s = torch.full_like(v_s, float("nan"))
+    at = max(0, min(index, cache.capacity - s_new))
+    cache.k_q[:, :, at:at + s_new] = k_q
+    cache.k_scale[:, :, at:at + s_new] = k_s
+    cache.v_q[:, :, at:at + s_new] = v_q
+    cache.v_scale[:, :, at:at + s_new] = v_s
+    return cache
+
+
+def dequantized_values(cache) -> tuple[torch.Tensor, torch.Tensor]:
+    """The integer values of a quantized cache as float32 (B, Hkv, N, d),
+    tokens and features in natural order (scales not applied)."""
+
+    def values(x):
+        if isinstance(cache, QuantizedKV):
+            return x.float()
+        lo, hi = _unpack_nibbles(x)
+        if isinstance(cache, Int4KV):
+            return torch.cat([lo, hi], dim=-1).float()
+        b, hkv, half, d = x.shape
+        return torch.stack([lo, hi], dim=-2).reshape(b, hkv, 2 * half,
+                                                     d).float()
+
+    return values(cache.k_q), values(cache.v_q)
+
+
+def _validate(q, cache, *, chunk: bool) -> None:
+    if not isinstance(cache, (QuantizedKV, Int4KV, Int4TokKV)):
+        raise TypeError(f"expected a quantized cache, got "
+                        f"{type(cache).__name__}")
+    if q.dim() != (4 if chunk else 3):
+        form = "(B,H,S,d)" if chunk else "(B,H,d)"
+        raise ValueError(f"expected q {form}, got {tuple(q.shape)}")
+    b, h, d = q.shape[0], q.shape[1], q.shape[-1]
+    bk, hkv = cache.k_q.shape[:2]
+    n = cache.capacity
+    if (cache.k_q.dim() != 4 or bk != b or cache.head_dim != d
+            or cache.v_q.shape != cache.k_q.shape):
+        raise ValueError(
+            f"cache shapes inconsistent: Q{tuple(q.shape)} "
+            f"K{tuple(cache.k_q.shape)} V{tuple(cache.v_q.shape)}")
+    if (tuple(cache.k_scale.shape) != (b, hkv, n)
+            or tuple(cache.v_scale.shape) != (b, hkv, n)):
+        raise ValueError(
+            f"scale shapes {tuple(cache.k_scale.shape)}/"
+            f"{tuple(cache.v_scale.shape)} != {(b, hkv, n)}")
+    if h % hkv:
+        raise ValueError(f"q heads {h} not a multiple of kv heads {hkv}")
+
+
+def quant_decode_plain(q, cache, lengths, *, scale=None, softcap=None,
+                       window=None, sinks=None) -> torch.Tensor:
+    """The plain PyTorch version of the quantized decode kernels: q (B, H,
+    d), or (B, H, S, d) for S appended tokens (row s of sequence b at
+    position ``lengths[b] - S + s``, attending its causal prefix), against
+    any of the three cache formats -> bf16 of q's shape."""
+    chunk = q.dim() == 4
+    _validate(q, cache, chunk=chunk)
+    check_softcap(softcap)
+    check_band(window, sinks)
+    q4 = q if chunk else q[:, :, None]
+    b, h, s_new, d = q4.shape
+    hkv, n = cache.k_q.shape[1], cache.capacity
+    if scale is None:
+        scale = 1.0 / d ** 0.5
+    lens = lengths_tensor(lengths, b, q.device).long().clamp(min=0)
+    kf, vf = dequantized_values(cache)
+    # rows (g, s), s minor, of each kv head's group
+    qs = (q4.float() * (scale * LOG2E)).to(torch.bfloat16).float()
+    qs = qs.reshape(b, hkv, h // hkv * s_new, d)
+    s = torch.matmul(qs, kf.transpose(-1, -2)) * cache.k_scale[:, :, None]
+    if softcap is not None:
+        cap2 = softcap * LOG2E
+        s = cap2 * torch.tanh(s / cap2)
+    row = torch.arange(s.shape[2], device=q.device) % s_new
+    pos = (lens[:, None] - s_new + row)[:, None, :, None]   # (B, 1, rows, 1)
+    col = torch.arange(n, device=q.device)
+    keep = col <= pos
+    if window is not None:
+        band = col > pos - window
+        if sinks is not None:
+            band = band | (col < sinks)
+        keep = keep & band
+    s = s.masked_fill(~keep, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(m == float("-inf"), 0.0, m)
+    p = torch.exp2(s - m)
+    denom = p.sum(dim=-1, keepdim=True)
+    denom = torch.where(denom == 0.0, 1.0, denom)
+    pv = (p * cache.v_scale[:, :, None]).to(torch.bfloat16).float()
+    out = (torch.matmul(pv, vf) / denom).to(torch.bfloat16)
+    out = out.reshape(b, h, s_new, d)
+    return out if chunk else out[:, :, 0]
+
+
+def _check_rows(t: torch.Tensor, what: str) -> None:
+    if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
+            st % 16 for st in t.stride()[:3]):
+        raise ValueError(f"{what}: the kernel takes 16-byte aligned rows "
+                         f"with a contiguous last dim")
+
+
+def _launch(kernel, symbol, q4, cache, lens, *, scale, softcap, window,
+            sinks) -> torch.Tensor:
+    if cache.k_q.dtype != torch.int8 or cache.v_q.dtype != torch.int8:
+        raise TypeError(f"quantized values must be int8, got "
+                        f"{cache.k_q.dtype}/{cache.v_q.dtype}")
+    if (cache.k_scale.dtype != torch.float32
+            or cache.v_scale.dtype != torch.float32):
+        raise TypeError("quantized scales must be float32")
+    if q4.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q4.dtype}")
+    if any(t.device != q4.device for t in cache):
+        raise ValueError("q and the cache must be on one device")
+    b, h, s_new, d = q4.shape
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the quantized decode kernels take head dims "
+                         f"{KERNEL_HEAD_DIMS}, got {d}")
+    _check_rows(cache.k_q, "k_q")
+    _check_rows(cache.v_q, "v_q")
+    hkv, n = cache.k_q.shape[1], cache.capacity
+    ks, vs = cache.k_scale.contiguous(), cache.v_scale.contiguous()
+    qs = (q4.float() * (scale * LOG2E)).to(torch.bfloat16).contiguous()
+    # (B, S, H, d) storage: the attention layer's head merge is a view
+    out = torch.empty((b, s_new, h, d), dtype=torch.bfloat16,
+                      device=q4.device).transpose(1, 2)
+    fn = _native.function(kernel, symbol, _ARGTYPES)
+    with torch.cuda.device(q4.device):
+        stream = torch.cuda.current_stream(q4.device).cuda_stream
+        err = fn(qs.data_ptr(), cache.k_q.data_ptr(), cache.v_q.data_ptr(),
+                 ks.data_ptr(), vs.data_ptr(), lens.data_ptr(),
+                 out.data_ptr(), b, h, hkv, s_new, n, d, *qs.stride()[:3],
+                 *cache.k_q.stride()[:3], *cache.v_q.stride()[:3],
+                 *out.stride()[:3], window or 0, sinks or 0,
+                 float(softcap or 0.0), stream)
+    _native.check(kernel, err)
+    _native.count_launch(kernel)
+    return out
+
+
+#: cache type -> (kernel, C entry point)
+_KERNEL_OF = {
+    QuantizedKV: ("quant_decode", "quant_decode_int8_fwd"),
+    Int4KV: ("quant_decode", "quant_decode_int4_fwd"),
+    Int4TokKV: ("quant_tok4", "quant_decode_tok4_fwd"),
+}
+
+
+def _decode(q, cache, lengths, *, kind, chunk, scale, softcap, window,
+            sinks) -> torch.Tensor:
+    if not isinstance(cache, kind):
+        raise TypeError(f"expected {kind.__name__}, got "
+                        f"{type(cache).__name__}")
+    check_softcap(softcap)
+    check_band(window, sinks)
+    _validate(q, cache, chunk=chunk)
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    if q.device.type == "cpu":
+        return quant_decode_plain(q, cache, lengths, scale=scale,
+                                  softcap=softcap, window=window, sinks=sinks)
+    if q.device.type != "cuda":
+        raise ValueError(f"quantized decode runs on cuda or cpu, not "
+                         f"{q.device.type}")
+    lens = lengths_tensor(lengths, q.shape[0], q.device)
+    out = _launch(*_KERNEL_OF[kind], q if chunk else q[:, :, None], cache,
+                  lens, scale=scale, softcap=softcap, window=window,
+                  sinks=sinks)
+    return out if chunk else out[:, :, 0]
+
+
+def flash_decode_quantized(q: torch.Tensor, cache: QuantizedKV, lengths, *,
+                           scale: float | None = None,
+                           softcap: float | None = None,
+                           window: int | None = None,
+                           sinks: int | None = None) -> torch.Tensor:
+    """softmax(q K[:len]ᵀ · scale) V[:len] against an int8 cache: q (B,
+    H, d), ``lengths`` an int, a 0-d or a (B,) tensor -> (B, H, d) bf16.
+    ``softcap``, ``window`` and ``sinks`` as in `ops.decode.flash_decode`."""
+    return _decode(q, cache, lengths, kind=QuantizedKV, chunk=False,
+                   scale=scale, softcap=softcap, window=window, sinks=sinks)
+
+
+def flash_decode_quantized_chunk(q: torch.Tensor, cache: QuantizedKV,
+                                 new_lengths, *, scale: float | None = None,
+                                 softcap: float | None = None,
+                                 window: int | None = None,
+                                 sinks: int | None = None) -> torch.Tensor:
+    """S appended tokens per sequence against an int8 cache in one
+    stream (the speculative-verify primitive): q (B, H, S, d), the S rows
+    already in the cache, ``new_lengths`` after the append -> (B, H, S,
+    d) bf16, masked as `ops.decode.flash_decode_chunk`."""
+    return _decode(q, cache, new_lengths, kind=QuantizedKV, chunk=True,
+                   scale=scale, softcap=softcap, window=window, sinks=sinks)
+
+
+def flash_decode_int4(q: torch.Tensor, cache: Int4KV, lengths, *,
+                      scale: float | None = None,
+                      softcap: float | None = None,
+                      window: int | None = None,
+                      sinks: int | None = None) -> torch.Tensor:
+    """`flash_decode_quantized` against a feature-dim int4 cache."""
+    return _decode(q, cache, lengths, kind=Int4KV, chunk=False, scale=scale,
+                   softcap=softcap, window=window, sinks=sinks)
+
+
+def flash_decode_int4_tok(q: torch.Tensor, cache: Int4TokKV, lengths, *,
+                          scale: float | None = None,
+                          softcap: float | None = None,
+                          window: int | None = None,
+                          sinks: int | None = None) -> torch.Tensor:
+    """`flash_decode_quantized` against a token-paired int4 cache (one
+    token per sequence; there is no chunk mode)."""
+    return _decode(q, cache, lengths, kind=Int4TokKV, chunk=False,
+                   scale=scale, softcap=softcap, window=window, sinks=sinks)

@@ -8,7 +8,7 @@ It needs one CUDA card, ``nvcc`` and ``nvidia-smi``, and imports
 nothing of JAX.  Every phase raises on a failure, so the script exits
 non-zero unless all of them pass:
 
-1. build    all four CUDA kernels from ``attention_tpu_torch/csrc`` (one
+1. build    all six CUDA kernels from ``attention_tpu_torch/csrc`` (one
             ``nvcc`` each, started together); print the card's name and
             power limit.
 2. kernels  each kernel against its plain PyTorch version on the card,
@@ -23,9 +23,15 @@ non-zero unless all of them pass:
             sequences of lengths 0 to 4096 (one token, with softcap, with
             a 512-row window and 4 sinks, chunks of 4 and of 256, the
             paged partials, an empty and a poisoned sequence), in f32
-            and bf16.  Each kernel must give the same bits on a second
-            call, and the plain output with a planted fault (its last
-            key tile dropped, or its scale 2% off) must fail the check.
+            and bf16; the quantized decode kernels on the bf16 decode
+            case's caches quantized three ways (int8 one token, with
+            softcap, with the window and sinks, a chunk of 4; feature-dim
+            and token-paired int4), each also within the JAX package's
+            budget of the bf16 decode kernel's output, after the two int4
+            entry points ran once as a user calls them.  Each kernel must
+            give the same bits on a second call, and the plain output with
+            a planted fault (its last key tile dropped, or its scale 2%
+            off) must fail the check.
 3. op path  the ``scale4`` testcase (m = n = 8192, dk = dv = 128) from
             the port's generator, through ``cli run --backend flash`` in
             f32 and bf16: both must print ``Correct!``.
@@ -34,9 +40,12 @@ non-zero unless all of them pass:
             32000, rope, softcap 50, bf16, random weights from a seed:
             greedy `generate` on 8 prompts of 512 tokens, then
             `generate_ragged` and `generate_paged` on the serving trace's
-            8 prompts (128-1024 tokens), 32 steps each; every logit
-            finite, the flash kernel for each prefill and the decode (or
-            paged) kernel for each step, nothing else.
+            8 prompts (128-1024 tokens), and `generate(int8_cache=True)`
+            on the equal prompts, 32 steps each; every logit finite, the
+            flash kernel for each prefill and the decode (paged, int8)
+            kernel for each step, nothing else; then one 4-token
+            chunk-verify call on int8 caches, the int8 kernel once per
+            layer.
 5. serving  the same model serving 8 greedy requests (the same prompts,
             32 output tokens each) through `ServingEngine` in
             ``step_mode="ragged"`` (the ragged kernel) and then
@@ -45,13 +54,16 @@ non-zero unless all of them pass:
 6. reference a small f32 model on the card against the same model on
             the CPU (plain versions): logits, each side the same bits
             twice; greedy engine streams in both step modes; greedy
-            tokens of the three generate functions.
+            tokens of the three generate functions; teacher-forced
+            int8-cache logits and greedy `generate(int8_cache=True)`
+            tokens.
 
-Launch counts are reset just before each run of a path (op path, each
-generate function, each serving run) and read just after it.  Kernel
-times are CUDA-event medians after warm-up.  The second-to-last stdout
-line is the ``{"kernels": [...]}`` record, the last ``{"ok": true,
-"device": ...}``.
+Launch counts are reset just before each run of a path (op path, the
+int4 entry points, each generate function, the chunk verify, each
+serving run) and read just after it.  Kernel times are CUDA-event
+medians after warm-up.  The second-to-last stdout line is the
+``{"kernels": [...]}`` record, the last ``{"ok": true, "device":
+...}``.
 """
 
 from __future__ import annotations
@@ -87,6 +99,9 @@ SMALL_MODEL = dict(vocab=256, dim=256, depth=2, num_q_heads=8,
                    num_kv_heads=2, rope=True, softcap=50.0)
 # decode steps of the generate phase
 GEN_STEPS = 32
+# card against CPU on the small f32 model with int8 caches, max abs
+# logits (PERF.md section 2 gives the reasons)
+INT8_LOGITS_TOL = 1e-2
 
 
 def emit(**record) -> None:
@@ -152,11 +167,14 @@ def same_bits(a, b) -> None:
             raise AssertionError("two calls on the same inputs differ")
 
 
-def decode_work(lens, s_new, h, hkv, d, item, window=None, sinks=None):
+def decode_work(lens, s_new, h, hkv, d, item, window=None, sinks=None,
+                kv_row_bytes=None):
     """(bytes, operations) one decode call needs on these lengths: q read
     and the output written once, each sequence's K/V rows that any of its
-    rows sees read once per kv head, every visible (row, key) pair scored
-    and summed.  Row s of a sequence of length L sits at L - S + s."""
+    rows sees read once per kv head (``kv_row_bytes`` for K and V
+    together, default 2·d·item), every visible (row, key) pair scored and
+    summed.  Row s of a sequence of length L sits at L - S + s."""
+    kv_row_bytes = kv_row_bytes or 2 * d * item
     nbytes = 2 * len(lens) * h * s_new * d * item
     pairs = 0
     for length in lens:
@@ -169,7 +187,7 @@ def decode_work(lens, s_new, h, hkv, d, item, window=None, sinks=None):
             pairs += pos - first + 1 + min(sinks or 0, first)
             lo = min(lo, first)
         rows = length - lo + min(sinks or 0, lo)
-        nbytes += 2 * hkv * rows * d * item
+        nbytes += hkv * rows * kv_row_bytes
     return nbytes, 4.0 * d * h * pairs
 
 
@@ -369,10 +387,11 @@ def phase_kernels(kernels, serve_model):
     return step, q
 
 
-def phase_decode_kernels(kernels) -> None:
+def phase_decode_kernels(kernels):
     """The decode, paged decode and cached-prefill flash cases at the
     serving geometry (32 q / 4 kv heads, d 128): 8 sequences whose
-    lengths run from 0 to the full 4096-row capacity."""
+    lengths run from 0 to the full 4096-row capacity.  Returns the bf16
+    decode caches."""
     from torch.nn import functional as F
 
     from attention_tpu_torch.ops.decode import (
@@ -513,6 +532,95 @@ def phase_decode_kernels(kernels) -> None:
                  enable_gqa=True))
     kernels["decode"].update(decode_rec)
     kernels["paged_decode"].update(paged_rec)
+    return k, v
+
+
+def phase_quant_kernels(ops, kernels, k, v) -> None:
+    """The quantized decode kernels on the bf16 decode case's caches
+    (serving geometry, `DECODE_LENS`, capacity 4096), quantized three
+    ways.  First the two int4 entry points once each, as a user calls
+    them (their path's launches); then each case held against its plain
+    version (`hold`) and against the bf16 decode kernel on the
+    unquantized caches, at the JAX package's budgets: int8 within 0.02
+    (tests/test_quant.py:51), int4 below 0.15 (tests/test_quant.py:331),
+    on the sequences of 100 rows or more, as those tests measure them (a
+    one-row sequence returns its one value row, whose quantization error
+    no softmax averages: up to amax/254 in int8, amax/14 in int4).
+    Bytes for the bound: per token and kv head, K and V of d (int8) or
+    d/2 (int4) bytes and one fp32 scale each."""
+    from attention_tpu_torch.ops import quant
+    from attention_tpu_torch.ops.decode import flash_decode, \
+        flash_decode_chunk
+
+    b, hkv, _, d = k.shape
+    h = 32
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device="cuda")
+    cut = lens.clone()
+    cut[-1] -= KEY_TILE
+    scale_off = 1.02 * d ** -0.5
+    caches = {"int8": quant.quantize_kv(k, v),
+              "int4": quant.quantize_kv_int4(k, v),
+              "int4_tok": quant.quantize_kv_int4_tok(k, v)}
+    row_bytes = {"int8": 2 * (d + 4), "int4": 2 * (d // 2 + 4),
+                 "int4_tok": 2 * (d // 2 + 4)}
+    op_of = {("int8", 0): quant.flash_decode_quantized,
+             ("int8", 4): quant.flash_decode_quantized_chunk,
+             ("int4", 0): quant.flash_decode_int4,
+             ("int4_tok", 0): quant.flash_decode_int4_tok}
+    kernel_of = {"int8": "quant_decode", "int4": "quant_decode",
+                 "int4_tok": "quant_tok4"}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    q1 = randn(b, h, d)
+    long = [i for i, n_i in enumerate(DECODE_LENS) if n_i >= 100]
+    ops.reset_launch_counts()
+    quant.flash_decode_int4(q1, caches["int4"], lens)
+    quant.flash_decode_int4_tok(q1, caches["int4_tok"], lens)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = {"quant_decode": 1, "quant_tok4": 1}
+    if {name: c for name, c in launches.items() if c} != want:
+        raise AssertionError(f"int4 entry points launched {launches}")
+    for name, count in want.items():
+        kernels[name]["launches"] += count
+    emit(phase="quant_kernels", op_path=["flash_decode_int4",
+                                         "flash_decode_int4_tok"],
+         launches=launches)
+
+    for fmt, s_new, kw in (("int8", 0, {}), ("int8", 0, {"softcap": 50.0}),
+                           ("int8", 0, {"window": 512, "sinks": 4}),
+                           ("int8", 4, {"softcap": 50.0}),
+                           ("int4", 0, {}), ("int4_tok", 0, {})):
+        cache, fn = caches[fmt], op_of[fmt, s_new]
+        q = randn(b, h, s_new, d) if s_new else q1
+        name = f"{fmt}_S{s_new or 1}_{'_'.join(kw) or 'plain'}"
+        rec = hold(
+            kernels, kernel_of[fmt], name,
+            run=lambda: fn(q, cache, lens, **kw),
+            plain=lambda: quant.quant_decode_plain(q, cache, lens, **kw),
+            faults={"dropped_last_key_tile": lambda: quant.quant_decode_plain(
+                q, cache, cut, **kw),
+                "scale_off_2pct": lambda: quant.quant_decode_plain(
+                    q, cache, lens, scale=scale_off, **kw)},
+            work=decode_work(DECODE_LENS, s_new or 1, h, hkv, d, 2,
+                             kw.get("window"), kw.get("sinks"),
+                             kv_row_bytes=row_bytes[fmt]),
+            dtype=torch.bfloat16, lengths=DECODE_LENS)
+        bf16 = (flash_decode_chunk if s_new else flash_decode)(
+            q, k, v, lens, **kw)
+        err = (fn(q, cache, lens, **kw)[long].float()
+               - bf16[long].float()).abs().max().item()
+        budget = 0.02 if fmt == "int8" else 0.15
+        emit(phase="quant_kernels", case=name, vs_bf16_kernel_max_abs_err=err,
+             budget=budget)
+        if not (err <= budget if fmt == "int8" else err < budget):
+            raise AssertionError(f"{name}: {err} off the bf16 decode kernel")
+        if not s_new and not kw and fmt != "int4":
+            kernels[kernel_of[fmt]].update(rec)
 
 
 def phase_op_path(ops, kernels) -> None:
@@ -640,12 +748,15 @@ def phase_generate(ops, kernels, model) -> None:
     ragged, lens = trace_prompts(model.vocab)
     runs = {
         "generate": lambda: gen.generate(model, equal, steps=GEN_STEPS),
+        "generate_int8": lambda: gen.generate(model, equal, steps=GEN_STEPS,
+                                              int8_cache=True),
         "generate_ragged": lambda: gen.generate_ragged(
             model, ragged, lens, steps=GEN_STEPS),
         "generate_paged": lambda: gen.generate_paged(
             model, ragged, lens, steps=GEN_STEPS)[0],
     }
-    kernel_of = {"generate": "decode", "generate_ragged": "decode",
+    kernel_of = {"generate": "decode", "generate_int8": "quant_decode",
+                 "generate_ragged": "decode",
                  "generate_paged": "paged_decode"}
     tokens = {}
     for name, run in runs.items():
@@ -671,11 +782,36 @@ def phase_generate(ops, kernels, model) -> None:
              prefill_ms=calls[0][0].elapsed_time(calls[0][1]),
              decode_step_ms=statistics.median(step_ms),
              tokens_per_s=toks.numel() / wall, launches=launches,
-             prompt_tokens=int(lens.sum()) if name != "generate"
-             else equal.numel())
+             prompt_tokens=equal.numel() if name.startswith("generate_int8")
+             or name == "generate" else int(lens.sum()))
     share = (tokens["generate_ragged"] == tokens["generate_paged"]) \
         .float().mean().item()
-    emit(phase="generate", ragged_vs_paged_equal_token_share=share)
+    int8_share = (tokens["generate_int8"] == tokens["generate"]) \
+        .float().mean().item()
+    emit(phase="generate", ragged_vs_paged_equal_token_share=share,
+         int8_vs_bf16_equal_token_share=int8_share)
+
+    # a speculative-verify chunk of 4 tokens on int8 caches: one model
+    # call, the int8 kernel once per layer in chunk mode
+    chunk = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
+        0, model.vocab, (8, 4))).cuda()
+    with torch.no_grad():
+        caches = tuple(c.quantize() for c in gen.prefill(
+            model, equal, equal.shape[1] + 128)[1])
+        ops.reset_launch_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        logits, caches = model(chunk, caches)
+        end.record()
+        torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    if {k: v for k, v in launches.items() if v} != {
+            "quant_decode": model.depth} or not logits.isfinite().all() \
+            or caches[0].length != equal.shape[1] + 4:
+        raise AssertionError(f"int8 chunk verify: launches {launches}")
+    kernels["quant_decode"]["launches"] += launches["quant_decode"]
+    emit(phase="generate", run="int8_chunk_verify", chunk=list(chunk.shape),
+         ms=start.elapsed_time(end), launches=launches)
 
 
 def phase_serving(ops, kernels, model) -> None:
@@ -808,6 +944,33 @@ def phase_reference() -> None:
     emit(phase="reference", generate_streams_equal=True,
          functions=["generate", "generate_ragged", "generate_paged"])
 
+    # int8 caches: 16 teacher-forced steps after a 24-token prefill, and
+    # greedy generate(int8_cache=True)
+    tokens = torch.as_tensor(np.random.default_rng(SEED + 2).integers(
+        0, SMALL_MODEL["vocab"], (2, 40)))
+    logits = []
+    for m in (cpu, gpu):
+        with torch.no_grad():
+            caches = tuple(c.quantize() for c in gen.prefill(
+                m, tokens[:, :24].to(m.device), 128)[1])
+            steps = []
+            for t in range(24, 40):
+                out, caches = m(tokens[:, t:t + 1].to(m.device), caches)
+                steps.append(out.cpu())
+        logits.append(torch.cat(steps, dim=1))
+    err = (logits[1] - logits[0]).abs().max().item()
+    emit(phase="reference", int8_logits_max_abs_err=err,
+         tol=INT8_LOGITS_TOL, logits_max_abs=logits[0].abs().max().item())
+    if not (err <= INT8_LOGITS_TOL and logits[1].isfinite().all()):
+        raise AssertionError(f"int8-cache logits differ from the CPU by "
+                             f"{err}")
+    streams = [gen.generate(m, prompts, steps=12, int8_cache=True).cpu()
+               for m in (cpu, gpu)]
+    if not torch.equal(*streams):
+        raise AssertionError("greedy generate(int8_cache=True) streams "
+                             "differ between card and CPU")
+    emit(phase="reference", int8_generate_streams_equal=True)
+
 
 def phase_profile(model) -> None:
     """The serving run once more under `torch.profiler`: device time by
@@ -891,12 +1054,18 @@ def main() -> int:
              "attention_tpu/ops/ragged_paged.py:201"),
             ("decode", "decode.cu", "attention_tpu/ops/decode.py:90"),
             ("paged_decode", "paged_decode.cu",
-             "attention_tpu/ops/paged.py:213"))}
+             "attention_tpu/ops/paged.py:213"),
+            ("quant_decode", "quant_decode.cu",
+             "attention_tpu/ops/quant.py:156"),
+            ("quant_tok4", "quant_tok4_decode.cu",
+             "attention_tpu/ops/quant.py:788"))}
     phase_build(ops)
     model = TinyDecoder(dtype=torch.bfloat16, device="cuda", **SERVE_MODEL)
     model.load_state_dict(init_params(model, SEED))
     step, q = phase_kernels(kernels, model)
-    phase_decode_kernels(kernels)
+    k, v = phase_decode_kernels(kernels)
+    phase_quant_kernels(ops, kernels, k, v)
+    del k, v
     phase_op_path(ops, kernels)
     phase_generate(ops, kernels, model)
     phase_serving(ops, kernels, model)

@@ -8,7 +8,9 @@ no JAX, so it also runs where only the port is installed:
 Tolerances are those of `reference.mismatch`: f32 1e-5 max abs (both
 sides in full f32, no TF32; only the summation order differs), bf16
 1.6e-2 of the value plus 2^-6 of its row's rms, capped at 2e-2 (the
-sides round P and the output to bf16 at different points).
+sides round P and the output to bf16 at different points).  The
+quantized decode kernels are held to the same bf16 limits against
+`quant.quant_decode_plain`.
 """
 
 import pytest
@@ -21,6 +23,7 @@ from attention_tpu_torch.ops.flash import flash_attention, \
     flash_attention_plain
 from attention_tpu_torch.ops.paged import PagedKV, paged_flash_decode, \
     paged_flash_decode_plain
+from attention_tpu_torch.ops import quant
 from attention_tpu_torch.ops.ragged_paged import (
     RaggedPagedStep,
     packed_bucket,
@@ -206,3 +209,79 @@ def test_ragged_kernel_matches_plain(gen, dtype):
     short = ragged_paged_attention(q, step._replace(q_tile=8), softcap=30.0)
     assert torch.equal(short.isnan(), got.isnan())
     assert torch.equal(short.nan_to_num(), got.nan_to_num())
+
+
+QUANTIZE = {"int8": quant.quantize_kv, "int4": quant.quantize_kv_int4,
+            "int4_tok": quant.quantize_kv_int4_tok}
+QUANT_OPS = {("int8", False): quant.flash_decode_quantized,
+             ("int8", True): quant.flash_decode_quantized_chunk,
+             ("int4", False): quant.flash_decode_int4,
+             ("int4_tok", False): quant.flash_decode_int4_tok}
+
+
+@pytest.mark.parametrize("fmt,s_new,kw", [
+    ("int8", 0, {}), ("int8", 0, {"softcap": 30.0}),
+    ("int8", 0, {"window": 100, "sinks": 4}), ("int8", 4, {"softcap": 30.0}),
+    ("int8", 40, {"window": 64, "sinks": 4}), ("int4", 0, {"softcap": 30.0}),
+    ("int4", 0, {"window": 100, "sinks": 4}),
+    ("int4_tok", 0, {"softcap": 30.0}),
+    ("int4_tok", 0, {"window": 100, "sinks": 4})],
+    ids=["int8", "int8_softcap", "int8_window_sinks", "int8_chunk4",
+         "int8_chunk40_window", "int4_softcap", "int4_window_sinks",
+         "tok4_softcap", "tok4_window_sinks"])
+def test_quant_kernels_match_plain(gen, fmt, s_new, kw):
+    """Lengths 0, 1, 300, 777 and 1024: the odd ones end on a low nibble
+    of the token-paired layout, whose partner is masked."""
+    q, k, v, lens = _decode_case(gen, torch.bfloat16, s_new)
+    cache = QUANTIZE[fmt](k, v)
+    kernel = "quant_tok4" if fmt == "int4_tok" else "quant_decode"
+    before = launch_counts()[kernel]
+    got = QUANT_OPS[fmt, bool(s_new)](q, cache, lens, **kw)
+    assert launch_counts()[kernel] == before + 1
+    want = quant.quant_decode_plain(q, cache, lens, **kw)
+    assert _share_of_limit(got, want) <= 1
+    assert (got[0] == 0).all()      # length 0: a zero row
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_quant_kernels_other_head_dims(gen, fmt, d):
+    q = torch.randn(3, 8, d, generator=gen, device="cuda")
+    k, v = (torch.randn(3, 2, 256, d, generator=gen, device="cuda")
+            for _ in range(2))
+    lens = torch.tensor([5, 129, 256], dtype=torch.int32, device="cuda")
+    cache = QUANTIZE[fmt](k, v)
+    got = QUANT_OPS[fmt, False](q, cache, lens, softcap=30.0)
+    want = quant.quant_decode_plain(q, cache, lens, softcap=30.0)
+    assert _share_of_limit(got, want) <= 1
+
+
+@pytest.mark.parametrize("s_new", [1, 4])
+def test_quant_overflow_comes_out_nan(gen, s_new):
+    """An append past the capacity lands at the end with NaN scales: the
+    kernel's row maxima (fmaxf) pass over a NaN score, so the NaN has to
+    come through P and the row sum."""
+    q, k, v, _ = _decode_case(gen, torch.bfloat16, s_new if s_new > 1 else 0)
+    cache = quant.quantize_kv(k, v)
+    n = cache.capacity
+    k_new, v_new = (torch.randn(5, 2, s_new, 128, generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                    for _ in range(2))
+    quant.update_quantized_kv(cache, k_new, v_new, n - s_new + 1)
+    assert cache.k_scale[:, :, -s_new:].isnan().all()
+    got = QUANT_OPS["int8", s_new > 1](q, cache, n + 1)
+    assert got.isnan().all()
+    assert quant.quant_decode_plain(q, cache, n + 1).isnan().all()
+
+
+def test_quant_wrapper_raises_instead_of_falling_back(gen):
+    q = torch.randn(2, 4, 16, generator=gen, device="cuda")
+    k = torch.randn(2, 2, 128, 16, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        quant.flash_decode_quantized(q, quant.quantize_kv(k, k), 10)
+    cache = quant.quantize_kv(*(torch.randn(2, 2, 128, 64, generator=gen,
+                                            device="cuda"),) * 2)
+    with pytest.raises(TypeError):
+        quant.flash_decode_quantized(
+            torch.zeros(2, 4, 64, device="cuda", dtype=torch.float16),
+            cache, 10)

@@ -246,4 +246,4 @@ def test_generate_sampling_is_seeded(pair):
     with pytest.raises(ValueError):
         gen.generate(model, PROMPT, steps=2, temperature=0.5)
     with pytest.raises(NotImplementedError):
-        gen.generate(model, PROMPT, steps=2, int8_cache=True)
+        gen.generate(model, PROMPT, steps=2, rolling_cache=True)

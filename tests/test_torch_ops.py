@@ -251,6 +251,7 @@ def test_port_imports_no_jax():
         "import attention_tpu_torch.models.convert, chip_smoke\n"
         "import attention_tpu_torch.models.decode\n"
         "import attention_tpu_torch.ops.decode, attention_tpu_torch.ops.paged\n"
+        "import attention_tpu_torch.ops.quant\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'attention_tpu')\n"
         "       and sys.modules[m] is not None]\n"
