@@ -1,7 +1,10 @@
-// Forward flash attention for Hopper (sm_90a), normalized output.
+// Forward flash attention for Hopper (sm_90a), normalized output or partials.
 //
 // Replaces the TPU kernel `_flash_kernel` (attention_tpu/ops/flash.py:310,
-// launched by `_flash_call`), online max mode, normalized output.  Computes
+// launched by `_flash_call`), online max mode, normalized output or, given
+// an fp32 accumulator, the partials of `flash_attention_partials`: the
+// unnormalized output, each row's max (natural-log domain) and its sum of
+// exponentials, which training saves for the backward.  Computes
 // softmax(Q Kᵀ · scale) V for q (B, H, m, dk), k (B, Hkv, n, dk),
 // v (B, Hkv, n, dv); q head h reads kv head h / (H / Hkv).  Only the first
 // kv_valid key rows are attended (a cache filled up to there).  Causal
@@ -36,6 +39,11 @@ struct FlashArgs {
   const void* k;
   const void* v;
   void* o;
+  // partials mode when acc is set: the fp32 unnormalized output (o's
+  // strides) and the (B, H, m) row max and row sum, contiguous
+  float* acc;
+  float* row_max;
+  float* row_sum;
   int H, Hkv, m, n, dk, dv;
   // element strides (batch, head, row) of q, k, v, o
   long long sqb, sqh, sqm, skb, skh, skn, svb, svh, svn, sob, soh, som;
@@ -49,6 +57,9 @@ struct FlashProblem : atk::ProblemBase {
   const T* k;
   const T* v;
   T* o;
+  float* acc;
+  float* mx;
+  float* sm;
   long long sqm, skn, svn, som;
   int m0, m, n_end, kv_valid, q_offset, kv_offset;
   bool causal;
@@ -60,6 +71,19 @@ struct FlashProblem : atk::ProblemBase {
   __device__ T* o_row(int r) const {
     const int row = m0 + r;
     return row < m ? o + row * som : nullptr;
+  }
+  __device__ float* acc_row(int r) const {
+    const int row = m0 + r;
+    return acc != nullptr && row < m ? acc + row * som : nullptr;
+  }
+  // the tile loops keep the max in the log2 domain; JAX's stats are in
+  // the natural-log domain (attention_tpu/ops/flash.py:498)
+  __device__ void put_stats(int r, float mrow, float lrow) const {
+    const int row = m0 + r;
+    if (row < m) {
+      mx[row] = mrow * atk::LN2;
+      sm[row] = lrow;
+    }
   }
   __device__ const T* k_row(int c) const { return k + c * skn; }
   __device__ const T* v_row(int c) const { return v + c * svn; }
@@ -81,6 +105,9 @@ __device__ FlashProblem<T> flash_problem(const FlashArgs& a) {
   pb.k = static_cast<const T*>(a.k) + b * a.skb + hk * a.skh;
   pb.v = static_cast<const T*>(a.v) + b * a.svb + hk * a.svh;
   pb.o = static_cast<T*>(a.o) + b * a.sob + h * a.soh;
+  pb.acc = a.acc == nullptr ? nullptr : a.acc + b * a.sob + h * a.soh;
+  pb.mx = a.row_max + (long long)bh * a.m;
+  pb.sm = a.row_sum + (long long)bh * a.m;
   pb.sqm = a.sqm;
   pb.skn = a.skn;
   pb.svn = a.svn;
@@ -151,7 +178,8 @@ bool mma_ok(const FlashArgs& a) {
   for (long long x : st)
     if (x % 8) return false;
   return (a.dk == 64 || a.dk == 128) && (a.dv == 64 || a.dv == 128) &&
-         aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && aligned16(a.o);
+         aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
+         (a.acc != nullptr || aligned16(a.o));
 }
 
 }  // namespace
@@ -159,8 +187,10 @@ bool mma_ok(const FlashArgs& a) {
 // Plain C entry point, loaded through ctypes.  dtype: 0 = fp32, 1 = bf16.
 // Strides are in elements, (batch, head, row) for each of q, k, v, o; the
 // last dim of every tensor is contiguous.  softcap <= 0 means none;
-// kv_valid is cut to n.  Returns cudaGetLastError() after the launch (or
-// the refusal).
+// kv_valid is cut to n.  With acc non-null the kernel writes partials
+// instead of o: acc (fp32, o's strides), row_max and row_sum ((B, H, m)
+// fp32, contiguous); a row that sees no key gets max -inf and sum 0.
+// Returns cudaGetLastError() after the launch (or the refusal).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          int dtype, int B, int H, int Hkv, int m, int n,
                          int dk, int dv, long long sqb, long long sqh,
@@ -169,13 +199,15 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          long long svn, long long sob, long long soh,
                          long long som, float scale, float softcap,
                          int causal, int q_offset, int kv_offset,
-                         int kv_valid, void* stream) {
+                         int kv_valid, float* acc, float* row_max,
+                         float* row_sum, void* stream) {
   if (dk < 1 || dv < 1 || dk > atk::MAX_HEAD_DIM || dv > atk::MAX_HEAD_DIM ||
       H % Hkv != 0 || m < 1 || n < 1)
     return (int)cudaErrorInvalidValue;
-  const FlashArgs a{q,   k,   v,   o,   H,   Hkv, m,   n,
-                    dk,  dv,  sqb, sqh, sqm, skb, skh, skn,
-                    svb, svh, svn, sob, soh, som, scale * atk::LOG2E,
+  const FlashArgs a{q,   k,   v,   o,   acc, row_max, row_sum, H,
+                    Hkv, m,   n,   dk,  dv,  sqb,     sqh,     sqm,
+                    skb, skh, skn, svb, svh, svn,     sob,     soh,
+                    som, scale * atk::LOG2E,
                     softcap > 0.f ? softcap * atk::LOG2E : 0.f, causal,
                     q_offset, kv_offset, kv_valid};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

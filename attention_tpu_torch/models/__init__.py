@@ -13,3 +13,8 @@ from attention_tpu_torch.models.transformer import (  # noqa: F401
     TransformerBlock,
     init_params,
 )
+from attention_tpu_torch.models.train import (  # noqa: F401
+    init_train,
+    loss_fn,
+    make_train_step,
+)

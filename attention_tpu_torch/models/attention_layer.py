@@ -5,6 +5,8 @@ types.
 The layer dispatches on ``cache``:
 
 * ``None``: the uncached forward, the flash kernel over the sequence;
+  when autograd needs a gradient (training), the differentiable
+  `flash_attention_diff`, whose backward runs the backward kernels;
 * `KVCache` (dense, one length for the batch): the S new K/V rows are
   written at ``length``; S == 1 runs the decode kernel, S > 1 (prefill)
   the flash kernel with ``q_offset=length`` and ``kv_valid`` the new
@@ -37,6 +39,7 @@ from torch import nn
 
 from attention_tpu_torch.ops.decode import flash_decode, flash_decode_chunk
 from attention_tpu_torch.ops.flash import flash_attention
+from attention_tpu_torch.ops.flash_vjp import flash_attention_diff
 from attention_tpu_torch.ops.paged import (
     PagedKV,
     paged_append,
@@ -167,7 +170,14 @@ class GQASelfAttention(nn.Module):
                     pos = pos + off
             q = apply_rope(q, pos, self.rope_theta)
             k = apply_rope(k, pos, self.rope_theta)
-        if cache is None:
+        if cache is None and torch.is_grad_enabled() and (
+                q.requires_grad or k.requires_grad or v.requires_grad):
+            # the JAX layer's `_flash_mha` (max_mode "bound", which the
+            # port runs as the online recurrence)
+            out = flash_attention_diff(q, k, v, causal=self.causal,
+                                       softcap=self.softcap,
+                                       max_mode="bound")
+        elif cache is None:
             out = flash_attention(q, k, v, causal=self.causal,
                                   softcap=self.softcap)
         elif isinstance(cache, RaggedPagedStep):

@@ -6,6 +6,9 @@ dicts of numpy arrays (``jax.device_get`` of ``model.init(...)
 ``DenseGeneral``/``Dense`` kernels (in, ..., out) become ``nn.Linear``
 weights (out, in) by flattening the feature axes and transposing,
 ``Embed`` embeddings and ``RMSNorm`` scales carry over unchanged.
+A gradient tree (``jax.grad`` of a loss over the params) has the params'
+structure, so `params_from_jax` maps it too: the training parity tests
+compare the port's ``.grad`` tensors with it, and need nothing more.
 `quant_cache_from_jax` carries a quantized KV cache across.  This
 module imports neither JAX nor flax: the caller hands over numpy.
 """

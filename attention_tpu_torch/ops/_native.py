@@ -37,6 +37,9 @@ KERNELS = {
     "paged_decode": "paged_decode.cu",
     "quant_decode": "quant_decode.cu",
     "quant_tok4": "quant_tok4_decode.cu",
+    "flash_bwd_fused": "flash_bwd_fused.cu",
+    "flash_bwd_dq": "flash_bwd_dq.cu",
+    "flash_bwd_dkv": "flash_bwd_dkv.cu",
 }
 
 #: ctypes argument types of the kernels' C entry points

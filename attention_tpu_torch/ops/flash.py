@@ -3,12 +3,14 @@
 `flash_attention` keeps the JAX entry point's keywords for the set the
 port supports (``scale``, ``causal``, ``softcap``, the offsets
 ``q_offset``/``kv_offset`` and ``kv_valid`` of cached prefill, GQA over
-2-D, 3-D and 4-D inputs).  For a CUDA tensor it launches the hand-written
-Hopper kernel ``csrc/flash_fwd.cu`` (which replaces the TPU kernel
-`_flash_kernel`); for a CPU tensor it runs `flash_attention_plain`, the
-plain PyTorch version of the same function.  The remaining keywords of
-the JAX entry point raise `NotImplementedError` until a later slice
-ports them.
+2-D, 3-D and 4-D inputs); `flash_attention_partials` returns the
+unnormalized output with the row stats instead, as training's forward
+saves them.  For a CUDA tensor both launch the hand-written Hopper kernel
+``csrc/flash_fwd.cu`` (which replaces the TPU kernel `_flash_kernel`);
+for a CPU tensor they run `flash_attention_plain` and
+`flash_attention_partials_plain`, the plain PyTorch versions of the same
+functions.  The remaining keywords of the JAX entry point raise
+`NotImplementedError` until a later slice ports them.
 """
 
 from __future__ import annotations
@@ -26,12 +28,13 @@ from attention_tpu_torch.ops._native import (
 )
 from attention_tpu_torch.ops.reference import (
     attention_reference,
+    attention_reference_partials,
     check_softcap,
 )
 
 KERNEL = "flash_fwd"
 _ARGTYPES = [P, P, P, P, I, I, I, I, I, I, I, I,
-             *([L] * 12), F, F, I, I, I, I, P]
+             *([L] * 12), F, F, I, I, I, I, P, P, P, P]
 
 
 def _canon(q, k, v):
@@ -61,13 +64,20 @@ def _canon(q, k, v):
     return tuple(t[(None,) * lead] for t in (q, k, v))
 
 
+def _offsets(n, q_offset, kv_offset, kv_valid) -> dict:
+    """The offsets as ints, ``kv_valid`` (default n) cut to [0, n]."""
+    return dict(q_offset=int(q_offset or 0), kv_offset=int(kv_offset or 0),
+                kv_valid=n if kv_valid is None
+                else min(max(int(kv_valid), 0), n))
+
+
 def _unsupported(**features) -> None:
     for name, value in features.items():
         if value is not None:
             raise NotImplementedError(
-                f"flash_attention({name}=...) is not ported yet; the "
-                "port supports scale, causal, softcap, q_offset, "
-                "kv_offset and kv_valid")
+                f"flash attention's {name}=... is not ported yet; the port "
+                "supports scale, causal, softcap, q_offset, kv_offset and "
+                "kv_valid")
 
 
 def flash_attention_plain(q, k, v, *, scale=None, causal=False,
@@ -81,8 +91,18 @@ def flash_attention_plain(q, k, v, *, scale=None, causal=False,
                                kv_offset=kv_offset, kv_valid=kv_valid)
 
 
+def flash_attention_partials_plain(q, k, v, *, scale=None, causal=False,
+                                   softcap=None, q_offset=0, kv_offset=0,
+                                   kv_valid=None):
+    """The plain PyTorch version of `flash_attention_partials`."""
+    _canon(q, k, v)
+    return attention_reference_partials(
+        q, k, v, scale=scale, causal=causal, softcap=softcap,
+        q_offset=q_offset, kv_offset=kv_offset, kv_valid=kv_valid)
+
+
 def _launch(q4, k4, v4, *, scale, causal, softcap, q_offset, kv_offset,
-            kv_valid) -> torch.Tensor:
+            kv_valid, partials=False):
     dtype = q4.dtype
     if dtype not in DTYPE_CODES or k4.dtype != dtype or v4.dtype != dtype:
         raise TypeError(
@@ -99,20 +119,54 @@ def _launch(q4, k4, v4, *, scale, causal, softcap, q_offset, kv_offset,
     q4, k4, v4 = (t if t.stride(-1) == 1 else t.contiguous()
                   for t in (q4, k4, v4))
     # (b, m, h, dv) storage: the attention layer's head merge is a view
-    o4 = torch.empty((b, m, h, dv), dtype=dtype,
-                     device=q4.device).transpose(1, 2)
+    o4 = torch.empty((b, m, h, dv), dtype=torch.float32 if partials
+                     else dtype, device=q4.device).transpose(1, 2)
+    stats = (torch.empty((2, b, h, m), dtype=torch.float32,
+                         device=q4.device) if partials else None)
     fn = _native.function(KERNEL, "flash_fwd", _ARGTYPES)
     with torch.cuda.device(q4.device):
         stream = torch.cuda.current_stream(q4.device).cuda_stream
-        err = fn(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
+        err = fn(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
+                 None if partials else o4.data_ptr(),
                  DTYPE_CODES[dtype], b, h, hkv, m, n, dk, dv,
                  *q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3],
                  *o4.stride()[:3], float(scale),
                  float(softcap or 0.0), int(causal), q_offset, kv_offset,
-                 kv_valid, stream)
+                 kv_valid, *((o4.data_ptr(), stats[0].data_ptr(),
+                              stats[1].data_ptr()) if partials
+                             else (None, None, None)), stream)
     _native.check(KERNEL, err)
     _native.count_launch(KERNEL)
-    return o4
+    return (o4, stats[0], stats[1]) if partials else o4
+
+
+def _dispatch(q, k, v, plain, *, scale, causal, softcap, window, sinks,
+              q_segment_ids, kv_segment_ids, q_offset, kv_offset, kv_valid,
+              max_mode, partials):
+    """Shared argument handling of the two entry points: validate, then
+    the plain version for CPU tensors or the kernel for CUDA ones."""
+    _unsupported(window=window, sinks=sinks, q_segment_ids=q_segment_ids,
+                 kv_segment_ids=kv_segment_ids)
+    if max_mode != "online":
+        raise NotImplementedError(
+            f"max_mode={max_mode!r} is not ported yet; only 'online'")
+    check_softcap(softcap)
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    q4, k4, v4 = _canon(q, k, v)
+    offsets = _offsets(k.shape[-2], q_offset, kv_offset, kv_valid)
+    if q.device.type == "cpu":
+        return plain(q, k, v, scale=scale, causal=causal, softcap=softcap,
+                     **offsets)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device.type}")
+    lead = (0,) * (4 - q.dim())
+    out = _launch(q4, k4, v4, scale=scale, causal=causal, softcap=softcap,
+                  partials=partials, **offsets)
+    if partials:
+        return tuple(t[lead] for t in out)
+    return out[lead]
 
 
 def flash_attention(
@@ -143,25 +197,43 @@ def flash_attention(
     masking.  A row that sees no key comes out zero.  Output dtype is
     ``v.dtype``.  CUDA tensors run the Hopper kernel; CPU tensors run
     `flash_attention_plain`."""
-    _unsupported(window=window, sinks=sinks, q_segment_ids=q_segment_ids,
-                 kv_segment_ids=kv_segment_ids)
-    if max_mode != "online":
-        raise NotImplementedError(
-            f"max_mode={max_mode!r} is not ported yet; only 'online'")
-    check_softcap(softcap)
-    if scale is None:
-        scale = 1.0 / (q.shape[-1] ** 0.5)
-    q4, k4, v4 = _canon(q, k, v)
-    n = k.shape[-2]
-    offsets = dict(q_offset=int(q_offset or 0), kv_offset=int(kv_offset or 0),
-                   kv_valid=n if kv_valid is None
-                   else min(max(int(kv_valid), 0), n))
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale=scale, causal=causal,
-                                     softcap=softcap, **offsets)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                         f"{q.device.type}")
-    o4 = _launch(q4, k4, v4, scale=scale, causal=causal, softcap=softcap,
-                 **offsets)
-    return o4[(0,) * (4 - q.dim())]
+    return _dispatch(q, k, v, flash_attention_plain, scale=scale,
+                     causal=causal, softcap=softcap, window=window,
+                     sinks=sinks, q_segment_ids=q_segment_ids,
+                     kv_segment_ids=kv_segment_ids, q_offset=q_offset,
+                     kv_offset=kv_offset, kv_valid=kv_valid,
+                     max_mode=max_mode, partials=False)
+
+
+def flash_attention_partials(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    scale: float | None = None,
+    causal: bool = False,
+    softcap: float | None = None,
+    window: int | None = None,
+    sinks: int | None = None,
+    q_segment_ids=None,
+    kv_segment_ids=None,
+    q_offset=None,
+    kv_offset=None,
+    kv_valid=None,
+    max_mode: str = "online",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Unnormalized attention with its row stats, as JAX's
+    `flash_attention_partials`: ``(out_unnorm, row_max, row_sum)`` in
+    float32, shapes (..., m, dv), (..., m), (..., m).  ``out_unnorm`` is
+    the sum over keys of exp(s - row_max)·v, ``row_max`` the row's
+    largest masked score in the natural-log domain (-inf for a row that
+    sees no key, whose sum is then 0), ``row_sum`` the sum of
+    exp(s - row_max).  Same inputs and keywords as `flash_attention`.
+    CUDA tensors run the Hopper kernel's partials epilogue; CPU tensors
+    run `flash_attention_partials_plain`."""
+    return _dispatch(q, k, v, flash_attention_partials_plain, scale=scale,
+                     causal=causal, softcap=softcap, window=window,
+                     sinks=sinks, q_segment_ids=q_segment_ids,
+                     kv_segment_ids=kv_segment_ids, q_offset=q_offset,
+                     kv_offset=kv_offset, kv_valid=kv_valid,
+                     max_mode=max_mode, partials=True)

@@ -1,0 +1,111 @@
+"""Differentiable flash attention: the port of
+`attention_tpu.ops.flash_vjp`.
+
+`flash_attention_diff` is a `torch.autograd.Function` around the flash
+kernels.  Its forward runs `flash_attention_partials` and normalizes, as
+JAX's `_flash_fwd_impl` does, saving only (q, k, v, out, lse) instead of
+the probability matrix; its backward is `ops.flash_bwd.flash_backward`,
+which recomputes the probabilities from the saved log-sum-exp.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from attention_tpu_torch.ops.flash import (
+    _canon,
+    _offsets,
+    _unsupported,
+    flash_attention_partials,
+)
+from attention_tpu_torch.ops.flash_bwd import (
+    flash_backward,
+    flash_backward_plain,
+)
+
+
+def _flash_fwd_impl(q, k, v, **kw):
+    """(out in q's dtype, lse (..., m) float32 in the natural-log
+    domain, -inf for a row that sees no key)."""
+    out_un, row_max, row_sum = flash_attention_partials(q, k, v, **kw)
+    l_safe = torch.where(row_sum == 0.0, 1.0, row_sum)
+    out = (out_un / l_safe[..., None]).to(q.dtype)
+    lse = torch.where(row_max == float("-inf"), row_max,
+                      row_max + torch.log(l_safe))
+    return out, lse
+
+
+class _FlashDiff(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, opts):
+        out, lse = _flash_fwd_impl(q, k, v, **opts["fwd"])
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = opts
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        opts, fwd = ctx.opts, ctx.opts["fwd"]
+        if opts["bwd_impl"] == "xla":
+            grads = flash_backward_plain(
+                q, k, v, out, lse, dout, scale=fwd["scale"],
+                causal=fwd["causal"], softcap=fwd["softcap"],
+                chunk=opts["bwd_chunk"],
+                **_offsets(k.shape[-2], fwd["q_offset"], fwd["kv_offset"],
+                           fwd["kv_valid"]))
+        else:
+            grads = flash_backward(q, k, v, out, lse, dout, **fwd)
+        return (*grads, None)
+
+
+def flash_attention_diff(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    scale: float | None = None,
+    causal: bool = False,
+    block_sizes=None,
+    bwd_chunk: int = 512,
+    bwd_impl: str = "pallas",
+    q_segment_ids=None,
+    kv_segment_ids=None,
+    window: int | None = None,
+    softcap: float | None = None,
+    sinks: int | None = None,
+    q_offset=None,
+    kv_offset=None,
+    kv_valid=None,
+    max_mode: str = "online",
+) -> torch.Tensor:
+    """Differentiable fused attention with `flash_attention`'s shape
+    contract: (m, d), (h, m, d) or (b, h, m, d) inputs, dk != dv allowed,
+    GQA for 3-D/4-D.  Gradients flow to q, k and v.
+
+    ``bwd_impl`` names the backward as the JAX package does: ``"pallas"``
+    (the default) is `flash_backward`, which on CUDA tensors launches the
+    hand-written backward kernels (the fused one, or the dQ and dK/dV
+    pair under `flash_bwd._FORCE_TWO_KERNEL`) and on CPU tensors runs
+    their plain version; ``"xla"`` runs the plain blocked recompute
+    `flash_backward_plain` on any device, in blocks of ``bwd_chunk``
+    query rows.  ``max_mode`` takes ``"online"`` and ``"bound"``; both run
+    the online recurrence, which gives the same output and lse.
+    ``window``, ``sinks``, segment ids and ``block_sizes`` raise
+    `NotImplementedError`."""
+    if bwd_impl not in ("pallas", "xla"):
+        raise ValueError(f"unknown bwd_impl {bwd_impl!r}")
+    if max_mode not in ("online", "bound"):
+        raise NotImplementedError(
+            f"max_mode={max_mode!r} is not ported yet; 'online' and "
+            "'bound' run the online recurrence")
+    _unsupported(window=window, sinks=sinks, q_segment_ids=q_segment_ids,
+                 kv_segment_ids=kv_segment_ids, block_sizes=block_sizes)
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    q4, k4, v4 = _canon(q, k, v)
+    fwd = dict(scale=scale, causal=causal, softcap=softcap,
+               q_offset=q_offset, kv_offset=kv_offset, kv_valid=kv_valid)
+    out = _FlashDiff.apply(q4, k4, v4, dict(fwd=fwd, bwd_impl=bwd_impl,
+                                            bwd_chunk=bwd_chunk))
+    return out[(0,) * (4 - q.dim())]

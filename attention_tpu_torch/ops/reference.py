@@ -61,6 +61,51 @@ def mismatch(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return err.max().item(), ratio.max().item()
 
 
+def grad_mismatch(got: torch.Tensor,
+                  want: torch.Tensor) -> tuple[float, float]:
+    """`mismatch` for gradients: (max abs difference, largest ratio of an
+    element's difference to its limit); they agree when the ratio is at
+    most 1.
+
+    bfloat16: 2^-7·|want| + 2^-6·rms(want's row) + 2^-10·rms(want).
+    Each side rounds its float32 gradient to bf16 once, which costs at
+    most one ulp, 2^-7 of the value; `mismatch`'s 2e-2 cap would be under
+    one ulp for the gradients above 2.56 that a long sum builds (dK and
+    dV sum over every query row of a GQA group: 4096 rows x 8 heads at
+    the serving shape).  Before that rounding the float32 sums differ by
+    their order and, more, where one P or dS value lies so near a bf16
+    rounding boundary that the two sides round it apart: one ulp of that
+    term, up to 2^-7 of it.  A row with few keys is dominated by a term
+    of about its rms (measured on the card: a dQ row over 29 keys, one
+    term 0.197, row rms 0.155, the sides 0.0012 apart): the row term
+    covers a term twice the row's rms.  dS = P·(dP - delta) cancels to
+    about 1e-7 for a row that sees one key, where the two sides keep
+    different float32 residues of a gradient that is 0: the tensor term.
+    A 2% error in the scale, or a dropped key tile, exceeds the limit
+    (``chip_smoke.py`` plants both).
+
+    float32: 2^-16·(|want| + rms(want's row)) + 2^-20·rms(want): the
+    same arithmetic in another order (and other P values by 1 ulp from
+    exp2), whose relative error grows with the length of the sums."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{tuple(got.shape)}/{got.dtype} vs "
+                             f"{tuple(want.shape)}/{want.dtype}")
+    if not torch.equal(got.isnan(), want.isnan()):
+        raise AssertionError("NaN positions differ")
+    g, w = got.float().nan_to_num(), want.float().nan_to_num()
+    err = (g - w).abs()
+    row_rms = w.square().mean(dim=-1, keepdim=True).sqrt()
+    rms = w.square().mean().sqrt()
+    if want.dtype == torch.bfloat16:
+        limit = 2.0 ** -7 * w.abs() + 2.0 ** -6 * row_rms + 2.0 ** -10 * rms
+    elif want.dtype == torch.float32:
+        limit = 2.0 ** -16 * (w.abs() + row_rms) + 2.0 ** -20 * rms
+    else:
+        raise TypeError(f"no tolerance for {want.dtype}")
+    ratio = torch.where(err == 0, 0.0, err / limit)
+    return err.max().item(), ratio.max().item()
+
+
 def check_softcap(softcap) -> None:
     """Shared entry-point validation for the softcap knob."""
     if softcap is not None and softcap <= 0.0:
@@ -93,6 +138,34 @@ def _partials_pv(scores: torch.Tensor, v: torch.Tensor):
     return out, row_max, p.sum(dim=-1)
 
 
+def _masked_scores(q, k, *, scale, causal, softcap, q_offset, kv_offset,
+                   kv_valid):
+    """float32 scores of `attention_reference` with masked entries -inf,
+    and k's heads repeated over their GQA group."""
+    check_softcap(softcap)
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    m, n = scores.shape[-2:]
+    row = torch.arange(m, device=q.device)[:, None]
+    col = torch.arange(n, device=q.device)[None, :]
+    masked = col >= (n if kv_valid is None else kv_valid)
+    if causal:
+        masked = masked | (col + kv_offset > row + q_offset)
+    return scores.masked_fill(masked, float("-inf"))
+
+
+def _gqa_repeat(q, k, v):
+    """k and v with each head repeated over its group of q heads."""
+    if q.dim() >= 3 and q.shape[-3] != k.shape[-3]:
+        group = q.shape[-3] // k.shape[-3]
+        k = k.repeat_interleave(group, dim=-3)
+        v = v.repeat_interleave(group, dim=-3)
+    return k, v
+
+
 def attention_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -113,23 +186,22 @@ def attention_reference(
     key rows are attended.  ``causal`` masks key j against query i when
     ``kv_offset + j > q_offset + i``; ``softcap`` maps the scaled scores
     through cap·tanh(s/cap) before masking."""
-    check_softcap(softcap)
-    if scale is None:
-        scale = 1.0 / (q.shape[-1] ** 0.5)
-    if q.dim() >= 3 and q.shape[-3] != k.shape[-3]:
-        group = q.shape[-3] // k.shape[-3]
-        k = k.repeat_interleave(group, dim=-3)
-        v = v.repeat_interleave(group, dim=-3)
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if softcap is not None:
-        scores = softcap * torch.tanh(scores / softcap)
-    m, n = scores.shape[-2:]
-    row = torch.arange(m, device=q.device)[:, None]
-    col = torch.arange(n, device=q.device)[None, :]
-    masked = col >= (n if kv_valid is None else kv_valid)
-    if causal:
-        masked = masked | (col + kv_offset > row + q_offset)
-    return _softmax_pv(scores.masked_fill(masked, float("-inf")), v)
+    k, v = _gqa_repeat(q, k, v)
+    return _softmax_pv(_masked_scores(
+        q, k, scale=scale, causal=causal, softcap=softcap,
+        q_offset=q_offset, kv_offset=kv_offset, kv_valid=kv_valid), v)
+
+
+def attention_reference_partials(q, k, v, *, scale=None, causal=False,
+                                 softcap=None, q_offset=0, kv_offset=0,
+                                 kv_valid=None):
+    """The unnormalized form of `attention_reference` (same inputs):
+    float32 (sum of exp(s - max)·v, row max, row sum) of `_partials_pv`,
+    the row max in the natural-log domain."""
+    k, v = _gqa_repeat(q, k, v)
+    return _partials_pv(_masked_scores(
+        q, k, scale=scale, causal=causal, softcap=softcap,
+        q_offset=q_offset, kv_offset=kv_offset, kv_valid=kv_valid), v)
 
 
 def decode_reference(

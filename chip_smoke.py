@@ -8,7 +8,7 @@ It needs one CUDA card, ``nvcc`` and ``nvidia-smi``, and imports
 nothing of JAX.  Every phase raises on a failure, so the script exits
 non-zero unless all of them pass:
 
-1. build    all six CUDA kernels from ``attention_tpu_torch/csrc`` (one
+1. build    all nine CUDA kernels from ``attention_tpu_torch/csrc`` (one
             ``nvcc`` each, started together); print the card's name and
             power limit.
 2. kernels  each kernel against its plain PyTorch version on the card,
@@ -32,6 +32,18 @@ non-zero unless all of them pass:
             give the same bits on a second call, and the plain output with
             a planted fault (its last key tile dropped, or its scale 2%
             off) must fail the check.
+2b. backward the training forward's partials and the three backward
+            kernels (fused, dQ, dK/dV) at the serving geometry as a
+            training call (b = 1, 32 q / 4 kv heads, m = n = 4096, d 128,
+            causal, bf16), with and without softcap 50, and at phase 7's
+            layer call (b = 4, m = n = 2048, softcap 50, strided operands
+            as the attention layer passes them), against
+            `flash_backward_plain` under `reference.grad_mismatch`; the
+            same bits on a second call (the fused dQ, whose atomics add in
+            no fixed order, within the limit of the first); a dropped key
+            tile in dK and a 2% scale error in dQ must fail; each kernel
+            timed alone and `flash_backward` end to end on each path,
+            with SDPA's backward as the yardstick.
 3. op path  the ``scale4`` testcase (m = n = 8192, dk = dv = 128) from
             the port's generator, through ``cli run --backend flash`` in
             f32 and bf16: both must print ``Correct!``.
@@ -56,11 +68,22 @@ non-zero unless all of them pass:
             twice; greedy engine streams in both step modes; greedy
             tokens of the three generate functions; teacher-forced
             int8-cache logits and greedy `generate(int8_cache=True)`
-            tokens.
+            tokens; training: loss and every gradient of one step, then
+            three AdamW steps' losses, against the CPU.
+7. train    the phase 4 model trained: `init_train`, 5 fused steps of
+            `make_train_step` on a seeded batch of 4 x 2049 tokens (every
+            loss finite, the last below the first; the flash kernel and
+            the fused backward kernel once per layer per step), 2 steps
+            from the same start on the dQ + dK/dV pair (losses equal to
+            the fused run's); every parameter's gradient from the seeded
+            start, the fused path's run again and the pair's, against
+            the fused one's (relative L2 within 2^-6), a 2% scale error
+            planted in the fused dK must fail;
+            one step under `torch.profiler`.
 
 Launch counts are reset just before each run of a path (op path, the
 int4 entry points, each generate function, the chunk verify, each
-serving run) and read just after it.  Kernel times are CUDA-event
+serving run, each training run) and read just after it.  Kernel times are CUDA-event
 medians after warm-up.  The second-to-last stdout line is the
 ``{"kernels": [...]}`` record, the last ``{"ok": true, "device":
 ...}``.
@@ -102,6 +125,32 @@ GEN_STEPS = 32
 # card against CPU on the small f32 model with int8 caches, max abs
 # logits (PERF.md section 2 gives the reasons)
 INT8_LOGITS_TOL = 1e-2
+# the training phase: batch (sequences, tokens), fused steps, learning rate
+TRAIN_BATCH = (4, 2049)
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-3
+# the two-kernel run's second loss against the fused run's, max abs: the
+# two backward paths sum their fp32 gradients in another order, so a few
+# bf16 gradients round one ulp apart and flip AdamW's first update
+# (lr·sign(g)) only where g is near 0; measured about 1e-4 apart on a
+# loss of about 10 (H100), so 1e-2 leaves a wide margin at 0.1% of the loss
+TRAIN_LOSS_TOL = 1e-2
+# full-width gradients of two backward paths, relative L2 per parameter:
+# once two bf16 backward passes part anywhere (the fused dQ's atomics add
+# in another order each run; the pair sums in another order again), the
+# layers' bf16 roundings spread it to a floor of their own size in the
+# lowest layer, measured on an H100 at 5.0e-3 to 6.6e-3 for the fused
+# path against itself and 7.4e-3 for the pair against it.  2^-6 is twice
+# the largest reading; a 2% error in dK reads 2.2e-2, beyond it.
+# Elementwise limits do not fit weight gradients: long sums that cancel,
+# and f32 norm scales that carry bf16 arithmetic
+TRAIN_GRAD_REL_TOL = 2.0 ** -6
+# card against CPU on the small f32 model: loss max abs (the logits agree
+# to 1e-4 and the loss is a mean of their log-softmax), each step's loss
+# after AdamW updates (the same, plus updates that differ only where a
+# gradient is near 0)
+TRAIN_F32_LOSS_TOL = 1e-5
+TRAIN_F32_STEP_LOSS_TOL = 1e-4
 
 
 def emit(**record) -> None:
@@ -158,13 +207,15 @@ def rejected(planted: dict, want: torch.Tensor) -> dict:
     return out
 
 
-def same_bits(a, b) -> None:
+def same_bits(a, b, what: str = "two calls on the same inputs") -> None:
     """Two calls on the same inputs must give the same bits (tensors or
     tuples of tensors)."""
     for x, y in zip(*((t,) if torch.is_tensor(t) else t for t in (a, b))):
         ints = {2: torch.int16, 4: torch.int32}[x.element_size()]
         if not torch.equal(x.view(ints), y.view(ints)):
-            raise AssertionError("two calls on the same inputs differ")
+            raise AssertionError(
+                f"{what} differ: {(x != y).sum().item()} of {x.numel()} "
+                f"elements, max abs {(x - y).abs().max().item()}")
 
 
 def decode_work(lens, s_new, h, hkv, d, item, window=None, sinks=None,
@@ -871,6 +922,341 @@ def phase_serving(ops, kernels, model) -> None:
          / len(same))
 
 
+def bwd_work(h, hkv, m, n, d, pairs, item, factor, outs):
+    """(bytes, operations) of one backward call: Qs, K, V and dO read
+    once in the input dtype, lse and delta once in fp32, ``outs`` (the
+    gradients it writes: "q" for dQ, "kv" for dK and dV) written once in
+    the input dtype; ``factor``·d operations per visible (row, key) pair
+    per q head."""
+    nbytes = (2 * h * m * d + 2 * hkv * n * d) * item + 2 * h * m * 4
+    nbytes += (h * m * d * ("q" in outs) + 2 * hkv * n * d * ("kv" in outs)) \
+        * item
+    return nbytes, float(factor) * d * h * pairs
+
+
+def phase_backward(kernels) -> None:
+    """The backward kernels at the serving geometry as a training call (b
+    = 1, 32 q / 4 kv heads, m = n = 4096, d 128, causal, bf16), with and
+    without softcap 50, and at the training phase's layer call (b = 4, m
+    = n = 2048, softcap 50, q/k/v/dO strided as the attention layer hands
+    them over): the training forward's partials against their plain
+    version, then the fused kernel and the dQ + dK/dV pair against
+    `flash_backward_plain` under `reference.grad_mismatch`.  A second
+    call gives the same bits, except the fused dQ, whose fp32 atomics add
+    in another order each run: it must agree with the first run within
+    `grad_mismatch`'s limit (one bf16 ulp plus the fp32 reordering).  A
+    dropped last key tile in dK and a 2% scale error in dQ must fail.
+    The serving cases are timed: each kernel alone, `flash_backward` end
+    to end on each path, the plain version, SDPA's backward."""
+    from attention_tpu_torch.ops import flash_bwd
+    from attention_tpu_torch.ops.flash import (
+        flash_attention_partials,
+        flash_attention_partials_plain,
+    )
+    from attention_tpu_torch.ops.flash_vjp import _flash_fwd_impl
+    from attention_tpu_torch.ops.reference import grad_mismatch
+
+    h, hkv, d = 32, 4, 128
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    # serving: contiguous (1, heads, 4096, d); the layer: (b, s, heads, d)
+    # projections viewed as (b, heads, s, d), dO as autograd returns it
+    serving = (randn(1, h, 4096, d), randn(1, hkv, 4096, d),
+               randn(1, hkv, 4096, d), randn(1, h, 4096, d))
+    b, s = TRAIN_BATCH[0], TRAIN_BATCH[1] - 1
+    layer = tuple(randn(b, s, n, d).transpose(1, 2) for n in (h, hkv, hkv, h))
+    names = ("dq", "dk", "dv")
+
+    def held_grads(got, want):
+        out = [grad_mismatch(g, w) for g, w in zip(got, want)]
+        if not all(ratio <= 1.0 for _, ratio in out):
+            raise AssertionError(f"backward off its plain version: {out}")
+        return out
+
+    for case, (q, k, v, dout), cap in (
+            ("serving_causal", serving, None),
+            ("serving_causal_softcap", serving, 50.0),
+            ("train_layer_causal_softcap", layer, 50.0)):
+        kw = dict(scale=d ** -0.5, causal=True, softcap=cap)
+        n = k.shape[-2]
+        # the training forward: partials, held normalized (bf16) and the
+        # row stats (fp32, relative 1e-5: same arithmetic, other order)
+        part = flash_attention_partials(q, k, v, **kw)
+        plain = flash_attention_partials_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        norm = [(o / l_[..., None]).to(torch.bfloat16)
+                for o, _, l_ in (part, plain)]
+        stats_rel = [((a - b).abs().max() / b.abs().max()).item()
+                     for a, b in zip(part[1:], plain[1:])]
+        p_err, p_ratio = held(*norm)
+        if not max(stats_rel) <= 1e-5:
+            raise AssertionError(f"partials' row stats off: {stats_rel}")
+        kernels["flash_fwd"]["max_abs_err"] = max(
+            kernels["flash_fwd"]["max_abs_err"], p_err)
+        emit(phase="backward", kernel="flash_fwd", case=case + "_partials",
+             max_abs_err=p_err, share_of_limit=p_ratio,
+             row_stats_rel_err=stats_rel)
+
+        out, lse = _flash_fwd_impl(q, k, v, **kw)
+        want = flash_bwd.flash_backward_plain(q, k, v, out, lse, dout, **kw)
+        faults = {
+            "dk_dropped_last_key_tile": grad_mismatch(
+                flash_bwd.flash_backward_plain(
+                    q, k, v, out, lse, dout, kv_valid=n - KEY_TILE,
+                    **kw)[1], want[1])[1],
+            "dq_scale_off_2pct": grad_mismatch(
+                flash_bwd.flash_backward_plain(
+                    q, k, v, out, lse, dout,
+                    **dict(kw, scale=1.02 * d ** -0.5))[0], want[0])[1]}
+        if not all(ratio > 1.0 for ratio in faults.values()):
+            raise AssertionError(f"the check passes a planted fault: "
+                                 f"{faults}")
+        for path in ("fused", "pair"):
+            flash_bwd._FORCE_TWO_KERNEL = path == "pair"
+            got = flash_bwd.flash_backward(q, k, v, out, lse, dout, **kw)
+            again = flash_bwd.flash_backward(q, k, v, out, lse, dout, **kw)
+            flash_bwd._FORCE_TWO_KERNEL = False
+            torch.cuda.synchronize()
+            errs = held_grads(got, want)
+            run_to_run = None
+            if path == "fused":
+                same_bits(got[1:], again[1:])
+                run_to_run = grad_mismatch(again[0], got[0])
+                if not run_to_run[1] <= 1.0:
+                    raise AssertionError(f"fused dQ run to run: {run_to_run}")
+            else:
+                same_bits(got, again)
+            for kernel, idx in ((flash_bwd.FUSED, (0, 1, 2)),) \
+                    if path == "fused" else ((flash_bwd.DQ, (0,)),
+                                             (flash_bwd.DKV, (1, 2))):
+                kernels[kernel]["max_abs_err"] = max(
+                    kernels[kernel]["max_abs_err"],
+                    *(errs[i][0] for i in idx))
+            emit(phase="backward", path=path, case=case,
+                 max_abs_err=dict(zip(names, (e for e, _ in errs))),
+                 share_of_limit=dict(zip(names, (r for _, r in errs))),
+                 fused_dq_run_to_run=run_to_run,
+                 planted_faults_share_of_limit=faults)
+        if case.startswith("serving"):
+            backward_times(kernels, case, (q, k, v, out, lse, dout), kw)
+
+
+def backward_times(kernels, case, args, kw) -> None:
+    """Time one serving backward case: each kernel alone on the staged
+    operands (the kernels line's ``ms``), `flash_backward` end to end on
+    each path (staging, the fp32 dQ buffer's zero fill, the fused path's
+    GQA sum of per-head partials and the casts included), the plain
+    version, and (without softcap) SDPA's backward as the yardstick."""
+    from torch.nn import functional as F
+
+    from attention_tpu_torch.ops import flash_bwd
+
+    q, k, v, out, lse, dout = args
+    _, h, s, d = q.shape
+    hkv = k.shape[1]
+    pairs = s * (s + 1) // 2
+    run = flash_bwd._prepare(*args, q_offset=0, kv_offset=0, kv_valid=s,
+                             **kw)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    dq32 = torch.zeros((1, h, s, d), **f32)
+    dkp, dvp = (torch.empty((1, h, s, d), **f32) for _ in "kv")
+    dq = torch.empty((1, h, s, d), dtype=torch.bfloat16, device="cuda")
+    dk32, dv32 = (torch.empty((1, hkv, s, d), **f32) for _ in "kv")
+    plain_ms = time_ms(lambda: flash_bwd.flash_backward_plain(*args, **kw),
+                       calls=1, reps=3)
+    end_to_end = {}
+    for path in ("fused", "pair"):
+        flash_bwd._FORCE_TWO_KERNEL = path == "pair"
+        end_to_end[path] = time_ms(
+            lambda: flash_bwd.flash_backward(*args, **kw))
+        flash_bwd._FORCE_TWO_KERNEL = False
+    library_ms = None
+    if kw["softcap"] is None:
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        o = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                           enable_gqa=True)
+        library_ms = time_ms(lambda: torch.autograd.grad(
+            o, (qq, kk, vv), dout, retain_graph=True))
+    emit(phase="backward", case=case, flash_backward_ms=end_to_end,
+         library_ms=library_ms)
+    for kernel, launch, factor, outs in (
+            (flash_bwd.FUSED, lambda: run(flash_bwd.FUSED, dq32=dq32,
+                                          dk=dkp, dvo=dvp), 10, "qkv"),
+            (flash_bwd.DQ, lambda: run(flash_bwd.DQ, dq=dq), 6, "q"),
+            (flash_bwd.DKV, lambda: run(flash_bwd.DKV, dk=dk32,
+                                        dvo=dv32), 8, "kv")):
+        b_ms, b_by = bound_ms(*bwd_work(h, hkv, s, s, d, pairs, 2,
+                                        factor, outs), torch.bfloat16)
+        t = dict(ms=time_ms(launch), plain_ms=plain_ms, bound_ms=b_ms,
+                 bound_by=b_by, library_ms=library_ms
+                 if kernel == flash_bwd.FUSED else None)
+        emit(phase="backward", kernel=kernel, case=case,
+             tflop_s=factor * d * h * pairs / t["ms"] / 1e9, **t)
+        if kw["softcap"] is None:
+            kernels[kernel].update(t)
+
+
+def phase_train(ops, kernels, model) -> None:
+    """Training at the serving model's full width: `init_train`, then
+    `TRAIN_STEPS` fused steps of `make_train_step` on one seeded batch of
+    4 x 2049 tokens, every loss finite and the last below the first; the
+    forward flash kernel and the fused backward kernel once per layer per
+    step, nothing else.  Then two steps from the same start with the
+    dQ + dK/dV pair: the first loss equal to the fused run's (the same
+    forward on the same weights), the second within `TRAIN_LOSS_TOL`.
+    Then the gradients of both paths (`train_grads_agree`), and one fused
+    step under `torch.profiler`: device time by class."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from attention_tpu_torch.models import init_train, make_train_step
+    from attention_tpu_torch.ops import flash_bwd
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    batch = torch.randint(0, model.vocab, TRAIN_BATCH, generator=gen,
+                          device="cuda")
+    tokens = TRAIN_BATCH[0] * (TRAIN_BATCH[1] - 1)
+    losses = {}
+    for path, steps, bwd in (("fused", TRAIN_STEPS, (flash_bwd.FUSED,)),
+                             ("pair", 2, (flash_bwd.DQ, flash_bwd.DKV))):
+        flash_bwd._FORCE_TWO_KERNEL = path == "pair"
+        step = make_train_step(model, init_train(model, seed=SEED,
+                                                 lr=TRAIN_LR))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        got, step_ms = [], []
+        for _ in range(steps):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in "se")
+            start.record()
+            loss = step(batch)
+            end.record()
+            end.synchronize()
+            got.append(loss.item())
+            step_ms.append(start.elapsed_time(end))
+        launches = ops.launch_counts()
+        flash_bwd._FORCE_TWO_KERNEL = False
+        want = {"flash_fwd": steps * model.depth,
+                **{kernel: steps * model.depth for kernel in bwd}}
+        if {k: c for k, c in launches.items() if c} != want:
+            raise AssertionError(f"{path} steps launched {launches}, "
+                                 f"want {want}")
+        if not all(np.isfinite(got)):
+            raise AssertionError(f"{path}: non-finite loss {got}")
+        for kernel in bwd:
+            kernels[kernel]["launches"] += launches[kernel]
+        kernels["flash_fwd"]["launches"] += launches["flash_fwd"]
+        losses[path] = got
+        ms = statistics.median(step_ms[1:])
+        emit(phase="train", path=path, losses=got, step_ms=step_ms,
+             median_step_ms=ms, tokens_per_step=tokens,
+             tokens_per_s=tokens / ms * 1e3, launches=launches,
+             peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    fused, pair = losses["fused"], losses["pair"]
+    if not fused[-1] < fused[0]:
+        raise AssertionError(f"the loss did not fall: {fused}")
+    if not (abs(pair[0] - fused[0]) <= 1e-5 * abs(fused[0])
+            and abs(pair[1] - fused[1]) <= TRAIN_LOSS_TOL):
+        raise AssertionError(f"two-kernel losses {pair} against fused "
+                             f"{fused[:2]}")
+    emit(phase="train", pair_vs_fused_loss=[pair[0] - fused[0],
+                                            pair[1] - fused[1]],
+         tol=TRAIN_LOSS_TOL)
+    train_grads_agree(model, batch)
+
+    step = make_train_step(model, init_train(model, seed=SEED, lr=TRAIN_LR))
+    step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    classes: dict[str, float] = {}
+    by_name: dict[str, list] = {}
+    for evt in prof.events():
+        # a user annotation (the optimizer's step range) spans kernels
+        # that are counted on their own
+        if evt.device_type != DeviceType.CUDA or evt.is_user_annotation:
+            continue
+        acc = by_name.setdefault(evt.name[:80], [0, 0.0])
+        acc[0] += 1
+        acc[1] += evt.time_range.elapsed_us() / 1e3
+        name = evt.name.lower()
+        cls = ("flash_bwd" if "major" in name
+               else "flash_fwd" if "flash_fwd" in name
+               else "memcpy/memset" if name.startswith("mem")
+               else "optimizer" if "multi_tensor" in name
+               else "matmul" if any(w in name for w in (
+                   "gemm", "xmma", "cutlass", "sm90", "nvjet"))
+               else "other")
+        classes[cls] = classes.get(cls, 0.0) + \
+            evt.time_range.elapsed_us() / 1e3
+    busy = sum(classes.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    emit(phase="train", profiled_step_wall_ms=wall * 1e3,
+         device_busy_ms=busy, busy_share=busy / (wall * 1e3),
+         device_ms_by_class=classes,
+         top_kernels=[{"name": n, "count": c, "ms": t} for n, (c, t) in top])
+
+
+def train_grads_agree(model, batch) -> None:
+    """The full-width gradients themselves, each from one `loss_fn` and
+    `backward()` at the seeded start, against the fused kernel's by
+    relative L2 distance per parameter: the fused path run again (its dQ
+    atomics add in another order) and the pair must lie within
+    `TRAIN_GRAD_REL_TOL`, the fused path with a 2% scale error planted in
+    the dK it returns beyond it."""
+    from attention_tpu_torch.models import init_train, loss_fn
+    from attention_tpu_torch.ops import flash_bwd, flash_vjp
+
+    kernel_backward = flash_vjp.flash_backward
+
+    def dk_scale_off_2pct(*args, **kw):
+        dq, dk, dv = kernel_backward(*args, **kw)
+        return dq, dk * 1.02, dv
+
+    def grads(pair=False, backward=kernel_backward):
+        init_train(model, seed=SEED, lr=TRAIN_LR)
+        model.zero_grad(set_to_none=True)
+        flash_bwd._FORCE_TWO_KERNEL, flash_vjp.flash_backward = pair, backward
+        loss_fn(model, batch).backward()
+        flash_bwd._FORCE_TWO_KERNEL = False
+        flash_vjp.flash_backward = kernel_backward
+        out = {k: p.grad for k, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return out
+
+    fused = grads()
+
+    def furthest(other):
+        """The three parameters whose gradients lie furthest from the
+        fused ones: {name: |other - fused| / |fused|, L2 norms}."""
+        rel = sorted(((k, ((g.float() - fused[k].float()).norm()
+                           / fused[k].float().norm()).item())
+                      for k, g in other.items()), key=lambda x: -x[1])
+        return dict(rel[:3])
+
+    again = furthest(grads())
+    pair = furthest(grads(pair=True))
+    planted = furthest(grads(backward=dk_scale_off_2pct))
+    emit(phase="train", grads_fused_run_to_run_rel_l2=again,
+         grads_pair_vs_fused_rel_l2=pair,
+         planted_dk_scale_off_2pct_rel_l2=planted, tol=TRAIN_GRAD_REL_TOL)
+    if not max(again.values()) <= TRAIN_GRAD_REL_TOL:
+        raise AssertionError(f"fused gradients run to run: {again}")
+    if not max(pair.values()) <= TRAIN_GRAD_REL_TOL:
+        raise AssertionError(f"pair gradients off the fused ones: {pair}")
+    if not max(planted.values()) > TRAIN_GRAD_REL_TOL:
+        raise AssertionError(f"the check passes a planted fault: {planted}")
+
+
 def phase_reference() -> None:
     """A small f32 model on the card (the kernels) against the same
     weights on the CPU (the plain versions): uncached logits through
@@ -896,9 +1282,9 @@ def phase_reference() -> None:
         0, SMALL_MODEL["vocab"], (2, 256)))
     with torch.no_grad():
         want = cpu(tokens)
-        same_bits(want, cpu(tokens))
+        same_bits(want, cpu(tokens), "two CPU forwards")
         got = gpu(tokens.cuda())
-        same_bits(got, gpu(tokens.cuda()))
+        same_bits(got, gpu(tokens.cuda()), "two card forwards")
         got = got.cpu()
         witness = f64(tokens).double()
     err = (got - want).abs().max().item()
@@ -970,6 +1356,60 @@ def phase_reference() -> None:
         raise AssertionError("greedy generate(int8_cache=True) streams "
                              "differ between card and CPU")
     emit(phase="reference", int8_generate_streams_equal=True)
+    reference_training(cpu, gpu, f64)
+
+
+def reference_training(cpu, gpu, f64) -> None:
+    """Training on the small model, card (the f32 backward kernels)
+    against CPU (the plain versions) from the same weights: one loss and
+    `backward()`, every gradient within `reference.grad_mismatch`'s f32
+    limit and the loss within `TRAIN_F32_LOSS_TOL`, a float64 copy as the
+    witness; then three AdamW steps each, their losses within
+    `TRAIN_F32_STEP_LOSS_TOL`."""
+    from attention_tpu_torch.models import loss_fn, make_train_step
+    from attention_tpu_torch.models.train import ADAMW
+    from attention_tpu_torch.ops.reference import grad_mismatch
+
+    tokens = torch.as_tensor(np.random.default_rng(SEED + 3).integers(
+        0, SMALL_MODEL["vocab"], (2, 257)))
+    start = {k: t.clone() for k, t in cpu.state_dict().items()}
+    grads, loss = {}, {}
+    for name, m in (("cpu", cpu), ("card", gpu), ("f64", f64)):
+        m.load_state_dict(start)
+        m.zero_grad(set_to_none=True)
+        out = loss_fn(m, tokens.to(m.device))
+        out.backward()
+        loss[name] = out.item()
+        grads[name] = {k: p.grad.detach().cpu()
+                       for k, p in m.named_parameters()}
+    worst = max((grad_mismatch(grads["card"][k], g) + (k,)
+                 for k, g in grads["cpu"].items()), key=lambda x: x[1])
+    gap = {side: max((grads[side][k].double() - g).abs().max().item()
+                     for k, g in grads["f64"].items())
+           for side in ("card", "cpu")}
+    emit(phase="reference", train_loss={"card": loss["card"],
+                                        "cpu": loss["cpu"],
+                                        "f64": loss["f64"]},
+         grad_worst={"param": worst[2], "max_abs_err": worst[0],
+                     "share_of_limit": worst[1]},
+         grads_card_vs_f64=gap["card"], grads_cpu_vs_f64=gap["cpu"],
+         loss_tol=TRAIN_F32_LOSS_TOL)
+    if not (abs(loss["card"] - loss["cpu"]) <= TRAIN_F32_LOSS_TOL
+            and worst[1] <= 1.0):
+        raise AssertionError(f"training gradients differ from the CPU: "
+                             f"loss {loss}, worst {worst}")
+    steps = []
+    for m in (cpu, gpu):
+        m.load_state_dict(start)
+        step = make_train_step(m, torch.optim.AdamW(
+            m.parameters(), lr=TRAIN_LR, **ADAMW))
+        steps.append([step(tokens.to(m.device)).item() for _ in range(3)])
+    gap = max(abs(a - b) for a, b in zip(*steps))
+    emit(phase="reference", adamw_step_losses={"cpu": steps[0],
+                                               "card": steps[1]},
+         max_abs_err=gap, tol=TRAIN_F32_STEP_LOSS_TOL)
+    if not (gap <= TRAIN_F32_STEP_LOSS_TOL and steps[1][2] < steps[1][0]):
+        raise AssertionError(f"AdamW steps differ from the CPU: {steps}")
 
 
 def phase_profile(model) -> None:
@@ -1058,7 +1498,13 @@ def main() -> int:
             ("quant_decode", "quant_decode.cu",
              "attention_tpu/ops/quant.py:156"),
             ("quant_tok4", "quant_tok4_decode.cu",
-             "attention_tpu/ops/quant.py:788"))}
+             "attention_tpu/ops/quant.py:788"),
+            ("flash_bwd_fused", "flash_bwd_fused.cu",
+             "attention_tpu/ops/flash_bwd.py:304"),
+            ("flash_bwd_dq", "flash_bwd_dq.cu",
+             "attention_tpu/ops/flash_bwd.py:146"),
+            ("flash_bwd_dkv", "flash_bwd_dkv.cu",
+             "attention_tpu/ops/flash_bwd.py:215"))}
     phase_build(ops)
     model = TinyDecoder(dtype=torch.bfloat16, device="cuda", **SERVE_MODEL)
     model.load_state_dict(init_params(model, SEED))
@@ -1066,11 +1512,13 @@ def main() -> int:
     k, v = phase_decode_kernels(kernels)
     phase_quant_kernels(ops, kernels, k, v)
     del k, v
+    phase_backward(kernels)
     phase_op_path(ops, kernels)
     phase_generate(ops, kernels, model)
     phase_serving(ops, kernels, model)
     phase_profile(model)
     phase_reference()
+    phase_train(ops, kernels, model)
 
     nbytes, ops_count = ragged_work(step, q)
     b_ms, b_by = bound_ms(nbytes, ops_count, q.dtype)

@@ -10,7 +10,11 @@ sides in full f32, no TF32; only the summation order differs), bf16
 1.6e-2 of the value plus 2^-6 of its row's rms, capped at 2e-2 (the
 sides round P and the output to bf16 at different points).  The
 quantized decode kernels are held to the same bf16 limits against
-`quant.quant_decode_plain`.
+`quant.quant_decode_plain`.  The backward kernels' gradients are held to
+`reference.grad_mismatch` (bf16: one output ulp, 2^-7 of the value, plus
+2^-6 of the row's rms for a P or dS value the two sides round apart, plus
+2^-10 of the tensor's rms; f32: 2^-16 of the value and of the row's rms,
+plus 2^-20 of the tensor's).
 """
 
 import pytest
@@ -31,7 +35,12 @@ from attention_tpu_torch.ops.ragged_paged import (
     ragged_paged_attention,
     ragged_paged_attention_plain,
 )
-from attention_tpu_torch.ops.reference import mismatch
+from attention_tpu_torch.ops import flash_bwd
+from attention_tpu_torch.ops.flash import _offsets, \
+    flash_attention_partials, flash_attention_partials_plain
+from attention_tpu_torch.ops.flash_vjp import _flash_fwd_impl, \
+    flash_attention_diff
+from attention_tpu_torch.ops.reference import grad_mismatch, mismatch
 
 pytestmark = pytest.mark.cuda
 
@@ -285,3 +294,164 @@ def test_quant_wrapper_raises_instead_of_falling_back(gen):
         quant.flash_decode_quantized(
             torch.zeros(2, 4, 64, device="cuda", dtype=torch.float16),
             cache, 10)
+
+
+# ------------------------------------------------------------- backward
+
+BWD_CASES = {
+    # 3-D GQA 6 q / 2 kv, causal with keys shifted past the first rows
+    # (rows that see no key), kv_valid and softcap: tensor-core path
+    "3d_gqa_offsets_softcap": (((6, 40, 64), (2, 56, 64), (2, 56, 64)),
+                               dict(causal=True, q_offset=3, kv_offset=8,
+                                    kv_valid=50, softcap=5.0)),
+    # 4-D, two batches, non-causal, ragged edges, d 128
+    "4d_noncausal_d128": (((2, 4, 130, 128), (2, 2, 200, 128),
+                           (2, 2, 200, 128)), {}),
+    # head dim 32 (the FMA loop in bf16 too), causal GQA
+    "4d_causal_d32": (((2, 8, 100, 32), (2, 2, 100, 32), (2, 2, 100, 32)),
+                      dict(causal=True)),
+    # dk != dv
+    "3d_dk64_dv128_softcap": (((4, 77, 64), (2, 91, 64), (2, 91, 128)),
+                              dict(causal=True, softcap=20.0)),
+}
+
+
+def _bwd_case(gen, name, dtype):
+    shapes, kw = BWD_CASES[name]
+    q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
+               for s in shapes)
+    kw = dict(kw, scale=q.shape[-1] ** -0.5)
+    out, lse = _flash_fwd_impl(q, k, v, **kw)
+    dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    return (q, k, v, out, lse, dout), kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(BWD_CASES))
+@pytest.mark.parametrize("path", ["fused", "pair"])
+def test_backward_kernels_match_plain(gen, monkeypatch, path, name, dtype):
+    args, kw = _bwd_case(gen, name, dtype)
+    monkeypatch.setattr(flash_bwd, "_FORCE_TWO_KERNEL", path == "pair")
+    before = launch_counts()
+    got = flash_bwd.flash_backward(*args, **kw)
+    after = launch_counts()
+    want_launches = ({flash_bwd.FUSED: 1} if path == "fused"
+                     else {flash_bwd.DQ: 1, flash_bwd.DKV: 1})
+    assert {n: after[n] - before[n] for n in after
+            if after[n] != before[n]} == want_launches
+    offsets = [kw.pop(name, None)
+               for name in ("q_offset", "kv_offset", "kv_valid")]
+    want = flash_bwd.flash_backward_plain(
+        *args, **kw, **_offsets(args[1].shape[-2], *offsets))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.device.type == "cuda"
+        assert grad_mismatch(g, w)[1] <= 1
+
+
+@pytest.mark.parametrize("path", ["fused", "pair"])
+def test_backward_kernels_take_the_layers_strided_operands(gen, monkeypatch,
+                                                           path):
+    """bf16 q/k/v/dO as the attention layer hands them over, (b, s,
+    heads, d) viewed as (b, heads, s, d), with b = 2, causal GQA and
+    softcap: the tensor-core kernels against the plain version."""
+    monkeypatch.setattr(flash_bwd, "_FORCE_TWO_KERNEL", path == "pair")
+    b, s, d = 2, 100, 64
+    q, k, v, dout = (torch.randn((b, s, n, d), generator=gen, device="cuda")
+                     .to(torch.bfloat16).transpose(1, 2) for n in (8, 2, 2, 8))
+    kw = dict(scale=d ** -0.5, causal=True, softcap=30.0)
+    out, lse = _flash_fwd_impl(q, k, v, **kw)
+    before = launch_counts()
+    got = flash_bwd.flash_backward(q, k, v, out, lse, dout, **kw)
+    assert sum(launch_counts().values()) - sum(before.values()) == (
+        1 if path == "fused" else 2)
+    want = flash_bwd.flash_backward_plain(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert grad_mismatch(g, w)[1] <= 1
+
+
+def test_bwd_impl_xla_runs_the_plain_backward_on_the_card(gen):
+    """``bwd_impl="xla"`` selects the plain blocked recompute on any
+    device: on the card it launches no backward kernel, and its gradients
+    agree with the default path's (the kernels)."""
+    q, k, v = (torch.randn(s, generator=gen, device="cuda")
+               .to(torch.bfloat16) for s in ((4, 90, 64), (2, 90, 64),
+                                             (2, 90, 64)))
+    w = torch.randn((4, 90, 64), generator=gen, device="cuda")
+    grads = []
+    for impl in ("pallas", "xla"):
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = launch_counts()
+        out = flash_attention_diff(*qkv, causal=True, softcap=20.0,
+                                   bwd_impl=impl, bwd_chunk=32)
+        (out.float() * w).sum().backward()
+        launched = {n: c - before[n] for n, c in launch_counts().items()
+                    if c != before[n]}
+        assert launched == ({"flash_fwd": 1, flash_bwd.FUSED: 1}
+                            if impl == "pallas" else {"flash_fwd": 1})
+        grads.append([t.grad for t in qkv])
+    torch.cuda.synchronize()
+    for mine, kernel in zip(grads[1], grads[0]):
+        assert grad_mismatch(kernel, mine)[1] <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_partials_kernel_matches_plain(gen, dtype):
+    (q, k, v, _, _, _), kw = _bwd_case(gen, "3d_gqa_offsets_softcap", dtype)
+    before = launch_counts()["flash_fwd"]
+    got = flash_attention_partials(q, k, v, **kw)
+    assert launch_counts()["flash_fwd"] == before + 1
+    want = flash_attention_partials_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1].isinf(), want[1].isinf())
+    live = want[1].isfinite()
+    for g, w in zip(got[1:], want[1:]):
+        assert ((g - w)[live].abs() <= 1e-5 * w[live].abs().clamp(
+            min=1)).all()
+    norm = [(o / l_.clamp(min=1e-30)[..., None]).to(dtype)
+            for o, _, l_ in (got, want)]
+    assert mismatch(*norm)[1] <= 1
+
+
+def test_backward_wrapper_raises_instead_of_falling_back(gen):
+    """A dtype or head dim the kernels do not take raises on the card; no
+    kernel launches and nothing falls back to the plain version."""
+    before = launch_counts()
+    x16 = torch.zeros(2, 8, 16, device="cuda", dtype=torch.float16)
+    lse = torch.zeros(2, 8, device="cuda")
+    with pytest.raises(TypeError):
+        flash_bwd.flash_backward(x16, x16, x16, x16, lse, x16, scale=0.25)
+    big = torch.zeros(2, 8, 160, device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        flash_bwd.flash_backward(big, big, big, big, lse, big, scale=0.1)
+    assert launch_counts() == before
+
+
+def test_tiny_train_step_matches_cpu():
+    """One step of `make_train_step` on a small f32 model (head dim 32:
+    the FMA kernels) on the card and on the CPU from the same weights:
+    the same loss to 1e-5 and every gradient within grad_mismatch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from attention_tpu_torch.models import TinyDecoder, init_params, \
+        make_train_step
+    from attention_tpu_torch.models.train import ADAMW
+
+    cfg = dict(vocab=64, dim=128, depth=2, num_q_heads=4, num_kv_heads=2,
+               rope=True, softcap=30.0, dtype=torch.float32)
+    cpu = TinyDecoder(device="cpu", **cfg)
+    cpu.load_state_dict(init_params(cpu, 0))
+    card = TinyDecoder(device="cuda", **cfg)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(0, 64, (2, 97), generator=torch.Generator()
+                           .manual_seed(0))
+    losses, grads = [], []
+    for m in (cpu, card):
+        step = make_train_step(m, torch.optim.AdamW(m.parameters(), lr=1e-3,
+                                                    **ADAMW))
+        losses.append(step(tokens.to(m.device)).item())
+        grads.append({k: p.grad.cpu() for k, p in m.named_parameters()})
+    assert abs(losses[0] - losses[1]) <= 1e-5
+    for k, g in grads[0].items():
+        assert grad_mismatch(grads[1][k], g)[1] <= 1, k

@@ -35,6 +35,7 @@ from attention_tpu_torch.models.decode import warp_logits
 from attention_tpu_torch.ops import ragged_paged as rp
 from attention_tpu_torch.ops.flash import (
     flash_attention,
+    flash_attention_partials,
     flash_attention_plain,
 )
 from attention_tpu_torch.ops.reference import F32_ATOL, mismatch
@@ -122,10 +123,13 @@ def test_mismatch_rejects_planted_faults(dtype):
 
 
 def test_flash_unported_features_raise():
+    """Forward features the port does not have yet raise, in both
+    forward entry points (the training forward's partials included)."""
     q = torch.zeros(8, 16)
     for kw in ({"window": 4}, {"sinks": 2}, {"max_mode": "flashd"}):
-        with pytest.raises(NotImplementedError):
-            flash_attention(q, q, q, causal=True, **kw)
+        for fn in (flash_attention, flash_attention_partials):
+            with pytest.raises(NotImplementedError):
+                fn(q, q, q, causal=True, **kw)
 
 
 # ----------------------------------------------------------------- ragged
@@ -252,6 +256,9 @@ def test_port_imports_no_jax():
         "import attention_tpu_torch.models.decode\n"
         "import attention_tpu_torch.ops.decode, attention_tpu_torch.ops.paged\n"
         "import attention_tpu_torch.ops.quant\n"
+        "import attention_tpu_torch.ops.flash_bwd\n"
+        "import attention_tpu_torch.ops.flash_vjp\n"
+        "import attention_tpu_torch.models.train\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'attention_tpu')\n"
         "       and sys.modules[m] is not None]\n"
