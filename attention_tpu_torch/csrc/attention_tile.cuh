@@ -22,11 +22,12 @@
 //
 // `attend_mma` (bf16, head dims 64 or 128): the two products on the tensor
 // cores with `mma.sync.m16n8k16` (bf16 in, fp32 accumulate).  Each of the
-// four warps owns 16 query rows; Q fragments stay in registers, K and V
-// tiles of MMA_BN rows sit in two shared buffers with rows padded by 16
-// bytes (conflict-free `ldmatrix`), the next tile copying in with
-// `cp.async` while the current one is computed; V is read transposed by
-// `ldmatrix.trans`.  The
+// four warps owns 16 query rows (or, with KG key groups, shares them with
+// KG - 1 others and takes its own columns of every key tile); Q fragments
+// stay in registers, K and V tiles of MMA_BN rows sit in STAGES shared
+// buffers (two by default) with rows padded by 16 bytes (conflict-free
+// `ldmatrix`), the next tiles copying in with `cp.async` while the current
+// one is computed; V is read transposed by `ldmatrix.trans`.  The
 // score accumulators turn into the P·V A-operand in registers, as in
 // FlashAttention-2.
 //
@@ -319,11 +320,11 @@ __device__ void attend(const Problem& pb, int dk, int dv, float qscale,
 
 constexpr int MMA_BN = 64;  // key/value rows per tile of attend_mma
 
-// Dynamic shared memory attend_mma<DK, DV> needs: the Q tile and two
-// buffers of K and V tiles.
-inline size_t smem_bytes_mma(int dk, int dv) {
-  return sizeof(__nv_bfloat16) *
-         ((size_t)BM * (dk + 8) + 2 * (size_t)MMA_BN * (dk + dv + 16));
+// Dynamic shared memory attend_mma<DK, DV, KG, STAGES> needs: the Q tile of
+// the CTA's BM / KG rows and STAGES buffers of K and V tiles.
+inline size_t smem_bytes_mma(int dk, int dv, int kg = 1, int stages = 2) {
+  return sizeof(__nv_bfloat16) * ((size_t)(BM / kg) * (dk + 8) +
+                                  stages * (size_t)MMA_BN * (dk + dv + 16));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -445,40 +446,61 @@ struct tiles_of<P, std::void_t<typename P::Tiles>> {
 // The Problem interface of `attend`, for bf16 rows whose pointers and
 // strides are 16-byte aligned (the launcher checks), or for the rows of
 // the Problem's own loader (`Tiles`).  Dynamic shared memory:
-// smem_bytes_mma(DK, DV) plus twice the loader's stage_bytes.
-template <int DK, int DV, typename Problem>
+// smem_bytes_mma(DK, DV, KG, STAGES) plus STAGES times the loader's
+// stage_bytes.
+//
+// KG is the number of key groups: the four warps are 4 / KG row tiles of 16
+// query rows times KG groups, and the warps of one row tile take each its
+// own MMA_BN / KG columns of every key tile, with their own running max and
+// sum.  KG = 1 is the layout of a 64-row block; KG = 4 puts all four warps
+// on one 16-row tile, for a CTA whose live rows are few (one-token decode
+// at GQA group 8 has 8).  The key groups' (m, l, o) merge through shared
+// memory once the walk is done, in a fixed order.  STAGES tiles are in
+// flight at once (cp.async, one commit group per tile).
+template <int DK, int DV, int KG = 1, int STAGES = 2, typename Problem>
 __device__ void attend_mma(const Problem& pb, float qscale, float cap2) {
   using Tiles = typename tiles_of<Problem>::type;
+  static_assert(KG == 1 || KG == 4, "key groups");
+  static_assert(STAGES >= 2, "double buffering at least");
+  constexpr int ROWS = BM / KG;           // query rows of the CTA
+  constexpr int KW = MMA_BN / KG;         // key columns per warp per tile
+  constexpr int NT = KW / 8;              // score n-tiles per warp
+  constexpr int OT = DV / 8;              // output n-tiles
   constexpr int DKP = DK + 8;
   constexpr int DVP = DV + 8;
-  constexpr int NT = MMA_BN / 8;  // score n-tiles per tile
-  constexpr int OT = DV / 8;      // output n-tiles
   constexpr int STAGE = Tiles::template stage_bytes<DK, DV>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   // buffer b: K tile at Kb + b * KV_STRIDE, V tile right after it, and the
   // loader's staging area at Sb + b * STAGE
-  __nv_bfloat16* Kb = Qs + BM * DKP;
+  __nv_bfloat16* Kb = Qs + ROWS * DKP;
   constexpr int KV_STRIDE = MMA_BN * (DKP + DVP);
-  unsigned char* Sb = reinterpret_cast<unsigned char*>(Kb + 2 * KV_STRIDE);
+  unsigned char* Sb =
+      reinterpret_cast<unsigned char*>(Kb + STAGES * KV_STRIDE);
   const int lane = threadIdx.x & 31;
-  const int wr = (threadIdx.x >> 5) * 16;  // this warp's first row
-  const int g = lane >> 2;                 // fragment row (and row + 8)
-  const int tq = lane & 3;                 // fragment column pair
+  const int warp = threadIdx.x >> 5;
+  const int wr = warp / KG * 16;    // this warp's first row
+  const int ko = warp % KG * KW;    // its first column of each key tile
+  const int g = lane >> 2;          // fragment row (and row + 8)
+  const int tq = lane & 3;          // fragment column pair
   const TileWalk walk(pb.n_end, pb.kv_begin, pb.sink_end, MMA_BN);
   const int ntiles = walk.count;
 
-  // copy tile t into buffer t & 1, as one commit group
+  // copy tile t, if there is one, into buffer t % STAGES, as one commit
+  // group (an empty one past the last tile, so that the groups count tiles)
   auto prefetch = [&](int t) {
-    __nv_bfloat16* K = Kb + (t & 1) * KV_STRIDE;
-    Tiles::template prefetch<DK, DV>(pb, K, K + MMA_BN * DKP,
-                                     Sb + (t & 1) * STAGE,
-                                     walk.col(t, MMA_BN));
+    if (t < ntiles) {
+      __nv_bfloat16* K = Kb + (t % STAGES) * KV_STRIDE;
+      Tiles::template prefetch<DK, DV>(pb, K, K + MMA_BN * DKP,
+                                       Sb + (t % STAGES) * STAGE,
+                                       walk.col(t, MMA_BN));
+    }
     cp_async_commit();
   };
 
-  if (ntiles > 0) prefetch(0);
-  load_rows<DK, false>(Qs, BM, [&](int r) { return pb.q_row(r); });
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) prefetch(t);
+  load_rows<DK, false>(Qs, ROWS, [&](int r) { return pb.q_row(r); });
   __syncthreads();
   uint32_t qf[DK / 16][4];
 #pragma unroll
@@ -495,19 +517,15 @@ __device__ void attend_mma(const Problem& pb, float qscale, float cap2) {
   float lrow[2] = {0.f, 0.f};
 
   for (int t = 0; t < ntiles; ++t) {
-    // tile t + 1 copies while tile t is computed; the barrier at the end
-    // of the previous pass freed its buffer
-    if (t + 1 < ntiles) {
-      prefetch(t + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    // tile t + STAGES - 1 copies while tiles t .. are computed; the barrier
+    // at the end of the previous pass freed its buffer
+    prefetch(t + STAGES - 1);
+    cp_async_wait<STAGES - 1>();
     __syncthreads();  // tile t has landed for every thread
     const int j0 = walk.col(t, MMA_BN);
-    __nv_bfloat16* Ks = Kb + (t & 1) * KV_STRIDE;
+    __nv_bfloat16* Ks = Kb + (t % STAGES) * KV_STRIDE;
     __nv_bfloat16* Vs = Ks + MMA_BN * DKP;
-    const unsigned char* St = Sb + (t & 1) * STAGE;
+    const unsigned char* St = Sb + (t % STAGES) * STAGE;
     Tiles::template land<DK, DV>(Ks, Vs, St);
 
     float s[NT][4];
@@ -520,26 +538,26 @@ __device__ void attend_mma(const Problem& pb, float qscale, float cap2) {
 #pragma unroll
       for (int jp = 0; jp < NT / 2; ++jp) {
         uint32_t b[4];
-        ldsm_x4(b, Ks + (jp * 16 + (lane & 7) + (lane >> 4) * 8) * DKP +
+        ldsm_x4(b, Ks + (ko + jp * 16 + (lane & 7) + (lane >> 4) * 8) * DKP +
                        kk * 16 + ((lane >> 3) & 1) * 8);
         mma_bf16(s[2 * jp], qf[kk], b[0], b[1]);
         mma_bf16(s[2 * jp + 1], qf[kk], b[2], b[3]);
       }
     }
 
-    // element e of tile j: row wr + g + 8*(e >> 1), column j*8 + 2*tq + (e&1)
+    // element e of n-tile j: row wr + g + 8*(e >> 1), tile column
+    // ko + j*8 + 2*tq + (e&1)
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
+        const int c = ko + j * 8 + 2 * tq + (e & 1);
         float x = s[j][e] * qscale;
-        if constexpr (Tiles::SCALED)
-          x *= Tiles::k_scale(St, j * 8 + 2 * tq + (e & 1));
+        if constexpr (Tiles::SCALED) x *= Tiles::k_scale(St, c);
         // softcap acts on the scaled scores, before masking
         if (cap2 > 0.f) x = cap2 * tanhf(x / cap2);
-        const bool keep =
-            pb.keep(wr + g + 8 * (e >> 1), j0 + j * 8 + 2 * tq + (e & 1));
+        const bool keep = pb.keep(wr + g + 8 * (e >> 1), j0 + c);
         s[j][e] = keep ? x : -INFINITY;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
       }
@@ -580,7 +598,7 @@ __device__ void attend_mma(const Problem& pb, float qscale, float cap2) {
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          s[j][e] *= Tiles::v_scale(St, j * 8 + 2 * tq + (e & 1));
+          s[j][e] *= Tiles::v_scale(St, ko + j * 8 + 2 * tq + (e & 1));
     }
 
     // P (two score n-tiles per k16 step) as the A operand, V transposed
@@ -594,14 +612,70 @@ __device__ void attend_mma(const Problem& pb, float qscale, float cap2) {
 #pragma unroll
       for (int np = 0; np < OT / 2; ++np) {
         uint32_t b[4];
-        ldsm_x4_trans(b, Vs + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                  DVP +
+        ldsm_x4_trans(b, Vs + (ko + ks * 16 + (lane & 7) +
+                               ((lane >> 3) & 1) * 8) * DVP +
                              np * 16 + (lane >> 4) * 8);
         mma_bf16(o[2 * np], a, b[0], b[1]);
         mma_bf16(o[2 * np + 1], a, b[2], b[3]);
       }
     }
-    __syncthreads();  // every warp is done with buffer t & 1
+    __syncthreads();  // every warp is done with buffer t % STAGES
+  }
+
+  if constexpr (KG > 1) {
+    // the key groups of each row tile merge into its first warp: each warp
+    // parks its 16 rows' o, max and sum in the (now idle) tile buffers
+    constexpr int RED = 16 * (DV + 2);  // floats per warp
+    static_assert(4 * RED * sizeof(float) <=
+                      STAGES * KV_STRIDE * sizeof(__nv_bfloat16),
+                  "the merge fits the tile buffers");
+    cp_async_wait<0>();
+    float* red = reinterpret_cast<float*>(Kb);
+    float* mine = red + warp * RED;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = g + 8 * i;
+#pragma unroll
+      for (int j = 0; j < OT; ++j) {
+        mine[r * DV + j * 8 + 2 * tq] = o[j][2 * i];
+        mine[r * DV + j * 8 + 2 * tq + 1] = o[j][2 * i + 1];
+      }
+      if (tq == 0) {
+        mine[16 * DV + r] = mrow[i];
+        mine[16 * DV + 16 + r] = lrow[i];
+      }
+    }
+    __syncthreads();
+    if (warp % KG != 0) return;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = g + 8 * i;
+      float m = mrow[i];
+#pragma unroll
+      for (int k = 1; k < KG; ++k) m = fmaxf(m, mine[k * RED + 16 * DV + r]);
+      // a group that saw nothing (max -inf) adds nothing
+      const float c0 = mrow[i] == -INFINITY ? 0.f : exp2f(mrow[i] - m);
+      float l = lrow[i] * c0;
+#pragma unroll
+      for (int j = 0; j < OT; ++j) {
+        o[j][2 * i] *= c0;
+        o[j][2 * i + 1] *= c0;
+      }
+#pragma unroll
+      for (int k = 1; k < KG; ++k) {
+        const float* other = mine + k * RED;
+        const float mk = other[16 * DV + r];
+        const float ck = mk == -INFINITY ? 0.f : exp2f(mk - m);
+        l += other[16 * DV + 16 + r] * ck;
+#pragma unroll
+        for (int j = 0; j < OT; ++j) {
+          o[j][2 * i] += other[r * DV + j * 8 + 2 * tq] * ck;
+          o[j][2 * i + 1] += other[r * DV + j * 8 + 2 * tq + 1] * ck;
+        }
+      }
+      mrow[i] = m;
+      lrow[i] = l;
+    }
   }
 
 #pragma unroll

@@ -14,14 +14,18 @@
 // once per kv head (2·len·d values) and does 4·group·S·len·d operations on
 // them, 2·group·S operations per byte in bf16: about 8 at group 8 and S = 1,
 // far below the ~295 where the tensor cores become the limit.  So it is
-// bound by the bytes of the cache it reads (3.35 TB/s).  The design reads
-// those rows once per (sequence, kv head) for the whole GQA group, and the
-// loop bounds skip every row past the length and below the band, so the
-// bytes scale with the used prefix (or the window), not with the capacity.
-// What it does not yet do: at the serving geometry (B = 8, Hkv = 4) the
-// grid is 32 CTAs on 132 SMs, so a long cache streams through a quarter of
-// the card; a split of the key axis across CTAs with a merge
-// ("flash-decoding") is later work.
+// bound by the bytes of the cache it reads (3.35 TB/s), and what sets the
+// rate is how many bytes are in flight across the SMs.  The design reads
+// those rows once per (sequence, kv head, split) for the whole GQA group;
+// the loop bounds skip every row past the length and below the band, so
+// the bytes scale with the used prefix (or the window), not with the
+// capacity.  The keys of each sequence are split across CTAs so that the
+// grid covers the SMs about twice (decode_rows.cuh: at the serving
+// geometry, B = 8 and Hkv = 4, 32 CTAs become 256), a second small kernel
+// merging the splits; where the rows fit one 16-row tile (one-token decode
+// at group 8 has 8), the four warps share it and split every key tile
+// between them instead of three of them computing on padding, and three
+// cp.async stages keep about 64 KB of key/value tiles in flight per CTA.
 #include "decode_rows.cuh"
 
 namespace {
@@ -35,11 +39,18 @@ struct DenseSource {
 
   template <typename T>
   struct Rows {
+    using Tiles = atk::SpanTiles;
     const T* k;
     const T* v;
     long long skn, svn;
     __device__ const T* k_row(int c) const { return k + c * skn; }
     __device__ const T* v_row(int c) const { return v + c * svn; }
+    __device__ atk::TileSpan<T> k_tile(int c) const {
+      return {k_row(c), skn, atk::MMA_BN};
+    }
+    __device__ atk::TileSpan<T> v_tile(int c) const {
+      return {v_row(c), svn, atk::MMA_BN};
+    }
   };
 
   template <typename T>
@@ -55,16 +66,19 @@ struct DenseSource {
 // q and o are (B, H, S, d) and the caches (B, Hkv, N, d), each with element
 // strides (batch, head, row) and a contiguous last dim; lens is (B,) int32
 // on the device.  window <= 0 means none (sinks then ignored); softcap <= 0
-// means none.  A negative length reads as 0.  Returns cudaGetLastError().
+// means none.  A negative length reads as 0.  splits and chunk are the key
+// split of `split_plan` (attention_tpu_torch/ops/decode.py); with splits >
+// 1, part is contiguous fp32 scratch of B·H·S·splits·(dv + 2) values.
+// Returns cudaGetLastError().
 extern "C" int decode_fwd(const void* q, const void* k, const void* v,
-                          const void* lens, void* o, int dtype, int B, int H,
-                          int Hkv, int S, int N, int dk, int dv,
+                          const void* lens, void* o, void* part, int dtype,
+                          int B, int H, int Hkv, int S, int N, int dk, int dv,
                           long long sqb, long long sqh, long long sqs,
                           long long skb, long long skh, long long skn,
                           long long svb, long long svh, long long svn,
                           long long sob, long long soh, long long sos,
                           int window, int sinks, float scale, float softcap,
-                          void* stream) {
+                          int splits, int chunk, void* stream) {
   atk::DecodeArgs a{};
   a.q = q;
   a.o = o;
@@ -85,6 +99,7 @@ extern "C" int decode_fwd(const void* q, const void* k, const void* v,
   a.sos = sos;
   a.qscale = scale * atk::LOG2E;
   a.cap2 = softcap > 0.f ? softcap * atk::LOG2E : 0.f;
+  atk::set_splits(a, B, splits, chunk, part);
   const DenseSource src{k, v, skb, skh, skn, svb, svh, svn};
   const bool mma_ok = atk::rows_aligned(a) && skb % 8 == 0 &&
                       skh % 8 == 0 && skn % 8 == 0 && svb % 8 == 0 &&

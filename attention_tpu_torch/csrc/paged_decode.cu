@@ -19,12 +19,14 @@
 //
 // What bounds it on the H100: as decode.cu, the bytes of the pages it reads
 // (2·len·d values per sequence and kv head against 2·group·S operations per
-// byte), at 3.35 TB/s.  Pages are read straight from the pool, one 64- or
-// 32-row tile at a time through the table, never gathered into a dense
-// copy; the loop bounds skip pages past the length and below the band.  At
-// the serving geometry one decode step is 32 CTAs on 132 SMs; the two-call
-// engine's prefill chunk (S = 256, group 8) gives 32 row blocks per
-// (sequence, kv head).
+// byte), at 3.35 TB/s.  Pages are read straight from the pool, never
+// gathered into a dense copy; the loop bounds skip pages past the length
+// and below the band.  The design is decode.cu's (decode_rows.cuh): the
+// keys split across CTAs with a merge, the four warps sharing a 16-row
+// tile at one-token decode, three cp.async stages; a 64-row key tile that
+// lies inside one page is translated through the table once, not per row.
+// The two-call engine's prefill chunk (S = 256, group 8) gives 32 row
+// blocks per (sequence, kv head) and needs no split.
 #include "decode_rows.cuh"
 
 namespace {
@@ -37,6 +39,7 @@ struct PagedSource {
 
   template <typename T>
   struct Rows {
+    using Tiles = atk::SpanTiles;
     const T* kp;
     const T* vp;
     const int* table;  // this sequence's row
@@ -47,6 +50,13 @@ struct PagedSource {
     }
     __device__ const T* k_row(int c) const { return kp + row(c) * dk; }
     __device__ const T* v_row(int c) const { return vp + row(c) * dv; }
+    // the rows from c to the end of its page
+    __device__ atk::TileSpan<T> k_tile(int c) const {
+      return {k_row(c), dk, page - c % page};
+    }
+    __device__ atk::TileSpan<T> v_tile(int c) const {
+      return {v_row(c), dv, page - c % page};
+    }
   };
 
   template <typename T>
@@ -65,14 +75,15 @@ struct PagedSource {
 // one of o (normalized, q's dtype) and acc (fp32 partials, with m_out and
 // l_out, contiguous (B, H, S)) is non-null; the output strides are those of
 // whichever is given.  window <= 0 means none (sinks then ignored);
-// softcap <= 0 means none.  Returns cudaGetLastError().
+// softcap <= 0 means none.  splits, chunk and part as for decode_fwd
+// (decode.cu).  Returns cudaGetLastError().
 extern "C" int paged_decode_fwd(
     const void* q, const void* k_pool, const void* v_pool, const void* table,
     const void* lens, void* o, void* acc, void* m_out, void* l_out,
-    int dtype, int B, int H, int Hkv, int S, int max_pages, int page, int dk,
-    int dv, long long sqb, long long sqh, long long sqs, long long sob,
-    long long soh, long long sos, int window, int sinks, float scale,
-    float softcap, void* stream) {
+    void* part, int dtype, int B, int H, int Hkv, int S, int max_pages,
+    int page, int dk, int dv, long long sqb, long long sqh, long long sqs,
+    long long sob, long long soh, long long sos, int window, int sinks,
+    float scale, float softcap, int splits, int chunk, void* stream) {
   if ((o == nullptr) == (acc == nullptr) ||
       (acc != nullptr && (m_out == nullptr || l_out == nullptr)) ||
       max_pages < 1 || page < 1)
@@ -101,6 +112,7 @@ extern "C" int paged_decode_fwd(
   a.qscale = scale * atk::LOG2E;
   a.cap2 = softcap > 0.f ? softcap * atk::LOG2E : 0.f;
   a.poison = acc == nullptr;
+  atk::set_splits(a, B, splits, chunk, part);
   const PagedSource src{k_pool, v_pool, static_cast<const int*>(table),
                         max_pages, Hkv, page, dk, dv};
   // pool rows stay 16-byte aligned at head dims 64/128

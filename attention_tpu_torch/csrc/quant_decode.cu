@@ -17,11 +17,11 @@
 // bf16 at d = 128).  The design reads each live row once per (sequence, kv
 // head) for the whole GQA group and keeps the dequantized values out of
 // device memory: they go from the staged bytes into the shared bf16 tiles
-// the ldmatrix/mma loop reads.  What it does not yet do: the grid is that of
-// decode.cu (32 CTAs at the serving geometry), and the dequantization is a
-// second pass over shared memory between the copy and the products; a split
-// of the key axis across CTAs and a dequantization into the mma fragments
-// are later work.
+// the ldmatrix/mma loop reads.  What it does not yet do: it launches one
+// split per sequence (32 CTAs at the serving geometry) where the dense and
+// paged kernels split the keys across CTAs, and the dequantization is a
+// second pass over shared memory between the copy and the products; the
+// split launch and a dequantization into the mma fragments are later work.
 #include "quant_tiles.cuh"
 
 // Plain C entry points, loaded through ctypes; the arguments are those of

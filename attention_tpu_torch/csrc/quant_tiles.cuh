@@ -231,6 +231,7 @@ int quant_decode_entry(const void* q, const void* k, const void* v,
   a.sos = sos;
   a.qscale = 1.f;  // q arrives pre-scaled
   a.cap2 = softcap > 0.f ? softcap * LOG2E : 0.f;
+  a.splits = 1;  // one CTA walks a sequence's keys: no split, no merge
   const QuantSource<ST> src{static_cast<const signed char*>(k),
                             static_cast<const signed char*>(v),
                             static_cast<const float*>(ks),
@@ -246,11 +247,11 @@ int quant_decode_entry(const void* q, const void* k, const void* v,
   using Src = QuantSource<ST>;
   switch (d) {
     case 32:
-      return (int)launch_decode<bf16, 0, 32, 32, Src>(a, src, B, s);
+      return (int)launch_decode<bf16, 0, 32, 32, 1, Src>(a, src, B, s);
     case 64:
-      return (int)launch_decode<bf16, 0, 64, 64, Src>(a, src, B, s);
+      return (int)launch_decode<bf16, 0, 64, 64, 1, Src>(a, src, B, s);
     case 128:
-      return (int)launch_decode<bf16, 0, 128, 128, Src>(a, src, B, s);
+      return (int)launch_decode<bf16, 0, 128, 128, 1, Src>(a, src, B, s);
   }
   return (int)cudaErrorInvalidValue;
 }

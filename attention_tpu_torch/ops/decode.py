@@ -11,9 +11,19 @@ the TPU kernel `_decode_kernel`); for CPU tensors they run
 card the kernel's loop bounds skip every key tile past the length and
 below the band, where the TPU kernel clamped its DMA index maps
 (`banded_block_clamp`).
+
+On the card each sequence's keys are split across CTAs and the splits'
+partials merged by a second kernel (``csrc/decode_rows.cuh``).
+`split_plan` sizes the split from what the host knows, never the
+lengths, and the wrappers pass its (splits, chunk) to the kernels;
+`split_owner`, `split_partials` and `merge_splits` are the kernels'
+partition and merge in PyTorch, which the tests hold against the JAX
+package (the main path runs them only inside the kernels).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -24,7 +34,109 @@ from attention_tpu_torch.ops.reference import check_softcap, \
     decode_reference
 
 KERNEL = "decode"
-_ARGTYPES = [P] * 5 + [I] * 8 + [L] * 12 + [I, I, F, F, P]
+_ARGTYPES = [P] * 6 + [I] * 8 + [L] * 12 + [I, I, F, F, I, I, P]
+
+#: key rows per tile of the kernels' loops: a split is a whole number of
+#: them
+KEY_TILE = 64
+#: query rows per row block of the grid (rows that fit one 16-row tile
+#: are one block, of a 16-row CTA)
+ROW_BLOCK = 64
+#: CTAs per SM a split launch aims at.  Two of the bf16 one-token CTAs fit
+#: an SM's shared memory at once; four per SM, two waves of short splits,
+#: measured fastest of 2, 3, 4 and 8 on an H100 (PERF.md section 6)
+CTAS_PER_SM = 4
+
+
+def split_plan(batch: int, kv_heads: int, rows: int, n_cap: int,
+               s_new: int, window: int | None, *,
+               sms: int) -> tuple[int, int]:
+    """(splits, chunk): how a decode launch cuts each sequence's keys
+    across CTAs, from what the host knows without reading the lengths.
+    ``rows`` is a kv head's query rows (GQA group x ``s_new``).  The span
+    a row block can see is the capacity, or with a window its band plus
+    the S - 1 rows of a chunk and the key tile the band's start is
+    rounded down to.  A launch whose row blocks leave SMs idle gets
+    enough splits for ``CTAS_PER_SM`` CTAs on each of ``sms`` SMs, at
+    most one per key tile of the span; each split takes ``chunk``
+    columns, a whole number of key tiles."""
+    span = n_cap if window is None else min(n_cap,
+                                            window + s_new + KEY_TILE - 2)
+    tiles = max(-(-span // KEY_TILE), 1)
+    blocks = batch * kv_heads * -(-rows // ROW_BLOCK)
+    if blocks >= sms:
+        return 1, tiles * KEY_TILE
+    splits = max(1, min(CTAS_PER_SM * sms // blocks, tiles))
+    per = -(-tiles // splits)
+    return -(-tiles // per), per * KEY_TILE
+
+
+def split_owner(lens: torch.Tensor, n: int, s_new: int, window, splits: int,
+                chunk: int) -> torch.Tensor:
+    """(B, n) the split that owns each cache column: split i owns
+    ``[first + i·chunk, first + (i+1)·chunk)``, the last one the rest and
+    split 0 every column below ``first``, where ``first`` is the lowest
+    band start of the sequence's rows rounded down to a key tile (0
+    without a window)."""
+    lens = lens.to(torch.int64).clamp(min=0)
+    first = torch.zeros_like(lens)
+    if window is not None:
+        first = (lens - s_new - window + 1).clamp(min=0) // KEY_TILE \
+            * KEY_TILE
+    col = torch.arange(n, device=lens.device)
+    return ((col - first[:, None]).clamp(min=0) // chunk).clamp(
+        max=splits - 1)
+
+
+def split_partials(q4, k_cache, v_cache, lens, *, scale, softcap=None,
+                   window=None, sinks=None, splits: int, chunk: int):
+    """Each split's partials, as the kernel's CTAs write them: float32
+    (unnormalized output (B, H, S, splits, dv), row max in natural log
+    and row sum (B, H, S, splits)), max -inf and sum 0 for a split that
+    sees nothing."""
+    owner = split_owner(lens, k_cache.shape[2], q4.shape[2], window,
+                        splits, chunk)
+    parts = [decode_reference(q4, k_cache, v_cache, lens, scale=scale,
+                              softcap=softcap, window=window, sinks=sinks,
+                              partials=True, columns=owner == i)
+             for i in range(splits)]
+    return tuple(torch.stack(t, dim=3) for t in zip(*parts))
+
+
+def merge_splits(acc, m, l_, *, dtype=None):
+    """The splits' partials merged in split order, the two-phase max,
+    rescale, sum of `attention_tpu.parallel.kv_sharded`: the normalized
+    output in ``dtype`` (a row that saw nothing is zero), or with
+    ``dtype`` None the partials of the whole row (acc, max, sum)."""
+    mx = m.amax(dim=-1)
+    seen = m != float("-inf")
+    w = torch.where(seen, torch.exp(m - mx[..., None]), torch.zeros_like(m))
+    total = (w[..., None] * acc).sum(dim=-2)
+    gsum = (w * l_).sum(dim=-1)
+    if dtype is None:
+        return total, mx, gsum
+    gsum = torch.where(gsum == 0.0, torch.ones_like(gsum), gsum)
+    return (total / gsum[..., None]).to(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_launch(q4, kv_heads: int, n_cap: int, dv: int, window):
+    """(splits, chunk, scratch) of a launch on q4's card: `split_plan`,
+    and the fp32 scratch of the partials, B·H·S·splits·(dv + 2) values
+    (None for one split)."""
+    b, h, s_new = q4.shape[:3]
+    splits, chunk = split_plan(b, kv_heads, h // kv_heads * s_new, n_cap,
+                               s_new, window,
+                               sms=_sm_count(q4.device.index))
+    part = None
+    if splits > 1:
+        part = torch.empty(b * h * s_new * splits * (dv + 2),
+                           dtype=torch.float32, device=q4.device)
+    return splits, chunk, part
 
 
 def check_band(window, sinks) -> None:
@@ -90,15 +202,18 @@ def _launch(q4, k_cache, v_cache, lens, *, scale, softcap, window,
     # (B, S, H, dv) storage: the attention layer's head merge is a view
     out = torch.empty((b, s_new, h, dv), dtype=dtype,
                       device=q4.device).transpose(1, 2)
+    splits, chunk, part = split_launch(q4, hkv, n, dv, window)
     fn = _native.function(KERNEL, "decode_fwd", _ARGTYPES)
-    with torch.cuda.device(q4.device):
-        stream = torch.cuda.current_stream(q4.device).cuda_stream
+    idx = q4.device.index  # an int takes torch.cuda's short path
+    with torch.cuda.device(idx):
+        stream = torch.cuda.current_stream(idx).cuda_stream
         err = fn(q4.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 lens.data_ptr(), out.data_ptr(), DTYPE_CODES[dtype], b, h,
-                 hkv, s_new, n, d, dv, *q4.stride()[:3],
+                 lens.data_ptr(), out.data_ptr(),
+                 0 if part is None else part.data_ptr(), DTYPE_CODES[dtype],
+                 b, h, hkv, s_new, n, d, dv, *q4.stride()[:3],
                  *k_cache.stride()[:3], *v_cache.stride()[:3],
                  *out.stride()[:3], window or 0, sinks or 0, float(scale),
-                 float(softcap or 0.0), stream)
+                 float(softcap or 0.0), splits, chunk, stream)
     _native.check(KERNEL, err)
     _native.count_launch(KERNEL)
     return out

@@ -9,7 +9,9 @@ free-list allocator that hands out the pages.
 appended chunk) per sequence through the table: for CUDA tensors it
 launches the Hopper kernel ``csrc/paged_decode.cu`` (which replaces the
 TPU kernel `_paged_kernel`), for CPU tensors it runs
-`paged_flash_decode_plain`.  `paged_sink_decode` composes its partials
+`paged_flash_decode_plain`; on the card it splits each sequence's keys
+across CTAs as the dense kernel does (`ops.decode.split_plan`).
+`paged_sink_decode` composes its partials
 output with a rotated read copy of the sink rows.  `paged_append`,
 `paged_append_chunk` and `paged_from_dense` write into the pools; the
 appends write in place (the pools are the caller's, and a copy per
@@ -26,13 +28,14 @@ import torch
 from attention_tpu_torch.ops import _native
 from attention_tpu_torch.ops._native import DTYPE_CODES, MAX_HEAD_DIM, F, \
     I, L, P
-from attention_tpu_torch.ops.decode import check_band, lengths_tensor
+from attention_tpu_torch.ops.decode import check_band, lengths_tensor, \
+    split_launch
 from attention_tpu_torch.ops.reference import check_softcap, \
     decode_reference
 from attention_tpu_torch.ops.rope import apply_rope
 
 KERNEL = "paged_decode"
-_ARGTYPES = [P] * 9 + [I] * 9 + [L] * 6 + [I, I, F, F, P]
+_ARGTYPES = [P] * 10 + [I] * 9 + [L] * 6 + [I, I, F, F, I, I, P]
 
 
 class PagedKV(NamedTuple):
@@ -208,15 +211,19 @@ def _launch(q4, cache, lens, *, scale, softcap, window, sinks, stats):
         out = torch.empty((b, s_new, h, dv), dtype=dtype,
                           device=dev).transpose(1, 2)
         ptrs = (out.data_ptr(), 0, 0, 0)
+    splits, chunk, part = split_launch(q4, hkv, table.shape[1] * page, dv,
+                                       window)
     fn = _native.function(KERNEL, "paged_decode_fwd", _ARGTYPES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    idx = dev.index  # an int takes torch.cuda's short path
+    with torch.cuda.device(idx):
+        stream = torch.cuda.current_stream(idx).cuda_stream
         err = fn(q4.data_ptr(), cache.k_pool.data_ptr(),
                  cache.v_pool.data_ptr(), table.data_ptr(), lens.data_ptr(),
-                 *ptrs, DTYPE_CODES[dtype], b, h, hkv, s_new, table.shape[1],
+                 *ptrs, 0 if part is None else part.data_ptr(),
+                 DTYPE_CODES[dtype], b, h, hkv, s_new, table.shape[1],
                  page, d, dv, *q4.stride()[:3], *out.stride()[:3],
                  window or 0, sinks or 0, float(scale),
-                 float(softcap or 0.0), stream)
+                 float(softcap or 0.0), splits, chunk, stream)
     _native.check(KERNEL, err)
     _native.count_launch(KERNEL)
     return (out, m, l_) if stats else out

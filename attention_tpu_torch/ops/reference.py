@@ -215,13 +215,15 @@ def decode_reference(
     window: int | None = None,
     sinks: int | None = None,
     partials: bool = False,
+    columns: torch.Tensor | None = None,
 ):
     """The S tokens appended last to each sequence, against its dense
     cache: q (B, H, S, d), k (B, Hkv, N, d), v (B, Hkv, N, dv), lengths
     (B,) after the append (a negative length reads as 0).  Row (b, h,
     s) sits at position ``lengths[b] - S + s`` and sees the cache rows
     at or before it; with ``window`` only the last ``window`` of them
-    plus the first ``sinks``.  Returns (B, H, S, dv) in ``v.dtype``, or
+    plus the first ``sinks``; with ``columns``, a (B, N) bool mask, only
+    the cache rows it holds.  Returns (B, H, S, dv) in ``v.dtype``, or
     with ``partials`` the float32 (unnormalized output, row max, row
     sum) of `_partials_pv`."""
     check_softcap(softcap)
@@ -243,6 +245,8 @@ def decode_reference(
         if sinks is not None:
             band = band | (col < sinks)
         keep = keep & band
+    if columns is not None:
+        keep = keep & columns[:, None, None, :]
     scores = scores.masked_fill(~keep, float("-inf"))
     return _partials_pv(scores, v) if partials else _softmax_pv(scores, v)
 

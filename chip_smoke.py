@@ -21,9 +21,16 @@ non-zero unless all of them pass:
             geometry, with decode, prefill, pad and one poisoned slot;
             decode and paged decode at the serving geometry on 8
             sequences of lengths 0 to 4096 (one token, with softcap, with
-            a 512-row window and 4 sinks, chunks of 4 and of 256, the
-            paged partials, an empty and a poisoned sequence), in f32
-            and bf16; the quantized decode kernels on the bf16 decode
+            a 512-row and a 100-row window and 4 sinks, the band crossing
+            split boundaries, chunks of 4 and of 256, the paged partials,
+            an empty and a poisoned sequence), and at `generate`'s own
+            geometry (8 sequences of 513 to 544 rows in a 544-row cache),
+            in f32 and bf16, each case line with the key split and grid
+            of its launch (the serving decode must be split over more
+            than 132 CTAs; its bf16 call and SDPA's, and the paged
+            softcap call, also timed on the card alone by
+            `torch.profiler`, since their calls are host-bound); the
+            quantized decode kernels on the bf16 decode
             case's caches quantized three ways (int8 one token, with
             softcap, with the window and sinks, a chunk of 4; feature-dim
             and token-paired int4), each also within the JAX package's
@@ -31,7 +38,8 @@ non-zero unless all of them pass:
             entry points ran once as a user calls them.  Each kernel must
             give the same bits on a second call, and the plain output with
             a planted fault (its last key tile dropped, or its scale 2%
-            off) must fail the check.
+            off; for the decode kernels also one middle split of the
+            longest sequence's keys dropped) must fail the check.
 2b. backward the training forward's partials and the three backward
             kernels (fused, dQ, dK/dV) at the serving geometry as a
             training call (b = 1, 32 q / 4 kv heads, m = n = 4096, d 128,
@@ -65,7 +73,11 @@ non-zero unless all of them pass:
             more under `torch.profiler` for device time by kernel.
 6. reference a small f32 model on the card against the same model on
             the CPU (plain versions): logits, each side the same bits
-            twice; greedy engine streams in both step modes; greedy
+            twice (the CPU's f32 settings printed first, any
+            reduced-precision f32 path pinned to full f32; should two CPU
+            forwards part, the first module whose output differs is
+            named before the check fails); greedy engine streams in both
+            step modes; greedy
             tokens of the three generate functions; teacher-forced
             int8-cache logits and greedy `generate(int8_cache=True)`
             tokens; training: loss and every gradient of one step, then
@@ -84,7 +96,8 @@ non-zero unless all of them pass:
 Launch counts are reset just before each run of a path (op path, the
 int4 entry points, each generate function, the chunk verify, each
 serving run, each training run) and read just after it.  Kernel times are CUDA-event
-medians after warm-up.  The second-to-last stdout line is the
+medians after warm-up, over back-to-back calls of the wrapper, so a call
+whose host work outlasts its kernels is timed by its host work.  The second-to-last stdout line is the
 ``{"kernels": [...]}`` record, the last ``{"ok": true, "device":
 ...}``.
 """
@@ -183,6 +196,24 @@ def time_ms(fn, *, calls: int = 5, reps: int = 7) -> float:
     return statistics.median(out)
 
 
+def device_ms(fn, *, calls: int = 30) -> float:
+    """Device time per call of every kernel ``fn`` launches, by
+    `torch.profiler`, after two warm-up calls: the card's share of a
+    call whose host time `time_ms` would measure instead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / calls / 1e3
+
+
 def held(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     """A kernel's output against its plain version's on the same inputs,
     under `reference.mismatch`'s limits: (max abs error, largest share
@@ -240,6 +271,47 @@ def decode_work(lens, s_new, h, hkv, d, item, window=None, sinks=None,
         rows = length - lo + min(sinks or 0, lo)
         nbytes += hkv * rows * kv_row_bytes
     return nbytes, 4.0 * d * h * pairs
+
+
+def split_of(b, hkv, h, s_new, n, window=None) -> dict:
+    """The key split of a decode launch on this card (`split_plan`) and
+    its grid: (row blocks, B·Hkv, splits)."""
+    from attention_tpu_torch.ops.decode import ROW_BLOCK, split_plan
+
+    rows = h // hkv * s_new
+    splits, chunk = split_plan(
+        b, hkv, rows, n, s_new, window,
+        sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    return dict(splits=splits, chunk=chunk,
+                grid=[-(-rows // ROW_BLOCK), b * hkv, splits])
+
+
+def case_name(dtype, s_new, kw) -> str:
+    """dtype, tokens per sequence and options, e.g.
+    ``bfloat16_S1_window512_sinks``."""
+    opts = [f"window{kw['window']}" if k == "window" else k for k in kw]
+    return f"{str(dtype)[6:]}_S{s_new or 1}_{'_'.join(opts) or 'plain'}"
+
+
+def without_middle_split(q, k, v, lens, split, *, stats=False, **kw):
+    """The plain output (or partials) with the keys of the longest
+    sequence's middle split masked out: a merge that lost one split's
+    partials."""
+    from attention_tpu_torch.ops.decode import split_owner
+    from attention_tpu_torch.ops.reference import decode_reference
+
+    q4 = q if q.dim() == 4 else q[:, :, None]
+    lens = lens.clamp(min=0)
+    owner = split_owner(lens, k.shape[2], q4.shape[2], kw.get("window"),
+                        split["splits"], split["chunk"])
+    longest = int(lens.argmax())
+    cols = torch.ones_like(owner, dtype=torch.bool)
+    cols[longest] = owner[longest] != split["splits"] // 2
+    out = decode_reference(q4, k, v, lens, scale=q.shape[-1] ** -0.5,
+                           partials=stats, columns=cols, **kw)
+    if stats:
+        return tuple(t[:, :, 0] for t in out)
+    return out if q.dim() == 4 else out[:, :, 0]
 
 
 def hold(kernels, kernel, case, *, run, plain, faults, work, dtype,
@@ -473,35 +545,70 @@ def phase_decode_kernels(kernels):
     cut[-1] -= KEY_TILE
     scale_off = 1.02 * d ** -0.5
     decode_rec = paged_rec = None
+    # generate's own geometry: 8 prompts of 512 tokens and 32 steps in a
+    # 544-row cache, the sequences 513 to 544 rows long
+    gen_n = 544
+    gen_lens = torch.tensor([513, 517, 522, 526, 531, 535, 540, 544],
+                            dtype=torch.int32, device="cuda")
     for dtype in (torch.float32, torch.bfloat16):
         k, v = randn(b, hkv, n, d, dtype=dtype), randn(b, hkv, n, d,
                                                        dtype=dtype)
         item = k.element_size()
         for s_new, kw in ((0, {}), (0, {"softcap": 50.0}),
                           (0, {"window": 512, "sinks": 4}),
+                          (0, {"window": 100, "sinks": 4}),
                           (4, {"softcap": 50.0})):
             q = randn(b, h, *([s_new] if s_new else []), d, dtype=dtype)
             fn = flash_decode_chunk if s_new else flash_decode
+            split = split_of(b, hkv, h, s_new or 1, n, kw.get("window"))
             library = None
             if not s_new and not kw:
                 mask = (torch.arange(n, device="cuda") < lens[:, None])
                 library = lambda: F.scaled_dot_product_attention(  # noqa
                     q[:, :, None], k, v, attn_mask=mask[:, None, None],
                     enable_gqa=True)
+                if not (split["splits"] > 1 and
+                        split["grid"][1] * split["splits"] > 132):
+                    raise AssertionError(f"the serving decode is not "
+                                         f"split across the SMs: {split}")
             rec = hold(
-                kernels, "decode", f"{str(dtype)[6:]}_S{s_new or 1}_"
-                f"{'_'.join(kw) or 'plain'}",
+                kernels, "decode", case_name(dtype, s_new, kw),
                 run=lambda: fn(q, k, v, lens, **kw),
                 plain=lambda: flash_decode_plain(q, k, v, lens, **kw),
                 faults={"dropped_last_key_tile": lambda: flash_decode_plain(
                     q, k, v, cut, **kw),
                     "scale_off_2pct": lambda: flash_decode_plain(
-                        q, k, v, lens, scale=scale_off, **kw)},
+                        q, k, v, lens, scale=scale_off, **kw),
+                    "dropped_middle_split": lambda: without_middle_split(
+                        q, k, v, lens, split, **kw)},
                 work=decode_work(DECODE_LENS, s_new or 1, h, hkv, d, item,
                                  kw.get("window"), kw.get("sinks")),
-                dtype=dtype, library=library, lengths=DECODE_LENS)
+                dtype=dtype, library=library, lengths=DECODE_LENS, **split)
             if dtype is torch.bfloat16 and not s_new and not kw:
                 decode_rec = rec
+                # a call is host-bound here: the card's time beside SDPA's
+                emit(phase="kernels", kernel="decode",
+                     case=case_name(dtype, s_new, kw),
+                     device_ms=device_ms(lambda: fn(q, k, v, lens)),
+                     library_device_ms=device_ms(library))
+
+        # generate's own geometry
+        kg, vg = (x[:, :, :gen_n].contiguous() for x in (k, v))
+        q = randn(b, h, d, dtype=dtype)
+        split = split_of(b, hkv, h, 1, gen_n)
+        gcut = gen_lens.clone()
+        gcut[-1] -= KEY_TILE
+        hold(kernels, "decode", f"{str(dtype)[6:]}_S1_generate_geometry",
+             run=lambda: flash_decode(q, kg, vg, gen_lens),
+             plain=lambda: flash_decode_plain(q, kg, vg, gen_lens),
+             faults={"dropped_last_key_tile": lambda: flash_decode_plain(
+                 q, kg, vg, gcut),
+                 "scale_off_2pct": lambda: flash_decode_plain(
+                     q, kg, vg, gen_lens, scale=scale_off),
+                 "dropped_middle_split": lambda: without_middle_split(
+                     q, kg, vg, gen_lens, split)},
+             work=decode_work(gen_lens.tolist(), 1, h, hkv, d, item),
+             dtype=dtype, lengths=gen_lens.tolist(), **split)
 
         # the same caches behind a shuffled page table; sequence 0 (length
         # 0) has an all -1 table row, sequence 1 is poisoned (length -1)
@@ -524,16 +631,20 @@ def phase_decode_kernels(kernels):
             torch.arange(b, device="cuda") == b - 1, cut, plens))
         for s_new, bsz, kw in ((0, b, {"softcap": 50.0}),
                                (0, b, {"window": 512, "sinks": 4}),
+                               (0, b, {"window": 100, "sinks": 4}),
                                (0, b, {"return_stats": True}),
                                (256, 2, {"softcap": 50.0})):
             # chunk: the two-call prefill's (2, 256) rows, on the last two
             # sequences
-            c, cc = cache, pcut
+            c, cc, kd, vd = cache, pcut, k, v
             if bsz != b:
                 c, cc = (PagedKV(x.k_pool, x.v_pool, x.page_table[-bsz:],
                                  x.lengths[-bsz:]) for x in (cache, pcut))
+                kd, vd = k[-bsz:], v[-bsz:]
             q = randn(bsz, h, *([s_new] if s_new else []), d, dtype=dtype)
             stats = kw.get("return_stats", False)
+            band = {k_: v_ for k_, v_ in kw.items() if k_ != "return_stats"}
+            split = split_of(bsz, hkv, h, s_new or 1, n, kw.get("window"))
 
             def view(out, stats=stats):
                 if not stats:
@@ -541,19 +652,31 @@ def phase_decode_kernels(kernels):
                 o, _, l_ = out
                 return (o / l_.clamp(min=1e-30)[..., None]).to(dtype)
 
+            def middle(q=q, c=c, kd=kd, vd=vd, band=band, stats=stats,
+                       split=split, kw=kw):
+                # the longest (last) sequence's rows without its middle
+                # split, in the plain output
+                out = without_middle_split(q, kd, vd, c.lengths, split,
+                                           stats=stats, **band)
+                if stats:
+                    return out
+                want = paged_flash_decode_plain(q, c, **kw).clone()
+                want[-1] = out[-1]
+                return want
+
             lens_here = [max(x, 0) for x in c.lengths.tolist()]
             rec = hold(
-                kernels, "paged_decode", f"{str(dtype)[6:]}_S{s_new or 1}_"
-                f"{'_'.join(kw)}",
+                kernels, "paged_decode", case_name(dtype, s_new, kw),
                 run=lambda: paged_flash_decode(q, c, **kw),
                 plain=lambda: paged_flash_decode_plain(q, c, **kw),
                 faults={"dropped_last_key_tile": lambda: (
                     paged_flash_decode_plain(q, cc, **kw)),
                     "scale_off_2pct": lambda: paged_flash_decode_plain(
-                        q, c, scale=scale_off, **kw)},
+                        q, c, scale=scale_off, **kw),
+                    "dropped_middle_split": middle},
                 work=decode_work(lens_here, s_new or 1, h, hkv, d, item,
                                  kw.get("window"), kw.get("sinks")),
-                dtype=dtype, view=view, lengths=c.lengths.tolist())
+                dtype=dtype, view=view, lengths=c.lengths.tolist(), **split)
             out = paged_flash_decode(q, c, **kw)
             if not stats and bsz == b and not (
                     (out[0] == 0).all() and out[1].isnan().all()
@@ -562,6 +685,9 @@ def phase_decode_kernels(kernels):
                                      "poisoned row not NaN")
             if dtype is torch.bfloat16 and not s_new and "softcap" in kw:
                 paged_rec = rec
+                emit(phase="kernels", kernel="paged_decode",
+                     case=case_name(dtype, s_new, kw), device_ms=device_ms(
+                         lambda: paged_flash_decode(q, c, **kw)))
 
         # cached prefill: 512 new rows at the start of a 1152-row cache
         m, cap = 512, 1152
@@ -1257,6 +1383,61 @@ def train_grads_agree(model, batch) -> None:
         raise AssertionError(f"the check passes a planted fault: {planted}")
 
 
+def cpu_precision() -> dict:
+    """The settings that choose the CPU's f32 arithmetic, after pinning
+    every reduced-precision f32 path they name to full f32 (the plain
+    versions are the reference; a TF32 or bf16 f32 matmul would make two
+    CPU forwards part by about 1e-3): {setting: value, "pinned": [...]}"""
+    mkl = torch.backends.mkldnn
+    pinned = []
+    if torch.get_float32_matmul_precision() != "highest":
+        pinned.append(f"float32_matmul_precision="
+                      f"{torch.get_float32_matmul_precision()}")
+        torch.set_float32_matmul_precision("highest")
+    holders = {"backends": torch.backends, "mkldnn": mkl,
+               "mkldnn.matmul": getattr(mkl, "matmul", None),
+               "mkldnn.conv": getattr(mkl, "conv", None)}
+    for name, obj in holders.items():
+        if getattr(obj, "fp32_precision", "ieee") not in ("ieee", "none"):
+            pinned.append(f"{name}.fp32_precision={obj.fp32_precision}")
+            obj.fp32_precision = "ieee"
+    out = {"float32_matmul_precision": torch.get_float32_matmul_precision(),
+           "num_threads": torch.get_num_threads(),
+           "mkldnn_enabled": mkl.enabled,
+           "mkldnn_deterministic": mkl.deterministic,
+           "cpu_capability": torch.backends.cpu.get_cpu_capability()}
+    out.update({f"{name}.fp32_precision": obj.fp32_precision
+                for name, obj in holders.items()
+                if hasattr(obj, "fp32_precision")})
+    return dict(out, pinned=pinned)
+
+
+def first_parting_module(model, tokens) -> dict:
+    """Two more forwards of ``model`` with a hook on every module: the
+    first module, in call order, whose output differs between them, and
+    by how much (None for the module when the two agree)."""
+    runs = []
+    for _ in range(2):
+        outs = []
+        hooks = [m.register_forward_hook(
+            lambda mod, args, out, name=name: outs.append((name, (
+                out[0] if isinstance(out, tuple) else out).detach().clone())))
+            for name, m in model.named_modules()]
+        try:
+            with torch.no_grad():
+                model(tokens)
+        finally:
+            for hook in hooks:
+                hook.remove()
+        runs.append(outs)
+    for (name, a), (_, b) in zip(*runs):
+        if not torch.equal(a, b):
+            return {"module": name or "(model)",
+                    "max_abs": (a - b).abs().max().item(),
+                    "differing": int((a != b).sum())}
+    return {"module": None, "modules_compared": len(runs[0])}
+
+
 def phase_reference() -> None:
     """A small f32 model on the card (the kernels) against the same
     weights on the CPU (the plain versions): uncached logits through
@@ -1280,9 +1461,16 @@ def phase_reference() -> None:
     f64.load_state_dict(cpu.state_dict())
     tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
         0, SMALL_MODEL["vocab"], (2, 256)))
+    emit(phase="reference", cpu_precision=cpu_precision())
     with torch.no_grad():
         want = cpu(tokens)
-        same_bits(want, cpu(tokens), "two CPU forwards")
+        again = cpu(tokens)
+        if not torch.equal(want, again):
+            # name the module where two CPU forwards part; the check
+            # below still fails the run
+            emit(phase="reference", cpu_forwards_part=first_parting_module(
+                cpu, tokens), cpu_precision=cpu_precision())
+        same_bits(want, again, "two CPU forwards")
         got = gpu(tokens.cuda())
         same_bits(got, gpu(tokens.cuda()), "two card forwards")
         got = got.cpu()

@@ -22,7 +22,7 @@ import torch
 
 from attention_tpu_torch.ops import launch_counts
 from attention_tpu_torch.ops.decode import flash_decode, \
-    flash_decode_chunk, flash_decode_plain
+    flash_decode_chunk, flash_decode_plain, split_plan
 from attention_tpu_torch.ops.flash import flash_attention, \
     flash_attention_plain
 from attention_tpu_torch.ops.paged import PagedKV, paged_flash_decode, \
@@ -162,6 +162,119 @@ def test_paged_kernel_matches_plain(gen, dtype, s_new, kw):
         assert got[1].isnan().all() and not got[2:].isnan().any()
     else:
         assert (got[0] == 0).all()
+
+
+# the edges of the key split (tests/test_torch_decode.py holds the same
+# cases' plain partition against JAX): 3 sequences, 8 q / 2 kv heads, d 128
+SPLIT_CASES = {
+    "length_0": dict(lens=[0, 64, 200]),
+    "length_at_chunk_boundary": dict(lens=[64, 128, 192]),
+    "full_capacity": dict(lens=[256, 256, 1]),
+    "window_straddles_split": dict(lens=[100, 150, 256], window=40),
+    "sinks_in_split_0_band_later": dict(lens=[200, 256, 130], window=100,
+                                        sinks=4),
+    "chunk_of_4": dict(lens=[4, 130, 256], s_new=4, softcap=2.0),
+    "capacity_not_tile_multiple": dict(lens=[0, 77, 200], n=200),
+    "return_stats": dict(lens=[0, 200, 255], stats=True),
+}
+
+
+def _held_twice(run, plain, dtype):
+    """The kernel's output the same bits on a second call, and within
+    the limits of its plain version's (partials: normalized in
+    ``dtype``, and the row max and sum within f32 1e-5 of max(1,
+    |value|))."""
+    got, again = run(), run()
+    want = plain()
+    if isinstance(got, tuple):
+        for x, y in zip(got, again):
+            assert torch.equal(x, y)
+        (o, m, l_), (wo, wm, wl) = got, want
+        assert _share_of_limit(
+            (o / l_.clamp(min=1e-30)[..., None]).to(dtype),
+            (wo / wl.clamp(min=1e-30)[..., None]).to(dtype)) <= 1
+        assert torch.equal(m.isneginf(), wm.isneginf())
+        fin = wm.isfinite()
+        assert ((m - wm)[fin].abs() <= 1e-5 * wm[fin].abs().clamp(min=1)
+                ).all()
+        assert ((l_ - wl).abs() <= 1e-5 * wl.clamp(min=1)).all()
+        return got
+    assert torch.equal(got.isnan(), again.isnan())
+    assert torch.equal(got.nan_to_num(), again.nan_to_num())
+    assert _share_of_limit(got, want) <= 1
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(SPLIT_CASES))
+def test_split_kernels_match_plain(gen, name, dtype):
+    """Both decode kernels on the split's edges: more than one split,
+    launched once per call, the same bits twice, within the plain
+    version's limits; paged through pages of 8 rows where the capacity
+    is not a multiple of 128, so key tiles cross pages."""
+    case = SPLIT_CASES[name]
+    b, h, hkv, d = 3, 8, 2, 128
+    n, s_new = case.get("n", 256), case.get("s_new", 1)
+    kw = {k: case[k] for k in ("window", "sinks", "softcap") if k in case}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits, _ = split_plan(b, hkv, h // hkv * s_new, n, s_new,
+                           case.get("window"), sms=sms)
+    assert splits > 1
+    q = torch.randn(b, h, *([s_new] if s_new > 1 else []), d,
+                    generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(b, hkv, n, d, generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    lens = torch.tensor(case["lens"], dtype=torch.int32, device="cuda")
+    if not case.get("stats"):
+        fn = flash_decode_chunk if s_new > 1 else flash_decode
+        before = launch_counts()["decode"]
+        got = _held_twice(lambda: fn(q, k, v, lens, **kw),
+                          lambda: flash_decode_plain(q, k, v, lens, **kw),
+                          dtype)
+        assert launch_counts()["decode"] == before + 2
+        if case["lens"][0] == 0:
+            assert (got[0] == 0).all()
+    cache = _paged(k, v, lens, page=8 if n % 128 else 128)
+    pkw = dict(kw, return_stats=True) if case.get("stats") else kw
+    before = launch_counts()["paged_decode"]
+    _held_twice(lambda: paged_flash_decode(q, cache, **pkw),
+                lambda: paged_flash_decode_plain(q, cache, **pkw), dtype)
+    assert launch_counts()["paged_decode"] == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grid", ["one_split", "many_splits"])
+def test_split_extremes_empty_and_poisoned_rows(gen, grid, dtype):
+    """A launch whose row blocks fill the SMs (no split, no merge) and
+    one with a split per key tile (128 of them): an empty sequence gives
+    a zero row, a poisoned one (paged, length -1) NaN rows, the others
+    match the plain version, the same bits twice."""
+    if grid == "one_split":
+        b, h, hkv, n = 17, 64, 8, 256
+    else:
+        b, h, hkv, n = 3, 8, 1, 8192
+    d = 128
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits, _ = split_plan(b, hkv, h // hkv, n, 1, None, sms=sms)
+    assert (splits == 1) == (grid == "one_split")
+    assert grid == "one_split" or splits >= 64
+    q = torch.randn(b, h, d, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(b, hkv, n, d, generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    lens = torch.randint(1, n + 1, (b,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    lens[0] = 0
+    got = _held_twice(lambda: flash_decode(q, k, v, lens),
+                      lambda: flash_decode_plain(q, k, v, lens), dtype)
+    assert (got[0] == 0).all()
+    cache = _paged(k, v, lens)
+    cache = cache._replace(lengths=torch.where(
+        torch.arange(b, device="cuda") == 1, -1, lens).to(torch.int32))
+    got = _held_twice(lambda: paged_flash_decode(q, cache, softcap=30.0),
+                      lambda: paged_flash_decode_plain(q, cache,
+                                                       softcap=30.0), dtype)
+    assert (got[0] == 0).all() and got[1].isnan().all()
+    assert not got[2:].isnan().any()
 
 
 def test_flash_wrapper_raises_instead_of_falling_back(gen):

@@ -157,6 +157,111 @@ def test_paged_sink_decode_matches_jax():
     _close(paged.paged_sink_decode(torch.from_numpy(q), tcache, **kw), want)
 
 
+# ------------------------------------------------------- the key split
+#
+# On the card each sequence's keys are split across CTAs and merged by a
+# second kernel; `decode.split_partials` and `decode.merge_splits` are that
+# partition and merge in PyTorch.  Per-split partials merged must equal the
+# JAX kernels (interpret mode) within f32 1e-5, on the edges of the split.
+# The plan runs at an H100's 132 SMs, which at these shapes gives one split
+# per key tile (64 columns).
+
+SPLIT_CASES = {
+    "length_0": dict(lens=[0, 64, 200]),
+    "length_at_chunk_boundary": dict(lens=[64, 128, 192]),
+    "full_capacity": dict(lens=[256, 256, 1]),
+    "window_straddles_split": dict(lens=[100, 150, 256], window=40),
+    "sinks_in_split_0_band_later": dict(lens=[200, 256, 130], window=100,
+                                        sinks=4),
+    "chunk_of_4": dict(lens=[4, 130, 256], s_new=4, softcap=2.0),
+    "capacity_not_tile_multiple": dict(lens=[0, 77, 200], n=200),
+    "return_stats": dict(lens=[0, 200, 255], stats=True),
+}
+
+
+def _split_plan(case):
+    n, s_new = case.get("n", N), case.get("s_new", 1)
+    return decode.split_plan(B, HKV, H // HKV * s_new, n, s_new,
+                             case.get("window"), sms=132)
+
+
+@pytest.mark.parametrize("name", list(SPLIT_CASES))
+def test_split_partials_merged_match_jax(name):
+    case = SPLIT_CASES[name]
+    n, s_new = case.get("n", N), case.get("s_new", 1)
+    kw = {k: case[k] for k in ("window", "sinks", "softcap") if k in case}
+    rng = np.random.default_rng(7)
+    q = _rand(rng, B, H, *([s_new] if s_new > 1 else []), D)
+    k, v = _rand(rng, B, HKV, n, D), _rand(rng, B, HKV, n, D)
+    lens = np.asarray(case["lens"], np.int32)
+    splits, chunk = _split_plan(case)
+    assert splits > 1 and chunk % decode.KEY_TILE == 0
+    if case.get("stats"):
+        # the paged kernel's partials, through a table of whole pages
+        table = np.arange(B * 2, dtype=np.int32).reshape(B, 2)
+        pools = [x.reshape(B, HKV, 2, 128, D).transpose(0, 2, 1, 3, 4)
+                 .reshape(B * 2, HKV, 128, D) for x in (k, v)]
+        want = jax_paged.paged_flash_decode(
+            jnp.asarray(q), jax_paged.PagedKV(*map(jnp.asarray, (
+                *pools, table, lens))), return_stats=True)
+    else:
+        # JAX's caches hold a multiple of 128 rows: the rows past n it
+        # gets are zeros past every length
+        pad = ((0, 0), (0, 0), (0, -n % 128), (0, 0))
+        jfn = jax_decode.flash_decode_chunk if s_new > 1 \
+            else jax_decode.flash_decode
+        want = jfn(*map(jnp.asarray, (q, np.pad(k, pad), np.pad(v, pad),
+                                      lens)), **kw)
+    tq, tk, tv, tl = map(torch.from_numpy, (q, k, v, lens))
+    q4 = tq if s_new > 1 else tq[:, :, None]
+    acc, m, l_ = decode.split_partials(q4, tk, tv, tl, scale=D ** -0.5,
+                                       splits=splits, chunk=chunk, **kw)
+    assert acc.shape == (B, H, s_new, splits, D)
+    if case.get("stats"):
+        for mine, theirs in zip(decode.merge_splits(acc, m, l_), want):
+            _close(mine[:, :, 0], theirs, relative=True)
+        return
+    got = decode.merge_splits(acc, m, l_, dtype=torch.float32)
+    _close(got if s_new > 1 else got[:, :, 0], want)
+
+
+@pytest.mark.parametrize("name", list(SPLIT_CASES))
+def test_split_owner_partitions_the_visible_keys(name):
+    """Every column a row sees has one owner split, which owns at most
+    ``chunk`` columns from the band's tile on (split 0 also those below
+    it), and no split past the plan is used."""
+    case = SPLIT_CASES[name]
+    n, s_new = case.get("n", N), case.get("s_new", 1)
+    splits, chunk = _split_plan(case)
+    lens = torch.tensor(case["lens"])
+    owner = decode.split_owner(lens, n, s_new, case.get("window"), splits,
+                               chunk)
+    assert owner.shape == (B, n)
+    assert int(owner.min()) >= 0 and int(owner.max()) < splits
+    for b, length in enumerate(case["lens"]):
+        first = 0 if "window" not in case else max(
+            length - s_new - case["window"] + 1, 0) // 64 * 64
+        for i in range(1, splits):
+            cols = (owner[b] == i).nonzero().flatten()
+            if len(cols):
+                assert int(cols.min()) == first + i * chunk
+                assert i == splits - 1 or len(cols) == chunk
+        # the plan covers every column any row of the sequence sees
+        assert length <= first + splits * chunk
+
+
+def test_split_plan_sizes_the_grid():
+    """Enough splits for four CTAs per SM, a whole number of key tiles
+    each, none beyond the span; no split where the row blocks fill the
+    SMs; a window bounds the span."""
+    assert decode.split_plan(8, 4, 8, 4096, 1, None, sms=132) == (16, 256)
+    assert decode.split_plan(8, 4, 8, 544, 1, None, sms=132) == (9, 64)
+    assert decode.split_plan(8, 4, 8, 4096, 1, 512, sms=132) == (9, 64)
+    assert decode.split_plan(2, 4, 2048, 4096, 256, None,
+                             sms=132) == (1, 4096)
+    assert decode.split_plan(1, 1, 8, 100, 1, None, sms=132) == (2, 64)
+
+
 # ------------------------------------------------------------------ flash
 
 
