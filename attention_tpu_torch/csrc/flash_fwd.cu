@@ -17,17 +17,21 @@
 // 2·m·n·(dk + dv) operations on (m + n)·(dk + dv) values, far above the ~295
 // operations per byte where a bf16 kernel stops being bound by memory, so it
 // is bound by operations: the tensor cores' 989 TFLOP/s in bf16, the CUDA
-// cores' 67 TFLOP/s in f32 (f32 must stay full f32, so no TF32).  The design
-// keeps everything but the inputs and the output out of device memory: one
-// CTA per (batch*head, 64-row query block) holds its query rows, walks the
-// key/value rows a tile at a time inside the CTA (the loop that replaces the
-// TPU grid's sequential third axis), keeps the running max and sum in
-// registers, and writes each output row once; under causal masking it stops
-// at the block's last row, halving the work.  bf16 at head dims 64/128 runs
-// the products on the tensor cores (`atk::attend_mma`, mma.sync); f32 and
-// other head dims run fp32 FMA (`atk::attend`).  wgmma/TMA pipelines are
-// later work.
+// cores' 67 TFLOP/s in f32 (f32 must stay full f32, so no TF32).  Everything
+// but the inputs and the output stays out of device memory: a CTA holds its
+// query rows, walks the key/value rows a tile at a time (the loop that
+// replaces the TPU grid's sequential third axis), keeps the running max and
+// sum in registers and writes each output row once; under causal masking it
+// stops at the block's last row, halving the work.  Two bodies, named by
+// the caller (`ops.flash.flash_body`) and refused here where they do not
+// fit: "wgmma" for bf16 at head dims 64/128 with 16-byte aligned bases and
+// strides (flash_fwd_sm90.cuh: wgmma products on TMA-fed 128-row tiles,
+// masks only where a tile needs them, heaviest-first order on a persistent
+// grid and a key split for thin grids; its note says what each does), and
+// "fma" for everything else (`atk::attend`, fp32 FMA on the CUDA cores,
+// 64-row CTAs).
 #include "attention_tile.cuh"
+#include "flash_fwd_sm90.cuh"
 
 namespace {
 
@@ -130,11 +134,6 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(FlashArgs a) {
   atk::attend<T, NJ>(flash_problem<T>(a), a.dk, a.dv, a.qscale, a.cap2);
 }
 
-template <int DK, int DV>
-__global__ void __launch_bounds__(THREADS) flash_fwd_mma_kernel(FlashArgs a) {
-  atk::attend_mma<DK, DV>(flash_problem<__nv_bfloat16>(a), a.qscale, a.cap2);
-}
-
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, size_t smem, const FlashArgs& a, int B,
                    cudaStream_t stream) {
@@ -155,31 +154,150 @@ cudaError_t launch_fma(const FlashArgs& a, int B, cudaStream_t s) {
   return launch(flash_fwd_kernel<T, 32>, smem, a, B, s);
 }
 
-cudaError_t launch_mma(const FlashArgs& a, int B, cudaStream_t s) {
-  const size_t smem = atk::smem_bytes_mma(a.dk, a.dv);
-  if (a.dk == 64 && a.dv == 64)
-    return launch(flash_fwd_mma_kernel<64, 64>, smem, a, B, s);
-  if (a.dk == 64 && a.dv == 128)
-    return launch(flash_fwd_mma_kernel<64, 128>, smem, a, B, s);
-  if (a.dk == 128 && a.dv == 64)
-    return launch(flash_fwd_mma_kernel<128, 64>, smem, a, B, s);
-  return launch(flash_fwd_mma_kernel<128, 128>, smem, a, B, s);
-}
-
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// the tensor-core path reads 16-byte row chunks: bf16, head dims 64/128,
-// 16-byte aligned bases and row/head/batch strides that are multiples of 8
-bool mma_ok(const FlashArgs& a) {
+// the wgmma body's tiles come by TMA: bf16, head dims 64/128, 16-byte
+// aligned bases, and (batch, head, row) strides that are positive
+// multiples of 8 elements (16 bytes)
+bool wgmma_ok(const FlashArgs& a) {
   const long long st[12] = {a.sqb, a.sqh, a.sqm, a.skb, a.skh, a.skn,
                             a.svb, a.svh, a.svn, a.sob, a.soh, a.som};
   for (long long x : st)
-    if (x % 8) return false;
+    if (x <= 0 || x % 8) return false;
   return (a.dk == 64 || a.dk == 128) && (a.dv == 64 || a.dv == 128) &&
          aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
          (a.acc != nullptr || aligned16(a.o));
+}
+
+// cuTensorMapEncodeTiled, a libcuda function, reached through the CUDA
+// runtime so that the library links without -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The 4-D map (d, rows, heads, batch) of a bf16 operand with the caller's
+// element strides, read in 128-byte swizzled boxes of 64 columns by `rows`
+// rows; rows past the end read as zeros.
+bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int d,
+            int rows, int heads, int batch, long long s_row, long long s_head,
+            long long s_batch, int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)rows,
+                              (cuuint64_t)heads, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)s_row * 2,
+                                 (cuuint64_t)s_head * 2,
+                                 (cuuint64_t)s_batch * 2};
+  const cuuint32_t box[4] = {sm90::BOX, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DK, int DV, bool CAP>
+cudaError_t launch_wgmma_t(const CUtensorMap& tq, const CUtensorMap& tk,
+                           const CUtensorMap& tv, const sm90::Args& s, int B,
+                           cudaStream_t stream) {
+  auto kernel = sm90::flash_fwd_wgmma<DK, DV, CAP>;
+  constexpr size_t smem = sm90::smem_bytes(DK, DV);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  // a persistent grid: at most one CTA an SM, over every work item
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long items = (long long)B * s.H *
+                          ((s.m + sm90::BM - 1) / sm90::BM) * s.splits;
+  const unsigned grid = (unsigned)(items < sms ? items : sms);
+  kernel<<<grid, sm90::THREADS, smem, stream>>>(tq, tk, tv, s);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || s.splits == 1) return err;
+  const long long bhm = (long long)B * s.H * s.m;
+  sm90::flash_merge<<<(unsigned)((bhm + sm90::MERGE_ROWS - 1) /
+                                 sm90::MERGE_ROWS),
+                      32 * sm90::MERGE_ROWS, 0, stream>>>(s, bhm);
+  return cudaGetLastError();
+}
+
+template <bool CAP>
+cudaError_t launch_wgmma_cap(const CUtensorMap& tq, const CUtensorMap& tk,
+                             const CUtensorMap& tv, const sm90::Args& s,
+                             int dk, int B, cudaStream_t st) {
+  if (dk == 64 && s.dv == 64)
+    return launch_wgmma_t<64, 64, CAP>(tq, tk, tv, s, B, st);
+  if (dk == 64)
+    return launch_wgmma_t<64, 128, CAP>(tq, tk, tv, s, B, st);
+  if (s.dv == 64)
+    return launch_wgmma_t<128, 64, CAP>(tq, tk, tv, s, B, st);
+  return launch_wgmma_t<128, 128, CAP>(tq, tk, tv, s, B, st);
+}
+
+// The wgmma body: the tensor maps of q, k and v, then the kernel over
+// `splits` key splits of split_tiles tiles each (and the merge when
+// splits > 1, its scratch in part).
+cudaError_t launch_wgmma(const FlashArgs& a, int B, int splits,
+                         int split_tiles, float* part, cudaStream_t st) {
+  const EncodeTiled enc = tensor_map_encoder();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv;
+  if (!encode(enc, &tq, a.q, a.dk, a.m, a.H, B, a.sqm, a.sqh, a.sqb,
+              sm90::BM) ||
+      !encode(enc, &tk, a.k, a.dk, a.n, a.Hkv, B, a.skn, a.skh, a.skb,
+              sm90::BN) ||
+      !encode(enc, &tv, a.v, a.dv, a.n, a.Hkv, B, a.svn, a.svh, a.svb,
+              sm90::BN))
+    return cudaErrorInvalidValue;
+  sm90::Args s;
+  s.o = a.o;
+  s.acc = a.acc;
+  s.row_max = a.row_max;
+  s.row_sum = a.row_sum;
+  s.part = splits > 1 ? part : nullptr;
+  s.B = B;
+  s.H = a.H;
+  s.Hkv = a.Hkv;
+  s.m = a.m;
+  s.dv = a.dv;
+  s.sob = a.sob;
+  s.soh = a.soh;
+  s.som = a.som;
+  s.qscale = a.qscale;
+  s.cap2 = a.cap2;
+  s.causal = a.causal;
+  s.q_offset = a.q_offset;
+  s.kv_offset = a.kv_offset;
+  s.kv_valid = a.kv_valid < 0 ? 0 : a.kv_valid > a.n ? a.n : a.kv_valid;
+  s.splits = splits;
+  s.split_tiles = split_tiles;
+  return a.cap2 > 0.f ? launch_wgmma_cap<true>(tq, tk, tv, s, a.dk, B, st)
+                      : launch_wgmma_cap<false>(tq, tk, tv, s, a.dk, B, st);
 }
 
 }  // namespace
@@ -190,7 +308,11 @@ bool mma_ok(const FlashArgs& a) {
 // kv_valid is cut to n.  With acc non-null the kernel writes partials
 // instead of o: acc (fp32, o's strides), row_max and row_sum ((B, H, m)
 // fp32, contiguous); a row that sees no key gets max -inf and sum 0.
-// Returns cudaGetLastError() after the launch (or the refusal).
+// body: 0 = "fma", 1 = "wgmma" (the caller's `flash_body`); a body that
+// cannot take the call is refused, never replaced.  The wgmma body cuts
+// each row block's key tiles into splits of split_tiles tiles (splits 1:
+// no cut) and merges them through part, splits·B·H·m·(dv + 2) floats.
+// Returns cudaGetLastError() after the launches (or the refusal).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          int dtype, int B, int H, int Hkv, int m, int n,
                          int dk, int dv, long long sqb, long long sqh,
@@ -200,9 +322,10 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          long long som, float scale, float softcap,
                          int causal, int q_offset, int kv_offset,
                          int kv_valid, float* acc, float* row_max,
-                         float* row_sum, void* stream) {
+                         float* row_sum, int body, int splits,
+                         int split_tiles, float* part, void* stream) {
   if (dk < 1 || dv < 1 || dk > atk::MAX_HEAD_DIM || dv > atk::MAX_HEAD_DIM ||
-      H % Hkv != 0 || m < 1 || n < 1)
+      H % Hkv != 0 || m < 1 || n < 1 || splits < 1)
     return (int)cudaErrorInvalidValue;
   const FlashArgs a{q,   k,   v,   o,   acc, row_max, row_sum, H,
                     Hkv, m,   n,   dk,  dv,  sqb,     sqh,     sqm,
@@ -211,8 +334,14 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                     softcap > 0.f ? softcap * atk::LOG2E : 0.f, causal,
                     q_offset, kv_offset, kv_valid};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (body == 1) {
+    if (dtype != 1 || !wgmma_ok(a) || split_tiles < 1 ||
+        (splits > 1 && part == nullptr))
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_wgmma(a, B, splits, split_tiles, part, s);
+  }
+  if (body != 0 || splits != 1) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)launch_fma<float>(a, B, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (mma_ok(a)) return (int)launch_mma(a, B, s);
   return (int)launch_fma<__nv_bfloat16>(a, B, s);
 }

@@ -1,0 +1,767 @@
+// The Hopper body of the flash forward (flash_fwd.cu): bf16 q, k, v at
+// head dims 64 or 128, both products on `wgmma`, the tiles fed by TMA.
+//
+// It computes what the TPU kernel `_flash_kernel` (attention_tpu/ops/
+// flash.py:310, online max mode) computes, and is bound by operations at
+// the shapes the port runs (2·m·n·(dk + dv) products on (m + n)·(dk + dv)
+// values, far above the H100's ~295 operations per byte in bf16): the
+// tensor cores' 989 TFLOP/s.  What each part of the design does about it:
+//
+// - `wgmma` for both products.  S = Q·Kᵀ is m64n128k16 with Q and K read
+//   from shared memory; O += P·V takes P from registers (the score
+//   accumulators rounded to bf16, as the reference rounds
+//   `p.astype(v.dtype)`; the row sum uses the unrounded P) and reads V
+//   from shared memory as an MN-major operand (the descriptor's transpose
+//   bit), since V's rows are keys with dv contiguous.  fp32 accumulation.
+// - 128 query rows and 128-key tiles a CTA.  Two consumer warpgroups own 64
+//   rows each and share every K and V tile; a producer warpgroup, trimmed
+//   to 24 registers a thread by `setmaxnreg` so the consumers get 240,
+//   keeps the ring of STAGES K and V tiles full.
+// - The softmax beside the products.  Within a warpgroup, tile i's scores
+//   are issued with tile i - 1's P·V and its softmax runs while that
+//   product does; across the two, named barriers make them take turns to
+//   issue, so one's softmax runs while the other's products hold the
+//   tensor cores (FlashAttention-3's intra-warpgroup overlap and
+//   ping-pong).  exp2 is the MUFU's `ex2.approx.ftz`, one instruction; the
+//   row sums stay per thread until the end.
+// - TMA loads with 128-byte swizzle, the layout the `wgmma` descriptors
+//   read, into a ring guarded by `mbarrier`s (full: the copy's bytes
+//   landed; empty: all 256 consumer threads are done with the stage).  The
+//   tensor maps are encoded on the host for each call from the caller's
+//   strides (4-D: d, rows, heads, batch), so the training layer's
+//   (b, s, h, d) views load as they are.  A 128-byte box is 64 bf16 wide: a
+//   128-wide head is two boxes a tile.  TMA fills rows past m and n with
+//   zeros; keys in [kv_valid, n) are masked in the edge tile.
+// - Masks only where a tile needs them.  Each CTA computes from (m0,
+//   q_offset, kv_offset, kv_valid, causal) its tile range and the first
+//   tile that can hold a masked element (`tile_plan`, mirrored by
+//   `ops.flash.tile_plan`); the tiles before it skip the per-element test.
+//   Softcap on and off are two instances, so no per-element branch.
+// - Heaviest first, on a persistent grid.  At most one CTA an SM walks the
+//   work items (row block, head, split) a round at a time; under causal
+//   masking the row blocks with the most tiles come first, and the rounds
+//   are dealt in a snake order so that every CTA sums about the same work
+//   and the tail is made of short blocks.  The producer loads the next
+//   item's Q and tiles while the consumers finish the current one, so a
+//   short block's start-up latency hides behind the last one's epilogue.
+// - A key split for thin grids.  Where B·H·⌈m/128⌉ leaves SMs idle
+//   (`ops.flash.flash_split_plan`), each block's tiles are cut into
+//   splits of split_tiles tiles; each split writes fp32 partials (output,
+//   row max in the log2 domain, row sum) into scratch the wrapper
+//   allocates, and `flash_merge` merges them in split order, the two-phase
+//   max then sum.  No atomics: a second call gives the same bits.
+// - Softcap keeps `tanhf`: the backward recomputes P from this forward's
+//   row stats with `tanhf`, and a faster tanh here alone would move them.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+constexpr int BM = 128;       // query rows per CTA
+constexpr int BN = 128;       // keys per tile
+constexpr int BOX = 64;       // bf16 columns of one 128-byte swizzle box
+constexpr int STAGES = 2;     // K and V tiles in flight
+constexpr int THREADS = 384;  // the producer warpgroup and two consumers
+constexpr int CONSUMERS = 256;
+constexpr int MERGE_ROWS = 4;  // rows per CTA of flash_merge, a warp each
+constexpr float LN2 = 0.6931471805599453f;
+
+// What the kernel reads besides the tensor maps.
+struct Args {
+  void* o;         // normalized bf16 output, or null
+  float* acc;      // partials: fp32 unnormalized output (o's strides)
+  float* row_max;  // partials: (B, H, m) row max (natural log), row sum
+  float* row_sum;
+  // split scratch (splits > 1): output (splits, B·H, m, dv), then the row
+  // max (log2 domain) and row sum (splits, B·H, m)
+  float* part;
+  int B, H, Hkv, m, dv;
+  long long sob, soh, som;  // element strides (batch, head, row) of o/acc
+  float qscale, cap2;       // scale·log2 e and softcap·log2 e (0: none)
+  int causal, q_offset, kv_offset, kv_valid;  // kv_valid cut to n
+  int splits, split_tiles;
+};
+
+// The tiles [begin, end) that a CTA of rows [m0, m0 + BM) visits in its
+// split, and the first tile that can hold a masked element: past it a
+// key may lie at or beyond kv_valid or, under causal masking, after the
+// block's first row.  Tiles below `mask` are all kept for every row.
+struct TilePlan {
+  int begin, end, mask;
+};
+
+__device__ __forceinline__ int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
+
+__device__ __forceinline__ TilePlan tile_plan(int m0, int m, int kv_valid,
+                                              bool causal, int q_offset,
+                                              int kv_offset, int split,
+                                              int split_tiles) {
+  int n_end = kv_valid;
+  int mask = kv_valid / BN;
+  if (causal) {
+    const int last = min(m0 + BM, m) - 1;  // the block's last real row
+    n_end = max(0, min(n_end, last + q_offset - kv_offset + 1));
+    mask = min(mask, max(0, floor_div(m0 + q_offset - kv_offset + 1, BN)));
+  }
+  const int end = (n_end + BN - 1) / BN;
+  TilePlan p;
+  p.begin = min(split * split_tiles, end);
+  p.end = min(p.begin + split_tiles, end);
+  p.mask = mask;
+  return p;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ------------------------------------------------------------ mbarriers, TMA
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// until the barrier's phase of this parity has completed; a wait of more
+// than 2^34 cycles (seconds) traps, so a lost arrival fails the launch
+// instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long start = 0;
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0)
+      start = clock64();
+    else if (clock64() - start > (1ll << 34))
+      __trap();
+  }
+}
+
+// one box of a 4-D tensor map into shared memory, completing on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ------------------------------------------------------------------- wgmma
+
+// The descriptor of a 128-byte-swizzled operand at shared address addr:
+// lbo and sbo in bytes (sbo: the stride of 8-row groups, 1024; lbo: for an
+// MN-major operand the stride of its 64-wide boxes, unused K-major).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until at most N committed groups are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across the points where it is issued and waited
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (+)= A·B for A (64 x 16) and B (16 x 128), both K-major in shared
+// memory; scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += A·B for A (64 x 16) from registers and B (16 x 128) MN-major in
+// shared memory (its rows are the k index, n contiguous)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A·B for A (64 x 16) from registers and B (16 x 64) MN-major in
+// shared memory (its rows are the k index, n contiguous)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// 2^x, flushing subnormal results to 0 (P is rounded to bf16 anyway)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two floats as one bf16x2 register, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ------------------------------------------------------------------ kernel
+
+// Dynamic shared memory of one CTA: Q, STAGES K and V tiles, the barriers,
+// and room to align the tiles to 1024 bytes.
+constexpr size_t smem_bytes(int dk, int dv) {
+  return 2 * (size_t)(BM * dk + STAGES * BN * (dk + dv)) +
+         8 * (2 + 4 * STAGES) + 1024;
+}
+
+// Rows [m0, m0 + BM) that see no key in their split: zero output rows, or
+// row max -inf and sum 0 (a split's scratch output is left unwritten; the
+// merge skips it).  Written by `count` threads from thread `first` on.
+__device__ void store_empty(const Args& a, int bh, int b, int h, int m0,
+                            int split, long long bhm, int first, int count) {
+  for (int idx = threadIdx.x - first; idx < BM * a.dv; idx += count) {
+    const int r = idx / a.dv;
+    const int c = idx - r * a.dv;
+    const int row = m0 + r;
+    if (row >= a.m) continue;
+    const long long stat = (long long)bh * a.m + row;
+    if (a.part != nullptr) {
+      if (c == 0) {
+        const long long pr = split * bhm + stat;
+        a.part[a.splits * bhm * a.dv + pr] = -INFINITY;
+        a.part[a.splits * bhm * (a.dv + 1) + pr] = 0.f;
+      }
+      continue;
+    }
+    const long long out = b * a.sob + h * a.soh + row * a.som + c;
+    if (a.acc != nullptr) {
+      a.acc[out] = 0.f;
+      if (c == 0) {
+        a.row_max[stat] = -INFINITY;
+        a.row_sum[stat] = 0.f;
+      }
+      continue;
+    }
+    static_cast<__nv_bfloat16*>(a.o)[out] = __float2bfloat16(0.f);
+  }
+}
+
+// One row block of one head in one split, and its tiles.
+struct Work {
+  int bh, b, h, hk, m0, split;
+  TilePlan plan;
+};
+
+// Work item w of the B·H·⌈m / BM⌉·splits a launch has: the split varies
+// slowest, then the row block (under causal masking from the last, which
+// sees the most tiles: heaviest first), then the head.
+__device__ __forceinline__ Work work_item(const Args& a, long long w,
+                                          int nmb) {
+  const int bhs = a.B * a.H;
+  Work k;
+  k.split = (int)(w / ((long long)bhs * nmb));
+  const long long r = w - (long long)k.split * bhs * nmb;
+  const int mi = (int)(r / bhs);
+  k.bh = (int)(r - (long long)mi * bhs);
+  k.b = k.bh / a.H;
+  k.h = k.bh - k.b * a.H;
+  k.hk = k.h / (a.H / a.Hkv);
+  k.m0 = (a.causal ? nmb - 1 - mi : mi) * BM;
+  k.plan = tile_plan(k.m0, a.m, a.kv_valid, a.causal != 0, a.q_offset,
+                     a.kv_offset, k.split, a.split_tiles);
+  return k;
+}
+
+// The work item a CTA takes in round r, or -1: round r holds items
+// r·G .. r·G + G - 1 of a grid of G CTAs, dealt left to right in even
+// rounds and right to left in odd ones.  With the heaviest items first,
+// every CTA then sums about the same work (round-robin alone would give
+// the low CTAs the heavier item of every round).
+__device__ __forceinline__ long long snake_item(int r, long long total) {
+  const long long w = (long long)r * gridDim.x +
+                      (r & 1 ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+  return w < total ? w : -1;
+}
+
+// A persistent grid: each CTA takes one work item a round (at most one
+// CTA an SM, `snake_item`), so the producer loads the next item's Q and
+// first tiles while the consumers finish the current one.
+// Thread layout: warpgroup 0 is the producer, warpgroups 1 and 2 the
+// consumers of rows m0 .. m0 + 63 and m0 + 64 .. m0 + 127.  A consumer
+// thread's accumulator element 4j + e sits at row 16·warp + lane / 4 +
+// 8·(e / 2) of its warpgroup's 64, column 8j + 2·(lane % 4) + e % 2: the S
+// accumulator of key columns 16kk .. 16kk + 15 is, element for element,
+// the A operand of the P·V step kk.  The K/V ring runs on across items:
+// the g-th tile a CTA loads sits in stage g % STAGES.
+template <int DK, int DV, bool CAP>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const Args a) {
+  constexpr uint32_t Q_BYTES = BM * DK * 2;
+  constexpr uint32_t K_BYTES = BN * DK * 2;
+  constexpr uint32_t V_BYTES = BN * DV * 2;
+  constexpr uint32_t BOX_BYTES = BN * 128;  // one 64-wide box of a tile
+  static_assert(BM == BN, "Q and K boxes share a stride");
+  const int nmb = (a.m + BM - 1) / BM;
+  const long long total = (long long)a.B * a.H * nmb * a.splits;
+  const long long bhm = (long long)a.B * a.H * a.m;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sq = (raw + 1023) & ~1023u;
+  const uint32_t sk = sq + Q_BYTES;
+  const uint32_t sv = sk + STAGES * K_BYTES;
+  // barriers: Q full, Q empty, then per stage K full, V full, K empty,
+  // V empty
+  const uint32_t q_full = sv + STAGES * V_BYTES;
+  const uint32_t q_empty = q_full + 8;
+  auto k_full = [&](int s) { return q_full + 8 * (2 + s); };
+  auto v_full = [&](int s) { return q_full + 8 * (2 + STAGES + s); };
+  auto k_empty = [&](int s) { return q_full + 8 * (2 + 2 * STAGES + s); };
+  auto v_empty = [&](int s) { return q_full + 8 * (2 + 3 * STAGES + s); };
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, CONSUMERS);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), CONSUMERS);
+      mbar_init(v_empty(s), CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < THREADS - CONSUMERS) {
+    // the producer: one thread issues every copy.  A stage is refilled
+    // once all consumer threads released it (the first round passes at
+    // once), the Q tile once they issued their last S of the item before
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x != 0) return;
+    int g = 0;   // tiles loaded
+    int nq = 0;  // Q tiles loaded
+    for (int r = 0; (long long)r * gridDim.x < total; ++r) {
+      const long long w = snake_item(r, total);
+      if (w < 0) continue;
+      const Work k = work_item(a, w, nmb);
+      const int ntiles = k.plan.end - k.plan.begin;
+      if (ntiles <= 0) continue;
+      if (nq > 0) mbar_wait(q_empty, (nq - 1) & 1);
+      ++nq;
+      mbar_expect_tx(q_full, Q_BYTES);
+      for (int c = 0; c < DK / BOX; ++c)
+        tma_load(sq + c * BOX_BYTES, &tq, q_full, c * BOX, k.m0, k.h, k.b);
+      for (int i = 0; i < ntiles; ++i, ++g) {
+        const int s = g % STAGES;
+        const uint32_t ph = (g / STAGES) & 1;
+        const int key0 = (k.plan.begin + i) * BN;
+        mbar_wait(k_empty(s), ph ^ 1);
+        mbar_expect_tx(k_full(s), K_BYTES);
+        for (int c = 0; c < DK / BOX; ++c)
+          tma_load(sk + s * K_BYTES + c * BOX_BYTES, &tk, k_full(s), c * BOX,
+                   key0, k.hk, k.b);
+        mbar_wait(v_empty(s), ph ^ 1);
+        mbar_expect_tx(v_full(s), V_BYTES);
+        for (int c = 0; c < DV / BOX; ++c)
+          tma_load(sv + s * V_BYTES + c * BOX_BYTES, &tv, v_full(s), c * BOX,
+                   key0, k.hk, k.b);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int cw = threadIdx.x / 128 - 1;  // consumer warpgroup
+  const int warp = (threadIdx.x / 32) & 3;
+  const int lane = threadIdx.x & 31;
+  const int c0 = 2 * (lane & 3);
+  const uint32_t qa = sq + cw * 64 * 128;  // this warpgroup's Q rows
+  // The two warpgroups take turns to issue their products (named barriers
+  // 1 and 2, warpgroup 0 first), so that one's softmax runs while the
+  // other's products hold the tensor cores.
+  auto turn_wait = [&]() {
+    asm volatile("bar.sync %0, 256;\n" ::"r"(1 + cw));
+  };
+  auto turn_pass = [&]() {
+    asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - cw));
+  };
+  if (cw == 1) asm volatile("bar.arrive 1, 256;\n");
+  int g = 0;   // tiles consumed
+  int nq = 0;  // Q tiles consumed
+  for (int r = 0; (long long)r * gridDim.x < total; ++r) {
+    const long long w = snake_item(r, total);
+    if (w < 0) continue;
+    const Work k = work_item(a, w, nmb);
+    const TilePlan plan = k.plan;
+    const int ntiles = plan.end - plan.begin;
+    if (ntiles <= 0) {
+      store_empty(a, k.bh, k.b, k.h, k.m0, k.split, bhm,
+                  THREADS - CONSUMERS, CONSUMERS);
+      continue;
+    }
+    const int r0 = k.m0 + 64 * cw + 16 * warp + lane / 4;  // rows r0, r0 + 8
+    // row r keeps the keys below lim: kv_valid, and under causal masking
+    // the last key at or before r + q_offset
+    int lim[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      lim[i] = a.causal ? min(a.kv_valid, r0 + 8 * i + a.q_offset -
+                                              a.kv_offset + 1)
+                        : a.kv_valid;
+    float o[DV / 2];
+    float s[BN / 2];
+    uint32_t p[BN / 16][4];
+#pragma unroll
+    for (int e = 0; e < DV / 2; ++e) o[e] = 0.f;
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) s[e] = 0.f;
+    float mrow[2] = {-INFINITY, -INFINITY};  // log2 domain
+    float lrow[2] = {0.f, 0.f};
+
+    // S = Q·Kᵀ of the tile in stage st: 16 columns of dk a step, four
+    // steps to a box (issued, not waited for)
+    auto issue_qk = [&](int st) {
+      const uint32_t ka = sk + st * K_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < DK / 16; ++kk) {
+        const uint32_t off = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
+        wgmma_ss_n128(s, desc_sw128(qa + off, 16, 1024),
+                      desc_sw128(ka + off, 16, 1024), kk > 0);
+      }
+    };
+    // O += P·V of the tile in stage st: 16 keys a step, V read MN-major
+    auto issue_pv = [&](int st) {
+      const uint32_t va = sv + st * V_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        const uint64_t db = desc_sw128(va + kk * 16 * 128, BOX_BYTES, 1024);
+        if constexpr (DV == 128)
+          wgmma_rs_n128(o, p[kk], db);
+        else
+          wgmma_rs_n64(o, p[kk], db);
+      }
+    };
+    // tile t's scores, in s: to the log2 domain, capped, masked where the
+    // tile may hold a masked element; then the online softmax: the new row
+    // max, P = exp2(s - max) in place (unrounded, for the row sum) and the
+    // factor corr that rescales what O holds so far.  Each thread keeps
+    // its own part of the row sums; a row's four threads add them at the
+    // end.
+    auto softmax = [&](int t, float (&corr)[2]) {
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) {
+        float x = s[e] * a.qscale;
+        // softcap as the backward recomputes it (flash_bwd.cuh)
+        if constexpr (CAP) x = a.cap2 * tanhf(x / a.cap2);
+        s[e] = x;
+      }
+      if (t >= plan.mask) {
+        const int col = t * BN + c0;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (col + 8 * j + (e & 1) >= lim[e >> 1]) s[4 * j + e] = -INFINITY;
+      }
+      float mx[2] = {mrow[0], mrow[1]};
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+      // a row whose max is still -inf has seen nothing: subtracting 0
+      // keeps every exp2 at exp2(-inf) == 0
+      float msub[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        msub[r] = mx[r] == -INFINITY ? 0.f : mx[r];
+        corr[r] = ex2(mrow[r] - msub[r]);
+        mrow[r] = mx[r];
+      }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) {
+        s[e] = ex2(s[e] - msub[(e >> 1) & 1]);
+        sum[(e >> 1) & 1] += s[e];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) lrow[r] = lrow[r] * corr[r] + sum[r];
+    };
+    // P rounded to bf16 as the A operand: the S accumulator of key columns
+    // 16kk .. 16kk + 15 is element for element the A fragment of step kk
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          p[kk][q] = pack_bf16(s[8 * kk + 2 * q], s[8 * kk + 2 * q + 1]);
+    };
+    auto rescale_o = [&](const float (&corr)[2]) {
+#pragma unroll
+      for (int e = 0; e < DV / 2; ++e) o[e] *= corr[(e >> 1) & 1];
+    };
+    auto pin_pv = [&]() {
+      pin(o);
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) pin(p[kk]);
+    };
+
+    mbar_wait(q_full, nq & 1);
+    ++nq;
+    // Tile i's scores are computed while tile i - 1's P·V runs: S_i is
+    // issued, then O += P_{i-1}·V_{i-1}; once S_i lands its softmax runs
+    // beside the product, which must land before O is rescaled and P
+    // rewritten.  Tile 0's scores come first, the last tile's P·V last.
+    // The Q tile is released with the last S.
+    float corr[2];
+    mbar_wait(k_full(g % STAGES), (g / STAGES) & 1);
+    turn_wait();
+    pin(s);
+    wgmma_fence();
+    issue_qk(g % STAGES);
+    wgmma_commit();
+    turn_pass();
+    wgmma_wait<0>();
+    pin(s);
+    mbar_arrive(k_empty(g % STAGES));
+    if (ntiles == 1) mbar_arrive(q_empty);
+    softmax(plan.begin, corr);
+    pack_p();
+    for (int i = 1; i < ntiles; ++i) {
+      const int st = (g + i) % STAGES;
+      const int pst = (g + i - 1) % STAGES;
+      mbar_wait(k_full(st), ((g + i) / STAGES) & 1);
+      turn_wait();
+      pin(s);
+      pin_pv();
+      wgmma_fence();
+      issue_qk(st);
+      wgmma_commit();
+      mbar_wait(v_full(pst), ((g + i - 1) / STAGES) & 1);
+      issue_pv(pst);
+      wgmma_commit();
+      turn_pass();
+      wgmma_wait<1>();
+      pin(s);
+      mbar_arrive(k_empty(st));
+      if (i == ntiles - 1) mbar_arrive(q_empty);
+      softmax(plan.begin + i, corr);
+      wgmma_wait<0>();
+      pin_pv();
+      mbar_arrive(v_empty(pst));
+      rescale_o(corr);
+      pack_p();
+    }
+    const int last = (g + ntiles - 1) % STAGES;
+    mbar_wait(v_full(last), ((g + ntiles - 1) / STAGES) & 1);
+    turn_wait();
+    pin_pv();
+    wgmma_fence();
+    issue_pv(last);
+    wgmma_commit();
+    turn_pass();
+    wgmma_wait<0>();
+    pin_pv();
+    mbar_arrive(v_empty(last));
+    g += ntiles;
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 1);
+      lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 2);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      if (row >= a.m) continue;
+      const long long stat = (long long)k.bh * a.m + row;
+      if (a.part != nullptr) {
+        const long long pr = k.split * bhm + stat;
+        float* dst = a.part + pr * DV;
+#pragma unroll
+        for (int j = 0; j < DV / 8; ++j)
+          *reinterpret_cast<float2*>(dst + 8 * j + c0) =
+              make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
+        if ((lane & 3) == 0) {
+          a.part[a.splits * bhm * DV + pr] = mrow[r];
+          a.part[a.splits * bhm * (DV + 1) + pr] = lrow[r];
+        }
+        continue;
+      }
+      const long long out = k.b * a.sob + k.h * a.soh + row * a.som;
+      if (a.acc != nullptr) {
+#pragma unroll
+        for (int j = 0; j < DV / 8; ++j)
+          *reinterpret_cast<float2*>(a.acc + out + 8 * j + c0) =
+              make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
+        if ((lane & 3) == 0) {
+          a.row_max[stat] = mrow[r] * LN2;
+          a.row_sum[stat] = lrow[r];
+        }
+        continue;
+      }
+      // a row that attended nothing has l == 0 and an all-zero accumulator
+      const float inv = lrow[r] == 0.f ? 1.f : 1.f / lrow[r];
+      __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(a.o) + out;
+#pragma unroll
+      for (int j = 0; j < DV / 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + 8 * j + c0) =
+            pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    }
+  }
+}
+
+// The splits' partials of each row merged in split order: the largest of
+// their maxima, each split weighed by exp2(max_i - max), then the sums.
+// A warp a row (B·H·m of them), a lane every 32nd column; the normalized
+// bf16 output, or the partials of the whole row.
+__global__ void __launch_bounds__(32 * MERGE_ROWS)
+    flash_merge(const Args a, long long bhm) {
+  const long long row = (long long)blockIdx.x * MERGE_ROWS + threadIdx.x / 32;
+  if (row >= bhm) return;
+  const int lane = threadIdx.x & 31;
+  const int bh = row / a.m;
+  const int r = row - (long long)bh * a.m;
+  const int b = bh / a.H;
+  const int h = bh - b * a.H;
+  const float* pm = a.part + a.splits * bhm * a.dv;
+  const float* pl = pm + a.splits * bhm;
+  float mx = -INFINITY;
+  for (int i = 0; i < a.splits; ++i) mx = fmaxf(mx, pm[i * bhm + row]);
+  float l = 0.f;
+  float x[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int i = 0; i < a.splits; ++i) {
+    const float mi = pm[i * bhm + row];
+    // a split that saw nothing weighs 0, and its output was never written
+    if (mi == -INFINITY) continue;
+    const float w = exp2f(mi - mx);
+    l += w * pl[i * bhm + row];
+    const float* src = a.part + (i * bhm + row) * a.dv;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (lane + 32 * q < a.dv) x[q] += w * src[lane + 32 * q];
+  }
+  const long long out = b * a.sob + h * a.soh + r * a.som;
+  if (a.acc != nullptr) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (lane + 32 * q < a.dv) a.acc[out + lane + 32 * q] = x[q];
+    if (lane == 0) {
+      a.row_max[row] = mx * LN2;
+      a.row_sum[row] = l;
+    }
+    return;
+  }
+  const float inv = l == 0.f ? 1.f : 1.f / l;
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o) + out;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (lane + 32 * q < a.dv) o[lane + 32 * q] = __float2bfloat16(x[q] * inv);
+}
+
+}  // namespace sm90

@@ -23,8 +23,6 @@ package (the main path runs them only inside the kernels).
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from attention_tpu_torch.ops import _native
@@ -119,11 +117,6 @@ def merge_splits(acc, m, l_, *, dtype=None):
     return (total / gsum[..., None]).to(dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def split_launch(q4, kv_heads: int, n_cap: int, dv: int, window):
     """(splits, chunk, scratch) of a launch on q4's card: `split_plan`,
     and the fp32 scratch of the partials, B·H·S·splits·(dv + 2) values
@@ -131,7 +124,7 @@ def split_launch(q4, kv_heads: int, n_cap: int, dv: int, window):
     b, h, s_new = q4.shape[:3]
     splits, chunk = split_plan(b, kv_heads, h // kv_heads * s_new, n_cap,
                                s_new, window,
-                               sms=_sm_count(q4.device.index))
+                               sms=_native.sm_count(q4.device.index))
     part = None
     if splits > 1:
         part = torch.empty(b * h * s_new * splits * (dv + 2),

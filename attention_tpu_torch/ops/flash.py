@@ -11,6 +11,15 @@ for a CPU tensor they run `flash_attention_plain` and
 `flash_attention_partials_plain`, the plain PyTorch versions of the same
 functions.  The remaining keywords of the JAX entry point raise
 `NotImplementedError` until a later slice ports them.
+
+The kernel has two bodies, and `flash_body` names the one a call runs:
+"wgmma" (``csrc/flash_fwd_sm90.cuh``) for bf16 at head dims 64/128 with
+16-byte aligned operands, "fma" for the rest.  The wgmma body cuts each
+row block's key tiles across CTAs where the grid would leave SMs idle
+(`flash_split_plan`) and merges the splits' partials in a second kernel.
+`tile_plan` and `flash_split_partials` are the kernel's tile range and
+split in PyTorch, which the CPU tests hold against the plain mask and
+against the JAX package (the main path runs them only inside the kernel).
 """
 
 from __future__ import annotations
@@ -34,32 +43,101 @@ from attention_tpu_torch.ops.reference import (
 
 KERNEL = "flash_fwd"
 _ARGTYPES = [P, P, P, P, I, I, I, I, I, I, I, I,
-             *([L] * 12), F, F, I, I, I, I, P, P, P, P]
+             *([L] * 12), F, F, I, I, I, I, P, P, P, I, I, I, P, P]
+
+#: the C entry point's codes of the two bodies
+BODY_CODES = {"fma": 0, "wgmma": 1}
+#: query rows per CTA and keys per tile of the wgmma body: a split is a
+#: whole number of key tiles
+ROW_BLOCK = 128
+KEY_TILE = 128
+#: most splits of one row block's keys
+MAX_SPLITS = 16
+
+
+def flash_body(dtype, dk: int, dv: int, strides, ptrs) -> str:
+    """The kernel body that runs a call: "wgmma" for bfloat16 at head
+    dims 64 or 128 whose (batch, head, row) ``strides`` (in elements, of
+    q, k, v and the output) are positive multiples of 8 and whose base
+    pointers ``ptrs`` are 16-byte aligned, as the body's TMA copies need;
+    "fma" (fp32 FMA on the CUDA cores) for everything else."""
+    if (dtype == torch.bfloat16 and dk in (64, 128) and dv in (64, 128)
+            and all(x > 0 and x % 8 == 0 for x in strides)
+            and all(p % 16 == 0 for p in ptrs)):
+        return "wgmma"
+    return "fma"
+
+
+def flash_split_plan(batch: int, heads: int, m: int, kv_valid: int, *,
+                     sms: int) -> tuple[int, int]:
+    """(splits, split_tiles): how the wgmma body cuts each row block's
+    key tiles across CTAs.  One CTA fills an SM, so a launch of fewer row
+    blocks (B·H·⌈m/128⌉) than ``sms`` gets as many splits as fit the
+    SMs, at most one per key tile of ``kv_valid`` and `MAX_SPLITS`; each
+    split takes ``split_tiles`` tiles.  One split (no merge) wherever the
+    grid already fills the card."""
+    tiles = max(-(-kv_valid // KEY_TILE), 1)
+    blocks = batch * heads * -(-m // ROW_BLOCK)
+    splits = max(1, min(sms // blocks, tiles, MAX_SPLITS))
+    per = -(-tiles // splits)
+    return -(-tiles // per), per
+
+
+def tile_plan(m0: int, m: int, kv_valid: int, causal: bool, q_offset: int,
+              kv_offset: int, split: int = 0,
+              split_tiles: int | None = None) -> tuple[int, int, int]:
+    """(begin, end, mask): the key tiles [begin, end) that the wgmma
+    body's CTA of rows [m0, m0 + 128) visits in its split, and the first
+    tile that can hold a masked element (a key at or past ``kv_valid``
+    or, under causal masking, after the block's first row); the tiles
+    below ``mask`` skip the per-element test.  The kernel's `tile_plan`
+    in csrc/flash_fwd_sm90.cuh."""
+    n_end, mask = kv_valid, kv_valid // KEY_TILE
+    if causal:
+        last = min(m0 + ROW_BLOCK, m) - 1
+        n_end = max(0, min(n_end, last + q_offset - kv_offset + 1))
+        mask = min(mask, max(0, (m0 + q_offset - kv_offset + 1)
+                             // KEY_TILE))
+    end = -(-n_end // KEY_TILE)
+    if split_tiles is None:
+        split_tiles = max(end, 1)
+    begin = min(split * split_tiles, end)
+    return begin, min(begin + split_tiles, end), mask
+
+
+def _strides(t) -> list[int]:
+    """The (batch, head, row) element strides of a 4-D tensor, each dim
+    of extent 1 given the stride it would have if contiguous over the
+    dims inside it: any stride reads the same elements there, and the
+    wgmma body's tensor maps take only positive multiples of 16 bytes."""
+    out = list(t.stride()[:3])
+    span = t.shape[3]
+    for i in (2, 1, 0):
+        if t.shape[i] == 1:
+            out[i] = span
+        span = t.shape[i] * out[i]
+    return out
 
 
 def _canon(q, k, v):
     """Validate (m, d) / (h, m, d) / (b, h, m, d) inputs, as the JAX
     package's ``_canon`` does, and return 4-D (b, h, m, d) views."""
-    if q.dim() != k.dim() or q.dim() != v.dim():
+    # plain tuples: slicing and comparing torch.Size costs microseconds a
+    # call on the kernel's host path
+    qs, ks, vs = tuple(q.shape), tuple(k.shape), tuple(v.shape)
+    if len(qs) != len(ks) or len(qs) != len(vs):
+        raise ValueError(f"rank mismatch: Q{qs} K{ks} V{vs}")
+    if qs[-1] != ks[-1] or ks[-2] != vs[-2]:
+        raise ValueError(f"shape mismatch: Q{qs} K{ks} V{vs}")
+    if ks[:-2] != vs[:-2]:
+        raise ValueError(f"K/V head dims differ: K{ks} V{vs}")
+    if len(qs) == 4 and qs[0] != ks[0]:
+        raise ValueError(f"batch mismatch: Q{qs} K{ks}")
+    if len(qs) >= 3 and qs[-3] % ks[-3] != 0:
         raise ValueError(
-            f"rank mismatch: Q{tuple(q.shape)} K{tuple(k.shape)} "
-            f"V{tuple(v.shape)}")
-    if q.shape[-1] != k.shape[-1] or k.shape[-2] != v.shape[-2]:
-        raise ValueError(
-            f"shape mismatch: Q{tuple(q.shape)} K{tuple(k.shape)} "
-            f"V{tuple(v.shape)}")
-    if k.shape[:-2] != v.shape[:-2]:
-        raise ValueError(
-            f"K/V head dims differ: K{tuple(k.shape)} V{tuple(v.shape)}")
-    if q.dim() == 4 and q.shape[0] != k.shape[0]:
-        raise ValueError(
-            f"batch mismatch: Q{tuple(q.shape)} K{tuple(k.shape)}")
-    if q.dim() >= 3 and q.shape[-3] % k.shape[-3] != 0:
-        raise ValueError(
-            f"q heads {q.shape[-3]} not a multiple of kv heads "
-            f"{k.shape[-3]}")
-    if q.dim() not in (2, 3, 4):
-        raise ValueError(f"unsupported rank {q.dim()} for flash attention")
+            f"q heads {qs[-3]} not a multiple of kv heads {ks[-3]}")
+    if len(qs) not in (2, 3, 4):
+        raise ValueError(f"unsupported rank {len(qs)} for flash attention")
     lead = 4 - q.dim()
     return tuple(t[(None,) * lead] for t in (q, k, v))
 
@@ -101,6 +179,60 @@ def flash_attention_partials_plain(q, k, v, *, scale=None, causal=False,
         q_offset=q_offset, kv_offset=kv_offset, kv_valid=kv_valid)
 
 
+def flash_split_partials(q, k, v, *, splits: int, split_tiles: int,
+                         scale=None, causal=False, softcap=None,
+                         q_offset=0, kv_offset=0, kv_valid=None):
+    """Each split's partials as the wgmma body's split CTAs write them:
+    split i takes the keys [i·w, (i+1)·w), w = ``split_tiles`` key tiles
+    (a plan of `flash_split_plan`, whose every split starts below n).
+    float32 (unnormalized output (..., m, splits, dv), row max in natural
+    log and row sum (..., m, splits)), max -inf and sum 0 for a split
+    that sees nothing; `ops.decode.merge_splits` merges them as the
+    kernel's merge does."""
+    _canon(q, k, v)
+    n = k.shape[-2]
+    valid = n if kv_valid is None else min(max(int(kv_valid), 0), n)
+    width = split_tiles * KEY_TILE
+    parts = []
+    for i in range(splits):
+        lo = i * width
+        hi = min(lo + width, n)
+        parts.append(attention_reference_partials(
+            q, k[..., lo:hi, :], v[..., lo:hi, :], scale=scale,
+            causal=causal, softcap=softcap, q_offset=q_offset,
+            kv_offset=kv_offset + lo,
+            kv_valid=min(max(valid - lo, 0), hi - lo)))
+    acc, mx, sm = zip(*parts)
+    return torch.stack(acc, dim=-2), torch.stack(mx, -1), torch.stack(sm, -1)
+
+
+def flash_launch_plan(q, k, v, *, kv_valid=None) -> dict:
+    """How the kernel runs a call on these inputs (CUDA tensors, as the
+    entry points take them): the body (`flash_body`) and the key split
+    (`flash_split_plan`; one split for the "fma" body).  The output lies
+    in storage the wrapper allocates, always aligned, with (b, m, h, dv)
+    strides."""
+    q4, k4, v4 = (t if t.stride(-1) == 1 else t.contiguous()
+                  for t in _canon(q, k, v))
+    return _plan(q4, k4, v4, _offsets(k4.shape[2], None, None,
+                                      kv_valid)["kv_valid"])
+
+
+def _plan(q4, k4, v4, kv_valid) -> dict:
+    b, h, m, dk = q4.shape
+    dv = v4.shape[-1]
+    o_strides = [m * h * dv, dv, h * dv]
+    strides = [*_strides(q4), *_strides(k4), *_strides(v4), *o_strides]
+    body = flash_body(q4.dtype, dk, dv, strides,
+                      [t.data_ptr() for t in (q4, k4, v4)])
+    splits, split_tiles = 1, 0
+    if body == "wgmma":
+        splits, split_tiles = flash_split_plan(
+            b, h, m, kv_valid, sms=_native.sm_count(q4.device.index))
+    return dict(body=body, splits=splits, split_tiles=split_tiles,
+                strides=strides)
+
+
 def _launch(q4, k4, v4, *, scale, causal, softcap, q_offset, kv_offset,
             kv_valid, partials=False):
     dtype = q4.dtype
@@ -118,23 +250,28 @@ def _launch(q4, k4, v4, *, scale, causal, softcap, q_offset, kv_offset,
         raise ValueError(f"empty attention: m={m} n={n}")
     q4, k4, v4 = (t if t.stride(-1) == 1 else t.contiguous()
                   for t in (q4, k4, v4))
+    plan = _plan(q4, k4, v4, kv_valid)
     # (b, m, h, dv) storage: the attention layer's head merge is a view
     o4 = torch.empty((b, m, h, dv), dtype=torch.float32 if partials
                      else dtype, device=q4.device).transpose(1, 2)
     stats = (torch.empty((2, b, h, m), dtype=torch.float32,
                          device=q4.device) if partials else None)
+    splits = plan["splits"]
+    part = (torch.empty(splits * b * h * m * (dv + 2), dtype=torch.float32,
+                        device=q4.device) if splits > 1 else None)
     fn = _native.function(KERNEL, "flash_fwd", _ARGTYPES)
     with torch.cuda.device(q4.device):
         stream = torch.cuda.current_stream(q4.device).cuda_stream
         err = fn(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
                  None if partials else o4.data_ptr(),
                  DTYPE_CODES[dtype], b, h, hkv, m, n, dk, dv,
-                 *q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3],
-                 *o4.stride()[:3], float(scale),
+                 *plan["strides"], float(scale),
                  float(softcap or 0.0), int(causal), q_offset, kv_offset,
                  kv_valid, *((o4.data_ptr(), stats[0].data_ptr(),
                               stats[1].data_ptr()) if partials
-                             else (None, None, None)), stream)
+                             else (None, None, None)),
+                 BODY_CODES[plan["body"]], splits, plan["split_tiles"],
+                 None if part is None else part.data_ptr(), stream)
     _native.check(KERNEL, err)
     _native.count_launch(KERNEL)
     return (o4, stats[0], stats[1]) if partials else o4

@@ -148,13 +148,23 @@ def _masked_scores(q, k, *, scale, causal, softcap, q_offset, kv_offset,
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if softcap is not None:
         scores = softcap * torch.tanh(scores / softcap)
-    m, n = scores.shape[-2:]
-    row = torch.arange(m, device=q.device)[:, None]
-    col = torch.arange(n, device=q.device)[None, :]
-    masked = col >= (n if kv_valid is None else kv_valid)
+    keep = attention_mask(*scores.shape[-2:], causal=causal,
+                          q_offset=q_offset, kv_offset=kv_offset,
+                          kv_valid=kv_valid, device=q.device)
+    return scores.masked_fill(~keep, float("-inf"))
+
+
+def attention_mask(m: int, n: int, *, causal=False, q_offset=0,
+                   kv_offset=0, kv_valid=None, device=None) -> torch.Tensor:
+    """(m, n) bool, True where query row i attends key row j: j below
+    ``kv_valid`` and, under ``causal``, ``kv_offset + j <=
+    q_offset + i``."""
+    row = torch.arange(m, device=device)[:, None]
+    col = torch.arange(n, device=device)[None, :]
+    keep = col < (n if kv_valid is None else kv_valid)
     if causal:
-        masked = masked | (col + kv_offset > row + q_offset)
-    return scores.masked_fill(masked, float("-inf"))
+        keep = keep & (col + kv_offset <= row + q_offset)
+    return keep.expand(m, n)
 
 
 def _gqa_repeat(q, k, v):

@@ -15,8 +15,11 @@ non-zero unless all of them pass:
             under the limits of `reference.mismatch`: flash in f32 with
             dk != dv and ragged edges, in bf16 causal GQA with softcap,
             at the op path's shape, at the served model's causal forward
-            (32 q / 4 kv heads, sequence 4096) and as a cached prefill
-            (512 rows into a 1152-row cache, ``kv_valid``); ragged on a
+            (32 q / 4 kv heads, sequence 4096, without and with softcap
+            50) and as a cached prefill (512 rows into a 1152-row cache,
+            ``kv_valid``, with softcap 50 and without, where SDPA's time
+            is like for like), each flash line with the kernel body
+            (bf16 must run "wgmma") and its key split; ragged on a
             step that the port's own scheduler packed at the serving
             geometry, with decode, prefill, pad and one poisoned slot;
             decode and paged decode at the serving geometry on 8
@@ -39,7 +42,9 @@ non-zero unless all of them pass:
             give the same bits on a second call, and the plain output with
             a planted fault (its last key tile dropped, or its scale 2%
             off; for the decode kernels also one middle split of the
-            longest sequence's keys dropped) must fail the check.
+            longest sequence's keys dropped; for causal flash also the
+            diagonal tile of the middle row block, the tile the kernel's
+            mask range must test) must fail the check.
 2b. backward the training forward's partials and the three backward
             kernels (fused, dQ, dK/dV) at the serving geometry as a
             training call (b = 1, 32 q / 4 kv heads, m = n = 4096, d 128,
@@ -54,7 +59,11 @@ non-zero unless all of them pass:
             with SDPA's backward as the yardstick.
 3. op path  the ``scale4`` testcase (m = n = 8192, dk = dv = 128) from
             the port's generator, through ``cli run --backend flash`` in
-            f32 and bf16: both must print ``Correct!``.
+            f32 and bf16: both must print ``Correct!``; then the flash
+            kernel timed on its inputs (bf16 takes the key split) and at
+            the served model's causal forward without and with softcap
+            50 (softcap's own cost), each with its device time by
+            `torch.profiler` beside the CUDA-event time.
 4. generate `TinyDecoder` at the BASELINE.md config-5 attention geometry
             (32 q / 4 kv heads, head_dim 128, dim 4096), depth 4, vocab
             32000, rope, softcap 50, bf16, random weights from a seed:
@@ -120,7 +129,8 @@ SEED = 0
 # the card's published peaks (H100 SXM data sheet, dense)
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
-# the widest key tile of the kernels' loops (attend_mma's 64 rows)
+# the key tile of attend_mma's loops (64 rows): the keys a planted
+# dropped-tile fault removes
 KEY_TILE = 64
 # the decode cases' lengths: 8 sequences from empty to the full capacity
 DECODE_LENS = [0, 1, 517, 1024, 2047, 3000, 4095, 4096]
@@ -314,6 +324,51 @@ def without_middle_split(q, k, v, lens, split, *, stats=False, **kw):
     return out if q.dim() == 4 else out[:, :, 0]
 
 
+def flash_plan(q, k, v, kv_valid=None) -> dict:
+    """The body and key split a flash call on these inputs runs."""
+    from attention_tpu_torch.ops.flash import flash_launch_plan
+
+    plan = flash_launch_plan(q, k, v, kv_valid=kv_valid)
+    return dict(body=plan["body"], splits=plan["splits"])
+
+
+def without_diagonal_tile(q, k, v, **kw):
+    """The plain flash output with the keys of one row block's diagonal
+    tile (the first tile its CTA masks, `tile_plan`'s ``mask``) dropped
+    for that block's rows, the middle block of the call: a kernel whose
+    mask range lost the tile that needs the mask."""
+    from attention_tpu_torch.ops.decode import merge_splits
+    from attention_tpu_torch.ops.flash import (
+        KEY_TILE,
+        ROW_BLOCK,
+        flash_attention_plain,
+        tile_plan,
+    )
+    from attention_tpu_torch.ops.reference import \
+        attention_reference_partials
+
+    out = flash_attention_plain(q, k, v, **kw).clone()
+    m, n = q.shape[-2], k.shape[-2]
+    m0 = (-(-m // ROW_BLOCK) // 2) * ROW_BLOCK
+    q_offset, kv_offset = kw.get("q_offset", 0), kw.get("kv_offset", 0)
+    valid = n if kw.get("kv_valid") is None else kw["kv_valid"]
+    t = tile_plan(m0, m, valid, kw.get("causal", False), q_offset,
+                  kv_offset)[2]
+    rows = q[..., m0:m0 + ROW_BLOCK, :]
+    parts = [attention_reference_partials(
+        rows, k[..., lo:hi, :], v[..., lo:hi, :],
+        scale=kw.get("scale"), causal=kw.get("causal", False),
+        softcap=kw.get("softcap"), q_offset=q_offset + m0,
+        kv_offset=kv_offset + lo, kv_valid=min(max(valid - lo, 0), hi - lo))
+        for lo, hi in ((0, t * KEY_TILE), ((t + 1) * KEY_TILE, n))
+        if hi > lo]
+    acc, mx, sm = (torch.stack(x, dim=-2 if i == 0 else -1)
+                   for i, x in enumerate(zip(*parts)))
+    out[..., m0:m0 + ROW_BLOCK, :] = merge_splits(acc, mx, sm,
+                                                  dtype=out.dtype)
+    return out
+
+
 def hold(kernels, kernel, case, *, run, plain, faults, work, dtype,
          library=None, view=lambda out: out, **extra) -> dict:
     """Hold one kernel case against its plain version: the same bits on
@@ -442,22 +497,32 @@ def phase_kernels(kernels, serve_model):
         ("bf16_serving_causal_gqa", torch.bfloat16,
          ((1, 32, 4096, 128), (1, 4, 4096, 128), (1, 4, 4096, 128)),
          {"causal": True}),
+        ("bf16_serving_causal_gqa_softcap50", torch.bfloat16,
+         ((1, 32, 4096, 128), (1, 4, 4096, 128), (1, 4, 4096, 128)),
+         {"causal": True, "softcap": 50.0}),
     ]
     for name, dtype, shapes, kw in cases:
         q, k, v = (randn(*s, dtype=dtype) for s in shapes)
+        plan = flash_plan(q, k, v)
+        if dtype is torch.bfloat16 and plan["body"] != "wgmma":
+            raise AssertionError(f"{name} runs the {plan['body']} body")
         got = flash_attention(q, k, v, **kw)
         same_bits(got, flash_attention(q, k, v, **kw))
         want = flash_attention_plain(q, k, v, **kw)
         err, ratio = held(got, want)
-        faults = rejected({
+        planted = {
             "dropped_last_key_tile": flash_attention_plain(
                 q, k[..., :-KEY_TILE, :], v[..., :-KEY_TILE, :], **kw),
             "scale_off_2pct": flash_attention_plain(
                 q, k, v, scale=1.02 * q.shape[-1] ** -0.5, **kw),
-        }, want)
+        }
+        if kw.get("causal"):
+            planted["dropped_diagonal_tile"] = without_diagonal_tile(
+                q, k, v, **kw)
+        faults = rejected(planted, want)
         kernels["flash_fwd"]["max_abs_err"] = max(
             kernels["flash_fwd"]["max_abs_err"], err)
-        emit(phase="kernels", kernel="flash_fwd", case=name,
+        emit(phase="kernels", kernel="flash_fwd", case=name, **plan,
              max_abs_err=err, share_of_limit=ratio,
              planted_faults_share_of_limit=faults)
 
@@ -689,24 +754,42 @@ def phase_decode_kernels(kernels):
                      case=case_name(dtype, s_new, kw), device_ms=device_ms(
                          lambda: paged_flash_decode(q, c, **kw)))
 
-        # cached prefill: 512 new rows at the start of a 1152-row cache
+        # cached prefill: 512 new rows at the start of a 1152-row cache,
+        # with the serving model's softcap 50 and without it (SDPA has no
+        # softcap: only the second is like for like)
         m, cap = 512, 1152
         q = randn(b, h, m, d, dtype=dtype)
         kc, vc = (randn(b, hkv, cap, d, dtype=dtype) for _ in range(2))
-        kw = dict(causal=True, q_offset=0, kv_valid=m, softcap=50.0)
-        hold(kernels, "flash_fwd", f"{str(dtype)[6:]}_cached_prefill",
-             run=lambda: flash_attention(q, kc, vc, **kw),
-             plain=lambda: flash_attention_plain(q, kc, vc, **kw),
-             faults={"dropped_last_key_tile": lambda: flash_attention_plain(
-                 q, kc, vc, **dict(kw, kv_valid=m - KEY_TILE)),
-                 "scale_off_2pct": lambda: flash_attention_plain(
-                     q, kc, vc, scale=scale_off, **kw)},
-             work=(2 * (b * h * m + b * hkv * m) * d * item,
-                   4.0 * d * b * h * m * (m + 1) / 2),
-             dtype=dtype,
-             library=lambda: F.scaled_dot_product_attention(
-                 q, kc[:, :, :m], vc[:, :, :m], is_causal=True,
-                 enable_gqa=True))
+        plan = flash_plan(q, kc, vc, kv_valid=m)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q, kc[:, :, :m], vc[:, :, :m], is_causal=True,
+                enable_gqa=True)
+
+        for softcap in (50.0, None):
+            kw = dict(causal=True, q_offset=0, kv_valid=m, softcap=softcap)
+
+            def run():
+                return flash_attention(q, kc, vc, **kw)
+
+            hold(kernels, "flash_fwd",
+                 f"{str(dtype)[6:]}_cached_prefill"
+                 + ("_softcap50" if softcap else ""),
+                 run=run,
+                 plain=lambda: flash_attention_plain(q, kc, vc, **kw),
+                 faults={
+                     "dropped_last_key_tile": lambda: flash_attention_plain(
+                         q, kc, vc, **dict(kw, kv_valid=m - KEY_TILE)),
+                     "scale_off_2pct": lambda: flash_attention_plain(
+                         q, kc, vc, scale=scale_off, **kw),
+                     "dropped_diagonal_tile": lambda: without_diagonal_tile(
+                         q, kc, vc, **kw)},
+                 work=(2 * (b * h * m + b * hkv * m) * d * item,
+                       4.0 * d * b * h * m * (m + 1) / 2),
+                 dtype=dtype, library=sdpa, **plan,
+                 device_ms=device_ms(run),
+                 library_device_ms=device_ms(sdpa))
     kernels["decode"].update(decode_rec)
     kernels["paged_decode"].update(paged_rec)
     return k, v
@@ -843,14 +926,17 @@ def phase_op_path(ops, kernels) -> None:
                    for x in (case.q, case.k, case.v))
         ms = time_ms(lambda: flash_attention(q, k, v))
         plain_ms = time_ms(lambda: flash_attention_plain(q, k, v))
+        # SDPA on (1, 1, m, d), the layout its fused kernels take
         lib_ms = time_ms(lambda: torch.nn.functional
-                         .scaled_dot_product_attention(q[None], k[None],
-                                                       v[None]))
+                         .scaled_dot_product_attention(
+                             q[None, None], k[None, None], v[None, None]))
         b_ms, b_by = bound_ms(nbytes * q.element_size(), ops_count, dtype)
         rec = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    bound_ms=b_ms, bound_by=b_by)
         emit(phase="op_path", kernel="flash_fwd", dtype=f"{dtype}"[6:],
-             shape=[m, n, dk, dv], gflop_s=ops_count / ms / 1e6, **rec)
+             shape=[m, n, dk, dv], **flash_plan(q, k, v),
+             device_ms=device_ms(lambda: flash_attention(q, k, v)),
+             gflop_s=ops_count / ms / 1e6, **rec)
         if dtype is torch.bfloat16:
             kernels["flash_fwd"].update(rec)
 
@@ -862,15 +948,32 @@ def phase_op_path(ops, kernels) -> None:
                .to(torch.bfloat16) for heads in (h, hkv, hkv))
     kx, vx = (t.repeat_interleave(h // hkv, dim=1) for t in (k, v))
     ops_count = 2.0 * (d + d) * h * s * (s + 1) / 2
-    ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
-    emit(phase="op_path", kernel="flash_fwd", dtype="bfloat16",
-         shape=[h, hkv, s, d], causal=True, ms=ms,
-         gflop_s=ops_count / ms / 1e6,
-         library_ms=time_ms(lambda: torch.nn.functional
-                            .scaled_dot_product_attention(
-                                q, kx, vx, is_causal=True)),
-         bound_ms=bound_ms((2 * h + 2 * hkv) * s * d * 2, ops_count,
-                           torch.bfloat16)[0])
+    plan = flash_plan(q, k, v)
+    b_ms = bound_ms((2 * h + 2 * hkv) * s * d * 2, ops_count,
+                    torch.bfloat16)[0]
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, kx, vx, is_causal=True)
+
+    # without softcap (SDPA computes the same), then with the served
+    # model's softcap 50 (SDPA has none): the difference is softcap's cost
+    nocap_ms = None
+    for softcap in (None, 50.0):
+        def run(softcap=softcap):
+            return flash_attention(q, k, v, causal=True, softcap=softcap)
+
+        ms = time_ms(run)
+        rec = dict(ms=ms, device_ms=device_ms(run),
+                   gflop_s=ops_count / ms / 1e6, bound_ms=b_ms)
+        if softcap is None:
+            nocap_ms = ms
+            rec.update(library_ms=time_ms(sdpa), library_device_ms=device_ms(
+                sdpa))
+        else:
+            rec.update(softcap=softcap, softcap_cost_ms=ms - nocap_ms)
+        emit(phase="op_path", kernel="flash_fwd", dtype="bfloat16",
+             shape=[h, hkv, s, d], causal=True, **plan, **rec)
 
 
 @contextlib.contextmanager
@@ -1124,8 +1227,8 @@ def phase_backward(kernels) -> None:
         kernels["flash_fwd"]["max_abs_err"] = max(
             kernels["flash_fwd"]["max_abs_err"], p_err)
         emit(phase="backward", kernel="flash_fwd", case=case + "_partials",
-             max_abs_err=p_err, share_of_limit=p_ratio,
-             row_stats_rel_err=stats_rel)
+             **flash_plan(q, k, v), max_abs_err=p_err,
+             share_of_limit=p_ratio, row_stats_rel_err=stats_rel)
 
         out, lse = _flash_fwd_impl(q, k, v, **kw)
         want = flash_bwd.flash_backward_plain(q, k, v, out, lse, dout, **kw)

@@ -21,10 +21,12 @@ import pytest
 import torch
 
 from attention_tpu_torch.ops import launch_counts
+from attention_tpu_torch.ops import flash as flash_ops
+from attention_tpu_torch.ops._native import KernelLaunchError
 from attention_tpu_torch.ops.decode import flash_decode, \
     flash_decode_chunk, flash_decode_plain, split_plan
 from attention_tpu_torch.ops.flash import flash_attention, \
-    flash_attention_plain
+    flash_attention_plain, flash_launch_plan
 from attention_tpu_torch.ops.paged import PagedKV, paged_flash_decode, \
     paged_flash_decode_plain
 from attention_tpu_torch.ops import quant
@@ -282,6 +284,122 @@ def test_flash_wrapper_raises_instead_of_falling_back(gen):
                     dtype=torch.float64)
     with pytest.raises(TypeError):
         flash_attention(q, q, q)
+
+
+# The wgmma body (bf16, head dims 64/128): ragged edges (m, n not
+# multiples of 128), both signs of q_offset, kv_valid 0, 1 and inside a
+# tile, the mixed head dims, 4-D GQA with softcap, a thin grid that takes
+# the key split, and one query row (a decode-like call).  Each case must run that body, launch once a call
+# and give the same bits twice.
+WGMMA_CASES = {
+    "ragged_1000x1003": (((1, 4, 1000, 128), (1, 4, 1003, 128),
+                          (1, 4, 1003, 128)), {}),
+    "ragged_causal": (((1, 4, 1000, 128), (1, 4, 1003, 128),
+                       (1, 4, 1003, 128)), dict(causal=True)),
+    "negative_q_offset": (((1, 4, 1000, 128), (1, 4, 1003, 128),
+                           (1, 4, 1003, 128)),
+                          dict(causal=True, q_offset=-37, kv_valid=500)),
+    "positive_q_offset": (((2, 8, 300, 128), (2, 2, 1152, 128),
+                           (2, 2, 1152, 128)),
+                          dict(causal=True, q_offset=200, kv_valid=500)),
+    "kv_valid_0": (((1, 4, 300, 128), (1, 4, 300, 128), (1, 4, 300, 128)),
+                   dict(kv_valid=0)),
+    "kv_valid_1": (((1, 4, 300, 128), (1, 4, 300, 128), (1, 4, 300, 128)),
+                   dict(kv_valid=1, causal=True, q_offset=5)),
+    "d64_causal_gqa": (((2, 8, 300, 64), (2, 2, 300, 64), (2, 2, 300, 64)),
+                       dict(causal=True)),
+    "dk64_dv128": (((1, 4, 500, 64), (1, 4, 700, 64), (1, 4, 700, 128)),
+                   dict(causal=True)),
+    "dk128_dv64": (((1, 4, 500, 128), (1, 4, 700, 128), (1, 4, 700, 64)),
+                   dict(softcap=30.0)),
+    "4d_gqa_softcap": (((2, 8, 777, 128), (2, 2, 777, 128),
+                        (2, 2, 777, 128)), dict(causal=True, softcap=50.0)),
+    "thin_grid_split": (((8192, 128), (8192, 128), (8192, 128)), {}),
+    "one_query_row": (((2, 8, 1, 128), (2, 2, 777, 128), (2, 2, 777, 128)),
+                      dict(causal=True, q_offset=776)),
+}
+
+
+@pytest.mark.parametrize("name", list(WGMMA_CASES))
+def test_flash_wgmma_body_matches_plain(gen, name):
+    shapes, kw = WGMMA_CASES[name]
+    q, k, v = (torch.randn(s, generator=gen, device="cuda")
+               .to(torch.bfloat16) for s in shapes)
+    plan = flash_launch_plan(q, k, v, kv_valid=kw.get("kv_valid"))
+    assert plan["body"] == "wgmma"
+    if name == "thin_grid_split":
+        assert plan["splits"] > 1
+    before = launch_counts()["flash_fwd"]
+    got = flash_attention(q, k, v, **kw)
+    again = flash_attention(q, k, v, **kw)
+    assert launch_counts()["flash_fwd"] == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    assert _share_of_limit(got, flash_attention_plain(q, k, v, **kw)) <= 1
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["one", "split"])
+def test_flash_wgmma_partials_match_plain(gen, split):
+    """The partials epilogue of the wgmma body, unsplit (4-D causal GQA
+    with a negative offset and softcap, 384 row blocks) and through the
+    split's merge (one head, 8192 rows): row stats within 1e-5 of max(1,
+    |value|), -inf where the plain version has it, the normalized output
+    within `mismatch`."""
+    shapes = (((8192, 128),) * 3 if split else
+              ((4, 32, 300, 128), (4, 4, 1152, 128), (4, 4, 1152, 128)))
+    kw = {} if split else dict(causal=True, q_offset=-37, kv_valid=500,
+                               softcap=20.0)
+    q, k, v = (torch.randn(s, generator=gen, device="cuda")
+               .to(torch.bfloat16) for s in shapes)
+    assert (flash_launch_plan(q, k, v, kv_valid=kw.get("kv_valid"))
+            ["splits"] > 1) == split
+    got = flash_attention_partials(q, k, v, **kw)
+    again = flash_attention_partials(q, k, v, **kw)
+    want = flash_attention_partials_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    assert torch.equal(got[1].isinf(), want[1].isinf())
+    live = want[1].isfinite()
+    for g, w in zip(got[1:], want[1:]):
+        assert ((g - w)[live].abs() <= 1e-5 * w[live].abs().clamp(
+            min=1)).all()
+    norm = [(o / l_.clamp(min=1e-30)[..., None]).to(torch.bfloat16)
+            for o, _, l_ in (got, want)]
+    assert mismatch(*norm)[1] <= 1
+
+
+def test_flash_wgmma_takes_the_layers_strided_operands(gen):
+    """The training layer's call: (b, s, heads, d) storage viewed as
+    (b, heads, s, d), b = 4, m = n = 2048, 32 q / 4 kv heads, causal,
+    softcap 50; the partials it saves and the output."""
+    b, s, h, hkv, d = 4, 2048, 32, 4, 128
+    q, k, v = (torch.randn(b, s, heads, d, generator=gen, device="cuda")
+               .to(torch.bfloat16).transpose(1, 2)
+               for heads in (h, hkv, hkv))
+    kw = dict(causal=True, softcap=50.0)
+    assert flash_launch_plan(q, k, v)["body"] == "wgmma"
+    got = flash_attention_partials(q, k, v, **kw)
+    want = flash_attention_partials_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got[1:], want[1:]):
+        assert ((g - w).abs() <= 1e-5 * w.abs().clamp(min=1)).all()
+    norm = [(o / l_[..., None]).to(torch.bfloat16) for o, _, l_ in
+            (got, want)]
+    assert mismatch(*norm)[1] <= 1
+    out = flash_attention(q, k, v, **kw)
+    assert _share_of_limit(out, flash_attention_plain(q, k, v, **kw)) <= 1
+
+
+def test_flash_wgmma_body_refuses_what_it_cannot_take(gen, monkeypatch):
+    """The C side refuses a call the named body cannot take: f32 named
+    "wgmma" raises, nothing launches and nothing falls back."""
+    monkeypatch.setattr(flash_ops, "flash_body", lambda *a: "wgmma")
+    q = torch.randn(2, 256, 128, generator=gen, device="cuda")
+    before = launch_counts()["flash_fwd"]
+    with pytest.raises(KernelLaunchError):
+        flash_attention(q, q, q)
+    assert launch_counts()["flash_fwd"] == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
