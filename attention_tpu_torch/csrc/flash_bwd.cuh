@@ -16,6 +16,9 @@
 // kv_offset + j), only the first kv_valid key rows attended, and softcap
 // in the log2 domain (cap2 = softcap·log2 e).
 //
+// with lse2 and delta read at row stride ls (the caller pads each head's
+// rows, lse2 with +inf: exp2(s - inf) is the 0 of a row that saw no key).
+//
 // Two shapes of CTA (128 threads each):
 //
 // key-major (`kv_major_*`): a CTA owns a block of KB key rows and walks
@@ -23,18 +26,20 @@
 // sequential q axis, keeping dK and dV in fp32 registers.  The dK/dV kernel
 // (replaces `_dkv_kernel`, flash_bwd.py:215) walks the query tiles of every
 // Q head of its KV head's GQA group, so the group sum stays in the kernel;
-// the fused kernel (replaces `_fused_bwd_kernel`, :304) owns one Q head and
-// writes per-Q-head partials that the caller sums over the group, and adds
-// each tile's dQ = scale·dS·K into an fp32 (B, H, m, dk) buffer with
-// atomicAdd: CTAs run in no order, and the TPU kernel's resident dQ block
-// has no counterpart on the GPU.  A causal CTA starts at the first query
-// tile that sees its keys.
+// the fused kernel's FMA body (replaces `_fused_bwd_kernel`, :304, for fp32
+// and the head dims its Hopper body, flash_bwd_sm90.cuh, does not take)
+// owns one Q head and writes per-Q-head partials that the caller sums over
+// the group, and adds each tile's dQ = scale·dS·K into an fp32 (B, H, m,
+// dk) buffer with atomicAdd: CTAs run in no order, and the TPU kernel's
+// resident dQ block has no counterpart on the GPU.  A causal CTA starts at
+// the first query tile that sees its keys.
 //
 // query-major (`q_major_*`, replaces `_dq_kernel`, :146): a CTA owns QB query
 // rows and walks the key tiles up to the causal diagonal, keeping dQ in
 // fp32 registers, and writes it once in the input dtype.
 //
-// Each comes in two versions.  `*_mma` (bf16, dk = dv = 64 or 128): the
+// The dQ and dK/dV kernels come in two versions.  `*_mma` (bf16, dk = dv
+// = 64 or 128): the
 // products on the tensor cores with `mma.sync.m16n8k16` through
 // attention_tile.cuh's ldmatrix/cp.async helpers; each warp owns 16 rows of
 // the CTA's block, the score accumulators turn into the next product's A
@@ -49,9 +54,9 @@
 // fp32 gradients, far above the ~295 operations per byte where bf16 work
 // stops being bound by memory, so it is bound by the tensor cores' 989
 // TFLOP/s (the two-kernel pair recomputes S and dP: 14·h·m·n·d).  The
-// design keeps P, dP and dS out of device memory; the fused dQ's atomics
-// (h·m·d per key block) are its one extra traffic.  wgmma/TMA pipelines are
-// later work.
+// design keeps P, dP and dS out of device memory; the fused FMA body's dQ
+// atomics (h·m·d per key block) are its one extra traffic.  The pair's
+// wgmma/TMA pipelines are later work.
 #pragma once
 
 #include "attention_tile.cuh"
@@ -75,13 +80,13 @@ struct BwdArgs {
   const void* k;       // (B, Hkv, n, dk)
   const void* v;       // (B, Hkv, n, dv)
   const void* dout;    // (B, H, m, dv)
-  const float* lse2;   // (B, H, m) log2-domain log-sum-exp, contiguous
-  const float* delta;  // (B, H, m) rowsum(dO ∘ O), contiguous
+  const float* lse2;   // (B, H, ls) log2-domain log-sum-exp, contiguous
+  const float* delta;  // (B, H, ls) rowsum(dO ∘ O), contiguous
   float* dq32;         // fused: (B, H, m, dk) fp32, zeroed by the caller
   void* dq;            // dQ kernel: (B, H, m, dk), input dtype, contiguous
   float* dk;           // (B, Hout, n, dk) fp32, contiguous; Hout = H
   float* dv;           // (B, Hout, n, dv)   (fused) or Hkv (dK/dV)
-  int H, Hkv, m, n, d, dvd;
+  int H, Hkv, m, n, d, dvd, ls;
   // element strides (batch, head, row) of qs, k, v, dout
   long long sqb, sqh, sqm, skb, skh, skn, svb, svh, svn, sob, soh, som;
   float scale, cap2;
@@ -205,24 +210,22 @@ __device__ __forceinline__ void mma_xb(float (&acc)[NT][4],
   }
 }
 
-// Shared memory of kv_major_mma<D, MODE>: K and V blocks, two buffers of
-// the Qs and dO tiles, and the fused kernel's dSᵀ tile.
-inline size_t smem_kv_mma(int d, int fused) {
-  return sizeof(bf16) * (2 * (size_t)KB * (d + 8) + 4 * (size_t)QT * (d + 8) +
-                         (fused ? (size_t)KB * (QT + 8) : 0));
+// Shared memory of kv_major_mma<D>: K and V blocks, two buffers of the Qs
+// and dO tiles.
+inline size_t smem_kv_mma(int d) {
+  return sizeof(bf16) * (2 * (size_t)KB * (d + 8) + 4 * (size_t)QT * (d + 8));
 }
 
-template <int D, int MODE>
+// the dK/dV kernel's tensor-core body
+template <int D>
 __global__ void __launch_bounds__(THREADS) kv_major_mma(BwdArgs a) {
-  constexpr int DP = D + 8;  // row stride of every tile but dSᵀ
-  constexpr int SP = QT + 8;
+  constexpr int DP = D + 8;  // row stride of every tile
   constexpr int QBUF = 2 * QT * DP;  // one buffer: Qs tile, then dO tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* Vs = Ks + KB * DP;
   bf16* Qb = Vs + KB * DP;
-  bf16* dSt = Qb + 2 * QBUF;  // [KB][SP] dSᵀ (fused)
-  const Heads hd = kv_heads<MODE>(a);
+  const Heads hd = kv_heads<DKV>(a);
   const int k0 = blockIdx.x * KB;
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
@@ -288,7 +291,7 @@ __global__ void __launch_bounds__(THREADS) kv_major_mma(BwdArgs a) {
     zero(dp);
     mma_abt<QT / 8, D / 16>(s, Ks + kr * DP, DP, Qs, DP);
     mma_abt<QT / 8, D / 16>(dp, Vs + kr * DP, DP, Os, DP);
-    const long long row0 = ((long long)hd.b * a.H + h) * a.m;
+    const long long row0 = ((long long)hd.b * a.H + h) * a.ls;
 #pragma unroll
     for (int j = 0; j < QT / 8; ++j)
 #pragma unroll
@@ -305,50 +308,7 @@ __global__ void __launch_bounds__(THREADS) kv_major_mma(BwdArgs a) {
     mma_xb<D / 8, QT / 16>(dv, s, Os, DP);
     mma_xb<D / 8, QT / 16>(dk, dp, Qs, DP);
 
-    if constexpr (MODE == FUSED) {
-      // dSᵀ to shared memory, then this tile's dQ = scale·dS·K: warp w
-      // takes query rows 16·(w & 1) and columns (w >> 1)·D/2 of the tile
-#pragma unroll
-      for (int j = 0; j < QT / 8; ++j)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          *reinterpret_cast<uint32_t*>(dSt + (kr + g + 8 * i) * SP + j * 8 +
-                                       2 * tq) =
-              atk::pack_bf16(dp[j][2 * i], dp[j][2 * i + 1]);
-      __syncthreads();
-      const int wq = (w & 1) * 16;
-      const int ch = (w >> 1) * (D / 2);
-      float acc[D / 16][4];
-      zero(acc);
-#pragma unroll
-      for (int ks = 0; ks < KB / 16; ++ks) {
-        // dS as the A operand: dSᵀ read transposed
-        uint32_t af[4];
-        atk::ldsm_x4_trans(af, dSt + (ks * 16 + (lane >> 4) * 8 + (lane & 7)) *
-                                         SP +
-                                   wq + ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int np = 0; np < D / 32; ++np) {
-          uint32_t bf[4];
-          atk::ldsm_x4_trans(
-              bf, Ks + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * DP +
-                      ch + np * 16 + (lane >> 4) * 8);
-          atk::mma_bf16(acc[2 * np], af, bf[0], bf[1]);
-          atk::mma_bf16(acc[2 * np + 1], af, bf[2], bf[3]);
-        }
-      }
-      float* dq = a.dq32 + row0 * D;
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int q = q0 + wq + g + 8 * (e >> 1);
-          if (q < a.m)
-            atomicAdd(dq + (long long)q * D + ch + j * 8 + 2 * tq + (e & 1),
-                      acc[j][e] * a.scale);
-        }
-    }
-    __syncthreads();  // every warp is done with buffer t & 1 (and dSᵀ)
+    __syncthreads();  // every warp is done with buffer t & 1
   }
   atk::cp_async_wait<0>();
 
@@ -419,12 +379,13 @@ __global__ void __launch_bounds__(THREADS) q_major_mma(BwdArgs a) {
     return q0 + r < a.m ? op + (q0 + r) * a.som : nullptr;
   });
   const long long row0 = (long long)bh * a.m;
+  const long long lrow = (long long)bh * a.ls;
   float l2[2], dl[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int q = q0 + wr + g + 8 * i;
-    l2[i] = q < a.m ? a.lse2[row0 + q] : -INFINITY;
-    dl[i] = q < a.m ? a.delta[row0 + q] : 0.f;
+    l2[i] = q < a.m ? a.lse2[lrow + q] : -INFINITY;
+    dl[i] = q < a.m ? a.delta[lrow + q] : 0.f;
   }
 
   float dq[D / 8][4];
@@ -603,11 +564,12 @@ __global__ void __launch_bounds__(THREADS) kv_major_fma(BwdArgs a) {
     outer4(s, Kt + 4 * tr, KTS, Qt + 4 * tc, QTS, d);
     outer4(dp, Vt + 4 * tr, KTS, Ot + 4 * tc, QTS, dvd);
     const long long row0 = ((long long)hd.b * a.H + h) * a.m;
+    const long long lrow = ((long long)hd.b * a.H + h) * a.ls;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int q = q0 + 4 * tc + j;
-      const float l2 = q < a.m ? a.lse2[row0 + q] : -INFINITY;
-      const float dl = q < a.m ? a.delta[row0 + q] : 0.f;
+      const float l2 = q < a.m ? a.lse2[lrow + q] : -INFINITY;
+      const float dl = q < a.m ? a.delta[lrow + q] : 0.f;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         p_and_ds(a, q, k0 + 4 * tr + i, l2, dl, s[i][j], dp[i][j]);
@@ -697,12 +659,13 @@ __global__ void __launch_bounds__(THREADS) q_major_fma(BwdArgs a) {
     return q0 + r < a.m ? op + (q0 + r) * a.som : nullptr;
   });
   const long long row0 = (long long)bh * a.m;
+  const long long lrow = (long long)bh * a.ls;
   float l2[4], dl[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int q = q0 + 4 * tr + i;
-    l2[i] = q < a.m ? a.lse2[row0 + q] : -INFINITY;
-    dl[i] = q < a.m ? a.delta[row0 + q] : 0.f;
+    l2[i] = q < a.m ? a.lse2[lrow + q] : -INFINITY;
+    dl[i] = q < a.m ? a.delta[lrow + q] : 0.f;
   }
 
   float dq[4][NQ][4];
@@ -806,18 +769,23 @@ cudaError_t launch_mma(const BwdArgs& a, int B, cudaStream_t s) {
     return launch(q_major_mma<D>, dim3((a.m + QB - 1) / QB, B * a.H),
                   smem_q_mma(D), a, s);
   else
-    return launch(kv_major_mma<D, MODE>,
-                  dim3((a.n + KB - 1) / KB, B * (MODE == FUSED ? a.H : a.Hkv)),
-                  smem_kv_mma(D, MODE == FUSED), a, s);
+    return launch(kv_major_mma<D>, dim3((a.n + KB - 1) / KB, B * a.Hkv),
+                  smem_kv_mma(D), a, s);
 }
 
-// One backward kernel: dtype 0 = fp32, 1 = bf16.  Returns the launch's
-// cudaGetLastError() (or the refusal of bad arguments).
+// the arguments every backward kernel takes
+inline bool args_ok(const BwdArgs& a, int B) {
+  return a.d >= 1 && a.dvd >= 1 && a.d <= MAX_HEAD_DIM &&
+         a.dvd <= MAX_HEAD_DIM && a.Hkv >= 1 && a.H % a.Hkv == 0 &&
+         a.m >= 1 && a.n >= 1 && B >= 1 && a.ls >= a.m;
+}
+
+// The dQ or the dK/dV kernel: dtype 0 = fp32, 1 = bf16.  Returns the
+// launch's cudaGetLastError() (or the refusal of bad arguments).
 template <int MODE>
 int run(const BwdArgs& a, int B, int dtype, cudaStream_t s) {
-  if (a.d < 1 || a.dvd < 1 || a.d > MAX_HEAD_DIM || a.dvd > MAX_HEAD_DIM ||
-      a.Hkv < 1 || a.H % a.Hkv != 0 || a.m < 1 || a.n < 1 || B < 1)
-    return (int)cudaErrorInvalidValue;
+  static_assert(MODE != FUSED, "the fused kernel has its own entry point");
+  if (!args_ok(a, B)) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)dispatch_fma<MODE, float>(a, B, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (!mma_ok(a)) return (int)dispatch_fma<MODE, bf16>(a, B, s);
@@ -827,25 +795,26 @@ int run(const BwdArgs& a, int B, int dtype, cudaStream_t s) {
 
 }  // namespace atb
 
-// The plain C entry point of one backward kernel, loaded through ctypes.
-// Pointers as in atb::BwdArgs (unused ones null); strides in elements,
-// (batch, head, row) for each of qs, k, v, dout, whose last dims are
-// contiguous; softcap2 = softcap·log2 e, <= 0 for none; kv_valid <= n.
+// The plain C entry point of the dQ or the dK/dV kernel, loaded through
+// ctypes.  Pointers as in atb::BwdArgs (unused ones null); strides in
+// elements, (batch, head, row) for each of qs, k, v, dout, whose last dims
+// are contiguous; softcap2 = softcap·log2 e, <= 0 for none; kv_valid <= n;
+// ls the row stride of lse2 and delta.
 #define ATB_ENTRY(NAME, MODE)                                                 \
   extern "C" int NAME(                                                        \
       const void* qs, const void* k, const void* v, const void* dout,         \
       const float* lse2, const float* delta, float* dq32, void* dq,           \
       float* dk, float* dv, int dtype, int B, int H, int Hkv, int m, int n,   \
-      int d, int dvd, long long sqb, long long sqh, long long sqm,            \
+      int d, int dvd, int ls, long long sqb, long long sqh, long long sqm,    \
       long long skb, long long skh, long long skn, long long svb,             \
       long long svh, long long svn, long long sob, long long soh,             \
       long long som, float scale, float softcap2, int causal, int q_offset,   \
       int kv_offset, int kv_valid, void* stream) {                            \
     const atb::BwdArgs a{qs,  k,   v,   dout, lse2, delta, dq32, dq,          \
                          dk,  dv,  H,   Hkv,  m,    n,     d,    dvd,         \
-                         sqb, sqh, sqm, skb,  skh,  skn,   svb,  svh,         \
-                         svn, sob, soh, som,  scale, softcap2 > 0.f ? softcap2 \
-                                                                   : 0.f,    \
-                         causal, q_offset, kv_offset, kv_valid};              \
+                         ls,  sqb, sqh, sqm,  skb,  skh,   skn,  svb,         \
+                         svh, svn, sob, soh,  som,  scale,                    \
+                         softcap2 > 0.f ? softcap2 : 0.f, causal, q_offset,   \
+                         kv_offset, kv_valid};                                \
     return atb::run<MODE>(a, B, dtype, static_cast<cudaStream_t>(stream));    \
   }

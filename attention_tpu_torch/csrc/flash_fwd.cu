@@ -32,6 +32,7 @@
 // 64-row CTAs).
 #include "attention_tile.cuh"
 #include "flash_fwd_sm90.cuh"
+#include "tensor_map.cuh"
 
 namespace {
 
@@ -154,10 +155,6 @@ cudaError_t launch_fma(const FlashArgs& a, int B, cudaStream_t s) {
   return launch(flash_fwd_kernel<T, 32>, smem, a, B, s);
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
 // the wgmma body's tiles come by TMA: bf16, head dims 64/128, 16-byte
 // aligned bases, and (batch, head, row) strides that are positive
 // multiples of 8 elements (16 bytes)
@@ -167,55 +164,8 @@ bool wgmma_ok(const FlashArgs& a) {
   for (long long x : st)
     if (x <= 0 || x % 8) return false;
   return (a.dk == 64 || a.dk == 128) && (a.dv == 64 || a.dv == 128) &&
-         aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
-         (a.acc != nullptr || aligned16(a.o));
-}
-
-// cuTensorMapEncodeTiled, a libcuda function, reached through the CUDA
-// runtime so that the library links without -lcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled tensor_map_encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The 4-D map (d, rows, heads, batch) of a bf16 operand with the caller's
-// element strides, read in 128-byte swizzled boxes of 64 columns by `rows`
-// rows; rows past the end read as zeros.
-bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int d,
-            int rows, int heads, int batch, long long s_row, long long s_head,
-            long long s_batch, int box_rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)rows,
-                              (cuuint64_t)heads, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)s_row * 2,
-                                 (cuuint64_t)s_head * 2,
-                                 (cuuint64_t)s_batch * 2};
-  const cuuint32_t box[4] = {sm90::BOX, (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+         tmap::aligned16(a.q) && tmap::aligned16(a.k) &&
+         tmap::aligned16(a.v) && (a.acc != nullptr || tmap::aligned16(a.o));
 }
 
 template <int DK, int DV, bool CAP>
@@ -264,15 +214,15 @@ cudaError_t launch_wgmma_cap(const CUtensorMap& tq, const CUtensorMap& tk,
 // splits > 1, its scratch in part).
 cudaError_t launch_wgmma(const FlashArgs& a, int B, int splits,
                          int split_tiles, float* part, cudaStream_t st) {
-  const EncodeTiled enc = tensor_map_encoder();
+  const tmap::EncodeTiled enc = tmap::encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!encode(enc, &tq, a.q, a.dk, a.m, a.H, B, a.sqm, a.sqh, a.sqb,
-              sm90::BM) ||
-      !encode(enc, &tk, a.k, a.dk, a.n, a.Hkv, B, a.skn, a.skh, a.skb,
-              sm90::BN) ||
-      !encode(enc, &tv, a.v, a.dv, a.n, a.Hkv, B, a.svn, a.svh, a.svb,
-              sm90::BN))
+  if (!tmap::encode(enc, &tq, a.q, a.dk, a.m, a.H, B, a.sqm, a.sqh, a.sqb,
+                    sm90::BM) ||
+      !tmap::encode(enc, &tk, a.k, a.dk, a.n, a.Hkv, B, a.skn, a.skh, a.skb,
+                    sm90::BN) ||
+      !tmap::encode(enc, &tv, a.v, a.dv, a.n, a.Hkv, B, a.svn, a.svh, a.svb,
+                    sm90::BN))
     return cudaErrorInvalidValue;
   sm90::Args s;
   s.o = a.o;

@@ -1,0 +1,186 @@
+"""Times of the fused flash backward on one CUDA card, beside SDPA's
+backward on the same inputs.  Run it from the root of a checkout:
+
+    python3 attention_tpu_torch/measure_bwd.py [--root DIR] [--label L]
+
+``--root`` imports ``attention_tpu_torch`` from another checkout (say the
+parent commit, unpacked beside this one), so that two versions are
+timed by one script on one card; the kernels build there at first use.
+It prints one JSON line per case, with the card's name and power limit
+first:
+
+* ``serve32_causal`` and ``serve32_causal_softcap50``: a training call
+  at the served model's geometry, b = 1, 32 q / 4 kv heads, m = n =
+  4096, d 128, causal, without and with softcap 50;
+* ``train_layer``: the training layer's call, b = 4, m = n = 2048,
+  (b, s, h, d) views, causal, softcap 50.
+
+Each line: ``kernel_device_ms`` (the fused kernel's own launches, by
+name, under `torch.profiler`, mean over 20 calls of `flash_backward`),
+``device_ms`` (every kernel of a `flash_backward` call: the staging, the
+dQ zero fill, the kernel, the sums and casts), ``ms`` (CUDA events over
+back-to-back calls, median of 7 windows of 5 calls after two warm-up
+calls), ``host_us`` (host time per call, 50 calls enqueued back to back),
+``bound_ms`` (10·d operations per visible pair per q head at the bf16
+peak, or the inputs and outputs once at 3.35 TB/s, the larger),
+``by_kernel`` (a call's device ms by kernel name, the six largest), the
+fused plan where the checkout names it, and SDPA's backward
+(``library_ms``, ``library_device_ms``: `torch.autograd.grad` through
+`scaled_dot_product_attention`) where SDPA computes the same function
+(it has no softcap).  All inputs bf16 from a seeded generator.  It needs
+a card and fails without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+PEAK_OPS_S = 989e12  # bf16 dense, H100 SXM data sheet
+PEAK_BYTES_S = 3.35e12
+
+
+def emit(**record) -> None:
+    print(json.dumps(record), flush=True)
+
+
+def time_ms(fn, calls: int = 5, reps: int = 7) -> float:
+    import torch
+
+    fn()
+    fn()
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / calls)
+    return statistics.median(out)
+
+
+def device_ms(fn, calls: int = 20) -> tuple[float, float, dict]:
+    """(every kernel's device ms, the backward kernel's device ms, the six
+    largest kernels' device ms by name) per call, by `torch.profiler`:
+    the fused kernel is named ``flash_bwd_wgmma`` or, before it,
+    ``kv_major_*``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = kernel = 0.0
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        total += us
+        if "flash_bwd_wgmma" in e.name or "kv_major" in e.name:
+            kernel += us
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return (total / calls / 1e3, kernel / calls / 1e3,
+            {name: us / calls / 1e3 for name, us in top})
+
+
+def host_us(fn, calls: int = 50) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
+def bound_ms(b, h, hkv, s, d) -> float:
+    """Causal m = n = s: 10·d operations per visible pair per q head, or
+    Qs, dO, K, V, lse and delta read and dQ, dK, dV written once."""
+    pairs = b * h * s * (s + 1) // 2
+    nbytes = 2 * (3 * b * h * s * d + 4 * b * hkv * s * d) + 8 * b * h * s
+    return max(10 * d * pairs / PEAK_OPS_S, nbytes / PEAK_BYTES_S) * 1e3
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--root", default=os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    parser.add_argument("--label", default="")
+    args = parser.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("measure_bwd: torch sees no CUDA card", file=sys.stderr)
+        return 1
+    from attention_tpu_torch.ops import flash_bwd
+    from attention_tpu_torch.ops.flash_vjp import _flash_fwd_impl
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    emit(label=args.label, root=os.path.abspath(args.root),
+         module=flash_bwd.__file__, card=smi.stdout.strip().splitlines()[0])
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    serve = tuple(randn(1, n, 4096, 128) for n in (32, 4, 4, 32))
+    layer = tuple(randn(4, 2048, n, 128).transpose(1, 2)
+                  for n in (32, 4, 4, 32))
+    cases = {"serve32_causal": (serve, None),
+             "serve32_causal_softcap50": (serve, 50.0),
+             "train_layer": (layer, 50.0)}
+    plan_of = getattr(flash_bwd, "bwd_launch_plan", None)
+    for name, ((q, k, v, dout), cap) in cases.items():
+        b, h, s, d = q.shape
+        kw = dict(scale=d ** -0.5, causal=True, softcap=cap)
+        out, lse = _flash_fwd_impl(q, k, v, **kw)
+
+        def run(q=q, k=k, v=v, out=out, lse=lse, dout=dout, kw=kw):
+            return flash_bwd.flash_backward(q, k, v, out, lse, dout, **kw)
+
+        total, kernel, by_kernel = device_ms(run)
+        rec = dict(label=args.label, case=name, kernel_device_ms=kernel,
+                   device_ms=total, ms=time_ms(run), host_us=host_us(run),
+                   bound_ms=bound_ms(b, h, k.shape[1], s, d),
+                   by_kernel=by_kernel)
+        if plan_of is not None:
+            rec["plan"] = plan_of(q, k, v, out, lse, dout, causal=True)
+        if cap is None:
+            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+            o = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                               enable_gqa=True)
+
+            def sdpa(o=o, qkv=(qq, kk, vv), dout=dout):
+                return torch.autograd.grad(o, qkv, dout, retain_graph=True)
+
+            rec.update(library_ms=time_ms(sdpa),
+                       library_device_ms=device_ms(sdpa)[0])
+        emit(**rec)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

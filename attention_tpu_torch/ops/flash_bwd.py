@@ -20,17 +20,27 @@ input dtype before each product, dK picks up ln 2 and dQ the plain
 ``scale``.  The fused kernel is the default on every shape: the card has
 no resident-dQ VMEM limit, so the TPU's fused plan and its Q-row chunk
 loop have no counterpart here.
+
+The fused kernel has two bodies, and `flash_bwd_body` names the one a
+call runs: "wgmma" (``csrc/flash_bwd_sm90.cuh``) for bf16 at dk = dv = 64
+or 128 with 16-byte aligned operands, "fma" for the rest.
+`bwd_tile_plan` and `bwd_work_plan` are the wgmma body's query-tile range
+and its cut of the call into work items in Python, which the CPU tests
+hold against the plain mask and the snake deal (the main path runs them
+only inside the kernel, and `bwd_work_plan` to size the launch).
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from attention_tpu_torch.ops import _native
 from attention_tpu_torch.ops._native import DTYPE_CODES, F, I, L, P
-from attention_tpu_torch.ops.flash import _offsets, _unsupported
+from attention_tpu_torch.ops.flash import _offsets, _strides, _unsupported
 from attention_tpu_torch.ops.reference import check_softcap
 
 LOG2E = 1.0 / math.log(2.0)
@@ -39,7 +49,18 @@ LN2 = math.log(2.0)
 FUSED, DQ, DKV = "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"
 #: largest head dim the backward kernels take
 MAX_HEAD_DIM = 128
-_ARGTYPES = [*([P] * 10), *([I] * 8), *([L] * 12), F, F, I, I, I, I, P]
+#: the fused kernel's C entry point's codes of its two bodies
+BODY_CODES = {"fma": 0, "wgmma": 1}
+#: query rows per tile and keys per work item of the wgmma body; lse2 and
+#: delta are padded to whole query tiles for every body
+QUERY_TILE = 64
+KEY_BLOCK = 128
+#: `bwd_work_plan` splits a GQA group further until no CTA of the snake
+#: deal carries more than this many times the mean load
+BALANCE = 1.1
+_PAIR_ARGTYPES = [*([P] * 10), *([I] * 9), *([L] * 12), F, F, I, I, I, I, P]
+_FUSED_ARGTYPES = [*([P] * 9), *([I] * 9), *([L] * 12), F, F, I, I, I, I,
+                   I, I, P]
 
 # Send CUDA calls to the two-kernel pair (dQ, then dK/dV) instead of the
 # fused kernel: a module global, as in the JAX package, that tests and
@@ -115,74 +136,271 @@ def flash_backward_plain(q, k, v, out, lse, dout, *, scale, causal=False,
     return dq.to(dtype)[lead], dk.to(k.dtype)[lead], dvx.to(v.dtype)[lead]
 
 
-def _prepare(q4, k4, v4, o4, lse4, do4, *, scale, causal, softcap,
-             q_offset, kv_offset, kv_valid):
-    """Check the 4-D CUDA operands and stage what the kernels read (Qs,
-    dO in the input dtype, lse2 and delta in float32); returns
-    ``run(kernel, dq32=, dq=, dk=, dvo=)``, which launches one backward
-    kernel into the given outputs."""
-    dtype = q4.dtype
-    if dtype not in DTYPE_CODES or k4.dtype != dtype or v4.dtype != dtype:
-        raise TypeError(
-            "flash backward kernels take float32 or bfloat16 q/k/v of one "
-            f"dtype, got {q4.dtype}/{k4.dtype}/{v4.dtype}")
-    if len({t.device for t in (q4, k4, v4, o4, lse4, do4)}) != 1:
-        raise ValueError("flash backward's tensors must be on one device")
-    b, h, m, d = q4.shape
-    hkv, n, dv = v4.shape[1:]
-    if max(d, dv) > MAX_HEAD_DIM:
-        raise ValueError(f"head dims {d}/{dv} exceed {MAX_HEAD_DIM}")
-    if min(m, n) < 1:
-        raise ValueError(f"empty attention: m={m} n={n}")
-    qs = (q4.float() * (scale * LOG2E)).to(dtype)
-    do = do4.to(dtype)
-    qs, k4, v4, do = (t if t.stride(-1) == 1 else t.contiguous()
-                      for t in (qs, k4, v4, do))
-    lse2 = (lse4.float() * LOG2E).contiguous()
-    delta = (do4.float() * o4.float()).sum(-1).contiguous()
+def flash_bwd_body(dtype, d: int, dv: int, strides, ptrs) -> str:
+    """The fused kernel's body that runs a call: "wgmma" for bfloat16 at
+    dk = dv = 64 or 128 whose (batch, head, row) ``strides`` (in elements,
+    of Qs, k, v and dO) are positive multiples of 8 and whose base
+    pointers ``ptrs`` are 16-byte aligned, as the body's TMA copies need;
+    "fma" (fp32 FMA on the CUDA cores) for everything else."""
+    if (dtype == torch.bfloat16 and d == dv and d in (64, 128)
+            and all(x > 0 and x % 8 == 0 for x in strides)
+            and all(p % 16 == 0 for p in ptrs)):
+        return "wgmma"
+    return "fma"
 
-    def run(kernel, dq32=None, dq=None, dk=None, dvo=None):
-        fn = _native.function(kernel, kernel, _ARGTYPES)
-        with torch.cuda.device(q4.device):
-            stream = torch.cuda.current_stream(q4.device).cuda_stream
-            err = fn(qs.data_ptr(), k4.data_ptr(), v4.data_ptr(),
-                     do.data_ptr(), lse2.data_ptr(), delta.data_ptr(),
-                     *(None if t is None else t.data_ptr()
-                       for t in (dq32, dq, dk, dvo)),
-                     DTYPE_CODES[dtype], b, h, hkv, m, n, d, dv,
-                     *qs.stride()[:3], *k4.stride()[:3], *v4.stride()[:3],
-                     *do.stride()[:3], float(scale),
+
+def bwd_tile_plan(key0: int, m: int, kv_valid: int, causal: bool,
+                  q_offset: int, kv_offset: int) -> tuple[int, int, int]:
+    """(begin, end, mask_end): the query tiles [begin, end) of 64 rows that
+    the wgmma body's work item of keys [key0, key0 + 128) visits for each
+    of its heads, and the end of those that can hold a masked pair (a key
+    at or past ``kv_valid``, or under causal masking after a row): the
+    tiles in [mask_end, end) see every key of the block and skip the
+    per-element test.  No tiles for a block past ``kv_valid``.  The
+    kernel's `tile_plan` in csrc/flash_bwd_sm90.cuh."""
+    tiles = -(-m // QUERY_TILE)
+    if key0 >= kv_valid:
+        return 0, 0, 0
+    # causal: the first row that sees key0, and the first that sees the
+    # block's last key 127 rows later
+    first = key0 + kv_offset - q_offset
+    begin = min(tiles, max(0, first // QUERY_TILE)) if causal else 0
+    if key0 + KEY_BLOCK > kv_valid:
+        mask_end = tiles
+    elif causal:
+        mask_end = min(tiles, max(begin, -(-(first + KEY_BLOCK - 1)
+                                            // QUERY_TILE)))
+    else:
+        mask_end = begin
+    return begin, tiles, mask_end
+
+
+def snake_loads(loads, grid: int) -> list:
+    """Each CTA's summed load when the work items of ``loads`` (in launch
+    order) are dealt to ``grid`` CTAs a round at a time, left to right in
+    even rounds and right to left in odd ones, as `snake_item` in
+    csrc/sm90.cuh deals them."""
+    out = [0] * grid
+    for i, load in enumerate(loads):
+        r, pos = divmod(i, grid)
+        out[grid - 1 - pos if r % 2 else pos] += load
+    return out
+
+
+def bwd_work_item(w: int, batch: int, kv_heads: int, group: int,
+                  slices: int) -> tuple[int, int, int, range]:
+    """(batch, kv head, key block, q heads) of the wgmma body's work item
+    ``w``: the key block varies slowest, from block 0 (under causal
+    masking the heaviest) up, then the batch, the kv head and the slice
+    of its group, whose group/slices q heads the item walks in order.
+    The kernel's `work_item` in csrc/flash_bwd_sm90.cuh."""
+    kb, rest = divmod(w, batch * kv_heads * slices)
+    bhk, part = divmod(rest, slices)
+    b, hk = divmod(bhk, kv_heads)
+    per = group // slices
+    first = hk * group + part * per
+    return b, hk, kb, range(first, first + per)
+
+
+class WorkPlan(NamedTuple):
+    """How the wgmma body cuts a call into work items."""
+    slices: int  # slices of each GQA group: q heads per item group/slices
+    items: int  # key blocks x batch x kv heads x slices
+    grid: int  # CTAs of the persistent grid
+    heaviest: int  # the largest CTA load of the snake deal, in query tiles
+    mean: float  # the query tiles of the call over the SMs
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_work_plan(batch: int, kv_heads: int, group: int, m: int, n: int,
+                  kv_valid: int, causal: bool, q_offset: int,
+                  kv_offset: int, *, sms: int) -> WorkPlan:
+    """The wgmma body's work items for a call: each is one block of 128
+    keys of one kv head and one of ``slices`` equal slices of its group's
+    q heads, walked in order (so dK and dV are summed over the group in a
+    fixed order), heaviest key block first.  ``slices`` is the fewest
+    whose snake deal over at most ``sms`` CTAs gives no CTA more than
+    `BALANCE` times the mean load (a query tile of one head counts one);
+    failing that, the slices of the lightest heaviest CTA.  One slice
+    writes dK and dV directly, more write fp32 partials that the wrapper
+    sums, so fewer slices are cheaper where they balance."""
+    per_head = []
+    for kb in range(-(-n // KEY_BLOCK)):
+        begin, end, _ = bwd_tile_plan(kb * KEY_BLOCK, m, kv_valid, causal,
+                                      q_offset, kv_offset)
+        per_head.append(end - begin)
+    mean = batch * kv_heads * group * sum(per_head) / sms
+    best = None
+    for slices in (s for s in range(1, group + 1) if group % s == 0):
+        items = len(per_head) * batch * kv_heads * slices
+        loads = []
+        for w in range(items):
+            _, _, kb, heads = bwd_work_item(w, batch, kv_heads, group,
+                                            slices)
+            loads.append(len(heads) * per_head[kb])
+        grid = min(items, sms)
+        plan = WorkPlan(slices, items, grid, max(snake_loads(loads, grid)),
+                        mean)
+        if plan.heaviest <= BALANCE * mean:
+            return plan
+        if best is None or plan.heaviest < best.heaviest:
+            best = plan
+    return best
+
+
+def _scaled_q(q4: torch.Tensor, scale: float) -> torch.Tensor:
+    """Qs = round(q·scale·log2 e) in q's dtype: one op, computed in float32
+    and rounded once, the bits of ``(q.float() * c).to(q.dtype)``."""
+    return q4 * (scale * LOG2E)
+
+
+def _delta(do4: torch.Tensor, o4: torch.Tensor) -> torch.Tensor:
+    """rowsum(dO ∘ O) in float32, the bits of ``(do.float() *
+    o.float()).sum(-1)``: the product of two bf16 (or f32) values is
+    exact in float32, and `addcmul` forms it from the inputs as they are
+    (a float32 zero of shape (1,) sets the result type) instead of from
+    two float32 copies."""
+    zero = torch.zeros(1, dtype=torch.float32, device=do4.device)
+    return torch.addcmul(zero, do4, o4).sum(-1)
+
+
+def _lse2(lse4: torch.Tensor, rows: int) -> torch.Tensor:
+    """lse·log2 e in float32 (the bits of ``lse.float() * LOG2E``) padded
+    to ``rows`` with +inf, and +inf where the forward saw no key (-inf):
+    the kernels' exp2(s - lse2) is then the 0 such a row needs, with no
+    test."""
+    x = lse4.float() * LOG2E
+    x = torch.where(x == float("-inf"), float("inf"), x)
+    return torch.nn.functional.pad(x, (0, rows - x.shape[-1]),
+                                   value=float("inf"))
+
+
+class _Staged:
+    """The 4-D CUDA operands checked and staged as the kernels read them
+    (Qs and dO in the input dtype, lse2 and delta in float32 padded to
+    whole query tiles), the fused kernel's plan, and its launches."""
+
+    def __init__(self, q4, k4, v4, o4, lse4, do4, *, scale, causal, softcap,
+                 q_offset, kv_offset, kv_valid):
+        dtype = q4.dtype
+        if (dtype not in DTYPE_CODES or k4.dtype != dtype
+                or v4.dtype != dtype):
+            raise TypeError(
+                "flash backward kernels take float32 or bfloat16 q/k/v of "
+                f"one dtype, got {q4.dtype}/{k4.dtype}/{v4.dtype}")
+        if len({t.device for t in (q4, k4, v4, o4, lse4, do4)}) != 1:
+            raise ValueError("flash backward's tensors must be on one device")
+        b, h, m, d = q4.shape
+        hkv, n, dv = v4.shape[1:]
+        if max(d, dv) > MAX_HEAD_DIM:
+            raise ValueError(f"head dims {d}/{dv} exceed {MAX_HEAD_DIM}")
+        if min(m, n) < 1:
+            raise ValueError(f"empty attention: m={m} n={n}")
+        self.shape = (b, h, hkv, m, n, d, dv)
+        self.dtype, self.device = dtype, q4.device
+        self.ls = -(-m // QUERY_TILE) * QUERY_TILE
+        self.qs, self.k, self.v, self.do = (
+            t if t.stride(-1) == 1 else t.contiguous()
+            for t in (_scaled_q(q4, scale), k4, v4, do4.to(dtype)))
+        self.lse2 = _lse2(lse4, self.ls)
+        self.delta = torch.nn.functional.pad(_delta(do4, o4),
+                                             (0, self.ls - m))
+        self.strides = [x for t in (self.qs, self.k, self.v, self.do)
+                        for x in _strides(t)]
+        self.args = (DTYPE_CODES[dtype], b, h, hkv, m, n, d, dv, self.ls,
+                     *self.strides, float(scale),
                      float(softcap * LOG2E if softcap else 0.0), int(causal),
-                     q_offset, kv_offset, kv_valid, stream)
+                     q_offset, kv_offset, kv_valid)
+        body = flash_bwd_body(dtype, d, dv, self.strides, [
+            t.data_ptr() for t in (self.qs, self.k, self.v, self.do)])
+        self.plan = dict(body=body, slices=1)
+        if body == "wgmma":
+            work = bwd_work_plan(b, hkv, h // hkv, m, n, kv_valid, causal,
+                                 q_offset, kv_offset,
+                                 sms=_native.sm_count(q4.device.index))
+            self.plan.update(work._asdict())
+
+    def _call(self, kernel, argtypes, pointers, extra=()):
+        fn = _native.function(kernel, kernel, argtypes)
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream(self.device).cuda_stream
+            err = fn(self.qs.data_ptr(), self.k.data_ptr(), self.v.data_ptr(),
+                     self.do.data_ptr(), self.lse2.data_ptr(),
+                     self.delta.data_ptr(),
+                     *(None if t is None else t.data_ptr()
+                       for t in pointers), *self.args, *extra, stream)
         _native.check(kernel, err)
         _native.count_launch(kernel)
 
-    return run
+    def pair(self, kernel, dq=None, dk=None, dvo=None) -> None:
+        """Launch the dQ or the dK/dV kernel into the given outputs."""
+        self._call(kernel, _PAIR_ARGTYPES, (None, dq, dk, dvo))
+
+    def fused_buffers(self) -> dict:
+        """The fused kernel's outputs for this call's plan: dq32 (zeroed)
+        and, from the "wgmma" body, dK and dV in the input dtype (one
+        slice) or its fp32 slice partials; from "fma", per-Q-head fp32
+        partials."""
+        b, h, hkv, m, n, d, dv = self.shape
+        f32 = dict(dtype=torch.float32, device=self.device)
+        if self.plan["body"] == "fma":
+            kv = [(b, h, n, d), (b, h, n, dv), f32]
+        elif self.plan["slices"] == 1:
+            kv = [(b, hkv, n, d), (b, hkv, n, dv),
+                  dict(dtype=self.dtype, device=self.device)]
+        else:
+            kv = [(b, hkv, self.plan["slices"], n, d),
+                  (b, hkv, self.plan["slices"], n, dv), f32]
+        return dict(dq32=torch.zeros((b, h, m, d), **f32),
+                    dk=torch.empty(kv[0], **kv[2]),
+                    dvo=torch.empty(kv[1], **kv[2]))
+
+    def fused(self, dq32, dk, dvo) -> None:
+        """Launch the fused kernel into `fused_buffers`."""
+        self._call(FUSED, _FUSED_ARGTYPES, (dq32, dk, dvo),
+                   (BODY_CODES[self.plan["body"]], self.plan["slices"]))
+
+    def fused_grads(self, dq32, dk, dvo):
+        """(dQ, dK, dV) in the input dtype from the fused kernel's
+        outputs: the partials summed over each group's slices or heads."""
+        b, h, hkv, m, n, d, dv = self.shape
+        if self.plan["body"] == "fma":
+            dk = dk.view(b, hkv, h // hkv, n, d)
+            dvo = dvo.view(b, hkv, h // hkv, n, dv)
+        if dk.dim() == 5:
+            dk, dvo = dk.sum(2), dvo.sum(2)
+        return dq32.to(self.dtype), dk.to(self.dtype), dvo.to(self.dtype)
 
 
 def _launch(q4, k4, v4, o4, lse4, do4, **kw):
     """The fused kernel, or the dQ and dK/dV pair under
     `_FORCE_TWO_KERNEL`, on 4-D CUDA operands."""
-    run = _prepare(q4, k4, v4, o4, lse4, do4, **kw)
-    dtype = q4.dtype
-    b, h, m, d = q4.shape
-    hkv, n, dv = v4.shape[1:]
-    f32 = dict(dtype=torch.float32, device=q4.device)
+    staged = _Staged(q4, k4, v4, o4, lse4, do4, **kw)
     if not _FORCE_TWO_KERNEL:
-        dq32 = torch.zeros((b, h, m, d), **f32)
-        dkp = torch.empty((b, h, n, d), **f32)
-        dvp = torch.empty((b, h, n, dv), **f32)
-        run(FUSED, dq32=dq32, dk=dkp, dvo=dvp)
-        # per-Q-head partials, summed over each GQA group
-        dk32 = dkp.view(b, hkv, h // hkv, n, d).sum(2)
-        dv32 = dvp.view(b, hkv, h // hkv, n, dv).sum(2)
-        return dq32.to(dtype), dk32.to(dtype), dv32.to(dtype)
-    dq = torch.empty((b, h, m, d), dtype=dtype, device=q4.device)
-    run(DQ, dq=dq)
+        out = staged.fused_buffers()
+        staged.fused(**out)
+        return staged.fused_grads(**out)
+    b, h, hkv, m, n, d, dv = staged.shape
+    f32 = dict(dtype=torch.float32, device=q4.device)
+    dq = torch.empty((b, h, m, d), dtype=q4.dtype, device=q4.device)
+    staged.pair(DQ, dq=dq)
     dk32 = torch.empty((b, hkv, n, d), **f32)
     dv32 = torch.empty((b, hkv, n, dv), **f32)
-    run(DKV, dk=dk32, dvo=dv32)
-    return dq, dk32.to(dtype), dv32.to(dtype)
+    staged.pair(DKV, dk=dk32, dvo=dv32)
+    return dq, dk32.to(q4.dtype), dv32.to(q4.dtype)
+
+
+def bwd_launch_plan(q, k, v, out, lse, dout, *, scale=None, causal=False,
+                    q_offset=None, kv_offset=None, kv_valid=None) -> dict:
+    """How the fused kernel runs a call on these inputs (CUDA tensors, as
+    `flash_backward` takes them): the body (`flash_bwd_body`) and, for
+    "wgmma", its `bwd_work_plan` (slices, items, grid, heaviest, mean)."""
+    tensors, _ = _four_d(q, k, v, out, lse[..., None], dout)
+    tensors[4] = tensors[4][..., 0]
+    return dict(_Staged(
+        *tensors, scale=q.shape[-1] ** -0.5 if scale is None else scale,
+        causal=causal, softcap=None,
+        **_offsets(k.shape[-2], q_offset, kv_offset, kv_valid)).plan)
 
 
 def flash_backward(

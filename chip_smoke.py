@@ -48,15 +48,20 @@ non-zero unless all of them pass:
 2b. backward the training forward's partials and the three backward
             kernels (fused, dQ, dK/dV) at the serving geometry as a
             training call (b = 1, 32 q / 4 kv heads, m = n = 4096, d 128,
-            causal, bf16), with and without softcap 50, and at phase 7's
+            causal, bf16), with and without softcap 50, at phase 7's
             layer call (b = 4, m = n = 2048, softcap 50, strided operands
-            as the attention layer passes them), against
-            `flash_backward_plain` under `reference.grad_mismatch`; the
-            same bits on a second call (the fused dQ, whose atomics add in
-            no fixed order, within the limit of the first); a dropped key
-            tile in dK and a 2% scale error in dQ must fail; each kernel
-            timed alone and `flash_backward` end to end on each path,
-            with SDPA's backward as the yardstick.
+            as the attention layer passes them), at head dim 64 (b = 2,
+            16 q / 2 kv heads, 2048 rows) and on the edges (m = 1000, n =
+            1003, kv_valid 900, keys shifted 37 rows past the queries, so
+            that the first rows see no key; with and without softcap 50),
+            against `flash_backward_plain` under
+            `reference.grad_mismatch`; each fused case prints its body
+            (bf16 must run "wgmma") and `bwd_work_plan`; the same bits on
+            a second call (the fused dQ, whose tiles add in no fixed
+            order, within the limit of the first); a dropped key tile in
+            dK and a 2% scale error in dQ must fail; each kernel timed
+            alone and `flash_backward` end to end on each path at the
+            serving geometry, with SDPA's backward as the yardstick.
 3. op path  the ``scale4`` testcase (m = n = 8192, dk = dv = 128) from
             the port's generator, through ``cli run --backend flash`` in
             f32 and bf16: both must print ``Correct!``; then the flash
@@ -1193,11 +1198,18 @@ def phase_backward(kernels) -> None:
             torch.bfloat16)
 
     # serving: contiguous (1, heads, 4096, d); the layer: (b, s, heads, d)
-    # projections viewed as (b, heads, s, d), dO as autograd returns it
+    # projections viewed as (b, heads, s, d), dO as autograd returns it;
+    # head dim 64; the edges: m and n not multiples of 128, kv_valid < n,
+    # and keys shifted past the first 37 rows (rows that see no key)
     serving = (randn(1, h, 4096, d), randn(1, hkv, 4096, d),
                randn(1, hkv, 4096, d), randn(1, h, 4096, d))
     b, s = TRAIN_BATCH[0], TRAIN_BATCH[1] - 1
     layer = tuple(randn(b, s, n, d).transpose(1, 2) for n in (h, hkv, hkv, h))
+    d64 = (randn(2, 16, 2048, 64), randn(2, 2, 2048, 64),
+           randn(2, 2, 2048, 64), randn(2, 16, 2048, 64))
+    edge = (randn(2, 8, 1000, d), randn(2, 2, 1003, d), randn(2, 2, 1003, d),
+            randn(2, 8, 1000, d))
+    offsets = dict(q_offset=3, kv_offset=40, kv_valid=900)
     names = ("dq", "dk", "dv")
 
     def held_grads(got, want):
@@ -1206,20 +1218,29 @@ def phase_backward(kernels) -> None:
             raise AssertionError(f"backward off its plain version: {out}")
         return out
 
-    for case, (q, k, v, dout), cap in (
-            ("serving_causal", serving, None),
-            ("serving_causal_softcap", serving, 50.0),
-            ("train_layer_causal_softcap", layer, 50.0)):
-        kw = dict(scale=d ** -0.5, causal=True, softcap=cap)
-        n = k.shape[-2]
+    for case, (q, k, v, dout), extra in (
+            ("serving_causal", serving, {}),
+            ("serving_causal_softcap", serving, dict(softcap=50.0)),
+            ("train_layer_causal_softcap", layer, dict(softcap=50.0)),
+            ("d64_causal", d64, {}),
+            ("edge_causal_offsets", edge, offsets),
+            ("edge_causal_offsets_softcap", edge,
+             dict(offsets, softcap=50.0))):
+        kw = {"scale": q.shape[-1] ** -0.5, "causal": True,
+              "softcap": None, **extra}
+        valid = kw.get("kv_valid", k.shape[-2])
         # the training forward: partials, held normalized (bf16) and the
-        # row stats (fp32, relative 1e-5: same arithmetic, other order)
+        # row stats (fp32, relative 1e-5: same arithmetic, other order;
+        # a row that sees no key has max -inf and sum 0 on both sides)
         part = flash_attention_partials(q, k, v, **kw)
         plain = flash_attention_partials_plain(q, k, v, **kw)
         torch.cuda.synchronize()
-        norm = [(o / l_[..., None]).to(torch.bfloat16)
+        norm = [(o / l_.clamp(min=1e-30)[..., None]).to(torch.bfloat16)
                 for o, _, l_ in (part, plain)]
-        stats_rel = [((a - b).abs().max() / b.abs().max()).item()
+        live = plain[1].isfinite()
+        if not torch.equal(part[1].isfinite(), live):
+            raise AssertionError("partials' empty rows differ")
+        stats_rel = [((a - b)[live].abs().max() / b[live].abs().max()).item()
                      for a, b in zip(part[1:], plain[1:])]
         p_err, p_ratio = held(*norm)
         if not max(stats_rel) <= 1e-5:
@@ -1227,7 +1248,7 @@ def phase_backward(kernels) -> None:
         kernels["flash_fwd"]["max_abs_err"] = max(
             kernels["flash_fwd"]["max_abs_err"], p_err)
         emit(phase="backward", kernel="flash_fwd", case=case + "_partials",
-             **flash_plan(q, k, v), max_abs_err=p_err,
+             **flash_plan(q, k, v, kw.get("kv_valid")), max_abs_err=p_err,
              share_of_limit=p_ratio, row_stats_rel_err=stats_rel)
 
         out, lse = _flash_fwd_impl(q, k, v, **kw)
@@ -1235,15 +1256,23 @@ def phase_backward(kernels) -> None:
         faults = {
             "dk_dropped_last_key_tile": grad_mismatch(
                 flash_bwd.flash_backward_plain(
-                    q, k, v, out, lse, dout, kv_valid=n - KEY_TILE,
-                    **kw)[1], want[1])[1],
+                    q, k, v, out, lse, dout,
+                    **dict(kw, kv_valid=valid - KEY_TILE))[1], want[1])[1],
             "dq_scale_off_2pct": grad_mismatch(
                 flash_bwd.flash_backward_plain(
                     q, k, v, out, lse, dout,
-                    **dict(kw, scale=1.02 * d ** -0.5))[0], want[0])[1]}
+                    **dict(kw, scale=1.02 * kw["scale"]))[0], want[0])[1]}
         if not all(ratio > 1.0 for ratio in faults.values()):
             raise AssertionError(f"the check passes a planted fault: "
                                  f"{faults}")
+        # the fused kernel's body and cut of the call: every case here is
+        # bf16 at d 64 or 128, so "wgmma"
+        plan = flash_bwd.bwd_launch_plan(
+            q, k, v, out, lse, dout, causal=True,
+            **{x: kw[x] for x in ("q_offset", "kv_offset", "kv_valid")
+               if x in kw})
+        if plan["body"] != "wgmma":
+            raise AssertionError(f"{case}: the fused kernel runs {plan}")
         for path in ("fused", "pair"):
             flash_bwd._FORCE_TWO_KERNEL = path == "pair"
             got = flash_bwd.flash_backward(q, k, v, out, lse, dout, **kw)
@@ -1266,6 +1295,7 @@ def phase_backward(kernels) -> None:
                     kernels[kernel]["max_abs_err"],
                     *(errs[i][0] for i in idx))
             emit(phase="backward", path=path, case=case,
+                 **(dict(fused_plan=plan) if path == "fused" else {}),
                  max_abs_err=dict(zip(names, (e for e, _ in errs))),
                  share_of_limit=dict(zip(names, (r for _, r in errs))),
                  fused_dq_run_to_run=run_to_run,
@@ -1278,7 +1308,7 @@ def backward_times(kernels, case, args, kw) -> None:
     """Time one serving backward case: each kernel alone on the staged
     operands (the kernels line's ``ms``), `flash_backward` end to end on
     each path (staging, the fp32 dQ buffer's zero fill, the fused path's
-    GQA sum of per-head partials and the casts included), the plain
+    sum of its slice partials and the casts included), the plain
     version, and (without softcap) SDPA's backward as the yardstick."""
     from torch.nn import functional as F
 
@@ -1288,11 +1318,10 @@ def backward_times(kernels, case, args, kw) -> None:
     _, h, s, d = q.shape
     hkv = k.shape[1]
     pairs = s * (s + 1) // 2
-    run = flash_bwd._prepare(*args, q_offset=0, kv_offset=0, kv_valid=s,
-                             **kw)
+    staged = flash_bwd._Staged(*args, q_offset=0, kv_offset=0, kv_valid=s,
+                               **kw)
+    fused = staged.fused_buffers()
     f32 = dict(dtype=torch.float32, device="cuda")
-    dq32 = torch.zeros((1, h, s, d), **f32)
-    dkp, dvp = (torch.empty((1, h, s, d), **f32) for _ in "kv")
     dq = torch.empty((1, h, s, d), dtype=torch.bfloat16, device="cuda")
     dk32, dv32 = (torch.empty((1, hkv, s, d), **f32) for _ in "kv")
     plain_ms = time_ms(lambda: flash_bwd.flash_backward_plain(*args, **kw),
@@ -1313,11 +1342,10 @@ def backward_times(kernels, case, args, kw) -> None:
     emit(phase="backward", case=case, flash_backward_ms=end_to_end,
          library_ms=library_ms)
     for kernel, launch, factor, outs in (
-            (flash_bwd.FUSED, lambda: run(flash_bwd.FUSED, dq32=dq32,
-                                          dk=dkp, dvo=dvp), 10, "qkv"),
-            (flash_bwd.DQ, lambda: run(flash_bwd.DQ, dq=dq), 6, "q"),
-            (flash_bwd.DKV, lambda: run(flash_bwd.DKV, dk=dk32,
-                                        dvo=dv32), 8, "kv")):
+            (flash_bwd.FUSED, lambda: staged.fused(**fused), 10, "qkv"),
+            (flash_bwd.DQ, lambda: staged.pair(flash_bwd.DQ, dq=dq), 6, "q"),
+            (flash_bwd.DKV, lambda: staged.pair(flash_bwd.DKV, dk=dk32,
+                                                dvo=dv32), 8, "kv")):
         b_ms, b_by = bound_ms(*bwd_work(h, hkv, s, s, d, pairs, 2,
                                         factor, outs), torch.bfloat16)
         t = dict(ms=time_ms(launch), plain_ms=plain_ms, bound_ms=b_ms,
@@ -1418,7 +1446,7 @@ def phase_train(ops, kernels, model) -> None:
         acc[0] += 1
         acc[1] += evt.time_range.elapsed_us() / 1e3
         name = evt.name.lower()
-        cls = ("flash_bwd" if "major" in name
+        cls = ("flash_bwd" if "major" in name or "flash_bwd" in name
                else "flash_fwd" if "flash_fwd" in name
                else "memcpy/memset" if name.startswith("mem")
                else "optimizer" if "multi_tensor" in name

@@ -602,6 +602,119 @@ def test_backward_kernels_take_the_layers_strided_operands(gen, monkeypatch,
         assert grad_mismatch(g, w)[1] <= 1
 
 
+# The fused kernel's wgmma body (bf16, dk = dv = 64 or 128): head dims 64
+# and 128, groups of 1, 4 and 8, causal or not, with and without softcap,
+# m or n of 1, 127, 129 and 1000, kv_valid inside a block and 0, offsets
+# of both signs and rows the forward fully masked (lse = -inf).  Each
+# case must run that body, launch once a call and give dK and dV the same
+# bits twice.
+WGMMA_BWD_CASES = {
+    "d128_group8_causal": (((1, 8, 300, 128), (1, 1, 300, 128)),
+                           dict(causal=True)),
+    "d64_group4_causal_softcap": (((2, 8, 257, 64), (2, 2, 257, 64)),
+                                  dict(causal=True, softcap=30.0)),
+    "d128_group1_m129_n127": (((2, 4, 129, 128), (2, 4, 127, 128)), {}),
+    "d64_m1000_n129_softcap": (((1, 4, 1000, 64), (1, 1, 129, 64)),
+                               dict(softcap=20.0)),
+    "m1_causal": (((2, 8, 1, 128), (2, 2, 1000, 128)),
+                  dict(causal=True, q_offset=999)),
+    "n1": (((1, 8, 127, 128), (1, 2, 1, 128)), {}),
+    "kv_valid_offsets_masked_rows": (((1, 8, 1000, 128), (1, 2, 1003, 128)),
+                                     dict(causal=True, q_offset=3,
+                                          kv_offset=40, kv_valid=900)),
+    "negative_q_offset_softcap": (((1, 4, 500, 128), (1, 4, 600, 128)),
+                                  dict(causal=True, q_offset=-37,
+                                       softcap=50.0)),
+    "kv_valid_0": (((1, 4, 100, 64), (1, 2, 200, 64)), dict(kv_valid=0)),
+}
+
+
+def _check_wgmma_backward(q, k, v, dout, kw):
+    """The fused call on the wgmma body, once a call, within
+    `grad_mismatch` of the plain version, dK and dV the same bits on a
+    second call.  Where every row sees one key (n = 1), dS = P·(dP -
+    delta) cancels: dQ and dK are 0 in exact arithmetic and each side
+    keeps its own float32 residues (about 1e-6 against dV's 20), so they
+    are held within 1e-4 absolute."""
+    out, lse = _flash_fwd_impl(q, k, v, **kw)
+    offsets = {x: kw[x] for x in ("q_offset", "kv_offset", "kv_valid")
+               if x in kw}
+    plan = flash_bwd.bwd_launch_plan(q, k, v, out, lse, dout,
+                                     causal=kw.get("causal", False),
+                                     **offsets)
+    assert plan["body"] == "wgmma"
+    before = launch_counts()
+    got = flash_bwd.flash_backward(q, k, v, out, lse, dout, **kw)
+    again = flash_bwd.flash_backward(q, k, v, out, lse, dout, **kw)
+    after = launch_counts()
+    assert {n: after[n] - before[n] for n in after
+            if after[n] != before[n]} == {flash_bwd.FUSED: 2}
+    want = flash_bwd.flash_backward_plain(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    for g, a in zip(got[1:], again[1:]):
+        assert torch.equal(g.view(torch.int16), a.view(torch.int16))
+    one_key = k.shape[-2] == 1
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        if one_key and i < 2:
+            assert (g.float() - w.float()).abs().max().item() <= 1e-4
+        else:
+            assert grad_mismatch(g, w)[1] <= 1
+
+
+@pytest.mark.parametrize("name", list(WGMMA_BWD_CASES))
+def test_wgmma_backward_matches_plain(gen, name):
+    (qshape, kshape), kw = WGMMA_BWD_CASES[name]
+    q, dout = (torch.randn(qshape, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in "qo")
+    k, v = (torch.randn(kshape, generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in "kv")
+    _check_wgmma_backward(q, k, v, dout, dict(kw, scale=qshape[-1] ** -0.5))
+
+
+def test_wgmma_backward_takes_the_layers_strided_operands(gen):
+    """(b, s, heads, d) storage viewed as (b, heads, s, d) at d 128, 8 q /
+    2 kv heads, causal, softcap 50."""
+    q, k, v, dout = (torch.randn((2, 300, n, 128), generator=gen,
+                                 device="cuda")
+                     .to(torch.bfloat16).transpose(1, 2) for n in (8, 2, 2, 8))
+    _check_wgmma_backward(q, k, v, dout, dict(scale=128 ** -0.5, causal=True,
+                                              softcap=50.0))
+
+
+def test_fp32_and_unaligned_backward_take_the_fma_body(gen):
+    """fp32, and bf16 whose rows are not 16-byte aligned, run the fused
+    kernel's FMA body, within `grad_mismatch` of the plain version."""
+    x = torch.randn((4, 90, 64), generator=gen, device="cuda")
+    kv = torch.randn((2, 90, 64), generator=gen, device="cuda")
+    odd = torch.randn((4, 90, 65), generator=gen, device="cuda").to(
+        torch.bfloat16)[..., 1:]
+    for q, k, dout in ((x, kv, x), (odd, odd[:2], odd)):
+        kw = dict(scale=0.125, causal=True)
+        out, lse = _flash_fwd_impl(q, k, k, **kw)
+        assert flash_bwd.bwd_launch_plan(q, k, k, out, lse, dout,
+                                         causal=True)["body"] == "fma"
+        got = flash_bwd.flash_backward(q, k, k, out, lse, dout, **kw)
+        want = flash_bwd.flash_backward_plain(q, k, k, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert grad_mismatch(g, w)[1] <= 1
+
+
+def test_wgmma_backward_refuses_what_it_cannot_take(gen, monkeypatch):
+    """The C side refuses a call the named body cannot take: f32 named
+    "wgmma" raises, nothing launches and nothing falls back."""
+    monkeypatch.setattr(flash_bwd, "flash_bwd_body", lambda *a: "wgmma")
+    monkeypatch.setattr(flash_bwd, "bwd_work_plan",
+                        lambda *a, **k: flash_bwd.WorkPlan(1, 1, 1, 1, 1.0))
+    q = torch.randn((2, 128, 64), generator=gen, device="cuda")
+    out, lse = _flash_fwd_impl(q, q, q, scale=0.125)
+    before = launch_counts()
+    with pytest.raises(KernelLaunchError):
+        flash_bwd.flash_backward(q, q, q, out, lse, q, scale=0.125)
+    assert launch_counts() == before
+
+
 def test_bwd_impl_xla_runs_the_plain_backward_on_the_card(gen):
     """``bwd_impl="xla"`` selects the plain blocked recompute on any
     device: on the card it launches no backward kernel, and its gradients
