@@ -39,9 +39,9 @@
 // loop bounds skip what the TPU kernels skipped by clamping their DMAs.
 //
 // `attend_mma` takes its key/value tiles from a loader (`Bf16Rows` unless
-// the Problem names another as `Tiles`): the quantized caches' loaders
-// (quant_tiles.cuh) stage raw bytes and per-row scales, dequantize them into
-// the same bf16 tiles, and scale the score and probability columns.
+// the Problem names another as `Tiles`).  The quantized caches' loop
+// (quant_tiles.cuh) is its own, over the online-softmax step and the
+// key-group merge below (`softmax_tile`, `merge_key_groups`).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -402,25 +402,15 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, int rows,
 
 // The default loader of `attend_mma`: bf16 rows that the Problem points at
 // (k_row, v_row), copied by cp.async straight into the tiles.  A loader
-// provides:
-//   SCALED               whether score column c is multiplied by
-//                        k_scale(stage, c) and probability column c by
-//                        v_scale(stage, c) (after the row sum took it);
-//                        only a SCALED loader defines the two
-//   stage_bytes<DK, DV>  shared bytes it stages per buffer besides the tiles
-//   prefetch             start the copies of the tile whose first column is
-//                        j0 (the caller closes the commit group)
-//   land                 called by every thread once the copies landed and
-//                        a barrier passed: make the K and V tiles ready
+// provides `prefetch`, which starts the copies of the tile whose first
+// column is j0 (the caller closes the commit group), and OWN_LOOP: a
+// loader that sets it walks the keys with its own loop (`attend` and
+// `smem_bytes`, quant_tiles.cuh) in place of attend_mma.
 struct Bf16Rows {
-  static constexpr bool SCALED = false;
-  template <int DK, int DV>
-  __host__ __device__ static constexpr int stage_bytes() {
-    return 0;
-  }
+  static constexpr bool OWN_LOOP = false;
   template <int DK, int DV, typename Problem>
   __device__ static void prefetch(const Problem& pb, __nv_bfloat16* K,
-                                  __nv_bfloat16* V, unsigned char*, int j0) {
+                                  __nv_bfloat16* V, int j0) {
     load_rows<DK, true>(K, MMA_BN, [&](int r) {
       return j0 + r < pb.n_end ? pb.k_row(j0 + r) : nullptr;
     });
@@ -428,9 +418,6 @@ struct Bf16Rows {
       return j0 + r < pb.n_end ? pb.v_row(j0 + r) : nullptr;
     });
   }
-  template <int DK, int DV>
-  __device__ static void land(__nv_bfloat16*, __nv_bfloat16*,
-                              const unsigned char*) {}
 };
 
 // P::Tiles where P names one, else Bf16Rows
@@ -443,11 +430,138 @@ struct tiles_of<P, std::void_t<typename P::Tiles>> {
   using type = typename P::Tiles;
 };
 
+// The row maxima of a score tile in mma.sync's C layout (element e of
+// n-tile j in row g + 8·(e >> 1) of the warp's 16), over the row's four
+// threads.
+template <int NT>
+__device__ __forceinline__ void tile_row_max(const float (&s)[NT][4],
+                                             float (&mx)[2]) {
+  mx[0] = mx[1] = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+  }
+}
+
+// The online-softmax step of one score tile, masked entries -inf, whose
+// row maxima are mx: the rows' running max and sum move on, the output
+// rows are rescaled, and s becomes P.  A row whose max is still -inf takes
+// its exponents against 0, so a masked entry gives P = 0 and a NaN score
+// (a NaN-scaled key) a NaN P and row sum, also when nothing finite is
+// visible: the row comes out NaN, as the plain versions' amax makes it.
+template <int NT, int OT>
+__device__ __forceinline__ void softmax_tile(float (&s)[NT][4],
+                                             const float (&mx)[2],
+                                             float (&mrow)[2],
+                                             float (&lrow)[2],
+                                             float (&o)[OT][4]) {
+  float corr[2];
+  float base[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float mnew = fmaxf(mrow[i], mx[i]);
+    // exp2f(-inf) == 0: a row's first live tile zeroes nothing
+    corr[i] = mnew == -INFINITY ? 1.f : exp2f(mrow[i] - mnew);
+    base[i] = mnew == -INFINITY ? 0.f : mnew;
+    mrow[i] = mnew;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(s[j][e] - base[e >> 1]);
+      sum[e >> 1] += p;
+      s[j][e] = p;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+    lrow[i] = lrow[i] * corr[i] + sum[i];
+  }
+#pragma unroll
+  for (int j = 0; j < OT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
+}
+
+// The key groups of each 16-row tile (warps w, w + 1, .. w + KG - 1 of a
+// layout of 4 / KG row tiles times KG groups) merged into the tile's first
+// warp, in a fixed order: each warp parks its rows' o, max and sum in
+// `red`, 4 · 16 · (DV + 2) floats of shared memory that nothing else uses
+// by then (the caller passed a barrier after its last read of it), and the
+// first warp adds the others'.  A group that saw nothing (max -inf) weighs
+// 0, but a NaN sum or output stays NaN.  Every thread must call it; it
+// returns whether the calling warp holds the merged rows.
+template <int KG, int DV>
+__device__ __forceinline__ bool merge_key_groups(float (&o)[DV / 8][4],
+                                                 float (&mrow)[2],
+                                                 float (&lrow)[2],
+                                                 float* red) {
+  constexpr int OT = DV / 8;
+  constexpr int RED = 16 * (DV + 2);  // floats per warp
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  float* mine = red + warp * RED;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = g + 8 * i;
+#pragma unroll
+    for (int j = 0; j < OT; ++j) {
+      mine[r * DV + j * 8 + 2 * tq] = o[j][2 * i];
+      mine[r * DV + j * 8 + 2 * tq + 1] = o[j][2 * i + 1];
+    }
+    if (tq == 0) {
+      mine[16 * DV + r] = mrow[i];
+      mine[16 * DV + 16 + r] = lrow[i];
+    }
+  }
+  __syncthreads();
+  if (warp % KG != 0) return false;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = g + 8 * i;
+    float m = mrow[i];
+#pragma unroll
+    for (int k = 1; k < KG; ++k) m = fmaxf(m, mine[k * RED + 16 * DV + r]);
+    // a group that saw nothing (max -inf) adds nothing
+    const float c0 = mrow[i] == -INFINITY ? 0.f : exp2f(mrow[i] - m);
+    float l = lrow[i] * c0;
+#pragma unroll
+    for (int j = 0; j < OT; ++j) {
+      o[j][2 * i] *= c0;
+      o[j][2 * i + 1] *= c0;
+    }
+#pragma unroll
+    for (int k = 1; k < KG; ++k) {
+      const float* other = mine + k * RED;
+      const float mk = other[16 * DV + r];
+      const float ck = mk == -INFINITY ? 0.f : exp2f(mk - m);
+      l += other[16 * DV + 16 + r] * ck;
+#pragma unroll
+      for (int j = 0; j < OT; ++j) {
+        o[j][2 * i] += other[r * DV + j * 8 + 2 * tq] * ck;
+        o[j][2 * i + 1] += other[r * DV + j * 8 + 2 * tq + 1] * ck;
+      }
+    }
+    mrow[i] = m;
+    lrow[i] = l;
+  }
+  return true;
+}
+
 // The Problem interface of `attend`, for bf16 rows whose pointers and
 // strides are 16-byte aligned (the launcher checks), or for the rows of
 // the Problem's own loader (`Tiles`).  Dynamic shared memory:
-// smem_bytes_mma(DK, DV, KG, STAGES) plus STAGES times the loader's
-// stage_bytes.
+// smem_bytes_mma(DK, DV, KG, STAGES).
 //
 // KG is the number of key groups: the four warps are 4 / KG row tiles of 16
 // query rows times KG groups, and the warps of one row tile take each its
@@ -455,7 +569,7 @@ struct tiles_of<P, std::void_t<typename P::Tiles>> {
 // sum.  KG = 1 is the layout of a 64-row block; KG = 4 puts all four warps
 // on one 16-row tile, for a CTA whose live rows are few (one-token decode
 // at GQA group 8 has 8).  The key groups' (m, l, o) merge through shared
-// memory once the walk is done, in a fixed order.  STAGES tiles are in
+// memory once the walk is done (`merge_key_groups`).  STAGES tiles are in
 // flight at once (cp.async, one commit group per tile).
 template <int DK, int DV, int KG = 1, int STAGES = 2, typename Problem>
 __device__ void attend_mma(const Problem& pb, float qscale, float cap2) {
@@ -468,15 +582,11 @@ __device__ void attend_mma(const Problem& pb, float qscale, float cap2) {
   constexpr int OT = DV / 8;              // output n-tiles
   constexpr int DKP = DK + 8;
   constexpr int DVP = DV + 8;
-  constexpr int STAGE = Tiles::template stage_bytes<DK, DV>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  // buffer b: K tile at Kb + b * KV_STRIDE, V tile right after it, and the
-  // loader's staging area at Sb + b * STAGE
+  // buffer b: K tile at Kb + b * KV_STRIDE, V tile right after it
   __nv_bfloat16* Kb = Qs + ROWS * DKP;
   constexpr int KV_STRIDE = MMA_BN * (DKP + DVP);
-  unsigned char* Sb =
-      reinterpret_cast<unsigned char*>(Kb + STAGES * KV_STRIDE);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int wr = warp / KG * 16;    // this warp's first row
@@ -492,7 +602,6 @@ __device__ void attend_mma(const Problem& pb, float qscale, float cap2) {
     if (t < ntiles) {
       __nv_bfloat16* K = Kb + (t % STAGES) * KV_STRIDE;
       Tiles::template prefetch<DK, DV>(pb, K, K + MMA_BN * DKP,
-                                       Sb + (t % STAGES) * STAGE,
                                        walk.col(t, MMA_BN));
     }
     cp_async_commit();
@@ -525,8 +634,6 @@ __device__ void attend_mma(const Problem& pb, float qscale, float cap2) {
     const int j0 = walk.col(t, MMA_BN);
     __nv_bfloat16* Ks = Kb + (t % STAGES) * KV_STRIDE;
     __nv_bfloat16* Vs = Ks + MMA_BN * DKP;
-    const unsigned char* St = Sb + (t % STAGES) * STAGE;
-    Tiles::template land<DK, DV>(Ks, Vs, St);
 
     float s[NT][4];
 #pragma unroll
@@ -547,59 +654,20 @@ __device__ void attend_mma(const Problem& pb, float qscale, float cap2) {
 
     // element e of n-tile j: row wr + g + 8*(e >> 1), tile column
     // ko + j*8 + 2*tq + (e&1)
-    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = ko + j * 8 + 2 * tq + (e & 1);
         float x = s[j][e] * qscale;
-        if constexpr (Tiles::SCALED) x *= Tiles::k_scale(St, c);
         // softcap acts on the scaled scores, before masking
         if (cap2 > 0.f) x = cap2 * tanhf(x / cap2);
         const bool keep = pb.keep(wr + g + 8 * (e >> 1), j0 + c);
         s[j][e] = keep ? x : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
       }
-    float corr[2];
-    float mnew[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      mnew[i] = fmaxf(mrow[i], mx[i]);
-      // exp2f(-inf) == 0: a row's first live tile zeroes nothing
-      corr[i] = mnew[i] == -INFINITY ? 1.f : exp2f(mrow[i] - mnew[i]);
-      mrow[i] = mnew[i];
-    }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float m = mnew[e >> 1];
-        const float p = m == -INFINITY ? 0.f : exp2f(s[j][e] - m);
-        sum[e >> 1] += p;
-        s[j][e] = p;
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
-      lrow[i] = lrow[i] * corr[i] + sum[i];
-    }
-#pragma unroll
-    for (int j = 0; j < OT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
-    if constexpr (Tiles::SCALED) {
-      // the value scales fold into P's columns, after the row sum
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[j][e] *= Tiles::v_scale(St, ko + j * 8 + 2 * tq + (e & 1));
-    }
+    float mx[2];
+    tile_row_max(s, mx);
+    softmax_tile(s, mx, mrow, lrow, o);
 
     // P (two score n-tiles per k16 step) as the A operand, V transposed
 #pragma unroll
@@ -623,59 +691,14 @@ __device__ void attend_mma(const Problem& pb, float qscale, float cap2) {
   }
 
   if constexpr (KG > 1) {
-    // the key groups of each row tile merge into its first warp: each warp
-    // parks its 16 rows' o, max and sum in the (now idle) tile buffers
-    constexpr int RED = 16 * (DV + 2);  // floats per warp
-    static_assert(4 * RED * sizeof(float) <=
+    // the (now idle) tile buffers hold the key groups' merge
+    static_assert(4 * 16 * (DV + 2) * sizeof(float) <=
                       STAGES * KV_STRIDE * sizeof(__nv_bfloat16),
                   "the merge fits the tile buffers");
     cp_async_wait<0>();
-    float* red = reinterpret_cast<float*>(Kb);
-    float* mine = red + warp * RED;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = g + 8 * i;
-#pragma unroll
-      for (int j = 0; j < OT; ++j) {
-        mine[r * DV + j * 8 + 2 * tq] = o[j][2 * i];
-        mine[r * DV + j * 8 + 2 * tq + 1] = o[j][2 * i + 1];
-      }
-      if (tq == 0) {
-        mine[16 * DV + r] = mrow[i];
-        mine[16 * DV + 16 + r] = lrow[i];
-      }
-    }
-    __syncthreads();
-    if (warp % KG != 0) return;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = g + 8 * i;
-      float m = mrow[i];
-#pragma unroll
-      for (int k = 1; k < KG; ++k) m = fmaxf(m, mine[k * RED + 16 * DV + r]);
-      // a group that saw nothing (max -inf) adds nothing
-      const float c0 = mrow[i] == -INFINITY ? 0.f : exp2f(mrow[i] - m);
-      float l = lrow[i] * c0;
-#pragma unroll
-      for (int j = 0; j < OT; ++j) {
-        o[j][2 * i] *= c0;
-        o[j][2 * i + 1] *= c0;
-      }
-#pragma unroll
-      for (int k = 1; k < KG; ++k) {
-        const float* other = mine + k * RED;
-        const float mk = other[16 * DV + r];
-        const float ck = mk == -INFINITY ? 0.f : exp2f(mk - m);
-        l += other[16 * DV + 16 + r] * ck;
-#pragma unroll
-        for (int j = 0; j < OT; ++j) {
-          o[j][2 * i] += other[r * DV + j * 8 + 2 * tq] * ck;
-          o[j][2 * i + 1] += other[r * DV + j * 8 + 2 * tq + 1] * ck;
-        }
-      }
-      mrow[i] = m;
-      lrow[i] = l;
-    }
+    if (!merge_key_groups<KG, DV>(o, mrow, lrow,
+                                  reinterpret_cast<float*>(Kb)))
+      return;
   }
 
 #pragma unroll

@@ -40,7 +40,9 @@
 // and `merge_splits`, launched next on the same stream, combines them: the
 // two-phase max, rescale, sum of attention_tpu/parallel/kv_sharded.py:45-58
 // in split order, with no atomics, so a second call gives the same bits.
-// Nothing seen (sum 0) gives a zero row, a poisoned sequence NaN rows.
+// Nothing seen (sum 0) gives a zero row, a poisoned sequence NaN rows, and a
+// split whose sum is NaN (it saw a NaN score, `softmax_tile`) NaN rows too,
+// whatever its max.
 #pragma once
 
 #include "attention_tile.cuh"
@@ -72,7 +74,7 @@ struct DecodeArgs {
 
 template <typename T, typename Rows>
 struct DecodeProblem : ProblemBase {
-  using Tiles = typename tiles_of<Rows>::type;  // attend_mma's loader
+  using Tiles = typename tiles_of<Rows>::type;  // the tile loop's loader
   const T* q;  // each at (b, first head of the group, token 0)
   T* o;
   float* acc;
@@ -131,7 +133,7 @@ struct TileSpan {
 struct SpanTiles : Bf16Rows {
   template <int DK, int DV, typename Problem>
   __device__ static void prefetch(const Problem& pb, __nv_bfloat16* K,
-                                  __nv_bfloat16* V, unsigned char*, int j0) {
+                                  __nv_bfloat16* V, int j0) {
     const int live = pb.n_end - j0;
     const TileSpan<__nv_bfloat16> k = pb.kv.k_tile(j0);
     const TileSpan<__nv_bfloat16> v = pb.kv.v_tile(j0);
@@ -154,8 +156,9 @@ template <int KG>
 constexpr int DECODE_STAGES = KG > 1 ? 3 : 2;
 
 // Source: where cache rows live; `rows<T>(b, kv head)` gives the accessor
-// of one sequence's kv head.  KG: the bf16 loop's key groups (1 or 4);
-// the fp32 loop (NJ > 0) takes 64-row blocks.
+// of one sequence's kv head, whose loader (`Tiles`) may bring its own tile
+// loop (OWN_LOOP: the quantized caches).  KG: the bf16 loop's key groups (1
+// or 4); the fp32 loop (NJ > 0) takes 64-row blocks.
 template <typename T, int NJ, int DK, int DV, int KG, typename Source>
 __global__ void __launch_bounds__(THREADS)
     decode_kernel(DecodeArgs a, Source src) {
@@ -166,7 +169,8 @@ __global__ void __launch_bounds__(THREADS)
   const int group = a.H / a.Hkv;
   const long long h0 = (long long)kvh * group;
   const long long st = ((long long)b * a.H + h0) * a.S;  // first stats row
-  DecodeProblem<T, typename Source::template Rows<T>> pb;
+  using Problem = DecodeProblem<T, typename Source::template Rows<T>>;
+  Problem pb;
   pb.rows = group * a.S;
   pb.r0 = blockIdx.x * ROWS;
   pb.q = static_cast<const T*>(a.q) + b * a.sqb + h0 * a.sqh;
@@ -234,6 +238,9 @@ __global__ void __launch_bounds__(THREADS)
   }
   if constexpr (NJ > 0)
     attend<T, NJ>(pb, a.dk, a.dv, a.qscale, a.cap2);
+  else if constexpr (Problem::Tiles::OWN_LOOP)
+    Problem::Tiles::template attend<DK, KG, DECODE_STAGES<KG>>(pb, a.qscale,
+                                                               a.cap2);
   else
     attend_mma<DK, DV, KG, DECODE_STAGES<KG>>(pb, a.qscale, a.cap2);
 }
@@ -269,8 +276,10 @@ __global__ void __launch_bounds__(MERGE_THREADS) merge_splits(DecodeArgs a) {
   float mx = -INFINITY;
   for (int i = 0; i < n; ++i) mx = fmaxf(mx, wl[i]);
   __syncthreads();  // every thread has read the maxima
-  // a split that saw nothing (max -inf) weighs 0, and its scratch row was
-  // never written, so it is skipped, not multiplied
+  // a split that saw nothing (max -inf) weighs 0, and its scratch row may
+  // never have been written, so it is skipped, not multiplied; its sum
+  // still enters the total, where a NaN (a NaN score with no finite one
+  // beside it) stays NaN (NaN · 0), so the row comes out NaN
   for (int i = threadIdx.x; i < n; i += MERGE_THREADS) {
     const float w = wl[i] == -INFINITY ? 0.f : expf(wl[i] - mx);
     wl[i] = w;
@@ -296,16 +305,24 @@ __global__ void __launch_bounds__(MERGE_THREADS) merge_splits(DecodeArgs a) {
   }
 }
 
+// Dynamic shared memory of decode_kernel<T, NJ, DK, DV, KG, Source> at head
+// dims (dk, dv).
+template <typename T, int NJ, int DK, int DV, int KG, typename Source>
+size_t decode_smem(int dk, int dv) {
+  using Tiles = typename tiles_of<typename Source::template Rows<T>>::type;
+  if constexpr (NJ > 0)
+    return smem_bytes(dk, dv);
+  else if constexpr (Tiles::OWN_LOOP)
+    return Tiles::template smem_bytes<DK, KG, DECODE_STAGES<KG>>();
+  else
+    return smem_bytes_mma(dk, dv, KG, DECODE_STAGES<KG>);
+}
+
 template <typename T, int NJ, int DK, int DV, int KG, typename Source>
 cudaError_t launch_decode(const DecodeArgs& a, const Source& src, int B,
                           cudaStream_t stream) {
   auto kernel = decode_kernel<T, NJ, DK, DV, KG, Source>;
-  using Tiles = typename tiles_of<typename Source::template Rows<T>>::type;
-  constexpr int STAGES = DECODE_STAGES<KG>;
-  const size_t smem =
-      NJ > 0 ? smem_bytes(a.dk, a.dv)
-             : smem_bytes_mma(a.dk, a.dv, KG, STAGES) +
-                   STAGES * (size_t)Tiles::template stage_bytes<DK, DV>();
+  const size_t smem = decode_smem<T, NJ, DK, DV, KG, Source>(a.dk, a.dv);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

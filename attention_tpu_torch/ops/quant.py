@@ -29,11 +29,20 @@ CUDA tensors `flash_decode_quantized`, `flash_decode_quantized_chunk` and
 TPU kernel `_decode_q_kernel`), `flash_decode_int4_tok` launches
 ``csrc/quant_tok4_decode.cu`` (which replaces `_decode_tok4_kernel`);
 for CPU tensors they run `quant_decode_plain`.  The kernels take head
-dims 32, 64 and 128.
+dims 32, 64 and 128, and q in float32 or bfloat16, which they scale and
+round themselves.
+
+On the card each sequence's keys are split across CTAs as the dense
+decode kernel splits them (`ops.decode.split_plan`, the token-paired
+capacity counted in tokens) and merged by a second kernel;
+`launch_plan` names a call's split and key groups, and `split_partials`
+(merged by `ops.decode.merge_splits`) is what the split CTAs compute,
+which the CPU tests hold against the JAX package.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
@@ -41,13 +50,17 @@ import torch
 
 from attention_tpu_torch.ops import _native
 from attention_tpu_torch.ops._native import F, I, L, P
-from attention_tpu_torch.ops.decode import check_band, lengths_tensor
+from attention_tpu_torch.ops.decode import ROW_BLOCK, check_band, \
+    lengths_tensor, split_launch, split_owner, split_plan
 from attention_tpu_torch.ops.reference import check_softcap
 
 LOG2E = math.log2(math.e)
 #: head dims the kernels take
 KERNEL_HEAD_DIMS = (32, 64, 128)
-_ARGTYPES = [P] * 7 + [I] * 6 + [L] * 12 + [I, I, F, P]
+#: rows of a kv head up to which the four warps share one 16-row tile (the
+#: kernels' key groups, KG = 4), else 64-row blocks (KG = 1)
+KEY_GROUP_ROWS = 16
+_ARGTYPES = [P] * 8 + [I] * 7 + [L] * 12 + [I, I, F, F, I, I, I, P]
 
 
 class QuantizedKV(NamedTuple):
@@ -239,6 +252,48 @@ def _validate(q, cache, *, chunk: bool) -> None:
         raise ValueError(f"q heads {h} not a multiple of kv heads {hkv}")
 
 
+def _plain(q4, cache, lens, *, scale, softcap, window, sinks,
+           columns=None, partials=False):
+    """`quant_decode_plain` on (B, H, S, d) q and (B,) lengths, the cache
+    columns cut to ``columns`` ((B, N) bool) where given; with
+    ``partials`` the float32 (unnormalized output, row max in natural
+    log, row sum), max -inf and sum 0 for a row that sees nothing."""
+    b, h, s_new, d = q4.shape
+    hkv, n = cache.k_q.shape[1], cache.capacity
+    lens = lens.to(q4.device).long().clamp(min=0)
+    kf, vf = dequantized_values(cache)
+    # rows (g, s), s minor, of each kv head's group
+    qs = (q4.float() * (scale * LOG2E)).to(torch.bfloat16).float()
+    qs = qs.reshape(b, hkv, h // hkv * s_new, d)
+    s = torch.matmul(qs, kf.transpose(-1, -2)) * cache.k_scale[:, :, None]
+    if softcap is not None:
+        cap2 = softcap * LOG2E
+        s = cap2 * torch.tanh(s / cap2)
+    row = torch.arange(s.shape[2], device=q4.device) % s_new
+    pos = (lens[:, None] - s_new + row)[:, None, :, None]   # (B, 1, rows, 1)
+    col = torch.arange(n, device=q4.device)
+    keep = col <= pos
+    if window is not None:
+        band = col > pos - window
+        if sinks is not None:
+            band = band | (col < sinks)
+        keep = keep & band
+    if columns is not None:
+        keep = keep & columns[:, None, None, :]
+    s = s.masked_fill(~keep, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - torch.where(m == float("-inf"), 0.0, m))
+    denom = p.sum(dim=-1, keepdim=True)
+    pv = (p * cache.v_scale[:, :, None]).to(torch.bfloat16).float()
+    acc = torch.matmul(pv, vf)
+    if partials:
+        return (acc.reshape(b, h, s_new, d),
+                (m * math.log(2.0)).reshape(b, h, s_new),
+                denom.reshape(b, h, s_new))
+    denom = torch.where(denom == 0.0, 1.0, denom)
+    return (acc / denom).to(torch.bfloat16).reshape(b, h, s_new, d)
+
+
 def quant_decode_plain(q, cache, lengths, *, scale=None, softcap=None,
                        window=None, sinks=None) -> torch.Tensor:
     """The plain PyTorch version of the quantized decode kernels: q (B, H,
@@ -250,45 +305,74 @@ def quant_decode_plain(q, cache, lengths, *, scale=None, softcap=None,
     check_softcap(softcap)
     check_band(window, sinks)
     q4 = q if chunk else q[:, :, None]
-    b, h, s_new, d = q4.shape
-    hkv, n = cache.k_q.shape[1], cache.capacity
     if scale is None:
-        scale = 1.0 / d ** 0.5
-    lens = lengths_tensor(lengths, b, q.device).long().clamp(min=0)
-    kf, vf = dequantized_values(cache)
-    # rows (g, s), s minor, of each kv head's group
-    qs = (q4.float() * (scale * LOG2E)).to(torch.bfloat16).float()
-    qs = qs.reshape(b, hkv, h // hkv * s_new, d)
-    s = torch.matmul(qs, kf.transpose(-1, -2)) * cache.k_scale[:, :, None]
-    if softcap is not None:
-        cap2 = softcap * LOG2E
-        s = cap2 * torch.tanh(s / cap2)
-    row = torch.arange(s.shape[2], device=q.device) % s_new
-    pos = (lens[:, None] - s_new + row)[:, None, :, None]   # (B, 1, rows, 1)
-    col = torch.arange(n, device=q.device)
-    keep = col <= pos
-    if window is not None:
-        band = col > pos - window
-        if sinks is not None:
-            band = band | (col < sinks)
-        keep = keep & band
-    s = s.masked_fill(~keep, float("-inf"))
-    m = s.amax(dim=-1, keepdim=True)
-    m = torch.where(m == float("-inf"), 0.0, m)
-    p = torch.exp2(s - m)
-    denom = p.sum(dim=-1, keepdim=True)
-    denom = torch.where(denom == 0.0, 1.0, denom)
-    pv = (p * cache.v_scale[:, :, None]).to(torch.bfloat16).float()
-    out = (torch.matmul(pv, vf) / denom).to(torch.bfloat16)
-    out = out.reshape(b, h, s_new, d)
+        scale = 1.0 / q.shape[-1] ** 0.5
+    out = _plain(q4, cache, lengths_tensor(lengths, q.shape[0], q.device),
+                 scale=scale, softcap=softcap, window=window, sinks=sinks)
     return out if chunk else out[:, :, 0]
 
 
-def _check_rows(t: torch.Tensor, what: str) -> None:
-    if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
-            st % 16 for st in t.stride()[:3]):
-        raise ValueError(f"{what}: the kernel takes 16-byte aligned rows "
-                         f"with a contiguous last dim")
+def split_partials(q4, cache, lens, *, scale, softcap=None, window=None,
+                   sinks=None, splits: int, chunk: int):
+    """Each split's partials as the kernels' CTAs write them: the plain
+    version cut to the columns `ops.decode.split_owner` gives each split,
+    as float32 (unnormalized output (B, H, S, splits, d), row max in
+    natural log and row sum (B, H, S, splits)); `ops.decode.merge_splits`
+    merges them."""
+    owner = split_owner(lens, cache.capacity, q4.shape[2], window, splits,
+                        chunk)
+    parts = [_plain(q4, cache, lens, scale=scale, softcap=softcap,
+                    window=window, sinks=sinks, columns=owner == i,
+                    partials=True) for i in range(splits)]
+    return tuple(torch.stack(t, dim=3) for t in zip(*parts))
+
+
+def launch_plan(q, cache, window=None, *, sms: int) -> dict:
+    """The launch a kernel call on ``q`` (B, H, d) or (B, H, S, d) and
+    ``cache`` makes on a card of ``sms`` SMs: the key split of
+    `ops.decode.split_plan` over the capacity in tokens (``splits``,
+    ``chunk``), the key groups ``kg`` (4: the four warps share one 16-row
+    tile) and the ``grid`` (row blocks, B·Hkv, splits)."""
+    b, h = q.shape[:2]
+    s_new = q.shape[2] if q.dim() == 4 else 1
+    hkv = cache.k_q.shape[1]
+    rows = h // hkv * s_new
+    splits, chunk = split_plan(b, hkv, rows, cache.capacity, s_new, window,
+                               sms=sms)
+    kg = _key_groups(rows)
+    return dict(splits=splits, chunk=chunk, kg=kg,
+                grid=[-(-rows // (ROW_BLOCK // kg)), b * hkv, splits])
+
+
+def _key_groups(rows: int) -> int:
+    """The kernels' key groups for a kv head's ``rows`` query rows."""
+    return 4 if rows <= KEY_GROUP_ROWS else 1
+
+
+def kernel_resources(kind, d: int, kg: int) -> dict:
+    """What the kernel instance for cache type ``kind`` at head dim ``d``
+    with ``kg`` key groups costs an SM of the current card: registers a
+    thread, dynamic shared bytes a CTA, CTAs an SM holds, spilled bytes a
+    thread."""
+    kernel = _KERNEL_OF[kind][0]
+    if kind is Int4TokKV:
+        fn = _native.function(kernel, "quant_tok4_resources", [I, I, P])
+        args = ()
+    else:
+        fn = _native.function(kernel, "quant_decode_resources",
+                              [I, I, I, P])
+        args = (int(kind is Int4KV),)
+    out = (ctypes.c_int * 4)()
+    _native.check(kernel, fn(*args, d, kg, ctypes.addressof(out)))
+    return dict(zip(("registers", "smem_bytes", "ctas_per_sm",
+                     "spill_bytes"), out))
+
+
+def _aligned_rows(t: torch.Tensor) -> bool:
+    """16-byte aligned rows with a contiguous last dim (strides of the
+    first three dims)."""
+    return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+        st * t.element_size() % 16 == 0 for st in t.stride()[:3])
 
 
 def _launch(kernel, symbol, q4, cache, lens, *, scale, softcap, window,
@@ -307,23 +391,31 @@ def _launch(kernel, symbol, q4, cache, lens, *, scale, softcap, window,
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the quantized decode kernels take head dims "
                          f"{KERNEL_HEAD_DIMS}, got {d}")
-    _check_rows(cache.k_q, "k_q")
-    _check_rows(cache.v_q, "v_q")
+    for t, what in ((cache.k_q, "k_q"), (cache.v_q, "v_q")):
+        if not _aligned_rows(t):
+            raise ValueError(f"{what}: the kernel takes 16-byte aligned "
+                             f"rows with a contiguous last dim")
+    if not _aligned_rows(q4):
+        q4 = q4.contiguous()
     hkv, n = cache.k_q.shape[1], cache.capacity
-    ks, vs = cache.k_scale.contiguous(), cache.v_scale.contiguous()
-    qs = (q4.float() * (scale * LOG2E)).to(torch.bfloat16).contiguous()
+    ks, vs = (t if t.is_contiguous() else t.contiguous()
+              for t in (cache.k_scale, cache.v_scale))
     # (B, S, H, d) storage: the attention layer's head merge is a view
     out = torch.empty((b, s_new, h, d), dtype=torch.bfloat16,
                       device=q4.device).transpose(1, 2)
+    splits, chunk, part = split_launch(q4, hkv, n, d, window)
     fn = _native.function(kernel, symbol, _ARGTYPES)
-    with torch.cuda.device(q4.device):
-        stream = torch.cuda.current_stream(q4.device).cuda_stream
-        err = fn(qs.data_ptr(), cache.k_q.data_ptr(), cache.v_q.data_ptr(),
+    idx = q4.device.index  # an int takes torch.cuda's short path
+    with torch.cuda.device(idx):
+        stream = torch.cuda.current_stream(idx).cuda_stream
+        err = fn(q4.data_ptr(), cache.k_q.data_ptr(), cache.v_q.data_ptr(),
                  ks.data_ptr(), vs.data_ptr(), lens.data_ptr(),
-                 out.data_ptr(), b, h, hkv, s_new, n, d, *qs.stride()[:3],
-                 *cache.k_q.stride()[:3], *cache.v_q.stride()[:3],
-                 *out.stride()[:3], window or 0, sinks or 0,
-                 float(softcap or 0.0), stream)
+                 out.data_ptr(), 0 if part is None else part.data_ptr(),
+                 int(q4.dtype == torch.float32), b, h, hkv, s_new, n, d,
+                 *q4.stride()[:3], *cache.k_q.stride()[:3],
+                 *cache.v_q.stride()[:3], *out.stride()[:3], window or 0,
+                 sinks or 0, float(scale * LOG2E), float(softcap or 0.0),
+                 splits, chunk, _key_groups(h // hkv * s_new), stream)
     _native.check(kernel, err)
     _native.count_launch(kernel)
     return out

@@ -810,15 +810,23 @@ def phase_quant_kernels(ops, kernels, k, v) -> None:
     (tests/test_quant.py:51), int4 below 0.15 (tests/test_quant.py:331),
     on the sequences of 100 rows or more, as those tests measure them (a
     one-row sequence returns its one value row, whose quantization error
-    no softmax averages: up to amax/254 in int8, amax/14 in int4).
+    no softmax averages: up to amax/254 in int8, amax/14 in int4).  Each
+    case prints its launch (`quant.launch_plan`: splits, chunk, key
+    groups; the one-token cases must split and take KG = 4), the
+    kernel's registers, shared bytes and CTAs per SM, and its device ms
+    by `torch.profiler` beside its bound.  Last, NaN scales on the last
+    rows (an overflowing int8 append's, and the key scales alone) and a
+    window of 2, one token and a chunk of 4: every row sees only
+    NaN-scaled columns and must come out NaN, as the plain version's.
     Bytes for the bound: per token and kv head, K and V of d (int8) or
     d/2 (int4) bytes and one fp32 scale each."""
     from attention_tpu_torch.ops import quant
     from attention_tpu_torch.ops.decode import flash_decode, \
         flash_decode_chunk
 
-    b, hkv, _, d = k.shape
+    b, hkv, n, d = k.shape
     h = 32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device="cuda")
     cut = lens.clone()
@@ -835,6 +843,8 @@ def phase_quant_kernels(ops, kernels, k, v) -> None:
              ("int4_tok", 0): quant.flash_decode_int4_tok}
     kernel_of = {"int8": "quant_decode", "int4": "quant_decode",
                  "int4_tok": "quant_tok4"}
+    kind_of = {"int8": quant.QuantizedKV, "int4": quant.Int4KV,
+               "int4_tok": quant.Int4TokKV}
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(
@@ -863,9 +873,13 @@ def phase_quant_kernels(ops, kernels, k, v) -> None:
         cache, fn = caches[fmt], op_of[fmt, s_new]
         q = randn(b, h, s_new, d) if s_new else q1
         name = f"{fmt}_S{s_new or 1}_{'_'.join(kw) or 'plain'}"
+        plan = quant.launch_plan(q, cache, kw.get("window"), sms=sms)
+        if not s_new and not (plan["splits"] > 1 and plan["kg"] == 4):
+            raise AssertionError(f"{name}: one-token launch {plan}")
+        run = lambda: fn(q, cache, lens, **kw)  # noqa: E731
+        dev = device_ms(run)
         rec = hold(
-            kernels, kernel_of[fmt], name,
-            run=lambda: fn(q, cache, lens, **kw),
+            kernels, kernel_of[fmt], name, run=run,
             plain=lambda: quant.quant_decode_plain(q, cache, lens, **kw),
             faults={"dropped_last_key_tile": lambda: quant.quant_decode_plain(
                 q, cache, cut, **kw),
@@ -874,7 +888,9 @@ def phase_quant_kernels(ops, kernels, k, v) -> None:
             work=decode_work(DECODE_LENS, s_new or 1, h, hkv, d, 2,
                              kw.get("window"), kw.get("sinks"),
                              kv_row_bytes=row_bytes[fmt]),
-            dtype=torch.bfloat16, lengths=DECODE_LENS)
+            dtype=torch.bfloat16, lengths=DECODE_LENS, **plan,
+            resources=quant.kernel_resources(kind_of[fmt], d, plan["kg"]),
+            device_ms=dev)
         bf16 = (flash_decode_chunk if s_new else flash_decode)(
             q, k, v, lens, **kw)
         err = (fn(q, cache, lens, **kw)[long].float()
@@ -885,7 +901,34 @@ def phase_quant_kernels(ops, kernels, k, v) -> None:
         if not (err <= budget if fmt == "int8" else err < budget):
             raise AssertionError(f"{name}: {err} off the bf16 decode kernel")
         if not s_new and not kw and fmt != "int4":
-            kernels[kernel_of[fmt]].update(rec)
+            kernels[kernel_of[fmt]].update(rec, device_ms=dev)
+
+    # an append past the capacity poisons the last rows' scales, key and
+    # value ("both"); "keys" poisons the key scales alone, whose NaN scores
+    # only the rows' sums carry.  With a window of 2 they are all each row
+    # sees.
+    for s_new in (1, 4):
+        q = randn(b, h, s_new, d) if s_new > 1 else q1
+        fn = op_of["int8", 4 if s_new > 1 else 0]
+        for scales in ("both", "keys"):
+            cache = quant.QuantizedKV(*(t.clone() for t in caches["int8"]))
+            if scales == "both":
+                quant.update_quantized_kv(cache, randn(b, hkv, s_new, d),
+                                          randn(b, hkv, s_new, d),
+                                          n - s_new + 1)
+            else:
+                cache.k_scale[:, :, -s_new:] = float("nan")
+            got = fn(q, cache, n + 1, window=2)
+            same_bits(got, fn(q, cache, n + 1, window=2))
+            want = quant.quant_decode_plain(q, cache, n + 1, window=2)
+            if not (want.isnan().all() and got.isnan().all()):
+                raise AssertionError(
+                    f"NaN window, S = {s_new}, {scales}: "
+                    f"{int(got.isnan().sum())} of {got.numel()} NaN (plain "
+                    f"{int(want.isnan().sum())})")
+            emit(phase="quant_kernels",
+                 case=f"int8_S{s_new}_nan_{scales}_window2", nan_rows="all",
+                 **quant.launch_plan(q, cache, 2, sms=sms))
 
 
 def phase_op_path(ops, kernels) -> None:

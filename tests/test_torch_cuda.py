@@ -514,6 +514,101 @@ def test_quant_overflow_comes_out_nan(gen, s_new):
     assert quant.quant_decode_plain(q, cache, n + 1).isnan().all()
 
 
+# the key split of the quantized kernels: 3 sequences, 16 q / 2 kv heads
+# (group 8), d 128, 1024 rows, so that one token takes KG = 4 (16-row
+# CTAs) and the chunk of 4 (32 rows) 64-row blocks, both split
+QUANT_SPLIT_CASES = {
+    "int8": ("int8", 0, {}), "int8_softcap": ("int8", 0, {"softcap": 30.0}),
+    "int8_window_sinks": ("int8", 0, {"window": 100, "sinks": 4}),
+    "int8_chunk4": ("int8", 4, {"softcap": 30.0}),
+    "int8_chunk4_window": ("int8", 4, {"window": 70, "sinks": 4}),
+    "int4": ("int4", 0, {}), "int4_window_sinks": (
+        "int4", 0, {"window": 100, "sinks": 4}),
+    "tok4": ("int4_tok", 0, {}), "tok4_window_sinks": (
+        "int4_tok", 0, {"window": 100, "sinks": 4}),
+}
+
+
+def _quant_split_case(gen, fmt, s_new, dtype=torch.bfloat16):
+    b, h, hkv, n, d = 3, 16, 2, 1024, 128
+    q = torch.randn(b, h, *([s_new] if s_new else []), d, generator=gen,
+                    device="cuda").to(dtype)
+    k, v = (torch.randn(b, hkv, n, d, generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    lens = torch.tensor([0, 301, n], dtype=torch.int32, device="cuda")
+    return q, QUANTIZE[fmt](k, v), lens
+
+
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.parametrize("name", list(QUANT_SPLIT_CASES))
+def test_quant_split_kernels_match_plain(gen, name):
+    """Each format, one token (KG = 4) and the chunk of 4 (KG = 1), with
+    more than one split: one launch per call, the same bits twice, within
+    the plain version's limits, a zero row for length 0."""
+    fmt, s_new, kw = QUANT_SPLIT_CASES[name]
+    q, cache, lens = _quant_split_case(gen, fmt, s_new)
+    plan = quant.launch_plan(q, cache, kw.get("window"), sms=_sms())
+    assert plan["splits"] > 1
+    assert plan["kg"] == (1 if s_new else 4)
+    fn = QUANT_OPS[fmt, bool(s_new)]
+    kernel = "quant_tok4" if fmt == "int4_tok" else "quant_decode"
+    before = launch_counts()[kernel]
+    got = _held_twice(lambda: fn(q, cache, lens, **kw),
+                      lambda: quant.quant_decode_plain(q, cache, lens, **kw),
+                      torch.bfloat16)
+    assert launch_counts()[kernel] == before + 2
+    assert (got[0] == 0).all()
+
+
+@pytest.mark.parametrize("fmt", ["int8", "int4", "int4_tok"])
+def test_quant_kernel_scales_q_as_the_wrapper_did(gen, fmt):
+    """The kernel rounds q · fp32(scale·log2 e) to bf16 itself: the same
+    bits as a q pre-scaled and rounded so (the wrapper's former work),
+    launched with a scale whose factor is 1, for fp32 and bf16 q."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q, cache, lens = _quant_split_case(gen, fmt, 0, dtype)
+        fn = QUANT_OPS[fmt, False]
+        scale = 0.7 * 128 ** -0.5
+        pre = (q.float() * (scale * quant.LOG2E)).to(torch.bfloat16)
+        got = fn(q, cache, lens, scale=scale, softcap=30.0)
+        want = fn(pre, cache, lens, scale=1 / quant.LOG2E, softcap=30.0)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("scales", ["both", "keys"])
+@pytest.mark.parametrize("fmt,s_new", [("int8", 1), ("int8", 4),
+                                       ("int4", 1), ("int4_tok", 1)])
+def test_quant_nan_window_comes_out_nan(gen, fmt, s_new, scales):
+    """NaN scales on the last rows (an overflowing int8 append lands at the
+    end and writes them for keys and values; "keys" poisons the key scales
+    alone) and a window of 2 that leaves each row only those columns (one
+    token: column n - 1 alone).  The key group and the split that see them
+    (max -inf, sum NaN) must make every row NaN, as the plain version's
+    amax does, where the other groups and splits saw nothing."""
+    q, cache, _ = _quant_split_case(gen, fmt, s_new if s_new > 1 else 0)
+    n = cache.capacity
+    if fmt == "int8" and scales == "both":
+        k_new, v_new = (torch.randn(3, 2, s_new, 128, generator=gen,
+                                    device="cuda").to(torch.bfloat16)
+                        for _ in range(2))
+        quant.update_quantized_kv(cache, k_new, v_new, n - s_new + 1)
+    else:
+        cache.k_scale[:, :, -s_new:] = float("nan")
+        if scales == "both":
+            cache.v_scale[:, :, -s_new:] = float("nan")
+    want = quant.quant_decode_plain(q, cache, n + 1, window=2)
+    assert want.isnan().all()
+    got = QUANT_OPS[fmt, s_new > 1](q, cache, n + 1, window=2)
+    torch.cuda.synchronize()
+    assert got.isnan().all()
+    plan = quant.launch_plan(q, cache, 2, sms=_sms())
+    assert plan["splits"] > 1 and plan["kg"] == (1 if s_new > 1 else 4)
+
+
 def test_quant_wrapper_raises_instead_of_falling_back(gen):
     q = torch.randn(2, 4, 16, generator=gen, device="cuda")
     k = torch.randn(2, 2, 128, 16, generator=gen, device="cuda")
