@@ -1,6 +1,7 @@
 // The rows, band, key split and launch of a decode or chunk-verify call,
 // shared by decode.cu (dense caches), paged_decode.cu (caches behind a page
-// table) and the quantized caches' kernels (quant_tiles.cuh).
+// table, `PagedSource`), the quantized caches' kernels (quant_tiles.cuh)
+// and the decode slots of ragged_paged.cu.
 //
 // Rows.  The rows of a (sequence b, kv head) are its group of query heads
 // times the S tokens just appended, laid out (g, s) with s minor, so the
@@ -9,7 +10,9 @@
 // chunk mode has).  Row (g, s) sits at position len - S + s, where len is
 // the cache's length after the append, and sees the cache rows at or before
 // it; with a window w it sees only the rows after pos - w, plus the pinned
-// first `sinks` rows.  One-token decode is S = 1.
+// first `sinks` rows.  One-token decode is S = 1.  A source may give a
+// sequence fewer tokens than S, or none (`span`: the ragged kernel's slots
+// read theirs from cu_q_lens); the scratch keeps S tokens a head.
 //
 // Grid (row blocks, B·Hkv, splits).  A CTA owns one block of rows (64, or
 // 16 where the bf16 loop splits every key tile across its four warps) and
@@ -70,7 +73,33 @@ struct DecodeArgs {
   float* part_acc;  // splits > 1: contiguous (B, H, S, splits, dv) scratch
   float* part_m;    // and (B, H, S, splits) row max and row sum
   float* part_l;
+  int no_merge;     // splits > 1: the caller merges the partials itself
 };
+
+// The query rows of sequence b: q's and the output's offsets (elements)
+// and the tokens it appended, S of them unless its source says fewer
+// (the ragged kernel's decode slots); a sequence that is not live writes
+// nothing.  A source that declares `Spans` names them with `span(b, a)`.
+struct Span {
+  long long q_off, o_off;
+  int S;
+  bool live;
+};
+
+template <typename Source, typename = void>
+struct has_span : std::false_type {};
+template <typename Source>
+struct has_span<Source, std::void_t<typename Source::Spans>>
+    : std::true_type {};
+
+template <typename Source>
+__device__ __forceinline__ Span span_of(const Source& src, const DecodeArgs& a,
+                                        int b) {
+  if constexpr (has_span<Source>::value)
+    return src.span(b, a);
+  else
+    return {b * a.sqb, b * a.sob, a.S, true};
+}
 
 template <typename T, typename Rows>
 struct DecodeProblem : ProblemBase {
@@ -82,6 +111,7 @@ struct DecodeProblem : ProblemBase {
   float* l_out;
   long long sqh, sqs, soh, sos;
   int S, rows, r0, len, n_end, window, sinks;
+  int Sl;       // tokens per head in the stats' layout (S or more)
   int sstride;  // elements between two rows' stats
   Rows kv;
 
@@ -104,9 +134,11 @@ struct DecodeProblem : ProblemBase {
     return acc + g * soh + (rr - g * S) * sos;
   }
   __device__ void put_stats(int r, float m2, float l) const {
-    const int rr = r0 + r;  // (g, s) is row g*S + s of the group's stats
-    m_out[rr * sstride] = m2 * LN2;
-    l_out[rr * sstride] = l;
+    const int rr = r0 + r;  // (g, s) is row g*Sl + s of the group's stats
+    const int g = rr / S;
+    const int at = (g * Sl + rr - g * S) * sstride;
+    m_out[at] = m2 * LN2;
+    l_out[at] = l;
   }
   __device__ const T* k_row(int c) const { return kv.k_row(c); }
   __device__ const T* v_row(int c) const { return kv.v_row(c); }
@@ -150,6 +182,45 @@ struct SpanTiles : Bf16Rows {
   }
 };
 
+// Cache rows behind a page table (paged_decode.cu, and the decode slots of
+// ragged_paged.cu): row c of sequence b lives in page table[b, c / page]
+// at slot c % page of the (P, Hkv, page, d) pools.  A -1 entry reads page
+// 0, as the TPU kernels' clamp did.
+struct PagedSource {
+  const void* k_pool;
+  const void* v_pool;
+  const int* table;
+  int max_pages, Hkv, page, dk, dv;
+
+  template <typename T>
+  struct Rows {
+    using Tiles = SpanTiles;
+    const T* kp;
+    const T* vp;
+    const int* table;  // this sequence's row
+    int kvh, Hkv, page, dk, dv;
+    __device__ long long row(int c) const {
+      const int phys = max(table[c / page], 0);
+      return ((long long)phys * Hkv + kvh) * page + c % page;
+    }
+    __device__ const T* k_row(int c) const { return kp + row(c) * dk; }
+    __device__ const T* v_row(int c) const { return vp + row(c) * dv; }
+    // the rows from c to the end of its page
+    __device__ TileSpan<T> k_tile(int c) const {
+      return {k_row(c), dk, page - c % page};
+    }
+    __device__ TileSpan<T> v_tile(int c) const {
+      return {v_row(c), dv, page - c % page};
+    }
+  };
+
+  template <typename T>
+  __device__ Rows<T> rows(int b, int kvh) const {
+    return {static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
+            table + (long long)b * max_pages, kvh, Hkv, page, dk, dv};
+  }
+};
+
 // cp.async stages of the bf16 loop: three where the CTA's 16 rows leave
 // room for them (two such CTAs fit an SM), two for 64-row blocks
 template <int KG>
@@ -169,11 +240,14 @@ __global__ void __launch_bounds__(THREADS)
   const int group = a.H / a.Hkv;
   const long long h0 = (long long)kvh * group;
   const long long st = ((long long)b * a.H + h0) * a.S;  // first stats row
+  const Span sp = span_of(src, a, b);
+  if (!sp.live) return;
   using Problem = DecodeProblem<T, typename Source::template Rows<T>>;
   Problem pb;
-  pb.rows = group * a.S;
+  pb.rows = group * sp.S;
   pb.r0 = blockIdx.x * ROWS;
-  pb.q = static_cast<const T*>(a.q) + b * a.sqb + h0 * a.sqh;
+  if (pb.r0 >= pb.rows) return;
+  pb.q = static_cast<const T*>(a.q) + sp.q_off + h0 * a.sqh;
   if (a.splits > 1) {
     // this split's column of the (B, H, S, splits) scratch
     pb.o = nullptr;
@@ -184,8 +258,8 @@ __global__ void __launch_bounds__(THREADS)
     pb.sos = (long long)a.splits * a.dv;
     pb.sstride = a.splits;
   } else {
-    pb.o = a.o ? static_cast<T*>(a.o) + b * a.sob + h0 * a.soh : nullptr;
-    pb.acc = a.acc ? a.acc + b * a.sob + h0 * a.soh : nullptr;
+    pb.o = a.o ? static_cast<T*>(a.o) + sp.o_off + h0 * a.soh : nullptr;
+    pb.acc = a.acc ? a.acc + sp.o_off + h0 * a.soh : nullptr;
     pb.m_out = a.m_out ? a.m_out + st : nullptr;
     pb.l_out = a.l_out ? a.l_out + st : nullptr;
     pb.soh = a.soh;
@@ -194,7 +268,8 @@ __global__ void __launch_bounds__(THREADS)
   }
   pb.sqh = a.sqh;
   pb.sqs = a.sqs;
-  pb.S = a.S;
+  pb.S = sp.S;
+  pb.Sl = a.S;
   pb.window = a.window;
   pb.sinks = a.sinks;
   pb.kv = src.template rows<T>(b, kvh);
@@ -214,15 +289,16 @@ __global__ void __launch_bounds__(THREADS)
   // the block's rows span tokens s_lo..s_hi (all of them once it holds
   // rows of two heads)
   const int r_last = min(pb.r0 + ROWS, pb.rows) - 1;
-  const bool one_head = pb.r0 / a.S == r_last / a.S;
-  const int s_lo = one_head ? pb.r0 % a.S : 0;
-  const int s_hi = one_head ? r_last % a.S : a.S - 1;
-  const int n_end = min(pb.len - a.S + s_hi + 1, a.n_cap);
+  const int S = pb.S;
+  const bool one_head = pb.r0 / S == r_last / S;
+  const int s_lo = one_head ? pb.r0 % S : 0;
+  const int s_hi = one_head ? r_last % S : S - 1;
+  const int n_end = min(pb.len - S + s_hi + 1, a.n_cap);
   int band = 0;    // the block's lowest band start
   int first = 0;   // the sequence's, down to a key tile: split 0 starts there
   if (a.window > 0) {
-    band = max(pb.len - a.S + s_lo - a.window + 1, 0);
-    first = max(pb.len - a.S - a.window + 1, 0) / MMA_BN * MMA_BN;
+    band = max(pb.len - S + s_lo - a.window + 1, 0);
+    first = max(pb.len - S - a.window + 1, 0) / MMA_BN * MMA_BN;
   }
   const int lo = first + split * a.chunk;
   // a later split whose columns start among the sinks walks them all, as
@@ -331,7 +407,7 @@ cudaError_t launch_decode(const DecodeArgs& a, const Source& src, int B,
                   a.splits);
   kernel<<<grid, THREADS, smem, stream>>>(a, src);
   err = cudaGetLastError();
-  if (err != cudaSuccess || a.splits == 1) return err;
+  if (err != cudaSuccess || a.splits == 1 || a.no_merge) return err;
   merge_splits<T><<<(unsigned)((long long)B * a.H * a.S), MERGE_THREADS,
                     2 * a.splits * sizeof(float), stream>>>(a);
   return cudaGetLastError();

@@ -172,7 +172,7 @@ template <int DK, int DV, bool CAP>
 cudaError_t launch_wgmma_t(const CUtensorMap& tq, const CUtensorMap& tk,
                            const CUtensorMap& tv, const sm90::Args& s, int B,
                            cudaStream_t stream) {
-  auto kernel = sm90::flash_fwd_wgmma<DK, DV, CAP>;
+  auto kernel = sm90::flash_fwd_wgmma<DK, DV, CAP, sm90::FlashSched>;
   constexpr size_t smem = sm90::smem_bytes(DK, DV);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -186,7 +186,8 @@ cudaError_t launch_wgmma_t(const CUtensorMap& tq, const CUtensorMap& tk,
   const long long items = (long long)B * s.H *
                           ((s.m + sm90::BM - 1) / sm90::BM) * s.splits;
   const unsigned grid = (unsigned)(items < sms ? items : sms);
-  kernel<<<grid, sm90::THREADS, smem, stream>>>(tq, tk, tv, s);
+  kernel<<<grid, sm90::THREADS, smem, stream>>>(tq, tk, tv,
+                                                 sm90::FlashSched{s});
   err = cudaGetLastError();
   if (err != cudaSuccess || s.splits == 1) return err;
   const long long bhm = (long long)B * s.H * s.m;

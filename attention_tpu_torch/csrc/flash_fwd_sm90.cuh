@@ -1,5 +1,8 @@
 // The Hopper body of the flash forward (flash_fwd.cu): bf16 q, k, v at
 // head dims 64 or 128, both products on `wgmma`, the tiles fed by TMA.
+// The kernel walks the work items of a schedule (`FlashSched` here; the
+// ragged kernel's prefill slots run it under `RaggedSched`, with their
+// key tiles loaded page by page through the slot's table).
 //
 // It computes what the TPU kernel `_flash_kernel` (attention_tpu/ops/
 // flash.py:310, online max mode) computes, and is bound by operations at
@@ -109,8 +112,6 @@ __device__ __forceinline__ TilePlan tile_plan(int m0, int m, int kv_valid,
   return p;
 }
 
-// ------------------------------------------------------------------ kernel
-
 // Dynamic shared memory of one CTA: Q, STAGES K and V tiles, the barriers,
 // and room to align the tiles to 1024 bytes.
 constexpr size_t smem_bytes(int dk, int dv) {
@@ -118,87 +119,203 @@ constexpr size_t smem_bytes(int dk, int dv) {
          8 * (2 + 4 * STAGES) + 1024;
 }
 
-// Rows [m0, m0 + BM) that see no key in their split: zero output rows, or
-// row max -inf and sum 0 (a split's scratch output is left unwritten; the
-// merge skips it).  Written by `count` threads from thread `first` on.
-__device__ void store_empty(const Args& a, int bh, int b, int h, int m0,
-                            int split, long long bhm, int first, int count) {
-  for (int idx = threadIdx.x - first; idx < BM * a.dv; idx += count) {
-    const int r = idx / a.dv;
-    const int c = idx - r * a.dv;
-    const int row = m0 + r;
-    if (row >= a.m) continue;
-    const long long stat = (long long)bh * a.m + row;
-    if (a.part != nullptr) {
-      if (c == 0) {
-        const long long pr = split * bhm + stat;
-        a.part[a.splits * bhm * a.dv + pr] = -INFINITY;
-        a.part[a.splits * bhm * (a.dv + 1) + pr] = 0.f;
-      }
-      continue;
-    }
-    const long long out = b * a.sob + h * a.soh + row * a.som + c;
-    if (a.acc != nullptr) {
-      a.acc[out] = 0.f;
-      if (c == 0) {
-        a.row_max[stat] = -INFINITY;
-        a.row_sum[stat] = 0.f;
-      }
-      continue;
-    }
-    static_cast<__nv_bfloat16*>(a.o)[out] = __float2bfloat16(0.f);
-  }
+// Row r (0 or 1) of a consumer thread's accumulator, normalized, as bf16
+// at dst: a row that attended nothing has l == 0 and an all-zero
+// accumulator, and stays zero.
+template <int DV>
+__device__ __forceinline__ void store_bf16_row(__nv_bfloat16* dst,
+                                               const float (&o)[DV / 2],
+                                               int r, float l, int c0) {
+  const float inv = l == 0.f ? 1.f : 1.f / l;
+#pragma unroll
+  for (int j = 0; j < DV / 8; ++j)
+    *reinterpret_cast<uint32_t*>(dst + 8 * j + c0) =
+        pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
 }
 
-// One row block of one head in one split, and its tiles.
-struct Work {
-  int bh, b, h, hk, m0, split;
-  TilePlan plan;
+// ---------------------------------------------------------------- schedules
+
+constexpr uint32_t BOX_BYTES = BN * 128;  // one 64-wide box of a tile
+
+// A schedule names a launch's work to the kernel below (`flash_fwd_wgmma`):
+// how many work items it has (`total`), each item's key tiles
+// (`item(w).plan`), how a score is capped (`softcap`), the TMA copies of
+// an item's 128 query rows and of its key/value tile t (`load_q`,
+// `load_kv`, issued by one thread, completing on the barrier given), each
+// row's key limit (`limits`: keys at or past it are masked in the tiles
+// from `plan.mask` on) and where each row's result goes (`store`, and
+// `store_empty` for an item that sees no key).  A row is named by its
+// place in the item's 128-row block.  `FlashSched` is the flash
+// forward's; ragged_paged.cu has another.
+
+// The flash forward: (row block, head, split) work items over q, k, v of
+// (B, H or Hkv, rows, d), normalized bf16 output or partials.
+struct FlashSched {
+  Args a;
+
+  struct Work {
+    int bh, b, h, hk, m0, split;
+    TilePlan plan;
+  };
+
+  __device__ float qscale() const { return a.qscale; }
+  __device__ float cap2() const { return a.cap2; }
+  // softcap as the backward recomputes it (flash_bwd.cuh)
+  __device__ static float softcap(float x, float cap2) {
+    return cap2 * tanhf(x / cap2);
+  }
+  __device__ int nmb() const { return (a.m + BM - 1) / BM; }
+  __device__ long long bhm() const { return (long long)a.B * a.H * a.m; }
+  __device__ long long total() const {
+    return (long long)a.B * a.H * nmb() * a.splits;
+  }
+
+  // Work item w: the split varies slowest, then the row block (under
+  // causal masking from the last, which sees the most tiles: heaviest
+  // first), then the head.
+  __device__ Work item(long long w) const {
+    const int bhs = a.B * a.H;
+    const int n = nmb();
+    Work k;
+    k.split = (int)(w / ((long long)bhs * n));
+    const long long r = w - (long long)k.split * bhs * n;
+    const int mi = (int)(r / bhs);
+    k.bh = (int)(r - (long long)mi * bhs);
+    k.b = k.bh / a.H;
+    k.h = k.bh - k.b * a.H;
+    k.hk = k.h / (a.H / a.Hkv);
+    k.m0 = (a.causal ? n - 1 - mi : mi) * BM;
+    k.plan = tile_plan(k.m0, a.m, a.kv_valid, a.causal != 0, a.q_offset,
+                       a.kv_offset, k.split, a.split_tiles);
+    return k;
+  }
+
+  template <int DK>
+  __device__ void load_q(uint32_t dst, const CUtensorMap* tq, uint32_t bar,
+                         const Work& k) const {
+    for (int c = 0; c < DK / BOX; ++c)
+      tma_load(dst + c * BOX_BYTES, tq, bar, c * BOX, k.m0, k.h, k.b);
+  }
+
+  template <int D>
+  __device__ void load_kv(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                          const Work& k, int t) const {
+    for (int c = 0; c < D / BOX; ++c)
+      tma_load(dst + c * BOX_BYTES, map, bar, c * BOX, t * BN, k.hk, k.b);
+  }
+
+  // row r keeps the keys below lim: kv_valid, and under causal masking
+  // the last key at or before r + q_offset
+  __device__ void limits(const Work& k, int rl, int (&lim)[2]) const {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      lim[i] = a.causal ? min(a.kv_valid, k.m0 + rl + 8 * i + a.q_offset -
+                                              a.kv_offset + 1)
+                        : a.kv_valid;
+  }
+
+  // Rows that see no key in their split: zero output rows, or row max
+  // -inf and sum 0 (a split's scratch output is left unwritten; the merge
+  // skips it).  Written by `count` threads from thread `first` on.
+  __device__ void store_empty(const Work& k, int first, int count) const {
+    const long long hm = bhm();
+    for (int idx = threadIdx.x - first; idx < BM * a.dv; idx += count) {
+      const int r = idx / a.dv;
+      const int c = idx - r * a.dv;
+      const int row = k.m0 + r;
+      if (row >= a.m) continue;
+      const long long stat = (long long)k.bh * a.m + row;
+      if (a.part != nullptr) {
+        if (c == 0) {
+          const long long pr = k.split * hm + stat;
+          a.part[a.splits * hm * a.dv + pr] = -INFINITY;
+          a.part[a.splits * hm * (a.dv + 1) + pr] = 0.f;
+        }
+        continue;
+      }
+      const long long out = k.b * a.sob + k.h * a.soh + row * a.som + c;
+      if (a.acc != nullptr) {
+        a.acc[out] = 0.f;
+        if (c == 0) {
+          a.row_max[stat] = -INFINITY;
+          a.row_sum[stat] = 0.f;
+        }
+        continue;
+      }
+      static_cast<__nv_bfloat16*>(a.o)[out] = __float2bfloat16(0.f);
+    }
+  }
+
+  // Rows rl and rl + 8 of a consumer thread: its accumulator element
+  // 4j + 2r + e holds row rl + 8r, column 8j + 2·(lane % 4) + e.
+  template <int DV>
+  __device__ void store(const Work& k, int rl, const float (&o)[DV / 2],
+                        const float (&mrow)[2], const float (&lrow)[2],
+                        int lane) const {
+    const int c0 = 2 * (lane & 3);
+    const long long hm = bhm();
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = k.m0 + rl + 8 * r;
+      if (row >= a.m) continue;
+      const long long stat = (long long)k.bh * a.m + row;
+      if (a.part != nullptr) {
+        const long long pr = k.split * hm + stat;
+        float* dst = a.part + pr * DV;
+#pragma unroll
+        for (int j = 0; j < DV / 8; ++j)
+          *reinterpret_cast<float2*>(dst + 8 * j + c0) =
+              make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
+        if ((lane & 3) == 0) {
+          a.part[a.splits * hm * DV + pr] = mrow[r];
+          a.part[a.splits * hm * (DV + 1) + pr] = lrow[r];
+        }
+        continue;
+      }
+      const long long out = k.b * a.sob + k.h * a.soh + row * a.som;
+      if (a.acc != nullptr) {
+#pragma unroll
+        for (int j = 0; j < DV / 8; ++j)
+          *reinterpret_cast<float2*>(a.acc + out + 8 * j + c0) =
+              make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
+        if ((lane & 3) == 0) {
+          a.row_max[stat] = mrow[r] * LN2;
+          a.row_sum[stat] = lrow[r];
+        }
+        continue;
+      }
+      store_bf16_row<DV>(static_cast<__nv_bfloat16*>(a.o) + out, o, r,
+                         lrow[r], c0);
+    }
+  }
 };
 
-// Work item w of the B·H·⌈m / BM⌉·splits a launch has: the split varies
-// slowest, then the row block (under causal masking from the last, which
-// sees the most tiles: heaviest first), then the head.
-__device__ __forceinline__ Work work_item(const Args& a, long long w,
-                                          int nmb) {
-  const int bhs = a.B * a.H;
-  Work k;
-  k.split = (int)(w / ((long long)bhs * nmb));
-  const long long r = w - (long long)k.split * bhs * nmb;
-  const int mi = (int)(r / bhs);
-  k.bh = (int)(r - (long long)mi * bhs);
-  k.b = k.bh / a.H;
-  k.h = k.bh - k.b * a.H;
-  k.hk = k.h / (a.H / a.Hkv);
-  k.m0 = (a.causal ? nmb - 1 - mi : mi) * BM;
-  k.plan = tile_plan(k.m0, a.m, a.kv_valid, a.causal != 0, a.q_offset,
-                     a.kv_offset, k.split, a.split_tiles);
-  return k;
-}
+// ------------------------------------------------------------------ kernel
 
-// A persistent grid: each CTA takes one work item a round (at most one
-// CTA an SM, `snake_item`), so the producer loads the next item's Q and
-// first tiles while the consumers finish the current one.
+// A persistent grid: each CTA takes one work item of the schedule a round
+// (at most one CTA an SM, `snake_item`), so the producer loads the next
+// item's Q and first tiles while the consumers finish the current one.
 // Thread layout: warpgroup 0 is the producer, warpgroups 1 and 2 the
-// consumers of rows m0 .. m0 + 63 and m0 + 64 .. m0 + 127.  A consumer
+// consumers of rows 0 .. 63 and 64 .. 127 of the item's block.  A consumer
 // thread's accumulator element 4j + e sits at row 16·warp + lane / 4 +
 // 8·(e / 2) of its warpgroup's 64, column 8j + 2·(lane % 4) + e % 2: the S
 // accumulator of key columns 16kk .. 16kk + 15 is, element for element,
 // the A operand of the P·V step kk.  The K/V ring runs on across items:
-// the g-th tile a CTA loads sits in stage g % STAGES.
-template <int DK, int DV, bool CAP>
+// the g-th tile a CTA loads sits in stage g % STAGES.  A CTA whose
+// schedule has no work exits before it sets anything up.
+template <int DK, int DV, bool CAP, typename Sched>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
-                    const __grid_constant__ CUtensorMap tv, const Args a) {
+                    const __grid_constant__ CUtensorMap tv, const Sched sc) {
   constexpr uint32_t Q_BYTES = BM * DK * 2;
   constexpr uint32_t K_BYTES = BN * DK * 2;
   constexpr uint32_t V_BYTES = BN * DV * 2;
-  constexpr uint32_t BOX_BYTES = BN * 128;  // one 64-wide box of a tile
   static_assert(BM == BN, "Q and K boxes share a stride");
-  const int nmb = (a.m + BM - 1) / BM;
-  const long long total = (long long)a.B * a.H * nmb * a.splits;
-  const long long bhm = (long long)a.B * a.H * a.m;
+  const long long total = sc.total();
+  if (total <= blockIdx.x) return;
+  const float qscale = sc.qscale();
+  const float cap2 = sc.cap2();
 
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -237,28 +354,23 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int r = 0; (long long)r * gridDim.x < total; ++r) {
       const long long w = snake_item(r, total);
       if (w < 0) continue;
-      const Work k = work_item(a, w, nmb);
+      const typename Sched::Work k = sc.item(w);
       const int ntiles = k.plan.end - k.plan.begin;
       if (ntiles <= 0) continue;
       if (nq > 0) mbar_wait(q_empty, (nq - 1) & 1);
       ++nq;
       mbar_expect_tx(q_full, Q_BYTES);
-      for (int c = 0; c < DK / BOX; ++c)
-        tma_load(sq + c * BOX_BYTES, &tq, q_full, c * BOX, k.m0, k.h, k.b);
+      sc.template load_q<DK>(sq, &tq, q_full, k);
       for (int i = 0; i < ntiles; ++i, ++g) {
         const int s = g % STAGES;
         const uint32_t ph = (g / STAGES) & 1;
-        const int key0 = (k.plan.begin + i) * BN;
+        const int t = k.plan.begin + i;
         mbar_wait(k_empty(s), ph ^ 1);
         mbar_expect_tx(k_full(s), K_BYTES);
-        for (int c = 0; c < DK / BOX; ++c)
-          tma_load(sk + s * K_BYTES + c * BOX_BYTES, &tk, k_full(s), c * BOX,
-                   key0, k.hk, k.b);
+        sc.template load_kv<DK>(sk + s * K_BYTES, &tk, k_full(s), k, t);
         mbar_wait(v_empty(s), ph ^ 1);
         mbar_expect_tx(v_full(s), V_BYTES);
-        for (int c = 0; c < DV / BOX; ++c)
-          tma_load(sv + s * V_BYTES + c * BOX_BYTES, &tv, v_full(s), c * BOX,
-                   key0, k.hk, k.b);
+        sc.template load_kv<DV>(sv + s * V_BYTES, &tv, v_full(s), k, t);
       }
     }
     return;
@@ -285,23 +397,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int r = 0; (long long)r * gridDim.x < total; ++r) {
     const long long w = snake_item(r, total);
     if (w < 0) continue;
-    const Work k = work_item(a, w, nmb);
+    const typename Sched::Work k = sc.item(w);
     const TilePlan plan = k.plan;
     const int ntiles = plan.end - plan.begin;
     if (ntiles <= 0) {
-      store_empty(a, k.bh, k.b, k.h, k.m0, k.split, bhm,
-                  THREADS - CONSUMERS, CONSUMERS);
+      sc.store_empty(k, THREADS - CONSUMERS, CONSUMERS);
       continue;
     }
-    const int r0 = k.m0 + 64 * cw + 16 * warp + lane / 4;  // rows r0, r0 + 8
-    // row r keeps the keys below lim: kv_valid, and under causal masking
-    // the last key at or before r + q_offset
+    const int rl = 64 * cw + 16 * warp + lane / 4;  // rows rl, rl + 8
     int lim[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      lim[i] = a.causal ? min(a.kv_valid, r0 + 8 * i + a.q_offset -
-                                              a.kv_offset + 1)
-                        : a.kv_valid;
+    sc.limits(k, rl, lim);
     float o[DV / 2];
     float s[BN / 2];
     uint32_t p[BN / 16][4];
@@ -344,9 +449,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     auto softmax = [&](int t, float (&corr)[2]) {
 #pragma unroll
       for (int e = 0; e < BN / 2; ++e) {
-        float x = s[e] * a.qscale;
-        // softcap as the backward recomputes it (flash_bwd.cuh)
-        if constexpr (CAP) x = a.cap2 * tanhf(x / a.cap2);
+        float x = s[e] * qscale;
+        if constexpr (CAP) x = Sched::softcap(x, cap2);
         s[e] = x;
       }
       if (t >= plan.mask) {
@@ -466,44 +570,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 1);
       lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 2);
     }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = r0 + 8 * r;
-      if (row >= a.m) continue;
-      const long long stat = (long long)k.bh * a.m + row;
-      if (a.part != nullptr) {
-        const long long pr = k.split * bhm + stat;
-        float* dst = a.part + pr * DV;
-#pragma unroll
-        for (int j = 0; j < DV / 8; ++j)
-          *reinterpret_cast<float2*>(dst + 8 * j + c0) =
-              make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
-        if ((lane & 3) == 0) {
-          a.part[a.splits * bhm * DV + pr] = mrow[r];
-          a.part[a.splits * bhm * (DV + 1) + pr] = lrow[r];
-        }
-        continue;
-      }
-      const long long out = k.b * a.sob + k.h * a.soh + row * a.som;
-      if (a.acc != nullptr) {
-#pragma unroll
-        for (int j = 0; j < DV / 8; ++j)
-          *reinterpret_cast<float2*>(a.acc + out + 8 * j + c0) =
-              make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
-        if ((lane & 3) == 0) {
-          a.row_max[stat] = mrow[r] * LN2;
-          a.row_sum[stat] = lrow[r];
-        }
-        continue;
-      }
-      // a row that attended nothing has l == 0 and an all-zero accumulator
-      const float inv = lrow[r] == 0.f ? 1.f : 1.f / lrow[r];
-      __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(a.o) + out;
-#pragma unroll
-      for (int j = 0; j < DV / 8; ++j)
-        *reinterpret_cast<uint32_t*>(dst + 8 * j + c0) =
-            pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
-    }
+    sc.template store<DV>(k, rl, o, mrow, lrow, lane);
   }
 }
 

@@ -29,45 +29,6 @@
 // blocks per (sequence, kv head) and needs no split.
 #include "decode_rows.cuh"
 
-namespace {
-
-struct PagedSource {
-  const void* k_pool;
-  const void* v_pool;
-  const int* table;
-  int max_pages, Hkv, page, dk, dv;
-
-  template <typename T>
-  struct Rows {
-    using Tiles = atk::SpanTiles;
-    const T* kp;
-    const T* vp;
-    const int* table;  // this sequence's row
-    int kvh, Hkv, page, dk, dv;
-    __device__ long long row(int c) const {
-      const int phys = max(table[c / page], 0);
-      return ((long long)phys * Hkv + kvh) * page + c % page;
-    }
-    __device__ const T* k_row(int c) const { return kp + row(c) * dk; }
-    __device__ const T* v_row(int c) const { return vp + row(c) * dv; }
-    // the rows from c to the end of its page
-    __device__ atk::TileSpan<T> k_tile(int c) const {
-      return {k_row(c), dk, page - c % page};
-    }
-    __device__ atk::TileSpan<T> v_tile(int c) const {
-      return {v_row(c), dv, page - c % page};
-    }
-  };
-
-  template <typename T>
-  __device__ Rows<T> rows(int b, int kvh) const {
-    return {static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
-            table + (long long)b * max_pages, kvh, Hkv, page, dk, dv};
-  }
-};
-
-}  // namespace
-
 // Plain C entry point, loaded through ctypes.  dtype: 0 = fp32, 1 = bf16.
 // q is (B, H, S, d) with element strides (batch, head, row) and a
 // contiguous last dim; the pools are contiguous (P, Hkv, page, d); table
@@ -113,7 +74,7 @@ extern "C" int paged_decode_fwd(
   a.cap2 = softcap > 0.f ? softcap * atk::LOG2E : 0.f;
   a.poison = acc == nullptr;
   atk::set_splits(a, B, splits, chunk, part);
-  const PagedSource src{k_pool, v_pool, static_cast<const int*>(table),
+  const atk::PagedSource src{k_pool, v_pool, static_cast<const int*>(table),
                         max_pages, Hkv, page, dk, dv};
   // pool rows stay 16-byte aligned at head dims 64/128
   const bool mma_ok = atk::rows_aligned(a) && atk::aligned16(k_pool) &&

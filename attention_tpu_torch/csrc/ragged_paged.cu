@@ -1,4 +1,5 @@
-// Ragged paged attention for Hopper (sm_90a): one launch per serving step.
+// Ragged paged attention for Hopper (sm_90a): one wrapper call per serving
+// step.
 //
 // Replaces the TPU kernel `_ragged_kernel`
 // (attention_tpu/ops/ragged_paged.py:201), online max mode.  Every real
@@ -7,34 +8,72 @@
 // its kv_lens[s] (post-append) cache rows through page_table row s of the
 // (P, Hkv, page, d) pools, in place.  Causal within the request: the token at
 // span offset t sees positions <= kv_len - q_len + t.  Slots at or beyond
-// distribution[1], and slots with q_len == 0, write nothing; a slot with
-// kv_len < 0 (poisoned by the append) writes NaN on its rows.  Pad tokens
-// stay zero because the wrapper zeroes the output first: slots own disjoint
-// rows, so the TPU's grid-ordered read-modify-write is not needed.
+// distribution[1], and slots with q_len == 0, write nothing, and every token
+// no live slot owns (pad) comes out zero; a slot with kv_len < 0 (poisoned
+// by the append) writes NaN on its rows.  A -1 table entry below the length
+// reads page 0, as the TPU kernel's clamp did.
 //
-// Work split: the grid is (ceil(q_tile * group / 64), slots * Hkv).  The
-// CTAs of one (slot, kv head) share that slot's q_len x group rows in
-// 64-row blocks (a span longer than q_tile is strided, never cut), laid
-// out head-major (row = g * q_len + t), so the group's query heads share
-// every page the CTA reads and a prefill block covers consecutive tokens
-// of one head (its causal end is tight).  A decode slot is one CTA of
-// `group` rows; CTAs with no rows exit at once.
+// What bounds it on the H100.  A decode slot (one token, or a few, per
+// request) does 4·group·kv_len·d operations on 2·kv_len·d cache values,
+// about 2 operations per byte at group 8: it is bound by the bytes of its
+// pages (3.35 TB/s), and one CTA per (slot, kv head) walking its whole
+// cache would keep 32 of 132 SMs busy at the serving geometry.  A prefill
+// chunk of c tokens does c times as many operations per byte, far above
+// the ~295 where bf16 stops being bound by memory: it is bound by the
+// tensor cores.  The slots are told apart on the device, so that the host
+// never reads a length (a read there would cost a sync per layer per
+// step): a slot whose q_len·group rows fit one 16-row tile (`smax` tokens,
+// DECODE_ROWS / group; the engine's decode slots) is a decode slot, any
+// other live slot a prefill slot.  Three launches, on the same stream:
 //
-// What bounds it on the H100: a decode slot does 4·group·kv_len·d operations
-// on 2·kv_len·d cache values, about 2 operations per byte at group 8, so
-// decode is bound by the bytes of the pages it reads (3.35 TB/s); a prefill
-// chunk of c tokens does c times as many operations per byte and is bound by
-// operations.  The design reads each page once per (slot, kv head, row
-// block) straight from the pool, never gathers a dense copy of the cache,
-// and skips pages past the block's causal end.  As in flash_fwd.cu, bf16 at
-// head dims 64/128 runs the products on the tensor cores
-// (`atk::attend_mma`), f32 and other head dims fp32 FMA (`atk::attend`).
-#include "attention_tile.cuh"
+// 1. Decode slots split their keys across CTAs, on the decode kernels'
+//    rows (decode_rows.cuh, through `RaggedSource`: the paged source with
+//    each slot's span read from cu_q_lens): grid (1, slots·Hkv, splits),
+//    the split sized on the host from the table's capacity
+//    (`ops.decode.split_plan`), four warps on one 16-row tile (KG = 4) in
+//    bf16 at head dims 64/128, fp32 partials into scratch the wrapper
+//    allocates.  CTAs of prefill slots and dead slots exit at once.
+// 2. Prefill slots run one of three bodies, named by the caller
+//    (`ops.ragged_paged.ragged_body`) and refused here where they do not
+//    fit:
+//    - "wgmma" (bf16, head dims 64/128, a GQA group dividing 128, pages of
+//      a multiple of 128 rows or of 8–64 rows): the flash forward's body
+//      (flash_fwd_sm90.cuh) under `RaggedSched`.  A work item is 128 rows
+//      of one (slot, kv head): 128 / group tokens times the group's query
+//      heads, row = token·group + head, so one K/V tile feeds the whole
+//      group and the pages are read once per kv head and row block.  Q
+//      comes by TMA as one box of (64 columns, group heads, 128 / group
+//      tokens); each 128-key tile of K and V as boxes of the 4-D pool map
+//      (d, page row, kv head, page) at the page the table names, translated
+//      on the device by the producer thread.  Tiles past the block's causal
+//      end are never loaded, and only the tiles from the first one that can
+//      hold a masked key test the mask; softcap takes a tanh of two MUFU
+//      instructions (`RaggedSched::softcap`), half the time of `tanhf`
+//      on a tile.  A persistent grid walks the items, each slot's last
+//      (heaviest) block first.
+//    - "mma" (bf16 at head dims 64/128 whose operands the TMA maps cannot
+//      take) and "fma" (f32, other head dims): `ragged_paged_kernel`, 64
+//      rows a CTA head-major (row = head·q_len + token), `atk::attend_mma`
+//      or `atk::attend`, grid (⌈q_tile·group / 64⌉, slots·Hkv) striding
+//      over a longer span.
+// 3. `ragged_finish`, a warp a (token, head): zeros where no live slot
+//    owns the token, the decode slots' partials merged in split order
+//    where they split (NaN rows for a poisoned one), nothing elsewhere.
+//    So the output needs no zero fill first, and no atomics are used: a
+//    second call gives the same bits.
+#include "decode_rows.cuh"
+#include "flash_fwd_sm90.cuh"
+#include "tensor_map.cuh"
 
 namespace {
 
 using atk::BM;
 using atk::THREADS;
+
+// rows of the tile a decode slot's CTA holds (the KG = 4 tile)
+constexpr int DECODE_ROWS = 16;
+
+// ------------------------------------------------- the mma.sync / FMA body
 
 template <typename T>
 struct RaggedProblem : atk::ProblemBase {
@@ -60,18 +99,11 @@ struct RaggedProblem : atk::ProblemBase {
     return o + g * soh + (rr - g * q_len) * sot;
   }
   __device__ long long cache_row(int c) const {
-    const int phys = table[c / page];
-    if (phys < 0) return -1;
+    const int phys = max(table[c / page], 0);
     return (((long long)phys * Hkv + kvh) * page + c % page);
   }
-  __device__ const T* k_row(int c) const {
-    const long long row = cache_row(c);
-    return row < 0 ? nullptr : kp + row * dk;
-  }
-  __device__ const T* v_row(int c) const {
-    const long long row = cache_row(c);
-    return row < 0 ? nullptr : vp + row * dv;
-  }
+  __device__ const T* k_row(int c) const { return kp + cache_row(c) * dk; }
+  __device__ const T* v_row(int c) const { return vp + cache_row(c) * dv; }
   __device__ bool keep(int r, int c) const {
     const int rr = r0 + r;
     if (rr >= rows) return false;
@@ -91,10 +123,11 @@ struct RaggedArgs {
   int Hq, Hkv, max_pages, page, dk, dv;
   long long sqh, sqt, soh, sot;  // element strides (head, token) of q, o
   float qscale, cap2;
+  int smax;  // a slot of at most smax tokens is a decode slot
 };
 
 // NJ > 0: the fp32 FMA tile loop; NJ == 0: the bf16 tensor-core loop at
-// head dims (DK, DV)
+// head dims (DK, DV).  Prefill slots only.
 template <typename T, int NJ, int DK, int DV>
 __global__ void __launch_bounds__(THREADS) ragged_paged_kernel(RaggedArgs a) {
   const int s = blockIdx.y / a.Hkv;
@@ -102,7 +135,7 @@ __global__ void __launch_bounds__(THREADS) ragged_paged_kernel(RaggedArgs a) {
   if (s >= a.distribution[1]) return;
   const int tok0 = a.cu_q_lens[s];
   const int q_len = a.cu_q_lens[s + 1] - tok0;
-  if (q_len <= 0) return;
+  if (q_len <= a.smax) return;  // a decode slot, or no tokens
   const int group = a.Hq / a.Hkv;
   const int rows = q_len * group;
 
@@ -126,6 +159,7 @@ __global__ void __launch_bounds__(THREADS) ragged_paged_kernel(RaggedArgs a) {
   pb.dv = a.dv;
   const int raw_len = a.kv_lens[s];
   pb.kv_len = raw_len;
+  const int n_cap = a.max_pages * a.page;
 
   // the grid is sized for q_tile tokens; a longer span is still covered
   // in full, by striding the row blocks
@@ -144,7 +178,7 @@ __global__ void __launch_bounds__(THREADS) ragged_paged_kernel(RaggedArgs a) {
     const int r_last = min(r0 + BM, rows) - 1;
     const int t_max =
         (r0 / q_len == r_last / q_len) ? r_last % q_len : q_len - 1;
-    pb.n_end = min(raw_len, raw_len - q_len + t_max + 1);
+    pb.n_end = min(min(raw_len, raw_len - q_len + t_max + 1), n_cap);
     if constexpr (NJ > 0)
       atk::attend<T, NJ>(pb, a.dk, a.dv, a.qscale, a.cap2);
     else
@@ -189,36 +223,377 @@ cudaError_t launch_mma(const RaggedArgs& a, int slots, int q_tile,
   return launch<bf16, 0, 128, 128>(a, slots, q_tile, s);
 }
 
-// the tensor-core path reads 16-byte row chunks: head dims 64/128 (the
+// the tensor-core loops read 16-byte row chunks: head dims 64/128 (the
 // pools' rows then stay 16-byte aligned), 16-byte aligned q/o/pool bases
 // and q/o strides that are multiples of 8 elements
 bool mma_ok(const RaggedArgs& a) {
-  auto aligned16 = [](const void* p) {
-    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-  };
   return (a.dk == 64 || a.dk == 128) && (a.dv == 64 || a.dv == 128) &&
          a.sqh % 8 == 0 && a.sqt % 8 == 0 && a.soh % 8 == 0 &&
-         a.sot % 8 == 0 && aligned16(a.q) && aligned16(a.o) &&
-         aligned16(a.k_pool) && aligned16(a.v_pool);
+         a.sot % 8 == 0 && atk::aligned16(a.q) && atk::aligned16(a.o) &&
+         atk::aligned16(a.k_pool) && atk::aligned16(a.v_pool);
+}
+
+// ------------------------------------------------------------ decode slots
+
+// The paged source with each slot's span: slot b's tokens from
+// cu_q_lens, live only for a decode slot (1 to a.S tokens, a.S = smax)
+// below distribution[1].
+struct RaggedSource : atk::PagedSource {
+  using Spans = void;
+  const int* cu;
+  const int* dist;
+  long long sqt, sot;
+
+  __device__ atk::Span span(int b, const atk::DecodeArgs& a) const {
+    const int tok0 = cu[b];
+    const int n = cu[b + 1] - tok0;
+    return {tok0 * sqt, tok0 * sot, n, b < dist[1] && n >= 1 && n <= a.S};
+  }
+};
+
+// ------------------------------------------------------- the wgmma body
+
+// The wgmma body's work: 128-row blocks of each (prefill slot, kv head),
+// rows token-major (row = token·group + head of the group).
+struct RaggedSched {
+  __nv_bfloat16* o;
+  long long soh, sot;
+  const int* table;
+  const int* lens;
+  const int* cu;
+  const int* dist;
+  int slots, Hkv, group, max_pages, page, box_rows, dv, smax, n_cap;
+  float qs, c2;
+
+  struct Work {
+    int s, kvh, m0, tok0, q_len, len;
+    sm90::TilePlan plan;
+  };
+
+  __device__ float qscale() const { return qs; }
+  __device__ float cap2() const { return c2; }
+  // cap2·tanh(x / cap2) as cap2·(1 - 2 / (e^(2|x| / cap2) + 1)) with the
+  // sign of x: two MUFU instructions (ex2, rcp) and a few FMAs where tanhf
+  // takes a branch and a longer sequence, which halves a softcapped
+  // tile's time (PERF.md).  Within 1.2e-7 of tanh, so within 1e-5 on a
+  // score after the cap (softcap 50); inference only, since no backward
+  // recomputes these scores.
+  __device__ static float softcap(float x, float cap2) {
+    const float e = sm90::ex2(fabsf(x) * (2.f * atk::LOG2E / cap2));
+    return copysignf(cap2 * (1.f - __fdividef(2.f, e + 1.f)), x);
+  }
+  // row blocks of slot s: none for a decode slot or an empty one
+  __device__ int blocks(int s) const {
+    const int q_len = cu[s + 1] - cu[s];
+    return q_len > smax ? (q_len * group + sm90::BM - 1) / sm90::BM : 0;
+  }
+  __device__ int live_slots() const { return max(min(dist[1], slots), 0); }
+  __device__ long long total() const {
+    long long n = 0;
+    const int live = live_slots();
+    for (int s = 0; s < live; ++s) n += blocks(s);
+    return n * Hkv;
+  }
+
+  // Work item w: the kv head varies fastest, then the slot's row blocks
+  // from its last (the most keys) to its first, then the slot.
+  __device__ Work item(long long w) const {
+    using sm90::BN;
+    Work k;
+    k.kvh = (int)(w % Hkv);
+    int u = (int)(w / Hkv);
+    int s = 0;
+    int nb = blocks(0);
+    while (u >= nb) {
+      u -= nb;
+      nb = blocks(++s);
+    }
+    k.s = s;
+    k.m0 = (nb - 1 - u) * sm90::BM;
+    k.tok0 = cu[s];
+    k.q_len = cu[s + 1] - k.tok0;
+    k.len = lens[s];
+    // tokens t_lo .. t_hi of the span; the last one's causal end bounds
+    // the tiles, the first one's the tiles that need no mask
+    const int len = min(k.len, n_cap);
+    const int t_lo = k.m0 / group;
+    const int t_hi = (min(k.m0 + sm90::BM, k.q_len * group) - 1) / group;
+    const int n_end = max(0, min(len, k.len - k.q_len + t_hi + 1));
+    k.plan.begin = 0;
+    k.plan.end = k.len < 0 ? 0 : (n_end + BN - 1) / BN;
+    k.plan.mask = max(0, min(len / BN, sm90::floor_div(
+                                           k.len - k.q_len + t_lo + 1, BN)));
+    return k;
+  }
+
+  template <int DK>
+  __device__ void load_q(uint32_t dst, const CUtensorMap* tq, uint32_t bar,
+                         const Work& k) const {
+    for (int c = 0; c < DK / sm90::BOX; ++c)
+      sm90::tma_load(dst + c * sm90::BOX_BYTES, tq, bar, c * sm90::BOX, 0,
+                     k.tok0 + k.m0 / group, k.kvh);
+  }
+
+  // key tile t: the boxes of box_rows rows that make up its 128 keys, each
+  // from the page the slot's table names for it
+  template <int D>
+  __device__ void load_kv(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                          const Work& k, int t) const {
+    const int* row = table + (long long)k.s * max_pages;
+    for (int p = 0; p < sm90::BN / box_rows; ++p) {
+      const int key = t * sm90::BN + p * box_rows;
+      const int j = key / page;
+      const int phys = j < max_pages ? max(row[j], 0) : 0;
+      for (int c = 0; c < D / sm90::BOX; ++c)
+        sm90::tma_load(dst + c * sm90::BOX_BYTES + p * box_rows * 128, map,
+                       bar, c * sm90::BOX, key - j * page, k.kvh, phys);
+    }
+  }
+
+  // row r (token r / group of the block) keeps the keys at or before its
+  // position kv_len - q_len + token
+  __device__ void limits(const Work& k, int rl, int (&lim)[2]) const {
+    const int len = min(k.len, n_cap);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      lim[i] = min(len, k.len - k.q_len + (k.m0 + rl + 8 * i) / group + 1);
+  }
+
+  __device__ __nv_bfloat16* out_row(const Work& k, int row) const {
+    const int t = row / group;
+    return o + (long long)(k.kvh * group + row - t * group) * soh +
+           (long long)(k.tok0 + t) * sot;
+  }
+
+  // a block that sees no key: NaN rows for a poisoned slot, else zeros
+  __device__ void store_empty(const Work& k, int first, int count) const {
+    const int rows = k.q_len * group;
+    const __nv_bfloat16 x = __float2bfloat16(k.len < 0 ? NAN : 0.f);
+    for (int idx = threadIdx.x - first; idx < sm90::BM * dv; idx += count) {
+      const int r = idx / dv;
+      const int row = k.m0 + r;
+      if (row < rows) out_row(k, row)[idx - r * dv] = x;
+    }
+  }
+
+  template <int DV>
+  __device__ void store(const Work& k, int rl, const float (&acc)[DV / 2],
+                        const float (&mrow)[2], const float (&lrow)[2],
+                        int lane) const {
+    const int rows = k.q_len * group;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = k.m0 + rl + 8 * r;
+      if (row < rows)
+        sm90::store_bf16_row<DV>(out_row(k, row), acc, r, lrow[r],
+                                 2 * (lane & 3));
+    }
+  }
+};
+
+template <int DK, int DV, bool CAP>
+cudaError_t launch_wgmma_t(const CUtensorMap& tq, const CUtensorMap& tk,
+                           const CUtensorMap& tv, const RaggedSched& sc,
+                           int grid, cudaStream_t stream) {
+  auto kernel = sm90::flash_fwd_wgmma<DK, DV, CAP, RaggedSched>;
+  constexpr size_t smem = sm90::smem_bytes(DK, DV);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, sm90::THREADS, smem, stream>>>(tq, tk, tv, sc);
+  return cudaGetLastError();
+}
+
+template <bool CAP>
+cudaError_t launch_wgmma_cap(const CUtensorMap& tq, const CUtensorMap& tk,
+                             const CUtensorMap& tv, const RaggedSched& sc,
+                             int dk, int grid, cudaStream_t st) {
+  if (dk == 64 && sc.dv == 64)
+    return launch_wgmma_t<64, 64, CAP>(tq, tk, tv, sc, grid, st);
+  if (dk == 64)
+    return launch_wgmma_t<64, 128, CAP>(tq, tk, tv, sc, grid, st);
+  if (sc.dv == 64)
+    return launch_wgmma_t<128, 64, CAP>(tq, tk, tv, sc, grid, st);
+  return launch_wgmma_t<128, 128, CAP>(tq, tk, tv, sc, grid, st);
+}
+
+// what the TMA maps take: bf16 at head dims 64/128, a group dividing 128
+// (a Q box of whole tokens), pages of a multiple of 128 rows or of 8 to 64
+// rows dividing 128 (whole boxes of 1024-byte aligned rows), 16-byte
+// aligned bases and strides of positive multiples of 8 elements
+bool wgmma_ok(const RaggedArgs& a) {
+  const int group = a.Hq / a.Hkv;
+  const long long st[4] = {a.sqh, a.sqt, a.soh, a.sot};
+  for (long long x : st)
+    if (x <= 0 || x % 8) return false;
+  return mma_ok(a) && group <= sm90::BM && sm90::BM % group == 0 &&
+         (a.page % sm90::BN == 0 ||
+          (a.page >= 8 && sm90::BN % a.page == 0));
+}
+
+// The wgmma body over `pages` pool pages: the tensor maps of q and the
+// pools, then the persistent kernel on `grid` CTAs.
+cudaError_t launch_wgmma(const RaggedArgs& a, int slots, int T, int pages,
+                         int grid, cudaStream_t st) {
+  const tmap::EncodeTiled enc = tmap::encoder();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const int group = a.Hq / a.Hkv;
+  const int box_rows = a.page < sm90::BN ? a.page : sm90::BN;
+  const long long plane = (long long)a.Hkv * a.page;  // rows of a page
+  CUtensorMap tq, tk, tv;
+  // q as (d, group, T, Hkv): a box is 128 / group tokens of the group's
+  // heads, token-major; the pools as (d, page row, kv head, page)
+  if (!tmap::encode(enc, &tq, a.q, a.dk, group, T, a.Hkv, a.sqh, a.sqt,
+                    group * a.sqh, group, sm90::BM / group) ||
+      !tmap::encode(enc, &tk, a.k_pool, a.dk, a.page, a.Hkv, pages, a.dk,
+                    (long long)a.page * a.dk, plane * a.dk, box_rows) ||
+      !tmap::encode(enc, &tv, a.v_pool, a.dv, a.page, a.Hkv, pages, a.dv,
+                    (long long)a.page * a.dv, plane * a.dv, box_rows))
+    return cudaErrorInvalidValue;
+  RaggedSched sc;
+  sc.o = static_cast<__nv_bfloat16*>(a.o);
+  sc.soh = a.soh;
+  sc.sot = a.sot;
+  sc.table = a.page_table;
+  sc.lens = a.kv_lens;
+  sc.cu = a.cu_q_lens;
+  sc.dist = a.distribution;
+  sc.slots = slots;
+  sc.Hkv = a.Hkv;
+  sc.group = group;
+  sc.max_pages = a.max_pages;
+  sc.page = a.page;
+  sc.box_rows = box_rows;
+  sc.dv = a.dv;
+  sc.smax = a.smax;
+  sc.n_cap = a.max_pages * a.page;
+  sc.qs = a.qscale;
+  sc.c2 = a.cap2;
+  return a.cap2 > 0.f
+             ? launch_wgmma_cap<true>(tq, tk, tv, sc, a.dk, grid, st)
+             : launch_wgmma_cap<false>(tq, tk, tv, sc, a.dk, grid, st);
+}
+
+// ------------------------------------------------------------- the finish
+
+struct FinishArgs {
+  void* o;
+  long long soh, sot;
+  const int* cu;
+  const int* dist;
+  const int* lens;
+  const float* part_acc;  // (slots, Hq, smax, splits, dv)
+  const float* part_m;    // (slots, Hq, smax, splits), natural log
+  const float* part_l;
+  int Hq, slots, smax, splits, dv;
+};
+
+constexpr int FINISH_WARPS = 8;  // heads of a token a CTA finishes
+
+// CTA (t, j) finishes heads 8j .. 8j + 7 of token t, a warp a head: zeros
+// where no live slot owns the token; a decode slot's partials merged in
+// split order, as `atk::merge_splits` merges them (a split that saw
+// nothing weighs 0 and is skipped, a NaN sum stays NaN, nothing seen gives
+// zeros), or NaN rows for a poisoned slot; nothing for a prefill slot's
+// token or an unsplit decode slot's, which their kernels wrote.  A warp
+// reads the live slots' span ends at once, a lane a slot; its split
+// weights go through shared memory (splits floats a warp), and each lane
+// sums its (up to 8) columns over the splits together.
+template <typename T>
+__global__ void __launch_bounds__(32 * FINISH_WARPS)
+    ragged_finish(FinishArgs f) {
+  extern __shared__ float wts[];
+  const int t = blockIdx.x;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  const int h = blockIdx.y * FINISH_WARPS + warp;
+  if (h >= f.Hq) return;
+  const int live = max(min(f.dist[1], f.slots), 0);
+  // the owner of token t is the number of live slots that end at or
+  // before it (cu_q_lens does not decrease), `live` for none
+  int s = 0;
+  for (int i0 = 0; i0 < live; i0 += 32) {
+    const int i = i0 + lane;
+    s += __popc(__ballot_sync(0xffffffffu, i < live && f.cu[i + 1] <= t));
+  }
+  T* o = static_cast<T*>(f.o) + (long long)t * f.sot + h * f.soh;
+  if (s == live) {
+    for (int c = lane; c < f.dv; c += 32) o[c] = atk::from_f<T>(0.f);
+    return;
+  }
+  const int tok0 = f.cu[s];
+  if (f.cu[s + 1] - tok0 > f.smax || f.splits == 1) return;
+  if (f.lens[s] < 0) {
+    for (int c = lane; c < f.dv; c += 32) o[c] = atk::from_f<T>(NAN);
+    return;
+  }
+  const int n = f.splits;
+  const long long row = ((long long)s * f.Hq + h) * f.smax + t - tok0;
+  const float* pm = f.part_m + row * n;
+  const float* pl = f.part_l + row * n;
+  float* w = wts + warp * n;
+  float mx = -INFINITY;
+  for (int i = lane; i < n; i += 32) mx = fmaxf(mx, pm[i]);
+#pragma unroll
+  for (int x = 16; x > 0; x /= 2)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+  float sum = 0.f;
+  for (int i = lane; i < n; i += 32) {
+    const float wi = pm[i] == -INFINITY ? 0.f : expf(pm[i] - mx);
+    w[i] = wi;
+    sum += pl[i] * wi;
+  }
+#pragma unroll
+  for (int x = 16; x > 0; x /= 2)
+    sum += __shfl_xor_sync(0xffffffffu, sum, x);
+  __syncwarp();
+  constexpr int CW = atk::MAX_HEAD_DIM / 32;  // columns of a lane
+  float x[CW];
+#pragma unroll
+  for (int q = 0; q < CW; ++q) x[q] = 0.f;
+  const float* acc = f.part_acc + row * n * f.dv;
+  for (int i = 0; i < n; ++i) {
+    const float wi = w[i];
+    if (wi == 0.f) continue;
+    const float* src = acc + (long long)i * f.dv;
+#pragma unroll
+    for (int q = 0; q < CW; ++q)
+      if (lane + 32 * q < f.dv) x[q] += wi * src[lane + 32 * q];
+  }
+#pragma unroll
+  for (int q = 0; q < CW; ++q)
+    if (lane + 32 * q < f.dv)
+      o[lane + 32 * q] = atk::from_f<T>(sum == 0.f ? 0.f : x[q] / sum);
 }
 
 }  // namespace
 
 // Plain C entry point, loaded through ctypes.  dtype: 0 = fp32, 1 = bf16.
 // q and o are (1, Hq, T, d) with element strides (head, token) and a
-// contiguous last dim; the pools are contiguous (P, Hkv, page, d); the four
-// index arrays are contiguous int32 on the device.  q_tile sizes the grid
-// (the longest span it covers in parallel).  softcap <= 0 means none.
-// Returns cudaGetLastError().
+// contiguous last dim; the pools are contiguous (pages, Hkv, page, d); the
+// four index arrays are contiguous int32 on the device.  smax: the most
+// tokens of a decode slot (DECODE_ROWS / group, 0 for none); splits and
+// chunk cut the decode slots' keys (`ops.decode.split_plan`), their
+// partials going through part, slots·Hq·smax·splits·(dv + 2) floats (null
+// for one split).  body: the prefill slots' body, 0 = "fma", 1 = "mma",
+// 2 = "wgmma" (the caller's `ragged_body`); a body that cannot take the
+// call is refused, never replaced.  grid: the wgmma body's persistent
+// grid; q_tile sizes the other bodies' grid (the longest span they cover
+// in parallel).  softcap <= 0 means none.  Returns cudaGetLastError()
+// after the launches (or the refusal).
 extern "C" int ragged_paged_fwd(
     const void* q, const void* k_pool, const void* v_pool,
     const void* page_table, const void* kv_lens, const void* cu_q_lens,
-    const void* distribution, void* o, int dtype, int Hq, int Hkv, int slots,
-    int max_pages, int page, int dk, int dv, int q_tile, long long sqh,
-    long long sqt, long long soh, long long sot, float scale, float softcap,
-    void* stream) {
+    const void* distribution, void* o, void* part, int dtype, int Hq,
+    int Hkv, int slots, int T, int pages, int max_pages, int page, int dk,
+    int dv, int q_tile, long long sqh, long long sqt, long long soh,
+    long long sot, float scale, float softcap, int body, int smax,
+    int splits, int chunk, int grid, void* stream) {
   if (dk < 1 || dv < 1 || dk > atk::MAX_HEAD_DIM || dv > atk::MAX_HEAD_DIM ||
-      Hq % Hkv != 0 || slots < 1 || max_pages < 1 || page < 1 || q_tile < 1)
+      Hkv < 1 || Hq % Hkv != 0 || slots < 1 || T < 1 || pages < 1 ||
+      max_pages < 1 || page < 1 || q_tile < 1 || smax < 0 ||
+      smax * (Hq / Hkv) > DECODE_ROWS || (dtype != 0 && dtype != 1) ||
+      (splits > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
   const RaggedArgs a{q, k_pool, v_pool,
                      static_cast<const int*>(page_table),
@@ -227,10 +602,65 @@ extern "C" int ragged_paged_fwd(
                      static_cast<const int*>(distribution),
                      o, Hq, Hkv, max_pages, page, dk, dv, sqh, sqt, soh, sot,
                      scale * atk::LOG2E,
-                     softcap > 0.f ? softcap * atk::LOG2E : 0.f};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_fma<float>(a, slots, q_tile, s);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (mma_ok(a)) return (int)launch_mma(a, slots, q_tile, s);
-  return (int)launch_fma<__nv_bfloat16>(a, slots, q_tile, s);
+                     softcap > 0.f ? softcap * atk::LOG2E : 0.f, smax};
+  const bool fits = body == 2   ? dtype == 1 && wgmma_ok(a) && grid >= 1
+                    : body == 1 ? dtype == 1 && mma_ok(a)
+                                : body == 0;
+  if (!fits) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+
+  // 1. decode slots
+  atk::DecodeArgs d{};
+  if (smax > 0) {
+    d.q = q;
+    d.o = o;
+    d.lens = a.kv_lens;
+    d.H = Hq;
+    d.Hkv = Hkv;
+    d.S = smax;
+    d.dk = dk;
+    d.dv = dv;
+    d.n_cap = max_pages * page;
+    d.sqh = sqh;
+    d.sqs = sqt;
+    d.soh = soh;
+    d.sos = sot;
+    d.qscale = a.qscale;
+    d.cap2 = a.cap2;
+    d.poison = 1;
+    d.no_merge = 1;
+    atk::set_splits(d, slots, splits, chunk, part);
+    const RaggedSource src{{k_pool, v_pool, a.page_table, max_pages, Hkv,
+                            page, dk, dv},
+                           a.cu_q_lens, a.distribution, sqt, sot};
+    const bool rows_ok = atk::rows_aligned(d) && atk::aligned16(k_pool) &&
+                         atk::aligned16(v_pool);
+    cudaError_t err = atk::dispatch_decode(d, src, slots, dtype, rows_ok, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+
+  // 2. prefill slots
+  cudaError_t err;
+  if (body == 2)
+    err = launch_wgmma(a, slots, T, pages, grid, st);
+  else if (body == 1)
+    err = launch_mma(a, slots, q_tile, st);
+  else if (dtype == 0)
+    err = launch_fma<float>(a, slots, q_tile, st);
+  else
+    err = launch_fma<__nv_bfloat16>(a, slots, q_tile, st);
+  if (err != cudaSuccess) return (int)err;
+
+  // 3. pad rows and the decode slots' merge
+  const FinishArgs f{o, soh, sot, a.cu_q_lens, a.distribution, a.kv_lens,
+                     d.part_acc, d.part_m, d.part_l, Hq, slots, smax,
+                     smax > 0 ? splits : 1, dv};
+  const dim3 grid_f(T, (Hq + FINISH_WARPS - 1) / FINISH_WARPS);
+  const size_t smem_f = FINISH_WARPS * f.splits * sizeof(float);
+  if (dtype == 0)
+    ragged_finish<float><<<grid_f, 32 * FINISH_WARPS, smem_f, st>>>(f);
+  else
+    ragged_finish<__nv_bfloat16>
+        <<<grid_f, 32 * FINISH_WARPS, smem_f, st>>>(f);
+  return (int)cudaGetLastError();
 }

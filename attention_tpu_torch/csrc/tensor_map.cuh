@@ -1,7 +1,7 @@
 // Host-side TMA tensor maps of the wgmma bodies (flash_fwd.cu,
-// flash_bwd_fused.cu): a bf16 operand of (batch, heads, rows, d) with the
-// caller's element strides, read in 128-byte swizzled boxes, and an fp32
-// buffer that tiles are added into.
+// flash_bwd_fused.cu, ragged_paged.cu): a bf16 operand of (batch, heads,
+// rows, d) with the caller's element strides, read in 128-byte swizzled
+// boxes, and an fp32 buffer that tiles are added into.
 #pragma once
 
 #include <cuda.h>
@@ -40,17 +40,20 @@ inline EncodeTiled encoder() {
 }
 
 // The 4-D map (d, rows, heads, batch) of a bf16 operand with the caller's
-// element strides, read in 128-byte swizzled boxes of 64 columns by `rows`
-// rows; rows past the end read as zeros.
+// element strides, read in 128-byte swizzled boxes of 64 columns by
+// `box_rows` rows by `box_heads` heads (the box's rows in shared memory run
+// rows fastest); rows past the end read as zeros.
 inline bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int d,
                    int rows, int heads, int batch, long long s_row,
-                   long long s_head, long long s_batch, int box_rows) {
+                   long long s_head, long long s_batch, int box_rows,
+                   int box_heads = 1) {
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)rows,
                               (cuuint64_t)heads, (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)s_row * 2,
                                  (cuuint64_t)s_head * 2,
                                  (cuuint64_t)s_batch * 2};
-  const cuuint32_t box[4] = {sm90::BOX, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t box[4] = {sm90::BOX, (cuuint32_t)box_rows,
+                             (cuuint32_t)box_heads, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,

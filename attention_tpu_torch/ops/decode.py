@@ -47,24 +47,25 @@ CTAS_PER_SM = 4
 
 
 def split_plan(batch: int, kv_heads: int, rows: int, n_cap: int,
-               s_new: int, window: int | None, *,
-               sms: int) -> tuple[int, int]:
+               s_new: int, window: int | None, *, sms: int,
+               ctas_per_sm: int | None = None) -> tuple[int, int]:
     """(splits, chunk): how a decode launch cuts each sequence's keys
     across CTAs, from what the host knows without reading the lengths.
     ``rows`` is a kv head's query rows (GQA group x ``s_new``).  The span
     a row block can see is the capacity, or with a window its band plus
     the S - 1 rows of a chunk and the key tile the band's start is
     rounded down to.  A launch whose row blocks leave SMs idle gets
-    enough splits for ``CTAS_PER_SM`` CTAs on each of ``sms`` SMs, at
-    most one per key tile of the span; each split takes ``chunk``
-    columns, a whole number of key tiles."""
+    enough splits for ``ctas_per_sm`` (default `CTAS_PER_SM`) CTAs on
+    each of ``sms`` SMs, at most one per key tile of the span; each split
+    takes ``chunk`` columns, a whole number of key tiles."""
     span = n_cap if window is None else min(n_cap,
                                             window + s_new + KEY_TILE - 2)
     tiles = max(-(-span // KEY_TILE), 1)
     blocks = batch * kv_heads * -(-rows // ROW_BLOCK)
     if blocks >= sms:
         return 1, tiles * KEY_TILE
-    splits = max(1, min(CTAS_PER_SM * sms // blocks, tiles))
+    target = CTAS_PER_SM if ctas_per_sm is None else ctas_per_sm
+    splits = max(1, min(target * sms // blocks, tiles))
     per = -(-tiles // splits)
     return -(-tiles // per), per * KEY_TILE
 

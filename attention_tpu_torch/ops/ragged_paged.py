@@ -1,4 +1,4 @@
-"""Ragged paged attention: one kernel launch for a mixed decode/prefill
+"""Ragged paged attention: one kernel call for a mixed decode/prefill
 step — the port of `attention_tpu.ops.ragged_paged`.
 
 Every real token of a serving step sits consecutively on one packed
@@ -11,11 +11,21 @@ page-table row, causal within the request.
 `ragged_paged_append` writes the step's new K/V rows into the pools
 (in place: the pools are the engine's, and a copy per layer per step
 would double the cache traffic) with the JAX version's drop and sticky
-``-1`` poison semantics, as a masked ``index_put_``.
-`ragged_paged_attention` launches the Hopper
-kernel ``csrc/ragged_paged.cu`` (which replaces the TPU kernel
-`_ragged_kernel`) for CUDA tensors and runs
+``-1`` poison rules, as a masked ``index_put_``.
+`ragged_paged_attention` runs the Hopper kernel ``csrc/ragged_paged.cu``
+(which replaces the TPU kernel `_ragged_kernel`) for CUDA tensors and
 `ragged_paged_attention_plain` for CPU tensors.
+
+On the card the kernel tells the slots apart itself, from their spans:
+a slot of at most ``DECODE_ROWS // group`` tokens (a decode slot) splits
+its keys across CTAs as the decode kernels do (`decode.split_plan`, the
+partials merged in split order), any longer one (a prefill slot) runs
+the body `ragged_body` names.  `ragged_launch_plan` gives a call's
+launches from what the host knows, never the lengths or spans; the
+CTAs' work is mirrored in PyTorch by `split_partials` (the decode
+slots' partials, merged by `decode.merge_splits`) and `prefill_items`
+(the wgmma body's work items), which the tests hold against the JAX
+package and against brute-force masks.
 """
 
 from __future__ import annotations
@@ -24,7 +34,7 @@ from typing import NamedTuple
 
 import torch
 
-from attention_tpu_torch.ops import _native
+from attention_tpu_torch.ops import _native, decode
 from attention_tpu_torch.ops._native import (
     DTYPE_CODES,
     MAX_HEAD_DIM,
@@ -39,7 +49,21 @@ from attention_tpu_torch.ops.reference import (
 )
 
 KERNEL = "ragged_paged"
-_ARGTYPES = [P] * 8 + [I] * 9 + [L] * 4 + [F, F, P]
+_ARGTYPES = [P] * 9 + [I] * 11 + [L] * 4 + [F, F] + [I] * 5 + [P]
+#: query rows of a decode slot's CTA (the four warps' one 16-row tile): a
+#: slot of at most DECODE_ROWS // group tokens is a decode slot
+DECODE_ROWS = 16
+#: query rows of a work item of the wgmma body, and keys of its tiles
+ROW_BLOCK = 128
+KEY_TILE = 128
+#: the C entry's body codes
+BODIES = {"fma": 0, "mma": 1, "wgmma": 2}
+#: CTAs per SM the decode slots' key split aims at (`decode.split_plan`).
+#: The grid covers every slot, decode or not (10 at the served engine's
+#: 8 + 2), and 6 cut its splits to 2 key tiles where 4, the dense and
+#: paged kernels' aim, cut them to 3: measured fastest of 2, 4, 6 and 8
+#: on an H100 (PERF.md section 6)
+CTAS_PER_SM = 6
 
 
 class RaggedPagedStep(NamedTuple):
@@ -139,6 +163,160 @@ def ragged_paged_attention_plain(q: torch.Tensor, cache: RaggedPagedStep,
         cache.cu_q_lens, cache.distribution, scale=scale, softcap=softcap)
 
 
+def decode_tokens(group: int) -> int:
+    """The most tokens of a decode slot at GQA group ``group``: its rows,
+    tokens x group, fit one `DECODE_ROWS`-row tile (0: no slot is one)."""
+    return DECODE_ROWS // group
+
+
+def ragged_body(dtype, dk: int, dv: int, group: int, page: int, strides,
+                ptrs) -> str:
+    """The body the prefill slots of a call run: "wgmma" for bfloat16 at
+    head dims 64 or 128 whose (head, token) ``strides`` (in elements, of
+    q and the output) are positive multiples of 8, whose base pointers
+    ``ptrs`` (q and the pools; the wrapper allocates the output aligned)
+    are 16-byte aligned, whose GQA ``group``
+    divides 128 and whose ``page`` the TMA boxes can take (a multiple of
+    128 rows, or 8 to 64 rows dividing 128); "mma" (`mma.sync`, 64-row
+    blocks) for the other bfloat16 calls at head dims 64/128 with such
+    strides and pointers; "fma" (fp32 FMA on the CUDA cores) for the
+    rest.  The decode slots run the tensor-core split (four warps on one
+    16-row tile) wherever this is not "fma"."""
+    if (dtype != torch.bfloat16 or dk not in (64, 128) or dv not in (64, 128)
+            or not all(x > 0 and x % 8 == 0 for x in strides)
+            or not all(p % 16 == 0 for p in ptrs)):
+        return "fma"
+    if ROW_BLOCK % group == 0 and (
+            page % KEY_TILE == 0 or (page >= 8 and KEY_TILE % page == 0)):
+        return "wgmma"
+    return "mma"
+
+
+def ragged_launch_plan(q: torch.Tensor, step: "RaggedPagedStep", *,
+                       sms: int) -> dict:
+    """The launches of a `ragged_paged_attention` call on the card, from
+    sizes the host knows (slots, heads, widths, the table's capacity,
+    the page, the head dims, ``sms``), never the lengths or spans:
+
+    ``body`` of the prefill slots (`ragged_body`); ``smax``, the most
+    tokens of a decode slot; the decode slots' key split (``splits``,
+    ``chunk``: `decode.split_plan` over the capacity ``max_pages *
+    page`` at `CTAS_PER_SM`), its key groups ``kg`` and ``decode_grid``
+    (row blocks, slots x kv heads, splits; none when ``smax`` is 0);
+    ``prefill_grid`` (the
+    wgmma body's persistent grid, at most one CTA an SM over the most
+    work items the width allows, or the other bodies' (row blocks of
+    ``q_tile``, slots x kv heads)); ``finish_grid`` (tokens, heads in
+    eights: a warp a token's head)."""
+    _, hq, t_pad, dk = q.shape
+    hkv, page = step.k_pool.shape[1], step.k_pool.shape[2]
+    dv = step.v_pool.shape[-1]
+    slots, max_pages = step.page_table.shape
+    group = hq // hkv
+    smax = decode_tokens(group)
+    out_strides = (dv, hq * dv)  # the wrapper's (1, T, Hq, dv) storage
+    body = ragged_body(q.dtype, dk, dv, group, page,
+                       (q.stride(1), q.stride(2), *out_strides),
+                       (q.data_ptr(), step.k_pool.data_ptr(),
+                        step.v_pool.data_ptr()))
+    plan = dict(body=body, smax=smax, splits=1,
+                chunk=max_pages * page, kg=1, decode_grid=None)
+    if smax:
+        splits, chunk = decode.split_plan(
+            slots, hkv, smax * group, max_pages * page, smax, None, sms=sms,
+            ctas_per_sm=CTAS_PER_SM)
+        plan.update(splits=splits, chunk=chunk,
+                    kg=1 if body == "fma" else 4,
+                    decode_grid=[1, slots * hkv, splits])
+    if body == "wgmma":
+        items = hkv * (-(-t_pad * group // ROW_BLOCK) + slots)
+        plan["prefill_grid"] = [min(sms, items)]
+    else:
+        plan["prefill_grid"] = [-(-int(step.q_tile) * group // 64),
+                                slots * hkv]
+    plan["finish_grid"] = [t_pad, -(-hq // 8)]
+    return plan
+
+
+def _dense(pool, table_row, kv_len):
+    """(Hkv, rows, d): a slot's pages gathered in order, a -1 entry as
+    page 0 (as the kernels read it), cut to ``kv_len`` rows."""
+    pages = table_row.long().clamp(min=0)
+    hkv, d = pool.shape[1], pool.shape[-1]
+    return pool[pages].transpose(0, 1).reshape(hkv, -1, d)[:, :kv_len]
+
+
+def split_partials(q, step: "RaggedPagedStep", *, scale, softcap=None,
+                   splits: int, chunk: int):
+    """The decode slots' per-split partials, as the kernel's split CTAs
+    write them: float32 (unnormalized output (1, Hq, T, splits, dv), row
+    max in natural log and row sum (1, Hq, T, splits)), split i owning
+    cache rows [i·chunk, (i+1)·chunk) and the last split the rest
+    (`decode.split_owner`).  Tokens of no decode slot get max -inf and
+    sum 0 (zero rows once merged); a poisoned decode slot NaN sums (NaN
+    rows, as the kernel's merge writes them).  `decode.merge_splits`
+    merges them into the decode slots' rows."""
+    _, hq, t_pad, _ = q.shape
+    hkv, dv = step.k_pool.shape[1], step.v_pool.shape[-1]
+    smax = decode_tokens(hq // hkv)
+    acc = torch.zeros((1, hq, t_pad, splits, dv), dtype=torch.float32,
+                      device=q.device)
+    m = torch.full((1, hq, t_pad, splits), float("-inf"),
+                   dtype=torch.float32, device=q.device)
+    l_ = torch.zeros_like(m)
+    cu, lens = step.cu_q_lens.tolist(), step.kv_lens.tolist()
+    for s in range(min(int(step.distribution[1]), len(lens))):
+        lo, hi = cu[s], cu[s + 1]
+        if not 1 <= hi - lo <= smax:
+            continue
+        if lens[s] < 0:
+            m[..., lo:hi, :] = 0.0
+            l_[..., lo:hi, :] = float("nan")
+            continue
+        n = step.page_table.shape[1] * step.page_size
+        keys = _dense(step.k_pool, step.page_table[s], n)[None]
+        vals = _dense(step.v_pool, step.page_table[s], n)[None]
+        part = decode.split_partials(
+            q[:, :, lo:hi], keys, vals,
+            torch.tensor([lens[s]], device=q.device), scale=scale,
+            softcap=softcap, splits=splits, chunk=chunk)
+        acc[..., lo:hi, :, :], m[..., lo:hi, :], l_[..., lo:hi, :] = part
+    return acc, m, l_
+
+
+def prefill_items(step: "RaggedPagedStep", group: int) -> list[dict]:
+    """The wgmma body's work items on this step's data, in the kernel's
+    order (`RaggedSched` in csrc/ragged_paged.cu): for each live slot of
+    more than `decode_tokens` tokens, its q_len·group rows (row = token·
+    group + head of the group) in 128-row blocks from the last, each
+    for every kv head (fastest); each item's key tiles [0, ``end``) and
+    ``mask``, the first tile that can hold a key past a row's causal
+    end (the tiles below it skip the test).  A poisoned slot's items
+    have no tiles (their rows are written NaN)."""
+    hkv = step.k_pool.shape[1]
+    n_cap = step.page_table.shape[1] * step.page_size
+    smax = decode_tokens(group)
+    cu, lens = step.cu_q_lens.tolist(), step.kv_lens.tolist()
+    items = []
+    for s in range(max(min(int(step.distribution[1]), len(lens)), 0)):
+        q_len, raw = cu[s + 1] - cu[s], lens[s]
+        if q_len <= smax:
+            continue
+        rows = q_len * group
+        length = min(raw, n_cap)
+        for blk in reversed(range(-(-rows // ROW_BLOCK))):
+            m0 = blk * ROW_BLOCK
+            t_lo = m0 // group
+            t_hi = (min(m0 + ROW_BLOCK, rows) - 1) // group
+            n_end = max(0, min(length, raw - q_len + t_hi + 1))
+            end = 0 if raw < 0 else -(-n_end // KEY_TILE)
+            mask = max(0, min(length // KEY_TILE,
+                              (raw - q_len + t_lo + 1) // KEY_TILE))
+            items += [dict(slot=s, kv_head=h, m0=m0, end=end, mask=mask)
+                      for h in range(hkv)]
+    return items
+
+
 def _launch(q, cache, *, scale, softcap) -> torch.Tensor:
     dtype = cache.v_pool.dtype
     if (dtype not in DTYPE_CODES or q.dtype != dtype
@@ -158,28 +336,36 @@ def _launch(q, cache, *, scale, softcap) -> torch.Tensor:
     if not (cache.k_pool.is_contiguous() and cache.v_pool.is_contiguous()):
         raise ValueError("the K/V pools must be contiguous")
     _, hq, t_pad, dk = q.shape
-    hkv, page = cache.k_pool.shape[1], cache.k_pool.shape[2]
+    pages, hkv, page = cache.k_pool.shape[:3]
     dv = cache.v_pool.shape[-1]
     s_slots, max_pages = cache.page_table.shape
     if max(dk, dv) > MAX_HEAD_DIM:
         raise ValueError(f"head dims {dk}/{dv} exceed {MAX_HEAD_DIM}")
     if q.stride(-1) != 1:
         q = q.contiguous()
-    # pad tokens and unwritten slots stay zero; (1, T, Hq, dv) storage
-    # makes the attention layer's head merge a view
-    out = torch.zeros((1, t_pad, hq, dv), dtype=dtype,
+    idx = q.device.index
+    plan = ragged_launch_plan(q, cache, sms=_native.sm_count(idx))
+    # (1, T, Hq, dv) storage makes the attention layer's head merge a
+    # view; the kernel writes every row, pad rows as zeros
+    out = torch.empty((1, t_pad, hq, dv), dtype=dtype,
                       device=q.device).transpose(1, 2)
+    part = None
+    if plan["splits"] > 1:
+        part = torch.empty(s_slots * hq * plan["smax"] * plan["splits"]
+                           * (dv + 2), dtype=torch.float32, device=q.device)
     fn = _native.function(KERNEL, "ragged_paged_fwd", _ARGTYPES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(idx):
+        stream = torch.cuda.current_stream(idx).cuda_stream
         err = fn(q.data_ptr(), cache.k_pool.data_ptr(),
                  cache.v_pool.data_ptr(), cache.page_table.data_ptr(),
                  cache.kv_lens.data_ptr(), cache.cu_q_lens.data_ptr(),
                  cache.distribution.data_ptr(), out.data_ptr(),
-                 DTYPE_CODES[dtype], hq, hkv, s_slots, max_pages, page, dk, dv,
+                 0 if part is None else part.data_ptr(), DTYPE_CODES[dtype],
+                 hq, hkv, s_slots, t_pad, pages, max_pages, page, dk, dv,
                  int(cache.q_tile), q.stride(1), q.stride(2), out.stride(1),
                  out.stride(2), float(scale), float(softcap or 0.0),
-                 stream)
+                 BODIES[plan["body"]], plan["smax"], plan["splits"],
+                 plan["chunk"], plan["prefill_grid"][0], stream)
     _native.check(KERNEL, err)
     _native.count_launch(KERNEL)
     return out

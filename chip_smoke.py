@@ -21,7 +21,12 @@ non-zero unless all of them pass:
             is like for like), each flash line with the kernel body
             (bf16 must run "wgmma") and its key split; ragged on a
             step that the port's own scheduler packed at the serving
-            geometry, with decode, prefill, pad and one poisoned slot;
+            geometry, with decode, prefill, pad and one poisoned slot,
+            and on a decode-only step (8 one-token slots), each line
+            with its launch plan (bf16 must run the "wgmma" body for
+            prefill slots and the key split for decode slots), the
+            decode-only call and the paged decode kernel on the same
+            work timed on the card by `torch.profiler`;
             decode and paged decode at the serving geometry on 8
             sequences of lengths 0 to 4096 (one token, with softcap, with
             a 512-row and a 100-row window and 4 sinks, the band crossing
@@ -473,6 +478,72 @@ def ragged_work(step, q) -> tuple[float, float]:
     return nbytes, 2.0 * (d + d) * hq * pairs
 
 
+# the decode-only ragged step: one token for each of 8 decode slots over
+# the seed-0 serving trace's prompt lengths plus 16 decoded tokens (the
+# steady state of the serving run), 2 prefill slots idle
+RAGGED_DECODE_LENS = [907, 926, 637, 733, 754, 269, 923, 672]
+
+
+def ragged_step(gen, spans, *, hq=32, hkv=4, d=128, page=128,
+                slots=10, pages_per_slot=16, dtype=torch.bfloat16):
+    """(q, step) of a packed step over random pools at the serving
+    geometry: (tokens, length after the append) per active slot, decode
+    slots first, each slot its own pages, the other slots idle; the
+    width and query tile bucketed as the engine buckets them; q as the
+    attention layer passes it ((1, T, Hq, d) storage)."""
+    from attention_tpu_torch.ops import ragged_paged as rp
+
+    group = hq // hkv
+    num_decode = sum(1 for n, _ in spans if n == 1)
+    real = sum(n for n, _ in spans)
+    max_q = max((n for n, _ in spans[num_decode:]), default=1)
+    q_tile = rp.recommended_q_tile(max_q, group)
+    width = rp.packed_bucket(max(real, q_tile))
+    pages = slots * pages_per_slot
+    perm = torch.randperm(pages, generator=gen, device="cuda").to(
+        torch.int32)
+    table = torch.full((slots, pages_per_slot), -1, dtype=torch.int32,
+                       device="cuda")
+    cu, lens = [0], []
+    for s, (n, kv_len) in enumerate(spans):
+        used = -(-kv_len // page)
+        first = s * pages_per_slot
+        table[s, :used] = perm[first:first + used]
+        cu.append(cu[-1] + n)
+        lens.append(kv_len)
+    cu += [cu[-1]] * (slots + 1 - len(cu))
+    lens += [0] * (slots - len(lens))
+
+    def dev(x):
+        return torch.tensor(x, dtype=torch.int32, device="cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    step = rp.RaggedPagedStep(
+        randn(pages, hkv, page, d), randn(pages, hkv, page, d), table,
+        dev(lens), dev(cu), dev([num_decode, len(spans)]),
+        dev([0] * width), dev([-1] * width), q_tile)
+    return randn(1, width, hq, d).transpose(1, 2), step
+
+
+def ragged_plan(q, step) -> dict:
+    """The launch plan of a ragged call on this card; raises unless bf16
+    at head dim 128 and page 128 runs the wgmma body for its prefill
+    slots and the split (more than one split, four key groups) for its
+    decode slots."""
+    from attention_tpu_torch.ops.ragged_paged import ragged_launch_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = ragged_launch_plan(q, step, sms=sms)
+    if (q.dtype == torch.bfloat16 and q.shape[-1] == 128
+            and step.page_size == 128
+            and not (plan["body"] == "wgmma" and plan["splits"] > 1
+                     and plan["kg"] == 4)):
+        raise AssertionError(f"the ragged serving geometry runs {plan}")
+    return plan
+
+
 def phase_kernels(kernels, serve_model):
     from attention_tpu_torch.ops.flash import (
         flash_attention,
@@ -575,9 +646,57 @@ def phase_kernels(kernels, serve_model):
         emit(phase="kernels", kernel="ragged_paged", case=f"{dt}"[6:],
              decode_slots=int(step.distribution[0]), active_slots=active,
              real_tokens=cu[active], width=width, poisoned_slot=s,
-             kv_lens=lens, max_abs_err=err, share_of_limit=ratio,
-             planted_faults_share_of_limit=faults)
+             kv_lens=lens, plan=ragged_plan(qd, st), max_abs_err=err,
+             share_of_limit=ratio, planted_faults_share_of_limit=faults)
+    phase_ragged_decode(kernels, gen)
     return step, q
+
+
+def phase_ragged_decode(kernels, gen) -> None:
+    """The ragged kernel on a decode-only step (`RAGGED_DECODE_LENS`,
+    bf16, softcap 50) held against its plain version, and the device
+    time of the call beside the paged decode kernel's on the same pools,
+    tables and lengths as a (8, 1) call: the two-call lowering of the
+    same work, the nearest yardstick (no PyTorch call computes ragged
+    paged attention)."""
+    from attention_tpu_torch.ops.paged import PagedKV, paged_flash_decode
+    from attention_tpu_torch.ops.ragged_paged import (
+        ragged_paged_attention,
+        ragged_paged_attention_plain,
+    )
+
+    spans = [(1, n + 16) for n in RAGGED_DECODE_LENS]
+    q, step = ragged_step(gen, spans)
+    n = len(spans)
+    lens = step.kv_lens.tolist()
+    cut = list(lens)
+    cut[0] -= (lens[0] - 1) % KEY_TILE + 1
+    cut = torch.tensor(cut, dtype=torch.int32, device="cuda")
+    nbytes, ops_count = ragged_work(step, q)
+
+    def run():
+        return ragged_paged_attention(q, step, softcap=50.0)
+
+    def plain(**kw):
+        return ragged_paged_attention_plain(q, step._replace(**kw),
+                                            softcap=50.0)
+
+    cache = PagedKV(step.k_pool, step.v_pool,
+                    step.page_table[:n].contiguous(),
+                    step.kv_lens[:n].contiguous())
+    q3 = q[0, :, :n].transpose(0, 1).contiguous()  # (8, Hq, d)
+    times = dict(device_ms=device_ms(run), paged_decode_device_ms=device_ms(
+        lambda: paged_flash_decode(q3, cache, softcap=50.0)))
+    rec = hold(
+        kernels, "ragged_paged", "bfloat16_decode_only", run=run,
+        plain=plain,
+        faults={"dropped_last_key_tile": lambda: plain(kv_lens=cut),
+                "scale_off_2pct": lambda: ragged_paged_attention_plain(
+                    q, step, scale=1.02 * 128 ** -0.5, softcap=50.0)},
+        work=(nbytes, ops_count), dtype=q.dtype, kv_lens=lens,
+        plan=ragged_plan(q, step), **times)
+    kernels["ragged_paged"]["decode_only"] = dict(
+        ms=rec["ms"], bound_ms=rec["bound_ms"], **times)
 
 
 def phase_decode_kernels(kernels):
@@ -1807,7 +1926,7 @@ def phase_profile(model) -> None:
             continue
         us = evt.time_range.elapsed_us()
         name = evt.name
-        cls = ("ragged_paged" if "ragged_paged" in name
+        cls = ("ragged_paged" if "ragged" in name.lower()
                else "flash_fwd" if "flash_fwd" in name
                else "memcpy/memset" if name.startswith("Mem")
                else "matmul" if any(w in name.lower() for w in
@@ -1884,11 +2003,16 @@ def main() -> int:
 
     nbytes, ops_count = ragged_work(step, q)
     b_ms, b_by = bound_ms(nbytes, ops_count, q.dtype)
+
+    def ragged():
+        return ragged_paged_attention(q, step, softcap=50.0)
+
     kernels["ragged_paged"].update(
-        ms=time_ms(lambda: ragged_paged_attention(q, step, softcap=50.0)),
+        ms=time_ms(ragged), device_ms=device_ms(ragged),
         plain_ms=time_ms(lambda: ragged_paged_attention_plain(
             q, step, softcap=50.0)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        plan=ragged_plan(q, step))
     emit(kernels=list(kernels.values()))
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),

@@ -33,9 +33,11 @@ from attention_tpu_torch.ops import quant
 from attention_tpu_torch.ops.ragged_paged import (
     RaggedPagedStep,
     packed_bucket,
+    ragged_launch_plan,
     ragged_paged_append,
     ragged_paged_attention,
     ragged_paged_attention_plain,
+    recommended_q_tile,
 )
 from attention_tpu_torch.ops import flash_bwd
 from attention_tpu_torch.ops.flash import _offsets, \
@@ -449,6 +451,109 @@ def test_ragged_kernel_matches_plain(gen, dtype):
     short = ragged_paged_attention(q, step._replace(q_tile=8), softcap=30.0)
     assert torch.equal(short.isnan(), got.isnan())
     assert torch.equal(short.nan_to_num(), got.nan_to_num())
+
+
+# Steps at the serving geometry (32 q / 4 kv heads): (tokens, length after
+# the append) per active slot, decode slots first, each slot its own
+# pages, random pools; softcap 50 as the served model
+RAGGED_STEPS = {
+    "decode_only": ([(1, n) for n in (907, 926, 637, 733, 754, 269, 923,
+                                      1024)], {}),
+    "prefill_only": ([(256, 512), (256, 1024)], {}),
+    "mixed_page64": ([(1, 553), (1, 64), (191, 959), (256, 300)],
+                     {"page": 64}),
+    "mixed_d64": ([(1, 100), (2, 700), (129, 1000)], {"d": 64}),
+}
+
+
+def _ragged_step(gen, spans, dtype, *, page=128, d=128, hq=32, hkv=4,
+                 slots=10, capacity=2048):
+    """(q as the attention layer passes it, the step) on the card."""
+    max_pages = capacity // page
+    table = torch.full((slots, max_pages), -1, dtype=torch.int32)
+    cu, lens, nxt = [0], [], 0
+    for s, (n, kv_len) in enumerate(spans):
+        used = -(-kv_len // page)
+        table[s, :used] = torch.arange(nxt, nxt + used)
+        nxt += used
+        cu.append(cu[-1] + n)
+        lens.append(kv_len)
+    cu += [cu[-1]] * (slots + 1 - len(cu))
+    lens += [0] * (slots - len(lens))
+    num_decode = sum(1 for n, _ in spans if n <= 2)
+    longest = max(n for n, _ in spans[num_decode:]) if spans[num_decode:] \
+        else 1
+    q_tile = recommended_q_tile(longest, hq // hkv)
+    width = packed_bucket(max(cu[-1], q_tile))
+
+    def dev(x):
+        return torch.tensor(x, dtype=torch.int32, device="cuda")
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    step = RaggedPagedStep(
+        rnd(nxt, hkv, page, d), rnd(nxt, hkv, page, d), table.cuda(),
+        dev(lens), dev(cu), dev([num_decode, len(spans)]),
+        dev([0] * width), dev([-1] * width), q_tile)
+    return rnd(1, width, hq, d).transpose(1, 2), step
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(RAGGED_STEPS))
+def test_ragged_kernel_serving_steps(gen, name, dtype):
+    """Decode-only, prefill-only and mixed steps at the serving geometry,
+    at page 64 and head dim 64: within the limit of the plain version,
+    the same bits twice, one launch counted, pad rows zero; a dropped
+    last key tile of the longest slot and a 2% scale error fail the
+    check.  bf16 at head dim 128 runs the wgmma body."""
+    spans, kw = RAGGED_STEPS[name]
+    q, step = _ragged_step(gen, spans, dtype, **kw)
+    plan = ragged_launch_plan(q, step, sms=torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    print(name, dtype, plan)
+    if dtype is torch.bfloat16:
+        assert plan["body"] == "wgmma" and plan["kg"] == 4
+        assert plan["splits"] > 1
+    before = launch_counts()["ragged_paged"]
+    got = ragged_paged_attention(q, step, softcap=50.0)
+    assert launch_counts()["ragged_paged"] == before + 1
+    again = ragged_paged_attention(q, step, softcap=50.0)
+    assert torch.equal(got.view(torch.int16 if dtype is torch.bfloat16
+                                else torch.int32),
+                       again.view(torch.int16 if dtype is torch.bfloat16
+                                  else torch.int32))
+    want = ragged_paged_attention_plain(q, step, softcap=50.0)
+    assert _share_of_limit(got, want) <= 1
+    real = sum(n for n, _ in spans)
+    assert (got[:, :, real:] == 0).all()
+    lens = step.kv_lens.tolist()
+    longest = max(range(len(spans)), key=lambda s: lens[s])
+    cut = list(lens)
+    cut[longest] -= (lens[longest] - 1) % 64 + 1
+    planted = (
+        ragged_paged_attention_plain(
+            q, step._replace(kv_lens=torch.tensor(cut, dtype=torch.int32,
+                                                  device="cuda")),
+            softcap=50.0),
+        ragged_paged_attention_plain(q, step, softcap=50.0,
+                                     scale=1.02 * q.shape[-1] ** -0.5))
+    for fault in planted:
+        assert mismatch(fault, want)[1] > 1
+
+
+def test_ragged_wrapper_raises_instead_of_falling_back(gen, monkeypatch):
+    """A body the C entry cannot take is refused: no launch counted, no
+    other body run."""
+    q, step = _ragged_step(gen, RAGGED_STEPS["decode_only"][0],
+                           torch.float32)
+    monkeypatch.setattr(
+        "attention_tpu_torch.ops.ragged_paged.ragged_body",
+        lambda *args: "wgmma")
+    before = launch_counts()["ragged_paged"]
+    with pytest.raises(KernelLaunchError):
+        ragged_paged_attention(q, step)
+    assert launch_counts()["ragged_paged"] == before
 
 
 QUANTIZE = {"int8": quant.quantize_kv, "int4": quant.quantize_kv_int4,

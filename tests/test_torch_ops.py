@@ -261,6 +261,7 @@ def test_port_imports_no_jax():
         "import attention_tpu_torch.models.train\n"
         "import attention_tpu_torch.measure_decode\n"
         "import attention_tpu_torch.measure_flash\n"
+        "import attention_tpu_torch.measure_ragged\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'attention_tpu')\n"
         "       and sys.modules[m] is not None]\n"
