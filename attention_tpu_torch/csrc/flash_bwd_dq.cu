@@ -1,12 +1,50 @@
 // The dQ kernel of the two-kernel flash backward for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_dq_kernel` (attention_tpu/ops/flash_bwd.py:146,
-// launched at :1044).  A CTA owns one (batch, q head, 64-row query block),
-// walks the key tiles up to its causal diagonal (the loop that replaces the
-// TPU grid's sequential kv axis, skipping the tiles :192-200 skip), keeps
-// dQ = scale·dS·K in fp32 registers and writes it once in the input dtype.
-// 6·h·m·n·d operations (halved under causal), bound by the tensor cores
-// (flash_bwd.cuh has the design and the numerics).
-#include "flash_bwd.cuh"
+// launched at :1044).  6·h·m·n·d operations (halved under causal), bound by
+// the tensor cores.  Two bodies, named by the caller
+// (`ops.flash_bwd.flash_bwd_body`) and refused here where they do not fit:
+// "wgmma" for bf16 at dk = dv = 64 or 128 with 16-byte aligned bases and
+// strides (flash_bwd_dq_sm90.cuh: 128 query rows of one head a work item,
+// its three products on wgmma over TMA-fed key tiles, the flash forward's
+// heaviest-first persistent schedule; its note says what each does), and
+// "fma" for everything else (flash_bwd.cuh's `q_major_fma`: 64 query rows
+// a CTA, fp32 FMA).  Either keeps dQ = scale·dS·K in fp32 registers and
+// writes it once in the input dtype, so dQ is the same bits every call.
+#include "flash_bwd_dq_sm90.cuh"
 
-ATB_ENTRY(flash_bwd_dq, atb::DQ)
+// Plain C entry point, loaded through ctypes.  Pointers and strides as in
+// atb::BwdArgs; dtype 0 = fp32, 1 = bf16; softcap2 = softcap·log2 e, <= 0
+// for none; kv_valid <= n; ls the row stride of lse2 and delta, lse2 +inf
+// where the forward saw no key.  dq is (B, H, m, d) in the input dtype,
+// contiguous.  body: 0 = "fma", 1 = "wgmma" (the caller's
+// `flash_bwd_body`), whose lse2 and delta are padded to whole 128-row items
+// (ls a multiple of 128); a body that cannot take the call is refused,
+// never replaced.  Returns cudaGetLastError() after the launch (or the
+// refusal).
+extern "C" int flash_bwd_dq(
+    const void* qs, const void* k, const void* v, const void* dout,
+    const float* lse2, const float* delta, void* dq, int dtype, int B, int H,
+    int Hkv, int m, int n, int d, int dvd, int ls, long long sqb,
+    long long sqh, long long sqm, long long skb, long long skh, long long skn,
+    long long svb, long long svh, long long svn, long long sob, long long soh,
+    long long som, float scale, float softcap2, int causal, int q_offset,
+    int kv_offset, int kv_valid, int body, void* stream) {
+  const atb::BwdArgs a{qs,  k,   v,   dout, lse2, delta, nullptr,
+                       dq,  nullptr, nullptr, H, Hkv, m, n, d, dvd, ls,
+                       sqb, sqh, sqm, skb, skh, skn, svb, svh, svn, sob,
+                       soh, som, scale, softcap2 > 0.f ? softcap2 : 0.f,
+                       causal, q_offset, kv_offset, kv_valid};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!atb::args_ok(a, B)) return (int)cudaErrorInvalidValue;
+  if (body == 1) {
+    if (dtype != 1 || !atb::wgmma_operands_ok(a) ||
+        a.ls % dq90::ROWS != 0 || !atb::aligned16(dq))
+      return (int)cudaErrorInvalidValue;
+    return (int)dq90::launch(a, B, s);
+  }
+  if (body != 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return (int)atb::dispatch_fma<atb::DQ, float>(a, B, s);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  return (int)atb::dispatch_fma<atb::DQ, __nv_bfloat16>(a, B, s);
+}

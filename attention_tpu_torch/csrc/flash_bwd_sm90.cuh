@@ -1,16 +1,20 @@
-// The Hopper body of the fused flash backward (flash_bwd_fused.cu): bf16
-// q, k, v, dO at head dims dk = dv = 64 or 128, all five products on
-// `wgmma`, the tiles fed by TMA.
+// The Hopper key-major body of the flash backward: bf16 q, k, v, dO at
+// head dims dk = dv = 64 or 128, the products on `wgmma`, the tiles fed by
+// TMA.  Two instances: with dQ (`DQ`, the fused kernel flash_bwd_fused.cu)
+// and without it (the dK/dV kernel flash_bwd_dkv.cu, whose dQ comes from
+// flash_bwd_dq_sm90.cuh).
 //
-// It computes what the TPU kernel `_fused_bwd_kernel` (attention_tpu/ops/
-// flash_bwd.py:304) computes, with the numerics of flash_bwd.cuh: Qs =
+// It computes what the TPU kernels `_fused_bwd_kernel` (attention_tpu/ops/
+// flash_bwd.py:304) and `_dkv_kernel` (:215) compute, with the numerics of
+// flash_bwd.cuh: Qs =
 // round(q·scale·log2 e), P = exp2(Qs·Kᵀ - lse2) (0 where masked or where
 // the forward saw no key), dS = P∘(dP - delta) (∘(1 - tanh²) under
 // softcap, `tanhf` as the forward recomputes it), P and dS rounded to bf16
 // before each product, fp32 accumulation, dK·ln 2 and dQ·scale.  It is
-// bound by operations: 10·d per visible (row, key) pair per q head on
-// 4·h·m·d + 2·hkv·n·d values, far above the H100's ~295 operations per
-// byte in bf16.  What each part of the design does about it:
+// bound by operations: 10·d per visible (row, key) pair per q head (8·d
+// without dQ) on 4·h·m·d + 2·hkv·n·d values, far above the H100's ~295
+// operations per byte in bf16.  What each part of the design does about
+// it:
 //
 // - A work item is one block of 128 keys of one kv head and one slice of
 //   its GQA group.  Two consumer warpgroups own 64 keys each and keep
@@ -18,7 +22,8 @@
 //   registers a thread by `setmaxnreg` so the consumers get 240, loads K
 //   and V once per item and streams the item's query tiles (64 rows of
 //   Qs and dO by TMA, that tile's lse2 and delta by bulk copy) through a
-//   ring of STAGES `mbarrier`-guarded stages.
+//   ring of `mbarrier`-guarded stages (2 with dQ; without it 4, in the
+//   80 KB that dSᵀ and the dQ buffers take at d 128).
 // - All five products on `wgmma`.  Sᵀ = K·Qsᵀ and dPᵀ = V·dOᵀ are
 //   m64n64k16 from shared memory, both operands K-major.  dV += Pᵀ·dO and
 //   dK += dSᵀ·Qs take Pᵀ and dSᵀ from registers (the score accumulators
@@ -58,6 +63,8 @@
 //   the edge block.
 // - Registers: 240 a consumer thread (dK and dV take 128 at d 128, Sᵀ and
 //   dPᵀ 64, the dQ share 32), no spills at either head dim.
+// - Without dQ the two consumer warpgroups never meet inside a tile: a
+//   stage is released once the warpgroup's dK and dV products read it.
 //
 // Measured on the H100 against two variants, each slower: warpgroups that
 // own a tile's whole dQ by turns and meet only through `mbarrier`s on the
@@ -71,7 +78,9 @@
 // softmax overlaps the other's products.
 #pragma once
 
+#include "flash_bwd.cuh"
 #include "sm90.cuh"
+#include "tensor_map.cuh"
 
 namespace bwd90 {
 
@@ -79,11 +88,14 @@ using namespace sm90;
 
 constexpr int KB = 128;       // keys per work item, 64 per consumer
 constexpr int QT = 64;        // query rows per tile
-constexpr int STAGES = 2;     // query tiles in flight
 constexpr int THREADS = 384;  // the producer warpgroup and two consumers
 constexpr int CONSUMERS = 256;
 constexpr int STAT_BYTES = 2 * QT * 4;  // one tile's lse2 and delta
 constexpr float LN2 = 0.6931471805599453f;
+
+// Query tiles in flight: 2 with dQ, 4 without (on the H100 4 was as fast
+// as 3 or faster at every case measured)
+__host__ __device__ constexpr int stages(bool dq) { return dq ? 2 : 4; }
 
 // What the kernel reads besides the tensor maps.
 struct Args {
@@ -155,13 +167,13 @@ __device__ __forceinline__ Work work_item(const Args& a, long long w) {
   return k;
 }
 
-// Dynamic shared memory of one CTA: K and V, STAGES Qs and dO tiles, the
-// dSᵀ tile, two dQ buffers, the tiles' lse2 and delta, the barriers, and
-// room to align the tiles to 1024 bytes.
-constexpr size_t smem_bytes(int d) {
-  return (size_t)2 * KB * d * 2 + (size_t)STAGES * 2 * QT * d * 2 +
-         (size_t)KB * QT * 2 + (size_t)2 * QT * d * 4 +
-         (size_t)STAGES * STAT_BYTES + 8 * (2 + 2 * STAGES) + 1024;
+// Dynamic shared memory of one CTA: K and V, `stages` Qs and dO tiles,
+// with dQ the dSᵀ tile and two dQ buffers, the tiles' lse2 and delta, the
+// barriers, and room to align the tiles to 1024 bytes.
+constexpr size_t smem_bytes(int d, bool dq) {
+  return (size_t)2 * KB * d * 2 + (size_t)stages(dq) * 2 * QT * d * 2 +
+         (dq ? (size_t)KB * QT * 2 + (size_t)2 * QT * d * 4 : 0) +
+         (size_t)stages(dq) * STAT_BYTES + 8 * (2 + 2 * stages(dq)) + 1024;
 }
 
 // Thread layout: warpgroup 0 is the producer, warpgroups 1 and 2 the
@@ -169,15 +181,16 @@ constexpr size_t smem_bytes(int d) {
 // consumer thread's element 4j + e of an m64nN accumulator sits at row
 // 16·warp + lane / 4 + 8·(e / 2) of its warpgroup's 64, column 8j +
 // 2·(lane % 4) + e % 2.  The stage ring runs on across items: the g-th
-// query tile a CTA loads sits in stage g % STAGES, and its dQ in buffer
-// g % 2.
-template <int D, bool CAP>
+// query tile a CTA loads sits in stage g % ST, and its dQ in buffer
+// g % 2.  Without dQ, `tdq` is not read.
+template <int D, bool CAP, bool DQ>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tdo,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
                     const __grid_constant__ CUtensorMap tdq, const Args a) {
+  constexpr int ST = stages(DQ);
   constexpr uint32_t KV_BYTES = KB * D * 2;  // one of K, V
   constexpr uint32_t Q_BYTES = QT * D * 2;   // one of Qs, dO
   constexpr uint32_t DQ_BYTES = QT * D * 4;
@@ -195,18 +208,19 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint32_t sq0 = sv + KV_BYTES;  // stage s: Qs, then dO
   auto sq = [&](int s) { return sq0 + s * 2 * Q_BYTES; };
   auto sdo = [&](int s) { return sq0 + s * 2 * Q_BYTES + Q_BYTES; };
-  const uint32_t sds = sq0 + STAGES * 2 * Q_BYTES;
+  const uint32_t sds = sq0 + ST * 2 * Q_BYTES;  // with dQ only
   const uint32_t sdq = sds + DS_BYTES;          // buffer i at i·DQ_BYTES
-  const uint32_t sst = sdq + 2 * DQ_BYTES;      // stage s: lse2, delta
-  const uint32_t kv_full = sst + STAGES * STAT_BYTES;
+  // stage s: lse2, delta
+  const uint32_t sst = DQ ? sdq + 2 * DQ_BYTES : sds;
+  const uint32_t kv_full = sst + ST * STAT_BYTES;
   const uint32_t kv_empty = kv_full + 8;
   auto full = [&](int s) { return kv_full + 8 * (2 + s); };
-  auto empty = [&](int s) { return kv_full + 8 * (2 + STAGES + s); };
+  auto empty = [&](int s) { return kv_full + 8 * (2 + ST + s); };
   auto ptr = [&](uint32_t addr) { return smem_raw + (addr - raw); };
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
     mbar_init(kv_empty, CONSUMERS);
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < ST; ++s) {
       mbar_init(full(s), 1);
       mbar_init(empty(s), CONSUMERS);
     }
@@ -235,11 +249,11 @@ __global__ void __launch_bounds__(THREADS, 1)
         tma_load(sv + c * K_BOX, &tv, kv_full, c * BOX, k.key0, k.hk, k.b);
       }
       for (int i = 0; i < k.ntiles; ++i, ++g) {
-        const int s = g % STAGES;
+        const int s = g % ST;
         const int h = k.h_first + i / k.per_head;
         const int q0 = (k.plan.begin + i % k.per_head) * QT;
         const long long row = ((long long)k.b * a.H + h) * a.m_pad + q0;
-        mbar_wait(empty(s), ((g / STAGES) & 1) ^ 1);
+        mbar_wait(empty(s), ((g / ST) & 1) ^ 1);
         mbar_expect_tx(full(s), 2 * Q_BYTES + STAT_BYTES);
         for (int c = 0; c < D / BOX; ++c) {
           tma_load(sq(s) + c * Q_BOX, &tq, full(s), c * BOX, q0, h, k.b);
@@ -275,11 +289,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_wait(kv_full, nkv & 1);
       ++nkv;
       for (int i = 0; i < k.ntiles; ++i, ++g) {
-        const int st = g % STAGES;
+        const int st = g % ST;
         const int h = k.h_first + i / k.per_head;
         const int t = k.plan.begin + i % k.per_head;
         const int q0 = t * QT;
-        mbar_wait(full(st), (g / STAGES) & 1);
+        mbar_wait(full(st), (g / ST) & 1);
 
         // Sᵀ = K·Qsᵀ and dPᵀ = V·dOᵀ: this warpgroup's 64 keys x 64
         // queries, 16 columns of d a step, four steps to a box
@@ -399,6 +413,15 @@ __global__ void __launch_bounds__(THREADS, 1)
             wgmma_rs_n64(dk, df[kk], db);
         }
         wgmma_commit();
+        if constexpr (!DQ) {
+          wgmma_wait<0>();
+          pin(dk);
+          pin(dv);
+          pin(pf);
+          pin(df);
+          mbar_arrive(empty(st));  // Qs, dO, lse2, delta read
+          continue;
+        }
 
         // dSᵀ into shared memory, key rows by query columns, 128-byte
         // swizzled as TMA would lay it: the 16-byte chunk c of row r at
@@ -510,7 +533,79 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
     }
   }
-  if (issuer) bulk_wait<0>();  // every dQ reduction done
+  if (DQ && issuer) bulk_wait<0>();  // every dQ reduction done
+}
+
+// ------------------------------------------------------------------ launch
+
+template <int D, bool CAP, bool DQ>
+cudaError_t launch_t(const CUtensorMap (&maps)[5], const Args& s,
+                     cudaStream_t stream) {
+  auto kernel = flash_bwd_wgmma<D, CAP, DQ>;
+  constexpr size_t smem = smem_bytes(D, DQ);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  // a persistent grid: at most one CTA an SM, over every work item
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long items =
+      (long long)((s.n + KB - 1) / KB) * s.B * s.Hkv * s.slices;
+  const unsigned grid = (unsigned)(items < sms ? items : sms);
+  kernel<<<grid, THREADS, smem, stream>>>(maps[0], maps[1], maps[2], maps[3],
+                                          maps[4], s);
+  return cudaGetLastError();
+}
+
+// The key-major body on a call the caller checked
+// (`atb::wgmma_operands_ok`, lse2 and delta padded to whole query tiles,
+// the GQA group a multiple of `slices`): the tensor maps of Qs, dO, K, V
+// and, with dQ, dq32, then the kernel.
+template <bool DQ>
+cudaError_t launch(const atb::BwdArgs& a, int B, void* dk, void* dv,
+                   int slices, cudaStream_t st) {
+  const tmap::EncodeTiled enc = tmap::encoder();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  CUtensorMap maps[5];
+  if (!tmap::encode(enc, &maps[0], a.qs, a.d, a.m, a.H, B, a.sqm, a.sqh,
+                    a.sqb, QT) ||
+      !tmap::encode(enc, &maps[1], a.dout, a.d, a.m, a.H, B, a.som, a.soh,
+                    a.sob, QT) ||
+      !tmap::encode(enc, &maps[2], a.k, a.d, a.n, a.Hkv, B, a.skn, a.skh,
+                    a.skb, KB) ||
+      !tmap::encode(enc, &maps[3], a.v, a.d, a.n, a.Hkv, B, a.svn, a.svh,
+                    a.svb, KB))
+    return cudaErrorInvalidValue;
+  if (!DQ)
+    maps[4] = maps[0];  // not read
+  else if (!tmap::encode_f32(enc, &maps[4], a.dq32, a.d, a.m, B * a.H, QT))
+    return cudaErrorInvalidValue;
+  Args s;
+  s.lse2 = a.lse2;
+  s.delta = a.delta;
+  s.dk = dk;
+  s.dv = dv;
+  s.B = B;
+  s.H = a.H;
+  s.Hkv = a.Hkv;
+  s.m = a.m;
+  s.n = a.n;
+  s.m_pad = a.ls;
+  s.slices = slices;
+  s.scale = a.scale;
+  s.cap2 = a.cap2;
+  s.causal = a.causal;
+  s.q_offset = a.q_offset;
+  s.kv_offset = a.kv_offset;
+  s.kv_valid = a.kv_valid < 0 ? 0 : a.kv_valid > a.n ? a.n : a.kv_valid;
+  if (a.d == 64)
+    return a.cap2 > 0.f ? launch_t<64, true, DQ>(maps, s, st)
+                        : launch_t<64, false, DQ>(maps, s, st);
+  return a.cap2 > 0.f ? launch_t<128, true, DQ>(maps, s, st)
+                      : launch_t<128, false, DQ>(maps, s, st);
 }
 
 }  // namespace bwd90

@@ -1,5 +1,6 @@
-"""Times of the fused flash backward on one CUDA card, beside SDPA's
-backward on the same inputs.  Run it from the root of a checkout:
+"""Times of the flash backward's kernels on one CUDA card (the fused
+kernel, and the dQ + dK/dV pair), beside SDPA's backward on the same
+inputs.  Run it from the root of a checkout:
 
     python3 attention_tpu_torch/measure_bwd.py [--root DIR] [--label L]
 
@@ -23,17 +24,25 @@ back-to-back calls, median of 7 windows of 5 calls after two warm-up
 calls), ``host_us`` (host time per call, 50 calls enqueued back to back),
 ``bound_ms`` (10·d operations per visible pair per q head at the bf16
 peak, or the inputs and outputs once at 3.35 TB/s, the larger),
-``by_kernel`` (a call's device ms by kernel name, the six largest), the
-fused plan where the checkout names it, and SDPA's backward
+``by_kernel`` (a call's device ms by kernel name, the six largest),
+``fused_kv_digest`` (a hash of the fused dK and dV bits, which are the
+same every call: equal digests from two checkouts mean equal bits), the
+plans where the checkout names them, and SDPA's backward
 (``library_ms``, ``library_device_ms``: `torch.autograd.grad` through
 `scaled_dot_product_attention`) where SDPA computes the same function
-(it has no softcap).  All inputs bf16 from a seeded generator.  It needs
-a card and fails without one.
+(it has no softcap).  Then the pair, `flash_backward` under
+``_FORCE_TWO_KERNEL``: ``pair_dq_device_ms`` and ``pair_dkv_device_ms``
+(each kernel's launches by name), ``pair_device_ms`` (every kernel of the
+call), ``pair_by_kernel``, ``pair_dq_bound_ms`` and ``pair_dkv_bound_ms``
+(6·d and 8·d operations per visible pair per q head, or their bytes), and
+``pair_digest`` (all three gradients' bits).  All inputs bf16 from a
+seeded generator.  It needs a card and fails without one.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -67,11 +76,17 @@ def time_ms(fn, calls: int = 5, reps: int = 7) -> float:
     return statistics.median(out)
 
 
-def device_ms(fn, calls: int = 20) -> tuple[float, float, dict]:
-    """(every kernel's device ms, the backward kernel's device ms, the six
-    largest kernels' device ms by name) per call, by `torch.profiler`:
-    the fused kernel is named ``flash_bwd_wgmma`` or, before it,
-    ``kv_major_*``."""
+# kernel names (substrings) of the key-major body (the fused kernel, and
+# the dK/dV kernel on the pair's path) and of the dQ kernel: the wgmma
+# bodies', and the mma.sync bodies' of earlier checkouts
+KEY_MAJOR_NAMES = ("flash_bwd_wgmma", "kv_major")
+DQ_NAMES = ("flash_bwd_dq_wgmma", "q_major")
+
+
+def device_ms(fn, calls: int = 20, also=None):
+    """(every kernel's device ms, the key-major body's device ms, the six
+    largest kernels' device ms by name) per call, by `torch.profiler`;
+    with ``also`` (names) a fourth: those kernels' device ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -83,19 +98,32 @@ def device_ms(fn, calls: int = 20) -> tuple[float, float, dict]:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total = kernel = 0.0
+    total = kernel = other = 0.0
     by_name: dict[str, float] = {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         us = e.time_range.elapsed_us()
         total += us
-        if "flash_bwd_wgmma" in e.name or "kv_major" in e.name:
+        if also is not None and any(n in e.name for n in also):
+            other += us
+        elif any(n in e.name for n in KEY_MAJOR_NAMES):
             kernel += us
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return (total / calls / 1e3, kernel / calls / 1e3,
-            {name: us / calls / 1e3 for name, us in top})
+    out = (total / calls / 1e3, kernel / calls / 1e3,
+           {name: us / calls / 1e3 for name, us in top})
+    return out if also is None else (*out, other / calls / 1e3)
+
+
+def digest(tensors) -> str:
+    """A hash of the (bf16) tensors' bits."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(torch.int16).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def host_us(fn, calls: int = 50) -> float:
@@ -111,12 +139,15 @@ def host_us(fn, calls: int = 50) -> float:
     return elapsed / calls * 1e6
 
 
-def bound_ms(b, h, hkv, s, d) -> float:
-    """Causal m = n = s: 10·d operations per visible pair per q head, or
-    Qs, dO, K, V, lse and delta read and dQ, dK, dV written once."""
+def bound_ms(b, h, hkv, s, d, factor=10, outs="qkv") -> float:
+    """Causal m = n = s: ``factor``·d operations per visible pair per q
+    head, or Qs, dO, K, V, lse and delta read and the gradients ``outs``
+    ("q", "kv" or both) written once, bf16."""
     pairs = b * h * s * (s + 1) // 2
-    nbytes = 2 * (3 * b * h * s * d + 4 * b * hkv * s * d) + 8 * b * h * s
-    return max(10 * d * pairs / PEAK_OPS_S, nbytes / PEAK_BYTES_S) * 1e3
+    nbytes = 2 * (2 * b * h * s * d + 2 * b * hkv * s * d) + 8 * b * h * s
+    nbytes += 2 * (b * h * s * d * ("q" in outs)
+                   + 2 * b * hkv * s * d * ("kv" in outs))
+    return max(factor * d * pairs / PEAK_OPS_S, nbytes / PEAK_BYTES_S) * 1e3
 
 
 def main(argv=None) -> int:
@@ -165,9 +196,18 @@ def main(argv=None) -> int:
         rec = dict(label=args.label, case=name, kernel_device_ms=kernel,
                    device_ms=total, ms=time_ms(run), host_us=host_us(run),
                    bound_ms=bound_ms(b, h, k.shape[1], s, d),
-                   by_kernel=by_kernel)
+                   by_kernel=by_kernel, fused_kv_digest=digest(run()[1:]))
         if plan_of is not None:
             rec["plan"] = plan_of(q, k, v, out, lse, dout, causal=True)
+        flash_bwd._FORCE_TWO_KERNEL = True
+        total, dkv, by_kernel, dq = device_ms(run, also=DQ_NAMES)
+        rec.update(pair_dq_device_ms=dq, pair_dkv_device_ms=dkv,
+                   pair_device_ms=total, pair_by_kernel=by_kernel,
+                   pair_dq_bound_ms=bound_ms(b, h, k.shape[1], s, d, 6, "q"),
+                   pair_dkv_bound_ms=bound_ms(b, h, k.shape[1], s, d, 8,
+                                              "kv"),
+                   pair_digest=digest(run()))
+        flash_bwd._FORCE_TWO_KERNEL = False
         if cap is None:
             qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
             o = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,

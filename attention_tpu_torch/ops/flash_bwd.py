@@ -21,13 +21,17 @@ input dtype before each product, dK picks up ln 2 and dQ the plain
 no resident-dQ VMEM limit, so the TPU's fused plan and its Q-row chunk
 loop have no counterpart here.
 
-The fused kernel has two bodies, and `flash_bwd_body` names the one a
-call runs: "wgmma" (``csrc/flash_bwd_sm90.cuh``) for bf16 at dk = dv = 64
-or 128 with 16-byte aligned operands, "fma" for the rest.
-`bwd_tile_plan` and `bwd_work_plan` are the wgmma body's query-tile range
-and its cut of the call into work items in Python, which the CPU tests
-hold against the plain mask and the snake deal (the main path runs them
-only inside the kernel, and `bwd_work_plan` to size the launch).
+Each kernel has two bodies, and `flash_bwd_body` names the one a call
+runs: "wgmma" for bf16 at dk = dv = 64 or 128 with 16-byte aligned
+operands, "fma" for the rest.  The fused and the dK/dV kernels' "wgmma"
+is one key-major body (``csrc/flash_bwd_sm90.cuh``, the dK/dV instance
+without dQ), the dQ kernel's a query-major one
+(``csrc/flash_bwd_dq_sm90.cuh``) on the flash forward's schedule.
+`bwd_tile_plan` and `bwd_work_plan` are the key-major body's query-tile
+range and its cut of the call into work items, in Python, which the CPU
+tests hold against the plain mask and the snake deal (the main path runs
+them only inside the kernels, and the plan to size the launches); the dQ
+body's key tiles are the flash forward's `ops.flash.tile_plan`.
 """
 
 from __future__ import annotations
@@ -40,7 +44,11 @@ import torch
 
 from attention_tpu_torch.ops import _native
 from attention_tpu_torch.ops._native import DTYPE_CODES, F, I, L, P
-from attention_tpu_torch.ops.flash import _offsets, _strides, _unsupported
+from attention_tpu_torch.ops.flash import (
+    _offsets,
+    _strides,
+    _unsupported,
+)
 from attention_tpu_torch.ops.reference import check_softcap
 
 LOG2E = 1.0 / math.log(2.0)
@@ -49,18 +57,23 @@ LN2 = math.log(2.0)
 FUSED, DQ, DKV = "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"
 #: largest head dim the backward kernels take
 MAX_HEAD_DIM = 128
-#: the fused kernel's C entry point's codes of its two bodies
+#: the C entry points' codes of the two bodies
 BODY_CODES = {"fma": 0, "wgmma": 1}
-#: query rows per tile and keys per work item of the wgmma body; lse2 and
-#: delta are padded to whole query tiles for every body
+#: query rows per tile and keys per work item of the key-major wgmma body
 QUERY_TILE = 64
 KEY_BLOCK = 128
+#: query rows per work item of the dQ wgmma body; lse2 and delta are
+#: padded to whole items (whole query tiles too) for every body
+DQ_ROWS = 128
 #: `bwd_work_plan` splits a GQA group further until no CTA of the snake
 #: deal carries more than this many times the mean load
 BALANCE = 1.1
-_PAIR_ARGTYPES = [*([P] * 10), *([I] * 9), *([L] * 12), F, F, I, I, I, I, P]
-_FUSED_ARGTYPES = [*([P] * 9), *([I] * 9), *([L] * 12), F, F, I, I, I, I,
-                   I, I, P]
+_ARGS = [*([I] * 9), *([L] * 12), F, F, I, I, I, I]
+#: the C entry points' argument types: the operands and outputs, the
+#: call's shape and options (`_ARGS`), the body and its slices, the stream
+ARGTYPES = {FUSED: [*([P] * 9), *_ARGS, I, I, P],
+            DQ: [*([P] * 7), *_ARGS, I, P],
+            DKV: [*([P] * 8), *_ARGS, I, I, P]}
 
 # Send CUDA calls to the two-kernel pair (dQ, then dK/dV) instead of the
 # fused kernel: a module global, as in the JAX package, that tests and
@@ -278,7 +291,8 @@ def _lse2(lse4: torch.Tensor, rows: int) -> torch.Tensor:
 class _Staged:
     """The 4-D CUDA operands checked and staged as the kernels read them
     (Qs and dO in the input dtype, lse2 and delta in float32 padded to
-    whole query tiles), the fused kernel's plan, and its launches."""
+    whole dQ items), the fused kernel's plan and the pair's, and their
+    launches."""
 
     def __init__(self, q4, k4, v4, o4, lse4, do4, *, scale, causal, softcap,
                  q_offset, kv_offset, kv_valid):
@@ -298,7 +312,7 @@ class _Staged:
             raise ValueError(f"empty attention: m={m} n={n}")
         self.shape = (b, h, hkv, m, n, d, dv)
         self.dtype, self.device = dtype, q4.device
-        self.ls = -(-m // QUERY_TILE) * QUERY_TILE
+        self.ls = -(-m // DQ_ROWS) * DQ_ROWS
         self.qs, self.k, self.v, self.do = (
             t if t.stride(-1) == 1 else t.contiguous()
             for t in (_scaled_q(q4, scale), k4, v4, do4.to(dtype)))
@@ -314,62 +328,100 @@ class _Staged:
         body = flash_bwd_body(dtype, d, dv, self.strides, [
             t.data_ptr() for t in (self.qs, self.k, self.v, self.do)])
         self.plan = dict(body=body, slices=1)
+        # the pair: the dK/dV kernel on the fused kernel's work plan, the
+        # dQ kernel's items
+        self.pair_plan = dict(body=body, slices=1)
         if body == "wgmma":
+            sms = _native.sm_count(q4.device.index)
             work = bwd_work_plan(b, hkv, h // hkv, m, n, kv_valid, causal,
-                                 q_offset, kv_offset,
-                                 sms=_native.sm_count(q4.device.index))
+                                 q_offset, kv_offset, sms=sms)
             self.plan.update(work._asdict())
+            items = b * h * -(-m // DQ_ROWS)
+            self.pair_plan.update(
+                slices=work.slices, dq_items=items, dq_grid=min(items, sms),
+                dkv_items=work.items, dkv_grid=work.grid)
 
-    def _call(self, kernel, argtypes, pointers, extra=()):
-        fn = _native.function(kernel, kernel, argtypes)
+    def _call(self, kernel, pointers, extra):
+        fn = _native.function(kernel, kernel, ARGTYPES[kernel])
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream(self.device).cuda_stream
             err = fn(self.qs.data_ptr(), self.k.data_ptr(), self.v.data_ptr(),
                      self.do.data_ptr(), self.lse2.data_ptr(),
-                     self.delta.data_ptr(),
-                     *(None if t is None else t.data_ptr()
-                       for t in pointers), *self.args, *extra, stream)
+                     self.delta.data_ptr(), *(t.data_ptr() for t in pointers),
+                     *self.args, *extra, stream)
         _native.check(kernel, err)
         _native.count_launch(kernel)
 
-    def pair(self, kernel, dq=None, dk=None, dvo=None) -> None:
-        """Launch the dQ or the dK/dV kernel into the given outputs."""
-        self._call(kernel, _PAIR_ARGTYPES, (None, dq, dk, dvo))
-
-    def fused_buffers(self) -> dict:
-        """The fused kernel's outputs for this call's plan: dq32 (zeroed)
-        and, from the "wgmma" body, dK and dV in the input dtype (one
-        slice) or its fp32 slice partials; from "fma", per-Q-head fp32
-        partials."""
+    def _kv_outputs(self, plan, per_q_head: bool) -> dict:
+        """dK and dV as the plan's body writes them: "wgmma" in the input
+        dtype for one slice, else fp32 slice partials (b, hkv, slices, n,
+        d); "fma" in fp32, per Q head (the fused kernel) or summed over the
+        group (the dK/dV kernel)."""
         b, h, hkv, m, n, d, dv = self.shape
-        f32 = dict(dtype=torch.float32, device=self.device)
-        if self.plan["body"] == "fma":
-            kv = [(b, h, n, d), (b, h, n, dv), f32]
-        elif self.plan["slices"] == 1:
+        if plan["body"] == "fma":
+            heads = h if per_q_head else hkv
+            kv = [(b, heads, n, d), (b, heads, n, dv),
+                  dict(dtype=torch.float32, device=self.device)]
+        elif plan["slices"] == 1:
             kv = [(b, hkv, n, d), (b, hkv, n, dv),
                   dict(dtype=self.dtype, device=self.device)]
         else:
-            kv = [(b, hkv, self.plan["slices"], n, d),
-                  (b, hkv, self.plan["slices"], n, dv), f32]
-        return dict(dq32=torch.zeros((b, h, m, d), **f32),
-                    dk=torch.empty(kv[0], **kv[2]),
+            kv = [(b, hkv, plan["slices"], n, d),
+                  (b, hkv, plan["slices"], n, dv),
+                  dict(dtype=torch.float32, device=self.device)]
+        return dict(dk=torch.empty(kv[0], **kv[2]),
                     dvo=torch.empty(kv[1], **kv[2]))
 
-    def fused(self, dq32, dk, dvo) -> None:
-        """Launch the fused kernel into `fused_buffers`."""
-        self._call(FUSED, _FUSED_ARGTYPES, (dq32, dk, dvo),
-                   (BODY_CODES[self.plan["body"]], self.plan["slices"]))
-
-    def fused_grads(self, dq32, dk, dvo):
-        """(dQ, dK, dV) in the input dtype from the fused kernel's
-        outputs: the partials summed over each group's slices or heads."""
+    def _kv_grads(self, dk, dvo):
+        """dK and dV in the input dtype from the kernel's outputs: per-Q-
+        head or slice partials summed over the group in order."""
         b, h, hkv, m, n, d, dv = self.shape
-        if self.plan["body"] == "fma":
+        if dk.dim() == 4 and dk.shape[1] != hkv:
             dk = dk.view(b, hkv, h // hkv, n, d)
             dvo = dvo.view(b, hkv, h // hkv, n, dv)
         if dk.dim() == 5:
             dk, dvo = dk.sum(2), dvo.sum(2)
-        return dq32.to(self.dtype), dk.to(self.dtype), dvo.to(self.dtype)
+        return dk.to(self.dtype), dvo.to(self.dtype)
+
+    def fused_buffers(self) -> dict:
+        """The fused kernel's outputs for this call's plan: dq32 (zeroed)
+        and `_kv_outputs`."""
+        b, h, hkv, m, n, d, dv = self.shape
+        return dict(dq32=torch.zeros((b, h, m, d), dtype=torch.float32,
+                                     device=self.device),
+                    **self._kv_outputs(self.plan, per_q_head=True))
+
+    def fused(self, dq32, dk, dvo) -> None:
+        """Launch the fused kernel into `fused_buffers`."""
+        self._call(FUSED, (dq32, dk, dvo),
+                   (BODY_CODES[self.plan["body"]], self.plan["slices"]))
+
+    def fused_grads(self, dq32, dk, dvo):
+        """(dQ, dK, dV) in the input dtype from the fused kernel's
+        outputs."""
+        return (dq32.to(self.dtype), *self._kv_grads(dk, dvo))
+
+    def pair_buffers(self) -> dict:
+        """The pair's outputs for this call's plan: dQ in the input dtype
+        and `_kv_outputs`."""
+        b, h, hkv, m, n, d, dv = self.shape
+        return dict(dq=torch.empty((b, h, m, d), dtype=self.dtype,
+                                   device=self.device),
+                    **self._kv_outputs(self.pair_plan, per_q_head=False))
+
+    def pair(self, kernel, dq=None, dk=None, dvo=None) -> None:
+        """Launch the dQ or the dK/dV kernel into `pair_buffers`."""
+        plan = self.pair_plan
+        body = BODY_CODES[plan["body"]]
+        if kernel == DQ:
+            self._call(DQ, (dq,), (body,))
+        else:
+            self._call(DKV, (dk, dvo), (body, plan["slices"]))
+
+    def pair_grads(self, dq, dk, dvo):
+        """(dQ, dK, dV) in the input dtype from the pair's outputs: no
+        cast where the kernels wrote the input dtype."""
+        return (dq, *self._kv_grads(dk, dvo))
 
 
 def _launch(q4, k4, v4, o4, lse4, do4, **kw):
@@ -380,27 +432,28 @@ def _launch(q4, k4, v4, o4, lse4, do4, **kw):
         out = staged.fused_buffers()
         staged.fused(**out)
         return staged.fused_grads(**out)
-    b, h, hkv, m, n, d, dv = staged.shape
-    f32 = dict(dtype=torch.float32, device=q4.device)
-    dq = torch.empty((b, h, m, d), dtype=q4.dtype, device=q4.device)
-    staged.pair(DQ, dq=dq)
-    dk32 = torch.empty((b, hkv, n, d), **f32)
-    dv32 = torch.empty((b, hkv, n, dv), **f32)
-    staged.pair(DKV, dk=dk32, dvo=dv32)
-    return dq, dk32.to(q4.dtype), dv32.to(q4.dtype)
+    out = staged.pair_buffers()
+    staged.pair(DQ, dq=out["dq"])
+    staged.pair(DKV, dk=out["dk"], dvo=out["dvo"])
+    return staged.pair_grads(**out)
 
 
 def bwd_launch_plan(q, k, v, out, lse, dout, *, scale=None, causal=False,
                     q_offset=None, kv_offset=None, kv_valid=None) -> dict:
-    """How the fused kernel runs a call on these inputs (CUDA tensors, as
-    `flash_backward` takes them): the body (`flash_bwd_body`) and, for
-    "wgmma", its `bwd_work_plan` (slices, items, grid, heaviest, mean)."""
+    """How the kernels run a call on these inputs (CUDA tensors, as
+    `flash_backward` takes them): the fused kernel's body
+    (`flash_bwd_body`) and, for "wgmma", its `bwd_work_plan` (slices,
+    items, grid, heaviest, mean); under ``"pair"`` the dQ and dK/dV
+    kernels' body and, for "wgmma", the slices of the dK/dV kernel (the
+    fused plan's), its items and grid, and the dQ kernel's items and
+    grid."""
     tensors, _ = _four_d(q, k, v, out, lse[..., None], dout)
     tensors[4] = tensors[4][..., 0]
-    return dict(_Staged(
+    staged = _Staged(
         *tensors, scale=q.shape[-1] ** -0.5 if scale is None else scale,
         causal=causal, softcap=None,
-        **_offsets(k.shape[-2], q_offset, kv_offset, kv_valid)).plan)
+        **_offsets(k.shape[-2], q_offset, kv_offset, kv_valid))
+    return dict(staged.plan, pair=dict(staged.pair_plan))
 
 
 def flash_backward(

@@ -60,13 +60,15 @@ non-zero unless all of them pass:
             1003, kv_valid 900, keys shifted 37 rows past the queries, so
             that the first rows see no key; with and without softcap 50),
             against `flash_backward_plain` under
-            `reference.grad_mismatch`; each fused case prints its body
-            (bf16 must run "wgmma") and `bwd_work_plan`; the same bits on
+            `reference.grad_mismatch`; each case prints the fused
+            kernel's body and `bwd_work_plan` and the pair's body and
+            plan (bf16 must run "wgmma" on both paths); the same bits on
             a second call (the fused dQ, whose tiles add in no fixed
             order, within the limit of the first); a dropped key tile in
             dK and a 2% scale error in dQ must fail; each kernel timed
             alone and `flash_backward` end to end on each path at the
-            serving geometry, with SDPA's backward as the yardstick.
+            serving geometry, with SDPA's backward as the yardstick (for
+            the pair: the sum of its two kernels' device ms).
 3. op path  the ``scale4`` testcase (m = n = 8192, dk = dv = 128) from
             the port's generator, through ``cli run --backend flash`` in
             f32 and bf16: both must print ``Correct!``; then the flash
@@ -1427,14 +1429,16 @@ def phase_backward(kernels) -> None:
         if not all(ratio > 1.0 for ratio in faults.values()):
             raise AssertionError(f"the check passes a planted fault: "
                                  f"{faults}")
-        # the fused kernel's body and cut of the call: every case here is
-        # bf16 at d 64 or 128, so "wgmma"
+        # the kernels' bodies and cuts of the call: every case here is
+        # bf16 at d 64 or 128, so "wgmma" on both paths
         plan = flash_bwd.bwd_launch_plan(
             q, k, v, out, lse, dout, causal=True,
             **{x: kw[x] for x in ("q_offset", "kv_offset", "kv_valid")
                if x in kw})
-        if plan["body"] != "wgmma":
-            raise AssertionError(f"{case}: the fused kernel runs {plan}")
+        pair_plan = plan.pop("pair")
+        if plan["body"] != "wgmma" or pair_plan["body"] != "wgmma":
+            raise AssertionError(f"{case}: the fused kernel runs {plan}, "
+                                 f"the pair {pair_plan}")
         for path in ("fused", "pair"):
             flash_bwd._FORCE_TWO_KERNEL = path == "pair"
             got = flash_bwd.flash_backward(q, k, v, out, lse, dout, **kw)
@@ -1457,7 +1461,8 @@ def phase_backward(kernels) -> None:
                     kernels[kernel]["max_abs_err"],
                     *(errs[i][0] for i in idx))
             emit(phase="backward", path=path, case=case,
-                 **(dict(fused_plan=plan) if path == "fused" else {}),
+                 **(dict(fused_plan=plan) if path == "fused"
+                    else dict(pair_plan=pair_plan)),
                  max_abs_err=dict(zip(names, (e for e, _ in errs))),
                  share_of_limit=dict(zip(names, (r for _, r in errs))),
                  fused_dq_run_to_run=run_to_run,
@@ -1469,9 +1474,11 @@ def phase_backward(kernels) -> None:
 def backward_times(kernels, case, args, kw) -> None:
     """Time one serving backward case: each kernel alone on the staged
     operands (the kernels line's ``ms``), `flash_backward` end to end on
-    each path (staging, the fp32 dQ buffer's zero fill, the fused path's
-    sum of its slice partials and the casts included), the plain
-    version, and (without softcap) SDPA's backward as the yardstick."""
+    each path (staging, the fp32 dQ buffer's zero fill, the sums of slice
+    partials and the casts included), the plain version, and (without
+    softcap) SDPA's backward as the yardstick: beside the fused kernel,
+    and beside the sum of the pair's two kernels' device ms (neither
+    alone computes what one library call does)."""
     from torch.nn import functional as F
 
     from attention_tpu_torch.ops import flash_bwd
@@ -1483,9 +1490,7 @@ def backward_times(kernels, case, args, kw) -> None:
     staged = flash_bwd._Staged(*args, q_offset=0, kv_offset=0, kv_valid=s,
                                **kw)
     fused = staged.fused_buffers()
-    f32 = dict(dtype=torch.float32, device="cuda")
-    dq = torch.empty((1, h, s, d), dtype=torch.bfloat16, device="cuda")
-    dk32, dv32 = (torch.empty((1, hkv, s, d), **f32) for _ in "kv")
+    pair = staged.pair_buffers()
     plain_ms = time_ms(lambda: flash_bwd.flash_backward_plain(*args, **kw),
                        calls=1, reps=3)
     end_to_end = {}
@@ -1494,25 +1499,38 @@ def backward_times(kernels, case, args, kw) -> None:
         end_to_end[path] = time_ms(
             lambda: flash_bwd.flash_backward(*args, **kw))
         flash_bwd._FORCE_TWO_KERNEL = False
-    library_ms = None
+    library_ms = library_device_ms = None
     if kw["softcap"] is None:
         qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
         o = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
                                            enable_gqa=True)
-        library_ms = time_ms(lambda: torch.autograd.grad(
-            o, (qq, kk, vv), dout, retain_graph=True))
+
+        def sdpa():
+            return torch.autograd.grad(o, (qq, kk, vv), dout,
+                                       retain_graph=True)
+
+        library_ms, library_device_ms = time_ms(sdpa), device_ms(sdpa)
+    launches = {
+        flash_bwd.FUSED: lambda: staged.fused(**fused),
+        flash_bwd.DQ: lambda: staged.pair(flash_bwd.DQ, dq=pair["dq"]),
+        flash_bwd.DKV: lambda: staged.pair(flash_bwd.DKV, dk=pair["dk"],
+                                           dvo=pair["dvo"])}
+    pair_device = {kernel: device_ms(launches[kernel])
+                   for kernel in (flash_bwd.DQ, flash_bwd.DKV)}
     emit(phase="backward", case=case, flash_backward_ms=end_to_end,
-         library_ms=library_ms)
-    for kernel, launch, factor, outs in (
-            (flash_bwd.FUSED, lambda: staged.fused(**fused), 10, "qkv"),
-            (flash_bwd.DQ, lambda: staged.pair(flash_bwd.DQ, dq=dq), 6, "q"),
-            (flash_bwd.DKV, lambda: staged.pair(flash_bwd.DKV, dk=dk32,
-                                                dvo=dv32), 8, "kv")):
+         pair_device_ms=dict(pair_device, sum=sum(pair_device.values())),
+         library_ms=library_ms, library_device_ms=library_device_ms)
+    for kernel, factor, outs in ((flash_bwd.FUSED, 10, "qkv"),
+                                 (flash_bwd.DQ, 6, "q"),
+                                 (flash_bwd.DKV, 8, "kv")):
+        launch = launches[kernel]
         b_ms, b_by = bound_ms(*bwd_work(h, hkv, s, s, d, pairs, 2,
                                         factor, outs), torch.bfloat16)
         t = dict(ms=time_ms(launch), plain_ms=plain_ms, bound_ms=b_ms,
                  bound_by=b_by, library_ms=library_ms
                  if kernel == flash_bwd.FUSED else None)
+        if kernel in pair_device:
+            t["device_ms"] = pair_device[kernel]
         emit(phase="backward", kernel=kernel, case=case,
              tflop_s=factor * d * h * pairs / t["ms"] / 1e9, **t)
         if kw["softcap"] is None:

@@ -915,6 +915,167 @@ def test_wgmma_backward_refuses_what_it_cannot_take(gen, monkeypatch):
     assert launch_counts() == before
 
 
+# The dQ and dK/dV pair on its wgmma bodies: the fused cases above and the
+# layer's strided views, run as a user runs them (`_FORCE_TWO_KERNEL`).
+def _check_wgmma_pair(monkeypatch, q, k, v, dout, kw):
+    """The pair on the wgmma bodies, each kernel once a call, dQ, dK and
+    dV within `grad_mismatch` of the plain version (1e-4 absolute for the
+    cancelled dQ and dK of one-key rows, as above) and the same bits on a
+    second call; a dropped last key tile in dK and a 2% scale error in dQ
+    fail the same check."""
+    monkeypatch.setattr(flash_bwd, "_FORCE_TWO_KERNEL", True)
+    out, lse = _flash_fwd_impl(q, k, v, **kw)
+    offsets = {x: kw[x] for x in ("q_offset", "kv_offset", "kv_valid")
+               if x in kw}
+    plan = flash_bwd.bwd_launch_plan(q, k, v, out, lse, dout,
+                                     causal=kw.get("causal", False),
+                                     **offsets)["pair"]
+    assert plan["body"] == "wgmma"
+    assert plan["slices"] == flash_bwd.bwd_launch_plan(
+        q, k, v, out, lse, dout, causal=kw.get("causal", False),
+        **offsets)["slices"]
+    before = launch_counts()
+    got = flash_bwd.flash_backward(q, k, v, out, lse, dout, **kw)
+    again = flash_bwd.flash_backward(q, k, v, out, lse, dout, **kw)
+    after = launch_counts()
+    assert {n: after[n] - before[n] for n in after
+            if after[n] != before[n]} == {flash_bwd.DQ: 2, flash_bwd.DKV: 2}
+    want = flash_bwd.flash_backward_plain(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert torch.equal(g.view(torch.int16), a.view(torch.int16))
+    one_key = k.shape[-2] == 1
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        if one_key and i < 2:
+            assert (g.float() - w.float()).abs().max().item() <= 1e-4
+        else:
+            assert grad_mismatch(g, w)[1] <= 1
+    # the faults: the last 64 keys that any row sees dropped from dK, and
+    # dQ's scale 2% off
+    seen = kw.get("kv_valid", k.shape[-2])
+    if kw.get("causal"):
+        seen = min(seen, q.shape[-2] + kw.get("q_offset", 0)
+                   - kw.get("kv_offset", 0))
+    if not one_key and seen > 64:
+        dropped = flash_bwd.flash_backward_plain(
+            q, k, v, out, lse, dout, **dict(kw, kv_valid=seen - 64))[1]
+        off = flash_bwd.flash_backward_plain(
+            q, k, v, out, lse, dout, **dict(kw, scale=1.02 * kw["scale"]))[0]
+        assert grad_mismatch(dropped, want[1])[1] > 1
+        assert grad_mismatch(off, want[0])[1] > 1
+
+
+@pytest.mark.parametrize("name", list(WGMMA_BWD_CASES))
+def test_wgmma_pair_matches_plain(gen, monkeypatch, name):
+    (qshape, kshape), kw = WGMMA_BWD_CASES[name]
+    q, dout = (torch.randn(qshape, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in "qo")
+    k, v = (torch.randn(kshape, generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in "kv")
+    _check_wgmma_pair(monkeypatch, q, k, v, dout,
+                      dict(kw, scale=qshape[-1] ** -0.5))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_wgmma_pair_takes_the_layers_strided_operands(gen, monkeypatch, d):
+    """(b, s, heads, d) storage viewed as (b, heads, s, d), 8 q / 2 kv
+    heads, causal, softcap 50."""
+    q, k, v, dout = (torch.randn((2, 300, n, d), generator=gen,
+                                 device="cuda")
+                     .to(torch.bfloat16).transpose(1, 2) for n in (8, 2, 2, 8))
+    _check_wgmma_pair(monkeypatch, q, k, v, dout,
+                      dict(scale=d ** -0.5, causal=True, softcap=50.0))
+
+
+@pytest.mark.parametrize("slices", [1, 2])
+def test_wgmma_pair_variants_and_slices(gen, monkeypatch, slices):
+    """Both output variants of the dK/dV body, one slice (dK and dV
+    written in bf16, no sum) and two (fp32 partials the wrapper sums):
+    within `grad_mismatch` of the plain version, the same bits twice,
+    causal with offsets, kv_valid, softcap."""
+    plan_of = flash_bwd.bwd_work_plan
+
+    def forced(*args, **kw):
+        plan = plan_of(*args, **kw)
+        return plan._replace(slices=slices,
+                             items=plan.items // plan.slices * slices)
+
+    monkeypatch.setattr(flash_bwd, "bwd_work_plan", forced)
+    q, dout = (torch.randn((2, 8, 700, 128), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in "qo")
+    k, v = (torch.randn((2, 2, 650, 128), generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in "kv")
+    kw = dict(scale=128 ** -0.5, causal=True, q_offset=40, kv_offset=3,
+              kv_valid=600, softcap=30.0)
+    out, lse = _flash_fwd_impl(q, k, v, **kw)
+    staged = flash_bwd._Staged(q, k, v, out, lse, dout, **kw)
+    assert staged.pair_plan["slices"] == slices
+    bufs = staged.pair_buffers()
+    assert bufs["dk"].dtype == (torch.bfloat16 if slices == 1
+                                else torch.float32)
+    assert bufs["dk"].dim() == (4 if slices == 1 else 5)
+    monkeypatch.setattr(flash_bwd, "_FORCE_TWO_KERNEL", True)
+    got = flash_bwd.flash_backward(q, k, v, out, lse, dout, **kw)
+    again = flash_bwd.flash_backward(q, k, v, out, lse, dout, **kw)
+    want = flash_bwd.flash_backward_plain(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g.view(torch.int16), a.view(torch.int16))
+        assert grad_mismatch(g, w)[1] <= 1
+
+
+def test_fp32_and_unaligned_pair_take_the_fma_bodies(gen, monkeypatch):
+    """fp32, and bf16 whose rows are not 16-byte aligned, run the pair's
+    FMA bodies, within `grad_mismatch` of the plain version."""
+    monkeypatch.setattr(flash_bwd, "_FORCE_TWO_KERNEL", True)
+    x = torch.randn((4, 90, 64), generator=gen, device="cuda")
+    kv = torch.randn((2, 90, 64), generator=gen, device="cuda")
+    odd = torch.randn((4, 90, 65), generator=gen, device="cuda").to(
+        torch.bfloat16)[..., 1:]
+    for q, k, dout in ((x, kv, x), (odd, odd[:2], odd)):
+        kw = dict(scale=0.125, causal=True)
+        out, lse = _flash_fwd_impl(q, k, k, **kw)
+        assert flash_bwd.bwd_launch_plan(q, k, k, out, lse, dout,
+                                         causal=True)["pair"] == dict(
+            body="fma", slices=1)
+        got = flash_bwd.flash_backward(q, k, k, out, lse, dout, **kw)
+        want = flash_bwd.flash_backward_plain(q, k, k, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert grad_mismatch(g, w)[1] <= 1
+
+
+def test_wgmma_pair_refuses_what_it_cannot_take(gen, monkeypatch):
+    """Each pair entry refuses a call its named body cannot take: f32
+    named "wgmma" raises at the dQ kernel, nothing launches and nothing
+    falls back; dK/dV slices that do not divide the GQA group raise
+    too."""
+    monkeypatch.setattr(flash_bwd, "_FORCE_TWO_KERNEL", True)
+    monkeypatch.setattr(flash_bwd, "flash_bwd_body", lambda *a: "wgmma")
+    monkeypatch.setattr(flash_bwd, "bwd_work_plan",
+                        lambda *a, **k: flash_bwd.WorkPlan(1, 1, 1, 1, 1.0))
+    q = torch.randn((2, 128, 64), generator=gen, device="cuda")
+    out, lse = _flash_fwd_impl(q, q, q, scale=0.125)
+    before = launch_counts()
+    with pytest.raises(KernelLaunchError):
+        flash_bwd.flash_backward(q, q, q, out, lse, q, scale=0.125)
+    assert launch_counts() == before
+    monkeypatch.undo()
+    b16 = q.to(torch.bfloat16)
+    out, lse = _flash_fwd_impl(b16, b16, b16, scale=0.125)
+    staged = flash_bwd._Staged(b16[None], b16[None], b16[None], out[None],
+                               lse[None], b16[None], scale=0.125,
+                               causal=False, softcap=None, q_offset=0,
+                               kv_offset=0, kv_valid=128)
+    assert staged.pair_plan["body"] == "wgmma"
+    staged.pair_plan["slices"] = 2  # a group of one q head
+    with pytest.raises(KernelLaunchError):
+        staged.pair(flash_bwd.DKV, **{k: t for k, t in
+                                      staged.pair_buffers().items()
+                                      if k != "dq"})
+
+
 def test_bwd_impl_xla_runs_the_plain_backward_on_the_card(gen):
     """``bwd_impl="xla"`` selects the plain blocked recompute on any
     device: on the card it launches no backward kernel, and its gradients
