@@ -10,6 +10,10 @@ Usage:
   python -m attention_tpu_torch.cli run <testcase.bin> [--backend flash]
       [--dtype bf16|f32|f64] [--repeats 1] [--no-verify] [--stats]
       [--device cuda|cpu]
+  python -m torch.distributed.run --standalone --nproc-per-node R
+      -m attention_tpu_torch.cli run <testcase.bin> --backend kv-sharded
+      # the distributed backends (kv-sharded, q-sharded, auto, ring,
+      # ulysses) on a gloo world of R ranks; only rank 0 prints
   python -m attention_tpu_torch.cli generate <out.bin> --m 1024 --n 1024
       --dk 128 --dv 128 [--seed 0]
   python -m attention_tpu_torch.cli suite <out_dir>   # simple..scale5
@@ -23,18 +27,21 @@ Every command that computes runs on the card (``--device cuda``, the
 default) and fails when there is none; ``--device cpu`` runs the
 kernels' plain PyTorch versions on the CPU.  The elapsed time of
 ``run`` is host clock around calls that end in a device sync, minimum
-over ``--repeats`` after one untimed warm-up call.
+over ``--repeats`` after one untimed warm-up call; under
+``torch.distributed.run`` a barrier brackets each timed call.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32,
            "f64": torch.float64}
@@ -46,12 +53,7 @@ def _sync(dev: torch.device) -> None:
 
 
 def _cmd_run(args: argparse.Namespace) -> int:
-    from attention_tpu_torch.api import attention
-    from attention_tpu_torch.core.testcase import (
-        read_testcase,
-        verify,
-        verify_scan,
-    )
+    from attention_tpu_torch.core.testcase import read_testcase
     from attention_tpu_torch.device import resolve_device
 
     try:
@@ -70,6 +72,28 @@ def _cmd_run(args: argparse.Namespace) -> int:
     else:
         q, k, v = (torch.as_tensor(x).to(dev, _DTYPES[args.dtype])
                    for x in (case.q, case.k, case.v))
+    # under torch.distributed.run every rank runs the backend on its
+    # shard; gloo, which also runs several ranks on one card
+    joined = (int(os.environ.get("WORLD_SIZE", "1")) > 1
+              and not dist.is_initialized())
+    if joined:
+        dist.init_process_group("gloo")
+    try:
+        return _run_and_verify(args, case, q, k, v, dev)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _run_and_verify(args, case, q, k, v, dev) -> int:
+    from attention_tpu_torch.api import attention
+    from attention_tpu_torch.core.testcase import verify, verify_scan
+
+    world = dist.is_initialized()
+
+    def barrier():
+        if world:
+            dist.barrier()
 
     def call():
         out = attention(q, k, v, backend=args.backend, device=dev)
@@ -81,9 +105,13 @@ def _cmd_run(args: argparse.Namespace) -> int:
     result = call()
     times = []
     for _ in range(max(1, args.repeats)):
+        barrier()
         t0 = time.perf_counter()
         call()
+        barrier()
         times.append(time.perf_counter() - t0)
+    if world and dist.get_rank() != 0:
+        return 0  # rank 0 prints, as the reference's does
     best_us = min(times) * 1e6
     if torch.is_tensor(result):
         result = result.float().cpu().numpy()

@@ -1,0 +1,111 @@
+"""Ulysses sequence parallelism, the forward: the port of
+`attention_tpu.parallel.ulysses`.
+
+One all_to_all turns sequence-sharding into head-sharding, each rank
+runs whole-sequence attention for its subset of heads (no softmax
+collective at all), and a second all_to_all turns it back: two
+collectives a call, cheaper than a ring when the head count divides the
+mesh and sequences are moderately long.
+
+GQA: when the mesh size does not divide the KV head count, KV heads are
+repeated just enough to make the reshard uniform, normally up to the
+mesh size (32 q / 4 kv heads on 8 ranks repeat 2x), falling back to the
+full Q head count only for ratios that divide neither way.
+
+Every rank passes the full tensors, takes its block of the sequence (and
+of the batch, over ``batch_axis``) at entry and returns the full output
+(all_gathers of the blocks).  The inner call is
+`ops.flash_vjp.flash_attention_diff`; the path is forward-only until the
+all_to_all is differentiable (the training path).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from attention_tpu_torch.ops.flash_vjp import flash_attention_diff
+from attention_tpu_torch.parallel.kv_sharded import _unported
+from attention_tpu_torch.parallel.mesh import Mesh, _maybe_axis, \
+    default_mesh
+
+
+def ulysses_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    mesh: Mesh | None = None,
+    axis_name: str = "sp",
+    batch_axis: str | None = "dp",
+    scale: float | None = None,
+    block_sizes=None,
+    causal: bool = False,
+    softcap: float | None = None,
+    window: int | None = None,
+    sinks: int | None = None,
+    q_segment_ids=None,
+    kv_segment_ids=None,
+    max_mode: str = "bound",
+) -> torch.Tensor:
+    """All-to-all sequence-parallel attention for multi-head inputs.
+
+    Shapes: (h, m, d) or (b, h, m, d); the sequence axes are cut over
+    ``axis_name`` (4-D batches also over ``batch_axis`` where the mesh
+    has it and it divides).  The Q head count and both sequence lengths
+    must be multiples of the mesh size."""
+    _unported(q=q, k=k, v=v, block_sizes=block_sizes, window=window,
+              sinks=sinks, q_segment_ids=q_segment_ids,
+              kv_segment_ids=kv_segment_ids, max_mode=max_mode)
+    if mesh is None:
+        mesh = default_mesh(axis_name)
+    n_dev, idx = mesh.shape[axis_name], mesh.index(axis_name)
+    if q.dim() not in (3, 4):
+        raise ValueError(
+            f"ulysses needs (h, m, d) or (b, h, m, d); got {tuple(q.shape)}")
+    hq, hkv = q.shape[-3], k.shape[-3]
+    m, n = q.shape[-2], k.shape[-2]
+    if hq % n_dev != 0:
+        raise ValueError(f"q heads {hq} not divisible by mesh size {n_dev}")
+    if m % n_dev != 0 or n % n_dev != 0:
+        raise ValueError(f"sequence lengths {m}/{n} not divisible by mesh "
+                         f"size {n_dev}")
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+
+    # GQA survives the all_to_all untouched iff the mesh size divides the
+    # KV head count.  Otherwise repeat KV heads up to the mesh size: rank
+    # r then holds q heads [r·hq/R, (r+1)·hq/R) and expanded kv head r,
+    # whose original head r // (R/hkv) is the one those q heads read.
+    # Ratios that divide neither way fall back to the full repeat.
+    if hkv != hq and hkv % n_dev != 0:
+        if hq % hkv != 0:
+            raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+        expand = n_dev // hkv if n_dev % hkv == 0 else hq // hkv
+        k = k.repeat_interleave(expand, dim=-3)
+        v = v.repeat_interleave(expand, dim=-3)
+
+    head_axis, seq_axis = q.dim() - 3, q.dim() - 2
+    b_axis = _maybe_axis(mesh, batch_axis, q.shape[0]) if q.dim() == 4 \
+        else None
+
+    def block(x, rows):
+        x = x[..., idx * rows:(idx + 1) * rows, :]
+        if b_axis is not None:
+            per = x.shape[0] // mesh.shape[b_axis]
+            j = mesh.index(b_axis)
+            x = x[j * per:(j + 1) * per]
+        return x
+
+    # sequence-sharded -> head-sharded: split heads, gather the sequence
+    qh, kh, vh = (mesh.all_to_all(block(x, rows), axis_name, head_axis,
+                                  seq_axis)
+                  for x, rows in ((q, m // n_dev), (k, n // n_dev),
+                                  (v, n // n_dev)))
+    out = flash_attention_diff(qh, kh, vh, scale=scale, causal=causal,
+                               softcap=softcap)
+    # head-sharded -> sequence-sharded, then every rank the whole output
+    out = mesh.all_to_all(out, axis_name, seq_axis, head_axis)
+    out = mesh.all_gather(out, axis_name, dim=seq_axis)
+    if b_axis is not None:
+        out = mesh.all_gather(out, b_axis, dim=0)
+    return out

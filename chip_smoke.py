@@ -76,6 +76,28 @@ non-zero unless all of them pass:
             the served model's causal forward without and with softcap
             50 (softcap's own cost), each with its device time by
             `torch.profiler` beside the CUDA-event time.
+3b. distributed a gloo world of 4 ranks on the one card (NCCL takes one
+            rank per card), spawned with `torch.multiprocessing.spawn`; a
+            failed rank fails the phase.  Rank 0 prints the world, the
+            card's name and power limit and each collective's route (the
+            device tensor to gloo, or a host copy).  (1) ``scale4`` through
+            ``cli run`` for kv-sharded, q-sharded, auto and ring in f32 and
+            bf16: ``Correct!`` on rank 0.  (2) The served model's causal
+            forward (32 q / 4 kv heads, 4096 rows, d 128, bf16, without and
+            with softcap 50) on kv-sharded, ring (contiguous and zigzag) and
+            ulysses, each against one `flash_attention` call under
+            `reference.mismatch`, the same bits on every rank.  (3) Each
+            rank's partials against `flash_attention_partials_plain`: the
+            shards of n = 5 (the last all padding, ``kv_valid`` 0: row max
+            -inf, sum 0), of ``scale4`` and of n = 8195 (the thin grid's key
+            split, the last shard partly padding), every contiguous and
+            zigzag ring step (the steps whose keys lie in the queries'
+            future must see nothing).  (4) Flash launches per call on every
+            rank: 1 kv-sharded, q-sharded, auto and ulysses, 4 ring, 12
+            zigzag.  (5) Rank 0's CUDA-event ms between barriers of each
+            backend beside the flash call alone, and the collectives' host
+            ms in one more call: four processes share the card, so these are
+            not scaling numbers.
 4. generate `TinyDecoder` at the BASELINE.md config-5 attention geometry
             (32 q / 4 kv heads, head_dim 128, dim 4096), depth 4, vocab
             32000, rope, softcap 50, bf16, random weights from a seed:
@@ -115,8 +137,10 @@ non-zero unless all of them pass:
             one step under `torch.profiler`.
 
 Launch counts are reset just before each run of a path (op path, the
-int4 entry points, each generate function, the chunk verify, each
-serving run, each training run) and read just after it.  Kernel times are CUDA-event
+int4 entry points, each distributed backend's run on each rank, each
+generate function, the chunk verify, each serving run, each training run)
+and read just after it; rank 0's distributed launches join the flash
+kernel's count.  Kernel times are CUDA-event
 medians after warm-up, over back-to-back calls of the wrapper, so a call
 whose host work outlasts its kernels is timed by its host work.  The second-to-last stdout line is the
 ``{"kernels": [...]}`` record, the last ``{"ok": true, "device":
@@ -155,6 +179,16 @@ SERVE_ENGINE = dict(step_mode="ragged", page_size=128, num_pages=512,
 # the __graft_entry__.entry() model
 SMALL_MODEL = dict(vocab=256, dim=256, depth=2, num_q_heads=8,
                    num_kv_heads=2, rope=True, softcap=50.0)
+# the distributed phase: a gloo world of ranks on the one card, and the
+# served model's causal forward they shard (heads, kv heads, rows, d)
+DIST_WORLD = 4
+DIST_FORWARD = (32, 4, 4096, 128)
+# flash kernel launches per call on each rank, by backend: ring zigzag
+# makes 3 chunk-pair calls a step (the fourth pair is skipped when the
+# schedule is built); auto takes q-sharded on scale4
+DIST_LAUNCHES = {"kv-sharded": 1, "q-sharded": 1, "auto": 1,
+                 "ring": DIST_WORLD, "ring_zigzag": 3 * DIST_WORLD,
+                 "ulysses": 1}
 # decode steps of the generate phase
 GEN_STEPS = 32
 # card against CPU on the small f32 model with int8 caches, max abs
@@ -1145,6 +1179,283 @@ def phase_op_path(ops, kernels) -> None:
              shape=[h, hkv, s, d], causal=True, **plan, **rec)
 
 
+def held_partials(part, plain, dtype):
+    """The flash kernel's partials against the plain version's: the
+    same rows see no key (row max -inf, sum 0 and output 0 on both
+    sides), the row stats elsewhere within relative 1e-5 (the same
+    arithmetic in another order), the normalised outputs in ``dtype``
+    under `reference.mismatch`.  Returns (max abs err, share of the
+    limit, rows that saw no key)."""
+    torch.cuda.synchronize()
+    live = plain[1].isfinite()
+    dead = ~live
+    if not torch.equal(part[1].isfinite(), live):
+        raise AssertionError("partials' empty rows differ")
+    if not ((part[2][dead] == 0).all() and (part[0][dead] == 0).all()
+            and (plain[2][dead] == 0).all()):
+        raise AssertionError("an empty row's partials are not 0")
+    if live.any():
+        rel = max(((a - b)[live].abs().max() / b[live].abs().max()).item()
+                  for a, b in zip(part[1:], plain[1:]))
+        if not rel <= 1e-5:
+            raise AssertionError(f"partials' row stats off by {rel}")
+    norm = [(o / l_.clamp(min=1e-30)[..., None]).to(dtype)
+            for o, _, l_ in (part, plain)]
+    err, ratio = held(*norm)
+    return err, ratio, int(dead.sum())
+
+
+def between_barriers_ms(fn, *, reps: int = 5) -> float:
+    """Median CUDA-event ms of ``fn`` on this rank over ``reps`` calls,
+    each between two barriers of the world, after one warm-up call."""
+    import torch.distributed as dist
+
+    fn()
+    out = []
+    for _ in range(reps):
+        dist.barrier()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        dist.barrier()
+        out.append(start.elapsed_time(end))
+    return statistics.median(out)
+
+
+def distributed_rank(rank: int, world: int, init_file: str,
+                     out_file: str, bin_path: str) -> None:
+    """One rank of the distributed phase; rank 0 prints its lines and
+    writes its launch count and largest error to ``out_file``."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        rec = distributed_checks(rank, world, bin_path)
+        if rank == 0:
+            with open(out_file, "w") as f:
+                json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def distributed_checks(rank: int, world: int, bin_path: str) -> dict:
+    import torch.distributed as dist
+
+    from attention_tpu_torch import cli, ops
+    from attention_tpu_torch.ops.flash import (
+        flash_attention,
+        flash_attention_partials,
+        flash_attention_partials_plain,
+    )
+    from attention_tpu_torch.parallel import (
+        kv_sharded_attention,
+        ring_attention,
+        ulysses_attention,
+    )
+    from attention_tpu_torch.parallel.kv_sharded import _rows
+    from attention_tpu_torch.parallel.mesh import (
+        GLOO_CUDA_ROUTES,
+        default_mesh,
+    )
+
+    def say(**record):
+        if rank == 0:
+            emit(phase="distributed", **record)
+
+    def gathered(record: dict) -> list:
+        out = [None] * world
+        dist.all_gather_object(out, record)
+        return out
+
+    mesh = default_mesh("kv")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    say(world=world, card=smi, backend=dist.get_backend(),
+        collective_routes={name: mesh.route(name, torch.device("cuda"))
+                           for name in GLOO_CUDA_ROUTES})
+    launches, max_err = 0, 0.0
+
+    # 1. the .bin contract on scale4 through the CLI's run path
+    for backend in ("kv-sharded", "q-sharded", "auto", "ring"):
+        for dtype in ("f32", "bf16"):
+            ops.reset_launch_counts()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["run", bin_path, "--backend", backend,
+                               "--dtype", dtype, "--repeats", "3",
+                               "--stats"])
+            n = ops.launch_counts()["flash_fwd"]
+            lines = buf.getvalue().splitlines()
+            say(case="scale4_cli", backend=backend, dtype=dtype, cli=lines,
+                flash_launches=n)
+            # one untimed call and three timed ones
+            if n != 4 * DIST_LAUNCHES[backend]:
+                raise AssertionError(f"rank {rank}: {backend} launched "
+                                     f"{n} flash kernels")
+            if rank == 0 and (rc != 0 or lines[0] != "Correct!"):
+                raise AssertionError(f"cli run --backend {backend} "
+                                     f"--dtype {dtype}: {lines}")
+            launches += n
+
+    # 2. the served model's causal forward, against one flash call
+    h, hkv, s, d = DIST_FORWARD
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = (torch.randn((1, heads, s, d), generator=gen, device="cuda")
+               .to(torch.bfloat16) for heads in (h, hkv, hkv))
+    runs = {
+        "kv-sharded": lambda m, **kw: kv_sharded_attention(
+            q, k, v, causal=True, mesh=m, axis_name="kv", **kw),
+        "ring": lambda m, **kw: ring_attention(
+            q, k, v, causal=True, mesh=m, axis_name="kv", **kw),
+        "ring_zigzag": lambda m, **kw: ring_attention(
+            q, k, v, causal=True, schedule="zigzag", mesh=m,
+            axis_name="kv", **kw),
+        "ulysses": lambda m, **kw: ulysses_attention(
+            q, k, v, causal=True, mesh=m, axis_name="kv", **kw),
+    }
+    for softcap in (None, 50.0):
+        want = flash_attention(q, k, v, causal=True, softcap=softcap)
+        for name, run in runs.items():
+            ops.reset_launch_counts()
+            got = run(mesh, softcap=softcap)
+            torch.cuda.synchronize()
+            n = ops.launch_counts()["flash_fwd"]
+            if n != DIST_LAUNCHES[name]:
+                raise AssertionError(f"rank {rank}: {name} launched {n} "
+                                     "flash kernels")
+            launches += n
+            err, ratio = held(got, want)
+            max_err = max(max_err, err)
+            every = mesh.all_gather(got[None], "kv", dim=0)
+            same = [torch.equal(every[0], x) for x in every]
+            if not all(same):
+                raise AssertionError(f"{name}: ranks differ from rank 0: "
+                                     f"{same}")
+            say(case="served_forward", backend=name, softcap=softcap,
+                shape=[h, hkv, s, d], flash_launches=n,
+                vs_flash_max_abs_err=err, share_of_limit=ratio,
+                same_bits_on_every_rank=True)
+
+    # 3. the edge cases, each shard's partials against the plain version
+    edges = []
+
+    def hold_parts(case, qs, ks, vs, kw, dtype, empty=None):
+        part = flash_attention_partials(qs, ks, vs, **kw)
+        plain = flash_attention_partials_plain(qs, ks, vs, **kw)
+        err, ratio, dead = held_partials(part, plain, dtype)
+        rows = plain[1].numel()
+        if empty is not None and (dead == rows) != empty:
+            raise AssertionError(f"rank {rank} {case}: {dead} of {rows} "
+                                 f"rows saw no key, expected all: {empty}")
+        edges.append(dict(case=case, rank=rank, max_abs_err=err,
+                          share_of_limit=ratio, rows_seeing_no_key=dead,
+                          rows=rows, **flash_plan(qs, ks, vs,
+                                                  kw.get("kv_valid"))))
+        return err
+
+    for n, dtype, m in ((5, torch.float32, 64), (5, torch.bfloat16, 64),
+                        (8192, torch.bfloat16, 8192),
+                        (8195, torch.bfloat16, 8192)):
+        qe, ke, ve = (torch.randn((rows, d), generator=gen, device="cuda")
+                      .to(dtype) for rows in (m, n, n))
+        n_local = -(-n // world)
+        lo = rank * n_local
+        valid = min(max(n - lo, 0), n_local)
+        max_err = max(max_err, hold_parts(
+            f"kv_shard_n{n}_{str(dtype)[6:]}", qe, _rows(ke, lo, n_local),
+            _rows(ve, lo, n_local), dict(kv_valid=valid, kv_offset=lo),
+            dtype, empty=valid == 0))
+        held(kv_sharded_attention(qe, ke, ve), flash_attention(qe, ke, ve))
+    # every ring step's calls; the steps whose keys all lie in the
+    # queries' future must see nothing
+    m_local = s // world
+    qb = q[:, :, rank * m_local:(rank + 1) * m_local]
+    for t in range(world):
+        shard = (rank - t) % world
+        kv = [x[:, :, shard * m_local:(shard + 1) * m_local] for x in (k, v)]
+        hold_parts(f"ring_step{t}", qb, *kv,
+                   dict(causal=True, q_offset=rank * m_local,
+                        kv_offset=shard * m_local), torch.bfloat16,
+                   empty=shard > rank)
+    chunk = s // (2 * world)
+
+    def chunk_of(x, c):
+        return x[:, :, c * chunk:(c + 1) * chunk]
+
+    a, b = rank, 2 * world - 1 - rank
+    for t in range(world):
+        e = (rank - t) % world
+        for qc, kc in ((b, e), (a, e), (b, 2 * world - 1 - e)):
+            hold_parts(f"zigzag_step{t}_q{qc}_kv{kc}", chunk_of(q, qc),
+                       chunk_of(k, kc), chunk_of(v, kc),
+                       dict(causal=True, q_offset=qc * chunk,
+                            kv_offset=kc * chunk), torch.bfloat16,
+                       empty=kc > qc)
+    all_edges = gathered(edges)
+    for rank_edges in all_edges:
+        for rec in rank_edges:
+            say(**rec)
+    max_err = max(max_err, *(rec["max_abs_err"] for rank_edges in all_edges
+                             for rec in rank_edges))
+
+    # 4. times on rank 0 between barriers: each backend beside the one
+    # flash call on the same inputs, and the collectives' share of a
+    # call (host seconds inside them, the card synchronised around each)
+    def flash_alone():
+        if rank == 0:
+            flash_attention(q, k, v, causal=True)
+
+    single_ms = between_barriers_ms(flash_alone)
+    for name, run in runs.items():
+        ms = between_barriers_ms(lambda: run(mesh))
+        mesh.timings = {}
+        dist.barrier()
+        t0 = time.perf_counter()
+        run(mesh)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        coll = {name: sec * 1e3 for name, sec in mesh.timings.items()}
+        mesh.timings = None
+        say(case="served_forward_times", backend=name, card=smi, ms=ms,
+            single_flash_ms=single_ms, instrumented_call_ms=wall,
+            collectives_ms=coll, collectives_share=sum(coll.values()) / wall,
+            ranks_on_one_card=world)
+    return dict(launches=launches, max_abs_err=max_err)
+
+
+def phase_distributed(kernels) -> None:
+    """Spawn the gloo world on the card; a failed rank fails the phase."""
+    import torch.multiprocessing as mp
+
+    from attention_tpu_torch.ops._native import BUILD_DIR
+
+    init = os.path.join(BUILD_DIR, f"distributed-{os.getpid()}.init")
+    out = os.path.join(BUILD_DIR, f"distributed-{os.getpid()}.json")
+    for stale in (init, out):
+        if os.path.exists(stale):
+            os.remove(stale)
+    t0 = time.perf_counter()
+    mp.spawn(distributed_rank, nprocs=DIST_WORLD,
+             args=(DIST_WORLD, init, out,
+                   os.path.join(BUILD_DIR, "scale4.bin")))
+    with open(out) as f:
+        rec = json.load(f)
+    kernels["flash_fwd"]["launches"] += rec["launches"]
+    kernels["flash_fwd"]["max_abs_err"] = max(
+        kernels["flash_fwd"]["max_abs_err"], rec["max_abs_err"])
+    emit(phase="distributed", seconds=time.perf_counter() - t0,
+         rank0_flash_launches=rec["launches"])
+
+
 @contextlib.contextmanager
 def watched(model):
     """CUDA events around every forward call of ``model``, and a count,
@@ -2013,6 +2324,7 @@ def main() -> int:
     del k, v
     phase_backward(kernels)
     phase_op_path(ops, kernels)
+    phase_distributed(kernels)
     phase_generate(ops, kernels, model)
     phase_serving(ops, kernels, model)
     phase_profile(model)

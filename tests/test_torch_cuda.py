@@ -1160,3 +1160,72 @@ def test_tiny_train_step_matches_cpu():
     assert abs(losses[0] - losses[1]) <= 1e-5
     for k, g in grads[0].items():
         assert grad_mismatch(grads[1][k], g)[1] <= 1, k
+
+
+# --------------------------------------- the distributed backends (gloo)
+
+GLOO_CASES = {
+    # name: (dtype, keywords, flash launches a call on each rank)
+    "kv_bf16_causal": (torch.bfloat16, dict(causal=True), 1),
+    "kv_f32": (torch.float32, {}, 1),
+    "ring_bf16_causal": (torch.bfloat16, dict(causal=True), 2),
+    "ring_zigzag_bf16": (torch.bfloat16,
+                         dict(causal=True, schedule="zigzag"), 6),
+}
+
+
+def _gloo_card_rank(rank, world, init_file, out_dir):
+    """One rank of a gloo world on cuda:0: each case against one
+    `flash_attention` call on the same inputs, with its launch count."""
+    import torch.distributed as dist
+
+    from attention_tpu_torch.parallel import kv_sharded_attention, \
+        ring_attention
+
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        out = {}
+        for name, (dtype, kw, _) in GLOO_CASES.items():
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            q, k, v = (torch.randn((1, heads, 1000, 128), generator=gen,
+                                   device="cuda").to(dtype)
+                       for heads in (8, 2, 2))
+            fn = kv_sharded_attention if name.startswith("kv") \
+                else ring_attention
+            before = launch_counts()["flash_fwd"]
+            got = fn(q, k, v, **kw)
+            launches = launch_counts()["flash_fwd"] - before
+            want = flash_attention(q, k, v, causal=kw.get("causal", False))
+            out[name] = dict(out=got.cpu(), launches=launches,
+                             share=_share_of_limit(got, want))
+        torch.save(out, f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def gloo_card_world(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import torch.multiprocessing as mp
+
+    from attention_tpu_torch.ops import build
+
+    build(["flash_fwd"])
+    out = tmp_path_factory.mktemp("gloo_card")
+    mp.spawn(_gloo_card_rank, nprocs=2,
+             args=(2, str(out / "init"), str(out)))
+    return [torch.load(out / f"rank{r}.pt") for r in range(2)]
+
+
+@pytest.mark.parametrize("name", list(GLOO_CASES))
+def test_gloo_world_on_one_card_matches_flash(gloo_card_world, name):
+    """kv-sharded and ring on a 2-rank gloo world on cuda:0: within
+    `mismatch` of one flash call, the same bits on both ranks, the
+    kernel launched as many times a call as the backend's table says
+    (1 partials; R; 3R for zigzag)."""
+    ranks = [r[name] for r in gloo_card_world]
+    assert all(r["launches"] == GLOO_CASES[name][2] for r in ranks)
+    assert all(r["share"] <= 1 for r in ranks)
+    assert torch.equal(ranks[0]["out"], ranks[1]["out"])

@@ -262,6 +262,13 @@ def test_port_imports_no_jax():
         "import attention_tpu_torch.measure_decode\n"
         "import attention_tpu_torch.measure_flash\n"
         "import attention_tpu_torch.measure_ragged\n"
+        "import attention_tpu_torch.measure_bwd\n"
+        "import attention_tpu_torch.measure_quant\n"
+        "import attention_tpu_torch.parallel\n"
+        "import attention_tpu_torch.parallel.mesh\n"
+        "import attention_tpu_torch.parallel.kv_sharded\n"
+        "import attention_tpu_torch.parallel.ring\n"
+        "import attention_tpu_torch.parallel.ulysses\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'attention_tpu')\n"
         "       and sys.modules[m] is not None]\n"
