@@ -79,7 +79,7 @@ constexpr size_t smem_bytes() {
 __device__ __forceinline__ TilePlan item_plan(const sm90::Args& a,
                                               const FlashSched::Work& k) {
   return tile_plan(k.m0, a.m, a.kv_valid, a.causal != 0, a.q_offset,
-                   a.kv_offset, 0, 1 << 30);
+                   a.kv_offset, 0, 0, 0, 1 << 30);
 }
 
 // d += A·B, A (64 x 16) from registers, B (16 x N) MN-major in shared

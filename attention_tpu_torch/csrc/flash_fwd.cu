@@ -12,6 +12,9 @@
 // j at kv_offset + j, and row i sees the keys at or before it (cached
 // prefill passes q_offset = the cache's length, kv_valid = its new length);
 // softcap maps the scaled scores through cap·tanh(s/cap) before masking.
+// A sliding window (causal only, the TPU kernel's window/sinks) keeps only
+// the last `window` positions at or before a row's, plus the keys at
+// positions below `sinks` (StreamingLLM's attention sinks).
 //
 // What bounds it on the H100: at the testcase and serving shapes it does
 // 2·m·n·(dk + dv) operations on (m + n)·(dk + dv) values, far above the ~295
@@ -22,7 +25,10 @@
 // query rows, walks the key/value rows a tile at a time (the loop that
 // replaces the TPU grid's sequential third axis), keeps the running max and
 // sum in registers and writes each output row once; under causal masking it
-// stops at the block's last row, halving the work.  Two bodies, named by
+// stops at the block's last row, halving the work, and under a window it
+// starts at the block's band after the sink tiles, so the work scales with
+// the window (`atk::TileWalk` in the FMA body, `tile_plan` in the wgmma
+// one).  Two bodies, named by
 // the caller (`ops.flash.flash_body`) and refused here where they do not
 // fit: "wgmma" for bf16 at head dims 64/128 with 16-byte aligned bases and
 // strides (flash_fwd_sm90.cuh: wgmma products on TMA-fed 128-row tiles,
@@ -54,6 +60,7 @@ struct FlashArgs {
   long long sqb, sqh, sqm, skb, skh, skn, svb, svh, svn, sob, soh, som;
   float qscale, cap2;
   int causal, q_offset, kv_offset, kv_valid;
+  int window, sinks;  // the band, causal only (window 0: none)
 };
 
 template <typename T>
@@ -66,7 +73,7 @@ struct FlashProblem : atk::ProblemBase {
   float* mx;
   float* sm;
   long long sqm, skn, svn, som;
-  int m0, m, n_end, kv_valid, q_offset, kv_offset;
+  int m0, m, n_end, kv_valid, q_offset, kv_offset, window, sinks;
   bool causal;
 
   __device__ const T* q_row(int r) const {
@@ -92,9 +99,14 @@ struct FlashProblem : atk::ProblemBase {
   }
   __device__ const T* k_row(int c) const { return k + c * skn; }
   __device__ const T* v_row(int c) const { return v + c * svn; }
+  // exact per element: the band's keys are those at positions p - window
+  // + 1 .. p of the row at position p, plus the positions below sinks
   __device__ bool keep(int r, int c) const {
+    const int p = m0 + r + q_offset;
+    const int kp = c + kv_offset;
     return c < kv_valid &&
-           (!causal || c + kv_offset <= m0 + r + q_offset);
+           (!causal || (kp <= p && (window == 0 || kp > p - window ||
+                                    kp < sinks)));
   }
 };
 
@@ -123,10 +135,17 @@ __device__ FlashProblem<T> flash_problem(const FlashArgs& a) {
   pb.q_offset = a.q_offset;
   pb.kv_offset = a.kv_offset;
   pb.causal = a.causal != 0;
-  // causal: no key past the block's last row
+  pb.window = pb.causal ? a.window : 0;
+  pb.sinks = a.sinks;
+  // causal: no key past the block's last row; with a band, the walk
+  // starts at the block's first row's band after the sink tiles
   pb.n_end = pb.causal ? max(0, min(pb.kv_valid, pb.m0 + BM + a.q_offset -
                                                      a.kv_offset))
                        : pb.kv_valid;
+  if (pb.window > 0) {
+    pb.kv_begin = max(0, pb.m0 + a.q_offset - a.kv_offset - a.window + 1);
+    pb.sink_end = max(0, a.sinks - a.kv_offset);
+  }
   return pb;
 }
 
@@ -245,6 +264,8 @@ cudaError_t launch_wgmma(const FlashArgs& a, int B, int splits,
   s.q_offset = a.q_offset;
   s.kv_offset = a.kv_offset;
   s.kv_valid = a.kv_valid < 0 ? 0 : a.kv_valid > a.n ? a.n : a.kv_valid;
+  s.window = a.window;
+  s.sinks = a.sinks;
   s.splits = splits;
   s.split_tiles = split_tiles;
   return a.cap2 > 0.f ? launch_wgmma_cap<true>(tq, tk, tv, s, a.dk, B, st)
@@ -259,6 +280,10 @@ cudaError_t launch_wgmma(const FlashArgs& a, int B, int splits,
 // kv_valid is cut to n.  With acc non-null the kernel writes partials
 // instead of o: acc (fp32, o's strides), row_max and row_sum ((B, H, m)
 // fp32, contiguous); a row that sees no key gets max -inf and sum 0.
+// window > 0 (causal only) keeps, of the keys at or before a row's
+// position p, those after p - window and those at positions below sinks
+// (window 0: no band, sinks 0: none); the bodies walk only the tiles the
+// band and the sinks hold.
 // body: 0 = "fma", 1 = "wgmma" (the caller's `flash_body`); a body that
 // cannot take the call is refused, never replaced.  The wgmma body cuts
 // each row block's key tiles into splits of split_tiles tiles (splits 1:
@@ -272,18 +297,20 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          long long svn, long long sob, long long soh,
                          long long som, float scale, float softcap,
                          int causal, int q_offset, int kv_offset,
-                         int kv_valid, float* acc, float* row_max,
+                         int kv_valid, int window, int sinks, float* acc,
+                         float* row_max,
                          float* row_sum, int body, int splits,
                          int split_tiles, float* part, void* stream) {
   if (dk < 1 || dv < 1 || dk > atk::MAX_HEAD_DIM || dv > atk::MAX_HEAD_DIM ||
-      H % Hkv != 0 || m < 1 || n < 1 || splits < 1)
+      H % Hkv != 0 || m < 1 || n < 1 || splits < 1 || window < 0 ||
+      sinks < 0 || (window > 0 && !causal) || (sinks > 0 && window == 0))
     return (int)cudaErrorInvalidValue;
   const FlashArgs a{q,   k,   v,   o,   acc, row_max, row_sum, H,
                     Hkv, m,   n,   dk,  dv,  sqb,     sqh,     sqm,
                     skb, skh, skn, svb, svh, svn,     sob,     soh,
                     som, scale * atk::LOG2E,
                     softcap > 0.f ? softcap * atk::LOG2E : 0.f, causal,
-                    q_offset, kv_offset, kv_valid};
+                    q_offset, kv_offset, kv_valid, window, sinks};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (body == 1) {
     if (dtype != 1 || !wgmma_ok(a) || split_tiles < 1 ||

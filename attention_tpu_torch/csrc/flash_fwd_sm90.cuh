@@ -36,20 +36,29 @@
 //   128-wide head is two boxes a tile.  TMA fills rows past m and n with
 //   zeros; keys in [kv_valid, n) are masked in the edge tile.
 // - Masks only where a tile needs them.  Each CTA computes from (m0,
-//   q_offset, kv_offset, kv_valid, causal) its tile range and the first
-//   tile that can hold a masked element (`tile_plan`, mirrored by
-//   `ops.flash.tile_plan`); the tiles before it skip the per-element test.
-//   Softcap on and off are two instances, so no per-element branch.
+//   q_offset, kv_offset, kv_valid, causal, window, sinks) the tiles it
+//   visits and the interval of them that every row keeps whole
+//   (`tile_plan`, mirrored by `ops.flash.tile_plan`); only the tiles
+//   outside it (the diagonal, the band's lower edge, a sink tile) run the
+//   per-element test.  Softcap on and off are two instances, so no
+//   per-element branch.
+// - A band shrinks the walk, not only the mask.  Under a sliding window a
+//   block visits its sink tiles and then the band's tiles only, as the TPU
+//   kernel's banded grid does (attention_tpu/ops/flash.py:381-399, where a
+//   full-width grid with skip guards made a 1024-key window slower than
+//   full causal attention): the work scales with the window.
 // - Heaviest first, on a persistent grid.  At most one CTA an SM walks the
 //   work items (row block, head, split) a round at a time; under causal
-//   masking the row blocks with the most tiles come first, and the rounds
+//   masking the row blocks with the most tiles come first (a block's tile
+//   count does not fall as its rows move down, with or without a band, up
+//   to the last block's edge), and the rounds
 //   are dealt in a snake order so that every CTA sums about the same work
 //   and the tail is made of short blocks.  The producer loads the next
 //   item's Q and tiles while the consumers finish the current one, so a
 //   short block's start-up latency hides behind the last one's epilogue.
 // - A key split for thin grids.  Where B·H·⌈m/128⌉ leaves SMs idle
-//   (`ops.flash.flash_split_plan`), each block's tiles are cut into
-//   splits of split_tiles tiles; each split writes fp32 partials (output,
+//   (`ops.flash.flash_split_plan`), each block's visited tiles are cut
+//   into splits of split_tiles tiles; each split writes fp32 partials (output,
 //   row max in the log2 domain, row sum) into scratch the wrapper
 //   allocates, and `flash_merge` merges them in split order, the two-phase
 //   max then sum.  No atomics: a second call gives the same bits.
@@ -82,35 +91,79 @@ struct Args {
   long long sob, soh, som;  // element strides (batch, head, row) of o/acc
   float qscale, cap2;       // scale·log2 e and softcap·log2 e (0: none)
   int causal, q_offset, kv_offset, kv_valid;  // kv_valid cut to n
+  // the band (causal only): a row at position p keeps the keys at
+  // positions p - window + 1 .. p and those below `sinks`; window 0: none
+  int window, sinks;
   int splits, split_tiles;
 };
 
-// The tiles [begin, end) that a CTA of rows [m0, m0 + BM) visits in its
-// split, and the first tile that can hold a masked element: past it a
-// key may lie at or beyond kv_valid or, under causal masking, after the
-// block's first row.  Tiles below `mask` are all kept for every row.
+// The key tiles a CTA of one row block visits, and where it masks.  The
+// block visits the sink tiles [0, sink) first, then the band's tiles from
+// `base` on: the i-th visited tile is `tile(i)`, and its split takes the
+// visits [begin, end).  A tile holding both a sink and the band's start
+// is visited once, as a sink tile.  Without a band, sink and base are 0
+// and the i-th visit is tile i.  Tiles in [mask_lo, mask) are kept whole
+// by every row of the block and skip the per-element test: below mask_lo
+// a key may lie before some row's band (sink tiles the band does not
+// cover included), from `mask` on past kv_valid or after some row.
 struct TilePlan {
-  int begin, end, mask;
+  int begin, end, mask, sink, base, mask_lo;
+  __device__ int tile(int i) const { return i < sink ? i : base + i - sink; }
 };
 
+// The plan of a block from its key columns: every kept key lies below
+// n_end, tiles below `mask` hold no key past a row's end, the block's band
+// starts at column `band` (its first row's) and every row's band has
+// started by column `full` (its last row's); columns below sink_end are
+// the pinned sinks.  The visited tiles are exactly those holding a kept
+// key: the union of the rows' bands is the one interval [band, n_end).
+__device__ __forceinline__ TilePlan plan_tiles(int n_end, int mask, int band,
+                                               int full, int sink_end,
+                                               int split, int split_tiles) {
+  const int end = (n_end + BN - 1) / BN;
+  TilePlan p;
+  p.sink = (min(sink_end, n_end) + BN - 1) / BN;
+  p.base = band < n_end ? max(band / BN, p.sink) : end;
+  const int count = p.sink + end - p.base;
+  p.begin = min(split * split_tiles, count);
+  p.end = min(p.begin + split_tiles, count);
+  p.mask = mask;
+  p.mask_lo = (full + BN - 1) / BN;
+  return p;
+}
+
+// The plan of the flash forward's CTA of rows [m0, m0 + BM) in its split
+// of split_tiles visits (mirrored by `ops.flash.tile_plan`).
 __device__ __forceinline__ TilePlan tile_plan(int m0, int m, int kv_valid,
                                               bool causal, int q_offset,
-                                              int kv_offset, int split,
+                                              int kv_offset, int window,
+                                              int sinks, int split,
                                               int split_tiles) {
   int n_end = kv_valid;
   int mask = kv_valid / BN;
+  int band = 0, full = 0, sink_end = 0;
   if (causal) {
+    const int d = q_offset - kv_offset;    // a row's key column, less its row
     const int last = min(m0 + BM, m) - 1;  // the block's last real row
-    n_end = max(0, min(n_end, last + q_offset - kv_offset + 1));
-    mask = min(mask, max(0, floor_div(m0 + q_offset - kv_offset + 1, BN)));
+    n_end = max(0, min(n_end, last + d + 1));
+    mask = min(mask, max(0, floor_div(m0 + d + 1, BN)));
+    if (window > 0) {
+      band = max(0, m0 + d - window + 1);
+      full = max(0, last + d - window + 1);
+      sink_end = max(0, sinks - kv_offset);
+    }
   }
-  const int end = (n_end + BN - 1) / BN;
-  TilePlan p;
-  p.begin = min(split * split_tiles, end);
-  p.end = min(p.begin + split_tiles, end);
-  p.mask = mask;
-  return p;
+  return plan_tiles(n_end, mask, band, full, sink_end, split, split_tiles);
 }
+
+// A row's band in key columns: it keeps the columns from lo on and those
+// below `sink` (the rows' key limits, `limits`, still apply).  Without a
+// band, lo is NO_BAND and sink 0.
+constexpr int NO_BAND = -(1 << 30);
+struct Band {
+  int lo[2];
+  int sink;
+};
 
 // Dynamic shared memory of one CTA: Q, STAGES K and V tiles, the barriers,
 // and room to align the tiles to 1024 bytes.
@@ -142,8 +195,9 @@ constexpr uint32_t BOX_BYTES = BN * 128;  // one 64-wide box of a tile
 // (`item(w).plan`), how a score is capped (`softcap`), the TMA copies of
 // an item's 128 query rows and of its key/value tile t (`load_q`,
 // `load_kv`, issued by one thread, completing on the barrier given), each
-// row's key limit (`limits`: keys at or past it are masked in the tiles
-// from `plan.mask` on) and where each row's result goes (`store`, and
+// row's key limit (`limits`: keys at or past it are masked) and band
+// (`band`), both tested in the tiles outside [plan.mask_lo, plan.mask),
+// and where each row's result goes (`store`, and
 // `store_empty` for an item that sees no key).  A row is named by its
 // place in the item's 128-row block.  `FlashSched` is the flash
 // forward's; ragged_paged.cu has another.
@@ -186,7 +240,8 @@ struct FlashSched {
     k.hk = k.h / (a.H / a.Hkv);
     k.m0 = (a.causal ? n - 1 - mi : mi) * BM;
     k.plan = tile_plan(k.m0, a.m, a.kv_valid, a.causal != 0, a.q_offset,
-                       a.kv_offset, k.split, a.split_tiles);
+                       a.kv_offset, a.window, a.sinks, k.split,
+                       a.split_tiles);
     return k;
   }
 
@@ -212,6 +267,20 @@ struct FlashSched {
       lim[i] = a.causal ? min(a.kv_valid, k.m0 + rl + 8 * i + a.q_offset -
                                               a.kv_offset + 1)
                         : a.kv_valid;
+  }
+
+  // the band of rows rl and rl + 8: a row's key column is its row plus
+  // q_offset - kv_offset, the sinks the keys at positions below `sinks`
+  __device__ Band band(const Work& k, int rl) const {
+    const bool on = a.causal && a.window > 0;
+    Band b;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      b.lo[i] = on ? k.m0 + rl + 8 * i + a.q_offset - a.kv_offset -
+                         a.window + 1
+                   : NO_BAND;
+    b.sink = on ? a.sinks - a.kv_offset : 0;
+    return b;
   }
 
   // Rows that see no key in their split: zero output rows, or row max
@@ -364,7 +433,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int i = 0; i < ntiles; ++i, ++g) {
         const int s = g % STAGES;
         const uint32_t ph = (g / STAGES) & 1;
-        const int t = k.plan.begin + i;
+        const int t = k.plan.tile(k.plan.begin + i);
         mbar_wait(k_empty(s), ph ^ 1);
         mbar_expect_tx(k_full(s), K_BYTES);
         sc.template load_kv<DK>(sk + s * K_BYTES, &tk, k_full(s), k, t);
@@ -407,6 +476,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int rl = 64 * cw + 16 * warp + lane / 4;  // rows rl, rl + 8
     int lim[2];
     sc.limits(k, rl, lim);
+    const Band band = sc.band(k, rl);
     float o[DV / 2];
     float s[BN / 2];
     uint32_t p[BN / 16][4];
@@ -453,13 +523,16 @@ __global__ void __launch_bounds__(THREADS, 1)
         if constexpr (CAP) x = Sched::softcap(x, cap2);
         s[e] = x;
       }
-      if (t >= plan.mask) {
+      if (t < plan.mask_lo || t >= plan.mask) {
         const int col = t * BN + c0;
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (col + 8 * j + (e & 1) >= lim[e >> 1]) s[4 * j + e] = -INFINITY;
+          for (int e = 0; e < 4; ++e) {
+            const int c = col + 8 * j + (e & 1);
+            if (c >= lim[e >> 1] || (c < band.lo[e >> 1] && c >= band.sink))
+              s[4 * j + e] = -INFINITY;
+          }
       }
       float mx[2] = {mrow[0], mrow[1]};
 #pragma unroll
@@ -525,7 +598,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     pin(s);
     mbar_arrive(k_empty(g % STAGES));
     if (ntiles == 1) mbar_arrive(q_empty);
-    softmax(plan.begin, corr);
+    softmax(plan.tile(plan.begin), corr);
     pack_p();
     for (int i = 1; i < ntiles; ++i) {
       const int st = (g + i) % STAGES;
@@ -545,7 +618,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       pin(s);
       mbar_arrive(k_empty(st));
       if (i == ntiles - 1) mbar_arrive(q_empty);
-      softmax(plan.begin + i, corr);
+      softmax(plan.tile(plan.begin + i), corr);
       wgmma_wait<0>();
       pin_pv();
       mbar_arrive(v_empty(pst));

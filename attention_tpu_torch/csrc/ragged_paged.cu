@@ -7,7 +7,11 @@
 // (1, Hq, T, d); slot s owns tokens [cu_q_lens[s], cu_q_lens[s+1]) and reads
 // its kv_lens[s] (post-append) cache rows through page_table row s of the
 // (P, Hkv, page, d) pools, in place.  Causal within the request: the token at
-// span offset t sees positions <= kv_len - q_len + t.  Slots at or beyond
+// span offset t sees positions <= kv_len - q_len + t, and under a sliding
+// window only the last `window` of them plus the first `sinks` (the TPU
+// kernel's per-row band, attention_tpu/ops/ragged_paged.py:255-259; here
+// each body's walk starts at its rows' band, so the pages read scale with
+// the window).  Slots at or beyond
 // distribution[1], and slots with q_len == 0, write nothing, and every token
 // no live slot owns (pad) comes out zero; a slot with kv_len < 0 (poisoned
 // by the append) writes NaN on its rows.  A -1 table entry below the length
@@ -84,7 +88,7 @@ struct RaggedProblem : atk::ProblemBase {
   const T* vp;
   const int* table; // page-table row of this slot
   int kvh, Hkv, page, dk, dv;
-  int r0, rows, q_len, kv_len, n_end;
+  int r0, rows, q_len, kv_len, n_end, window, sinks;
 
   __device__ const T* q_row(int r) const {
     const int rr = r0 + r;
@@ -107,7 +111,8 @@ struct RaggedProblem : atk::ProblemBase {
   __device__ bool keep(int r, int c) const {
     const int rr = r0 + r;
     if (rr >= rows) return false;
-    return c <= kv_len - q_len + rr % q_len;
+    const int pos = kv_len - q_len + rr % q_len;
+    return c <= pos && (window == 0 || c > pos - window || c < sinks);
   }
 };
 
@@ -124,6 +129,7 @@ struct RaggedArgs {
   long long sqh, sqt, soh, sot;  // element strides (head, token) of q, o
   float qscale, cap2;
   int smax;  // a slot of at most smax tokens is a decode slot
+  int window, sinks;  // the band (window 0: none)
 };
 
 // NJ > 0: the fp32 FMA tile loop; NJ == 0: the bf16 tensor-core loop at
@@ -157,6 +163,8 @@ __global__ void __launch_bounds__(THREADS) ragged_paged_kernel(RaggedArgs a) {
   pb.page = a.page;
   pb.dk = a.dk;
   pb.dv = a.dv;
+  pb.window = a.window;
+  pb.sinks = a.sinks;
   const int raw_len = a.kv_lens[s];
   pb.kv_len = raw_len;
   const int n_cap = a.max_pages * a.page;
@@ -179,6 +187,13 @@ __global__ void __launch_bounds__(THREADS) ragged_paged_kernel(RaggedArgs a) {
     const int t_max =
         (r0 / q_len == r_last / q_len) ? r_last % q_len : q_len - 1;
     pb.n_end = min(min(raw_len, raw_len - q_len + t_max + 1), n_cap);
+    if (a.window > 0) {
+      // the walk starts at the band of the block's earliest token, after
+      // the sink tiles
+      const int t_min = (r0 / q_len == r_last / q_len) ? r0 % q_len : 0;
+      pb.kv_begin = max(0, raw_len - q_len + t_min - a.window + 1);
+      pb.sink_end = a.sinks;
+    }
     if constexpr (NJ > 0)
       atk::attend<T, NJ>(pb, a.dk, a.dv, a.qscale, a.cap2);
     else
@@ -263,6 +278,7 @@ struct RaggedSched {
   const int* cu;
   const int* dist;
   int slots, Hkv, group, max_pages, page, box_rows, dv, smax, n_cap;
+  int window, sinks;
   float qs, c2;
 
   struct Work {
@@ -313,16 +329,22 @@ struct RaggedSched {
     k.tok0 = cu[s];
     k.q_len = cu[s + 1] - k.tok0;
     k.len = lens[s];
-    // tokens t_lo .. t_hi of the span; the last one's causal end bounds
-    // the tiles, the first one's the tiles that need no mask
+    // tokens t_lo .. t_hi of the span, at positions p_lo .. p_hi: the last
+    // one's causal end bounds the tiles, the first one's the tiles that
+    // need no causal mask; with a band the first one's band start is where
+    // the walk starts after the sink tiles, the last one's where the tiles
+    // that need no band mask start
     const int len = min(k.len, n_cap);
     const int t_lo = k.m0 / group;
     const int t_hi = (min(k.m0 + sm90::BM, k.q_len * group) - 1) / group;
-    const int n_end = max(0, min(len, k.len - k.q_len + t_hi + 1));
-    k.plan.begin = 0;
-    k.plan.end = k.len < 0 ? 0 : (n_end + BN - 1) / BN;
-    k.plan.mask = max(0, min(len / BN, sm90::floor_div(
-                                           k.len - k.q_len + t_lo + 1, BN)));
+    const int p_lo = k.len - k.q_len + t_lo;
+    const int p_hi = k.len - k.q_len + t_hi;
+    const int n_end = k.len < 0 ? 0 : max(0, min(len, p_hi + 1));
+    const int mask = max(0, min(len / BN, sm90::floor_div(p_lo + 1, BN)));
+    const bool on = window > 0;
+    k.plan = sm90::plan_tiles(n_end, mask, on ? max(0, p_lo - window + 1) : 0,
+                              on ? max(0, p_hi - window + 1) : 0,
+                              on ? sinks : 0, 0, 1 << 30);
     return k;
   }
 
@@ -357,6 +379,19 @@ struct RaggedSched {
 #pragma unroll
     for (int i = 0; i < 2; ++i)
       lim[i] = min(len, k.len - k.q_len + (k.m0 + rl + 8 * i) / group + 1);
+  }
+
+  // and, with a band, the keys from its position - window + 1 on, and the
+  // sinks
+  __device__ sm90::Band band(const Work& k, int rl) const {
+    sm90::Band b;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      b.lo[i] = window > 0 ? k.len - k.q_len + (k.m0 + rl + 8 * i) / group -
+                                 window + 1
+                           : sm90::NO_BAND;
+    b.sink = window > 0 ? sinks : 0;
+    return b;
   }
 
   __device__ __nv_bfloat16* out_row(const Work& k, int row) const {
@@ -467,6 +502,8 @@ cudaError_t launch_wgmma(const RaggedArgs& a, int slots, int T, int pages,
   sc.dv = a.dv;
   sc.smax = a.smax;
   sc.n_cap = a.max_pages * a.page;
+  sc.window = a.window;
+  sc.sinks = a.sinks;
   sc.qs = a.qscale;
   sc.c2 = a.cap2;
   return a.cap2 > 0.f
@@ -579,7 +616,10 @@ __global__ void __launch_bounds__(32 * FINISH_WARPS)
 // 2 = "wgmma" (the caller's `ragged_body`); a body that cannot take the
 // call is refused, never replaced.  grid: the wgmma body's persistent
 // grid; q_tile sizes the other bodies' grid (the longest span they cover
-// in parallel).  softcap <= 0 means none.  Returns cudaGetLastError()
+// in parallel).  softcap <= 0 means none.  window > 0 keeps, of the
+// keys at or before a token's position p, those after p - window and the
+// first `sinks` (window 0: no band, sinks 0: none); every body walks only
+// the tiles the band and the sinks hold.  Returns cudaGetLastError()
 // after the launches (or the refusal).
 extern "C" int ragged_paged_fwd(
     const void* q, const void* k_pool, const void* v_pool,
@@ -587,13 +627,14 @@ extern "C" int ragged_paged_fwd(
     const void* distribution, void* o, void* part, int dtype, int Hq,
     int Hkv, int slots, int T, int pages, int max_pages, int page, int dk,
     int dv, int q_tile, long long sqh, long long sqt, long long soh,
-    long long sot, float scale, float softcap, int body, int smax,
-    int splits, int chunk, int grid, void* stream) {
+    long long sot, float scale, float softcap, int window, int sinks,
+    int body, int smax, int splits, int chunk, int grid, void* stream) {
   if (dk < 1 || dv < 1 || dk > atk::MAX_HEAD_DIM || dv > atk::MAX_HEAD_DIM ||
       Hkv < 1 || Hq % Hkv != 0 || slots < 1 || T < 1 || pages < 1 ||
       max_pages < 1 || page < 1 || q_tile < 1 || smax < 0 ||
       smax * (Hq / Hkv) > DECODE_ROWS || (dtype != 0 && dtype != 1) ||
-      (splits > 1 && part == nullptr))
+      (splits > 1 && part == nullptr) || window < 0 || sinks < 0 ||
+      (sinks > 0 && window == 0))
     return (int)cudaErrorInvalidValue;
   const RaggedArgs a{q, k_pool, v_pool,
                      static_cast<const int*>(page_table),
@@ -602,7 +643,8 @@ extern "C" int ragged_paged_fwd(
                      static_cast<const int*>(distribution),
                      o, Hq, Hkv, max_pages, page, dk, dv, sqh, sqt, soh, sot,
                      scale * atk::LOG2E,
-                     softcap > 0.f ? softcap * atk::LOG2E : 0.f, smax};
+                     softcap > 0.f ? softcap * atk::LOG2E : 0.f, smax,
+                     window, sinks};
   const bool fits = body == 2   ? dtype == 1 && wgmma_ok(a) && grid >= 1
                     : body == 1 ? dtype == 1 && mma_ok(a)
                                 : body == 0;
@@ -627,6 +669,8 @@ extern "C" int ragged_paged_fwd(
     d.sos = sot;
     d.qscale = a.qscale;
     d.cap2 = a.cap2;
+    d.window = window;
+    d.sinks = sinks;
     d.poison = 1;
     d.no_merge = 1;
     atk::set_splits(d, slots, splits, chunk, part);

@@ -19,19 +19,29 @@ The layer dispatches on ``cache``:
   `KVCache.quantize` after a prefill): the S new rows quantized in at
   ``length``; the int8 decode kernel, in chunk mode (speculative
   verify) for S > 1;
+* `RollingKVCache` (a windowed model's ring buffer of sinks + window
+  slots): the decode kernel over the valid slots for S == 1; a prefill
+  into a fresh cache runs the flash kernel over the chunk alone;
 * `RaggedPagedStep`: the serving engine's packed step, the ragged
   kernel.
 
-Dense and int8 caches are updated in place and returned with their new
-length.  Writing past a dense cache's capacity makes that output NaN,
-loudly (an int8 cache poisons the scales it writes, to the same end).
-The JAX layer's rolling caches, window/sinks (with the int8 cache's
-sink read rotation), context parallelism (``cp_axis``) and head-sharded
-serving (``tp_axis``) are not ported.
+A windowed model (``window``, with ``attn_sinks`` StreamingLLM sinks)
+passes its band to every kernel.  With rope and sinks, one-token decode
+reads the sink keys re-rotated to their in-cache positions
+(`_sink_read_keys`; the paged cache through `paged_sink_decode`, the
+int8 one through `sink_read_rotation`); the stored keys keep their
+absolute rotations.
+
+Dense, rolling and int8 caches are updated in place and returned with
+their new length.  Writing past a dense cache's capacity makes that
+output NaN, loudly (an int8 cache poisons the scales it writes, to the
+same end).  The JAX layer's context parallelism (``cp_axis``) and
+head-sharded serving (``tp_axis``) are not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -45,12 +55,14 @@ from attention_tpu_torch.ops.paged import (
     paged_append,
     paged_append_chunk,
     paged_flash_decode,
+    paged_sink_decode,
 )
 from attention_tpu_torch.ops.quant import (
     QuantizedKV,
     flash_decode_quantized,
     flash_decode_quantized_chunk,
     quantize_kv,
+    sink_read_rows,
     update_quantized_kv,
 )
 from attention_tpu_torch.ops.ragged_paged import (
@@ -94,6 +106,46 @@ class QuantKVCache(NamedTuple):
     length: int
 
 
+class RollingKVCache(NamedTuple):
+    """Ring-buffer cache of a sliding-window model (optionally with
+    StreamingLLM sinks): its memory is bounded by sinks + window, not by
+    the sequence, however long generation runs.
+
+    Slots ``[0, sinks)`` hold the first ``sinks`` tokens for good; slots
+    ``[sinks, sinks + window)`` the last ``window`` tokens in wrapped
+    order (token t at ``sinks + (t - sinks) % window`` once past the
+    sinks).  The capacity rounds ``sinks + window`` up to 128 rows, as
+    the JAX package's does; the tail slots are never written and reads
+    mask by the valid count.  Softmax does not depend on the order of
+    the key rows, which is what makes the ring correct.  ``length``
+    counts every token seen (a Python int)."""
+
+    k: torch.Tensor  # (B, Hkv, C, dh)
+    v: torch.Tensor
+    length: int
+
+    @classmethod
+    def create(cls, batch: int, num_kv_heads: int, window: int,
+               head_dim: int, dtype: torch.dtype = torch.bfloat16,
+               device: str | torch.device = "cuda", *,
+               sinks: int = 0) -> "RollingKVCache":
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        shape = (batch, num_kv_heads, cls.capacity_for(window, sinks),
+                 head_dim)
+        return cls(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device), 0)
+
+    @property
+    def capacity(self) -> int:
+        return self.k.shape[2]
+
+    @staticmethod
+    def capacity_for(window: int, sinks: int = 0) -> int:
+        """sinks pinned slots + window ring slots, rounded up to 128."""
+        return -(-(window + sinks) // 128) * 128
+
+
 class RaggedKVCache(NamedTuple):
     """Decode cache with per-sequence valid lengths (B,) int32: one
     batch mixes prompts of different lengths.  Built from a padded
@@ -116,14 +168,50 @@ class RaggedKVCache(NamedTuple):
             lengths, dtype=torch.int32).to(cache.k.device))
 
 
+def _sink_read_keys(kc, new_total, window: int, sinks: int, theta: float):
+    """The ``sinks`` pinned key rows of ``kc`` (B, Hkv, N, dh) as one-
+    token decode reads them (StreamingLLM's positions within the cache):
+    keys are cached rotated at their absolute positions, which is exact
+    for the window's keys but lets the query-to-sink distance grow
+    without bound past ``sinks + window`` tokens.  Rotating only the
+    sink rows forward by ``delta = max(new_total - (window + sinks),
+    0)`` (``new_total`` an int or per-sequence (B,) totals; rotations
+    compose) pins each sink just before the window's start.  Returns
+    (B, Hkv, sinks, dh) in the cache's dtype."""
+    delta = torch.as_tensor(new_total, device=kc.device)
+    delta = (delta.to(torch.int64) - (window + sinks)).clamp(min=0)
+    if delta.dim():  # per-sequence (B,) totals -> (B, 1, 1) positions
+        delta = delta[:, None, None]
+    return apply_rope(kc[:, :, :sinks], delta, theta).to(kc.dtype)
+
+
+@contextlib.contextmanager
+def _reading(rows):
+    """Each (tensor, rows) pair's rows written over the tensor's first
+    rows (axis 2) for the duration, the old rows back after: the sink
+    read copy of a cache in place, where a copy would move the whole
+    capacity every step.  Stream-ordered on the card."""
+    saved = [(t, t[:, :, :r.shape[2]].clone()) for t, r in rows]
+    for t, r in rows:
+        t[:, :, :r.shape[2]] = r
+    try:
+        yield
+    finally:
+        for t, old in saved:
+            t[:, :, :old.shape[2]] = old
+
+
 class GQASelfAttention(nn.Module):
     """(B, S, D) -> (B, S, D) with ``num_q_heads`` query heads sharing
     ``num_kv_heads`` key/value heads.  Projections carry no bias; the
-    weights live in ``dtype`` on ``device``."""
+    weights live in ``dtype`` on ``device``.  ``window`` (causal only)
+    makes it sliding-window attention and ``attn_sinks`` keeps the first
+    positions attendable beside the window (StreamingLLM)."""
 
     def __init__(self, dim: int, num_q_heads: int, num_kv_heads: int,
                  head_dim: int, *, causal: bool = True,
                  dtype: torch.dtype = torch.bfloat16,
+                 window: int | None = None, attn_sinks: int = 0,
                  rope: bool = False, rope_theta: float = 10000.0,
                  softcap: float | None = None,
                  device: str | torch.device = "cuda"):
@@ -132,6 +220,17 @@ class GQASelfAttention(nn.Module):
             raise ValueError(
                 f"q heads {num_q_heads} not a multiple of kv heads "
                 f"{num_kv_heads}")
+        if window is not None:
+            if not causal:
+                raise ValueError("window requires causal=True")
+            if window < 1:
+                raise ValueError(f"window must be >= 1, got {window}")
+        if attn_sinks and window is None:
+            raise ValueError("attn_sinks require a windowed model")
+        if attn_sinks < 0:
+            raise ValueError(f"attn_sinks must be >= 0, got {attn_sinks}")
+        self.window = window
+        self.attn_sinks = attn_sinks
         self.num_q_heads = num_q_heads
         self.num_kv_heads = num_kv_heads
         self.head_dim = head_dim
@@ -170,19 +269,29 @@ class GQASelfAttention(nn.Module):
                     pos = pos + off
             q = apply_rope(q, pos, self.rope_theta)
             k = apply_rope(k, pos, self.rope_theta)
+        band = self._band
         if cache is None and torch.is_grad_enabled() and (
                 q.requires_grad or k.requires_grad or v.requires_grad):
             # the JAX layer's `_flash_mha` (max_mode "bound", which the
             # port runs as the online recurrence)
             out = flash_attention_diff(q, k, v, causal=self.causal,
                                        softcap=self.softcap,
-                                       max_mode="bound")
+                                       max_mode="bound", **band)
         elif cache is None:
             out = flash_attention(q, k, v, causal=self.causal,
-                                  softcap=self.softcap)
+                                  softcap=self.softcap, **band)
         elif isinstance(cache, RaggedPagedStep):
+            if self._sink_rope:
+                raise ValueError(
+                    "rope+sinks needs the per-sequence rotated sink read "
+                    "copy (paged_sink_decode), which the packed step does "
+                    "not carry; serve such models with "
+                    "step_mode='two_call'")
             cache = ragged_paged_append(cache, k, v)
-            out = ragged_paged_attention(q, cache, softcap=self.softcap)
+            out = ragged_paged_attention(q, cache, softcap=self.softcap,
+                                         **band)
+        elif isinstance(cache, RollingKVCache):
+            out, cache = self._rolling_attention(q, k, v, cache)
         elif isinstance(cache, KVCache):
             out, cache = self._cached_attention(q, k, v, cache)
         elif isinstance(cache, RaggedKVCache):
@@ -198,18 +307,42 @@ class GQASelfAttention(nn.Module):
         proj = self.o_proj(out.to(x.dtype))
         return proj if cache is None else (proj, cache)
 
-    def _decode_call(self, q, kc, vc, lens):
+    @property
+    def _band(self) -> dict:
+        """The model's window and sinks as the kernels' keywords."""
+        return dict(window=self.window, sinks=self.attn_sinks or None)
+
+    @property
+    def _sink_rope(self) -> bool:
+        """Whether one-token decode reads re-rotated sink keys."""
+        return bool(self.rope and self.attn_sinks and self.window)
+
+    def _sink_read(self, kc, new_total):
+        """The dense cache ``kc`` as one-token decode reads it: the sink
+        rows re-rotated (`_sink_read_keys`) for the duration when the
+        model has rope and sinks, else as it is."""
+        if not self._sink_rope:
+            return contextlib.nullcontext()
+        return _reading([(kc, _sink_read_keys(
+            kc, new_total, self.window, self.attn_sinks, self.rope_theta))])
+
+    def _decode_call(self, q, kc, vc, lens, *, band=True):
         """The decode kernel: a one-token step for S == 1, the chunk
-        mode (``lens`` after the append) for S > 1."""
+        mode (``lens`` after the append) for S > 1; with the model's
+        band unless ``band`` is False."""
+        kw = dict(softcap=self.softcap, **(self._band if band else {}))
         if q.shape[2] == 1:
-            return flash_decode(q[:, :, 0], kc, vc, lens,
-                                softcap=self.softcap)[:, :, None]
-        return flash_decode_chunk(q, kc, vc, lens, softcap=self.softcap)
+            return flash_decode(q[:, :, 0], kc, vc, lens, **kw)[:, :, None]
+        return flash_decode_chunk(q, kc, vc, lens, **kw)
 
     def _cached_attention(self, q, k, v, cache: KVCache):
         """Append the S new rows at ``cache.length`` and attend over the
         valid prefix: the decode kernel for S == 1, the flash kernel
-        with ``q_offset``/``kv_valid`` for a prefill."""
+        with ``q_offset``/``kv_valid`` for a prefill.  Only one-token
+        decode reads re-rotated sinks: a chunk's queries would each need
+        their own shift, and a chunked append on a sink model is a
+        prefill anyway, so it keeps the absolute rotations (as the JAX
+        layer does)."""
         s_new = q.shape[2]
         capacity = cache.k.shape[2]
         # an overflowing write lands at the end (the JAX update's clamp);
@@ -219,14 +352,65 @@ class GQASelfAttention(nn.Module):
         cache.v[:, :, at:at + s_new] = v
         new_len = cache.length + s_new
         if s_new == 1:
-            out = self._decode_call(q, cache.k, cache.v, new_len)
+            with self._sink_read(cache.k, new_len):
+                out = self._decode_call(q, cache.k, cache.v, new_len)
         else:
             out = flash_attention(q, cache.k, cache.v, causal=self.causal,
                                   q_offset=cache.length, kv_valid=new_len,
-                                  softcap=self.softcap)
+                                  softcap=self.softcap, **self._band)
         if new_len > capacity:
             out = torch.full_like(out, float("nan"))
         return out, cache._replace(length=new_len)
+
+    def _rolling_attention(self, q, k, v, cache: RollingKVCache):
+        """The ring buffer of `RollingKVCache`.  S == 1: the new row goes
+        to its slot (pinned for the first ``sinks`` tokens, the ring's
+        after) and the decode kernel attends over the valid slots, with
+        no band (slot order does not matter to softmax).  S > 1 is a
+        prefill into a fresh cache: the chunk attends only to itself
+        (the flash kernel with the band) and its first ``sinks`` and
+        last ``window`` rows seed the buffer; into a cache that is not
+        fresh it would drop history in the window, so the output is NaN,
+        loudly."""
+        if self.window is None:
+            raise ValueError("RollingKVCache requires a windowed model")
+        sinks, ring = self.attn_sinks, self.window
+        expect = RollingKVCache.capacity_for(ring, sinks)
+        if cache.capacity != expect:
+            raise ValueError(
+                f"rolling capacity {cache.capacity} != expected {expect} "
+                f"(window {ring} + sinks {sinks}, rounded to the 128-slot "
+                "granule)")
+        s_new = q.shape[2]
+        kc, vc = cache.k, cache.v
+        if s_new == 1:
+            t = cache.length
+            slot = t if t < sinks else sinks + (t - sinks) % ring
+            kc[:, :, slot] = k[:, :, 0]
+            vc[:, :, slot] = v[:, :, 0]
+            with self._sink_read(kc, t + 1):
+                out = self._decode_call(q, kc, vc, min(t + 1, sinks + ring),
+                                        band=False)
+            return out, cache._replace(length=t + 1)
+        out = flash_attention(q, k, v, causal=True, window=ring,
+                              softcap=self.softcap, sinks=sinks or None)
+        if cache.length != 0:
+            out = torch.full_like(out, float("nan"))
+        head = min(s_new, sinks)
+        kc[:, :, :head] = k[:, :, :head]
+        vc[:, :, :head] = v[:, :, :head]
+        keep = min(max(s_new - sinks, 0), ring)
+        if keep:
+            # the ring rows land rotated so that token t sits at slot
+            # sinks + (t - sinks) % ring: one or two contiguous writes
+            split = (s_new - keep - sinks) % ring
+            first = min(ring - split, keep)
+            for dst, src in ((kc, k), (vc, v)):
+                rows = src[:, :, s_new - keep:]
+                dst[:, :, sinks + split:sinks + split + first] = \
+                    rows[:, :, :first]
+                dst[:, :, sinks:sinks + keep - first] = rows[:, :, first:]
+        return out, cache._replace(length=cache.length + s_new)
 
     def _ragged_attention(self, q, k, v, cache: RaggedKVCache):
         """Write each sequence's S rows at its own length and attend in
@@ -240,7 +424,11 @@ class GQASelfAttention(nn.Module):
         cache.k[rows, :, idx] = k.transpose(1, 2).to(cache.k.dtype)
         cache.v[rows, :, idx] = v.transpose(1, 2).to(cache.v.dtype)
         new_lens = cache.lengths + s_new
-        out = self._decode_call(q, cache.k, cache.v, new_lens)
+        # one-token decode reads re-rotated sinks, each sequence by its
+        # own delta; chunks keep the absolute rotations
+        with (self._sink_read(cache.k, new_lens) if s_new == 1
+              else contextlib.nullcontext()):
+            out = self._decode_call(q, cache.k, cache.v, new_lens)
         # per-sequence overflow poison
         over = (new_lens > capacity)[:, None, None, None]
         out = torch.where(over, torch.full_like(out, float("nan")), out)
@@ -248,14 +436,23 @@ class GQASelfAttention(nn.Module):
 
     def _paged_attention(self, q, k, v, cache: PagedKV):
         """Append the S new rows through the page table, then the paged
-        decode kernel (chunk mode for S > 1)."""
+        decode kernel (chunk mode for S > 1).  With rope and sinks, one-
+        token decode goes through `paged_sink_decode`: pool pages may be
+        shared by sequences with different deltas, so the sink rows are
+        rotated in a per-sequence read copy, never in the pool."""
+        band = self._band
         if q.shape[2] > 1:
             cache = paged_append_chunk(cache, k, v)
-            out = paged_flash_decode(q, cache, softcap=self.softcap)
+            out = paged_flash_decode(q, cache, softcap=self.softcap, **band)
+        elif self._sink_rope:
+            cache = paged_append(cache, k, v)
+            out = paged_sink_decode(
+                q[:, :, 0], cache, window=self.window, sinks=self.attn_sinks,
+                theta=self.rope_theta, softcap=self.softcap)[:, :, None]
         else:
             cache = paged_append(cache, k, v)
-            out = paged_flash_decode(q[:, :, 0], cache,
-                                     softcap=self.softcap)[:, :, None]
+            out = paged_flash_decode(q[:, :, 0], cache, softcap=self.softcap,
+                                     **band)[:, :, None]
         return out.to(q.dtype), cache
 
     def _quantized_attention(self, q, k, v, cache: QuantKVCache):
@@ -265,10 +462,18 @@ class GQASelfAttention(nn.Module):
         write poisons its scales, so the output reads NaN."""
         kv = update_quantized_kv(cache.kv, k, v, cache.length)
         new_len = cache.length + q.shape[2]
-        if q.shape[2] == 1:
+        kw = dict(softcap=self.softcap, **self._band)
+        if q.shape[2] > 1:
+            out = flash_decode_quantized_chunk(q, kv, new_len, **kw)
+            return out.to(q.dtype), QuantKVCache(kv, new_len)
+        reading = contextlib.nullcontext()
+        if self._sink_rope:
+            # the int8 `sink_read_rotation`: the sink rows dequantized,
+            # rotated and requantized, read in place of the stored ones
+            rows, scales = sink_read_rows(kv, new_len, self.window,
+                                          self.attn_sinks, self.rope_theta)
+            reading = _reading([(kv.k_q, rows), (kv.k_scale, scales)])
+        with reading:
             out = flash_decode_quantized(q[:, :, 0], kv, new_len,
-                                         softcap=self.softcap)[:, :, None]
-        else:
-            out = flash_decode_quantized_chunk(q, kv, new_len,
-                                               softcap=self.softcap)
+                                         **kw)[:, :, None]
         return out.to(q.dtype), QuantKVCache(kv, new_len)

@@ -9,8 +9,9 @@ weights (out, in) by flattening the feature axes and transposing,
 A gradient tree (``jax.grad`` of a loss over the params) has the params'
 structure, so `params_from_jax` maps it too: the training parity tests
 compare the port's ``.grad`` tensors with it, and need nothing more.
-`quant_cache_from_jax` carries a quantized KV cache across.  This
-module imports neither JAX nor flax: the caller hands over numpy.
+`quant_cache_from_jax` carries a quantized KV cache across, and
+`rolling_cache_from_jax` a ring-buffer one.  This module imports neither
+JAX nor flax: the caller hands over numpy.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from attention_tpu_torch.models.attention_layer import RollingKVCache
 from attention_tpu_torch.ops import quant
 
 
@@ -74,3 +76,12 @@ def quant_cache_from_jax(kv):
 
     return kind(*(torch.from_numpy(np.array(x)) for x in (
         kv.k_q, scales(kv.k_scale), kv.v_q, scales(kv.v_scale))))
+
+
+def rolling_cache_from_jax(cache) -> RollingKVCache:
+    """The port's `RollingKVCache` from a JAX package one of numpy
+    arrays: the same slots, the length as an int.  Tensors on the
+    CPU."""
+    return RollingKVCache(torch.from_numpy(np.array(cache.k)),
+                          torch.from_numpy(np.array(cache.v)),
+                          int(cache.length))

@@ -11,8 +11,9 @@ decode steps, as the scan does, so the returned caches hold prompt +
 
 Sampling (temperature > 0) draws from the caller's `torch.Generator`, on
 the model's device, where the JAX package split a key: seeded streams
-are deterministic, but not the JAX package's.  ``rolling_cache`` and
-beam search are not ported yet.
+are deterministic, but not the JAX package's.  A windowed model may
+generate on ring-buffer caches (``rolling_cache=True``), whose memory is
+bounded by its window.  Beam search is not ported yet.
 """
 
 from __future__ import annotations
@@ -117,13 +118,6 @@ def _validate_lengths(prompt_lengths, s_max: int) -> torch.Tensor:
     return lengths
 
 
-def _unported(int8_cache: bool, rolling_cache: bool) -> None:
-    if rolling_cache:
-        if int8_cache:
-            raise ValueError("rolling_cache and int8_cache are exclusive")
-        raise NotImplementedError("rolling_cache is not ported yet")
-
-
 def _token_loop(model, last_logits, caches, steps: int, generator,
                 **knobs):
     """Pick the first token from the prefill's logits, then ``steps``
@@ -163,17 +157,27 @@ def generate(model, prompt, *, steps: int, capacity: int | None = None,
     """Autoregressive generation: (B, S) prompt -> (B, steps)
     continuation.  Prefill, then ``steps`` decode steps on dense caches;
     ``int8_cache=True`` quantizes them once after the prefill and runs
-    the steps against the int8 caches.  ``temperature == 0`` (default)
-    is greedy; ``temperature > 0`` samples from ``generator``,
+    the steps against the int8 caches; ``rolling_cache=True`` (windowed
+    models) runs prefill and steps on `RollingKVCache` ring buffers
+    instead, and ``capacity`` does not apply.  ``temperature == 0``
+    (default) is greedy; ``temperature > 0`` samples from ``generator``,
     optionally truncated by ``top_k`` and/or nucleus ``top_p``."""
-    _unported(int8_cache, rolling_cache)
     generator = _validate_sampling(model, temperature, top_k, top_p,
                                    generator)
     prompt = _prompt(model, prompt)
-    capacity = _resolve_capacity(prompt.shape[1], steps, capacity)
-    last, caches = prefill(model, prompt, capacity)
-    if int8_cache:
-        caches = tuple(c.quantize() for c in caches)
+    if rolling_cache:
+        if int8_cache:
+            raise ValueError("rolling_cache and int8_cache are exclusive")
+        if model.window is None:
+            raise ValueError("rolling_cache requires a windowed model")
+        caches = model.init_caches(prompt.shape[0], 0, rolling=True)
+        logits, caches = model(prompt, caches)
+        last = logits[:, -1]
+    else:
+        capacity = _resolve_capacity(prompt.shape[1], steps, capacity)
+        last, caches = prefill(model, prompt, capacity)
+        if int8_cache:
+            caches = tuple(c.quantize() for c in caches)
     return _token_loop(model, last, caches, steps, generator,
                        temperature=temperature, top_k=top_k, top_p=top_p)[0]
 

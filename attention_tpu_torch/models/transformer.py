@@ -19,6 +19,7 @@ from attention_tpu_torch.device import resolve_device
 from attention_tpu_torch.models.attention_layer import (
     GQASelfAttention,
     KVCache,
+    RollingKVCache,
 )
 
 RMS_EPS = 1e-6  # flax.linen.RMSNorm's default epsilon
@@ -52,15 +53,16 @@ class MLP(nn.Module):
 class TransformerBlock(nn.Module):
     def __init__(self, dim: int, num_q_heads: int, num_kv_heads: int,
                  head_dim: int, *, causal: bool = True,
-                 dtype: torch.dtype, rope: bool = False,
+                 dtype: torch.dtype, window: int | None = None,
+                 attn_sinks: int = 0, rope: bool = False,
                  rope_theta: float = 10000.0,
                  softcap: float | None = None, device):
         super().__init__()
         self.norm1 = RMSNorm(dim, dtype=dtype, device=device)
         self.attn = GQASelfAttention(
             dim, num_q_heads, num_kv_heads, head_dim, causal=causal,
-            dtype=dtype, rope=rope, rope_theta=rope_theta,
-            softcap=softcap, device=device)
+            dtype=dtype, window=window, attn_sinks=attn_sinks, rope=rope,
+            rope_theta=rope_theta, softcap=softcap, device=device)
         self.norm2 = RMSNorm(dim, dtype=dtype, device=device)
         self.mlp = MLP(dim, dtype=dtype, device=device)
 
@@ -78,15 +80,19 @@ class TinyDecoder(nn.Module):
 
     ``forward(tokens)`` runs the uncached causal forward (the flash
     kernel); ``forward(tokens, caches)`` with one cache per layer
-    (`KVCache`, `RaggedKVCache`, `PagedKV`, `QuantKVCache` or the
-    serving engine's `RaggedPagedStep`) runs a cached step and returns
-    ``(logits, caches)``.  Options of the JAX model that the port does
-    not have yet (window, sinks, MoE, context or tensor parallelism,
-    remat) raise `NotImplementedError`."""
+    (`KVCache`, `RaggedKVCache`, `PagedKV`, `QuantKVCache`,
+    `RollingKVCache` or the serving engine's `RaggedPagedStep`) runs a
+    cached step and returns ``(logits, caches)``.  ``window`` makes
+    every block sliding-window attention and ``attn_sinks`` adds
+    StreamingLLM sinks (inference only: training such a model raises
+    `NotImplementedError`).  Options of the JAX model that the port does
+    not have yet (MoE, context or tensor parallelism, remat) raise
+    `NotImplementedError`."""
 
     def __init__(self, vocab: int = 256, dim: int = 256, depth: int = 2,
                  num_q_heads: int = 8, num_kv_heads: int = 2,
                  impl: str = "flash", dtype: torch.dtype = torch.bfloat16,
+                 window: int | None = None, attn_sinks: int = 0,
                  rope: bool = False, rope_theta: float = 10000.0,
                  softcap: float | None = None,
                  device: str | torch.device = "cuda", **unported):
@@ -105,12 +111,16 @@ class TinyDecoder(nn.Module):
         self.num_kv_heads = num_kv_heads
         self.impl = impl
         self.dtype = dtype
+        self.window = window
+        self.attn_sinks = attn_sinks
         self.head_dim = dim // num_q_heads
         self.embed = nn.Embedding(vocab, dim, dtype=dtype, device=device)
         self.blocks = nn.ModuleList(
             TransformerBlock(dim, num_q_heads, num_kv_heads, self.head_dim,
-                             dtype=dtype, rope=rope, rope_theta=rope_theta,
-                             softcap=softcap, device=device)
+                             dtype=dtype, window=window,
+                             attn_sinks=attn_sinks, rope=rope,
+                             rope_theta=rope_theta, softcap=softcap,
+                             device=device)
             for _ in range(depth))
         self.norm = RMSNorm(dim, dtype=dtype, device=device)
         self.head = nn.Linear(dim, vocab, bias=False, dtype=torch.float32,
@@ -136,9 +146,19 @@ class TinyDecoder(nn.Module):
                     cache_dtype: torch.dtype | None = None,
                     rolling: bool = False) -> tuple:
         """Fresh per-layer dense `KVCache`s of ``capacity`` rows on the
-        model's device, in ``cache_dtype`` (default: the model's)."""
+        model's device, in ``cache_dtype`` (default: the model's).
+        ``rolling=True`` (windowed models only) gives ring-buffer
+        `RollingKVCache`s instead, whose memory is bounded by the window
+        and the sinks, not by ``capacity``."""
         if rolling:
-            raise NotImplementedError("rolling caches are not ported yet")
+            if self.window is None:
+                raise ValueError("rolling caches require a windowed model")
+            return tuple(
+                RollingKVCache.create(batch, self.num_kv_heads, self.window,
+                                      self.head_dim,
+                                      cache_dtype or self.dtype,
+                                      self.device, sinks=self.attn_sinks)
+                for _ in range(self.depth))
         return tuple(
             KVCache.create(batch, self.num_kv_heads, capacity, self.head_dim,
                            cache_dtype or self.dtype, self.device)

@@ -2,8 +2,9 @@
 
 `flash_attention` keeps the JAX entry point's keywords for the set the
 port supports (``scale``, ``causal``, ``softcap``, the offsets
-``q_offset``/``kv_offset`` and ``kv_valid`` of cached prefill, GQA over
-2-D, 3-D and 4-D inputs); `flash_attention_partials` returns the
+``q_offset``/``kv_offset`` and ``kv_valid`` of cached prefill, the
+sliding ``window`` with attention ``sinks``, GQA over 2-D, 3-D and 4-D
+inputs); `flash_attention_partials` returns the
 unnormalized output with the row stats instead, as training's forward
 saves them.  For a CUDA tensor both launch the hand-written Hopper kernel
 ``csrc/flash_fwd.cu`` (which replaces the TPU kernel `_flash_kernel`);
@@ -17,12 +18,16 @@ The kernel has two bodies, and `flash_body` names the one a call runs:
 16-byte aligned operands, "fma" for the rest.  The wgmma body cuts each
 row block's key tiles across CTAs where the grid would leave SMs idle
 (`flash_split_plan`) and merges the splits' partials in a second kernel.
-`tile_plan` and `flash_split_partials` are the kernel's tile range and
-split in PyTorch, which the CPU tests hold against the plain mask and
-against the JAX package (the main path runs them only inside the kernel).
+Under a window both bodies walk only a row block's sink tiles and its
+band, as the TPU kernel's banded grid does.  `tile_plan` and
+`flash_split_partials` are the kernel's tiles and split in PyTorch,
+which the CPU tests hold against the plain mask and against the JAX
+package (the main path runs them only inside the kernel).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -35,6 +40,7 @@ from attention_tpu_torch.ops._native import (
     L,
     P,
 )
+from attention_tpu_torch.ops.decode import check_band
 from attention_tpu_torch.ops.reference import (
     attention_reference,
     attention_reference_partials,
@@ -43,7 +49,7 @@ from attention_tpu_torch.ops.reference import (
 
 KERNEL = "flash_fwd"
 _ARGTYPES = [P, P, P, P, I, I, I, I, I, I, I, I,
-             *([L] * 12), F, F, I, I, I, I, P, P, P, I, I, I, P, P]
+             *([L] * 12), F, F, I, I, I, I, I, I, P, P, P, I, I, I, P, P]
 
 #: the C entry point's codes of the two bodies
 BODY_CODES = {"fma": 0, "wgmma": 1}
@@ -69,40 +75,91 @@ def flash_body(dtype, dk: int, dv: int, strides, ptrs) -> str:
 
 
 def flash_split_plan(batch: int, heads: int, m: int, kv_valid: int, *,
-                     sms: int) -> tuple[int, int]:
+                     sms: int, window: int | None = None,
+                     sinks: int | None = None) -> tuple[int, int]:
     """(splits, split_tiles): how the wgmma body cuts each row block's
-    key tiles across CTAs.  One CTA fills an SM, so a launch of fewer row
-    blocks (B·H·⌈m/128⌉) than ``sms`` gets as many splits as fit the
-    SMs, at most one per key tile of ``kv_valid`` and `MAX_SPLITS`; each
-    split takes ``split_tiles`` tiles.  One split (no merge) wherever the
-    grid already fills the card."""
+    visited key tiles across CTAs.  One CTA fills an SM, so a launch of
+    fewer row blocks (B·H·⌈m/128⌉) than ``sms`` gets as many splits as
+    fit the SMs, at most one per tile a block visits (the tiles of
+    ``kv_valid``, or under a ``window`` at most its band's tiles and the
+    ``sinks``' tiles) and `MAX_SPLITS`; each split takes ``split_tiles``
+    tiles.  One split (no merge) wherever the grid already fills the
+    card."""
     tiles = max(-(-kv_valid // KEY_TILE), 1)
+    if window is not None:
+        band = -(-(window - 1 + ROW_BLOCK) // KEY_TILE) + 1
+        tiles = min(tiles, band + -(-(sinks or 0) // KEY_TILE))
     blocks = batch * heads * -(-m // ROW_BLOCK)
     splits = max(1, min(sms // blocks, tiles, MAX_SPLITS))
     per = -(-tiles // splits)
     return -(-tiles // per), per
 
 
+class TilePlan(NamedTuple):
+    """The key tiles a row block's CTA visits and where it masks (the
+    kernel's `TilePlan` in csrc/flash_fwd_sm90.cuh).  The block visits
+    the sink tiles [0, ``sink``), then the band's tiles from ``base``
+    on: visit i is tile `tile` (i), and the split takes the visits
+    [``begin``, ``end``).  Without a band visit i is tile i.  Tiles in
+    [``mask_lo``, ``mask``) are kept whole by every row of the block and
+    skip the per-element test."""
+
+    begin: int
+    end: int
+    mask: int
+    sink: int = 0
+    base: int = 0
+    mask_lo: int = 0
+
+    def tile(self, i: int) -> int:
+        return i if i < self.sink else self.base + i - self.sink
+
+    def tiles(self) -> list[int]:
+        """The split's visited tiles, in order."""
+        return [self.tile(i) for i in range(self.begin, self.end)]
+
+
+def plan_tiles(n_end: int, mask: int, band: int, full: int, sink_end: int,
+               split: int = 0, split_tiles: int | None = None) -> TilePlan:
+    """A block's plan from its key columns (the kernel's `plan_tiles`):
+    every kept key lies below ``n_end``, tiles below ``mask`` hold no key
+    past a row's end, the block's band starts at column ``band`` and
+    every row's has started by ``full``, the columns below ``sink_end``
+    are sinks.  The visited tiles are those that hold a kept key."""
+    end = -(-n_end // KEY_TILE)
+    sink = -(-min(sink_end, n_end) // KEY_TILE)
+    base = max(band // KEY_TILE, sink) if band < n_end else end
+    count = sink + end - base
+    if split_tiles is None:
+        split_tiles = max(count, 1)
+    begin = min(split * split_tiles, count)
+    return TilePlan(begin, min(begin + split_tiles, count), mask, sink,
+                    base, -(-full // KEY_TILE))
+
+
 def tile_plan(m0: int, m: int, kv_valid: int, causal: bool, q_offset: int,
               kv_offset: int, split: int = 0,
-              split_tiles: int | None = None) -> tuple[int, int, int]:
-    """(begin, end, mask): the key tiles [begin, end) that the wgmma
-    body's CTA of rows [m0, m0 + 128) visits in its split, and the first
-    tile that can hold a masked element (a key at or past ``kv_valid``
-    or, under causal masking, after the block's first row); the tiles
-    below ``mask`` skip the per-element test.  The kernel's `tile_plan`
-    in csrc/flash_fwd_sm90.cuh."""
+              split_tiles: int | None = None, *, window: int | None = None,
+              sinks: int | None = None) -> TilePlan:
+    """The `TilePlan` of the wgmma body's CTA of rows [m0, m0 + 128) in
+    its split: the tiles holding a key some row keeps (below
+    ``kv_valid``; under causal masking at or before the block's last
+    row; under a ``window`` in a row's band or among the ``sinks``), and
+    ``mask``, the first tile that can hold a key past ``kv_valid`` or
+    after the block's first row.  The kernel's `tile_plan` in
+    csrc/flash_fwd_sm90.cuh."""
     n_end, mask = kv_valid, kv_valid // KEY_TILE
+    band = full = sink_end = 0
     if causal:
+        d = q_offset - kv_offset
         last = min(m0 + ROW_BLOCK, m) - 1
-        n_end = max(0, min(n_end, last + q_offset - kv_offset + 1))
-        mask = min(mask, max(0, (m0 + q_offset - kv_offset + 1)
-                             // KEY_TILE))
-    end = -(-n_end // KEY_TILE)
-    if split_tiles is None:
-        split_tiles = max(end, 1)
-    begin = min(split * split_tiles, end)
-    return begin, min(begin + split_tiles, end), mask
+        n_end = max(0, min(n_end, last + d + 1))
+        mask = min(mask, max(0, (m0 + d + 1) // KEY_TILE))
+        if window is not None:
+            band = max(0, m0 + d - window + 1)
+            full = max(0, last + d - window + 1)
+            sink_end = max(0, (sinks or 0) - kv_offset)
+    return plan_tiles(n_end, mask, band, full, sink_end, split, split_tiles)
 
 
 def _strides(t) -> list[int]:
@@ -154,29 +211,49 @@ def _unsupported(**features) -> None:
         if value is not None:
             raise NotImplementedError(
                 f"flash attention's {name}=... is not ported yet; the port "
-                "supports scale, causal, softcap, q_offset, kv_offset and "
-                "kv_valid")
+                "supports scale, causal, softcap, q_offset, kv_offset, "
+                "kv_valid, window and sinks")
+
+
+def check_window(causal, window, sinks, segmented=False) -> None:
+    """The JAX entry point's window/sinks contract
+    (attention_tpu/ops/flash.py:888-911): the decode kernels' band
+    (`decode.check_band`), which here needs causal masking, and sinks do
+    not compose with segment ids (their positions are absolute)."""
+    if window is not None and not causal:
+        raise ValueError(
+            "window (sliding-window attention) requires causal=True")
+    check_band(window, sinks)
+    if sinks is not None and segmented:
+        raise ValueError(
+            "sinks do not compose with segment_ids (sink positions are "
+            "absolute, not per-segment); unpack the batch")
 
 
 def flash_attention_plain(q, k, v, *, scale=None, causal=False,
                           softcap=None, q_offset=0, kv_offset=0,
-                          kv_valid=None) -> torch.Tensor:
+                          kv_valid=None, window=None,
+                          sinks=None) -> torch.Tensor:
     """The plain PyTorch version of `flash_attention` (same inputs,
     same output dtype: ``v.dtype``)."""
     _canon(q, k, v)
+    check_window(causal, window, sinks)
     return attention_reference(q, k, v, scale=scale, causal=causal,
                                softcap=softcap, q_offset=q_offset,
-                               kv_offset=kv_offset, kv_valid=kv_valid)
+                               kv_offset=kv_offset, kv_valid=kv_valid,
+                               window=window, sinks=sinks)
 
 
 def flash_attention_partials_plain(q, k, v, *, scale=None, causal=False,
                                    softcap=None, q_offset=0, kv_offset=0,
-                                   kv_valid=None):
+                                   kv_valid=None, window=None, sinks=None):
     """The plain PyTorch version of `flash_attention_partials`."""
     _canon(q, k, v)
+    check_window(causal, window, sinks)
     return attention_reference_partials(
         q, k, v, scale=scale, causal=causal, softcap=softcap,
-        q_offset=q_offset, kv_offset=kv_offset, kv_valid=kv_valid)
+        q_offset=q_offset, kv_offset=kv_offset, kv_valid=kv_valid,
+        window=window, sinks=sinks)
 
 
 def flash_split_partials(q, k, v, *, splits: int, split_tiles: int,
@@ -206,7 +283,8 @@ def flash_split_partials(q, k, v, *, splits: int, split_tiles: int,
     return torch.stack(acc, dim=-2), torch.stack(mx, -1), torch.stack(sm, -1)
 
 
-def flash_launch_plan(q, k, v, *, kv_valid=None) -> dict:
+def flash_launch_plan(q, k, v, *, kv_valid=None, window=None,
+                      sinks=None) -> dict:
     """How the kernel runs a call on these inputs (CUDA tensors, as the
     entry points take them): the body (`flash_body`) and the key split
     (`flash_split_plan`; one split for the "fma" body).  The output lies
@@ -215,10 +293,10 @@ def flash_launch_plan(q, k, v, *, kv_valid=None) -> dict:
     q4, k4, v4 = (t if t.stride(-1) == 1 else t.contiguous()
                   for t in _canon(q, k, v))
     return _plan(q4, k4, v4, _offsets(k4.shape[2], None, None,
-                                      kv_valid)["kv_valid"])
+                                      kv_valid)["kv_valid"], window, sinks)
 
 
-def _plan(q4, k4, v4, kv_valid) -> dict:
+def _plan(q4, k4, v4, kv_valid, window, sinks) -> dict:
     b, h, m, dk = q4.shape
     dv = v4.shape[-1]
     o_strides = [m * h * dv, dv, h * dv]
@@ -228,13 +306,14 @@ def _plan(q4, k4, v4, kv_valid) -> dict:
     splits, split_tiles = 1, 0
     if body == "wgmma":
         splits, split_tiles = flash_split_plan(
-            b, h, m, kv_valid, sms=_native.sm_count(q4.device.index))
+            b, h, m, kv_valid, sms=_native.sm_count(q4.device.index),
+            window=window, sinks=sinks)
     return dict(body=body, splits=splits, split_tiles=split_tiles,
                 strides=strides)
 
 
 def _launch(q4, k4, v4, *, scale, causal, softcap, q_offset, kv_offset,
-            kv_valid, partials=False):
+            kv_valid, window, sinks, partials=False):
     dtype = q4.dtype
     if dtype not in DTYPE_CODES or k4.dtype != dtype or v4.dtype != dtype:
         raise TypeError(
@@ -250,7 +329,7 @@ def _launch(q4, k4, v4, *, scale, causal, softcap, q_offset, kv_offset,
         raise ValueError(f"empty attention: m={m} n={n}")
     q4, k4, v4 = (t if t.stride(-1) == 1 else t.contiguous()
                   for t in (q4, k4, v4))
-    plan = _plan(q4, k4, v4, kv_valid)
+    plan = _plan(q4, k4, v4, kv_valid, window, sinks)
     # (b, m, h, dv) storage: the attention layer's head merge is a view
     o4 = torch.empty((b, m, h, dv), dtype=torch.float32 if partials
                      else dtype, device=q4.device).transpose(1, 2)
@@ -267,7 +346,8 @@ def _launch(q4, k4, v4, *, scale, causal, softcap, q_offset, kv_offset,
                  DTYPE_CODES[dtype], b, h, hkv, m, n, dk, dv,
                  *plan["strides"], float(scale),
                  float(softcap or 0.0), int(causal), q_offset, kv_offset,
-                 kv_valid, *((o4.data_ptr(), stats[0].data_ptr(),
+                 kv_valid, window or 0, sinks or 0,
+                 *((o4.data_ptr(), stats[0].data_ptr(),
                               stats[1].data_ptr()) if partials
                              else (None, None, None)),
                  BODY_CODES[plan["body"]], splits, plan["split_tiles"],
@@ -282,8 +362,8 @@ def _dispatch(q, k, v, plain, *, scale, causal, softcap, window, sinks,
               max_mode, partials):
     """Shared argument handling of the two entry points: validate, then
     the plain version for CPU tensors or the kernel for CUDA ones."""
-    _unsupported(window=window, sinks=sinks, q_segment_ids=q_segment_ids,
-                 kv_segment_ids=kv_segment_ids)
+    check_window(causal, window, sinks, q_segment_ids is not None)
+    _unsupported(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids)
     if max_mode != "online":
         raise NotImplementedError(
             f"max_mode={max_mode!r} is not ported yet; only 'online'")
@@ -292,15 +372,16 @@ def _dispatch(q, k, v, plain, *, scale, causal, softcap, window, sinks,
         scale = 1.0 / (q.shape[-1] ** 0.5)
     q4, k4, v4 = _canon(q, k, v)
     offsets = _offsets(k.shape[-2], q_offset, kv_offset, kv_valid)
+    band = dict(window=window, sinks=sinks)
     if q.device.type == "cpu":
         return plain(q, k, v, scale=scale, causal=causal, softcap=softcap,
-                     **offsets)
+                     **offsets, **band)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device.type}")
     lead = (0,) * (4 - q.dim())
     out = _launch(q4, k4, v4, scale=scale, causal=causal, softcap=softcap,
-                  partials=partials, **offsets)
+                  partials=partials, **offsets, **band)
     if partials:
         return tuple(t[lead] for t in out)
     return out[lead]
@@ -331,9 +412,12 @@ def flash_attention(
     key rows.  ``causal`` masks with global positions: query row i sits
     at ``q_offset + i`` and key row j at ``kv_offset + j`` (ints, default
     0).  ``softcap`` applies cap·tanh(s/cap) to the scaled scores before
-    masking.  A row that sees no key comes out zero.  Output dtype is
-    ``v.dtype``.  CUDA tensors run the Hopper kernel; CPU tensors run
-    `flash_attention_plain`."""
+    masking.  ``window`` (causal only) keeps, of the keys at or before a
+    query's position p, those after p - window, and ``sinks`` (with a
+    window) the keys at positions below it too (StreamingLLM); the
+    kernel then walks only those keys' tiles.  A row that sees no key
+    comes out zero.  Output dtype is ``v.dtype``.  CUDA tensors run the
+    Hopper kernel; CPU tensors run `flash_attention_plain`."""
     return _dispatch(q, k, v, flash_attention_plain, scale=scale,
                      causal=causal, softcap=softcap, window=window,
                      sinks=sinks, q_segment_ids=q_segment_ids,

@@ -53,6 +53,19 @@ from attention_tpu_torch.ops.reference import check_softcap
 
 LOG2E = 1.0 / math.log(2.0)
 LN2 = math.log(2.0)
+
+
+def refuse_band(window, sinks) -> None:
+    """The backward takes no sliding-window band: the three backward
+    kernels and the sink patch of the JAX backward
+    (attention_tpu/ops/flash_bwd.py:619) are not ported (ROADMAP.md,
+    Queue 2 item 2), so training a windowed model raises here; its
+    inference runs on the forward kernels."""
+    if window is not None or sinks is not None:
+        raise NotImplementedError(
+            "the backward over a window/sinks band is not ported yet "
+            "(ROADMAP.md Queue 2 item 2: the backward kernels' band and "
+            "the sink patch); a windowed model serves but does not train")
 #: launch counters of the three kernels (one library each)
 FUSED, DQ, DKV = "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"
 #: largest head dim the backward kernels take
@@ -486,10 +499,11 @@ def flash_backward(
     inputs' dtypes.  CUDA tensors run the fused Hopper kernel (or the dQ
     and dK/dV pair under `_FORCE_TWO_KERNEL`), float32 or bfloat16, head
     dims up to 128; CPU tensors run `flash_backward_plain`.  ``window``,
-    ``sinks``, segment ids and ``block_sizes`` are not ported and
-    raise `NotImplementedError`."""
-    _unsupported(window=window, sinks=sinks, q_segment_ids=q_segment_ids,
-                 kv_segment_ids=kv_segment_ids, block_sizes=block_sizes)
+    ``sinks`` (`refuse_band`), segment ids and ``block_sizes`` are not
+    ported and raise `NotImplementedError`."""
+    refuse_band(window, sinks)
+    _unsupported(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+                 block_sizes=block_sizes)
     check_softcap(softcap)
     offsets = _offsets(k.shape[-2], q_offset, kv_offset, kv_valid)
     if q.device.type == "cpu":

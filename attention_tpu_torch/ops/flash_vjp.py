@@ -21,6 +21,7 @@ from attention_tpu_torch.ops.flash import (
 from attention_tpu_torch.ops.flash_bwd import (
     flash_backward,
     flash_backward_plain,
+    refuse_band,
 )
 
 
@@ -91,16 +92,18 @@ def flash_attention_diff(
     `flash_backward_plain` on any device, in blocks of ``bwd_chunk``
     query rows.  ``max_mode`` takes ``"online"`` and ``"bound"``; both run
     the online recurrence, which gives the same output and lse.
-    ``window``, ``sinks``, segment ids and ``block_sizes`` raise
-    `NotImplementedError`."""
+    ``window`` and ``sinks`` raise `NotImplementedError` (the backward
+    takes no band yet: `flash_bwd.refuse_band`), and so do segment ids
+    and ``block_sizes``."""
     if bwd_impl not in ("pallas", "xla"):
         raise ValueError(f"unknown bwd_impl {bwd_impl!r}")
     if max_mode not in ("online", "bound"):
         raise NotImplementedError(
             f"max_mode={max_mode!r} is not ported yet; 'online' and "
             "'bound' run the online recurrence")
-    _unsupported(window=window, sinks=sinks, q_segment_ids=q_segment_ids,
-                 kv_segment_ids=kv_segment_ids, block_sizes=block_sizes)
+    refuse_band(window, sinks)
+    _unsupported(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+                 block_sizes=block_sizes)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     q4, k4, v4 = _canon(q, k, v)

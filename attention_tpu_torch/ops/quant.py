@@ -53,6 +53,7 @@ from attention_tpu_torch.ops._native import F, I, L, P
 from attention_tpu_torch.ops.decode import ROW_BLOCK, check_band, \
     lengths_tensor, split_launch, split_owner, split_plan
 from attention_tpu_torch.ops.reference import check_softcap
+from attention_tpu_torch.ops.rope import apply_rope
 
 LOG2E = math.log2(math.e)
 #: head dims the kernels take
@@ -209,6 +210,36 @@ def update_quantized_kv(cache: QuantizedKV, k_new: torch.Tensor,
     cache.v_q[:, :, at:at + s_new] = v_q
     cache.v_scale[:, :, at:at + s_new] = v_s
     return cache
+
+
+def sink_read_rows(kv: QuantizedKV, new_total, window: int, sinks: int,
+                   theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 key rows and scales of `sink_read_rotation`'s read copy
+    at the ``sinks`` pinned positions: (B, Hkv, sinks, d) int8, (B, Hkv,
+    sinks) float32."""
+    k_sink = kv.k_q[:, :, :sinks].float() * kv.k_scale[:, :, :sinks, None]
+    delta = torch.as_tensor(new_total, device=kv.k_q.device)
+    delta = (delta.to(torch.int64) - (window + sinks)).clamp(min=0)
+    if delta.dim():  # per-sequence (B,) totals -> (B, 1, 1) positions
+        delta = delta[:, None, None]
+    return _quant_rows(apply_rope(k_sink, delta, theta))
+
+
+def sink_read_rotation(kv: QuantizedKV, new_total, window: int, sinks: int,
+                       theta: float) -> QuantizedKV:
+    """StreamingLLM's in-cache sink positions for an int8 cache, at read
+    time: the ``sinks`` pinned key rows dequantized, rotated forward by
+    ``delta = max(new_total - (window + sinks), 0)`` (``new_total`` an
+    int or per-sequence (B,) totals), requantized into a read copy of
+    the cache; the stored cache keeps its absolute rotations, so nothing
+    drifts from step to step.  The double quantization of the sink rows
+    adds int8-grade noise, inside the cache's error contract (the JAX
+    package's `sink_read_rotation`)."""
+    rows, scales = sink_read_rows(kv, new_total, window, sinks, theta)
+    k_q, k_scale = kv.k_q.clone(), kv.k_scale.clone()
+    k_q[:, :, :sinks] = rows
+    k_scale[:, :, :sinks] = scales
+    return kv._replace(k_q=k_q, k_scale=k_scale)
 
 
 def dequantized_values(cache) -> tuple[torch.Tensor, torch.Tensor]:

@@ -6,7 +6,8 @@ axis of width ``T``: ``cu_q_lens`` (S+1,) delimits each request slot's
 token span, ``kv_lens`` (S,) holds each slot's KV length and
 ``distribution`` (2,) = (num_decode, num_active) the decode/prefill
 split (decode slots first).  Each slot reads KV through its own
-page-table row, causal within the request.
+page-table row, causal within the request, and under a sliding
+``window`` only the last ``window`` positions plus the first ``sinks``.
 
 `ragged_paged_append` writes the step's new K/V rows into the pools
 (in place: the pools are the engine's, and a copy per layer per step
@@ -43,13 +44,15 @@ from attention_tpu_torch.ops._native import (
     L,
     P,
 )
+from attention_tpu_torch.ops.decode import check_band
+from attention_tpu_torch.ops.flash import plan_tiles
 from attention_tpu_torch.ops.reference import (
     check_softcap,
     ragged_paged_reference,
 )
 
 KERNEL = "ragged_paged"
-_ARGTYPES = [P] * 9 + [I] * 11 + [L] * 4 + [F, F] + [I] * 5 + [P]
+_ARGTYPES = [P] * 9 + [I] * 11 + [L] * 4 + [F, F] + [I] * 7 + [P]
 #: query rows of a decode slot's CTA (the four warps' one 16-row tile): a
 #: slot of at most DECODE_ROWS // group tokens is a decode slot
 DECODE_ROWS = 16
@@ -154,13 +157,16 @@ def _validate(q: torch.Tensor, cache: RaggedPagedStep) -> None:
 
 def ragged_paged_attention_plain(q: torch.Tensor, cache: RaggedPagedStep,
                                  *, scale: float | None = None,
-                                 softcap: float | None = None
-                                 ) -> torch.Tensor:
+                                 softcap: float | None = None,
+                                 window: int | None = None,
+                                 sinks: int | None = None) -> torch.Tensor:
     """The plain PyTorch version of `ragged_paged_attention`."""
     _validate(q, cache)
+    check_band(window, sinks)
     return ragged_paged_reference(
         q, cache.k_pool, cache.v_pool, cache.page_table, cache.kv_lens,
-        cache.cu_q_lens, cache.distribution, scale=scale, softcap=softcap)
+        cache.cu_q_lens, cache.distribution, scale=scale, softcap=softcap,
+        window=window, sinks=sinks)
 
 
 def decode_tokens(group: int) -> int:
@@ -193,7 +199,7 @@ def ragged_body(dtype, dk: int, dv: int, group: int, page: int, strides,
 
 
 def ragged_launch_plan(q: torch.Tensor, step: "RaggedPagedStep", *,
-                       sms: int) -> dict:
+                       sms: int, window: int | None = None) -> dict:
     """The launches of a `ragged_paged_attention` call on the card, from
     sizes the host knows (slots, heads, widths, the table's capacity,
     the page, the head dims, ``sms``), never the lengths or spans:
@@ -201,7 +207,8 @@ def ragged_launch_plan(q: torch.Tensor, step: "RaggedPagedStep", *,
     ``body`` of the prefill slots (`ragged_body`); ``smax``, the most
     tokens of a decode slot; the decode slots' key split (``splits``,
     ``chunk``: `decode.split_plan` over the capacity ``max_pages *
-    page`` at `CTAS_PER_SM`), its key groups ``kg`` and ``decode_grid``
+    page``, or under a ``window`` its band, at `CTAS_PER_SM`), its key
+    groups ``kg`` and ``decode_grid``
     (row blocks, slots x kv heads, splits; none when ``smax`` is 0);
     ``prefill_grid`` (the
     wgmma body's persistent grid, at most one CTA an SM over the most
@@ -223,8 +230,8 @@ def ragged_launch_plan(q: torch.Tensor, step: "RaggedPagedStep", *,
                 chunk=max_pages * page, kg=1, decode_grid=None)
     if smax:
         splits, chunk = decode.split_plan(
-            slots, hkv, smax * group, max_pages * page, smax, None, sms=sms,
-            ctas_per_sm=CTAS_PER_SM)
+            slots, hkv, smax * group, max_pages * page, smax, window,
+            sms=sms, ctas_per_sm=CTAS_PER_SM)
         plan.update(splits=splits, chunk=chunk,
                     kg=1 if body == "fma" else 4,
                     decode_grid=[1, slots * hkv, splits])
@@ -247,7 +254,7 @@ def _dense(pool, table_row, kv_len):
 
 
 def split_partials(q, step: "RaggedPagedStep", *, scale, softcap=None,
-                   splits: int, chunk: int):
+                   window=None, sinks=None, splits: int, chunk: int):
     """The decode slots' per-split partials, as the kernel's split CTAs
     write them: float32 (unnormalized output (1, Hq, T, splits, dv), row
     max in natural log and row sum (1, Hq, T, splits)), split i owning
@@ -279,20 +286,26 @@ def split_partials(q, step: "RaggedPagedStep", *, scale, softcap=None,
         part = decode.split_partials(
             q[:, :, lo:hi], keys, vals,
             torch.tensor([lens[s]], device=q.device), scale=scale,
-            softcap=softcap, splits=splits, chunk=chunk)
+            softcap=softcap, window=window, sinks=sinks, splits=splits,
+            chunk=chunk)
         acc[..., lo:hi, :, :], m[..., lo:hi, :], l_[..., lo:hi, :] = part
     return acc, m, l_
 
 
-def prefill_items(step: "RaggedPagedStep", group: int) -> list[dict]:
+def prefill_items(step: "RaggedPagedStep", group: int,
+                  window: int | None = None,
+                  sinks: int | None = None) -> list[dict]:
     """The wgmma body's work items on this step's data, in the kernel's
     order (`RaggedSched` in csrc/ragged_paged.cu): for each live slot of
     more than `decode_tokens` tokens, its q_len·group rows (row = token·
     group + head of the group) in 128-row blocks from the last, each
-    for every kv head (fastest); each item's key tiles [0, ``end``) and
+    for every kv head (fastest); each item's `flash.TilePlan` fields:
+    its visits [0, ``end``) (tiles [0, ``end``) without a band),
     ``mask``, the first tile that can hold a key past a row's causal
-    end (the tiles below it skip the test).  A poisoned slot's items
-    have no tiles (their rows are written NaN)."""
+    end, and under a ``window`` the sink tiles, the band's first tile
+    ``base`` and ``mask_lo`` (the tiles in [mask_lo, mask) skip the
+    test).  A poisoned slot's items have no tiles (their rows are
+    written NaN)."""
     hkv = step.k_pool.shape[1]
     n_cap = step.page_table.shape[1] * step.page_size
     smax = decode_tokens(group)
@@ -308,16 +321,20 @@ def prefill_items(step: "RaggedPagedStep", group: int) -> list[dict]:
             m0 = blk * ROW_BLOCK
             t_lo = m0 // group
             t_hi = (min(m0 + ROW_BLOCK, rows) - 1) // group
-            n_end = max(0, min(length, raw - q_len + t_hi + 1))
-            end = 0 if raw < 0 else -(-n_end // KEY_TILE)
-            mask = max(0, min(length // KEY_TILE,
-                              (raw - q_len + t_lo + 1) // KEY_TILE))
-            items += [dict(slot=s, kv_head=h, m0=m0, end=end, mask=mask)
+            p_lo, p_hi = raw - q_len + t_lo, raw - q_len + t_hi
+            n_end = 0 if raw < 0 else max(0, min(length, p_hi + 1))
+            mask = max(0, min(length // KEY_TILE, (p_lo + 1) // KEY_TILE))
+            band = window is not None
+            plan = plan_tiles(
+                n_end, mask, max(0, p_lo - window + 1) if band else 0,
+                max(0, p_hi - window + 1) if band else 0,
+                (sinks or 0) if band else 0)
+            items += [dict(slot=s, kv_head=h, m0=m0, **plan._asdict())
                       for h in range(hkv)]
     return items
 
 
-def _launch(q, cache, *, scale, softcap) -> torch.Tensor:
+def _launch(q, cache, *, scale, softcap, window, sinks) -> torch.Tensor:
     dtype = cache.v_pool.dtype
     if (dtype not in DTYPE_CODES or q.dtype != dtype
             or cache.k_pool.dtype != dtype):
@@ -344,7 +361,8 @@ def _launch(q, cache, *, scale, softcap) -> torch.Tensor:
     if q.stride(-1) != 1:
         q = q.contiguous()
     idx = q.device.index
-    plan = ragged_launch_plan(q, cache, sms=_native.sm_count(idx))
+    plan = ragged_launch_plan(q, cache, sms=_native.sm_count(idx),
+                              window=window)
     # (1, T, Hq, dv) storage makes the attention layer's head merge a
     # view; the kernel writes every row, pad rows as zeros
     out = torch.empty((1, t_pad, hq, dv), dtype=dtype,
@@ -364,6 +382,7 @@ def _launch(q, cache, *, scale, softcap) -> torch.Tensor:
                  hq, hkv, s_slots, t_pad, pages, max_pages, page, dk, dv,
                  int(cache.q_tile), q.stride(1), q.stride(2), out.stride(1),
                  out.stride(2), float(scale), float(softcap or 0.0),
+                 window or 0, sinks or 0,
                  BODIES[plan["body"]], plan["smax"], plan["splits"],
                  plan["chunk"], plan["prefill_grid"][0], stream)
     _native.check(KERNEL, err)
@@ -381,11 +400,12 @@ def ragged_paged_attention(q: torch.Tensor, cache: RaggedPagedStep, *,
     (1, Hq, T, d) through its slot's page table, causal within each
     request — (1, Hq, T, dv).  ``kv_lens`` must be post-append (run
     `ragged_paged_append` first); pad tokens return zeros, poisoned
-    slots NaN.  CUDA tensors run the Hopper kernel, CPU tensors
+    slots NaN.  ``window``/``sinks``: the decode kernels' per-request
+    band (a token at position p keeps the positions after p - window
+    and the first ``sinks``), which the kernel's walks start at.  CUDA
+    tensors run the Hopper kernel, CPU tensors
     `ragged_paged_attention_plain`."""
-    if window is not None or sinks is not None:
-        raise NotImplementedError(
-            "ragged_paged_attention window/sinks are not ported yet")
+    check_band(window, sinks)
     if max_mode != "online":
         raise NotImplementedError(
             f"max_mode={max_mode!r} is not ported yet; only 'online'")
@@ -395,11 +415,13 @@ def ragged_paged_attention(q: torch.Tensor, cache: RaggedPagedStep, *,
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.device.type == "cpu":
         return ragged_paged_attention_plain(q, cache, scale=scale,
-                                            softcap=softcap)
+                                            softcap=softcap, window=window,
+                                            sinks=sinks)
     if q.device.type != "cuda":
         raise ValueError(f"ragged_paged_attention runs on cuda or cpu, "
                          f"not {q.device.type}")
-    return _launch(q, cache, scale=scale, softcap=softcap)
+    return _launch(q, cache, scale=scale, softcap=softcap, window=window,
+                   sinks=sinks)
 
 
 def ragged_paged_append(cache: RaggedPagedStep, k_new: torch.Tensor,

@@ -1,8 +1,9 @@
 """Plain PyTorch attention: the arithmetic the port's kernels must match.
 
 `attention_reference` is the counterpart of `attention_tpu.ops.reference.
-attention_xla` (plus the causal mask with offsets, the ``kv_valid`` cut
-and the GQA head grouping the flash kernel takes), `decode_reference`
+attention_xla` (plus the causal mask with offsets, the sliding-window band
+with sinks, the ``kv_valid`` cut and the GQA head grouping the flash
+kernel takes), `decode_reference`
 the arithmetic of the decode kernels (one token or an appended chunk per
 sequence against a dense cache, with the window band and sinks), and
 `ragged_paged_reference` the counterpart of the packed-step oracle
@@ -139,7 +140,7 @@ def _partials_pv(scores: torch.Tensor, v: torch.Tensor):
 
 
 def _masked_scores(q, k, *, scale, causal, softcap, q_offset, kv_offset,
-                   kv_valid):
+                   kv_valid, window=None, sinks=None):
     """float32 scores of `attention_reference` with masked entries -inf,
     and k's heads repeated over their GQA group."""
     check_softcap(softcap)
@@ -150,20 +151,36 @@ def _masked_scores(q, k, *, scale, causal, softcap, q_offset, kv_offset,
         scores = softcap * torch.tanh(scores / softcap)
     keep = attention_mask(*scores.shape[-2:], causal=causal,
                           q_offset=q_offset, kv_offset=kv_offset,
-                          kv_valid=kv_valid, device=q.device)
+                          kv_valid=kv_valid, window=window, sinks=sinks,
+                          device=q.device)
     return scores.masked_fill(~keep, float("-inf"))
 
 
+def band_keep(col, pos, window, sinks):
+    """Where the key at position ``col`` lies in the band of a query at
+    position ``pos`` (broadcasting): one of the last ``window`` positions
+    at or before it (the causal cut is the caller's), or below ``sinks``.
+    All True without a window."""
+    if window is None:
+        return torch.ones_like(col > pos)
+    band = col > pos - window
+    return band if sinks is None else band | (col < sinks)
+
+
 def attention_mask(m: int, n: int, *, causal=False, q_offset=0,
-                   kv_offset=0, kv_valid=None, device=None) -> torch.Tensor:
+                   kv_offset=0, kv_valid=None, window=None, sinks=None,
+                   device=None) -> torch.Tensor:
     """(m, n) bool, True where query row i attends key row j: j below
     ``kv_valid`` and, under ``causal``, ``kv_offset + j <=
-    q_offset + i``."""
+    q_offset + i``; with a ``window`` (causal only) also in the band of
+    `band_keep` at those positions."""
     row = torch.arange(m, device=device)[:, None]
     col = torch.arange(n, device=device)[None, :]
     keep = col < (n if kv_valid is None else kv_valid)
     if causal:
         keep = keep & (col + kv_offset <= row + q_offset)
+        keep = keep & band_keep(col + kv_offset, row + q_offset, window,
+                                sinks)
     return keep.expand(m, n)
 
 
@@ -187,6 +204,8 @@ def attention_reference(
     q_offset: int = 0,
     kv_offset: int = 0,
     kv_valid: int | None = None,
+    window: int | None = None,
+    sinks: int | None = None,
 ) -> torch.Tensor:
     """softmax(q kᵀ · scale) v over the last two axes.
 
@@ -194,24 +213,28 @@ def attention_reference(
     or more axes the head axis (-3) of q may be a multiple of k's (GQA:
     q head h reads kv head h // group).  Only the first ``kv_valid``
     key rows are attended.  ``causal`` masks key j against query i when
-    ``kv_offset + j > q_offset + i``; ``softcap`` maps the scaled scores
-    through cap·tanh(s/cap) before masking."""
+    ``kv_offset + j > q_offset + i``, and a ``window`` (causal only) also
+    when ``kv_offset + j <= q_offset + i - window`` unless ``kv_offset + j
+    < sinks``; ``softcap`` maps the scaled scores through cap·tanh(s/cap)
+    before masking."""
     k, v = _gqa_repeat(q, k, v)
     return _softmax_pv(_masked_scores(
         q, k, scale=scale, causal=causal, softcap=softcap,
-        q_offset=q_offset, kv_offset=kv_offset, kv_valid=kv_valid), v)
+        q_offset=q_offset, kv_offset=kv_offset, kv_valid=kv_valid,
+        window=window, sinks=sinks), v)
 
 
 def attention_reference_partials(q, k, v, *, scale=None, causal=False,
                                  softcap=None, q_offset=0, kv_offset=0,
-                                 kv_valid=None):
+                                 kv_valid=None, window=None, sinks=None):
     """The unnormalized form of `attention_reference` (same inputs):
     float32 (sum of exp(s - max)·v, row max, row sum) of `_partials_pv`,
     the row max in the natural-log domain."""
     k, v = _gqa_repeat(q, k, v)
     return _partials_pv(_masked_scores(
         q, k, scale=scale, causal=causal, softcap=softcap,
-        q_offset=q_offset, kv_offset=kv_offset, kv_valid=kv_valid), v)
+        q_offset=q_offset, kv_offset=kv_offset, kv_valid=kv_valid,
+        window=window, sinks=sinks), v)
 
 
 def decode_reference(
@@ -249,12 +272,7 @@ def decode_reference(
     pos = lens[:, None] - s_new + torch.arange(s_new, device=q.device)
     pos = pos[:, None, :, None]                         # (B, 1, S, 1)
     col = torch.arange(n, device=q.device)
-    keep = col <= pos
-    if window is not None:
-        band = col > pos - window
-        if sinks is not None:
-            band = band | (col < sinks)
-        keep = keep & band
+    keep = (col <= pos) & band_keep(col, pos, window, sinks)
     if columns is not None:
         keep = keep & columns[:, None, None, :]
     scores = scores.masked_fill(~keep, float("-inf"))
@@ -272,6 +290,8 @@ def ragged_paged_reference(
     *,
     scale: float | None = None,
     softcap: float | None = None,
+    window: int | None = None,
+    sinks: int | None = None,
 ) -> torch.Tensor:
     """One packed mixed decode/prefill step, slot by slot.
 
@@ -279,7 +299,8 @@ def ragged_paged_reference(
     cu_q_lens[s+1])`` and reads its ``kv_lens[s]`` (post-append) cache
     rows through ``page_table[s]`` from the (P, Hkv, page, d) pools; the
     token at span offset ``t`` attends positions ``<= kv_len - q_len +
-    t``.  Slots at or beyond ``distribution[1]`` and empty slots write
+    t``, within the band of `band_keep` under a ``window``.  Slots at or
+    beyond ``distribution[1]`` and empty slots write
     nothing, pad tokens stay zero, and a slot with ``kv_len < 0`` emits
     NaN rows.  Returns (1, Hq, T, dv) in the pools' dtype."""
     check_softcap(softcap)
@@ -316,7 +337,8 @@ def ragged_paged_reference(
             scores = softcap * torch.tanh(scores / softcap)
         pos = kv_len - q_len + torch.arange(q_len, device=q.device)
         col = torch.arange(kv_len, device=q.device)
-        scores = scores.masked_fill(col[None, :] > pos[:, None],
-                                    float("-inf"))
+        keep = (col[None, :] <= pos[:, None]) & band_keep(
+            col[None, :], pos[:, None], window, sinks)
+        scores = scores.masked_fill(~keep, float("-inf"))
         out[0, :, q_start:q_start + q_len] = _softmax_pv(scores, vals)
     return out

@@ -49,7 +49,18 @@ non-zero unless all of them pass:
             off; for the decode kernels also one middle split of the
             longest sequence's keys dropped; for causal flash also the
             diagonal tile of the middle row block, the tile the kernel's
-            mask range must test) must fail the check.
+            mask range must test) must fail the check.  The sliding
+            window: flash at 32 q / 4 kv heads over 8192 rows, causal,
+            bf16, at window 4096 with 4 sinks, at window 1024 and without
+            a window, each without and with softcap 50, on the "wgmma"
+            body, its visited tiles equal to the tiles that hold a kept
+            key, timed beside SDPA with the band as a boolean mask (the
+            windowed calls' card time must fall: 4096 at or below the
+            call without a window, 1024 under half of it); an f32 call on
+            the "fma" body (dk != dv, window 100, 5 sinks); the
+            ragged kernel with window 256 and 4 sinks on the scheduler's
+            packed step and the decode-only step.  A band one key tile
+            longer and a dropped sink tile must fail.
 2b. backward the training forward's partials and the three backward
             kernels (fused, dQ, dK/dV) at the serving geometry as a
             training call (b = 1, 32 q / 4 kv heads, m = n = 4096, d 128,
@@ -108,12 +119,18 @@ non-zero unless all of them pass:
             flash kernel for each prefill and the decode (paged, int8)
             kernel for each step, nothing else; then one 4-token
             chunk-verify call on int8 caches, the int8 kernel once per
-            layer.
+            layer.  Then the same weights as a windowed model (window
+            256, 4 sinks): `generate(rolling_cache=True)` and the full-
+            cache `generate` on the 512-token prompts (the first tokens
+            equal, the equal share printed), `generate_paged` and
+            `generate(int8_cache=True)`, the same launch checks.
 5. serving  the same model serving 8 greedy requests (the same prompts,
             32 output tokens each) through `ServingEngine` in
             ``step_mode="ragged"`` (the ragged kernel) and then
-            ``"two_call"`` (the paged kernel); then the ragged run once
-            more under `torch.profiler` for device time by kernel.
+            ``"two_call"`` (the paged kernel); the windowed model in
+            ``"two_call"`` and, without its sinks, in ``"ragged"``; then
+            the ragged run once more under `torch.profiler` for device
+            time by kernel.
 6. reference a small f32 model on the card against the same model on
             the CPU (plain versions): logits, each side the same bits
             twice (the CPU's f32 settings printed first, any
@@ -124,7 +141,11 @@ non-zero unless all of them pass:
             tokens of the three generate functions; teacher-forced
             int8-cache logits and greedy `generate(int8_cache=True)`
             tokens; training: loss and every gradient of one step, then
-            three AdamW steps' losses, against the CPU.
+            three AdamW steps' losses, against the CPU.  The same model
+            with window 24 and 4 sinks: logits, and greedy streams of
+            `generate` on full and rolling caches (equal to each other
+            too), `generate_ragged`, `generate_paged`,
+            `generate(int8_cache=True)` and two-call serving.
 7. train    the phase 4 model trained: `init_train`, 5 fused steps of
             `make_train_step` on a seeded batch of 4 x 2049 tokens (every
             loss finite, the last below the first; the flash kernel and
@@ -179,6 +200,19 @@ SERVE_ENGINE = dict(step_mode="ragged", page_size=128, num_pages=512,
 # the __graft_entry__.entry() model
 SMALL_MODEL = dict(vocab=256, dim=256, depth=2, num_q_heads=8,
                    num_kv_heads=2, rope=True, softcap=50.0)
+# the sliding-window flash cases of phase 2: the served attention geometry
+# (q heads, kv heads, rows, d) at 8192 rows, causal, bf16; the published
+# window of Mistral 7B v0.1 and Gemma 2 (4096) with StreamingLLM's 4 sinks,
+# a 1024 window, and the same call without one
+WINDOW_FLASH = (32, 4, 8192, 128)
+WINDOW_BANDS = {"window4096_sinks4": (4096, 4), "window1024": (1024, None),
+                "causal": (None, None)}
+# the windowed serving model of phases 2 and 4-6: window 256, so that the
+# band and the ring wrap on the trace's 128-1024-token prompts (at 4096
+# nothing would wrap below 2048 rows), with 4 sinks; the small f32 model
+# of phase 6 takes window 24 with 4 sinks
+SERVE_BAND = dict(window=256, attn_sinks=4)
+SMALL_BAND = dict(window=24, attn_sinks=4)
 # the distributed phase: a gloo world of ranks on the one card, and the
 # served model's causal forward they shard (heads, kv heads, rows, d)
 DIST_WORLD = 4
@@ -370,11 +404,12 @@ def without_middle_split(q, k, v, lens, split, *, stats=False, **kw):
     return out if q.dim() == 4 else out[:, :, 0]
 
 
-def flash_plan(q, k, v, kv_valid=None) -> dict:
+def flash_plan(q, k, v, kv_valid=None, window=None, sinks=None) -> dict:
     """The body and key split a flash call on these inputs runs."""
     from attention_tpu_torch.ops.flash import flash_launch_plan
 
-    plan = flash_launch_plan(q, k, v, kv_valid=kv_valid)
+    plan = flash_launch_plan(q, k, v, kv_valid=kv_valid, window=window,
+                             sinks=sinks)
     return dict(body=plan["body"], splits=plan["splits"])
 
 
@@ -492,11 +527,12 @@ def ragged_step_from_scheduler(model):
                          v_pool=step.v_pool.clone(), page_table=table)
 
 
-def ragged_work(step, q) -> tuple[float, float]:
+def ragged_work(step, q, window=None, sinks=None) -> tuple[float, float]:
     """(bytes, operations) one ragged call needs on this step's data:
     real query rows and the output read/written once, each live slot's
-    K/V rows read once, every causally visible (token, position) pair
-    scored and summed."""
+    K/V rows that a token sees read once, every visible (token,
+    position) pair scored and summed: causally, and under a ``window``
+    only the band's and the ``sinks``' positions."""
     hq, d = q.shape[1], q.shape[-1]
     hkv = step.k_pool.shape[1]
     item = q.element_size()
@@ -509,8 +545,15 @@ def ragged_work(step, q) -> tuple[float, float]:
         q_len, kv_len = cu[s + 1] - cu[s], lens[s]
         if q_len <= 0 or kv_len < 0:
             continue
-        nbytes += 2 * hkv * kv_len * d * item
-        pairs += q_len * (kv_len - q_len) + q_len * (q_len + 1) // 2
+        if window is None:
+            nbytes += 2 * hkv * kv_len * d * item
+            pairs += q_len * (kv_len - q_len) + q_len * (q_len + 1) // 2
+            continue
+        lo = max(kv_len - q_len - window + 1, 0)
+        nbytes += 2 * hkv * (kv_len - lo + min(sinks or 0, lo)) * d * item
+        for pos in range(kv_len - q_len, kv_len):
+            first = max(pos - window + 1, 0)
+            pairs += pos - first + 1 + min(sinks or 0, first)
     return nbytes, 2.0 * (d + d) * hq * pairs
 
 
@@ -563,7 +606,7 @@ def ragged_step(gen, spans, *, hq=32, hkv=4, d=128, page=128,
     return randn(1, width, hq, d).transpose(1, 2), step
 
 
-def ragged_plan(q, step) -> dict:
+def ragged_plan(q, step, window=None) -> dict:
     """The launch plan of a ragged call on this card; raises unless bf16
     at head dim 128 and page 128 runs the wgmma body for its prefill
     slots and the split (more than one split, four key groups) for its
@@ -571,7 +614,7 @@ def ragged_plan(q, step) -> dict:
     from attention_tpu_torch.ops.ragged_paged import ragged_launch_plan
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    plan = ragged_launch_plan(q, step, sms=sms)
+    plan = ragged_launch_plan(q, step, sms=sms, window=window)
     if (q.dtype == torch.bfloat16 and q.shape[-1] == 128
             and step.page_size == 128
             and not (plan["body"] == "wgmma" and plan["splits"] > 1
@@ -733,6 +776,170 @@ def phase_ragged_decode(kernels, gen) -> None:
         plan=ragged_plan(q, step), **times)
     kernels["ragged_paged"]["decode_only"] = dict(
         ms=rec["ms"], bound_ms=rec["bound_ms"], **times)
+
+
+def band_tiles(m, window, sinks) -> tuple[int, int, int]:
+    """(visited, banded, pairs) of one head's causal m x m call: the key
+    tiles its row blocks visit by the kernel's plan (`tile_plan`), the
+    (row block, tile) pairs that hold a key some row keeps, counted on
+    the mask itself, and the kept (row, key) pairs."""
+    from attention_tpu_torch.ops.flash import ROW_BLOCK, tile_plan
+    from attention_tpu_torch.ops.flash import KEY_TILE as TILE
+    from attention_tpu_torch.ops.reference import attention_mask
+
+    keep = attention_mask(m, m, causal=True, window=window, sinks=sinks,
+                          device="cuda")
+    blocks = keep.view(m // ROW_BLOCK, ROW_BLOCK, m // TILE, TILE)
+    banded = int(blocks.any(3).any(1).sum())
+    visited = sum(len(tile_plan(m0, m, m, True, 0, 0, window=window,
+                                sinks=sinks).tiles())
+                  for m0 in range(0, m, ROW_BLOCK))
+    return visited, banded, int(keep.sum())
+
+
+def phase_window_kernels(kernels, step, q_step) -> None:
+    """Phase 2's sliding-window cases.  The flash kernel at the served
+    geometry over 8192 rows (`WINDOW_FLASH`), each band of
+    `WINDOW_BANDS` without and with softcap 50: the wgmma body, its
+    visited tiles equal to the tiles holding a kept key, held against
+    the plain version (a band one key tile longer, a dropped sink tile
+    and a 2% scale error must fail), timed beside SDPA with the band as
+    a boolean mask; the band must shrink the card's time (window 4096 at
+    or below the call without one, window 1024 under half of it).  An
+    f32 call on the FMA body with dk != dv.  The ragged kernel with the
+    serving band (`SERVE_BAND`) on the scheduler-packed step and on the
+    decode-only one."""
+    from torch.nn import functional as F
+
+    from attention_tpu_torch.ops.flash import (
+        flash_attention,
+        flash_attention_plain,
+    )
+    from attention_tpu_torch.ops.ragged_paged import (
+        ragged_paged_attention,
+        ragged_paged_attention_plain,
+    )
+    from attention_tpu_torch.ops.reference import attention_mask
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    h, hkv, m, d = WINDOW_FLASH
+    q, k, v = (torch.randn((1, heads, m, d), generator=gen, device="cuda")
+               .to(torch.bfloat16) for heads in (h, hkv, hkv))
+    kx, vx = (t.repeat_interleave(h // hkv, dim=1) for t in (k, v))
+    cases = kernels["flash_fwd"].setdefault("window_cases", {})
+    for softcap in (None, 50.0):
+        for band, (window, sinks) in WINDOW_BANDS.items():
+            kw = dict(causal=True, softcap=softcap, window=window,
+                      sinks=sinks)
+
+            def run(kw=kw):
+                return flash_attention(q, k, v, **kw)
+
+            def plain(kw=kw, **over):
+                return flash_attention_plain(q, k, v, **dict(kw, **over))
+
+            plan = flash_plan(q, k, v, window=window, sinks=sinks)
+            visited, banded, pairs = band_tiles(m, window, sinks)
+            if plan["body"] != "wgmma" or visited != banded:
+                raise AssertionError(f"{band}: {plan}, {visited} tiles "
+                                     f"visited for {banded} in the band")
+            got = run()
+            same_bits(got, run())
+            want = plain()
+            err, ratio = held(got, want)
+            planted = {"scale_off_2pct": plain(scale=1.02 * d ** -0.5)}
+            if window is not None:
+                planted["band_one_tile_longer"] = plain(window=window + 128)
+            if sinks:
+                planted["dropped_sink_tile"] = plain(sinks=None)
+            faults = rejected(planted, want)
+            del got, want, planted
+            rec = dict(ms=time_ms(run), device_ms=device_ms(run),
+                       plain_ms=time_ms(plain, calls=1, reps=3))
+            rec["bound_ms"], rec["bound_by"] = bound_ms(
+                (2 * h + 2 * hkv) * m * d * 2, 2.0 * (d + d) * h * pairs,
+                torch.bfloat16)
+            if softcap is None:
+                # SDPA has no softcap: its time stands beside the
+                # uncapped calls only
+                mask = None if window is None else attention_mask(
+                    m, m, causal=True, window=window, sinks=sinks,
+                    device="cuda")
+
+                def library(mask=mask):
+                    return F.scaled_dot_product_attention(
+                        q, kx, vx, attn_mask=mask, is_causal=mask is None)
+
+                rec.update(library_ms=time_ms(library),
+                           library_device_ms=device_ms(library))
+                del mask
+            case = f"bfloat16_{band}" + ("_softcap50" if softcap else "")
+            cases[case] = rec
+            kernels["flash_fwd"]["max_abs_err"] = max(
+                kernels["flash_fwd"]["max_abs_err"], err)
+            emit(phase="kernels", kernel="flash_fwd", case=case,
+                 shape=list(WINDOW_FLASH), window=window, sinks=sinks,
+                 **plan, visited_tiles=h * visited, band_tiles=h * banded,
+                 kept_pairs=h * pairs, max_abs_err=err,
+                 share_of_limit=ratio, planted_faults_share_of_limit=faults,
+                 **rec)
+        cap = "_softcap50" if softcap else ""
+        full = cases["bfloat16_causal" + cap]["device_ms"]
+        w4096 = cases["bfloat16_window4096_sinks4" + cap]["device_ms"]
+        w1024 = cases["bfloat16_window1024" + cap]["device_ms"]
+        emit(phase="kernels", kernel="flash_fwd", softcap=softcap,
+             window4096_over_causal=w4096 / full,
+             window1024_over_causal=w1024 / full)
+        if not (w4096 <= full and w1024 < 0.5 * full):
+            raise AssertionError(f"the band does not shrink the work: "
+                                 f"{w4096}, {w1024} against {full} ms")
+    del q, k, v, kx, vx
+
+    # the FMA body: f32, dk != dv, a cached prefill's offset
+    q, k, v = (torch.randn(s, generator=gen, device="cuda")
+               for s in ((4, 200, 64), (2, 333, 64), (2, 333, 96)))
+    kw = dict(causal=True, window=100, sinks=5, q_offset=133)
+    pairs = 4 * int(attention_mask(200, 333, causal=True, q_offset=133,
+                                   window=100, sinks=5).sum())
+    hold(kernels, "flash_fwd", "f32_fma_dk_ne_dv_window100_sinks5",
+         run=lambda: flash_attention(q, k, v, **kw),
+         plain=lambda: flash_attention_plain(q, k, v, **kw),
+         faults={"dropped_sink_tile": lambda: flash_attention_plain(
+             q, k, v, **dict(kw, sinks=None)),
+             "band_one_tile_longer": lambda: flash_attention_plain(
+                 q, k, v, **dict(kw, window=100 + KEY_TILE))},
+         work=(4 * (4 * 200 * 64 + 2 * 333 * (64 + 96) + 4 * 200 * 96),
+               2.0 * (64 + 96) * pairs), dtype=torch.float32,
+         **flash_plan(q, k, v, window=100, sinks=5))
+
+    band = dict(window=SERVE_BAND["window"], sinks=SERVE_BAND["attn_sinks"])
+    decode_only = ragged_step(gen, [(1, n + 16) for n in RAGGED_DECODE_LENS])
+    for name, (qr, st) in (("scheduler_step", (q_step, step)),
+                           ("decode_only", decode_only)):
+
+        def run(qr=qr, st=st):
+            return ragged_paged_attention(qr, st, softcap=50.0, **band)
+
+        def plain(qr=qr, st=st, **over):
+            return ragged_paged_attention_plain(qr, st, softcap=50.0,
+                                                **dict(band, **over))
+
+        dms = device_ms(run)
+        rec = hold(
+            kernels, "ragged_paged",
+            f"bfloat16_{name}_window{band['window']}_sinks{band['sinks']}",
+            run=run, plain=plain,
+            faults={"dropped_sink_tile": lambda plain=plain: plain(
+                sinks=None), "band_one_tile_longer": lambda plain=plain:
+                plain(window=band["window"] + KEY_TILE)},
+            work=ragged_work(st, qr, **band), dtype=torch.bfloat16,
+            plan=ragged_plan(qr, st, window=band["window"]),
+            kv_lens=st.kv_lens.tolist(), device_ms=dms)
+        kernels["ragged_paged"].setdefault("window_cases", {})[name] = dict(
+            ms=rec["ms"], device_ms=dms, plain_ms=rec["plain_ms"],
+            bound_ms=rec["bound_ms"])
+    emit(phase="kernels", window_seconds=time.perf_counter() - t0)
 
 
 def phase_decode_kernels(kernels):
@@ -1518,6 +1725,25 @@ def phase_generate(ops, kernels, model) -> None:
     kernel_of = {"generate": "decode", "generate_int8": "quant_decode",
                  "generate_ragged": "decode",
                  "generate_paged": "paged_decode"}
+    tokens = generate_runs(ops, kernels, model, runs, kernel_of,
+                           dict(generate=equal.numel(),
+                                generate_int8=equal.numel(),
+                                generate_ragged=int(lens.sum()),
+                                generate_paged=int(lens.sum())))
+    share = (tokens["generate_ragged"] == tokens["generate_paged"]) \
+        .float().mean().item()
+    int8_share = (tokens["generate_int8"] == tokens["generate"]) \
+        .float().mean().item()
+    emit(phase="generate", ragged_vs_paged_equal_token_share=share,
+         int8_vs_bf16_equal_token_share=int8_share)
+    phase_chunk_verify(ops, kernels, model, equal)
+
+
+def generate_runs(ops, kernels, model, runs, kernel_of, prompt_tokens):
+    """Each of ``runs`` (name: a generate call of ``model``) once, its
+    launch counts reset just before and read just after: the flash kernel
+    once per layer for the prefill and ``kernel_of[name]`` once per layer
+    per step, nothing else; every logit finite.  Returns {name: tokens}."""
     tokens = {}
     for name, run in runs.items():
         with watched(model) as (calls, bad):
@@ -1542,17 +1768,15 @@ def phase_generate(ops, kernels, model) -> None:
              prefill_ms=calls[0][0].elapsed_time(calls[0][1]),
              decode_step_ms=statistics.median(step_ms),
              tokens_per_s=toks.numel() / wall, launches=launches,
-             prompt_tokens=equal.numel() if name.startswith("generate_int8")
-             or name == "generate" else int(lens.sum()))
-    share = (tokens["generate_ragged"] == tokens["generate_paged"]) \
-        .float().mean().item()
-    int8_share = (tokens["generate_int8"] == tokens["generate"]) \
-        .float().mean().item()
-    emit(phase="generate", ragged_vs_paged_equal_token_share=share,
-         int8_vs_bf16_equal_token_share=int8_share)
+             prompt_tokens=prompt_tokens[name])
+    return tokens
 
-    # a speculative-verify chunk of 4 tokens on int8 caches: one model
-    # call, the int8 kernel once per layer in chunk mode
+
+def phase_chunk_verify(ops, kernels, model, equal) -> None:
+    """A speculative-verify chunk of 4 tokens on int8 caches: one model
+    call, the int8 kernel once per layer in chunk mode."""
+    from attention_tpu_torch.models import decode as gen
+
     chunk = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
         0, model.vocab, (8, 4))).cuda()
     with torch.no_grad():
@@ -1574,20 +1798,97 @@ def phase_generate(ops, kernels, model) -> None:
          ms=start.elapsed_time(end), launches=launches)
 
 
+def phase_window_generate(ops, kernels, model) -> None:
+    """The windowed serving model (`SERVE_BAND`) at full width, greedy,
+    32 steps: `generate(rolling_cache=True)` and the full-cache
+    `generate` on phase 4's 8 prompts of 512 tokens (the ring of 260
+    slots wraps), `generate_paged` on the trace's prompts (rope + sinks
+    through `paged_sink_decode`) and `generate(int8_cache=True)` (the int8
+    sink rotation); launch counts as in phase 4.  The ring and the full
+    cache share the prefill's bits, so the first tokens must agree; the
+    decode kernels then sum in another order (the ring's slots against
+    the band's positions), and bf16 rounding parts a share of the greedy
+    streams, printed (the f32 model of phase 6 must agree in full)."""
+    from attention_tpu_torch.models import decode as gen
+
+    t0 = time.perf_counter()
+    equal = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, model.vocab, (8, 512))).cuda()
+    ragged, lens = trace_prompts(model.vocab)
+    runs = {
+        "window_rolling": lambda: gen.generate(
+            model, equal, steps=GEN_STEPS, rolling_cache=True),
+        "window_generate": lambda: gen.generate(model, equal,
+                                                steps=GEN_STEPS),
+        "window_generate_paged": lambda: gen.generate_paged(
+            model, ragged, lens, steps=GEN_STEPS)[0],
+        "window_generate_int8": lambda: gen.generate(
+            model, equal, steps=GEN_STEPS, int8_cache=True),
+    }
+    tokens = generate_runs(
+        ops, kernels, model, runs,
+        dict(window_rolling="decode", window_generate="decode",
+             window_generate_paged="paged_decode",
+             window_generate_int8="quant_decode"),
+        dict(window_rolling=equal.numel(), window_generate=equal.numel(),
+             window_generate_paged=int(lens.sum()),
+             window_generate_int8=equal.numel()))
+    rolling, full = tokens["window_rolling"], tokens["window_generate"]
+    if not torch.equal(rolling[:, 0], full[:, 0]):
+        raise AssertionError("the ring's first tokens differ from the full "
+                             "cache's")
+    emit(phase="generate", model=SERVE_BAND,
+         rolling_vs_full_cache_equal_token_share=(rolling == full).float()
+         .mean().item(), seconds=time.perf_counter() - t0)
+
+
+def serving_trace(vocab: int):
+    """The serving phases' trace: 8 greedy requests at once, 128-1024
+    prompt tokens, 32 output tokens each."""
+    from attention_tpu_torch.engine import synthetic_trace
+
+    return synthetic_trace(8, vocab=vocab, seed=SEED, prompt_len_min=128,
+                           prompt_len_max=1024, max_tokens=32,
+                           arrival_every=0)
+
+
 def phase_serving(ops, kernels, model) -> None:
+    trace = serving_trace(model.vocab)
+    streams = serve_runs(ops, kernels, trace,
+                         [("ragged", "ragged_paged", model),
+                          ("two_call", "paged_decode", model)])
+    same = [a == b for e in trace for a, b in zip(
+        streams["ragged"][e["id"]], streams["two_call"][e["id"]])]
+    emit(phase="serving", two_call_vs_ragged_equal_token_share=sum(same)
+         / len(same))
+
+
+def phase_window_serving(ops, kernels, model, model_no_sinks) -> None:
+    """The windowed serving model in two-call mode (its rope + sinks
+    decode through `paged_sink_decode`; the packed step refuses them),
+    and the same model without sinks in ragged mode (the ragged kernel
+    with the band)."""
+    t0 = time.perf_counter()
+    serve_runs(ops, kernels, serving_trace(model.vocab),
+               [("two_call", "paged_decode", model),
+                ("ragged", "ragged_paged", model_no_sinks)])
+    emit(phase="serving", window_seconds=time.perf_counter() - t0)
+
+
+def serve_runs(ops, kernels, trace, runs) -> dict:
+    """Each (step mode, its kernel, model) of ``runs`` serving ``trace``
+    at `SERVE_ENGINE`, its launch counts reset just before and read just
+    after: one launch of the kernel per layer per model call and no
+    other kernel, every request finished, every logit finite.  Returns
+    {mode: outputs}."""
     from attention_tpu_torch.engine import (
         EngineConfig,
         ServingEngine,
         replay,
-        synthetic_trace,
     )
 
-    trace = synthetic_trace(8, vocab=model.vocab, seed=SEED,
-                            prompt_len_min=128, prompt_len_max=1024,
-                            max_tokens=32, arrival_every=0)
     streams = {}
-    for mode, kernel in (("ragged", "ragged_paged"),
-                         ("two_call", "paged_decode")):
+    for mode, kernel, model in runs:
         eng = ServingEngine(model, EngineConfig(**dict(SERVE_ENGINE,
                                                        step_mode=mode)))
         ops.reset_launch_counts()
@@ -1616,7 +1917,8 @@ def phase_serving(ops, kernels, model) -> None:
                                  "non-finite logits")
         kernels[kernel]["launches"] += launches[kernel]
         streams[mode] = outputs
-        emit(phase="serving", step_mode=mode, steps=summary["num_steps"],
+        emit(phase="serving", step_mode=mode, window=model.window,
+             sinks=model.attn_sinks, steps=summary["num_steps"],
              model_calls=eng.model_calls, launches=launches,
              prompt_tokens=summary["prompt_tokens"],
              output_tokens=summary["output_tokens"], wall_s=wall,
@@ -1625,10 +1927,7 @@ def phase_serving(ops, kernels, model) -> None:
              mean_host_overhead_ms=summary["mean_host_overhead_ms"],
              pad_tokens=summary["pad_tokens_total"],
              peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
-    same = [a == b for e in trace for a, b in zip(
-        streams["ragged"][e["id"]], streams["two_call"][e["id"]])]
-    emit(phase="serving", two_call_vs_ragged_equal_token_share=sum(same)
-         / len(same))
+    return streams
 
 
 def bwd_work(h, hkv, m, n, d, pairs, item, factor, outs):
@@ -2169,6 +2468,68 @@ def phase_reference() -> None:
     reference_training(cpu, gpu, f64)
 
 
+def phase_window_reference() -> None:
+    """The small f32 model with a window and sinks (`SMALL_BAND`) on the
+    card against the same weights on the CPU: uncached logits within
+    1e-4 (as phase 6's); greedy token streams equal between card and CPU
+    for `generate` on full and on rolling caches, `generate_ragged`,
+    `generate_paged`, `generate(int8_cache=True)` and the engine in
+    two-call mode, and the rolling streams equal to the full-cache ones
+    on each side (the prompts pass the window, so the ring wraps)."""
+    from attention_tpu_torch.engine import (
+        EngineConfig,
+        ServingEngine,
+        replay,
+        synthetic_trace,
+    )
+    from attention_tpu_torch.models import TinyDecoder, init_params
+    from attention_tpu_torch.models import decode as gen
+
+    t0 = time.perf_counter()
+    cpu = TinyDecoder(dtype=torch.float32, device="cpu", **SMALL_MODEL,
+                      **SMALL_BAND)
+    cpu.load_state_dict(init_params(cpu, SEED))
+    gpu = TinyDecoder(dtype=torch.float32, device="cuda", **SMALL_MODEL,
+                      **SMALL_BAND)
+    gpu.load_state_dict(cpu.state_dict())
+    tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, SMALL_MODEL["vocab"], (2, 256)))
+    with torch.no_grad():
+        err = (gpu(tokens.cuda()).cpu() - cpu(tokens)).abs().max().item()
+    if not err <= 1e-4:
+        raise AssertionError(f"windowed logits differ from the CPU by {err}")
+    prompts = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
+        0, SMALL_MODEL["vocab"], (3, 100)))
+    ragged = torch.tensor([100, 37, 64])
+    streams = {}
+    for side, m in (("cpu", cpu), ("card", gpu)):
+        streams[side] = dict(
+            generate=gen.generate(m, prompts, steps=12),
+            rolling=gen.generate(m, prompts, steps=12, rolling_cache=True),
+            ragged=gen.generate_ragged(m, prompts, ragged, steps=12),
+            paged=gen.generate_paged(m, prompts, ragged, steps=12)[0],
+            int8=gen.generate(m, prompts, steps=12, int8_cache=True))
+    for name, toks in streams["cpu"].items():
+        if not torch.equal(streams["card"][name].cpu(), toks):
+            raise AssertionError(f"windowed {name} streams differ between "
+                                 "card and CPU")
+    for side in streams.values():
+        if not torch.equal(side["rolling"], side["generate"]):
+            raise AssertionError("rolling and full-cache streams differ")
+    trace = synthetic_trace(6, vocab=SMALL_MODEL["vocab"], seed=SEED,
+                            prompt_len_min=4, prompt_len_max=300,
+                            max_tokens=12)
+    engine = [replay(ServingEngine(m, EngineConfig(
+        num_pages=32, max_seq_len=512, prefill_chunk=64,
+        step_mode="two_call")), trace)[1] for m in (cpu, gpu)]
+    if engine[0] != engine[1]:
+        raise AssertionError("windowed engine streams differ between card "
+                             "and CPU")
+    emit(phase="reference", model=SMALL_BAND, logits_max_abs_err=err,
+         tol=1e-4, streams_equal=sorted(streams["cpu"]) + ["engine"],
+         seconds=time.perf_counter() - t0)
+
+
 def reference_training(cpu, gpu, f64) -> None:
     """Training on the small model, card (the f32 backward kernels)
     against CPU (the plain versions) from the same weights: one loss and
@@ -2237,9 +2598,7 @@ def phase_profile(model) -> None:
         synthetic_trace,
     )
 
-    trace = synthetic_trace(8, vocab=model.vocab, seed=SEED,
-                            prompt_len_min=128, prompt_len_max=1024,
-                            max_tokens=32, arrival_every=0)
+    trace = serving_trace(model.vocab)
     eng = ServingEngine(model, EngineConfig(**SERVE_ENGINE))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2319,6 +2678,7 @@ def main() -> int:
     model = TinyDecoder(dtype=torch.bfloat16, device="cuda", **SERVE_MODEL)
     model.load_state_dict(init_params(model, SEED))
     step, q = phase_kernels(kernels, model)
+    phase_window_kernels(kernels, step, q)
     k, v = phase_decode_kernels(kernels)
     phase_quant_kernels(ops, kernels, k, v)
     del k, v
@@ -2326,9 +2686,20 @@ def main() -> int:
     phase_op_path(ops, kernels)
     phase_distributed(kernels)
     phase_generate(ops, kernels, model)
+    windowed = {}
+    for name, band in (("sinks", SERVE_BAND),
+                       ("no_sinks", dict(SERVE_BAND, attn_sinks=0))):
+        windowed[name] = TinyDecoder(dtype=torch.bfloat16, device="cuda",
+                                     **SERVE_MODEL, **band)
+        windowed[name].load_state_dict(model.state_dict())
+    phase_window_generate(ops, kernels, windowed["sinks"])
     phase_serving(ops, kernels, model)
+    phase_window_serving(ops, kernels, windowed["sinks"],
+                         windowed["no_sinks"])
+    del windowed
     phase_profile(model)
     phase_reference()
+    phase_window_reference()
     phase_train(ops, kernels, model)
 
     nbytes, ops_count = ragged_work(step, q)

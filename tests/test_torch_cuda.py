@@ -556,6 +556,145 @@ def test_ragged_wrapper_raises_instead_of_falling_back(gen, monkeypatch):
     assert launch_counts()["ragged_paged"] == before
 
 
+# Flash calls with the sliding-window band: (dtype, shapes, kw).  The
+# wgmma body takes bf16 at head dims 64/128, the FMA body the rest.
+FLASH_WINDOW_CASES = {
+    "wgmma_window_not_a_tile_multiple": (
+        torch.bfloat16, ((1, 8, 1000, 128), (1, 2, 1000, 128),
+                         (1, 2, 1000, 128)), dict(window=300)),
+    "wgmma_sinks_overlap_the_band": (
+        torch.bfloat16, ((2, 8, 777, 128), (2, 2, 777, 128),
+                         (2, 2, 777, 128)),
+        dict(window=100, sinks=130, softcap=50.0)),
+    "wgmma_kv_valid_below_the_band": (
+        torch.bfloat16, ((1, 8, 300, 128), (1, 2, 1152, 128),
+                         (1, 2, 1152, 128)),
+        dict(window=64, sinks=4, q_offset=800, kv_valid=500)),
+    "wgmma_cached_prefill_d64": (
+        torch.bfloat16, ((2, 8, 300, 64), (2, 2, 1152, 64),
+                         (2, 2, 1152, 64)),
+        dict(window=257, sinks=5, q_offset=600, kv_valid=900)),
+    "wgmma_thin_grid_split": (
+        torch.bfloat16, ((8192, 128),) * 3, dict(window=1024, sinks=4)),
+    "fma_f32_dk_ne_dv": (
+        torch.float32, ((4, 200, 64), (2, 333, 64), (2, 333, 96)),
+        dict(window=100, sinks=5, q_offset=133)),
+    "fma_bf16_d96": (
+        torch.bfloat16, ((2, 4, 300, 96), (2, 2, 300, 96),
+                         (2, 2, 300, 96)), dict(window=33, sinks=1)),
+}
+
+
+@pytest.mark.parametrize("name", list(FLASH_WINDOW_CASES))
+def test_flash_window_matches_plain(gen, name):
+    """The band on both bodies: within the plain version's limit, the
+    same bits twice, one launch a call; a dropped sink tile and a band
+    one key tile longer fail the check (where a row sees the band)."""
+    dtype, shapes, kw = FLASH_WINDOW_CASES[name]
+    kw = dict(kw, causal=True)
+    q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
+               for s in shapes)
+    plan = flash_launch_plan(q, k, v, kv_valid=kw.get("kv_valid"),
+                             window=kw["window"], sinks=kw.get("sinks"))
+    assert plan["body"] == name.split("_")[0]
+    if name == "wgmma_thin_grid_split":
+        assert plan["splits"] > 1
+    before = launch_counts()["flash_fwd"]
+    got = flash_attention(q, k, v, **kw)
+    again = flash_attention(q, k, v, **kw)
+    assert launch_counts()["flash_fwd"] == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = flash_attention_plain(q, k, v, **kw)
+    assert _share_of_limit(got, want) <= 1
+    faults = [] if name.endswith("below_the_band") else [
+        flash_attention_plain(q, k, v, **dict(kw, window=kw["window"] + 64))]
+    if kw.get("sinks"):
+        faults.append(flash_attention_plain(q, k, v, **dict(kw,
+                                                            sinks=None)))
+    for fault in faults:
+        assert mismatch(fault, want)[1] > 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_window_wider_than_the_sequence_is_causal_bits(gen, dtype):
+    """A window past the sequence visits every causal tile and masks as
+    causal alone: the same bits as the call without a window."""
+    q, k, v = (torch.randn(2, 8, 500, 128, generator=gen, device="cuda")
+               .to(dtype) for _ in range(3))
+    got = flash_attention(q, k, v, causal=True, window=100_000, sinks=3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, flash_attention(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("split", [False, True], ids=["one", "split"])
+def test_flash_window_partials_of_a_shard_that_sees_nothing(gen, dtype,
+                                                            split):
+    """Rows whose band lies past kv_valid, with no sinks, see nothing:
+    output 0, row max -inf, sum 0; with sinks they see those alone."""
+    # one head of 8192 rows leaves SMs idle (a key split); 48 heads of
+    # 300 rows are 144 row blocks, more than the card's SMs (no split)
+    heads, m, n = (1, 8192, 8192) if split else (48, 300, 1152)
+    q, k, v = (torch.randn(heads, rows, 128, generator=gen, device="cuda")
+               .to(dtype) for rows in (m, n, n))
+    kw = dict(causal=True, window=64, q_offset=n, kv_valid=n // 2)
+    if dtype is torch.bfloat16:
+        assert (flash_launch_plan(q, k, v, kv_valid=n // 2, window=64)
+                ["splits"] > 1) == split
+    out, mx, sm = flash_attention_partials(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (out == 0).all() and (sm == 0).all()
+    assert (mx == float("-inf")).all()
+    assert (flash_attention(q, k, v, **kw) == 0).all()
+    got = flash_attention_partials(q, k, v, sinks=3, **kw)
+    want = flash_attention_partials_plain(q, k, v, sinks=3, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got[1:], want[1:]):
+        assert ((g - w).abs() <= 1e-5 * w.abs().clamp(min=1)).all()
+
+
+RAGGED_WINDOW_STEPS = {
+    "decode_only": (RAGGED_STEPS["decode_only"], dict(window=256, sinks=4)),
+    "prefill_only": (RAGGED_STEPS["prefill_only"], dict(window=100)),
+    "mixed_page64": (RAGGED_STEPS["mixed_page64"], dict(window=256,
+                                                        sinks=4)),
+    "mixed_d64": (RAGGED_STEPS["mixed_d64"], dict(window=300, sinks=130)),
+    "mixed_mma_page48": (([(1, 553), (1, 64), (191, 959)], {"page": 48}),
+                         dict(window=200, sinks=4)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(RAGGED_WINDOW_STEPS))
+def test_ragged_window_matches_plain(gen, name, dtype):
+    """The band in every body of the ragged kernel (decode slots' split,
+    the wgmma prefill body, the mma body at page 48, FMA in f32): within
+    the plain version's limit, the same bits twice, pad rows 0; a
+    dropped sink tile and a band one key tile longer fail the check."""
+    (spans, kw), band = RAGGED_WINDOW_STEPS[name]
+    q, step = _ragged_step(gen, spans, dtype, **kw)
+    plan = ragged_launch_plan(q, step, window=band["window"],
+                              sms=torch.cuda.get_device_properties(
+                                  0).multi_processor_count)
+    if dtype is torch.bfloat16:
+        assert plan["body"] == ("mma" if "mma" in name else "wgmma")
+    got = ragged_paged_attention(q, step, softcap=50.0, **band)
+    again = ragged_paged_attention(q, step, softcap=50.0, **band)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = ragged_paged_attention_plain(q, step, softcap=50.0, **band)
+    assert _share_of_limit(got, want) <= 1
+    assert (got[:, :, sum(n for n, _ in spans):] == 0).all()
+    faults = [ragged_paged_attention_plain(q, step, softcap=50.0, **dict(
+        band, window=band["window"] + 64))]
+    if band.get("sinks"):
+        faults.append(ragged_paged_attention_plain(
+            q, step, softcap=50.0, window=band["window"]))
+    for fault in faults:
+        assert mismatch(fault, want)[1] > 1
+
+
 QUANTIZE = {"int8": quant.quantize_kv, "int4": quant.quantize_kv_int4,
             "int4_tok": quant.quantize_kv_int4_tok}
 QUANT_OPS = {("int8", False): quant.flash_decode_quantized,

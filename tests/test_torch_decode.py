@@ -350,5 +350,5 @@ def test_generate_sampling_is_seeded(pair):
     assert not torch.equal(sample(7), sample(8))
     with pytest.raises(ValueError):
         gen.generate(model, PROMPT, steps=2, temperature=0.5)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="windowed"):
         gen.generate(model, PROMPT, steps=2, rolling_cache=True)

@@ -86,7 +86,7 @@ def dq_by_items(q, k, v, out, lse, dout, *, scale, causal=False,
     for w in range(b * h * -(-m // DQ_ROWS)):
         bi, hi, m0 = dq_work_item(w, b, h, m, causal)
         begin, end, mask = tile_plan(m0, m, valid, causal, q_offset,
-                                     kv_offset)
+                                     kv_offset)[:3]
         rows = slice(m0, min(m0 + DQ_ROWS, m))
         row = torch.arange(rows.start, rows.stop)
         lim = (torch.clamp(row + q_offset - kv_offset + 1, max=valid)
@@ -167,7 +167,7 @@ def test_dq_tile_plan_masks_every_tile_that_needs_it(causal, q_offset,
             for m0 in range(0, m, DQ_ROWS):
                 block = keep[m0:m0 + DQ_ROWS]
                 plan = tile_plan(m0, m, kv_valid, causal, q_offset,
-                                 kv_offset)
+                                 kv_offset)[:3]
                 begin, end, mask = plan
                 assert begin == 0 and end <= tiles and mask >= 0
                 assert _plan_holds(plan, block, KEY_TILE), (m, n, m0)
@@ -184,7 +184,8 @@ def test_dq_tile_plan_of_a_causal_diagonal():
     0..i, the diagonal one masked; kv_valid 0 gives no tiles."""
     assert KEY_TILE == DQ_ROWS == 128
     for i in (0, 1, 31):
-        assert tile_plan(i * 128, 4096, 4096, True, 0, 0) == (0, i + 1, i)
+        assert tile_plan(i * 128, 4096, 4096, True, 0, 0)[:3] == (
+            0, i + 1, i)
     assert tile_plan(0, 300, 0, False, 0, 0)[:2] == (0, 0)
 
 

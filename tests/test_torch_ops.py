@@ -126,7 +126,9 @@ def test_flash_unported_features_raise():
     """Forward features the port does not have yet raise, in both
     forward entry points (the training forward's partials included)."""
     q = torch.zeros(8, 16)
-    for kw in ({"window": 4}, {"sinks": 2}, {"max_mode": "flashd"}):
+    seg = torch.zeros(8, dtype=torch.int32)
+    for kw in ({"q_segment_ids": seg, "kv_segment_ids": seg},
+               {"max_mode": "flashd"}):
         for fn in (flash_attention, flash_attention_partials):
             with pytest.raises(NotImplementedError):
                 fn(q, q, q, causal=True, **kw)
