@@ -13,8 +13,11 @@
 // with delta = rowsum(dO ∘ O) computed by the caller, P and dS rounded to
 // the input dtype before each product (fp32 accumulation), causal masking
 // by global positions (query row i at q_offset + i, key row j at
-// kv_offset + j), only the first kv_valid key rows attended, and softcap
-// in the log2 domain (cap2 = softcap·log2 e).
+// kv_offset + j), only the first kv_valid key rows attended, under a
+// sliding window (causal only) only the keys of a row's band (j + kv_offset
+// > i + q_offset - window: the sinks of a windowed forward are the
+// caller's `sink_patch`, as they are the TPU kernels' caller's), and
+// softcap in the log2 domain (cap2 = softcap·log2 e).
 //
 // with lse2 and delta read at row stride ls (the caller pads each head's
 // rows, lse2 with +inf: exp2(s - inf) is the 0 of a row that saw no key).
@@ -39,11 +42,12 @@
 // each tile's dQ = scale·dS·K into an fp32 (B, H, m, dk) buffer with
 // atomicAdd: CTAs run in no order, and the TPU kernel's resident dQ block
 // has no counterpart on the GPU.  A causal CTA starts at the first query
-// tile that sees its keys.
+// tile that sees its keys and, under a window, stops after the last.
 //
 // query-major (`q_major_fma`, replaces `_dq_kernel`, :146): a CTA owns QB
-// query rows and walks the key tiles up to the causal diagonal, keeping
-// dQ in fp32 registers, and writes it once in the input dtype.
+// query rows and walks the key tiles up to the causal diagonal (under a
+// window from its first row's band on), keeping dQ in fp32 registers, and
+// writes it once in the input dtype.
 //
 // What bounds them on the H100: the fused backward does 10·h·m·n·d
 // operations (halved under causal) on 4·h·m·d + 2·hkv·n·d values plus
@@ -85,6 +89,8 @@ struct BwdArgs {
   long long sqb, sqh, sqm, skb, skh, skn, svb, svh, svn, sob, soh, som;
   float scale, cap2;
   int causal, q_offset, kv_offset, kv_valid;
+  int window;  // causal only: a row keeps the keys of its last `window`
+               // positions; 0: no window
 };
 
 // P and dS of the pair (query row q, key row key) from its log2-domain
@@ -99,8 +105,10 @@ __device__ __forceinline__ void p_and_ds(const BwdArgs& a, int q, int key,
     dcap = 1.f - t * t;
   }
   // a row the forward fully masked has lse2 == -inf: P = 0, not inf
+  const int lag = q + a.q_offset - (key + a.kv_offset);  // causal: >= 0
   const bool keep = key < a.kv_valid && lse2 != -INFINITY &&
-                    (!a.causal || key + a.kv_offset <= q + a.q_offset);
+                    (!a.causal || (lag >= 0 && (a.window <= 0 ||
+                                                lag < a.window)));
   const float p = keep ? exp2f(s - lse2) : 0.f;
   s = p;
   dp = p * (dp - delta) * dcap;
@@ -137,12 +145,33 @@ __device__ __forceinline__ int first_q_tile(const BwdArgs& a, int k0, int W) {
   return x <= 0 ? 0 : x / W;
 }
 
+// the end of the query tiles (of width W) whose rows can see a key of the
+// block [k0, k0 + rows): all of them, or under a window the tile past the
+// last row that sees the block's last key below kv_valid, window - 1 rows
+// after that key's first
+__device__ __forceinline__ int q_tile_end(const BwdArgs& a, int k0, int rows,
+                                          int W) {
+  const int tiles = (a.m + W - 1) / W;
+  if (!a.causal || a.window <= 0) return tiles;
+  const int span = min(rows, min(a.kv_valid, a.n) - k0);  // keys below it
+  const int last = k0 + span - 1 + a.kv_offset - a.q_offset + a.window - 1;
+  return last < 0 ? 0 : min(tiles, last / W + 1);
+}
+
 // keys a query block [q0, q0 + rows) visits: none past kv_valid, none past
 // the block's causal diagonal
 __device__ __forceinline__ int key_end(const BwdArgs& a, int q0, int rows) {
   const int valid = min(a.kv_valid, a.n);
   return a.causal ? max(0, min(valid, q0 + rows + a.q_offset - a.kv_offset))
                   : valid;
+}
+
+// the first key (a multiple of W) a query block starting at row q0 visits:
+// 0, or under a window the tile of its first row's band
+__device__ __forceinline__ int key_begin(const BwdArgs& a, int q0, int W) {
+  if (!a.causal || a.window <= 0) return 0;
+  const int x = q0 + a.q_offset - a.kv_offset - a.window + 1;
+  return x <= 0 ? 0 : x / W * W;
 }
 
 // --------------------------------------------------------------- fp32 FMA
@@ -243,7 +272,7 @@ __global__ void __launch_bounds__(THREADS) kv_major_fma(BwdArgs a) {
   const T* vp = static_cast<const T*>(a.v) + hd.b * a.svb + hd.hk * a.svh;
   const int i0 = first_q_tile(a, k0, QT);
   const int per_head = k0 < min(a.kv_valid, a.n)
-                           ? max((a.m + QT - 1) / QT - i0, 0) : 0;
+                           ? max(q_tile_end(a, k0, KB, QT) - i0, 0) : 0;
   const int ntiles = hd.heads * per_head;
 
   stage<T>(Kt, KTS, nullptr, 0, KB, d, [&](int r) {
@@ -392,7 +421,7 @@ __global__ void __launch_bounds__(THREADS) q_major_fma(BwdArgs a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) dq[i][q][e] = 0.f;
 
-  for (int j0 = 0; j0 < n_end; j0 += FKT) {
+  for (int j0 = key_begin(a, q0, FKT); j0 < n_end; j0 += FKT) {
     __syncthreads();  // the previous tile's readers are done
     stage<T>(Kt, FKS, Kr, dps, FKT, d, [&](int r) {
       return j0 + r < n_end ? kp + (j0 + r) * a.skn : nullptr;
@@ -488,7 +517,7 @@ cudaError_t dispatch_fma(const BwdArgs& a, int B, cudaStream_t s) {
 inline bool args_ok(const BwdArgs& a, int B) {
   return a.d >= 1 && a.dvd >= 1 && a.d <= MAX_HEAD_DIM &&
          a.dvd <= MAX_HEAD_DIM && a.Hkv >= 1 && a.H % a.Hkv == 0 &&
-         a.m >= 1 && a.n >= 1 && B >= 1 && a.ls >= a.m;
+         a.m >= 1 && a.n >= 1 && B >= 1 && a.ls >= a.m && a.window >= 0;
 }
 
 }  // namespace atb

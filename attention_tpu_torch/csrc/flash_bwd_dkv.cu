@@ -15,7 +15,9 @@
 
 // Plain C entry point, loaded through ctypes.  Pointers and strides as in
 // atb::BwdArgs; dtype 0 = fp32, 1 = bf16; softcap2 = softcap·log2 e, <= 0
-// for none; kv_valid <= n; ls the row stride of lse2 and delta, lse2 +inf
+// for none; kv_valid <= n; window (causal only) the band of a row's last
+// `window` key positions, 0 for none, the sinks of a windowed forward left
+// to the caller; ls the row stride of lse2 and delta, lse2 +inf
 // where the forward saw no key.  body: 0 = "fma", 1 = "wgmma" (the
 // caller's `flash_bwd_body`); a body that cannot take the call is refused,
 // never replaced.  "fma" (slices 1) writes fp32 dK and dV (B, Hkv, n, d),
@@ -30,14 +32,14 @@ extern "C" int flash_bwd_dkv(
     long long sqb, long long sqh, long long sqm, long long skb, long long skh,
     long long skn, long long svb, long long svh, long long svn, long long sob,
     long long soh, long long som, float scale, float softcap2, int causal,
-    int q_offset, int kv_offset, int kv_valid, int body, int slices,
-    void* stream) {
+    int q_offset, int kv_offset, int kv_valid, int window, int body,
+    int slices, void* stream) {
   const atb::BwdArgs a{qs,  k,   v,   dout, lse2, delta, nullptr,
                        nullptr, static_cast<float*>(dk),
                        static_cast<float*>(dv), H, Hkv, m, n, d, dvd, ls,
                        sqb, sqh, sqm, skb, skh, skn, svb, svh, svn, sob,
                        soh, som, scale, softcap2 > 0.f ? softcap2 : 0.f,
-                       causal, q_offset, kv_offset, kv_valid};
+                       causal, q_offset, kv_offset, kv_valid, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!atb::args_ok(a, B) || slices < 1) return (int)cudaErrorInvalidValue;
   if (body == 1) {

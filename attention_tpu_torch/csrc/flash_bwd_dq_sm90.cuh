@@ -32,10 +32,14 @@
 //   (`FlashSched`, one split) deals the items (row block, head), under
 //   causal masking the last row block first, in `snake_item`'s order.
 // - Masks only where a tile needs them: the forward's `tile_plan` (its
-//   key tiles are this body's) gives each item's key tiles and the first
-//   that can hold a masked pair (mirrored by `ops.flash.tile_plan`).  Rows
-//   past m and rows the forward fully masked need no test: the wrapper
-//   pads lse2 with +inf there.  Softcap on and off are two instances.
+//   key tiles are this body's) gives each item's key tiles and the range
+//   [mask_lo, mask) every row keeps whole (mirrored by
+//   `ops.flash.tile_plan`).  Under a sliding window the plan is the
+//   window's band alone (sinks 0: the sink pairs outside the band are the
+//   caller's `sink_patch`), the walk visits only its tiles, and a masked
+//   tile tests each row's band start beside its key limit.  Rows past m
+//   and rows the forward fully masked need no test: the wrapper pads lse2
+//   with +inf there.  Softcap on and off are two instances.
 // - TMA maps are 4-D (d, rows, heads, batch) from the caller's strides, so
 //   the training layer's (b, s, h, d) views load as they are; rows past m
 //   and keys past n read as zeros, keys in [kv_valid, n) are masked.
@@ -75,11 +79,12 @@ constexpr size_t smem_bytes() {
          8 * (2 + 2 * ST) + 1024;
 }
 
-// the key tiles of an item, from the forward's plan
+// the key tiles of an item, from the forward's plan: the window's band
+// without sinks
 __device__ __forceinline__ TilePlan item_plan(const sm90::Args& a,
                                               const FlashSched::Work& k) {
   return tile_plan(k.m0, a.m, a.kv_valid, a.causal != 0, a.q_offset,
-                   a.kv_offset, 0, 0, 0, 1 << 30);
+                   a.kv_offset, a.window, 0, 0, 1 << 30);
 }
 
 // d += A·B, A (64 x 16) from registers, B (16 x N) MN-major in shared
@@ -99,8 +104,9 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
 // 8·(e / 2) of its warpgroup's 64, column 8j + 2·(lane % 4) + e % 2.  The
 // K/V ring runs on across items: the g-th tile a CTA loads sits in stage
 // g % ST.  The Qs/dO buffer is refilled once both consumers finished the
-// item before.
-template <int D, bool CAP>
+// item before.  BAND: the call has a window (an instance of its own, so
+// that a call without one runs the code it ran before the band).
+template <int D, bool CAP, bool BAND>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tdo,
@@ -162,8 +168,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       const long long row = (long long)k.bh * a.m_pad + k.m0;
       bulk_load(sst, a.lse2 + row, ROWS * 4, q_full);
       bulk_load(sst + ROWS * 4, a.delta + row, ROWS * 4, q_full);
-      for (int t = p.begin; t < p.end; ++t, ++g) {
+      for (int i = p.begin; i < p.end; ++i, ++g) {
         const int s = g % ST;
+        const int t = BAND ? p.tile(i) : i;
         mbar_wait(empty(s), ((g / ST) & 1) ^ 1);
         mbar_expect_tx(full(s), 2 * KV_BYTES);
         for (int c = 0; c < D / BOX; ++c) {
@@ -199,12 +206,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (p.end > p.begin) {
       int lim[2];
       sc.limits(k, rl, lim);
+      const Band band = sc.band(k, rl);  // its sinks unused: none here
       mbar_wait(q_full, nq & 1);
       ++nq;
       const float l2[2] = {stats[rl], stats[rl + 8]};
       const float dl[2] = {stats[ROWS + rl], stats[ROWS + rl + 8]};
-      for (int t = p.begin; t < p.end; ++t, ++g) {
+      for (int i = p.begin; i < p.end; ++i, ++g) {
         const int st = g % ST;
+        const int t = BAND ? p.tile(i) : i;
         mbar_wait(full(st), (g / ST) & 1);
 
         // S = Qs·Kᵀ and dP = dO·Vᵀ: this warpgroup's 64 rows x KT keys, 16
@@ -236,7 +245,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         // the tiles that can hold a masked pair
         wgmma_wait<1>();
         pin(s);
-        const bool masked = t >= p.mask;
+        const bool masked = (BAND && t < p.mask_lo) || t >= p.mask;
         const int col0 = t * KT + c0;
 #pragma unroll
         for (int j = 0; j < KT / 8; ++j)
@@ -250,9 +259,22 @@ __global__ void __launch_bounds__(THREADS, 1)
               dcap = 1.f - th * th;
             }
             float pv = ex2(x - l2[e >> 1]);
-            if (masked && col0 + 8 * j + (e & 1) >= lim[e >> 1]) pv = 0.f;
+            if (!BAND && masked && col0 + 8 * j + (e & 1) >= lim[e >> 1])
+              pv = 0.f;
             s[4 * j + e] = CAP ? pv * dcap : pv;
           }
+        // a band's masked tiles (its lower edge and the diagonal) in a pass
+        // of their own, which the tiles between them skip
+        if (BAND && masked) {
+#pragma unroll
+          for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = col0 + 8 * j + (e & 1);
+              if (col >= lim[e >> 1] || col < band.lo[e >> 1])
+                s[4 * j + e] = 0.f;
+            }
+        }
         // dS = P·(dP - delta)
         wgmma_wait<0>();
         pin(dp);
@@ -301,10 +323,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // ------------------------------------------------------------------ launch
 
-template <int D, bool CAP>
+template <int D, bool CAP, bool BAND>
 cudaError_t launch_t(const CUtensorMap (&maps)[4], const Args& s,
                      cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_wgmma<D, CAP>;
+  auto kernel = flash_bwd_dq_wgmma<D, CAP, BAND>;
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -321,6 +343,17 @@ cudaError_t launch_t(const CUtensorMap (&maps)[4], const Args& s,
   kernel<<<grid, THREADS, smem, stream>>>(maps[0], maps[1], maps[2], maps[3],
                                           s);
   return cudaGetLastError();
+}
+
+// The instance of a head dim: softcap on or off, a band or none.
+template <int D>
+cudaError_t launch_d(const CUtensorMap (&maps)[4], const Args& s,
+                     cudaStream_t st) {
+  if (s.sc.a.window > 0)
+    return s.sc.a.cap2 > 0.f ? launch_t<D, true, true>(maps, s, st)
+                             : launch_t<D, false, true>(maps, s, st);
+  return s.sc.a.cap2 > 0.f ? launch_t<D, true, false>(maps, s, st)
+                           : launch_t<D, false, false>(maps, s, st);
 }
 
 // The body on a call the caller checked (`atb::wgmma_operands_ok`, lse2
@@ -350,6 +383,8 @@ inline cudaError_t launch(const atb::BwdArgs& a, int B, cudaStream_t st) {
   f.q_offset = a.q_offset;
   f.kv_offset = a.kv_offset;
   f.kv_valid = a.kv_valid < 0 ? 0 : a.kv_valid > a.n ? a.n : a.kv_valid;
+  f.window = a.causal ? a.window : 0;
+  f.sinks = 0;
   f.splits = 1;
   f.split_tiles = 1 << 30;
   s.lse2 = a.lse2;
@@ -358,10 +393,8 @@ inline cudaError_t launch(const atb::BwdArgs& a, int B, cudaStream_t st) {
   s.m_pad = a.ls;
   s.scale = a.scale;
   if (a.d == 64)
-    return a.cap2 > 0.f ? launch_t<64, true>(maps, s, st)
-                        : launch_t<64, false>(maps, s, st);
-  return a.cap2 > 0.f ? launch_t<128, true>(maps, s, st)
-                      : launch_t<128, false>(maps, s, st);
+    return launch_d<64>(maps, s, st);
+  return launch_d<128>(maps, s, st);
 }
 
 }  // namespace dq90

@@ -51,9 +51,19 @@
 //   dealt in `snake_item`'s order.  The producer loads the next item's K,
 //   V and first tiles while the consumers write the last one's dK, dV.
 // - Masks only where a tile needs them: each item computes from (key0, m,
-//   kv_valid, causal, offsets) its first query tile and the tiles that
+//   kv_valid, causal, offsets, window) its query tiles and the tiles that
 //   can hold a masked pair (`tile_plan`, mirrored by
-//   `ops.flash_bwd.bwd_tile_plan`); the rest skip the per-element test.
+//   `ops.flash_bwd.bwd_tile_plan`): the diagonal's at the start and,
+//   under a window, those of the band's lower edge at the end; the rest
+//   skip the per-element test.
+// - Under a sliding window an item walks only its block's band of query
+//   tiles, from the diagonal to the last row within window - 1 positions
+//   of its last key, as the TPU kernels' banded grid does, so the work
+//   and the load the work plan balances grow with the window, not the
+//   sequence.  The mask is the window's alone: the sink pairs outside the
+//   band are the caller's (`ops.flash_bwd.sink_patch`), since folding them
+//   in would give key block 0 every query tile of the call, the heaviest
+//   item of the grid for a few keys.
 //   Rows past m and rows the forward fully masked need no test: the
 //   wrapper pads lse2 with +inf there, so P = exp2(s - inf) = 0.  Softcap
 //   on and off are two instances.
@@ -106,37 +116,50 @@ struct Args {
   int B, H, Hkv, m, n, m_pad, slices;
   float scale, cap2;  // cap2 = softcap·log2 e (0: none)
   int causal, q_offset, kv_offset, kv_valid;  // kv_valid cut to n
+  int window;  // causal only: the keys of a row's last `window`
+               // positions; 0: none
 };
 
 // The query tiles [begin, end) that the item of keys [key0, key0 + KB)
-// visits for each of its heads, and the end of those that can hold a
-// masked pair: tiles in [begin, mask_end) run the per-element test, the
-// rest see every key of the block.  An item past kv_valid has no tiles.
+// visits for each of its heads, and where it masks: tiles in [mask_end,
+// edge) see every key of the block and skip the per-element test; below
+// mask_end a row may lie before a key (the diagonal) or a key past
+// kv_valid, from edge on a row's band may have left the block's first
+// keys.  An item past kv_valid has no tiles.
 struct TilePlan {
-  int begin, end, mask_end;
+  int begin, end, mask_end, edge;
 };
 
 __device__ __forceinline__ TilePlan tile_plan(int key0, int m, int kv_valid,
                                               bool causal, int q_offset,
-                                              int kv_offset) {
+                                              int kv_offset, int window) {
   TilePlan p;
   const int tiles = (m + QT - 1) / QT;
   if (key0 >= kv_valid) {
-    p.begin = p.end = p.mask_end = 0;
+    p.begin = p.end = p.mask_end = p.edge = 0;
     return p;
   }
-  p.end = tiles;
   // causal: the first row that sees key0 sits at key0 + kv_offset -
-  // q_offset, the first that sees the block's last key KB - 1 rows later
+  // q_offset, the first that sees the block's last key KB - 1 rows later;
+  // a window: the last that sees its last key below kv_valid window - 1
+  // rows after that key's first
   const int first = key0 + kv_offset - q_offset;
-  p.begin = causal ? min(tiles, max(0, floor_div(first, QT))) : 0;
+  const int span = min(KB, kv_valid - key0);
+  const bool band = causal && window > 0;
+  p.begin = !causal ? 0 : first >= m ? tiles : max(0, floor_div(first, QT));
+  p.end = band ? max(p.begin, min(tiles, floor_div(first + span + window - 2,
+                                                   QT) + 1))
+               : tiles;
   if (key0 + KB > kv_valid)
-    p.mask_end = tiles;
+    p.mask_end = p.end;
   else if (causal)
     p.mask_end =
-        min(tiles, max(p.begin, floor_div(first + KB - 1 + QT - 1, QT)));
+        min(p.end, max(p.begin, floor_div(first + KB - 1 + QT - 1, QT)));
   else
     p.mask_end = p.begin;
+  // a window: row first + window is the first whose band has left key0
+  p.edge = band ? min(p.end, max(p.mask_end, floor_div(first + window, QT)))
+                : p.end;
   return p;
 }
 
@@ -148,7 +171,9 @@ struct Work {
 
 // Work item w: the key block varies slowest, from block 0 (under causal
 // masking the heaviest) up, then the batch, kv head and slice.
-__device__ __forceinline__ Work work_item(const Args& a, long long w) {
+// Its tile plan takes `window` (0 in an instance without a band).
+__device__ __forceinline__ Work work_item(const Args& a, long long w,
+                                          int window) {
   const int group = a.H / a.Hkv;
   const long long per_kb = (long long)a.B * a.Hkv * a.slices;
   Work k;
@@ -161,7 +186,7 @@ __device__ __forceinline__ Work work_item(const Args& a, long long w) {
   k.key0 = kb * KB;
   k.h_first = k.hk * group + k.slice * (group / a.slices);
   k.plan = tile_plan(k.key0, a.m, a.kv_valid, a.causal != 0, a.q_offset,
-                     a.kv_offset);
+                     a.kv_offset, window);
   k.per_head = k.plan.end - k.plan.begin;
   k.ntiles = (group / a.slices) * k.per_head;
   return k;
@@ -182,8 +207,10 @@ constexpr size_t smem_bytes(int d, bool dq) {
 // 16·warp + lane / 4 + 8·(e / 2) of its warpgroup's 64, column 8j +
 // 2·(lane % 4) + e % 2.  The stage ring runs on across items: the g-th
 // query tile a CTA loads sits in stage g % ST, and its dQ in buffer
-// g % 2.  Without dQ, `tdq` is not read.
-template <int D, bool CAP, bool DQ>
+// g % 2.  Without dQ, `tdq` is not read.  BAND: the call has a window
+// (an instance of its own, so that a call without one runs the code it
+// ran before the band).
+template <int D, bool CAP, bool DQ, bool BAND>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tdo,
@@ -239,7 +266,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int r = 0; (long long)r * gridDim.x < total; ++r) {
       const long long w = snake_item(r, total);
       if (w < 0) continue;
-      const Work k = work_item(a, w);
+      const Work k = work_item(a, w, BAND ? a.window : 0);
       if (k.ntiles <= 0) continue;
       if (nkv > 0) mbar_wait(kv_empty, (nkv - 1) & 1);
       ++nkv;
@@ -281,7 +308,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int r = 0; (long long)r * gridDim.x < total; ++r) {
     const long long w = snake_item(r, total);
     if (w < 0) continue;
-    const Work k = work_item(a, w);
+    const Work k = work_item(a, w, BAND ? a.window : 0);
     float dk[D / 2], dv[D / 2];
 #pragma unroll
     for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.f;
@@ -334,7 +361,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         const float* lse = reinterpret_cast<const float*>(
             ptr(sst + st * STAT_BYTES));
         const float* dl = lse + QT;
-        const bool masked = t < k.plan.mask_end;
+        const bool masked =
+            t < k.plan.mask_end || (BAND && t >= k.plan.edge);
         uint32_t pf[4][4], df[4][4];
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
@@ -353,9 +381,16 @@ __global__ void __launch_bounds__(THREADS, 1)
             if (masked) {
               const int key = k.key0 + kr + 8 * (e >> 1);
               const int q = q0 + 8 * j + c0 + (e & 1);
-              if (key >= a.kv_valid ||
-                  (a.causal && key + a.kv_offset > q + a.q_offset))
+              if constexpr (BAND) {
+                // the key's lag behind the row (a band is causal): kept
+                // in [0, window)
+                const int lag = q + a.q_offset - (key + a.kv_offset);
+                if (key >= a.kv_valid || lag < 0 || lag >= a.window)
+                  p = 0.f;
+              } else if (key >= a.kv_valid ||
+                         (a.causal && key + a.kv_offset > q + a.q_offset)) {
                 p = 0.f;
+              }
             }
             if constexpr (CAP)
               dp[4 * j + e] =
@@ -538,10 +573,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // ------------------------------------------------------------------ launch
 
-template <int D, bool CAP, bool DQ>
+template <int D, bool CAP, bool DQ, bool BAND>
 cudaError_t launch_t(const CUtensorMap (&maps)[5], const Args& s,
                      cudaStream_t stream) {
-  auto kernel = flash_bwd_wgmma<D, CAP, DQ>;
+  auto kernel = flash_bwd_wgmma<D, CAP, DQ, BAND>;
   constexpr size_t smem = smem_bytes(D, DQ);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -558,6 +593,17 @@ cudaError_t launch_t(const CUtensorMap (&maps)[5], const Args& s,
   kernel<<<grid, THREADS, smem, stream>>>(maps[0], maps[1], maps[2], maps[3],
                                           maps[4], s);
   return cudaGetLastError();
+}
+
+// The instance of a head dim: softcap on or off, a band or none.
+template <int D, bool DQ>
+cudaError_t launch_d(const CUtensorMap (&maps)[5], const Args& s,
+                     cudaStream_t st) {
+  if (s.window > 0)
+    return s.cap2 > 0.f ? launch_t<D, true, DQ, true>(maps, s, st)
+                        : launch_t<D, false, DQ, true>(maps, s, st);
+  return s.cap2 > 0.f ? launch_t<D, true, DQ, false>(maps, s, st)
+                      : launch_t<D, false, DQ, false>(maps, s, st);
 }
 
 // The key-major body on a call the caller checked
@@ -601,11 +647,10 @@ cudaError_t launch(const atb::BwdArgs& a, int B, void* dk, void* dv,
   s.q_offset = a.q_offset;
   s.kv_offset = a.kv_offset;
   s.kv_valid = a.kv_valid < 0 ? 0 : a.kv_valid > a.n ? a.n : a.kv_valid;
+  s.window = a.causal ? a.window : 0;
   if (a.d == 64)
-    return a.cap2 > 0.f ? launch_t<64, true, DQ>(maps, s, st)
-                        : launch_t<64, false, DQ>(maps, s, st);
-  return a.cap2 > 0.f ? launch_t<128, true, DQ>(maps, s, st)
-                      : launch_t<128, false, DQ>(maps, s, st);
+    return launch_d<64, DQ>(maps, s, st);
+  return launch_d<128, DQ>(maps, s, st);
 }
 
 }  // namespace bwd90

@@ -14,7 +14,12 @@ first:
   at the served model's geometry, b = 1, 32 q / 4 kv heads, m = n =
   4096, d 128, causal, without and with softcap 50;
 * ``train_layer``: the training layer's call, b = 4, m = n = 2048,
-  (b, s, h, d) views, causal, softcap 50.
+  (b, s, h, d) views, causal, softcap 50;
+* ``serve32_8192_window4096_sinks4``, ``serve32_8192_window1024`` and
+  ``serve32_8192_causal``: the same geometry over 8192 rows, causal,
+  under Mistral's and Gemma 2's window of 4096 with StreamingLLM's 4
+  sinks, a window of 1024, and none (a checkout whose backward refuses
+  a window prints ``refused`` for those cases).
 
 Each line: ``kernel_device_ms`` (the fused kernel's own launches, by
 name, under `torch.profiler`, mean over 20 calls of `flash_backward`),
@@ -23,14 +28,16 @@ dQ zero fill, the kernel, the sums and casts), ``ms`` (CUDA events over
 back-to-back calls, median of 7 windows of 5 calls after two warm-up
 calls), ``host_us`` (host time per call, 50 calls enqueued back to back),
 ``bound_ms`` (10·d operations per visible pair per q head at the bf16
-peak, or the inputs and outputs once at 3.35 TB/s, the larger),
+peak, or the inputs and outputs once at 3.35 TB/s, the larger; under a
+window the band's pairs, sinks included),
 ``by_kernel`` (a call's device ms by kernel name, the six largest),
 ``fused_kv_digest`` (a hash of the fused dK and dV bits, which are the
 same every call: equal digests from two checkouts mean equal bits), the
 plans where the checkout names them, and SDPA's backward
 (``library_ms``, ``library_device_ms``: `torch.autograd.grad` through
 `scaled_dot_product_attention`) where SDPA computes the same function
-(it has no softcap).  Then the pair, `flash_backward` under
+(it has no softcap; under a window with the band as a boolean mask).
+Then the pair, `flash_backward` under
 ``_FORCE_TWO_KERNEL``: ``pair_dq_device_ms`` and ``pair_dkv_device_ms``
 (each kernel's launches by name), ``pair_device_ms`` (every kernel of the
 call), ``pair_by_kernel``, ``pair_dq_bound_ms`` and ``pair_dkv_bound_ms``
@@ -139,11 +146,22 @@ def host_us(fn, calls: int = 50) -> float:
     return elapsed / calls * 1e6
 
 
-def bound_ms(b, h, hkv, s, d, factor=10, outs="qkv") -> float:
-    """Causal m = n = s: ``factor``·d operations per visible pair per q
-    head, or Qs, dO, K, V, lse and delta read and the gradients ``outs``
-    ("q", "kv" or both) written once, bf16."""
-    pairs = b * h * s * (s + 1) // 2
+def kept_pairs(s, window=None, sinks=None) -> int:
+    """The (row, key) pairs one head keeps in a causal s x s call under
+    ``window`` and ``sinks``: row r keeps min(r + 1, window) band keys and
+    the sinks before its band."""
+    if window is None:
+        return s * (s + 1) // 2
+    return sum(min(r + 1, window) + min(sinks or 0, max(r + 1 - window, 0))
+               for r in range(s))
+
+
+def bound_ms(b, h, hkv, s, d, factor=10, outs="qkv", window=None,
+             sinks=None) -> float:
+    """Causal m = n = s: ``factor``·d operations per visible pair (of
+    `kept_pairs`) per q head, or Qs, dO, K, V, lse and delta read and the
+    gradients ``outs`` ("q", "kv" or both) written once, bf16."""
+    pairs = b * h * kept_pairs(s, window, sinks)
     nbytes = 2 * (2 * b * h * s * d + 2 * b * hkv * s * d) + 8 * b * h * s
     nbytes += 2 * (b * h * s * d * ("q" in outs)
                    + 2 * b * hkv * s * d * ("kv" in outs))
@@ -180,14 +198,24 @@ def main(argv=None) -> int:
     serve = tuple(randn(1, n, 4096, 128) for n in (32, 4, 4, 32))
     layer = tuple(randn(4, 2048, n, 128).transpose(1, 2)
                   for n in (32, 4, 4, 32))
-    cases = {"serve32_causal": (serve, None),
-             "serve32_causal_softcap50": (serve, 50.0),
-             "train_layer": (layer, 50.0)}
+    long = tuple(randn(1, n, 8192, 128) for n in (32, 4, 4, 32))
+    cases = {"serve32_causal": (serve, None, {}),
+             "serve32_causal_softcap50": (serve, 50.0, {}),
+             "train_layer": (layer, 50.0, {}),
+             "serve32_8192_window4096_sinks4": (
+                 long, None, dict(window=4096, sinks=4)),
+             "serve32_8192_window1024": (long, None, dict(window=1024)),
+             "serve32_8192_causal": (long, None, {})}
     plan_of = getattr(flash_bwd, "bwd_launch_plan", None)
-    for name, ((q, k, v, dout), cap) in cases.items():
+    for name, ((q, k, v, dout), cap, band) in cases.items():
         b, h, s, d = q.shape
-        kw = dict(scale=d ** -0.5, causal=True, softcap=cap)
-        out, lse = _flash_fwd_impl(q, k, v, **kw)
+        kw = dict(scale=d ** -0.5, causal=True, softcap=cap, **band)
+        try:
+            out, lse = _flash_fwd_impl(q, k, v, **kw)
+            flash_bwd.flash_backward(q, k, v, out, lse, dout, **kw)
+        except NotImplementedError as err:
+            emit(label=args.label, case=name, refused=str(err))
+            continue
 
         def run(q=q, k=k, v=v, out=out, lse=lse, dout=dout, kw=kw):
             return flash_bwd.flash_backward(q, k, v, out, lse, dout, **kw)
@@ -195,23 +223,36 @@ def main(argv=None) -> int:
         total, kernel, by_kernel = device_ms(run)
         rec = dict(label=args.label, case=name, kernel_device_ms=kernel,
                    device_ms=total, ms=time_ms(run), host_us=host_us(run),
-                   bound_ms=bound_ms(b, h, k.shape[1], s, d),
+                   bound_ms=bound_ms(b, h, k.shape[1], s, d, **band),
                    by_kernel=by_kernel, fused_kv_digest=digest(run()[1:]))
         if plan_of is not None:
-            rec["plan"] = plan_of(q, k, v, out, lse, dout, causal=True)
+            rec["plan"] = plan_of(q, k, v, out, lse, dout, causal=True,
+                                  **({"window": band["window"]} if band
+                                     else {}))
         flash_bwd._FORCE_TWO_KERNEL = True
         total, dkv, by_kernel, dq = device_ms(run, also=DQ_NAMES)
         rec.update(pair_dq_device_ms=dq, pair_dkv_device_ms=dkv,
                    pair_device_ms=total, pair_by_kernel=by_kernel,
-                   pair_dq_bound_ms=bound_ms(b, h, k.shape[1], s, d, 6, "q"),
+                   pair_dq_bound_ms=bound_ms(b, h, k.shape[1], s, d, 6, "q",
+                                             **band),
                    pair_dkv_bound_ms=bound_ms(b, h, k.shape[1], s, d, 8,
-                                              "kv"),
+                                              "kv", **band),
                    pair_digest=digest(run()))
         flash_bwd._FORCE_TWO_KERNEL = False
         if cap is None:
-            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
-            o = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
-                                               enable_gqa=True)
+            mask, kv = None, (k, v)
+            if band:
+                # a boolean mask takes the heads repeated, not enable_gqa
+                row = torch.arange(s, device="cuda")[:, None]
+                col = torch.arange(s, device="cuda")[None, :]
+                mask = (col <= row) & ((col > row - band["window"])
+                                       | (col < (band.get("sinks") or 0)))
+                kv = (t.repeat_interleave(h // k.shape[1], dim=1)
+                      for t in (k, v))
+            qq, kk, vv = (t.detach().requires_grad_() for t in (q, *kv))
+            o = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask,
+                                               is_causal=mask is None,
+                                               enable_gqa=mask is None)
 
             def sdpa(o=o, qkv=(qq, kk, vv), dout=dout):
                 return torch.autograd.grad(o, qkv, dout, retain_graph=True)

@@ -26,7 +26,9 @@ The layer dispatches on ``cache``:
   kernel.
 
 A windowed model (``window``, with ``attn_sinks`` StreamingLLM sinks)
-passes its band to every kernel.  With rope and sinks, one-token decode
+passes its band to every kernel, the backward kernels of training
+included (the uncached forward rotates each key, the sinks too, at its
+own position, as JAX's does).  With rope and sinks, one-token decode
 reads the sink keys re-rotated to their in-cache positions
 (`_sink_read_keys`; the paged cache through `paged_sink_decode`, the
 int8 one through `sink_read_rotation`); the stored keys keep their

@@ -84,8 +84,7 @@ class TinyDecoder(nn.Module):
     `RollingKVCache` or the serving engine's `RaggedPagedStep`) runs a
     cached step and returns ``(logits, caches)``.  ``window`` makes
     every block sliding-window attention and ``attn_sinks`` adds
-    StreamingLLM sinks (inference only: training such a model raises
-    `NotImplementedError`).  Options of the JAX model that the port does
+    StreamingLLM sinks, in serving and in training alike.  Options of the JAX model that the port does
     not have yet (MoE, context or tensor parallelism, remat) raise
     `NotImplementedError`."""
 

@@ -32,6 +32,12 @@ range and its cut of the call into work items, in Python, which the CPU
 tests hold against the plain mask and the snake deal (the main path runs
 them only inside the kernels, and the plan to size the launches); the dQ
 body's key tiles are the flash forward's `ops.flash.tile_plan`.
+
+Under a sliding ``window`` (causal only) the kernels walk only the band,
+as the TPU kernels' banded grids do, with a window-only mask, and
+``sinks`` add the sink pairs outside the band by `sink_patch`, the
+port of JAX's `_sink_patch`: an m x sinks sliver in PyTorch products,
+as JAX leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -48,24 +54,14 @@ from attention_tpu_torch.ops.flash import (
     _offsets,
     _strides,
     _unsupported,
+    check_window,
 )
-from attention_tpu_torch.ops.reference import check_softcap
+from attention_tpu_torch.ops.reference import band_keep, check_softcap
 
 LOG2E = 1.0 / math.log(2.0)
 LN2 = math.log(2.0)
 
 
-def refuse_band(window, sinks) -> None:
-    """The backward takes no sliding-window band: the three backward
-    kernels and the sink patch of the JAX backward
-    (attention_tpu/ops/flash_bwd.py:619) are not ported (ROADMAP.md,
-    Queue 2 item 2), so training a windowed model raises here; its
-    inference runs on the forward kernels."""
-    if window is not None or sinks is not None:
-        raise NotImplementedError(
-            "the backward over a window/sinks band is not ported yet "
-            "(ROADMAP.md Queue 2 item 2: the backward kernels' band and "
-            "the sink patch); a windowed model serves but does not train")
 #: launch counters of the three kernels (one library each)
 FUSED, DQ, DKV = "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"
 #: largest head dim the backward kernels take
@@ -78,10 +74,13 @@ KEY_BLOCK = 128
 #: query rows per work item of the dQ wgmma body; lse2 and delta are
 #: padded to whole items (whole query tiles too) for every body
 DQ_ROWS = 128
+#: the largest window the C entry points take: a wider one keeps the same
+#: pairs, and its sums with row and key indices stay inside 32 bits
+WINDOW_CAP = 1 << 30
 #: `bwd_work_plan` splits a GQA group further until no CTA of the snake
 #: deal carries more than this many times the mean load
 BALANCE = 1.1
-_ARGS = [*([I] * 9), *([L] * 12), F, F, I, I, I, I]
+_ARGS = [*([I] * 9), *([L] * 12), F, F, I, I, I, I, I]
 #: the C entry points' argument types: the operands and outputs, the
 #: call's shape and options (`_ARGS`), the body and its slices, the stream
 ARGTYPES = {FUSED: [*([P] * 9), *_ARGS, I, I, P],
@@ -112,10 +111,12 @@ def _round(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def flash_backward_plain(q, k, v, out, lse, dout, *, scale, causal=False,
                          softcap=None, q_offset=0, kv_offset=0,
-                         kv_valid=None, chunk=512):
+                         kv_valid=None, window=None, sinks=None, chunk=512):
     """The plain PyTorch version of `flash_backward` (same inputs and
     outputs), blocked over ``chunk`` query rows so that memory stays
-    O(chunk·n) per head."""
+    O(chunk·n) per head.  Under a ``window`` it takes the whole mask of
+    the forward, band and ``sinks`` together (`reference.band_keep`),
+    where the kernels take the band and `sink_patch` the sinks."""
     (q4, k4, v4, o4, l4, do4), lead = _four_d(
         q, k, v, out, lse[..., None], dout)
     dtype = q.dtype
@@ -148,6 +149,8 @@ def flash_backward_plain(q, k, v, out, lse, dout, *, scale, causal=False,
             row = torch.arange(rows.start, rows.stop, device=q.device)
             keep = keep & (col[None, :] + kv_offset <= row[:, None]
                            + q_offset)
+            keep = keep & band_keep(col[None, :] + kv_offset,
+                                    row[:, None] + q_offset, window, sinks)
         p = torch.where(keep, torch.exp2(s2 - l2), 0.0)
         dp = torch.matmul(do[:, :, rows], vx.transpose(-1, -2))
         ds = p * (dp - delta[:, :, rows, None])
@@ -160,6 +163,89 @@ def flash_backward_plain(q, k, v, out, lse, dout, *, scale, causal=False,
     dk = (dk * LN2).view(b, hkv, group, n, d).sum(2)
     dvx = dvx.view(b, hkv, group, n, dv).sum(2)
     return dq.to(dtype)[lead], dk.to(k.dtype)[lead], dvx.to(v.dtype)[lead]
+
+
+def sink_patch(q, k, v, out, lse, dout, *, scale, window, sinks,
+               softcap=None, q_offset=0, kv_valid=None):
+    """(dQ, dK, dV, se): the gradients of the sink pairs outside the
+    window band, the port of JAX's `_sink_patch` (attention_tpu/ops/
+    flash_bwd.py:619).  A windowed forward with sinks keeps two disjoint
+    sets of pairs: the band, which the backward kernels take with a
+    window-only mask, and the pairs of a row with the first ``sinks``
+    keys that lie before its band (key < row + q_offset - (window - 1)),
+    which this function takes.  P is recomputed from the saved lse over
+    the same re-rounded Qs as the kernels', so each pair counts once with
+    the forward's probability.  The sliver is m x se, se = min(sinks, n):
+    O(m·sinks·d) operations in float32 products outside any kernel, as
+    JAX takes them in XLA einsums.  dQ is (..., h, m, d) and dK, dV
+    (..., hkv, se, d) summed over each GQA group, all float32, for the
+    caller to add to the first ``se`` key rows.  Keys sit at positions 0..n
+    - 1 (no kv_offset: sink positions are absolute); ``kv_valid`` masks a
+    padded key tail."""
+    (q4, k4, v4, o4, l4, do4), lead = _four_d(
+        q, k, v, out, lse[..., None], dout)
+    r0, dq_rows, dk, dvs, se = _sink_rows(
+        q4, k4, v4, o4, l4[..., 0], do4, scale=scale, window=window,
+        sinks=sinks, softcap=softcap, q_offset=q_offset, kv_valid=kv_valid)
+    dq = torch.nn.functional.pad(dq_rows, (0, 0, r0, 0))
+    return dq[lead], dk[lead], dvs[lead], se
+
+
+def _sink_rows(q4, k4, v4, o4, lse4, do4, *, scale, window, sinks, softcap,
+               q_offset, kv_valid, delta=None):
+    """`sink_patch` on 4-D inputs ((b, h, m) lse), over the rows that keep
+    a sink pair only: (r0, dQ of rows [r0, m), dK, dV, se).  A row keeps
+    one once its band has passed key 0, from r0 = window - q_offset on;
+    the rows before add nothing.  ``delta``, rowsum(dO ∘ O) in float32
+    (b, h, >= m), is computed when not given."""
+    b, h, m, d = q4.shape
+    hkv, n, dv = v4.shape[1:]
+    group = h // hkv
+    se = min(sinks, n)
+    r0 = min(m, max(0, window - q_offset))
+    kx = k4[:, :, :se].float().repeat_interleave(group, dim=1)
+    vx = v4[:, :, :se].float().repeat_interleave(group, dim=1)
+    q32, do32 = q4[:, :, r0:].float(), do4[:, :, r0:].float()
+    if delta is None:
+        delta = (do32 * o4[:, :, r0:].float()).sum(-1, keepdim=True)
+    else:
+        delta = delta[:, :, r0:m, None]
+    s = torch.matmul(_round(q32 * (scale * LOG2E), q4.dtype),
+                     kx.transpose(-1, -2)) * LN2
+    dcap = None
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+        dcap = 1.0 - t * t
+    lse32 = lse4[:, :, r0:, None].float()
+    col = torch.arange(se, device=q4.device)
+    rows = torch.arange(r0, m, device=q4.device) + q_offset
+    mask = col[None, :] < rows[:, None] - (window - 1)
+    if kv_valid is not None:
+        mask = mask & (col < kv_valid)[None, :]
+    mask = mask & (lse32 != float("-inf"))
+    p = torch.where(mask, torch.exp(s - torch.where(mask, lse32, 0.0)), 0.0)
+    ds = p * (torch.matmul(do32, vx.transpose(-1, -2)) - delta)
+    if dcap is not None:
+        ds = ds * dcap
+    dq = torch.matmul(ds, kx) * scale
+    dk = (torch.matmul(ds.transpose(-1, -2), q32) * scale).view(
+        b, hkv, group, se, d).sum(2)
+    dvs = torch.matmul(p.transpose(-1, -2), do32).view(
+        b, hkv, group, se, dv).sum(2)
+    return r0, dq, dk, dvs, se
+
+
+def _add_patch(grads, patch) -> None:
+    """Add `_sink_rows`'s (r0, dQ of rows [r0, m), dK, dV, se) to ``grads``
+    (4-D dQ, dK, dV) in place, dK and dV on their first se key rows: to
+    the float32 sums before their cast where a gradient is still float32,
+    to the input dtype's values (one more rounding) where a kernel wrote
+    that dtype."""
+    r0, dq_s, dk_s, dv_s, se = patch
+    for g, p in zip((grads[0][:, :, r0:], grads[1][:, :, :se],
+                     grads[2][:, :, :se]), (dq_s, dk_s, dv_s)):
+        g.copy_(g.float() + p)
 
 
 def flash_bwd_body(dtype, d: int, dv: int, strides, ptrs) -> str:
@@ -175,30 +261,55 @@ def flash_bwd_body(dtype, d: int, dv: int, strides, ptrs) -> str:
     return "fma"
 
 
+class BwdTilePlan(NamedTuple):
+    """The query tiles of 64 rows that the wgmma body's work item of keys
+    [key0, key0 + 128) visits for each of its heads, [``begin``,
+    ``end``), and where it masks: the tiles in [``mask_end``, ``edge``)
+    keep every pair of the block and skip the per-element test.  Below
+    ``mask_end`` a row may lie before a key (the causal diagonal) or the
+    block holds a key at or past ``kv_valid``; from ``edge`` on a row's
+    window band may have left the block's first keys behind."""
+
+    begin: int
+    end: int
+    mask_end: int
+    edge: int
+
+
 def bwd_tile_plan(key0: int, m: int, kv_valid: int, causal: bool,
-                  q_offset: int, kv_offset: int) -> tuple[int, int, int]:
-    """(begin, end, mask_end): the query tiles [begin, end) of 64 rows that
-    the wgmma body's work item of keys [key0, key0 + 128) visits for each
-    of its heads, and the end of those that can hold a masked pair (a key
-    at or past ``kv_valid``, or under causal masking after a row): the
-    tiles in [mask_end, end) see every key of the block and skip the
-    per-element test.  No tiles for a block past ``kv_valid``.  The
-    kernel's `tile_plan` in csrc/flash_bwd_sm90.cuh."""
+                  q_offset: int, kv_offset: int,
+                  window: int | None = None) -> BwdTilePlan:
+    """The `BwdTilePlan` of the wgmma body's work item of keys [key0,
+    key0 + 128): the query tiles holding a row that keeps one of its keys
+    (under causal masking at or after the key's position, under a
+    ``window`` within ``window`` - 1 positions of it).  No tiles for a
+    block past ``kv_valid``.  The kernel's `tile_plan` in
+    csrc/flash_bwd_sm90.cuh."""
     tiles = -(-m // QUERY_TILE)
     if key0 >= kv_valid:
-        return 0, 0, 0
+        return BwdTilePlan(0, 0, 0, 0)
     # causal: the first row that sees key0, and the first that sees the
-    # block's last key 127 rows later
+    # block's last key 127 rows later; a window: the last row that sees
+    # its last key below kv_valid, window - 1 rows after that key's first
     first = key0 + kv_offset - q_offset
-    begin = min(tiles, max(0, first // QUERY_TILE)) if causal else 0
+    begin = (tiles if first >= m else max(0, first // QUERY_TILE)) \
+        if causal else 0
+    end = tiles
+    if window is not None:
+        span = min(KEY_BLOCK, kv_valid - key0)
+        end = max(begin, min(tiles, (first + span + window - 2)
+                             // QUERY_TILE + 1))
     if key0 + KEY_BLOCK > kv_valid:
-        mask_end = tiles
+        mask_end = end
     elif causal:
-        mask_end = min(tiles, max(begin, -(-(first + KEY_BLOCK - 1)
-                                            // QUERY_TILE)))
+        mask_end = min(end, max(begin, -(-(first + KEY_BLOCK - 1)
+                                         // QUERY_TILE)))
     else:
         mask_end = begin
-    return begin, tiles, mask_end
+    # a window: row first + window is the first whose band has left key0
+    edge = end if window is None else min(end, max(
+        mask_end, (first + window) // QUERY_TILE))
+    return BwdTilePlan(begin, end, mask_end, edge)
 
 
 def snake_loads(loads, grid: int) -> list:
@@ -240,7 +351,8 @@ class WorkPlan(NamedTuple):
 @functools.lru_cache(maxsize=256)
 def bwd_work_plan(batch: int, kv_heads: int, group: int, m: int, n: int,
                   kv_valid: int, causal: bool, q_offset: int,
-                  kv_offset: int, *, sms: int) -> WorkPlan:
+                  kv_offset: int, window: int | None = None, *,
+                  sms: int) -> WorkPlan:
     """The wgmma body's work items for a call: each is one block of 128
     keys of one kv head and one of ``slices`` equal slices of its group's
     q heads, walked in order (so dK and dV are summed over the group in a
@@ -249,12 +361,13 @@ def bwd_work_plan(batch: int, kv_heads: int, group: int, m: int, n: int,
     `BALANCE` times the mean load (a query tile of one head counts one);
     failing that, the slices of the lightest heaviest CTA.  One slice
     writes dK and dV directly, more write fp32 partials that the wrapper
-    sums, so fewer slices are cheaper where they balance."""
+    sums, so fewer slices are cheaper where they balance.  Under a
+    ``window`` an item's load is its block's band of query tiles."""
     per_head = []
     for kb in range(-(-n // KEY_BLOCK)):
-        begin, end, _ = bwd_tile_plan(kb * KEY_BLOCK, m, kv_valid, causal,
-                                      q_offset, kv_offset)
-        per_head.append(end - begin)
+        plan = bwd_tile_plan(kb * KEY_BLOCK, m, kv_valid, causal, q_offset,
+                             kv_offset, window)
+        per_head.append(plan.end - plan.begin)
     mean = batch * kv_heads * group * sum(per_head) / sms
     best = None
     for slices in (s for s in range(1, group + 1) if group % s == 0):
@@ -308,7 +421,7 @@ class _Staged:
     launches."""
 
     def __init__(self, q4, k4, v4, o4, lse4, do4, *, scale, causal, softcap,
-                 q_offset, kv_offset, kv_valid):
+                 q_offset, kv_offset, kv_valid, window=None):
         dtype = q4.dtype
         if (dtype not in DTYPE_CODES or k4.dtype != dtype
                 or v4.dtype != dtype):
@@ -337,7 +450,8 @@ class _Staged:
         self.args = (DTYPE_CODES[dtype], b, h, hkv, m, n, d, dv, self.ls,
                      *self.strides, float(scale),
                      float(softcap * LOG2E if softcap else 0.0), int(causal),
-                     q_offset, kv_offset, kv_valid)
+                     q_offset, kv_offset, kv_valid,
+                     0 if window is None else min(window, WINDOW_CAP))
         body = flash_bwd_body(dtype, d, dv, self.strides, [
             t.data_ptr() for t in (self.qs, self.k, self.v, self.do)])
         self.plan = dict(body=body, slices=1)
@@ -347,7 +461,7 @@ class _Staged:
         if body == "wgmma":
             sms = _native.sm_count(q4.device.index)
             work = bwd_work_plan(b, hkv, h // hkv, m, n, kv_valid, causal,
-                                 q_offset, kv_offset, sms=sms)
+                                 q_offset, kv_offset, window, sms=sms)
             self.plan.update(work._asdict())
             items = b * h * -(-m // DQ_ROWS)
             self.pair_plan.update(
@@ -385,16 +499,20 @@ class _Staged:
         return dict(dk=torch.empty(kv[0], **kv[2]),
                     dvo=torch.empty(kv[1], **kv[2]))
 
-    def _kv_grads(self, dk, dvo):
-        """dK and dV in the input dtype from the kernel's outputs: per-Q-
-        head or slice partials summed over the group in order."""
+    def _kv_grads(self, dq, dk, dvo, patch):
+        """(dQ, dK, dV) in the input dtype from the kernels' outputs:
+        per-Q-head or slice partials of dK and dV summed over the group in
+        order, and the sink ``patch`` of `_sink_rows` (or None) added
+        (`_add_patch`)."""
         b, h, hkv, m, n, d, dv = self.shape
         if dk.dim() == 4 and dk.shape[1] != hkv:
             dk = dk.view(b, hkv, h // hkv, n, d)
             dvo = dvo.view(b, hkv, h // hkv, n, dv)
         if dk.dim() == 5:
             dk, dvo = dk.sum(2), dvo.sum(2)
-        return dk.to(self.dtype), dvo.to(self.dtype)
+        if patch is not None:
+            _add_patch((dq, dk, dvo), patch)
+        return tuple(t.to(self.dtype) for t in (dq, dk, dvo))
 
     def fused_buffers(self) -> dict:
         """The fused kernel's outputs for this call's plan: dq32 (zeroed)
@@ -409,10 +527,10 @@ class _Staged:
         self._call(FUSED, (dq32, dk, dvo),
                    (BODY_CODES[self.plan["body"]], self.plan["slices"]))
 
-    def fused_grads(self, dq32, dk, dvo):
+    def fused_grads(self, dq32, dk, dvo, patch=None):
         """(dQ, dK, dV) in the input dtype from the fused kernel's
-        outputs."""
-        return (dq32.to(self.dtype), *self._kv_grads(dk, dvo))
+        outputs, with the sink ``patch`` added to the float32 dQ."""
+        return self._kv_grads(dq32, dk, dvo, patch)
 
     def pair_buffers(self) -> dict:
         """The pair's outputs for this call's plan: dQ in the input dtype
@@ -431,42 +549,64 @@ class _Staged:
         else:
             self._call(DKV, (dk, dvo), (body, plan["slices"]))
 
-    def pair_grads(self, dq, dk, dvo):
+    def pair_grads(self, dq, dk, dvo, patch=None):
         """(dQ, dK, dV) in the input dtype from the pair's outputs: no
-        cast where the kernels wrote the input dtype."""
-        return (dq, *self._kv_grads(dk, dvo))
+        cast where the kernels wrote the input dtype, whose dQ takes the
+        sink ``patch`` after its rounding, as JAX's pair does."""
+        return self._kv_grads(dq, dk, dvo, patch)
 
 
-def _launch(q4, k4, v4, o4, lse4, do4, **kw):
+def _launch(q4, k4, v4, o4, lse4, do4, *, sinks=None, **kw):
     """The fused kernel, or the dQ and dK/dV pair under
-    `_FORCE_TWO_KERNEL`, on 4-D CUDA operands."""
+    `_FORCE_TWO_KERNEL`, on 4-D CUDA operands; with ``sinks`` the
+    kernels take the window band and `sink_patch` the sink pairs."""
     staged = _Staged(q4, k4, v4, o4, lse4, do4, **kw)
+    patch = None if sinks is None else _sink_rows(
+        q4, k4, v4, o4, lse4, do4, scale=kw["scale"], window=kw["window"],
+        sinks=sinks, softcap=kw["softcap"], q_offset=kw["q_offset"],
+        kv_valid=kw["kv_valid"], delta=staged.delta)
     if not _FORCE_TWO_KERNEL:
         out = staged.fused_buffers()
         staged.fused(**out)
-        return staged.fused_grads(**out)
+        return staged.fused_grads(**out, patch=patch)
     out = staged.pair_buffers()
     staged.pair(DQ, dq=out["dq"])
     staged.pair(DKV, dk=out["dk"], dvo=out["dvo"])
-    return staged.pair_grads(**out)
+    return staged.pair_grads(**out, patch=patch)
 
 
 def bwd_launch_plan(q, k, v, out, lse, dout, *, scale=None, causal=False,
-                    q_offset=None, kv_offset=None, kv_valid=None) -> dict:
+                    q_offset=None, kv_offset=None, kv_valid=None,
+                    window=None) -> dict:
     """How the kernels run a call on these inputs (CUDA tensors, as
     `flash_backward` takes them): the fused kernel's body
     (`flash_bwd_body`) and, for "wgmma", its `bwd_work_plan` (slices,
     items, grid, heaviest, mean); under ``"pair"`` the dQ and dK/dV
     kernels' body and, for "wgmma", the slices of the dK/dV kernel (the
     fused plan's), its items and grid, and the dQ kernel's items and
-    grid."""
+    grid; under a ``window`` the items' loads are their bands."""
     tensors, _ = _four_d(q, k, v, out, lse[..., None], dout)
     tensors[4] = tensors[4][..., 0]
     staged = _Staged(
         *tensors, scale=q.shape[-1] ** -0.5 if scale is None else scale,
-        causal=causal, softcap=None,
+        causal=causal, softcap=None, window=window,
         **_offsets(k.shape[-2], q_offset, kv_offset, kv_valid))
     return dict(staged.plan, pair=dict(staged.pair_plan))
+
+
+def check_backward_band(causal, window, sinks, kv_offset,
+                        segmented) -> None:
+    """JAX's refusals of a band in the backward (attention_tpu/ops/
+    flash_bwd.py:797-812), as `ValueError`: sinks with a ``kv_offset``
+    (sink positions are absolute), then `ops.flash.check_window`'s
+    (a window needs causal masking, sinks a window, and sinks do not
+    compose with segment ids)."""
+    if sinks is not None and kv_offset is not None:
+        raise ValueError(
+            "sinks do not compose with kv_offset (sink positions are "
+            "absolute positions of this call's key rows); q_offset and "
+            "kv_valid are fine")
+    check_window(causal, window, sinks, segmented)
 
 
 def flash_backward(
@@ -494,26 +634,34 @@ def flash_backward(
     q (..., h, m, d), k (..., hkv, n, d), v (..., hkv, n, dv), out and
     dout (..., h, m, dv), lse (..., h, m) in the natural-log domain (-inf
     for a row that saw no key); 3-D or 4-D, hkv dividing h (GQA).
-    ``scale``, ``causal``, ``softcap``, ``q_offset``/``kv_offset`` and
-    ``kv_valid`` must be the forward's.  Gradients come back in the
-    inputs' dtypes.  CUDA tensors run the fused Hopper kernel (or the dQ
-    and dK/dV pair under `_FORCE_TWO_KERNEL`), float32 or bfloat16, head
-    dims up to 128; CPU tensors run `flash_backward_plain`.  ``window``,
-    ``sinks`` (`refuse_band`), segment ids and ``block_sizes`` are not
-    ported and raise `NotImplementedError`."""
-    refuse_band(window, sinks)
+    ``scale``, ``causal``, ``softcap``, ``q_offset``/``kv_offset``,
+    ``kv_valid``, ``window`` and ``sinks`` must be the forward's.
+    Gradients come back in the inputs' dtypes.  CUDA tensors run the
+    fused Hopper kernel (or the dQ and dK/dV pair under
+    `_FORCE_TWO_KERNEL`), float32 or bfloat16, head dims up to 128; CPU
+    tensors run `flash_backward_plain`.  Under a ``window`` the kernels
+    walk only its band, with a window-only mask, and ``sinks`` add the
+    sink pairs outside the band by `sink_patch`, as the JAX backward
+    does.  Its refusals are JAX's, as `ValueError`: a window without
+    ``causal``, sinks without a window, sinks with ``kv_offset`` (their
+    positions are absolute) or with segment ids.  Segment ids and
+    ``block_sizes`` are not ported and raise `NotImplementedError`."""
+    check_backward_band(causal, window, sinks, kv_offset,
+                        q_segment_ids is not None)
     _unsupported(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
                  block_sizes=block_sizes)
     check_softcap(softcap)
     offsets = _offsets(k.shape[-2], q_offset, kv_offset, kv_valid)
+    band = dict(window=window, sinks=sinks)
     if q.device.type == "cpu":
         return flash_backward_plain(q, k, v, out, lse, dout, scale=scale,
                                     causal=causal, softcap=softcap,
-                                    **offsets)
+                                    **offsets, **band)
     if q.device.type != "cuda":
         raise ValueError(f"flash_backward runs on cuda or cpu, not "
                          f"{q.device.type}")
     tensors, lead = _four_d(q, k, v, out, lse[..., None], dout)
     tensors[4] = tensors[4][..., 0]
     return tuple(t[lead] for t in _launch(
-        *tensors, scale=scale, causal=causal, softcap=softcap, **offsets))
+        *tensors, scale=scale, causal=causal, softcap=softcap, **offsets,
+        **band))

@@ -19,9 +19,9 @@ from attention_tpu_torch.ops.flash import (
     flash_attention_partials,
 )
 from attention_tpu_torch.ops.flash_bwd import (
+    check_backward_band,
     flash_backward,
     flash_backward_plain,
-    refuse_band,
 )
 
 
@@ -52,6 +52,7 @@ class _FlashDiff(torch.autograd.Function):
             grads = flash_backward_plain(
                 q, k, v, out, lse, dout, scale=fwd["scale"],
                 causal=fwd["causal"], softcap=fwd["softcap"],
+                window=fwd["window"], sinks=fwd["sinks"],
                 chunk=opts["bwd_chunk"],
                 **_offsets(k.shape[-2], fwd["q_offset"], fwd["kv_offset"],
                            fwd["kv_valid"]))
@@ -91,24 +92,28 @@ def flash_attention_diff(
     their plain version; ``"xla"`` runs the plain blocked recompute
     `flash_backward_plain` on any device, in blocks of ``bwd_chunk``
     query rows.  ``max_mode`` takes ``"online"`` and ``"bound"``; both run
-    the online recurrence, which gives the same output and lse.
-    ``window`` and ``sinks`` raise `NotImplementedError` (the backward
-    takes no band yet: `flash_bwd.refuse_band`), and so do segment ids
-    and ``block_sizes``."""
+    the online recurrence, which gives the same output and lse.  A
+    ``window`` (causal only) with ``sinks`` runs the forward kernel over
+    the band and its sinks, and the backward kernels over the band with
+    the sink pairs outside it added by `flash_bwd.sink_patch`; the
+    refusals are `flash_bwd.flash_backward`'s.  Segment ids and
+    ``block_sizes`` raise `NotImplementedError`."""
     if bwd_impl not in ("pallas", "xla"):
         raise ValueError(f"unknown bwd_impl {bwd_impl!r}")
     if max_mode not in ("online", "bound"):
         raise NotImplementedError(
             f"max_mode={max_mode!r} is not ported yet; 'online' and "
             "'bound' run the online recurrence")
-    refuse_band(window, sinks)
+    check_backward_band(causal, window, sinks, kv_offset,
+                        q_segment_ids is not None)
     _unsupported(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
                  block_sizes=block_sizes)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     q4, k4, v4 = _canon(q, k, v)
     fwd = dict(scale=scale, causal=causal, softcap=softcap,
-               q_offset=q_offset, kv_offset=kv_offset, kv_valid=kv_valid)
+               q_offset=q_offset, kv_offset=kv_offset, kv_valid=kv_valid,
+               window=window, sinks=sinks)
     out = _FlashDiff.apply(q4, k4, v4, dict(fwd=fwd, bwd_impl=bwd_impl,
                                             bwd_chunk=bwd_chunk))
     return out[(0,) * (4 - q.dim())]

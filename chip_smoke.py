@@ -79,7 +79,21 @@ non-zero unless all of them pass:
             dK and a 2% scale error in dQ must fail; each kernel timed
             alone and `flash_backward` end to end on each path at the
             serving geometry, with SDPA's backward as the yardstick (for
-            the pair: the sum of its two kernels' device ms).
+            the pair: the sum of its two kernels' device ms).  The band:
+            the three kernels at 32 q / 4 kv heads over 8192 rows, causal,
+            bf16, at window 4096 with 4 sinks, at 1024, without a window
+            and at 1024 with softcap 50, held against the plain backward
+            over the band and sinks (the kernels take the band, the sink
+            patch the sinks), each printing its body ("wgmma") and work
+            plan, the same bits twice (the fused dQ within the limit); the
+            kernels run with a band one key tile longer, and without the
+            sink patch, must fail; each kernel's device ms beside its bound
+            (the band's pairs) and SDPA's backward with the band as a
+            boolean mask, and the band must shrink each kernel's card time
+            (window 4096 at or under the causal call's, 1024 under half);
+            an f32 case on the FMA bodies (dk != dv, window 100, 5 sinks)
+            and the edges (m 1000, n 1003, kv_valid 900, window 200, 3
+            sinks, q_offset 37).
 3. op path  the ``scale4`` testcase (m = n = 8192, dk = dv = 128) from
             the port's generator, through ``cli run --backend flash`` in
             f32 and bf16: both must print ``Correct!``; then the flash
@@ -145,7 +159,8 @@ non-zero unless all of them pass:
             with window 24 and 4 sinks: logits, and greedy streams of
             `generate` on full and rolling caches (equal to each other
             too), `generate_ragged`, `generate_paged`,
-            `generate(int8_cache=True)` and two-call serving.
+            `generate(int8_cache=True)` and two-call serving; and its
+            training against the CPU as above.
 7. train    the phase 4 model trained: `init_train`, 5 fused steps of
             `make_train_step` on a seeded batch of 4 x 2049 tokens (every
             loss finite, the last below the first; the flash kernel and
@@ -155,7 +170,11 @@ non-zero unless all of them pass:
             start, the fused path's run again and the pair's, against
             the fused one's (relative L2 within 2^-6), a 2% scale error
             planted in the fused dK must fail;
-            one step under `torch.profiler`.
+            one step under `torch.profiler`.  Then the same model with
+            window 4096 and 4 sinks on one sequence of 8193 tokens (the
+            same 8192 predicted tokens a step), the same steps, launch
+            counts, gradient checks and profiled step, its attention
+            device ms printed beside the unwindowed cell's.
 
 Launch counts are reset just before each run of a path (op path, the
 int4 entry points, each distributed backend's run on each rank, each
@@ -207,6 +226,12 @@ SMALL_MODEL = dict(vocab=256, dim=256, depth=2, num_q_heads=8,
 WINDOW_FLASH = (32, 4, 8192, 128)
 WINDOW_BANDS = {"window4096_sinks4": (4096, 4), "window1024": (1024, None),
                 "causal": (None, None)}
+# the windowed backward cases of phase 2b: the same geometry and bands,
+# and softcap 50 at window 1024 (case, window, sinks, softcap)
+WINDOW_BWD_BANDS = (("window4096_sinks4", 4096, 4, None),
+                    ("window1024", 1024, None, None),
+                    ("causal", None, None, None),
+                    ("window1024_softcap50", 1024, None, 50.0))
 # the windowed serving model of phases 2 and 4-6: window 256, so that the
 # band and the ring wrap on the trace's 128-1024-token prompts (at 4096
 # nothing would wrap below 2048 rows), with 4 sinks; the small f32 model
@@ -230,6 +255,11 @@ GEN_STEPS = 32
 INT8_LOGITS_TOL = 1e-2
 # the training phase: batch (sequences, tokens), fused steps, learning rate
 TRAIN_BATCH = (4, 2049)
+# phase 7's windowed cell: the serving model with Mistral's and Gemma 2's
+# window and StreamingLLM's sinks, trained on one sequence of 8193 tokens,
+# the same 8192 predicted tokens a step as the unwindowed cell's 4 x 2049
+TRAIN_BAND = dict(window=4096, attn_sinks=4)
+WINDOW_TRAIN_BATCH = (1, 8193)
 TRAIN_STEPS = 5
 TRAIN_LR = 1e-3
 # the two-kernel run's second loss against the fused run's, max abs: the
@@ -2081,6 +2111,203 @@ def phase_backward(kernels) -> None:
             backward_times(kernels, case, (q, k, v, out, lse, dout), kw)
 
 
+def window_bwd_case(kernels, case, args, kw) -> dict:
+    """One windowed backward case: the fused kernel and the pair against
+    `flash_backward_plain` over the band and sinks under
+    `reference.grad_mismatch`, the same bits on a second call (the fused
+    dQ, whose tiles add in no fixed order, within the limit of the
+    first), bf16 at d 64/128 on "wgmma" and the rest on "fma"; the
+    kernels run with a band one key tile (64 rows) longer, and with the
+    sink patch left out, must fail the check.  Returns the launch plan."""
+    from attention_tpu_torch.ops import flash_bwd
+    from attention_tpu_torch.ops.reference import grad_mismatch
+
+    q, k, v, out, lse, dout = args
+    offsets = {x: kw[x] for x in ("q_offset", "kv_valid") if x in kw}
+    plan = flash_bwd.bwd_launch_plan(*args, causal=True,
+                                     window=kw["window"], **offsets)
+    pair_plan = plan.pop("pair")
+    body = "wgmma" if (q.dtype == torch.bfloat16
+                       and q.shape[-1] in (64, 128)) else "fma"
+    if plan["body"] != body or pair_plan["body"] != body:
+        raise AssertionError(f"{case}: the fused kernel runs {plan}, the "
+                             f"pair {pair_plan}; want {body}")
+    want = flash_bwd.flash_backward_plain(*args, **kw)
+
+    def share(got):
+        return max(grad_mismatch(g, w)[1] for g, w in zip(got, want))
+
+    for path in ("fused", "pair"):
+        flash_bwd._FORCE_TWO_KERNEL = path == "pair"
+        try:
+            got = flash_bwd.flash_backward(*args, **kw)
+            again = flash_bwd.flash_backward(*args, **kw)
+            faults = {}
+            if kw["window"] is not None:
+                faults["band_one_tile_longer"] = share(
+                    flash_bwd.flash_backward(
+                        *args, **dict(kw, window=kw["window"] + KEY_TILE)))
+            if kw.get("sinks"):
+                faults["sink_patch_left_out"] = share(
+                    flash_bwd.flash_backward(*args, **dict(kw, sinks=None)))
+        finally:
+            flash_bwd._FORCE_TWO_KERNEL = False
+        torch.cuda.synchronize()
+        errs = [grad_mismatch(g, w) for g, w in zip(got, want)]
+        if not all(ratio <= 1.0 for _, ratio in errs):
+            raise AssertionError(f"{case} {path}: off its plain version: "
+                                 f"{errs}")
+        if not all(ratio > 1.0 for ratio in faults.values()):
+            raise AssertionError(f"{case} {path}: the check passes a planted "
+                                 f"fault: {faults}")
+        run_to_run = None
+        if path == "fused":
+            same_bits(got[1:], again[1:])
+            run_to_run = grad_mismatch(again[0], got[0])
+            if not run_to_run[1] <= 1.0:
+                raise AssertionError(f"{case}: fused dQ run to run: "
+                                     f"{run_to_run}")
+        else:
+            same_bits(got, again)
+        for kernel, idx in ((flash_bwd.FUSED, (0, 1, 2)),) \
+                if path == "fused" else ((flash_bwd.DQ, (0,)),
+                                         (flash_bwd.DKV, (1, 2))):
+            kernels[kernel]["max_abs_err"] = max(
+                kernels[kernel]["max_abs_err"], *(errs[i][0] for i in idx))
+        emit(phase="backward", path=path, case=case,
+             window=kw["window"], sinks=kw.get("sinks"),
+             softcap=kw.get("softcap"),
+             **(dict(fused_plan=plan) if path == "fused"
+                else dict(pair_plan=pair_plan)),
+             max_abs_err=dict(zip(("dq", "dk", "dv"), (e for e, _ in errs))),
+             share_of_limit=dict(zip(("dq", "dk", "dv"),
+                                     (r for _, r in errs))),
+             fused_dq_run_to_run=run_to_run,
+             planted_faults_share_of_limit=faults)
+    return plan
+
+
+def phase_window_backward(kernels) -> None:
+    """Phase 2b's windowed cases.  The three backward kernels at the
+    windowed flash geometry (`WINDOW_FLASH`: 32 q / 4 kv heads, 8192
+    rows, d 128, causal, bf16) for each of `WINDOW_BWD_BANDS`, held by
+    `window_bwd_case` and timed: each kernel alone on the staged operands
+    (device ms by `torch.profiler`, CUDA-event ms), `flash_backward` end
+    to end on the fused path (with the sink patch), the sink patch
+    alone, the plain version, and SDPA's backward with the band as a
+    boolean mask (``is_causal`` without a window; none under softcap);
+    bounds from the band's pairs (sinks included).  The band must shrink
+    each kernel's card time: window 4096 at or under the causal call's,
+    window 1024 under half of it.  Then the f32 FMA bodies (window 100
+    and 5 sinks, dk != dv, q_offset 133) and the bf16 edges (m 1000, n
+    1003, kv_valid 900, window 200 and 3 sinks, q_offset 37), untimed."""
+    from torch.nn import functional as F
+
+    from attention_tpu_torch.ops import flash_bwd
+    from attention_tpu_torch.ops.flash_vjp import _flash_fwd_impl
+    from attention_tpu_torch.ops.reference import attention_mask
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    h, hkv, m, d = WINDOW_FLASH
+    q, k, v, dout = (torch.randn((1, heads, m, d), generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+                     for heads in (h, hkv, hkv, h))
+    cases = {kernel: kernels[kernel].setdefault("window_cases", {})
+             for kernel in (flash_bwd.FUSED, flash_bwd.DQ, flash_bwd.DKV)}
+    for case, window, sinks, softcap in WINDOW_BWD_BANDS:
+        kw = dict(scale=d ** -0.5, causal=True, softcap=softcap,
+                  window=window, sinks=sinks)
+        out, lse = _flash_fwd_impl(q, k, v, **kw)
+        args = (q, k, v, out, lse, dout)
+        plan = window_bwd_case(kernels, case, args, kw)
+        staged = flash_bwd._Staged(*args, scale=kw["scale"], causal=True,
+                                   softcap=softcap, q_offset=0, kv_offset=0,
+                                   kv_valid=m, window=window)
+        fused, pair = staged.fused_buffers(), staged.pair_buffers()
+        launches = {
+            flash_bwd.FUSED: lambda: staged.fused(**fused),
+            flash_bwd.DQ: lambda: staged.pair(flash_bwd.DQ, dq=pair["dq"]),
+            flash_bwd.DKV: lambda: staged.pair(
+                flash_bwd.DKV, dk=pair["dk"], dvo=pair["dvo"])}
+        pairs = band_tiles(m, window, sinks)[2]
+        plain_ms = time_ms(lambda: flash_bwd.flash_backward_plain(
+            *args, **kw), calls=1, reps=3)
+        extra = dict(flash_backward_device_ms=device_ms(
+            lambda: flash_bwd.flash_backward(*args, **kw)))
+        if sinks:
+            extra["sink_patch_device_ms"] = device_ms(
+                lambda: flash_bwd.sink_patch(
+                    q, k, v, out, lse, dout, scale=kw["scale"],
+                    window=window, sinks=sinks, softcap=softcap))
+        library_ms = library_device_ms = None
+        if softcap is None:
+            kx, vx = (t.repeat_interleave(h // hkv, dim=1) for t in (k, v))
+            mask = None if window is None else attention_mask(
+                m, m, causal=True, window=window, sinks=sinks,
+                device="cuda")
+            qq, kk, vv = (t.detach().requires_grad_() for t in (q, kx, vx))
+            o = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask,
+                                               is_causal=mask is None)
+
+            def sdpa():
+                return torch.autograd.grad(o, (qq, kk, vv), dout,
+                                           retain_graph=True)
+
+            library_ms, library_device_ms = time_ms(sdpa), device_ms(sdpa)
+            del kx, vx, mask, qq, kk, vv, o
+        for kernel, factor, outs in ((flash_bwd.FUSED, 10, "qkv"),
+                                     (flash_bwd.DQ, 6, "q"),
+                                     (flash_bwd.DKV, 8, "kv")):
+            b_ms, b_by = bound_ms(*bwd_work(h, hkv, m, m, d, pairs, 2,
+                                            factor, outs), torch.bfloat16)
+            rec = dict(ms=time_ms(launches[kernel]),
+                       device_ms=device_ms(launches[kernel]),
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=library_ms if kernel == flash_bwd.FUSED
+                       else None,
+                       library_device_ms=library_device_ms
+                       if kernel == flash_bwd.FUSED else None)
+            cases[kernel][case] = rec
+            emit(phase="backward", kernel=kernel, case=case,
+                 shape=list(WINDOW_FLASH), window=window, sinks=sinks,
+                 softcap=softcap, kept_pairs=h * pairs,
+                 tflop_s=factor * d * h * pairs / rec["device_ms"] / 1e9,
+                 **(extra if kernel == flash_bwd.FUSED else {}),
+                 **({"plan": plan} if kernel == flash_bwd.FUSED else {}),
+                 **rec)
+        del staged, fused, pair, out, lse, args
+    for kernel, by_case in cases.items():
+        full = by_case["causal"]["device_ms"]
+        w4096 = by_case["window4096_sinks4"]["device_ms"]
+        w1024 = by_case["window1024"]["device_ms"]
+        emit(phase="backward", kernel=kernel,
+             window4096_over_causal=w4096 / full,
+             window1024_over_causal=w1024 / full)
+        if not (w4096 <= full and w1024 < 0.5 * full):
+            raise AssertionError(f"{kernel}: the band does not shrink the "
+                                 f"work: {w4096}, {w1024} against {full} ms")
+    del q, k, v, dout
+
+    # the FMA bodies: f32, dk != dv, a cached prefill's offset; the edges
+    f32 = [torch.randn(s, generator=gen, device="cuda")
+           for s in ((1, 4, 200, 64), (1, 2, 333, 64), (1, 2, 333, 96))]
+    edge = [torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+            for s in ((2, 8, 1000, d), (2, 2, 1003, d), (2, 2, 1003, d))]
+    for case, (q, k, v), opts in (
+            ("f32_fma_dk_ne_dv_window100_sinks5", f32,
+             dict(window=100, sinks=5, q_offset=133)),
+            ("edge_window200_sinks3_offsets", edge,
+             dict(window=200, sinks=3, q_offset=37, kv_valid=900))):
+        kw = dict(scale=q.shape[-1] ** -0.5, causal=True, softcap=None,
+                  **opts)
+        out, lse = _flash_fwd_impl(q, k, v, **kw)
+        dout = torch.randn(out.shape, generator=gen, device="cuda").to(
+            q.dtype)
+        window_bwd_case(kernels, case, (q, k, v, out, lse, dout), kw)
+    emit(phase="backward", window_seconds=time.perf_counter() - t0)
+
+
 def backward_times(kernels, case, args, kw) -> None:
     """Time one serving backward case: each kernel alone on the staged
     operands (the kernels line's ``ms``), `flash_backward` end to end on
@@ -2147,16 +2374,19 @@ def backward_times(kernels, case, args, kw) -> None:
             kernels[kernel].update(t)
 
 
-def phase_train(ops, kernels, model) -> None:
+def phase_train(ops, kernels, model, *, batch_shape=TRAIN_BATCH,
+                cell: str = "dense") -> dict:
     """Training at the serving model's full width: `init_train`, then
     `TRAIN_STEPS` fused steps of `make_train_step` on one seeded batch of
-    4 x 2049 tokens, every loss finite and the last below the first; the
+    ``batch_shape`` tokens (4 x 2049; the windowed cell one sequence of
+    8193), every loss finite and the last below the first; the
     forward flash kernel and the fused backward kernel once per layer per
     step, nothing else.  Then two steps from the same start with the
     dQ + dK/dV pair: the first loss equal to the fused run's (the same
     forward on the same weights), the second within `TRAIN_LOSS_TOL`.
     Then the gradients of both paths (`train_grads_agree`), and one fused
-    step under `torch.profiler`: device time by class."""
+    step under `torch.profiler`: device time by class, which it returns.
+    Every line names the ``cell``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2164,9 +2394,9 @@ def phase_train(ops, kernels, model) -> None:
     from attention_tpu_torch.ops import flash_bwd
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    batch = torch.randint(0, model.vocab, TRAIN_BATCH, generator=gen,
+    batch = torch.randint(0, model.vocab, batch_shape, generator=gen,
                           device="cuda")
-    tokens = TRAIN_BATCH[0] * (TRAIN_BATCH[1] - 1)
+    tokens = batch_shape[0] * (batch_shape[1] - 1)
     losses = {}
     for path, steps, bwd in (("fused", TRAIN_STEPS, (flash_bwd.FUSED,)),
                              ("pair", 2, (flash_bwd.DQ, flash_bwd.DKV))):
@@ -2200,7 +2430,8 @@ def phase_train(ops, kernels, model) -> None:
         kernels["flash_fwd"]["launches"] += launches["flash_fwd"]
         losses[path] = got
         ms = statistics.median(step_ms[1:])
-        emit(phase="train", path=path, losses=got, step_ms=step_ms,
+        emit(phase="train", cell=cell, path=path, losses=got,
+             step_ms=step_ms,
              median_step_ms=ms, tokens_per_step=tokens,
              tokens_per_s=tokens / ms * 1e3, launches=launches,
              peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
@@ -2211,10 +2442,10 @@ def phase_train(ops, kernels, model) -> None:
             and abs(pair[1] - fused[1]) <= TRAIN_LOSS_TOL):
         raise AssertionError(f"two-kernel losses {pair} against fused "
                              f"{fused[:2]}")
-    emit(phase="train", pair_vs_fused_loss=[pair[0] - fused[0],
-                                            pair[1] - fused[1]],
+    emit(phase="train", cell=cell,
+         pair_vs_fused_loss=[pair[0] - fused[0], pair[1] - fused[1]],
          tol=TRAIN_LOSS_TOL)
-    train_grads_agree(model, batch)
+    train_grads_agree(model, batch, cell)
 
     step = make_train_step(model, init_train(model, seed=SEED, lr=TRAIN_LR))
     step(batch)
@@ -2247,13 +2478,14 @@ def phase_train(ops, kernels, model) -> None:
             evt.time_range.elapsed_us() / 1e3
     busy = sum(classes.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    emit(phase="train", profiled_step_wall_ms=wall * 1e3,
+    emit(phase="train", cell=cell, profiled_step_wall_ms=wall * 1e3,
          device_busy_ms=busy, busy_share=busy / (wall * 1e3),
          device_ms_by_class=classes,
          top_kernels=[{"name": n, "count": c, "ms": t} for n, (c, t) in top])
+    return classes
 
 
-def train_grads_agree(model, batch) -> None:
+def train_grads_agree(model, batch, cell: str = "dense") -> None:
     """The full-width gradients themselves, each from one `loss_fn` and
     `backward()` at the seeded start, against the fused kernel's by
     relative L2 distance per parameter: the fused path run again (its dQ
@@ -2293,7 +2525,7 @@ def train_grads_agree(model, batch) -> None:
     again = furthest(grads())
     pair = furthest(grads(pair=True))
     planted = furthest(grads(backward=dk_scale_off_2pct))
-    emit(phase="train", grads_fused_run_to_run_rel_l2=again,
+    emit(phase="train", cell=cell, grads_fused_run_to_run_rel_l2=again,
          grads_pair_vs_fused_rel_l2=pair,
          planted_dk_scale_off_2pct_rel_l2=planted, tol=TRAIN_GRAD_REL_TOL)
     if not max(again.values()) <= TRAIN_GRAD_REL_TOL:
@@ -2528,15 +2760,21 @@ def phase_window_reference() -> None:
     emit(phase="reference", model=SMALL_BAND, logits_max_abs_err=err,
          tol=1e-4, streams_equal=sorted(streams["cpu"]) + ["engine"],
          seconds=time.perf_counter() - t0)
+    f64 = TinyDecoder(dtype=torch.float64, device="cpu", **SMALL_MODEL,
+                      **SMALL_BAND)
+    reference_training(cpu, gpu, f64, band=SMALL_BAND)
 
 
-def reference_training(cpu, gpu, f64) -> None:
+def reference_training(cpu, gpu, f64, band=None) -> None:
     """Training on the small model, card (the f32 backward kernels)
     against CPU (the plain versions) from the same weights: one loss and
     `backward()`, every gradient within `reference.grad_mismatch`'s f32
     limit and the loss within `TRAIN_F32_LOSS_TOL`, a float64 copy as the
     witness; then three AdamW steps each, their losses within
-    `TRAIN_F32_STEP_LOSS_TOL`."""
+    `TRAIN_F32_STEP_LOSS_TOL`.  ``band`` names a windowed model's window
+    and sinks in the lines (its card backward: the kernels over the band
+    and the sink patch; its CPU one the plain version over the whole
+    mask)."""
     from attention_tpu_torch.models import loss_fn, make_train_step
     from attention_tpu_torch.models.train import ADAMW
     from attention_tpu_torch.ops.reference import grad_mismatch
@@ -2558,9 +2796,9 @@ def reference_training(cpu, gpu, f64) -> None:
     gap = {side: max((grads[side][k].double() - g).abs().max().item()
                      for k, g in grads["f64"].items())
            for side in ("card", "cpu")}
-    emit(phase="reference", train_loss={"card": loss["card"],
-                                        "cpu": loss["cpu"],
-                                        "f64": loss["f64"]},
+    emit(phase="reference", model=band,
+         train_loss={"card": loss["card"], "cpu": loss["cpu"],
+                     "f64": loss["f64"]},
          grad_worst={"param": worst[2], "max_abs_err": worst[0],
                      "share_of_limit": worst[1]},
          grads_card_vs_f64=gap["card"], grads_cpu_vs_f64=gap["cpu"],
@@ -2576,8 +2814,8 @@ def reference_training(cpu, gpu, f64) -> None:
             m.parameters(), lr=TRAIN_LR, **ADAMW))
         steps.append([step(tokens.to(m.device)).item() for _ in range(3)])
     gap = max(abs(a - b) for a, b in zip(*steps))
-    emit(phase="reference", adamw_step_losses={"cpu": steps[0],
-                                               "card": steps[1]},
+    emit(phase="reference", model=band,
+         adamw_step_losses={"cpu": steps[0], "card": steps[1]},
          max_abs_err=gap, tol=TRAIN_F32_STEP_LOSS_TOL)
     if not (gap <= TRAIN_F32_STEP_LOSS_TOL and steps[1][2] < steps[1][0]):
         raise AssertionError(f"AdamW steps differ from the CPU: {steps}")
@@ -2683,6 +2921,7 @@ def main() -> int:
     phase_quant_kernels(ops, kernels, k, v)
     del k, v
     phase_backward(kernels)
+    phase_window_backward(kernels)
     phase_op_path(ops, kernels)
     phase_distributed(kernels)
     phase_generate(ops, kernels, model)
@@ -2700,7 +2939,18 @@ def main() -> int:
     phase_profile(model)
     phase_reference()
     phase_window_reference()
-    phase_train(ops, kernels, model)
+    dense = phase_train(ops, kernels, model)
+    del model
+    windowed = TinyDecoder(dtype=torch.bfloat16, device="cuda",
+                           **SERVE_MODEL, **TRAIN_BAND)
+    band = phase_train(ops, kernels, windowed,
+                       batch_shape=WINDOW_TRAIN_BATCH,
+                       cell="window4096_sinks4")
+    del windowed
+    emit(phase="train", attention_device_ms={
+        cell: {c: classes.get(c, 0.0) for c in ("flash_fwd", "flash_bwd")}
+        for cell, classes in (("dense", dense),
+                              ("window4096_sinks4", band))})
 
     nbytes, ops_count = ragged_work(step, q)
     b_ms, b_by = bound_ms(nbytes, ops_count, q.dtype)

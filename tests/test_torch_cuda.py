@@ -1272,6 +1272,129 @@ def test_backward_wrapper_raises_instead_of_falling_back(gen):
     assert launch_counts() == before
 
 
+# The backward kernels over a sliding-window band (`-k window_bwd`): the
+# fused kernel and the pair, held to `flash_backward_plain` over the whole
+# band-and-sink mask, the kernels taking the band and `sink_patch` the
+# sinks.  bf16 at d 128 and 64 on the wgmma bodies (a window wider than a
+# key block, one under a query tile, GQA 4, softcap); the edges (m 1000, n
+# 1003, kv_valid 900, window 200 and 3 sinks, q_offset 37, so the band
+# leaves the sinks behind after row 166); f32 and an odd head dim on the
+# FMA bodies.  Each: the expected launches, the same dK and dV bits on a
+# second call (the pair's dQ too), the wgmma body where bf16 d 64/128.
+WINDOW_BWD_CASES = {
+    "bf16_d128_window300_sinks4": (
+        torch.bfloat16, ((2, 8, 700, 128), (2, 2, 700, 128)),
+        dict(window=300, sinks=4)),
+    "bf16_d64_window50_softcap": (
+        torch.bfloat16, ((1, 8, 500, 64), (1, 2, 500, 64)),
+        dict(window=50, softcap=30.0)),
+    "bf16_edges_window200_sinks3": (
+        torch.bfloat16, ((2, 8, 1000, 128), (2, 2, 1003, 128)),
+        dict(window=200, sinks=3, q_offset=37, kv_valid=900,
+             softcap=50.0)),
+    "f32_fma_window100_sinks5": (
+        torch.float32, ((3, 150, 40), (1, 190, 40)),
+        dict(window=100, sinks=5, q_offset=20)),
+}
+
+
+def _window_bwd_case(gen, name):
+    dtype, (qshape, kshape), kw = WINDOW_BWD_CASES[name]
+    q, dout = (torch.randn(qshape, generator=gen, device="cuda").to(dtype)
+               for _ in "qo")
+    k, v = (torch.randn(kshape, generator=gen, device="cuda").to(dtype)
+            for _ in "kv")
+    kw = dict(kw, causal=True, scale=qshape[-1] ** -0.5)
+    out, lse = _flash_fwd_impl(q, k, v, **kw)
+    return (q, k, v, out, lse, dout), kw
+
+
+@pytest.mark.parametrize("name", list(WINDOW_BWD_CASES))
+@pytest.mark.parametrize("path", ["fused", "pair"])
+def test_window_bwd_kernels_match_plain(gen, monkeypatch, path, name):
+    args, kw = _window_bwd_case(gen, name)
+    monkeypatch.setattr(flash_bwd, "_FORCE_TWO_KERNEL", path == "pair")
+    q, k = args[:2]
+    plan = flash_bwd.bwd_launch_plan(
+        *args, causal=True, window=kw["window"],
+        **{x: kw[x] for x in ("q_offset", "kv_valid") if x in kw})
+    wgmma = q.dtype == torch.bfloat16 and q.shape[-1] in (64, 128)
+    assert plan["body"] == plan["pair"]["body"] == (
+        "wgmma" if wgmma else "fma")
+    before = launch_counts()
+    got = flash_bwd.flash_backward(*args, **kw)
+    again = flash_bwd.flash_backward(*args, **kw)
+    after = launch_counts()
+    want_launches = ({flash_bwd.FUSED: 2} if path == "fused"
+                     else {flash_bwd.DQ: 2, flash_bwd.DKV: 2})
+    assert {n: after[n] - before[n] for n in after
+            if after[n] != before[n]} == want_launches
+    want = flash_bwd.flash_backward_plain(*args, **kw)
+    torch.cuda.synchronize()
+    ints = torch.int16 if q.dtype == torch.bfloat16 else torch.int32
+    for g, a in list(zip(got, again))[path == "fused":]:
+        assert torch.equal(g.view(ints), a.view(ints))
+    for g, w in zip(got, want):
+        assert g.dtype == q.dtype and g.shape == w.shape
+        assert grad_mismatch(g, w)[1] <= 1
+    # the band one key tile longer, and the sinks left out, fail the check
+    longer = flash_bwd.flash_backward_plain(
+        *args, **dict(kw, window=kw["window"] + 64))
+    assert max(grad_mismatch(g, w)[1] for g, w in zip(longer, want)) > 1
+    if "sinks" in kw:
+        no_sinks = flash_bwd.flash_backward_plain(
+            *args, **dict(kw, sinks=None))
+        assert max(grad_mismatch(g, w)[1]
+                   for g, w in zip(no_sinks, want)) > 1
+
+
+@pytest.mark.parametrize("path", ["fused", "pair"])
+def test_window_bwd_wider_than_the_sequence_is_causal_bits(gen, monkeypatch,
+                                                            path):
+    """A window that covers every row's keys walks the causal call's tiles
+    and masks the same pairs: dK and dV (the pair's dQ too) are the
+    causal call's bits."""
+    monkeypatch.setattr(flash_bwd, "_FORCE_TWO_KERNEL", path == "pair")
+    args, kw = _window_bwd_case(gen, "bf16_d128_window300_sinks4")
+    kw = {x: kw[x] for x in ("causal", "scale")}
+    causal = flash_bwd.flash_backward(*args, **kw)
+    wide = flash_bwd.flash_backward(*args, window=args[0].shape[-2], **kw)
+    torch.cuda.synchronize()
+    for c, w in list(zip(causal, wide))[path == "fused":]:
+        assert torch.equal(c.view(torch.int16), w.view(torch.int16))
+
+
+def test_window_bwd_training_step_matches_cpu():
+    """One step of `make_train_step` on a small f32 windowed model with
+    sinks on the card (the FMA kernels and the sink patch) and on the CPU
+    from the same weights: the same loss to 1e-5 and every gradient
+    within grad_mismatch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from attention_tpu_torch.models import TinyDecoder, init_params, \
+        make_train_step
+    from attention_tpu_torch.models.train import ADAMW
+
+    cfg = dict(vocab=64, dim=128, depth=2, num_q_heads=4, num_kv_heads=2,
+               rope=True, softcap=30.0, dtype=torch.float32, window=24,
+               attn_sinks=4)
+    cpu = TinyDecoder(device="cpu", **cfg)
+    cpu.load_state_dict(init_params(cpu, 0))
+    card = TinyDecoder(device="cuda", **cfg)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(0, 64, (2, 97), generator=torch.Generator()
+                           .manual_seed(0))
+    losses, grads = [], []
+    for m in (cpu, card):
+        step = make_train_step(m, torch.optim.AdamW(m.parameters(), lr=1e-3,
+                                                    **ADAMW))
+        losses.append(step(tokens.to(m.device)).item())
+        grads.append({k: p.grad.cpu() for k, p in m.named_parameters()})
+    assert abs(losses[0] - losses[1]) <= 1e-5
+    for k, g in grads[0].items():
+        assert grad_mismatch(grads[1][k], g)[1] <= 1, k
+
+
 def test_tiny_train_step_matches_cpu():
     """One step of `make_train_step` on a small f32 model (head dim 32:
     the FMA kernels) on the card and on the CPU from the same weights:

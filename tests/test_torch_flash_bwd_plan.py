@@ -52,7 +52,7 @@ def _plan_holds(plan, block, m) -> bool:
     no kept pair outside [begin, end), every real row of a tile in
     [mask_end, end) keeps every key, the tile at begin (when masked) does
     not."""
-    begin, end, mask_end = plan
+    begin, end, mask_end, _ = plan
     if block[:begin * QUERY_TILE].any() or block[end * QUERY_TILE:].any():
         return False
     if not block[mask_end * QUERY_TILE:end * QUERY_TILE].all():
@@ -82,17 +82,18 @@ def test_bwd_tile_plan_masks_every_tile_that_needs_it(causal, q_offset,
                     block = keep[:, key0:key0 + KEY_BLOCK]
                     plan = bwd_tile_plan(key0, m, kv_valid, causal, q_offset,
                                          kv_offset)
-                    begin, end, mask_end = plan
+                    begin, end, mask_end, edge = plan
                     assert 0 <= begin <= mask_end <= end <= -(-m // 64)
+                    assert edge == end
                     assert _plan_holds(plan, block, m), (m, n, kv_valid, key0)
                     if key0 >= kv_valid:
                         assert begin == end
                     if mask_end > begin:
-                        assert not _plan_holds((begin, end, mask_end - 1),
-                                               block, m)
+                        assert not _plan_holds(
+                            plan._replace(mask_end=mask_end - 1), block, m)
                     if block[begin * QUERY_TILE:(begin + 1)
                              * QUERY_TILE].any():
-                        assert not _plan_holds((begin + 1, end, mask_end),
+                        assert not _plan_holds(plan._replace(begin=begin + 1),
                                                block, m)
 
 
@@ -102,10 +103,10 @@ def test_bwd_tile_plan_of_a_causal_diagonal():
     tiles; the ragged key edge masks every tile."""
     for i in (0, 1, 31):
         assert bwd_tile_plan(i * 128, 4096, 4096, True, 0, 0) == (
-            2 * i, 64, 2 * i + 2)
-    assert bwd_tile_plan(512, 4096, 500, True, 0, 0) == (0, 0, 0)
-    assert bwd_tile_plan(384, 1000, 500, True, 0, 0) == (6, 16, 16)
-    assert bwd_tile_plan(0, 300, 400, False, 0, 0) == (0, 5, 0)
+            2 * i, 64, 2 * i + 2, 64)
+    assert bwd_tile_plan(512, 4096, 500, True, 0, 0) == (0, 0, 0, 0)
+    assert bwd_tile_plan(384, 1000, 500, True, 0, 0) == (6, 16, 16, 16)
+    assert bwd_tile_plan(0, 300, 400, False, 0, 0) == (0, 5, 0, 5)
 
 
 # ------------------------------------------------------------ work items
@@ -148,8 +149,8 @@ def _loads(shape, slices):
     out = []
     for w in range(-(-n // KEY_BLOCK) * batch * kv_heads * slices):
         kb = bwd_work_item(w, batch, kv_heads, group, slices)[2]
-        begin, end, _ = bwd_tile_plan(kb * KEY_BLOCK, m, kv_valid, causal,
-                                      qo, ko)
+        begin, end = bwd_tile_plan(kb * KEY_BLOCK, m, kv_valid, causal,
+                                   qo, ko)[:2]
         out.append(group // slices * (end - begin))
     return out
 

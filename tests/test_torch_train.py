@@ -250,7 +250,7 @@ def test_cpu_tensors_never_reach_a_backward_kernel(monkeypatch):
 
 def test_unported_training_features_raise():
     q = torch.zeros(8, 16, requires_grad=True)
-    for kw in ({"window": 4}, {"sinks": 2}, {"block_sizes": (8, 8)},
+    for kw in ({"block_sizes": (8, 8)},
                {"q_segment_ids": torch.zeros(8, dtype=torch.int32),
                 "kv_segment_ids": torch.zeros(8, dtype=torch.int32)},
                {"max_mode": "flashd"}):
@@ -258,7 +258,7 @@ def test_unported_training_features_raise():
             flash_attention_diff(q, q, q, causal=True, **kw)
     with pytest.raises(NotImplementedError):
         flash_bwd.flash_backward(q, q, q, q, torch.zeros(8), q, scale=1.0,
-                                 causal=True, window=4)
+                                 causal=True, block_sizes=(8, 8))
     with pytest.raises(ValueError):
         flash_attention_diff(q, q, q, bwd_impl="mosaic")
     with pytest.raises(NotImplementedError):

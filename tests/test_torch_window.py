@@ -637,11 +637,19 @@ def test_rolling_prefill_into_a_used_ring_is_nan():
 
 
 def test_windowed_training_raises_naming_the_queue_item():
-    q = torch.zeros(8, 16, requires_grad=True)
+    """The band's backward is ported (ROADMAP Queue 2 item 2 is done), so
+    nothing raises any more: `flash_attention_diff` with a window and
+    sinks, and a windowed small model's ``backward()`` over a sequence
+    longer than its window, give finite gradients, every parameter's."""
+    q = torch.randn(2, 40, 16, generator=torch.Generator().manual_seed(0),
+                    requires_grad=True)
     for kw in ({"window": 4}, {"window": 4, "sinks": 2}):
-        with pytest.raises(NotImplementedError, match="Queue 2 item 2"):
-            flash_attention_diff(q, q, q, causal=True, **kw)
+        q.grad = None
+        flash_attention_diff(q, q, q, causal=True, **kw).sum().backward()
+        assert bool(q.grad.isfinite().all()) and q.grad.abs().max() > 0
     model = TinyDecoder(dtype=torch.float32, device="cpu", window=8,
-                        **SMALL)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 2"):
-        model(torch.zeros(1, 8, dtype=torch.long)).sum().backward()
+                        attn_sinks=2, **SMALL)
+    tokens = torch.arange(24).remainder(SMALL["vocab"])[None]
+    model(tokens).sum().backward()
+    for name, p in model.named_parameters():
+        assert p.grad is not None and bool(p.grad.isfinite().all()), name
