@@ -5,7 +5,9 @@ dicts of numpy arrays (``jax.device_get`` of ``model.init(...)
 ["params"]``) and returns the port's ``state_dict``.  The mapping:
 ``DenseGeneral``/``Dense`` kernels (in, ..., out) become ``nn.Linear``
 weights (out, in) by flattening the feature axes and transposing,
-``Embed`` embeddings and ``RMSNorm`` scales carry over unchanged.
+``Embed`` embeddings, ``RMSNorm`` scales and ``MoEMLP``'s experts (E, d,
+h), (E, h, d) carry over unchanged (its router kernel is a ``Dense``
+kernel, `moe_from_jax`).
 A gradient tree (``jax.grad`` of a loss over the params) has the params'
 structure, so `params_from_jax` maps it too: the training parity tests
 compare the port's ``.grad`` tensors with it, and need nothing more.
@@ -50,10 +52,23 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
             np.array(blk["RMSNorm_1"]["scale"]))
         for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
             sd[pre + f"attn.{name}.weight"] = _linear(attn[name]["kernel"])
+        if "MoEMLP_0" in blk:
+            sd.update({pre + "mlp." + k: v
+                       for k, v in moe_from_jax(blk["MoEMLP_0"]).items()})
+            continue
         sd[pre + "mlp.up.weight"] = _linear(blk["MLP_0"]["Dense_0"]["kernel"])
         sd[pre + "mlp.down.weight"] = _linear(
             blk["MLP_0"]["Dense_1"]["kernel"])
     return sd
+
+
+def moe_from_jax(tree) -> dict[str, torch.Tensor]:
+    """An `MoEMLP` ``state_dict`` from a flax ``MoEMLP`` tree (params or
+    gradients): the (d, E) router kernel as a ``Linear`` weight, the
+    experts unchanged."""
+    return {"router.weight": _linear(tree["router"]),
+            "experts_up": torch.from_numpy(np.array(tree["experts_up"])),
+            "experts_down": torch.from_numpy(np.array(tree["experts_down"]))}
 
 
 def quant_cache_from_jax(kv):

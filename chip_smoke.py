@@ -145,6 +145,14 @@ non-zero unless all of them pass:
             ``"two_call"`` and, without its sinks, in ``"ragged"``; then
             the ragged run once more under `torch.profiler` for device
             time by kernel.
+5b. moe     the same model with 8 experts, top 2, capacity factor 1.25
+            (Mixtral 8x7B's routing on the repo's 4·d tanh-GELU experts),
+            depth 4: greedy `generate` on the 8 prompts of 512 tokens and
+            the serving trace in both step modes, with phase 4's and 5's
+            launch checks (ragged launches exactly steps x depth), every
+            request finished with its 32 tokens, every logit finite; the
+            ragged run under `torch.profiler`, the experts' products a
+            class of their own.
 6. reference a small f32 model on the card against the same model on
             the CPU (plain versions): logits, each side the same bits
             twice (the CPU's f32 settings printed first, any
@@ -160,8 +168,14 @@ non-zero unless all of them pass:
             `generate` on full and rolling caches (equal to each other
             too), `generate_ragged`, `generate_paged`,
             `generate(int8_cache=True)` and two-call serving; and its
-            training against the CPU as above.
-7. train    the phase 4 model trained: `init_train`, 5 fused steps of
+            training against the CPU as above.  The same model with 4
+            experts at capacity factor 1.25 (both sides drop pairs):
+            logits, greedy streams of the engine in both step modes and
+            of the three generate functions, training as above (the
+            router's gradient included), the smallest top-k margin of
+            the routing printed.
+7. train    the phase 4 model trained on float32 masters of its bf16
+            weights (float32 moments): `init_train`, 5 fused steps of
             `make_train_step` on a seeded batch of 4 x 2049 tokens (every
             loss finite, the last below the first; the flash kernel and
             the fused backward kernel once per layer per step), 2 steps
@@ -170,16 +184,27 @@ non-zero unless all of them pass:
             start, the fused path's run again and the pair's, against
             the fused one's (relative L2 within 2^-6), a 2% scale error
             planted in the fused dK must fail;
-            one step under `torch.profiler`.  Then the same model with
-            window 4096 and 4 sinks on one sequence of 8193 tokens (the
-            same 8192 predicted tokens a step), the same steps, launch
-            counts, gradient checks and profiled step, its attention
-            device ms printed beside the unwindowed cell's.
+            the forward and backward with ``remat=True`` from the seeded
+            start (the same loss, gradients within 2^-6, a lower peak);
+            the optimizer step's span on the card by CUDA events
+            (gradient carry, AdamW, the masters' copy back); one step
+            under `torch.profiler`.  Then
+            checkpoint and resume at the same width: three pair steps
+            straight through against two, `save_checkpoint`, a fresh
+            model and optimizer restored, and the third (the same
+            bits), a torn step directory passed over by `latest_step`.
+            Then the same model with window 4096 and 4 sinks on one
+            sequence of 8193 tokens (the same 8192 predicted tokens a
+            step), the same steps, launch counts, gradient checks and
+            profiled step; then the MoE model at depth 2 the same way,
+            its aux loss printed apart; the attention device ms of the
+            three cells side by side.
 
 Launch counts are reset just before each run of a path (op path, the
 int4 entry points, each distributed backend's run on each rank, each
 generate function, the chunk verify, each serving run, each training run)
-and read just after it; rank 0's distributed launches join the flash
+and read just after it (the MoE model's generate and serving runs
+too); rank 0's distributed launches join the flash
 kernel's count.  Kernel times are CUDA-event
 medians after warm-up, over back-to-back calls of the wrapper, so a call
 whose host work outlasts its kernels is timed by its host work.  The second-to-last stdout line is the
@@ -196,6 +221,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -219,6 +245,20 @@ SERVE_ENGINE = dict(step_mode="ragged", page_size=128, num_pages=512,
 # the __graft_entry__.entry() model
 SMALL_MODEL = dict(vocab=256, dim=256, depth=2, num_q_heads=8,
                    num_kv_heads=2, rope=True, softcap=50.0)
+# the mixture-of-experts cells: Mixtral 8x7B's expert count and top-2
+# routing on the serving model's width (the repo's own 4·d tanh-GELU
+# experts), at the JAX package's capacity factor 1.25.  Served at depth 4
+# (4.3e9 expert parameters, 8.6 GB in bf16); trained at depth 2: 2.5e9
+# parameters at 16 bytes each (bf16 weight and gradient, float32 master,
+# two float32 moments), float32 gradients and the update's temporaries
+# come to about 55 GB, which fits 80 GB; depth 4 would need over 100
+SERVE_MOE = dict(moe_experts=8, moe_top_k=2, moe_capacity_factor=1.25)
+MOE_TRAIN_DEPTH = 2
+# phase 6's MoE model: the small f32 model with 4 experts at capacity
+# factor 1.25, so that both sides drop pairs
+SMALL_MOE = dict(moe_experts=4, moe_capacity_factor=1.25)
+# the checkpoint phase's model: the serving model's width at this depth
+CKPT_DEPTH = 4
 # the sliding-window flash cases of phase 2: the served attention geometry
 # (q heads, kv heads, rows, d) at 8192 rows, causal, bf16; the published
 # window of Mistral 7B v0.1 and Gemma 2 (4096) with StreamingLLM's 4 sinks,
@@ -1948,7 +1988,8 @@ def serve_runs(ops, kernels, trace, runs) -> dict:
         kernels[kernel]["launches"] += launches[kernel]
         streams[mode] = outputs
         emit(phase="serving", step_mode=mode, window=model.window,
-             sinks=model.attn_sinks, steps=summary["num_steps"],
+             sinks=model.attn_sinks, experts=model.moe_experts,
+             steps=summary["num_steps"],
              model_calls=eng.model_calls, launches=launches,
              prompt_tokens=summary["prompt_tokens"],
              output_tokens=summary["output_tokens"], wall_s=wall,
@@ -2374,20 +2415,66 @@ def backward_times(kernels, case, args, kw) -> None:
             kernels[kernel].update(t)
 
 
+@contextlib.contextmanager
+def step_spans(optimizer):
+    """CUDA events around each call of ``optimizer.step``, the outermost
+    where a subclass's step runs its parent's (both run the step hooks):
+    a list of [start, end] pairs, for the step's span on the card."""
+    spans, depth = [], [0]
+
+    def pre(opt, args, kwargs):
+        depth[0] += 1
+        if depth[0] == 1:
+            spans.append([torch.cuda.Event(enable_timing=True)])
+            spans[-1][0].record()
+
+    def post(opt, args, kwargs):
+        depth[0] -= 1
+        if depth[0] == 0:
+            spans[-1].append(torch.cuda.Event(enable_timing=True))
+            spans[-1][1].record()
+
+    hooks = (optimizer.register_step_pre_hook(pre),
+             optimizer.register_step_post_hook(post))
+    try:
+        yield spans
+    finally:
+        for hook in hooks:
+            hook.remove()
+
+
+@contextlib.contextmanager
+def aux_losses(model):
+    """The MoE layers' aux losses of every forward of ``model``, as
+    they come (an empty list for a dense model)."""
+    from attention_tpu_torch.models import MoEMLP
+
+    got = []
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out: got.append(out[1].detach()))
+        for m in model.modules() if isinstance(m, MoEMLP)]
+    try:
+        yield got
+    finally:
+        for hook in hooks:
+            hook.remove()
+
+
 def phase_train(ops, kernels, model, *, batch_shape=TRAIN_BATCH,
                 cell: str = "dense") -> dict:
-    """Training at the serving model's full width: `init_train`, then
-    `TRAIN_STEPS` fused steps of `make_train_step` on one seeded batch of
-    ``batch_shape`` tokens (4 x 2049; the windowed cell one sequence of
-    8193), every loss finite and the last below the first; the
-    forward flash kernel and the fused backward kernel once per layer per
-    step, nothing else.  Then two steps from the same start with the
-    dQ + dK/dV pair: the first loss equal to the fused run's (the same
-    forward on the same weights), the second within `TRAIN_LOSS_TOL`.
-    Then the gradients of both paths (`train_grads_agree`), and one fused
-    step under `torch.profiler`: device time by class, which it returns.
-    Every line names the ``cell``."""
-    from torch.autograd import DeviceType
+    """Training at the serving model's full width: `init_train` (float32
+    masters of the bf16 weights), then `TRAIN_STEPS` fused steps of
+    `make_train_step` on one seeded batch of ``batch_shape`` tokens (4 x
+    2049; the windowed cell one sequence of 8193), every loss finite and
+    the last below the first (an MoE model's aux loss, part of the
+    loss, printed apart); the forward flash kernel and the fused
+    backward kernel once per layer per step, nothing else.  Then two
+    steps from the same start with the dQ + dK/dV pair: the first loss
+    equal to the fused run's (the same forward on the same weights),
+    the second within `TRAIN_LOSS_TOL`.  Then the gradients of both
+    paths (`train_grads_agree`), for the dense cell remat
+    (`remat_agrees`), and one fused step under `torch.profiler`: device
+    time by class, which it returns.  Every line names the ``cell``."""
     from torch.profiler import ProfilerActivity, profile
 
     from attention_tpu_torch.models import init_train, make_train_step
@@ -2401,21 +2488,25 @@ def phase_train(ops, kernels, model, *, batch_shape=TRAIN_BATCH,
     for path, steps, bwd in (("fused", TRAIN_STEPS, (flash_bwd.FUSED,)),
                              ("pair", 2, (flash_bwd.DQ, flash_bwd.DKV))):
         flash_bwd._FORCE_TWO_KERNEL = path == "pair"
-        step = make_train_step(model, init_train(model, seed=SEED,
-                                                 lr=TRAIN_LR))
+        step = optimizer = None  # the last path's optimizer goes first
+        optimizer = init_train(model, seed=SEED, lr=TRAIN_LR)
+        step = make_train_step(model, optimizer)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
-        got, step_ms = [], []
-        for _ in range(steps):
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in "se")
-            start.record()
-            loss = step(batch)
-            end.record()
-            end.synchronize()
-            got.append(loss.item())
-            step_ms.append(start.elapsed_time(end))
+        got, aux, step_ms = [], [], []
+        with aux_losses(model) as layer_aux, step_spans(optimizer) as spans:
+            for _ in range(steps):
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in "se")
+                start.record()
+                loss = step(batch)
+                end.record()
+                end.synchronize()
+                got.append(loss.item())
+                step_ms.append(start.elapsed_time(end))
+                aux.append(sum(a.item() for a in layer_aux))
+                layer_aux.clear()
         launches = ops.launch_counts()
         flash_bwd._FORCE_TWO_KERNEL = False
         want = {"flash_fwd": steps * model.depth,
@@ -2423,18 +2514,21 @@ def phase_train(ops, kernels, model, *, batch_shape=TRAIN_BATCH,
         if {k: c for k, c in launches.items() if c} != want:
             raise AssertionError(f"{path} steps launched {launches}, "
                                  f"want {want}")
-        if not all(np.isfinite(got)):
-            raise AssertionError(f"{path}: non-finite loss {got}")
+        if not all(np.isfinite(got + aux)):
+            raise AssertionError(f"{path}: non-finite loss {got}, aux {aux}")
         for kernel in bwd:
             kernels[kernel]["launches"] += launches[kernel]
         kernels["flash_fwd"]["launches"] += launches["flash_fwd"]
         losses[path] = got
         ms = statistics.median(step_ms[1:])
         emit(phase="train", cell=cell, path=path, losses=got,
-             step_ms=step_ms,
+             aux_losses=aux if model.moe_experts else None,
+             step_ms=step_ms, optimizer_step_ms=statistics.median(
+                 a.elapsed_time(b) for a, b in spans[1:]),
              median_step_ms=ms, tokens_per_step=tokens,
              tokens_per_s=tokens / ms * 1e3, launches=launches,
              peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del step, optimizer
     fused, pair = losses["fused"], losses["pair"]
     if not fused[-1] < fused[0]:
         raise AssertionError(f"the loss did not fall: {fused}")
@@ -2445,7 +2539,10 @@ def phase_train(ops, kernels, model, *, batch_shape=TRAIN_BATCH,
     emit(phase="train", cell=cell,
          pair_vs_fused_loss=[pair[0] - fused[0], pair[1] - fused[1]],
          tol=TRAIN_LOSS_TOL)
-    train_grads_agree(model, batch, cell)
+    fused_grads = train_grads_agree(model, batch, cell)
+    if cell == "dense":
+        remat_agrees(model, batch, fused[0], fused_grads)
+    del fused_grads
 
     step = make_train_step(model, init_train(model, seed=SEED, lr=TRAIN_LR))
     step(batch)
@@ -2456,26 +2553,20 @@ def phase_train(ops, kernels, model, *, batch_shape=TRAIN_BATCH,
         step(batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    classes: dict[str, float] = {}
-    by_name: dict[str, list] = {}
-    for evt in prof.events():
-        # a user annotation (the optimizer's step range) spans kernels
-        # that are counted on their own
-        if evt.device_type != DeviceType.CUDA or evt.is_user_annotation:
-            continue
-        acc = by_name.setdefault(evt.name[:80], [0, 0.0])
-        acc[0] += 1
-        acc[1] += evt.time_range.elapsed_us() / 1e3
-        name = evt.name.lower()
-        cls = ("flash_bwd" if "major" in name or "flash_bwd" in name
-               else "flash_fwd" if "flash_fwd" in name
-               else "memcpy/memset" if name.startswith("mem")
-               else "optimizer" if "multi_tensor" in name
-               else "matmul" if any(w in name for w in (
-                   "gemm", "xmma", "cutlass", "sm90", "nvjet"))
-               else "other")
-        classes[cls] = classes.get(cls, 0.0) + \
-            evt.time_range.elapsed_us() / 1e3
+    del step
+
+    def classify(name):
+        name = name.lower()
+        return ("flash_bwd" if "major" in name or "flash_bwd" in name
+                else "flash_fwd" if "flash_fwd" in name
+                else "memcpy/memset" if name.startswith("mem")
+                else "optimizer" if "multi_tensor" in name
+                else "matmul" if any(w in name for w in (
+                    "gemm", "xmma", "cutlass", "sm90", "nvjet"))
+                else "other")
+
+    classes, by_name = device_classes(prof, classify,
+                                      experts=bool(model.moe_experts))
     busy = sum(classes.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     emit(phase="train", cell=cell, profiled_step_wall_ms=wall * 1e3,
@@ -2485,14 +2576,52 @@ def phase_train(ops, kernels, model, *, batch_shape=TRAIN_BATCH,
     return classes
 
 
-def train_grads_agree(model, batch, cell: str = "dense") -> None:
+def remat_agrees(model, batch, fused_loss: float, fused_grads) -> None:
+    """One step's loss and gradients with ``remat=True`` from the seeded
+    start: the loss equal to the fused run's first (the same forward;
+    the recomputed blocks give the same bits), every gradient within
+    `TRAIN_GRAD_REL_TOL` of the fused path's (relative L2; its dQ adds
+    in no fixed order), and the peak memory of the forward and backward
+    below the same call's without remat; both peaks printed."""
+    from attention_tpu_torch.models import init_params, loss_fn
+
+    peaks = {}
+    for remat in (False, True):
+        model.remat = remat
+        model.load_state_dict(init_params(model, SEED))
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss = loss_fn(model, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        peaks[remat] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    model.remat = False
+    remat_loss = loss.item()
+    rel = max(((p.grad.float() - fused_grads[k].float()).norm()
+               / fused_grads[k].float().norm()).item()
+              for k, p in model.named_parameters())
+    model.zero_grad(set_to_none=True)
+    emit(phase="train", cell="dense_remat", loss=remat_loss,
+         fused_first_loss=fused_loss, grads_vs_fused_rel_l2=rel,
+         tol=TRAIN_GRAD_REL_TOL, peak_over_weights_gib=peaks[False],
+         remat_peak_over_weights_gib=peaks[True])
+    if not (remat_loss == fused_loss and rel <= TRAIN_GRAD_REL_TOL
+            and peaks[True] < peaks[False]):
+        raise AssertionError(f"remat: loss {remat_loss} against "
+                             f"{fused_loss}, gradients {rel}, peaks "
+                             f"{peaks}")
+
+
+def train_grads_agree(model, batch, cell: str = "dense") -> dict:
     """The full-width gradients themselves, each from one `loss_fn` and
     `backward()` at the seeded start, against the fused kernel's by
     relative L2 distance per parameter: the fused path run again (its dQ
     atomics add in another order) and the pair must lie within
     `TRAIN_GRAD_REL_TOL`, the fused path with a 2% scale error planted in
-    the dK it returns beyond it."""
-    from attention_tpu_torch.models import init_train, loss_fn
+    the dK it returns beyond it.  Returns the fused gradients."""
+    from attention_tpu_torch.models import init_params, loss_fn
     from attention_tpu_torch.ops import flash_bwd, flash_vjp
 
     kernel_backward = flash_vjp.flash_backward
@@ -2502,7 +2631,7 @@ def train_grads_agree(model, batch, cell: str = "dense") -> None:
         return dq, dk * 1.02, dv
 
     def grads(pair=False, backward=kernel_backward):
-        init_train(model, seed=SEED, lr=TRAIN_LR)
+        model.load_state_dict(init_params(model, SEED))
         model.zero_grad(set_to_none=True)
         flash_bwd._FORCE_TWO_KERNEL, flash_vjp.flash_backward = pair, backward
         loss_fn(model, batch).backward()
@@ -2534,6 +2663,7 @@ def train_grads_agree(model, batch, cell: str = "dense") -> None:
         raise AssertionError(f"pair gradients off the fused ones: {pair}")
     if not max(planted.values()) > TRAIN_GRAD_REL_TOL:
         raise AssertionError(f"the check passes a planted fault: {planted}")
+    return fused
 
 
 def cpu_precision() -> dict:
@@ -2762,19 +2892,177 @@ def phase_window_reference() -> None:
          seconds=time.perf_counter() - t0)
     f64 = TinyDecoder(dtype=torch.float64, device="cpu", **SMALL_MODEL,
                       **SMALL_BAND)
-    reference_training(cpu, gpu, f64, band=SMALL_BAND)
+    reference_training(cpu, gpu, f64, label=SMALL_BAND)
 
 
-def reference_training(cpu, gpu, f64, band=None) -> None:
+def topk_margin(model, tokens) -> float:
+    """The smallest gap, over every MoE layer and token of a forward of
+    ``model`` on ``tokens``, between a token's k-th router probability
+    and its next: how near the run came to a routing flip."""
+    from attention_tpu_torch.models import MoEMLP
+
+    gaps = []
+
+    def hook(mod, args):
+        x = args[0].reshape(-1, args[0].shape[-1])
+        probs = torch.softmax(mod.router(x.to(mod.router.weight.dtype)),
+                              dim=-1).sort(dim=-1, descending=True).values
+        gaps.append((probs[:, mod.top_k - 1] - probs[:, mod.top_k]).min())
+
+    hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+             if isinstance(m, MoEMLP)]
+    try:
+        with torch.no_grad():
+            model(tokens)
+    finally:
+        for h in hooks:
+            h.remove()
+    return min(g.item() for g in gaps)
+
+
+def phase_moe_reference() -> None:
+    """The small f32 model with 4 experts at capacity factor 1.25
+    (`SMALL_MOE`: both sides drop pairs) on the card against the same
+    weights on the CPU: uncached logits within 1e-4 (as phase 6's);
+    greedy streams equal between card and CPU for the engine in both
+    step modes and for `generate`, `generate_ragged` and
+    `generate_paged`; then training as phase 6's (`reference_training`,
+    the router's gradient included).  A routing flip would show as an
+    O(1) error on one token, so the smallest top-k margin of the CPU's
+    forward is printed first."""
+    from attention_tpu_torch.engine import (
+        EngineConfig,
+        ServingEngine,
+        replay,
+        synthetic_trace,
+    )
+    from attention_tpu_torch.models import TinyDecoder, init_params
+    from attention_tpu_torch.models import decode as gen
+
+    t0 = time.perf_counter()
+    cfg = dict(SMALL_MODEL, **SMALL_MOE)
+    cpu = TinyDecoder(dtype=torch.float32, device="cpu", **cfg)
+    cpu.load_state_dict(init_params(cpu, SEED))
+    gpu = TinyDecoder(dtype=torch.float32, device="cuda", **cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, SMALL_MODEL["vocab"], (2, 256)))
+    emit(phase="reference", model=SMALL_MOE,
+         smallest_topk_margin=topk_margin(cpu, tokens))
+    with torch.no_grad():
+        err = (gpu(tokens.cuda()).cpu() - cpu(tokens)).abs().max().item()
+    emit(phase="reference", model=SMALL_MOE, logits_max_abs_err=err,
+         tol=1e-4)
+    if not err <= 1e-4:
+        raise AssertionError(f"MoE logits differ from the CPU by {err}")
+    prompts = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
+        0, SMALL_MODEL["vocab"], (3, 100)))
+    ragged = torch.tensor([100, 37, 64])
+    streams = {}
+    for side, m in (("cpu", cpu), ("card", gpu)):
+        streams[side] = dict(
+            generate=gen.generate(m, prompts, steps=12).cpu(),
+            ragged=gen.generate_ragged(m, prompts, ragged, steps=12).cpu(),
+            paged=gen.generate_paged(m, prompts, ragged,
+                                     steps=12)[0].cpu())
+    trace = synthetic_trace(6, vocab=SMALL_MODEL["vocab"], seed=SEED,
+                            prompt_len_min=4, prompt_len_max=300,
+                            max_tokens=12)
+    engine = {}
+    for mode in ("ragged", "two_call"):
+        engine[mode] = [replay(ServingEngine(m, EngineConfig(
+            num_pages=32, max_seq_len=512, prefill_chunk=64,
+            step_mode=mode)), trace)[1] for m in (cpu, gpu)]
+    differ = [name for name, toks in streams["cpu"].items()
+              if not torch.equal(streams["card"][name], toks)]
+    differ += [f"engine_{mode}" for mode, (a, b) in engine.items()
+               if a != b]
+    emit(phase="reference", model=SMALL_MOE,
+         streams_differ_card_vs_cpu=differ,
+         seconds=time.perf_counter() - t0)
+    if differ:
+        raise AssertionError(f"MoE greedy streams differ between card and "
+                             f"CPU: {differ}")
+    f64 = TinyDecoder(dtype=torch.float64, device="cpu", **cfg)
+    reference_training(cpu, gpu, f64, label=SMALL_MOE)
+
+
+def phase_checkpoint(model_kw: dict) -> None:
+    """Checkpoint and resume on the card, on the dQ + dK/dV pair (its
+    gradients are the same bits every call): three steps straight
+    through; then two steps from the same start, `save_checkpoint`, a
+    fresh model and optimizer (another seed) restored with
+    `restore_checkpoint`, and the third step, whose loss must be the
+    same bits as the straight run's.  A torn step directory (no
+    completion marker) written beside it must be passed over by
+    `latest_step`.  The checkpoint lives in a temporary directory, gone
+    at the end."""
+    from attention_tpu_torch.models import (
+        TinyDecoder,
+        complete_steps,
+        init_train,
+        latest_step,
+        make_train_step,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    from attention_tpu_torch.ops import flash_bwd
+
+    t0 = time.perf_counter()
+    model = TinyDecoder(dtype=torch.bfloat16, device="cuda", **model_kw)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    batch = torch.randint(0, model.vocab, TRAIN_BATCH, generator=gen,
+                          device="cuda")
+    flash_bwd._FORCE_TWO_KERNEL = True
+    try:
+        step = make_train_step(model, init_train(model, seed=SEED,
+                                                 lr=TRAIN_LR))
+        straight = [step(batch).item() for _ in range(3)]
+        optimizer = init_train(model, seed=SEED, lr=TRAIN_LR)
+        step = make_train_step(model, optimizer)
+        first = [step(batch).item() for _ in range(2)]
+        with tempfile.TemporaryDirectory() as ckpt:
+            t1 = time.perf_counter()
+            path = save_checkpoint(ckpt, 2, model, optimizer)
+            save_s = time.perf_counter() - t1
+            nbytes = sum(os.path.getsize(os.path.join(path, f))
+                         for f in os.listdir(path))
+            os.makedirs(os.path.join(ckpt, "9"))
+            with open(os.path.join(ckpt, "9", "state.pt"), "wb") as f:
+                f.write(b"torn")
+            found = latest_step(ckpt), complete_steps(ckpt)
+            del step, optimizer, model
+            model = TinyDecoder(dtype=torch.bfloat16, device="cuda",
+                                **model_kw)
+            optimizer = init_train(model, seed=SEED + 1, lr=TRAIN_LR)
+            t1 = time.perf_counter()
+            restored = restore_checkpoint(ckpt, model, optimizer)
+            restore_s = time.perf_counter() - t1
+        third = make_train_step(model, optimizer)(batch).item()
+    finally:
+        flash_bwd._FORCE_TWO_KERNEL = False
+    emit(phase="checkpoint", depth=model.depth, straight=straight,
+         resumed=first + [third], latest_step=found[0],
+         complete_steps=found[1], restored_step=restored,
+         checkpoint_gib=nbytes / 2**30, save_s=save_s, restore_s=restore_s,
+         seconds=time.perf_counter() - t0)
+    if not (found == (2, [2]) and restored == 2 and first == straight[:2]
+            and third == straight[2]):
+        raise AssertionError(f"resumed losses {first + [third]} against "
+                             f"{straight}, latest {found}, restored "
+                             f"{restored}")
+
+
+def reference_training(cpu, gpu, f64, label=None) -> None:
     """Training on the small model, card (the f32 backward kernels)
     against CPU (the plain versions) from the same weights: one loss and
     `backward()`, every gradient within `reference.grad_mismatch`'s f32
     limit and the loss within `TRAIN_F32_LOSS_TOL`, a float64 copy as the
     witness; then three AdamW steps each, their losses within
-    `TRAIN_F32_STEP_LOSS_TOL`.  ``band`` names a windowed model's window
-    and sinks in the lines (its card backward: the kernels over the band
-    and the sink patch; its CPU one the plain version over the whole
-    mask)."""
+    `TRAIN_F32_STEP_LOSS_TOL`.  ``label`` names the model's options in
+    the lines: a windowed model's window and sinks (its card backward:
+    the kernels over the band and the sink patch; its CPU one the plain
+    version over the whole mask), or an MoE model's experts."""
     from attention_tpu_torch.models import loss_fn, make_train_step
     from attention_tpu_torch.models.train import ADAMW
     from attention_tpu_torch.ops.reference import grad_mismatch
@@ -2796,7 +3084,7 @@ def reference_training(cpu, gpu, f64, band=None) -> None:
     gap = {side: max((grads[side][k].double() - g).abs().max().item()
                      for k, g in grads["f64"].items())
            for side in ("card", "cpu")}
-    emit(phase="reference", model=band,
+    emit(phase="reference", model=label,
          train_loss={"card": loss["card"], "cpu": loss["cpu"],
                      "f64": loss["f64"]},
          grad_worst={"param": worst[2], "max_abs_err": worst[0],
@@ -2814,18 +3102,60 @@ def reference_training(cpu, gpu, f64, band=None) -> None:
             m.parameters(), lr=TRAIN_LR, **ADAMW))
         steps.append([step(tokens.to(m.device)).item() for _ in range(3)])
     gap = max(abs(a - b) for a, b in zip(*steps))
-    emit(phase="reference", model=band,
+    emit(phase="reference", model=label,
          adamw_step_losses={"cpu": steps[0], "card": steps[1]},
          max_abs_err=gap, tol=TRAIN_F32_STEP_LOSS_TOL)
     if not (gap <= TRAIN_F32_STEP_LOSS_TOL and steps[1][2] < steps[1][0]):
         raise AssertionError(f"AdamW steps differ from the CPU: {steps}")
 
 
-def phase_profile(model) -> None:
+def launched(evt):
+    """The CUDA kernels a profiled CPU event launched, its children's
+    included (`torch.profiler`'s ``Kernel`` records: name, duration in
+    microseconds)."""
+    yield from evt.kernels
+    for child in evt.cpu_children:
+        yield from launched(child)
+
+
+def device_classes(prof, classify, experts: bool = False
+                   ) -> tuple[dict, dict]:
+    """Device ms by class from a `torch.profiler` run, each CUDA kernel
+    by ``classify(name)``; for an MoE model (``experts``) the kernels
+    that ``aten::bmm`` launched (its experts' products; nothing else on
+    such a model's path calls it, where the sink patch of a windowed
+    model does) moved into a class of their own, "experts"; and device
+    ms by kernel name: ({class: ms}, {name: [count, ms]}).  User
+    annotations (the optimizer's step range) span kernels counted on
+    their own."""
+    from torch.autograd import DeviceType
+
+    classes: dict[str, float] = {}
+    by_name: dict[str, list] = {}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA or evt.is_user_annotation:
+            continue
+        ms = evt.time_range.elapsed_us() / 1e3
+        cls = classify(evt.name)
+        classes[cls] = classes.get(cls, 0.0) + ms
+        acc = by_name.setdefault(evt.name[:80], [0, 0.0])
+        acc[0] += 1
+        acc[1] += ms
+    for evt in prof.events() if experts else ():
+        if evt.device_type == DeviceType.CPU and evt.name == "aten::bmm":
+            for kernel in launched(evt):
+                ms = kernel.duration / 1e3
+                classes[classify(kernel.name)] -= ms
+                classes["experts"] = classes.get("experts", 0.0) + ms
+    return classes, by_name
+
+
+def phase_profile(model, cell: str = "dense") -> None:
     """The serving run once more under `torch.profiler`: device time by
-    kernel, summed into classes, and the device's busy share of the
-    run's wall time.  Profiling slows the host, so the busy share here
-    is a lower bound of the unprofiled run's."""
+    kernel, summed into classes (the MoE experts' products a class of
+    their own), and the device's busy share of the run's wall time.
+    Profiling slows the host, so the busy share here is a lower bound
+    of the unprofiled run's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2833,7 +3163,6 @@ def phase_profile(model) -> None:
         EngineConfig,
         ServingEngine,
         replay,
-        synthetic_trace,
     )
 
     trace = serving_trace(model.vocab)
@@ -2845,31 +3174,25 @@ def phase_profile(model) -> None:
         replay(eng, trace, max_steps=500)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    classes: dict[str, float] = {}
-    kernels: dict[str, list] = {}
-    for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        us = evt.time_range.elapsed_us()
-        name = evt.name
-        cls = ("ragged_paged" if "ragged" in name.lower()
-               else "flash_fwd" if "flash_fwd" in name
-               else "memcpy/memset" if name.startswith("Mem")
-               else "matmul" if any(w in name.lower() for w in
-                                    ("gemm", "xmma", "cutlass", "sm90"))
-               else "other")
-        classes[cls] = classes.get(cls, 0.0) + us / 1e3
-        acc = kernels.setdefault(name[:80], [0, 0.0])
-        acc[0] += 1
-        acc[1] += us / 1e3
+
+    def classify(name):
+        return ("ragged_paged" if "ragged" in name.lower()
+                else "flash_fwd" if "flash_fwd" in name
+                else "memcpy/memset" if name.startswith("Mem")
+                else "matmul" if any(w in name.lower() for w in
+                                     ("gemm", "xmma", "cutlass", "sm90"))
+                else "other")
+
+    classes, kernels = device_classes(prof, classify,
+                                      experts=bool(model.moe_experts))
     busy_ms = sum(classes.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
     host = sorted((e for e in prof.key_averages()
                    if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)[:10]
-    emit(phase="profile", steps=eng.current_step, wall_ms=wall * 1e3,
-         device_busy_ms=busy_ms, busy_share=busy_ms / (wall * 1e3),
-         device_ms_by_class=classes,
+    emit(phase="profile", cell=cell, steps=eng.current_step,
+         wall_ms=wall * 1e3, device_busy_ms=busy_ms,
+         busy_share=busy_ms / (wall * 1e3), device_ms_by_class=classes,
          top_kernels=[{"name": n, "count": c, "ms": t}
                       for n, (c, t) in top],
          top_host_ops=[{"name": e.key[:60], "count": e.count,
@@ -2877,21 +3200,47 @@ def phase_profile(model) -> None:
                        for e in host])
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
-        return 1
-    from attention_tpu_torch import ops
+def phase_moe(ops, kernels) -> None:
+    """The serving model with 8 experts, top-2 (`SERVE_MOE`), at depth
+    4: greedy `generate` on phase 4's 8 prompts of 512 tokens and the
+    serving trace in both step modes, with phase 4's and 5's launch
+    checks (the flash kernel once per layer for each prefill, the decode
+    kernel once per layer and step; one ragged or paged launch per layer
+    and model call), every request finished with its 32 tokens and every
+    logit finite; then the ragged run under `torch.profiler`."""
     from attention_tpu_torch.models import TinyDecoder, init_params
-    from attention_tpu_torch.ops.ragged_paged import (
-        ragged_paged_attention,
-        ragged_paged_attention_plain,
-    )
+    from attention_tpu_torch.models import decode as gen
 
-    # f32 stays full f32 on the card: no TF32 in matmuls or convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    kernels = {
+    t0 = time.perf_counter()
+    model = TinyDecoder(dtype=torch.bfloat16, device="cuda", **SERVE_MODEL,
+                        **SERVE_MOE)
+    model.load_state_dict(init_params(model, SEED))
+    experts = sum(p.numel() for n, p in model.named_parameters()
+                  if "experts" in n)
+    equal = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, model.vocab, (8, 512))).cuda()
+    generate_runs(ops, kernels, model,
+                  {"moe_generate": lambda: gen.generate(model, equal,
+                                                        steps=GEN_STEPS)},
+                  {"moe_generate": "decode"},
+                  {"moe_generate": equal.numel()})
+    streams = serve_runs(ops, kernels, serving_trace(model.vocab),
+                         [("ragged", "ragged_paged", model),
+                          ("two_call", "paged_decode", model)])
+    same = [a == b for e in serving_trace(model.vocab) for a, b in zip(
+        streams["ragged"][e["id"]], streams["two_call"][e["id"]])]
+    phase_profile(model, cell="moe")
+    emit(phase="moe", model=SERVE_MOE, depth=model.depth,
+         expert_params=experts,
+         two_call_vs_ragged_equal_token_share=sum(same) / len(same),
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+         seconds=time.perf_counter() - t0)
+
+
+def kernel_records() -> dict:
+    """{name: the kernel's record of the ``{"kernels": [...]}`` line},
+    launches and error still 0."""
+    return {
         name: dict(name=name, route="cuda",
                    source=f"attention_tpu_torch/csrc/{src}",
                    replaces=replaces, launches=0, max_abs_err=0.0)
@@ -2912,6 +3261,23 @@ def main() -> int:
              "attention_tpu/ops/flash_bwd.py:146"),
             ("flash_bwd_dkv", "flash_bwd_dkv.cu",
              "attention_tpu/ops/flash_bwd.py:215"))}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
+        return 1
+    from attention_tpu_torch import ops
+    from attention_tpu_torch.models import TinyDecoder, init_params
+    from attention_tpu_torch.ops.ragged_paged import (
+        ragged_paged_attention,
+        ragged_paged_attention_plain,
+    )
+
+    # f32 stays full f32 on the card: no TF32 in matmuls or convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = kernel_records()
     phase_build(ops)
     model = TinyDecoder(dtype=torch.bfloat16, device="cuda", **SERVE_MODEL)
     model.load_state_dict(init_params(model, SEED))
@@ -2937,20 +3303,28 @@ def main() -> int:
                          windowed["no_sinks"])
     del windowed
     phase_profile(model)
+    phase_moe(ops, kernels)
     phase_reference()
     phase_window_reference()
+    phase_moe_reference()
     dense = phase_train(ops, kernels, model)
     del model
+    phase_checkpoint(dict(SERVE_MODEL, depth=CKPT_DEPTH))
     windowed = TinyDecoder(dtype=torch.bfloat16, device="cuda",
                            **SERVE_MODEL, **TRAIN_BAND)
     band = phase_train(ops, kernels, windowed,
                        batch_shape=WINDOW_TRAIN_BATCH,
                        cell="window4096_sinks4")
     del windowed
+    moe = TinyDecoder(dtype=torch.bfloat16, device="cuda",
+                      **dict(SERVE_MODEL, depth=MOE_TRAIN_DEPTH), **SERVE_MOE)
+    moe_classes = phase_train(ops, kernels, moe, cell="moe")
+    del moe
     emit(phase="train", attention_device_ms={
         cell: {c: classes.get(c, 0.0) for c in ("flash_fwd", "flash_bwd")}
         for cell, classes in (("dense", dense),
-                              ("window4096_sinks4", band))})
+                              ("window4096_sinks4", band),
+                              ("moe", moe_classes))})
 
     nbytes, ops_count = ragged_work(step, q)
     b_ms, b_by = bound_ms(nbytes, ops_count, q.dtype)

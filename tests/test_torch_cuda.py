@@ -1424,6 +1424,81 @@ def test_tiny_train_step_matches_cpu():
         assert grad_mismatch(grads[1][k], g)[1] <= 1, k
 
 
+def test_moe_train_step_and_generate_match_cpu():
+    """A small f32 MoE model (4 experts, top 2, capacity factor 1.25, so
+    that pairs are dropped) on the card and on the CPU from the same
+    weights: greedy `generate` streams equal, and one step of
+    `make_train_step` with the same loss to 1e-5 and every gradient,
+    the router's included, within grad_mismatch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from attention_tpu_torch.models import TinyDecoder, init_params, \
+        make_train_step
+    from attention_tpu_torch.models import decode as gen
+    from attention_tpu_torch.models.train import ADAMW
+
+    cfg = dict(vocab=64, dim=128, depth=2, num_q_heads=4, num_kv_heads=2,
+               rope=True, softcap=30.0, dtype=torch.float32, moe_experts=4)
+    cpu = TinyDecoder(device="cpu", **cfg)
+    cpu.load_state_dict(init_params(cpu, 0))
+    card = TinyDecoder(device="cuda", **cfg)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(0, 64, (2, 97), generator=torch.Generator()
+                           .manual_seed(0))
+    streams = [gen.generate(m, tokens[:, :40].to(m.device), steps=8).cpu()
+               for m in (cpu, card)]
+    assert torch.equal(*streams)
+    losses, grads = [], []
+    for m in (cpu, card):
+        step = make_train_step(m, torch.optim.AdamW(m.parameters(), lr=1e-3,
+                                                    **ADAMW))
+        losses.append(step(tokens.to(m.device)).item())
+        grads.append({k: p.grad.cpu() for k, p in m.named_parameters()})
+    assert abs(losses[0] - losses[1]) <= 1e-5
+    assert any("router" in k for k in grads[0])
+    for k, g in grads[0].items():
+        assert grad_mismatch(grads[1][k], g)[1] <= 1, k
+
+
+def test_checkpoint_round_trip_on_the_card(tmp_path, monkeypatch):
+    """A bf16 MoE model trained on the card with float32 masters (head
+    dim 64: the wgmma kernels) on the dQ + dK/dV pair, whose gradients
+    are the same bits every call: two steps, a checkpoint, a fresh
+    model and optimizer restored from it, and the third step give the
+    straight run's third loss and state, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from attention_tpu_torch.models import TinyDecoder, init_train, \
+        make_train_step, restore_checkpoint, save_checkpoint
+
+    monkeypatch.setattr(flash_bwd, "_FORCE_TWO_KERNEL", True)
+    cfg = dict(vocab=64, dim=128, depth=2, num_q_heads=2, num_kv_heads=1,
+               rope=True, dtype=torch.bfloat16, device="cuda",
+               moe_experts=4)
+    tokens = torch.randint(0, 64, (2, 129), generator=torch.Generator()
+                           .manual_seed(1)).cuda()
+    model = TinyDecoder(**cfg)
+    optimizer = init_train(model, seed=0)
+    step = make_train_step(model, optimizer)
+    straight = [step(tokens).item() for _ in range(3)]
+    want = {k: m.clone() for k, m in optimizer.masters.items()}
+
+    model = TinyDecoder(**cfg)
+    optimizer = init_train(model, seed=0)
+    step = make_train_step(model, optimizer)
+    first = [step(tokens).item() for _ in range(2)]
+    save_checkpoint(tmp_path, 2, model, optimizer)
+    fresh = TinyDecoder(**cfg)
+    fresh_opt = init_train(fresh, seed=1)
+    assert restore_checkpoint(tmp_path, fresh, fresh_opt) == 2
+    third = make_train_step(fresh, fresh_opt)(tokens).item()
+    assert first + [third] == straight
+    for k, m in fresh_opt.masters.items():
+        assert torch.equal(m, want[k]), k
+    for k, p in fresh.named_parameters():
+        assert torch.equal(p.detach(), want[k].to(p.dtype)), k
+
+
 # --------------------------------------- the distributed backends (gloo)
 
 GLOO_CASES = {

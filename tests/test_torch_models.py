@@ -96,7 +96,7 @@ def test_unported_engine_modes_raise(small_pair):
         with pytest.raises(NotImplementedError):
             ServingEngine(model, EngineConfig(**ENGINE, **kw))
     with pytest.raises(NotImplementedError):
-        TinyDecoder(device="cpu", moe_experts=4)
+        TinyDecoder(device="cpu", cp_axis="cp")
 
 
 def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):

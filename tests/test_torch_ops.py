@@ -266,6 +266,7 @@ def test_port_imports_no_jax():
         "import attention_tpu_torch.measure_ragged\n"
         "import attention_tpu_torch.measure_bwd\n"
         "import attention_tpu_torch.measure_quant\n"
+        "import attention_tpu_torch.measure_train\n"
         "import attention_tpu_torch.parallel\n"
         "import attention_tpu_torch.parallel.mesh\n"
         "import attention_tpu_torch.parallel.kv_sharded\n"

@@ -40,6 +40,7 @@ from attention_tpu.ops.flash_vjp import _flash_fwd_impl as jax_fwd_impl
 from attention_tpu.ops.flash_vjp import flash_attention_diff as jax_diff
 from attention_tpu_torch.models import (
     TinyDecoder,
+    init_params,
     init_train,
     make_train_step,
     params_from_jax,
@@ -262,7 +263,102 @@ def test_unported_training_features_raise():
     with pytest.raises(ValueError):
         flash_attention_diff(q, q, q, bwd_impl="mosaic")
     with pytest.raises(NotImplementedError):
-        TinyDecoder(device="cpu", remat=True, **SMALL)
+        TinyDecoder(device="cpu", tp_axis="tp", **SMALL)
     with pytest.raises(ValueError):
         make_train_step(TinyDecoder(device="cpu", **SMALL), None,
                         accum_steps=0)
+
+
+# the masters test's model: bf16, one block; a batch whose inputs hold
+# every token id, so that every weight, the embedding's rows included,
+# gets a gradient
+MASTERS = dict(vocab=64, dim=64, depth=1, num_q_heads=4, num_kv_heads=2,
+               rope=True, softcap=20.0)
+MASTERS_LR = 1e-5
+# relative L2 of the port's three-step master update against JAX's, per
+# parameter.  Both compute in bf16, but round at other points (their
+# first losses part by 3e-4 of the loss), so a bf16 gradient element can
+# come out a few ulps apart; Adam's update, lr·m/(sqrt(v) + eps), is
+# near lr·sign(g) for these three steps and moves by up to 2 lr where a
+# small g differs.  Measured 8.6e-4 (the final norm) to 0.214 (a
+# block's 64-element norm scale; the weights 0.048-0.080); twice the
+# largest reading.  Updating the bf16 weights themselves, with bf16
+# moments, leaves 95-98% of them in place: measured 0.98-0.99 on each
+# bf16 weight
+MASTERS_REL_TOL = 0.5
+
+
+def test_bf16_model_trains_float32_masters_as_jax():
+    """A bf16 model against JAX's `TinyDecoder(dtype=bfloat16)` (float32
+    params, bf16 compute) at lr 1e-5 for three AdamW steps: the masters
+    and the moments are float32, every master element moves (a bf16
+    weight of ~0.1 cannot take a step of 1e-5), the update is JAX's
+    within `MASTERS_REL_TOL`, and the model's weights are the masters
+    rounded."""
+    jmodel = JaxDecoder(impl="flash", dtype=jnp.bfloat16, **MASTERS)
+    mesh = jax_train.make_mesh_3d(1)
+    params, _, opt_state = jax_train.init_sharded(
+        jmodel, mesh, batch=2, seq=64, seed=0, lr=MASTERS_LR)
+    rng = np.random.default_rng(11)
+    tokens = np.stack([np.append(rng.permutation(MASTERS["vocab"]), 0)
+                       for _ in range(2)])
+    init = params_from_jax(jax.device_get(params))
+    step = jax_train.make_train_step(jmodel, optax.adamw(MASTERS_LR), mesh)
+    for _ in range(3):
+        params, opt_state, _ = step(params, opt_state,
+                                    jnp.asarray(tokens, jnp.int32))
+    final = params_from_jax(jax.device_get(params))
+
+    model = TinyDecoder(dtype=torch.bfloat16, device="cpu", **MASTERS)
+    optimizer = init_train(model, lr=MASTERS_LR, params=init)
+    train_step = make_train_step(model, optimizer)
+    for _ in range(3):
+        train_step(torch.from_numpy(tokens))
+    for name, p in model.named_parameters():
+        master = optimizer.masters[name]
+        assert master.dtype == torch.float32, name
+        assert all(s.dtype == torch.float32 for k, s in
+                   optimizer.state[master].items() if k != "step"), name
+        moved, want = master - init[name], final[name] - init[name]
+        assert bool((moved != 0).all()), name
+        assert ((moved - want).norm() / want.norm()).item() \
+            <= MASTERS_REL_TOL, name
+        assert torch.equal(p.detach(), master.to(p.dtype)), name
+
+
+@pytest.mark.parametrize("moe", [None, 4], ids=["dense", "moe"])
+def test_remat_gives_the_same_bits(monkeypatch, moe):
+    """``remat=True`` recomputes each block in the backward pass (each
+    block runs twice) and gives the same loss, aux loss included once,
+    and gradients, bit for bit; a cached call ignores it."""
+    models, calls = [], []
+    for remat in (False, True):
+        model = TinyDecoder(dtype=torch.float32, device="cpu", remat=remat,
+                            moe_experts=moe, **SMALL)
+        model.load_state_dict(init_params(model, 0))
+        for block in model.blocks:
+            block.register_forward_pre_hook(
+                lambda *args, remat=remat: calls.append(remat))
+        models.append(model)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, SMALL["vocab"], (2, 33)))
+    losses = []
+    for model in models:
+        loss = loss_fn(model, tokens)
+        loss.backward()
+        losses.append(loss)
+    assert calls.count(False) == SMALL["depth"]
+    assert calls.count(True) == 2 * SMALL["depth"]
+    assert torch.equal(losses[0], losses[1])
+    for (name, a), (_, b) in zip(*(m.named_parameters() for m in models)):
+        assert torch.equal(a.grad, b.grad), name
+
+    from attention_tpu_torch.models import transformer
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a cached call took the remat path")
+
+    monkeypatch.setattr(transformer, "checkpoint", refuse)
+    with torch.no_grad():
+        outs = [m(tokens, m.init_caches(2, 64))[0] for m in models]
+    assert torch.equal(*outs)
