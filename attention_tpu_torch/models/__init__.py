@@ -1,7 +1,11 @@
 """The port's model family (PyTorch modules around the kernels)."""
 
 from attention_tpu_torch.models.attention_layer import (  # noqa: F401
+    ATTN_IMPLS,
     GQASelfAttention,
+    KVCache,
+    QuantKVCache,
+    RaggedKVCache,
     RollingKVCache,
 )
 from attention_tpu_torch.models.checkpoint import (  # noqa: F401
@@ -15,10 +19,30 @@ from attention_tpu_torch.models.convert import (  # noqa: F401
     params_from_jax,
     quant_cache_from_jax,
     rolling_cache_from_jax,
+    seq2seq_params_from_jax,
+)
+from attention_tpu_torch.models.cross_attention import (  # noqa: F401
+    GQACrossAttention,
+)
+from attention_tpu_torch.models.decode import (  # noqa: F401
+    decode_step,
+    generate,
+    generate_beam,
+    generate_paged,
+    generate_ragged,
+    prefill,
 )
 from attention_tpu_torch.models.moe import MoEMLP  # noqa: F401
 from attention_tpu_torch.models.resilient import (  # noqa: F401
     train_with_recovery,
+)
+from attention_tpu_torch.models.seq2seq import (  # noqa: F401
+    TinySeq2Seq,
+    generate_seq2seq,
+    seq2seq_loss,
+)
+from attention_tpu_torch.models.speculative import (  # noqa: F401
+    generate_speculative,
 )
 from attention_tpu_torch.models.transformer import (  # noqa: F401
     MLP,

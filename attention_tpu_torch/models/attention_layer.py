@@ -25,6 +25,12 @@ The layer dispatches on ``cache``:
 * `RaggedPagedStep`: the serving engine's packed step, the ragged
   kernel.
 
+That is ``impl="flash"``.  ``impl="xla"`` (`ATTN_IMPLS`) runs the
+uncached forward and the dense `KVCache` in PyTorch ops (einsums, the
+GQA repeat, softcap, the mask, softmax in float32), as the JAX layer's
+XLA path does, and refuses every other cache with the JAX layer's
+message: a baseline to time the kernels against, never their fallback.
+
 A windowed model (``window``, with ``attn_sinks`` StreamingLLM sinks)
 passes its band to every kernel, the backward kernels of training
 included (the uncached forward rotates each key, the sinks too, at its
@@ -71,6 +77,11 @@ from attention_tpu_torch.ops.ragged_paged import (
     RaggedPagedStep,
     ragged_paged_append,
     ragged_paged_attention,
+)
+from attention_tpu_torch.ops.reference import (
+    _gqa_repeat,
+    _masked_scores,
+    attention_reference,
 )
 from attention_tpu_torch.ops.rope import apply_rope
 
@@ -203,21 +214,88 @@ def _reading(rows):
             t[:, :, :old.shape[2]] = old
 
 
+def _xla_cached_attention(q, kc, vc, *, start: int, new_len: int,
+                          causal: bool, window=None, softcap=None,
+                          sinks: int = 0):
+    """Dense attention in PyTorch ops of q (B, H, S, dh) over the caches
+    (B, Hkv, N, dh), masked to the first ``new_len`` rows and, under
+    ``causal``, to the keys at or before each query's position ``start``
+    + s (and within its ``window``, or among the ``sinks``): the JAX
+    layer's ``_xla_cached_attention``.  Scores and softmax in float32, P
+    rounded to the cache's dtype for the product; a row that sees no key
+    comes out NaN, as JAX's softmax gives it."""
+    kc, vc = _gqa_repeat(q, kc, vc)
+    s = _masked_scores(q, kc, scale=None, causal=causal, softcap=softcap,
+                       q_offset=start, kv_offset=0, kv_valid=new_len,
+                       window=window, sinks=sinks or None)
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p.to(vc.dtype).float(), vc.float()).to(vc.dtype)
+
+
+def _xla_mha(q, k, v, *, causal: bool, window=None, softcap=None,
+             sinks: int = 0):
+    """Attention over (B, H, S, dh) in PyTorch ops, differentiable by
+    autograd: the JAX layer's ``_xla_mha`` (`attention_xla` for
+    non-causal calls, the cached path's mask at start 0 for causal
+    ones).  A timing baseline beside the kernels, never their
+    fallback."""
+    if not causal:
+        return attention_reference(q, k, v, softcap=softcap)
+    return _xla_cached_attention(q, k, v, start=0, new_len=k.shape[2],
+                                 causal=True, window=window,
+                                 softcap=softcap, sinks=sinks)
+
+
+def _flash_mha(q, k, v, *, causal: bool, window=None, softcap=None,
+               sinks: int = 0):
+    """The kernels: the differentiable `flash_attention_diff` when
+    autograd needs a gradient (training; the JAX layer's max_mode
+    "bound", which the port runs as the online recurrence), else the
+    flash kernel."""
+    band = dict(window=window, sinks=sinks or None)
+    if torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        return flash_attention_diff(q, k, v, causal=causal, softcap=softcap,
+                                    max_mode="bound", **band)
+    return flash_attention(q, k, v, causal=causal, softcap=softcap, **band)
+
+
+#: the attention of an uncached call, by the layers' ``impl``
+ATTN_IMPLS = {"xla": _xla_mha, "flash": _flash_mha}
+
+#: the cached paths that run the kernels only, by cache type: an
+#: ``impl="xla"`` layer refuses them as the JAX layer does
+_FLASH_ONLY = {RollingKVCache: "rolling-cache",
+               RaggedKVCache: "ragged-cache",
+               RaggedPagedStep: "ragged paged-step",
+               PagedKV: "paged-cache",
+               QuantKVCache: "quantized-cache"}
+
+
+def check_impl(impl: str) -> None:
+    """An attention ``impl`` must be one of `ATTN_IMPLS`."""
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"impl {impl!r} not in {sorted(ATTN_IMPLS)}")
+
+
 class GQASelfAttention(nn.Module):
     """(B, S, D) -> (B, S, D) with ``num_q_heads`` query heads sharing
     ``num_kv_heads`` key/value heads.  Projections carry no bias; the
     weights live in ``dtype`` on ``device``.  ``window`` (causal only)
     makes it sliding-window attention and ``attn_sinks`` keeps the first
-    positions attendable beside the window (StreamingLLM)."""
+    positions attendable beside the window (StreamingLLM).  ``impl``
+    "flash" runs the kernels; "xla" runs the uncached and the dense-cache
+    paths in PyTorch ops (`ATTN_IMPLS`) and refuses every other cache."""
 
     def __init__(self, dim: int, num_q_heads: int, num_kv_heads: int,
-                 head_dim: int, *, causal: bool = True,
+                 head_dim: int, *, causal: bool = True, impl: str = "flash",
                  dtype: torch.dtype = torch.bfloat16,
                  window: int | None = None, attn_sinks: int = 0,
                  rope: bool = False, rope_theta: float = 10000.0,
                  softcap: float | None = None,
                  device: str | torch.device = "cuda"):
         super().__init__()
+        check_impl(impl)
         if num_q_heads % num_kv_heads != 0:
             raise ValueError(
                 f"q heads {num_q_heads} not a multiple of kv heads "
@@ -231,6 +309,7 @@ class GQASelfAttention(nn.Module):
             raise ValueError("attn_sinks require a windowed model")
         if attn_sinks < 0:
             raise ValueError(f"attn_sinks must be >= 0, got {attn_sinks}")
+        self.impl = impl
         self.window = window
         self.attn_sinks = attn_sinks
         self.num_q_heads = num_q_heads
@@ -272,16 +351,15 @@ class GQASelfAttention(nn.Module):
             q = apply_rope(q, pos, self.rope_theta)
             k = apply_rope(k, pos, self.rope_theta)
         band = self._band
-        if cache is None and torch.is_grad_enabled() and (
-                q.requires_grad or k.requires_grad or v.requires_grad):
-            # the JAX layer's `_flash_mha` (max_mode "bound", which the
-            # port runs as the online recurrence)
-            out = flash_attention_diff(q, k, v, causal=self.causal,
-                                       softcap=self.softcap,
-                                       max_mode="bound", **band)
-        elif cache is None:
-            out = flash_attention(q, k, v, causal=self.causal,
-                                  softcap=self.softcap, **band)
+        flash_only = _FLASH_ONLY.get(type(cache))
+        if self.impl != "flash" and flash_only:
+            raise ValueError(f"impl {self.impl!r} has no {flash_only} path "
+                             "(supported: ['flash'])")
+        if cache is None:
+            out = ATTN_IMPLS[self.impl](q, k, v, causal=self.causal,
+                                        window=self.window,
+                                        softcap=self.softcap,
+                                        sinks=self.attn_sinks)
         elif isinstance(cache, RaggedPagedStep):
             if self._sink_rope:
                 raise ValueError(
@@ -353,7 +431,14 @@ class GQASelfAttention(nn.Module):
         cache.k[:, :, at:at + s_new] = k
         cache.v[:, :, at:at + s_new] = v
         new_len = cache.length + s_new
-        if s_new == 1:
+        if self.impl == "xla":
+            with (self._sink_read(cache.k, new_len) if s_new == 1
+                  else contextlib.nullcontext()):
+                out = _xla_cached_attention(
+                    q, cache.k, cache.v, start=cache.length,
+                    new_len=new_len, causal=self.causal, window=self.window,
+                    softcap=self.softcap, sinks=self.attn_sinks)
+        elif s_new == 1:
             with self._sink_read(cache.k, new_len):
                 out = self._decode_call(q, cache.k, cache.v, new_len)
         else:

@@ -7,7 +7,8 @@ dicts of numpy arrays (``jax.device_get`` of ``model.init(...)
 weights (out, in) by flattening the feature axes and transposing,
 ``Embed`` embeddings, ``RMSNorm`` scales and ``MoEMLP``'s experts (E, d,
 h), (E, h, d) carry over unchanged (its router kernel is a ``Dense``
-kernel, `moe_from_jax`).
+kernel, `moe_from_jax`).  `seq2seq_params_from_jax` maps a flax
+`TinySeq2Seq` tree the same way.
 A gradient tree (``jax.grad`` of a loss over the params) has the params'
 structure, so `params_from_jax` maps it too: the training parity tests
 compare the port's ``.grad`` tensors with it, and need nothing more.
@@ -38,27 +39,69 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
     sd = {
         "embed.weight": torch.from_numpy(
             np.array(tree["Embed_0"]["embedding"])),
-        "norm.scale": torch.from_numpy(np.array(tree["RMSNorm_0"]["scale"])),
+        "norm.scale": _scale(tree["RMSNorm_0"]),
         "head.weight": _linear(tree["Dense_0"]["kernel"]),
     }
     depth = sum(1 for key in tree if key.startswith("TransformerBlock_"))
     for i in range(depth):
         blk = tree[f"TransformerBlock_{i}"]
-        attn = blk["GQASelfAttention_0"]
         pre = f"blocks.{i}."
-        sd[pre + "norm1.scale"] = torch.from_numpy(
-            np.array(blk["RMSNorm_0"]["scale"]))
-        sd[pre + "norm2.scale"] = torch.from_numpy(
-            np.array(blk["RMSNorm_1"]["scale"]))
-        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
-            sd[pre + f"attn.{name}.weight"] = _linear(attn[name]["kernel"])
+        sd[pre + "norm1.scale"] = _scale(blk["RMSNorm_0"])
+        sd[pre + "norm2.scale"] = _scale(blk["RMSNorm_1"])
+        sd.update(_attention_from_jax(blk["GQASelfAttention_0"],
+                                      pre + "attn"))
         if "MoEMLP_0" in blk:
             sd.update({pre + "mlp." + k: v
                        for k, v in moe_from_jax(blk["MoEMLP_0"]).items()})
-            continue
-        sd[pre + "mlp.up.weight"] = _linear(blk["MLP_0"]["Dense_0"]["kernel"])
-        sd[pre + "mlp.down.weight"] = _linear(
-            blk["MLP_0"]["Dense_1"]["kernel"])
+        else:
+            sd.update(_mlp_from_jax(blk["MLP_0"], pre + "mlp"))
+    return sd
+
+
+def _attention_from_jax(tree, pre: str) -> dict[str, torch.Tensor]:
+    """An attention layer's four projections (self or cross: q, k, v
+    (D, heads, dh) and o (heads·dh, D) kernels) under ``pre``."""
+    return {f"{pre}.{name}.weight": _linear(tree[name]["kernel"])
+            for name in ("q_proj", "k_proj", "v_proj", "o_proj")}
+
+
+def _mlp_from_jax(tree, pre: str) -> dict[str, torch.Tensor]:
+    return {f"{pre}.up.weight": _linear(tree["Dense_0"]["kernel"]),
+            f"{pre}.down.weight": _linear(tree["Dense_1"]["kernel"])}
+
+
+def _scale(tree) -> torch.Tensor:
+    return torch.from_numpy(np.array(tree["scale"]))
+
+
+def seq2seq_params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """The port's `TinySeq2Seq` ``state_dict`` (float32 tensors on the
+    CPU) from a flax TinySeq2Seq param (or gradient) tree of numpy
+    arrays: ``embed_src``/``embed_tgt`` embeddings, ``enc_blocks_{i}``
+    (``RMSNorm_0``/``_1``, ``GQASelfAttention_0``, ``MLP_0``),
+    ``dec_blocks_{i}`` (``self_attn``, ``cross_attn``, ``norm_self``,
+    ``norm_cross``, ``norm_mlp``, ``mlp``), ``enc_norm``, ``dec_norm``
+    and the ``lm_head`` kernel."""
+    sd = {f"{name}.weight": torch.from_numpy(np.array(tree[name]["embedding"]))
+          for name in ("embed_src", "embed_tgt")}
+    sd["enc_norm.scale"] = _scale(tree["enc_norm"])
+    sd["dec_norm.scale"] = _scale(tree["dec_norm"])
+    sd["lm_head.weight"] = _linear(tree["lm_head"]["kernel"])
+    for key, blk in tree.items():
+        if key.startswith("enc_blocks_"):
+            pre = f"enc_blocks.{key[len('enc_blocks_'):]}"
+            sd[pre + ".norm1.scale"] = _scale(blk["RMSNorm_0"])
+            sd[pre + ".norm2.scale"] = _scale(blk["RMSNorm_1"])
+            sd.update(_attention_from_jax(blk["GQASelfAttention_0"],
+                                          pre + ".attn"))
+            sd.update(_mlp_from_jax(blk["MLP_0"], pre + ".mlp"))
+        elif key.startswith("dec_blocks_"):
+            pre = f"dec_blocks.{key[len('dec_blocks_'):]}"
+            for name in ("norm_self", "norm_cross", "norm_mlp"):
+                sd[f"{pre}.{name}.scale"] = _scale(blk[name])
+            for name in ("self_attn", "cross_attn"):
+                sd.update(_attention_from_jax(blk[name], f"{pre}.{name}"))
+            sd.update(_mlp_from_jax(blk["mlp"], pre + ".mlp"))
     return sd
 
 

@@ -13,14 +13,20 @@ Sampling (temperature > 0) draws from the caller's `torch.Generator`, on
 the model's device, where the JAX package split a key: seeded streams
 are deterministic, but not the JAX package's.  A windowed model may
 generate on ring-buffer caches (``rolling_cache=True``), whose memory is
-bounded by its window.  Beam search is not ported yet.
+bounded by its window.  `generate_beam` runs beam search over the dense
+or int8 caches, gathering their rows after every step to follow the
+surviving hypotheses.
 """
 
 from __future__ import annotations
 
 import torch
 
-from attention_tpu_torch.models.attention_layer import RaggedKVCache
+from attention_tpu_torch.models.attention_layer import (
+    KVCache,
+    QuantKVCache,
+    RaggedKVCache,
+)
 from attention_tpu_torch.ops.paged import PagePool, paged_from_dense
 
 
@@ -93,6 +99,14 @@ def _validate_sampling(model, temperature, top_k, top_p, generator):
                 "is greedy argmax)")
         return None
     return generator
+
+
+def _require_flash_for_int8(model) -> None:
+    """The int8 decode path runs the kernels only: the precondition of
+    `generate` and `generate_beam`."""
+    if model.impl != "flash":
+        raise ValueError(
+            f"int8_cache requires impl='flash' (model has {model.impl!r})")
 
 
 def _resolve_capacity(s: int, steps: int, capacity: int | None) -> int:
@@ -175,6 +189,8 @@ def generate(model, prompt, *, steps: int, capacity: int | None = None,
         last = logits[:, -1]
     else:
         capacity = _resolve_capacity(prompt.shape[1], steps, capacity)
+        if int8_cache:
+            _require_flash_for_int8(model)
         last, caches = prefill(model, prompt, capacity)
         if int8_cache:
             caches = tuple(c.quantize() for c in caches)
@@ -249,6 +265,75 @@ def generate_paged(model, prompt, prompt_lengths, *, steps: int,
     return toks, final, pools
 
 
-def generate_beam(*args, **kwargs):
-    """Beam search is not ported yet."""
-    raise NotImplementedError("generate_beam is not ported yet")
+def _cache_rows(caches, rows: torch.Tensor) -> tuple:
+    """Each layer's dense or int8 cache with its batch rows gathered by
+    ``rows`` (beam-major replication, or the surviving hypotheses'
+    parents).  Indexing copies, so every cache gets fresh storage: the
+    caches are written in place, and rows that share a parent must not
+    share storage.  Lengths are the batch's and stay as they are."""
+    out = []
+    for c in caches:
+        if isinstance(c, KVCache):
+            out.append(KVCache(c.k[rows], c.v[rows], c.length))
+        elif isinstance(c, QuantKVCache):
+            out.append(QuantKVCache(type(c.kv)(*(t[rows] for t in c.kv)),
+                                    c.length))
+        else:
+            raise TypeError(f"beam search reorders dense and int8 caches, "
+                            f"not {type(c).__name__}")
+    return tuple(out)
+
+
+@torch.no_grad()
+def generate_beam(model, prompt, *, steps: int, beams: int = 4,
+                  capacity: int | None = None, int8_cache: bool = False,
+                  return_scores: bool = False):
+    """Beam search: (B, S) prompt -> (B, steps), the continuation of
+    highest total log-probability found over ``beams`` beams.
+
+    One prefill at batch B; its caches are replicated to B·beams rows
+    (beam j of sequence b at row b·beams + j) and the first expansion
+    takes the prefill's top ``beams`` tokens.  Each of the ``steps`` - 1
+    decode steps scores beams x vocab candidates per sequence, keeps the
+    top ``beams``, and gathers every cache's rows to follow the
+    surviving hypotheses (`_cache_rows`).  Fixed horizon, no EOS, so the
+    scores are plain sums of log-probabilities.  ``beams=1`` is greedy
+    decoding.  ``int8_cache=True`` quantizes the caches once after the
+    prefill; their int8 values and per-token scales reorder alike.
+    ``return_scores`` also returns each sequence's (B,) total
+    log-probability of the returned tokens."""
+    if beams < 1:
+        raise ValueError(f"beams must be >= 1, got {beams}")
+    if beams > model.vocab:
+        raise ValueError(f"beams {beams} > vocab {model.vocab}")
+    prompt = _prompt(model, prompt)
+    b, s = prompt.shape
+    w, vocab = beams, model.vocab
+    capacity = _resolve_capacity(s, steps, capacity)
+    if int8_cache:
+        _require_flash_for_int8(model)
+    last, caches = prefill(model, prompt, capacity)
+    if int8_cache:
+        caches = tuple(c.quantize() for c in caches)
+    dev = model.device
+    caches = _cache_rows(caches, torch.arange(b, device=dev)
+                         .repeat_interleave(w))
+    logp = torch.log_softmax(last.float(), dim=-1)
+    scores, tok = torch.topk(logp, w, dim=-1)           # (B, w)
+    seqs = torch.zeros((b, w, steps), dtype=torch.long, device=dev)
+    seqs[:, :, 0] = tok
+    base = torch.arange(b, device=dev)[:, None] * w
+    for t in range(1, steps):
+        logits, caches = decode_step(model, tok.reshape(b * w), caches)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        cand = scores[:, :, None] + logp.reshape(b, w, vocab)
+        scores, flat = torch.topk(cand.reshape(b, w * vocab), w, dim=-1)
+        parent = torch.div(flat, vocab, rounding_mode="floor")
+        tok = flat % vocab
+        caches = _cache_rows(caches, (base + parent).reshape(-1))
+        seqs = torch.gather(seqs, 1, parent[:, :, None].expand(-1, -1, steps))
+        seqs[:, :, t] = tok
+    best = scores.argmax(dim=-1)                         # (B,)
+    rows = torch.arange(b, device=dev)
+    toks = seqs[rows, best]
+    return (toks, scores[rows, best]) if return_scores else toks

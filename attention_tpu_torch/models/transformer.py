@@ -22,6 +22,7 @@ from attention_tpu_torch.models.attention_layer import (
     GQASelfAttention,
     KVCache,
     RollingKVCache,
+    check_impl,
 )
 from attention_tpu_torch.models.moe import MoEMLP
 
@@ -62,6 +63,7 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, dim: int, num_q_heads: int, num_kv_heads: int,
                  head_dim: int, *, causal: bool = True,
+                 impl: str = "flash",
                  dtype: torch.dtype, window: int | None = None,
                  attn_sinks: int = 0, rope: bool = False,
                  rope_theta: float = 10000.0,
@@ -72,8 +74,9 @@ class TransformerBlock(nn.Module):
         self.norm1 = RMSNorm(dim, dtype=dtype, device=device)
         self.attn = GQASelfAttention(
             dim, num_q_heads, num_kv_heads, head_dim, causal=causal,
-            dtype=dtype, window=window, attn_sinks=attn_sinks, rope=rope,
-            rope_theta=rope_theta, softcap=softcap, device=device)
+            impl=impl, dtype=dtype, window=window, attn_sinks=attn_sinks,
+            rope=rope, rope_theta=rope_theta, softcap=softcap,
+            device=device)
         self.norm2 = RMSNorm(dim, dtype=dtype, device=device)
         self.mlp = (MoEMLP(dim, moe_experts, top_k=moe_top_k,
                            capacity_factor=moe_capacity_factor, dtype=dtype,
@@ -107,9 +110,10 @@ class TinyDecoder(nn.Module):
     also returns the sum of the blocks' load-balancing losses (0.0 for
     a dense model).  ``remat=True`` recomputes each block's activations
     in the backward pass (`torch.utils.checkpoint`), and is ignored on
-    cached calls.  Options of the JAX model that the port does not have
-    yet (context, tensor and expert parallelism) raise
-    `NotImplementedError`."""
+    cached calls.  ``impl="xla"`` runs attention in PyTorch ops on the
+    uncached and dense-cache paths (a baseline; `ATTN_IMPLS`).  Options
+    of the JAX model that the port does not have yet (context, tensor
+    and expert parallelism) raise `NotImplementedError`."""
 
     def __init__(self, vocab: int = 256, dim: int = 256, depth: int = 2,
                  num_q_heads: int = 8, num_kv_heads: int = 2,
@@ -124,9 +128,7 @@ class TinyDecoder(nn.Module):
         if unported:
             raise NotImplementedError(
                 f"TinyDecoder options not ported yet: {sorted(unported)}")
-        if impl != "flash":
-            raise NotImplementedError(
-                f"impl {impl!r} is not ported; the port runs 'flash'")
+        check_impl(impl)
         device = resolve_device(device)
         self.vocab = vocab
         self.dim = dim
@@ -137,13 +139,15 @@ class TinyDecoder(nn.Module):
         self.dtype = dtype
         self.window = window
         self.attn_sinks = attn_sinks
+        self.rope = rope
+        self.softcap = softcap
         self.remat = remat
         self.moe_experts = moe_experts
         self.head_dim = dim // num_q_heads
         self.embed = nn.Embedding(vocab, dim, dtype=dtype, device=device)
         self.blocks = nn.ModuleList(
             TransformerBlock(dim, num_q_heads, num_kv_heads, self.head_dim,
-                             dtype=dtype, window=window,
+                             impl=impl, dtype=dtype, window=window,
                              attn_sinks=attn_sinks, rope=rope,
                              rope_theta=rope_theta, softcap=softcap,
                              moe_experts=moe_experts, moe_top_k=moe_top_k,

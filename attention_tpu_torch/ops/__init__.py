@@ -6,3 +6,15 @@ from attention_tpu_torch.ops._native import (  # noqa: F401
     launch_counts,
     reset_launch_counts,
 )
+from attention_tpu_torch.ops.paged import (  # noqa: F401
+    OutOfPagesError,
+    PageAccountingError,
+    PagedKV,
+    PagePool,
+    paged_append,
+    paged_append_chunk,
+    paged_flash_decode,
+    paged_fork,
+    paged_from_dense,
+    recommended_page_size,
+)

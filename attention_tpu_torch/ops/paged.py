@@ -16,7 +16,9 @@ output with a rotated read copy of the sink rows.  `paged_append`,
 `paged_append_chunk` and `paged_from_dense` write into the pools; the
 appends write in place (the pools are the caller's, and a copy per
 layer per step would double the cache traffic) with the JAX version's
-drop and sticky ``-1`` poison rules.
+drop and sticky ``-1`` poison rules.  `paged_fork` forks one sequence
+into several that share its full pages (parallel sampling over one
+prompt), and `recommended_page_size` picks a pool's page size.
 """
 
 from __future__ import annotations
@@ -128,6 +130,27 @@ class PagePool:
             self._refs[p] -= 1
             if self._refs[p] == 0:
                 self._free.append(p)
+
+    def table_row(self, pages: list[int], max_pages: int) -> torch.Tensor:
+        """A fixed-width (``max_pages``,) int32 table row of ``pages``;
+        unused entries hold the -1 sentinel (the kernel never follows
+        one; an append that lands on one poisons its sequence)."""
+        if len(pages) > max_pages:
+            raise ValueError(f"{len(pages)} pages > max_pages {max_pages}")
+        return torch.tensor(list(pages) + [-1] * (max_pages - len(pages)),
+                            dtype=torch.int32)
+
+
+def recommended_page_size(cache_len: int) -> int:
+    """Page size to build a pool with for a capacity of ``cache_len``:
+    the largest power-of-two page up to 2048 that divides it (a page
+    must divide the capacity for `paged_from_dense`), else 128. The JAX
+    package looks a tuned page up first, keyed on the serving shape; the
+    port has no tuning table, so it takes the capacity alone."""
+    for page in (2048, 1024, 512, 256):
+        if cache_len % page == 0:
+            return page
+    return 128
 
 
 def _validate(q: torch.Tensor, cache: PagedKV) -> None:
@@ -428,3 +451,66 @@ def paged_from_dense(k_cache: torch.Tensor, v_cache: torch.Tensor, lengths,
         pool_t[ids] = src[sb, sl]
         pools.append(pool_t)
     return PagedKV(pools[0], pools[1], rows.to(dev), lens)
+
+
+def paged_fork(cache: PagedKV, pool: PagePool, src_row: int, n_copies: int,
+               *, reserve_pages: int = 0) -> PagedKV:
+    """Fork sequence ``src_row`` into ``n_copies`` new sequences that share
+    its full prefix pages (vLLM's parallel sampling over one prompt).
+
+    Full pages are shared by reference (``pool.incref``); the partial
+    tail page, the only one a later append can touch, is copied into a
+    private page per fork, so shared pages stay read-only and no copy on
+    write is ever needed.  ``reserve_pages`` claims that many more
+    private pages per fork up front, as decode headroom.  Every claim is
+    rolled back if the pool runs out partway.  Returns a cache whose
+    batch is the forks, over the same pool tensors (the tails are copied
+    into them in place, in one index copy each); the source row stays
+    valid in ``cache`` and keeps its own references."""
+    if n_copies < 1:
+        raise ValueError(f"n_copies must be >= 1, got {n_copies}")
+    b = cache.page_table.shape[0]
+    if not (0 <= src_row < b):
+        raise ValueError(f"src_row {src_row} outside [0, {b})")
+    page = cache.page_size
+    length = int(cache.lengths[src_row])
+    if length < 0:
+        raise ValueError(f"src_row {src_row} is poisoned (length < 0)")
+    row = cache.page_table[src_row].tolist()
+    full, has_partial = length // page, length % page != 0
+    shared = row[:full]
+    max_pages = cache.page_table.shape[1]
+    tail_after = full + has_partial
+    if tail_after + reserve_pages > max_pages:
+        raise ValueError(
+            f"reserve_pages {reserve_pages} overflows the table "
+            f"({tail_after} + {reserve_pages} > {max_pages})")
+
+    # claim everything first, with rollback, so that running out of pages
+    # partway leaks no reference and no page
+    increfs, allocs = [], []
+    rows = torch.full((n_copies, max_pages), -1, dtype=torch.int32)
+    try:
+        for c in range(n_copies):
+            pool.incref(shared)
+            increfs.append(shared)
+            tail = pool.alloc(int(has_partial))
+            allocs += tail
+            extra = pool.alloc(reserve_pages)
+            allocs += extra
+            rows[c, :tail_after + reserve_pages] = torch.tensor(
+                shared + tail + extra, dtype=torch.int32)
+    except (OutOfPagesError, PageAccountingError):
+        for pages in increfs:
+            pool.free(pages)
+        pool.free(allocs)
+        raise
+
+    dev = cache.page_table.device
+    if has_partial:
+        # one batched copy a pool: every fork's private tail = src's tail
+        ids = rows[:, full].to(dev, torch.long)
+        for pool_t in (cache.k_pool, cache.v_pool):
+            pool_t[ids] = pool_t[row[full]].clone()
+    lengths = torch.full((n_copies,), length, dtype=torch.int32, device=dev)
+    return PagedKV(cache.k_pool, cache.v_pool, rows.to(dev), lengths)

@@ -153,6 +153,34 @@ non-zero unless all of them pass:
             request finished with its 32 tokens, every logit finite; the
             ragged run under `torch.profiler`, the experts' products a
             class of their own.
+5c. decoding the phase 4 model's other ways to tokens.  Beam search
+            (`generate_beam`, 4 beams over phase 4's 8 prompts of 512
+            tokens, 32 steps, bf16 and int8 caches): launches exact,
+            scores finite and within `BEAM_SCORE_TOL` of a teacher-forced
+            re-score through the flash forward (a search whose gather is
+            skipped must fail it), beams = 1 equal to greedy `generate`,
+            the gather's device ms.  Parallel sampling over forked pages
+            (one prompt of 1000 tokens forked 8 ways by `paged_fork`, 32
+            sampled steps through the paged kernel): refcounts and free
+            pages, the shared pages bit-equal after the appends, each
+            fork's first step within `mismatch` of the dense decode of
+            the unforked context.  Speculative decoding (one prompt of
+            512, 64 greedy steps, gamma 4, on the dense, ragged, int8 and
+            paged caches; drafts: the target itself and a depth-1 model of
+            seed 1): launches exact, acceptance, tokens per target
+            forward, host syncs, ms per token beside `generate`'s, the
+            share of tokens equal to it.
+5d. seq2seq `TinySeq2Seq` at the serving widths (2 + 2 blocks, 1.2e9
+            parameters) on 8 x (512 + 114) tokens: the kernels' logits
+            and ``impl="xla"``'s against a float32 witness, both forwards
+            timed; 5 `MasterAdamW` steps (the loss falls; launches exact;
+            step ms, peak); the step's own backward calls (encoder
+            non-causal 512 x 512, cross non-causal 113 x 512, decoder
+            causal 113) on both paths against float64, the plain version
+            setting the bar (`hold_captured_backward`); `generate_seq2seq`
+            for 32 greedy steps (launches exact); each call's forward and
+            backward device ms, the m = 1 cross step's flash call held
+            against its plain version and timed beside the decode kernel.
 6. reference a small f32 model on the card against the same model on
             the CPU (plain versions): logits, each side the same bits
             twice (the CPU's f32 settings printed first, any
@@ -173,7 +201,12 @@ non-zero unless all of them pass:
             logits, greedy streams of the engine in both step modes and
             of the three generate functions, training as above (the
             router's gradient included), the smallest top-k margin of
-            the routing printed.
+            the routing printed.  This slice's paths on the small model:
+            beam search (beams 3, dense and int8 caches) tokens equal and
+            scores within the logits' limits, speculative greedy streams
+            equal to greedy `generate` on every cache type and between
+            the sides, the small encoder-decoder's logits within 1e-4 and
+            its `generate_seq2seq` streams equal.
 7. train    the phase 4 model trained on float32 masters of its bf16
             weights (float32 moments): `init_train`, 5 fused steps of
             `make_train_step` on a seeded batch of 4 x 2049 tokens (every
@@ -202,7 +235,8 @@ non-zero unless all of them pass:
 
 Launch counts are reset just before each run of a path (op path, the
 int4 entry points, each distributed backend's run on each rank, each
-generate function, the chunk verify, each serving run, each training run)
+generate function, the chunk verify, each serving run, each training run,
+each beam, fork, speculative and encoder-decoder run)
 and read just after it (the MoE model's generate and serving runs
 too); rank 0's distributed launches join the flash
 kernel's count.  Kernel times are CUDA-event
@@ -290,6 +324,45 @@ DIST_LAUNCHES = {"kv-sharded": 1, "q-sharded": 1, "auto": 1,
                  "ulysses": 1}
 # decode steps of the generate phase
 GEN_STEPS = 32
+# beam search: 4 beams over phase 4's 8 prompts of 512 tokens (32 cache
+# rows), 32 steps; the search's score against the teacher-forced
+# re-score of its tokens, max abs over the 8 sequences, in nats (see
+# `phase_beam`)
+BEAMS = 4
+BEAM_STEPS = GEN_STEPS
+BEAM_SCORE_TOL = 1.0
+# parallel sampling: one prompt of 1000 tokens (7 full pages of 128 and
+# a 104-row tail) forked 8 ways, 32 sampled steps
+FORK_PROMPT = 1000
+FORK_COPIES = 8
+FORK_STEPS = 32
+# speculative decoding: 64 greedy steps after a 512-token prompt, gamma 4
+SPEC_STEPS = 64
+SPEC_GAMMA = 4
+# the encoder-decoder cell: the serving model's widths, 2 + 2 blocks
+# (about 1.2e9 parameters), on 8 sequences of 512 source and 114 target
+# tokens (T5's span-corruption lengths, Raffel et al. 2020); 5 AdamW
+# steps; the kernels' logits may stand at most this many times further
+# from a float32 witness than the plain path's (both round the same
+# quantities to bf16 once; a dropped tile or a wrong mask moves logits
+# by O(1))
+SEQ2SEQ_MODEL = dict(vocab=32000, dim=4096, enc_depth=2, dec_depth=2,
+                     num_q_heads=32, num_kv_heads=4, rope=True, softcap=50.0)
+SEQ2SEQ_BATCH = (8, 512, 114)
+SEQ2SEQ_STEPS = 5
+SEQ2SEQ_WITNESS_RATIO = 2.0
+# the training step's own backward calls against float64: each kernel
+# path's relative L2 distance, per 64-row tile, at most this many times
+# the plain version's in the same tile (measured within 1% of it on the
+# cross-attention call: both round P and dS to bf16 at the same points;
+# a 2% error in one tile reads 4-6 times it)
+CAPTURED_BWD_SLACK = 1.25
+# the rows of a tile of `hold_captured_backward`: the kernels' query and
+# key tiles
+BWD_HOLD_TILE = 64
+# phase 6's encoder-decoder: the small model's widths, 2 + 2 blocks
+SMALL_SEQ2SEQ = dict(vocab=256, dim=256, enc_depth=2, dec_depth=2,
+                     num_q_heads=8, num_kv_heads=2, rope=True, softcap=50.0)
 # card against CPU on the small f32 model with int8 caches, max abs
 # logits (PERF.md section 2 gives the reasons)
 INT8_LOGITS_TOL = 1e-2
@@ -3237,6 +3310,725 @@ def phase_moe(ops, kernels) -> None:
          seconds=time.perf_counter() - t0)
 
 
+def beam_rescore(model, prompt, toks) -> torch.Tensor:
+    """The teacher-forced total log-probability of ``toks`` after
+    ``prompt``: one uncached forward (the flash kernel) over both."""
+    s = prompt.shape[1]
+    with torch.no_grad():
+        logp = torch.log_softmax(model(torch.cat([prompt, toks], 1))
+                                 [:, s - 1:-1].float(), dim=-1)
+    return logp.gather(-1, toks[..., None])[..., 0].sum(-1)
+
+
+def phase_beam(ops, kernels, model) -> None:
+    """Beam search at full width: `generate_beam` on phase 4's 8 prompts
+    of 512 tokens, `BEAMS` beams (32 cache rows), `BEAM_STEPS` steps, on
+    bf16 and int8 caches: the flash kernel once per layer (the prefill)
+    and the decode (int8) kernel once per layer and step, nothing else;
+    every score finite and within `BEAM_SCORE_TOL` of the teacher-forced
+    re-score of its tokens through the flash forward, where a search
+    whose cache gather is skipped must fail; beams = 1 equal to greedy
+    `generate` (the same decode calls).  The step ms by CUDA events, and
+    the gather's device ms at the call's shapes."""
+    from attention_tpu_torch.models import decode as gen
+
+    t0 = time.perf_counter()
+    prompts = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, model.vocab, (8, 512))).cuda()
+    for int8 in (False, True):
+        name, kernel = (("beam_int8", "quant_decode") if int8
+                        else ("beam", "decode"))
+        with watched(model) as (calls, bad):
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            toks, scores = gen.generate_beam(
+                model, prompts, steps=BEAM_STEPS, beams=BEAMS,
+                int8_cache=int8, return_scores=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            launches = ops.launch_counts()
+        want = {"flash_fwd": model.depth,
+                kernel: (BEAM_STEPS - 1) * model.depth}
+        if {k: c for k, c in launches.items() if c} != want:
+            raise AssertionError(f"{name} launches {launches}, want {want}")
+        if toks.shape != (8, BEAM_STEPS) or int(bad) or not \
+                scores.isfinite().all():
+            raise AssertionError(f"{name}: tokens {tuple(toks.shape)}, "
+                                 f"{int(bad)} non-finite logits, scores "
+                                 f"{scores.tolist()}")
+        kernels[kernel]["launches"] += launches[kernel]
+        rescore = (scores - beam_rescore(model, prompts, toks)).abs().max()
+        greedy = gen.generate(model, prompts, steps=BEAM_STEPS,
+                              int8_cache=int8)
+        one = gen.generate_beam(model, prompts, steps=BEAM_STEPS, beams=1,
+                                int8_cache=int8)
+        emit(phase="beam", run=name, beams=BEAMS, cache_rows=8 * BEAMS,
+             wall_ms=wall * 1e3, prefill_ms=calls[0][0].elapsed_time(
+                 calls[0][1]),
+             step_ms=statistics.median(a.elapsed_time(b)
+                                       for a, b in calls[1:]),
+             launches=launches, scores=scores.tolist(),
+             score_vs_rescore_max_abs=rescore.item(), tol=BEAM_SCORE_TOL,
+             beams1_equals_greedy=torch.equal(one, greedy))
+        if not rescore <= BEAM_SCORE_TOL:
+            raise AssertionError(f"{name}: scores {rescore.item()} from the "
+                                 f"re-score")
+        if not torch.equal(one, greedy):
+            raise AssertionError(f"{name}: beams = 1 parts from greedy "
+                                 f"generate")
+
+    # the planted fault: a search that replicates the caches but never
+    # gathers them after, so each slot keeps its own history whatever its
+    # parent
+    rows = gen._cache_rows
+    first = []
+
+    def no_gather(caches, idx):
+        if first:
+            return caches
+        first.append(True)
+        return rows(caches, idx)
+
+    gen._cache_rows = no_gather
+    try:
+        toks, scores = gen.generate_beam(model, prompts, steps=BEAM_STEPS,
+                                         beams=BEAMS, return_scores=True)
+    finally:
+        gen._cache_rows = rows
+    planted = (scores - beam_rescore(model, prompts, toks)).abs().max()
+    # the gather alone, at the call's shapes: 32 rows of 640
+    with torch.no_grad():
+        caches = gen.prefill(model, prompts, 640)[1]
+    idx = torch.arange(8, device="cuda").repeat_interleave(BEAMS)
+    caches = rows(caches, idx)
+    perm = idx.flip(0)
+    q8 = tuple(c.quantize() for c in caches)
+    gather = {"bf16": device_ms(lambda: rows(caches, perm)),
+              "int8": device_ms(lambda: rows(q8, perm))}
+    emit(phase="beam", gather_device_ms_per_step=gather,
+         planted_no_gather_score_vs_rescore=planted.item(),
+         seconds=time.perf_counter() - t0)
+    if not planted > BEAM_SCORE_TOL:
+        raise AssertionError(f"the re-score check passes a search without "
+                             f"the gather: {planted.item()}")
+
+
+def phase_fork(ops, kernels, model) -> None:
+    """Parallel sampling over forked pages at full width: one prompt of
+    `FORK_PROMPT` tokens (7 full pages of 128 and a 104-row tail) through
+    the flash kernel, its caches scattered into one pool a layer
+    (`paged_from_dense`), `paged_fork` into `FORK_COPIES` sequences with
+    one reserve page each, then `FORK_STEPS` sampled steps (temperature
+    0.8, top-p 0.95, a seeded generator) through the paged kernel: the
+    flash kernel once per layer and the paged kernel once per layer and
+    step, nothing else.  The pools' refcounts and free pages as
+    `tests/test_paged.py` pins them, the shared pages bit-equal after the
+    appends, each fork's first-step attention (layer 0) within
+    `reference.mismatch` of the dense decode of the unforked context and
+    bit-equal to the paged kernel over the source's table."""
+    from attention_tpu_torch.models import decode as gen
+    from attention_tpu_torch.ops.decode import flash_decode
+    from attention_tpu_torch.ops.paged import (
+        PagePool,
+        paged_flash_decode,
+        paged_fork,
+        paged_from_dense,
+    )
+
+    t0 = time.perf_counter()
+    n, page, pages = FORK_PROMPT, 128, 32
+    prompt = torch.as_tensor(np.random.default_rng(SEED + 7).integers(
+        0, model.vocab, (1, n))).cuda()
+    generator = torch.Generator(device="cuda").manual_seed(SEED)
+    full = n // page
+    with watched(model) as (calls, bad), torch.no_grad():
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        last, dense = gen.prefill(model, prompt, 1152)
+        pools = [PagePool(pages) for _ in dense]
+        base = tuple(paged_from_dense(c.k, c.v, [n], pool, num_pages=pages)
+                     for c, pool in zip(dense, pools))
+        forks = tuple(paged_fork(c, pool, 0, FORK_COPIES, reserve_pages=1)
+                      for c, pool in zip(base, pools))
+        shared = forks[0].page_table[0, :full].long()
+        before = [(f.k_pool[shared].clone(), f.v_pool[shared].clone())
+                  for f in forks]
+        toks, _ = gen._token_loop(
+            model, last.expand(FORK_COPIES, -1), forks, FORK_STEPS,
+            generator, temperature=0.8, top_k=None, top_p=0.95)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches = ops.launch_counts()
+    want = {"flash_fwd": model.depth,
+            "paged_decode": FORK_STEPS * model.depth}
+    if {k: c for k, c in launches.items() if c} != want or int(bad):
+        raise AssertionError(f"fork launches {launches}, want {want}; "
+                             f"{int(bad)} non-finite logits")
+    kernels["paged_decode"]["launches"] += launches["paged_decode"]
+    src = base[0].page_table[0].tolist()
+    for pool, fork, (k0, v0) in zip(pools, forks, before):
+        table = fork.page_table.tolist()
+        tails = {row[full] for row in table}
+        if not (all(row[:full] == src[:full] for row in table)
+                and all(pool.refcount(p) == 1 + FORK_COPIES
+                        for p in src[:full])
+                and len(tails) == FORK_COPIES and src[full] not in tails
+                and pool.used_pages == full + 1 + 2 * FORK_COPIES):
+            raise AssertionError(f"fork tables {table}, source {src}, "
+                                 f"used {pool.used_pages}")
+        if not (torch.equal(fork.k_pool[shared], k0)
+                and torch.equal(fork.v_pool[shared], v0)):
+            raise AssertionError("an append wrote into a shared page")
+    gen_q = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    q = torch.randn((FORK_COPIES, 32, 128), generator=gen_q,
+                    device="cuda").to(torch.bfloat16)
+    got = paged_flash_decode(q, forks[0])
+    unforked = flash_decode(
+        q, dense[0].k.expand(FORK_COPIES, -1, -1, -1).contiguous(),
+        dense[0].v.expand(FORK_COPIES, -1, -1, -1).contiguous(), n)
+    err, ratio = held(got, unforked)
+    source = paged_flash_decode(q, base[0]._replace(
+        page_table=base[0].page_table.expand(FORK_COPIES, -1).contiguous(),
+        lengths=base[0].lengths.expand(FORK_COPIES).contiguous()))
+    if not torch.equal(got, source):
+        raise AssertionError("the paged kernel over a fork's table differs "
+                             "from it over the source's table")
+    for pool, fork, c in zip(pools, forks, base):
+        for row in fork.page_table.tolist() + c.page_table.tolist():
+            pool.free([p for p in row if p >= 0])
+        if pool.free_pages != pages:
+            raise AssertionError(f"{pool.free_pages} of {pages} pages free "
+                                 f"after every sequence freed them")
+    distinct = len({tuple(r) for r in toks.tolist()})
+    emit(phase="fork", prompt=n, copies=FORK_COPIES, steps=FORK_STEPS,
+         wall_ms=wall * 1e3, prefill_ms=calls[0][0].elapsed_time(calls[0][1]),
+         step_ms=statistics.median(a.elapsed_time(b) for a, b in calls[1:]),
+         launches=launches, used_pages_per_layer=full + 1 + 2 * FORK_COPIES,
+         shared_page_refcount=1 + FORK_COPIES,
+         first_step_vs_unforked_max_abs_err=err, share_of_limit=ratio,
+         distinct_streams=distinct, seconds=time.perf_counter() - t0)
+    if distinct < 2:
+        raise AssertionError("eight sampled forks gave one stream")
+
+
+def phase_speculative(ops, kernels, model) -> None:
+    """Speculative decoding at full width: the serving model as the
+    target on one prompt of 512 tokens, `SPEC_STEPS` greedy steps, gamma
+    `SPEC_GAMMA`, on each cache type, with two drafts: the target itself
+    (acceptance near gamma) and a depth-1 model of the same geometry
+    from seed 1 (random weights: acceptance near 0).  Launches exactly
+    the prefills' flash calls, the draft's decode steps and one verify
+    chunk a layer an iteration (dense: the flash kernel with the cache's
+    offsets; ragged: the decode kernel's chunk mode; int8 and paged:
+    their kernels' chunk modes).  Per run: the mean accepted tokens an
+    iteration, the tokens emitted per target forward, the host syncs (one
+    an iteration), the ms per emitted token beside greedy `generate`'s,
+    and the share of tokens equal to greedy `generate` (int8: with
+    ``int8_cache``)."""
+    from attention_tpu_torch.models import TinyDecoder, init_params
+    from attention_tpu_torch.models import decode as gen
+    from attention_tpu_torch.models.speculative import (
+        CACHE_TYPES,
+        generate_speculative,
+    )
+
+    t0 = time.perf_counter()
+    prompt = torch.as_tensor(np.random.default_rng(SEED + 9).integers(
+        0, model.vocab, (1, 512))).cuda()
+    baseline = {}
+    for int8 in (False, True):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        toks = gen.generate(model, prompt, steps=SPEC_STEPS, int8_cache=int8)
+        torch.cuda.synchronize()
+        baseline[int8] = (toks, (time.perf_counter() - start) * 1e3
+                          / SPEC_STEPS)
+    small = TinyDecoder(dtype=torch.bfloat16, device="cuda",
+                        **dict(SERVE_MODEL, depth=1))
+    small.load_state_dict(init_params(small, SEED + 1))
+    verify = {"dense": "flash_fwd", "ragged": "decode",
+              "int8": "quant_decode", "paged": "paged_decode"}
+    for draft_name, draft in (("self", model), ("depth1_seed1", small)):
+        for cache_type in CACHE_TYPES:
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            toks, st = generate_speculative(
+                model, draft, prompt, steps=SPEC_STEPS, gamma=SPEC_GAMMA,
+                cache_type=cache_type, return_stats=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            launches = ops.launch_counts()
+            want = {"flash_fwd": model.depth + draft.depth,
+                    "decode": st.iterations * (SPEC_GAMMA + 1) * draft.depth}
+            kernel = verify[cache_type]
+            want[kernel] = want.get(kernel, 0) + st.iterations * model.depth
+            if {k: c for k, c in launches.items() if c} != want:
+                raise AssertionError(f"speculative {cache_type} launches "
+                                     f"{launches}, want {want}")
+            for k, c in launches.items():
+                kernels[k]["launches"] += c
+            greedy, greedy_ms = baseline[cache_type == "int8"]
+            if toks.shape != (1, SPEC_STEPS) or not torch.equal(
+                    toks[0, 0], greedy[0, 0]):
+                raise AssertionError(f"speculative {cache_type}: tokens "
+                                     f"{tuple(toks.shape)}, first token "
+                                     "differs from generate's")
+            emit(phase="speculative", draft=draft_name,
+                 cache_type=cache_type, gamma=SPEC_GAMMA, steps=SPEC_STEPS,
+                 iterations=st.iterations,
+                 mean_accepted_per_iteration=st.accepted / st.iterations,
+                 emitted_per_target_forward=(1 + st.accepted
+                                             + st.iterations)
+                 / (1 + st.iterations),
+                 host_syncs=st.iterations,
+                 ms_per_token=wall * 1e3 / SPEC_STEPS,
+                 generate_ms_per_token=greedy_ms,
+                 equal_to_generate_share=(toks == greedy).float()
+                 .mean().item(), launches=launches)
+    emit(phase="speculative", seconds=time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def captured_backwards():
+    """The operands of every `flash_backward` call the autograd function
+    makes while the context is open, the first of each (causal, m, n):
+    {(causal, m, n): ((q, k, v, out, lse, dout), kw)}."""
+    from attention_tpu_torch.ops import flash_vjp
+
+    kernel_backward = flash_vjp.flash_backward
+    got = {}
+
+    def recording(q, k, v, out, lse, dout, **kw):
+        key = (kw["causal"], q.shape[-2], k.shape[-2])
+        if key not in got:
+            got[key] = (tuple(t.detach().clone() for t in
+                              (q, k, v, out, lse, dout)),
+                        dict(scale=kw["scale"], causal=kw["causal"],
+                             softcap=kw["softcap"]))
+        return kernel_backward(q, k, v, out, lse, dout, **kw)
+
+    flash_vjp.flash_backward = recording
+    try:
+        yield got
+    finally:
+        flash_vjp.flash_backward = kernel_backward
+
+
+def phase_seq2seq(ops, kernels) -> None:
+    """The encoder-decoder model at the serving geometry (`SEQ2SEQ_MODEL`,
+    enc 2 + dec 2 blocks, about 1.2e9 parameters, bf16) on 8 sequences of
+    512 source and 114 target tokens (T5's span-corruption lengths):
+    the forward's logits (the flash kernel once a layer: the encoder
+    non-causal m = n = 512, the decoder causal m = n = 113, the
+    cross-attention non-causal m = 113 over n = 512) against the model's
+    plain path (``impl="xla"``) and a float32 witness; `SEQ2SEQ_STEPS`
+    steps of `MasterAdamW` (the loss must fall; one flash forward and one
+    fused backward a layer a step); the backward calls of one step, on
+    the fused kernel and the pair, held against float64 on their own
+    operands and against `flash_backward_plain` under `grad_mismatch` on
+    random ones (`hold_captured_backward`); `generate_seq2seq` for 32
+    greedy steps (the
+    flash kernel at m = 1 for the cross-attention, the decode kernel for
+    the self-attention); and the device ms of the encoder's, the
+    cross-attention's and the decode step's flash calls and backward
+    calls, the m = 1 call beside the decode kernel on its inputs."""
+    from attention_tpu_torch.models import (
+        MasterAdamW,
+        TinySeq2Seq,
+        generate_seq2seq,
+        init_params,
+        seq2seq_loss,
+    )
+    from attention_tpu_torch.ops import flash_bwd
+    from attention_tpu_torch.ops.decode import flash_decode
+    from attention_tpu_torch.ops.flash import flash_attention, \
+        flash_attention_plain
+    from attention_tpu_torch.ops.reference import grad_mismatch
+
+    t0 = time.perf_counter()
+    b, s_src, s_tgt = SEQ2SEQ_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    src = torch.randint(0, 32000, (b, s_src), generator=gen, device="cuda")
+    tgt = torch.randint(0, 32000, (b, s_tgt), generator=gen, device="cuda")
+    model = TinySeq2Seq(dtype=torch.bfloat16, device="cuda", **SEQ2SEQ_MODEL)
+    params = init_params(model, SEED, dtype=torch.float32)
+    model.load_state_dict(params)
+    n_params = sum(p.numel() for p in model.parameters())
+    depth = len(model.enc_blocks) + 2 * len(model.dec_blocks)
+    plain = TinySeq2Seq(impl="xla", dtype=torch.bfloat16, device="cuda",
+                        **SEQ2SEQ_MODEL)
+    plain.load_state_dict(params)
+    witness = TinySeq2Seq(impl="xla", dtype=torch.float32, device="cuda",
+                          **SEQ2SEQ_MODEL)
+    witness.load_state_dict(params)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        logits = model(src, tgt[:, :-1])
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        want = plain(src, tgt[:, :-1])
+        exact = witness(src, tgt[:, :-1])
+        fwd_ms = {"flash": time_ms(lambda: model(src, tgt[:, :-1]),
+                                   calls=1, reps=5),
+                  "xla": time_ms(lambda: plain(src, tgt[:, :-1]),
+                                 calls=1, reps=5)}
+    del witness
+    errs = {"flash_vs_f32": (logits - exact).abs().max().item(),
+            "xla_vs_f32": (want - exact).abs().max().item(),
+            "flash_vs_xla": (logits - want).abs().max().item()}
+    emit(phase="seq2seq", params=n_params, batch=list(SEQ2SEQ_BATCH),
+         logits_max_abs_err=errs, forward_ms=fwd_ms, launches=launches,
+         logits_max_abs=exact.abs().max().item())
+    if {k: c for k, c in launches.items() if c} != {"flash_fwd": depth} \
+            or not logits.isfinite().all():
+        raise AssertionError(f"seq2seq forward launches {launches}")
+    kernels["flash_fwd"]["launches"] += launches["flash_fwd"]
+    if not errs["flash_vs_f32"] <= SEQ2SEQ_WITNESS_RATIO * \
+            errs["xla_vs_f32"]:
+        raise AssertionError(f"the kernels' logits stand further from the "
+                             f"float32 witness than the plain path's: "
+                             f"{errs}")
+    del plain, want, exact, logits
+
+    optimizer = MasterAdamW(model, params, lr=TRAIN_LR)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, step_ms = [], []
+    for i in range(SEQ2SEQ_STEPS + 1):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        optimizer.zero_grad()
+        with (captured_backwards() if i == SEQ2SEQ_STEPS
+              else contextlib.nullcontext()) as calls:
+            loss = seq2seq_loss(model, src, tgt)
+            loss.backward()
+        optimizer.step()
+        end.record()
+        end.synchronize()
+        losses.append(loss.item())
+        step_ms.append(start.elapsed_time(end))
+    launches = ops.launch_counts()
+    steps = SEQ2SEQ_STEPS + 1
+    if {k: c for k, c in launches.items() if c} != {
+            "flash_fwd": steps * depth, flash_bwd.FUSED: steps * depth} \
+            or not np.isfinite(losses).all() or \
+            not losses[SEQ2SEQ_STEPS - 1] < losses[0]:
+        raise AssertionError(f"seq2seq training: losses {losses}, launches "
+                             f"{launches}")
+    for kernel in ("flash_fwd", flash_bwd.FUSED):
+        kernels[kernel]["launches"] += launches[kernel]
+    emit(phase="seq2seq", losses=losses, step_ms=step_ms,
+         median_step_ms=statistics.median(step_ms[1:SEQ2SEQ_STEPS]),
+         launches=launches,
+         tokens_per_step=b * (s_tgt - 1),
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del optimizer
+
+    names = {(False, s_src, s_src): "encoder",
+             (False, s_tgt - 1, s_src): "cross",
+             (True, s_tgt - 1, s_tgt - 1): "decoder_self"}
+    if set(calls) != set(names):
+        raise AssertionError(f"captured backward calls {sorted(calls)}")
+    times = {}
+    for key, (args, kw) in calls.items():
+        hold_captured_backward(kernels, f"seq2seq_{names[key]}", args, kw)
+        q, k, v = args[:3]
+        times[names[key]] = dict(
+            forward_device_ms=device_ms(lambda: flash_attention(
+                q, k, v, causal=kw["causal"], softcap=kw["softcap"])),
+            **{f"backward_{path}_device_ms": device_ms(
+                lambda: flash_backward_forced(path == "pair", *args, **kw))
+               for path in ("fused", "pair")})
+    del calls
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    toks = generate_seq2seq(model, src, steps=GEN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = ops.launch_counts()
+    dec = len(model.dec_blocks)
+    want = {"flash_fwd": len(model.enc_blocks) + GEN_STEPS * dec,
+            "decode": GEN_STEPS * dec}
+    if {k: c for k, c in launches.items() if c} != want or \
+            toks.shape != (b, GEN_STEPS):
+        raise AssertionError(f"generate_seq2seq launches {launches}, want "
+                             f"{want}")
+    for kernel in ("flash_fwd", "decode"):
+        kernels[kernel]["launches"] += launches[kernel]
+
+    # the decode step's cross-attention: m = 1 over the 512 memory rows,
+    # the flash kernel's body and split beside the decode kernel
+    with torch.no_grad():
+        k, v = model.dec_blocks[0].cross_attn.project_kv(
+            model.encode(src))
+    q = torch.randn((b, 32, 1, 128), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k, v = k.contiguous(), v.contiguous()
+    one = flash_attention(q, k, v, softcap=50.0)
+    by_decode = flash_decode(q[:, :, 0], k, v, s_src, softcap=50.0)
+    want = flash_attention_plain(q, k, v, softcap=50.0)
+    # the trained model's values reach past 2.56, where `mismatch`'s 2e-2
+    # cap is under one bf16 ulp: `grad_mismatch` holds the value's ulp
+    err, ratio = grad_mismatch(one, want)
+    if not ratio <= 1.0:
+        raise AssertionError(f"the m = 1 flash call off its plain version: "
+                             f"{err}, {ratio} x the limit")
+    kernels["flash_fwd"]["max_abs_err"] = max(
+        kernels["flash_fwd"]["max_abs_err"], err)
+    times["cross_decode_step_m1"] = dict(
+        **flash_plan(q, k, v),
+        flash_device_ms=device_ms(lambda: flash_attention(q, k, v,
+                                                          softcap=50.0)),
+        decode_kernel_device_ms=device_ms(lambda: flash_decode(
+            q[:, :, 0], k, v, s_src, softcap=50.0)),
+        flash_vs_plain_max_abs_err=err, share_of_limit=ratio,
+        decode_kernel_vs_plain_max_abs_err=(by_decode.float() - want[
+            :, :, 0].float()).abs().max().item())
+    emit(phase="seq2seq", generate_ms=wall * 1e3,
+         generate_step_ms=wall * 1e3 / GEN_STEPS, launches=launches,
+         kernel_times=times, seconds=time.perf_counter() - t0)
+
+
+def exact_backward(q, k, v, out, lse, dout, *, scale, causal, softcap):
+    """dQ, dK, dV in float64 from the bf16 operands of a backward call
+    (P from the saved lse, nothing rounded): the witness of
+    `hold_captured_backward`."""
+    q, k, v, out, dout = (t.double() for t in (q, k, v, out, dout))
+    b, hkv, n = k.shape[:3]
+    group = q.shape[1] // hkv
+    kx, vx = (t.repeat_interleave(group, 1) for t in (k, v))
+    s = q @ kx.transpose(-1, -2) * scale
+    dcap = 1.0
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s, dcap = softcap * t, 1.0 - t * t
+    if causal:
+        s = s.masked_fill(torch.ones(s.shape[-2:], dtype=torch.bool,
+                                     device=s.device).triu(1), float("-inf"))
+    p = torch.exp(s - lse.double()[..., None])
+    ds = p * (dout @ vx.transpose(-1, -2)
+              - (dout * out).sum(-1, keepdim=True)) * dcap
+    dk = (ds.transpose(-1, -2) @ q * scale).view(b, hkv, group, n, -1)
+    dv = (p.transpose(-1, -2) @ dout).view(b, hkv, group, n, -1)
+    return ds @ kx * scale, dk.sum(2), dv.sum(2)
+
+
+def hold_captured_backward(kernels, case, args, kw) -> None:
+    """A backward call of a training step, on both kernel paths: on its
+    own operands, each 64-row tile's relative L2 distance from the
+    float64 gradients of the same bf16 operands (`exact_backward`), dQ
+    by query tile and dK, dV by key tile of each batch row and head,
+    within `CAPTURED_BWD_SLACK` of the plain version's in that tile (or
+    of the plain version's median tile, where that is larger), where a
+    dropped last key tile, a 2% scale error in dQ, and a 2% error in the
+    last (partial) tile of one head must fail; and on random operands of
+    the same shapes, within `reference.grad_mismatch` of the plain
+    version.  A model's dS = P·(dP - delta) cancels along a row (it sums
+    to zero), so on its own operands a row of dQ can be small beside its
+    terms, and a bf16 dS that two paths round apart moves an element past
+    `grad_mismatch`'s row term: there the plain version, which rounds the
+    same quantities, sets the bar, and the elementwise shares are
+    printed.  A tile of 64 rows, not a row, is the unit because the two
+    paths' distances agree within 1% a tile and only within 35% a row.
+    dK and dV the same bits on a second call (the pair's dQ too)."""
+    from attention_tpu_torch.ops import flash_bwd
+    from attention_tpu_torch.ops.flash_vjp import _flash_fwd_impl
+    from attention_tpu_torch.ops.reference import grad_mismatch
+
+    k = args[1]
+    exact = exact_backward(*args, **kw)
+    names = ("dq", "dk", "dv")
+
+    def tiles(t):
+        """(B, H, rows, d) -> (B, H, tiles, BWD_HOLD_TILE * d), the last
+        tile padded with zeros."""
+        pad = -t.shape[2] % BWD_HOLD_TILE
+        t = torch.nn.functional.pad(t, (0, 0, 0, pad))
+        return t.reshape(*t.shape[:2], -1, BWD_HOLD_TILE * t.shape[-1])
+
+    # each tile's float64 norm, floored at a tenth of the median tile's:
+    # a tile whose gradient nearly vanishes is held to its neighbours'
+    # scale, not to its own
+    norms = [tiles(e).norm(dim=-1) for e in exact]
+    norms = [torch.maximum(n, 0.1 * n.median()) for n in norms]
+
+    def distance(grads):
+        return {name: tiles(g.double() - e).norm(dim=-1) / n
+                for name, g, e, n in zip(names, grads, exact, norms)}
+
+    plain = flash_bwd.flash_backward_plain(*args, **kw)
+    bar = {name: CAPTURED_BWD_SLACK * torch.maximum(rel, rel.median())
+           for name, rel in distance(plain).items()}
+
+    def worst(grads):
+        """Each gradient's largest tile distance as a share of its bar."""
+        return {n: (d / bar[n]).max().item()
+                for n, d in distance(grads).items()}
+
+    one_tile = [g.clone() for g in plain]
+    for g in one_tile:
+        g[0, 0, (g.shape[2] - 1) // BWD_HOLD_TILE * BWD_HOLD_TILE:] *= 1.02
+    faults = {
+        "dk_dropped_last_key_tile": worst(flash_bwd.flash_backward_plain(
+            *args, **dict(kw, kv_valid=k.shape[-2] - KEY_TILE))),
+        "dq_scale_off_2pct": worst(flash_bwd.flash_backward_plain(
+            *args, **dict(kw, scale=1.02 * kw["scale"]))),
+        "one_tile_off_2pct": worst(one_tile)}
+    del one_tile
+    if any(max(d.values()) <= 1.0 for d in faults.values()):
+        raise AssertionError(f"{case}: the check passes a planted fault: "
+                             f"{faults}")
+    plan = flash_bwd.bwd_launch_plan(*args, causal=kw["causal"])
+    pair_plan = plan.pop("pair")
+    if plan["body"] != "wgmma" or pair_plan["body"] != "wgmma":
+        raise AssertionError(f"{case}: the fused kernel runs {plan}, the "
+                             f"pair {pair_plan}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    q, k, v, dout = (torch.randn(t.shape, generator=gen, device="cuda")
+                     .to(t.dtype) for t in (args[0], args[1], args[2],
+                                            args[5]))
+    rand = (q, k, v, *_flash_fwd_impl(q, k, v, **kw), dout)
+    rand_plain = flash_bwd.flash_backward_plain(*rand, **kw)
+    for path in ("fused", "pair"):
+        got = flash_backward_forced(path == "pair", *args, **kw)
+        again = flash_backward_forced(path == "pair", *args, **kw)
+        on_random = flash_backward_forced(path == "pair", *rand, **kw)
+        torch.cuda.synchronize()
+        same_bits(got[1:] if path == "fused" else got,
+                  again[1:] if path == "fused" else again)
+        dist = worst(got)
+        own = [grad_mismatch(g, w) for g, w in zip(got, plain)]
+        random = [grad_mismatch(g, w) for g, w in zip(on_random, rand_plain)]
+        emit(phase="seq2seq", path=path, case=case,
+             **(dict(fused_plan=plan) if path == "fused"
+                else dict(pair_plan=pair_plan)),
+             worst_tile_vs_float64_share_of_bar=dist,
+             plain_median_tile_vs_float64_rel_l2={
+                 n: d.median().item() for n, d in distance(plain).items()},
+             planted_faults_worst_tile_share_of_bar=faults,
+             own_operands_vs_plain_share_of_limit=dict(
+                 zip(names, (r for _, r in own))),
+             random_operands_max_abs_err=dict(
+                 zip(names, (e for e, _ in random))),
+             random_operands_share_of_limit=dict(
+                 zip(names, (r for _, r in random))))
+        if not max(dist.values()) <= 1.0:
+            raise AssertionError(f"{case}: {path} further from the float64 "
+                                 f"gradients than the plain version in a "
+                                 f"tile: {dist} x the bar")
+        if not all(r <= 1.0 for _, r in random):
+            raise AssertionError(f"{case}: {path} off its plain version on "
+                                 f"random operands: {random}")
+        for kernel, idx in ((flash_bwd.FUSED, (0, 1, 2)),) \
+                if path == "fused" else ((flash_bwd.DQ, (0,)),
+                                         (flash_bwd.DKV, (1, 2))):
+            kernels[kernel]["max_abs_err"] = max(
+                kernels[kernel]["max_abs_err"],
+                *(random[i][0] for i in idx))
+
+
+def flash_backward_forced(pair: bool, *args, **kw):
+    """`flash_backward` on the pair (``pair``) or the fused kernel."""
+    from attention_tpu_torch.ops import flash_bwd
+
+    flash_bwd._FORCE_TWO_KERNEL = pair
+    try:
+        return flash_bwd.flash_backward(*args, **kw)
+    finally:
+        flash_bwd._FORCE_TWO_KERNEL = False
+
+
+def phase_decoding_reference() -> None:
+    """Phase 6's small f32 model on the card against the same weights on
+    the CPU, on this slice's paths: `generate_beam` (beams 3, dense and
+    int8 caches) tokens equal and scores within 1e-4 (the logits'
+    limit); `generate_speculative` greedy streams on every cache type
+    equal to greedy `generate` (int8: with ``int8_cache``) on both sides,
+    with a depth-1 draft of seed 1; and the small encoder-decoder (the
+    same widths, 2 + 2 blocks): logits within 1e-4 and
+    `generate_seq2seq` streams equal."""
+    from attention_tpu_torch.models import (
+        TinyDecoder,
+        TinySeq2Seq,
+        generate_seq2seq,
+        init_params,
+    )
+    from attention_tpu_torch.models import decode as gen
+    from attention_tpu_torch.models.speculative import (
+        CACHE_TYPES,
+        generate_speculative,
+    )
+
+    t0 = time.perf_counter()
+    sides = {}
+    for side in ("cpu", "cuda"):
+        models = (TinyDecoder(dtype=torch.float32, device=side,
+                              **SMALL_MODEL),
+                  TinyDecoder(dtype=torch.float32, device=side,
+                              **dict(SMALL_MODEL, depth=1)),
+                  TinySeq2Seq(dtype=torch.float32, device=side,
+                              **SMALL_SEQ2SEQ))
+        for m, cpu, seed in zip(models, sides.get("cpu", (None,) * 3),
+                                (SEED, SEED + 1, SEED)):
+            # the card's models take the CPU's weights
+            m.load_state_dict(init_params(m, seed) if cpu is None
+                              else cpu.state_dict())
+        sides[side] = models
+    prompts = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
+        0, SMALL_MODEL["vocab"], (3, 100)))
+    src = torch.as_tensor(np.random.default_rng(SEED + 2).integers(
+        0, SMALL_MODEL["vocab"], (2, 120)))
+    tgt = torch.as_tensor(np.random.default_rng(SEED + 3).integers(
+        0, SMALL_MODEL["vocab"], (2, 30)))
+    got = {}
+    for side, (target, draft, s2s) in sides.items():
+        out = {}
+        for int8 in (False, True):
+            out[f"beam_int8{int8}"] = gen.generate_beam(
+                target, prompts, steps=12, beams=3, int8_cache=int8,
+                return_scores=True)
+        for cache_type in CACHE_TYPES:
+            out[f"speculative_{cache_type}"] = generate_speculative(
+                target, draft, prompts[:1], steps=24, gamma=4,
+                cache_type=cache_type)
+            greedy = gen.generate(target, prompts[:1], steps=24,
+                                  int8_cache=cache_type == "int8")
+            if not torch.equal(out[f"speculative_{cache_type}"], greedy):
+                raise AssertionError(f"{side}: speculative {cache_type} "
+                                     "parts from greedy generate")
+        with torch.no_grad():
+            out["seq2seq_logits"] = s2s(src.to(side), tgt.to(side))
+        out["seq2seq_generate"] = generate_seq2seq(s2s, src, steps=16)
+        got[side] = {k: tuple(t.cpu() for t in v) if isinstance(v, tuple)
+                     else v.cpu() for k, v in out.items()}
+    cpu, card = got["cpu"], got["cuda"]
+    errs = {"seq2seq_logits": (card["seq2seq_logits"]
+                               - cpu["seq2seq_logits"]).abs().max().item()}
+    tols = {"seq2seq_logits": 1e-4}
+    for int8 in (False, True):
+        key = f"beam_int8{int8}_scores"
+        errs[key] = (card[key[:-7]][1] - cpu[key[:-7]][1]).abs().max().item()
+        # a score sums 12 log-probabilities, each within twice the logits'
+        # limit: 1e-4 (f32) or `INT8_LOGITS_TOL` (int8 caches)
+        tols[key] = 2 * 12 * (INT8_LOGITS_TOL if int8 else 1e-4)
+    differ = [k for k, v in cpu.items() if k != "seq2seq_logits" and not
+              torch.equal(v[0] if isinstance(v, tuple) else v,
+                          card[k][0] if isinstance(v, tuple) else card[k])]
+    emit(phase="reference", slice="decoding", max_abs_err=errs, tol=tols,
+         streams_differ_card_vs_cpu=differ,
+         streams=sorted(k for k in cpu if k != "seq2seq_logits"),
+         seconds=time.perf_counter() - t0)
+    if differ or not all(errs[k] <= tols[k] for k in errs):
+        raise AssertionError(f"card against CPU: {differ}, {errs}")
+
+
 def kernel_records() -> dict:
     """{name: the kernel's record of the ``{"kernels": [...]}`` line},
     launches and error still 0."""
@@ -3304,9 +4096,14 @@ def main() -> int:
     del windowed
     phase_profile(model)
     phase_moe(ops, kernels)
+    phase_beam(ops, kernels, model)
+    phase_fork(ops, kernels, model)
+    phase_speculative(ops, kernels, model)
+    phase_seq2seq(ops, kernels)
     phase_reference()
     phase_window_reference()
     phase_moe_reference()
+    phase_decoding_reference()
     dense = phase_train(ops, kernels, model)
     del model
     phase_checkpoint(dict(SERVE_MODEL, depth=CKPT_DEPTH))

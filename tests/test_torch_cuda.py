@@ -1566,3 +1566,161 @@ def test_gloo_world_on_one_card_matches_flash(gloo_card_world, name):
     assert all(r["launches"] == GLOO_CASES[name][2] for r in ranks)
     assert all(r["share"] <= 1 for r in ranks)
     assert torch.equal(ranks[0]["out"], ranks[1]["out"])
+
+
+@pytest.mark.parametrize("path", ["fused", "pair"])
+@pytest.mark.parametrize("softcap", [None, 50.0])
+def test_seq2seq_noncausal_backward_matches_plain(gen, monkeypatch, path,
+                                                 softcap):
+    """The encoder-decoder's cross-attention backward: non-causal, m =
+    113 queries (the last 64-row query tile partly padding) over n = 512
+    keys, 32 q / 4 kv heads, d 128, bf16, as the layer hands q, k, v and
+    dO over, b = 2: the wgmma bodies against the plain version, and the
+    encoder's m = n = 512 beside it."""
+    monkeypatch.setattr(flash_bwd, "_FORCE_TWO_KERNEL", path == "pair")
+    for m, n in ((113, 512), (512, 512)):
+        q, dout = (torch.randn((2, m, 32, 128), generator=gen, device="cuda")
+                   .to(torch.bfloat16).transpose(1, 2) for _ in "qo")
+        k, v = (torch.randn((2, n, 4, 128), generator=gen, device="cuda")
+                .to(torch.bfloat16).transpose(1, 2) for _ in "kv")
+        kw = dict(scale=128 ** -0.5, causal=False, softcap=softcap)
+        out, lse = _flash_fwd_impl(q, k, v, **kw)
+        plan = flash_bwd.bwd_launch_plan(q, k, v, out, lse, dout)
+        assert plan["body"] == plan["pair"]["body"] == "wgmma"
+        got = flash_bwd.flash_backward(q, k, v, out, lse, dout, **kw)
+        want = flash_bwd.flash_backward_plain(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert grad_mismatch(g, w)[1] <= 1, (m, n)
+
+
+def test_seq2seq_cross_step_one_query_row_matches_plain(gen):
+    """The cross-attention's decode step: one query row (m = 1) over 512
+    memory rows, non-causal, softcap 50, b = 8, 32 q / 4 kv heads: the
+    flash kernel's "wgmma" body, once, against the plain version and
+    the decode kernel on the same inputs."""
+    q = torch.randn((8, 32, 1, 128), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn((8, 4, 512, 128), generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in "kv")
+    assert flash_launch_plan(q, k, v)["body"] == "wgmma"
+    before = launch_counts()["flash_fwd"]
+    got = flash_attention(q, k, v, softcap=50.0)
+    assert launch_counts()["flash_fwd"] == before + 1
+    assert _share_of_limit(got, flash_attention_plain(q, k, v,
+                                                      softcap=50.0)) <= 1
+    assert _share_of_limit(got[:, :, 0], flash_decode(
+        q[:, :, 0], k, v, 512, softcap=50.0)) <= 1
+
+
+@pytest.mark.parametrize("kind", ["ragged", "int8", "paged"])
+def test_speculative_verify_after_a_rewind_masks_stale_rows(gen, kind):
+    """Speculative verify's rollback: a chunk of 5 written at length 100
+    (rejected), the length rewound to 97 and a new chunk of 5 written
+    there, so that rows 102-104 past the new length still hold the
+    rejected chunk.  Poisoned with NaN (int8: NaN scales), they must not
+    reach the output: the chunk kernel masks by length, finite and
+    within `mismatch` of the plain version on the same cache with those
+    rows zeroed (the plain version multiplies them by a P of 0)."""
+    from attention_tpu_torch.ops.paged import PagePool, \
+        paged_append_chunk, paged_from_dense
+
+    b, h, hkv, n, d, s = 1, 32, 4, 256, 128, 5
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    k, v = randn(b, hkv, n, d), randn(b, hkv, n, d)
+    stale, fresh = ((randn(b, hkv, s, d), randn(b, hkv, s, d))
+                    for _ in range(2))
+    q = randn(b, h, s, d)
+    if kind == "int8":
+        cache = quant.update_quantized_kv(quant.quantize_kv(k, v), *stale,
+                                          100)
+        cache = quant.update_quantized_kv(cache, *fresh, 97)
+        stale_rows = [t[:, :, 102:105] for t in (cache.k_scale,
+                                                  cache.v_scale)]
+    elif kind == "ragged":
+        k[:, :, 100:105], v[:, :, 100:105] = stale
+        k[:, :, 97:102], v[:, :, 97:102] = fresh
+        cache = (k, v)
+        stale_rows = [t[:, :, 102:105] for t in cache]
+    else:
+        cache = paged_from_dense(k, v, [100], PagePool(2), num_pages=2,
+                                 total_pages_per_seq=2)
+        cache = paged_append_chunk(cache, *stale)
+        cache = paged_append_chunk(cache._replace(
+            lengths=torch.full_like(cache.lengths, 97)), *fresh)
+        assert cache.lengths.tolist() == [102]
+        page = int(cache.page_table[0, 0])
+        stale_rows = [t[page, :, 102:105] for t in (cache.k_pool,
+                                                     cache.v_pool)]
+
+    def run(kernel):
+        if kind == "int8":
+            fn = quant.flash_decode_quantized_chunk if kernel else \
+                quant.quant_decode_plain
+            return fn(q, cache, 102)
+        if kind == "ragged":
+            fn = flash_decode_chunk if kernel else flash_decode_plain
+            return fn(q, *cache, torch.full((b,), 102, device="cuda"))
+        fn = paged_flash_decode if kernel else paged_flash_decode_plain
+        return fn(q, cache)
+
+    for t in stale_rows:
+        t.zero_()
+    want = run(kernel=False)
+    for t in stale_rows:
+        t.fill_(float("nan"))
+    got = run(kernel=True)
+    torch.cuda.synchronize()
+    assert got.isfinite().all()
+    assert _share_of_limit(got, want) <= 1
+
+
+def test_beam_and_fork_match_cpu():
+    """A small f32 model on the card and on the CPU from the same
+    weights: `generate_beam` (beams 3, dense and int8 caches) gives the
+    same tokens and scores within 2·steps times the logits' limits (1e-4;
+    int8 caches 1e-2), and three `paged_fork` forks of a 150-token
+    context in pages of 128 (the one full page shared, the 22-row tail
+    copied, one page reserved each) decode on the card (the paged
+    kernel) as on the CPU (the plain version)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from attention_tpu_torch.models import TinyDecoder, generate_beam, \
+        init_params
+    from attention_tpu_torch.models.decode import prefill
+    from attention_tpu_torch.ops.paged import PagePool, paged_fork, \
+        paged_from_dense
+
+    cfg = dict(vocab=64, dim=128, depth=2, num_q_heads=4, num_kv_heads=2,
+               rope=True, softcap=30.0, dtype=torch.float32)
+    cpu = TinyDecoder(device="cpu", **cfg)
+    cpu.load_state_dict(init_params(cpu, 0))
+    card = TinyDecoder(device="cuda", **cfg)
+    card.load_state_dict(cpu.state_dict())
+    prompt = torch.randint(0, 64, (2, 150), generator=torch.Generator()
+                           .manual_seed(0))
+    for int8, tol in ((False, 1e-4), (True, 1e-2)):
+        (t0, s0), (t1, s1) = (generate_beam(m, prompt, steps=10, beams=3,
+                                            int8_cache=int8,
+                                            return_scores=True)
+                              for m in (cpu, card))
+        assert torch.equal(t0, t1.cpu())
+        assert (s0 - s1.cpu()).abs().max() <= 2 * 10 * tol
+    outs = []
+    for m in (cpu, card):
+        with torch.no_grad():
+            _, caches = prefill(m, prompt[:1].to(m.device), 512)
+        pool = PagePool(8)
+        cache = paged_from_dense(caches[0].k, caches[0].v, [150], pool,
+                                 num_pages=8)
+        fork = paged_fork(cache, pool, 0, 3, reserve_pages=1)
+        assert pool.used_pages == 2 + 3 * 2
+        q = torch.randn((3, 4, 32), generator=torch.Generator()
+                        .manual_seed(1)).to(m.device)
+        outs.append(paged_flash_decode(q, fork).cpu())
+    assert outs[1].isfinite().all()
+    assert mismatch(outs[1], outs[0])[1] <= 1

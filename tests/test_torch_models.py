@@ -112,3 +112,50 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         cli.main(["run", str(tmp_path / "t.bin")])
     with pytest.raises(NoCudaDeviceError):
         cli.main(["serve-sim", "--num-requests", "1"])
+
+
+def test_xla_impl_matches_jax_and_refuses_kernel_caches(small_pair):
+    """``impl="xla"``: the uncached logits (windowed too) and greedy
+    `generate` on the dense cache against JAX's "xla" model on the same
+    params; every cache that runs only the kernels (rolling, ragged,
+    paged, int8, the packed step) refuses with JAX's message."""
+    from attention_tpu.models import generate as jax_generate
+    from attention_tpu_torch.models import decode as gen
+    from attention_tpu_torch.ops.paged import PagePool, paged_from_dense
+
+    _, params, flash = small_pair
+    tokens = np.random.default_rng(5).integers(0, 43, (2, 40))
+    for band in ({}, dict(window=8, attn_sinks=2)):
+        jxla = JaxDecoder(impl="xla", dtype=jnp.float32, **SMALL, **band)
+        xla = TinyDecoder(impl="xla", dtype=torch.float32, device="cpu",
+                          **SMALL, **band)
+        xla.load_state_dict(flash.state_dict())
+        want = np.asarray(jxla.apply({"params": params},
+                                     jnp.asarray(tokens, jnp.int32)))
+        with torch.no_grad():
+            got = xla(torch.from_numpy(tokens)).numpy()
+        assert np.abs(got - want).max() <= 2e-4
+        np.testing.assert_array_equal(
+            gen.generate(xla, tokens[:, :12], steps=6).numpy(),
+            np.asarray(jax_generate(jxla, params,
+                                    jnp.asarray(tokens[:, :12], jnp.int32),
+                                    steps=6)))
+    prompt = torch.from_numpy(tokens[:, :12])
+    with torch.no_grad():
+        _, dense = gen.prefill(xla, prompt, 128)
+        step = prompt[:, :1]
+        for kind, caches in (
+                ("rolling-cache", xla.init_caches(2, 0, rolling=True)),
+                ("ragged-cache", tuple(gen.RaggedKVCache.from_prefill(
+                    c, torch.full((2,), 12)) for c in dense)),
+                ("quantized-cache", tuple(c.quantize() for c in dense)),
+                ("paged-cache", tuple(paged_from_dense(
+                    c.k, c.v, [12, 12], PagePool(2), num_pages=2)
+                    for c in dense))):
+            with pytest.raises(ValueError, match=f"impl 'xla' has no "
+                                                 f"{kind} path"):
+                xla(step, caches)
+    with pytest.raises(ValueError, match="int8_cache requires impl='flash'"):
+        gen.generate(xla, prompt, steps=2, int8_cache=True)
+    with pytest.raises(ValueError, match="impl"):
+        TinyDecoder(impl="mosaic", device="cpu")

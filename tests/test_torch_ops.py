@@ -256,6 +256,9 @@ def test_port_imports_no_jax():
         "import attention_tpu_torch.engine, attention_tpu_torch.models\n"
         "import attention_tpu_torch.models.convert, chip_smoke\n"
         "import attention_tpu_torch.models.decode\n"
+        "import attention_tpu_torch.models.speculative\n"
+        "import attention_tpu_torch.models.cross_attention\n"
+        "import attention_tpu_torch.models.seq2seq\n"
         "import attention_tpu_torch.ops.decode, attention_tpu_torch.ops.paged\n"
         "import attention_tpu_torch.ops.quant\n"
         "import attention_tpu_torch.ops.flash_bwd\n"
