@@ -19,9 +19,13 @@ Usage:
   python -m attention_tpu_torch.cli suite <out_dir>   # simple..scale5
   python -m attention_tpu_torch.cli backends
   python -m attention_tpu_torch.cli serve-sim [--num-requests 8 ...]
+      [--bursty | --diurnal] [--snapshot-dir DIR --snapshot-every N]
       [--device cuda|cpu]
       # the single-engine continuous-batching engine over a synthetic
-      # or JSON request trace; prints metrics JSON
+      # or JSON request trace; prints metrics JSON; with a snapshot
+      # directory, snapshots and a write-ahead journal land there
+  python -m attention_tpu_torch.cli snapshot inspect|verify PATH
+      # a snapshot file, or a --snapshot-dir (newest first)
 
 Every command that computes runs on the card (``--device cuda``, the
 default) and fails when there is none; ``--device cpu`` runs the
@@ -169,6 +173,9 @@ def _cmd_serve_sim(args: argparse.Namespace) -> int:
     from attention_tpu_torch.engine import (
         EngineConfig,
         ServingEngine,
+        SnapshotManager,
+        bursty_trace,
+        diurnal_trace,
         load_trace,
         replay,
         save_trace,
@@ -181,8 +188,35 @@ def _cmd_serve_sim(args: argparse.Namespace) -> int:
         num_q_heads=args.q_heads, num_kv_heads=args.kv_heads,
         dtype=_DTYPES[args.dtype], device=args.device)
     model.load_state_dict(init_params(model, args.model_seed))
+    if (args.snapshot_dir is None) != (args.snapshot_every is None):
+        print("--snapshot-dir and --snapshot-every must be set together",
+              file=sys.stderr)
+        return 2
     if args.trace:
         trace = load_trace(args.trace)
+    elif args.diurnal:
+        trace = diurnal_trace(
+            args.num_requests, vocab=args.vocab, seed=args.seed,
+            period=args.diurnal_period, base_rate=args.base_rate,
+            peak_rate=args.peak_rate, tenants=args.tenants,
+            rag_every=args.rag_every,
+            rag_prefill_len=args.rag_prefill_len,
+            prompt_len_min=args.prompt_len_min,
+            prompt_len_max=args.prompt_len_max,
+            max_tokens=args.max_tokens,
+            temperature=args.temperature,
+        )
+    elif args.bursty:
+        trace = bursty_trace(
+            args.num_requests, vocab=args.vocab, seed=args.seed,
+            tenants=args.tenants, burst_every=args.burst_every,
+            burst_size=args.burst_size,
+            shared_prefix_len=args.shared_prefix_len,
+            prompt_len_min=args.prompt_len_min,
+            prompt_len_max=args.prompt_len_max,
+            max_tokens=args.max_tokens,
+            temperature=args.temperature,
+        )
     else:
         trace = synthetic_trace(
             args.num_requests, vocab=args.vocab, seed=args.seed,
@@ -205,6 +239,9 @@ def _cmd_serve_sim(args: argparse.Namespace) -> int:
         watermark_pages=args.watermark_pages,
     )
     engine = ServingEngine(model, config)
+    if args.snapshot_dir is not None:
+        SnapshotManager(engine, args.snapshot_dir,
+                        every=args.snapshot_every)
     summary, outputs = replay(engine, trace, max_steps=args.max_steps)
     if args.per_step:
         for m in engine.metrics.steps:
@@ -219,9 +256,58 @@ def _cmd_serve_sim(args: argparse.Namespace) -> int:
     return 0
 
 
+def _snapshot_paths(path: str) -> list[str]:
+    """A snapshot file as it is; a directory expands to its snapshots,
+    newest first (the order recovery considers them in)."""
+    if os.path.isdir(path):
+        from attention_tpu_torch.engine.snapshot import list_snapshots
+
+        return [p for _, p in reversed(list_snapshots(path))]
+    return [path]
+
+
+def _cmd_snapshot_inspect(args: argparse.Namespace) -> int:
+    """One JSON line per snapshot: manifest and metadata, without
+    building an engine."""
+    from attention_tpu_torch.engine.snapshot import inspect
+
+    paths = _snapshot_paths(args.path)
+    if not paths:
+        print(f"no snapshots under {args.path}", file=sys.stderr)
+        return 1
+    rc = 0
+    for p in paths:
+        info = inspect(p)
+        print(json.dumps(info, sort_keys=True))
+        if not info["valid"]:
+            rc = 1
+    return rc
+
+
+def _cmd_snapshot_verify(args: argparse.Namespace) -> int:
+    """Check each snapshot's magic, version, section table and
+    checksums; exit 0 iff every one is restorable."""
+    from attention_tpu_torch.engine.snapshot import verify
+
+    paths = _snapshot_paths(args.path)
+    if not paths:
+        print(f"no snapshots under {args.path}", file=sys.stderr)
+        return 1
+    rc = 0
+    for p in paths:
+        problems = verify(p)
+        if problems:
+            rc = 1
+            for problem in problems:
+                print(f"{p}: {problem}")
+        else:
+            print(f"{p}: ok")
+    return rc
+
+
 def _add_serve_sim_args(ss) -> None:
     """serve-sim's single-engine flag set (the JAX CLI's, less the
-    front-end, fleet, snapshot and telemetry options)."""
+    front-end, fleet and telemetry options)."""
     ss.add_argument("--trace", default=None,
                     help="JSON request trace to replay (default: "
                          "synthesize one from the --num-requests knobs)")
@@ -242,6 +328,40 @@ def _add_serve_sim_args(ss) -> None:
     ss.add_argument("--shared-prefix-len", type=int, default=0)
     ss.add_argument("--shared-count", type=int, default=0)
     ss.add_argument("--temperature", type=float, default=0.0)
+    # bursty multi-tenant trace knobs (engine.sim.bursty_trace)
+    ss.add_argument("--bursty", action="store_true",
+                    help="synthesize a multi-tenant bursty trace "
+                         "(sessions, priorities, per-tenant shared "
+                         "prefixes) instead of the plain one")
+    ss.add_argument("--tenants", type=int, default=2)
+    ss.add_argument("--burst-every", type=int, default=6)
+    ss.add_argument("--burst-size", type=int, default=3)
+    # diurnal trace knobs (engine.sim.diurnal_trace)
+    ss.add_argument("--diurnal", action="store_true",
+                    help="synthesize a sinusoidal diurnal trace (one "
+                         "day of --diurnal-period ticks between "
+                         "--base-rate and --peak-rate req/tick, with "
+                         "periodic RAG prefill bursts) instead of the "
+                         "plain one")
+    ss.add_argument("--diurnal-period", type=int, default=48,
+                    help="ticks per simulated day")
+    ss.add_argument("--base-rate", type=float, default=1.0,
+                    help="trough arrival rate, requests/tick")
+    ss.add_argument("--peak-rate", type=float, default=4.0,
+                    help="peak arrival rate, requests/tick")
+    ss.add_argument("--rag-every", type=int, default=7,
+                    help="every Nth diurnal request is a long-prefill "
+                         "RAG burst")
+    ss.add_argument("--rag-prefill-len", type=int, default=64,
+                    help="shared retrieval-header length for RAG "
+                         "bursts (0 disables them)")
+    # crash-consistent durability (engine.snapshot)
+    ss.add_argument("--snapshot-dir", default=None,
+                    help="persist checksummed engine snapshots and "
+                         "journals here; requires --snapshot-every")
+    ss.add_argument("--snapshot-every", type=int, default=None,
+                    help="snapshot period in engine steps; requires "
+                         "--snapshot-dir")
     # model knobs (weights from --model-seed)
     ss.add_argument("--vocab", type=int, default=64)
     ss.add_argument("--dim", type=int, default=64)
@@ -306,6 +426,20 @@ def main(argv: list[str] | None = None) -> int:
              "trace; prints metrics JSON")
     _add_serve_sim_args(ss)
     ss.set_defaults(fn=_cmd_serve_sim)
+
+    sn = sub.add_parser(
+        "snapshot",
+        help="inspect / verify serve-sim snapshot files")
+    snsub = sn.add_subparsers(dest="snapshot_cmd", required=True)
+    si = snsub.add_parser("inspect", help="print manifest + metadata "
+                                          "JSON per snapshot")
+    si.add_argument("path", help=".atpsnap file or a --snapshot-dir")
+    si.set_defaults(fn=_cmd_snapshot_inspect)
+    sv = snsub.add_parser("verify", help="check integrity (checksums, "
+                                         "version, section table); "
+                                         "exit 0 iff restorable")
+    sv.add_argument("path", help=".atpsnap file or a --snapshot-dir")
+    sv.set_defaults(fn=_cmd_snapshot_verify)
 
     args = parser.parse_args(argv)
     return args.fn(args)

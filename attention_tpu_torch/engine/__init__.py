@@ -1,5 +1,6 @@
 """The port's continuous-batching serving engine (single device, one
-packed ragged kernel launch per layer per step)."""
+packed ragged kernel launch per layer per step), with its snapshots and
+write-ahead journal."""
 
 from attention_tpu_torch.engine.allocator import (  # noqa: F401
     BlockAllocator,
@@ -11,7 +12,13 @@ from attention_tpu_torch.engine.engine import (  # noqa: F401
 )
 from attention_tpu_torch.engine.errors import (  # noqa: F401
     DeadlineExceededError,
+    SnapshotCorruptError,
+    SnapshotError,
     StepLimitExceededError,
+)
+from attention_tpu_torch.engine.journal import (  # noqa: F401
+    Journal,
+    apply_journal,
 )
 from attention_tpu_torch.engine.metrics import (  # noqa: F401
     EngineMetrics,
@@ -29,9 +36,16 @@ from attention_tpu_torch.engine.scheduler import (  # noqa: F401
     Scheduler,
 )
 from attention_tpu_torch.engine.sim import (  # noqa: F401
+    bursty_trace,
+    diurnal_trace,
     load_trace,
     replay,
     sampling_of,
     save_trace,
     synthetic_trace,
+)
+from attention_tpu_torch.engine.snapshot import (  # noqa: F401
+    SnapshotManager,
+    recover_engine,
+    state_fingerprint,
 )

@@ -74,6 +74,10 @@ class BlockAllocator:
 
     # -- capacity ---------------------------------------------------------
 
+    @property
+    def cached_pages(self) -> int:
+        return len(self._prefix)
+
     def _evictable(self) -> list[_PrefixEntry]:
         """Leaf entries whose page only the cache references."""
         return [

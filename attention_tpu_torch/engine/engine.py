@@ -20,11 +20,21 @@ pools live on the model's device and are updated in place.  A model
 call's only device sync is `_fetch_logits`, which copies just the logits
 rows that sampling needs.
 
-The JAX engine's ``async_steps``, mesh sharding, journal, prefix store
-and chaos hooks are not ported: asking for them raises
-`NotImplementedError`.  Sampling with temperature > 0 draws from
-a per-request `torch.Generator` seeded from ``SamplingParams.seed``, so
-sampled streams are deterministic (but differ from the JAX engine's).
+``async_steps=True`` (ragged mode) double-buffers the loop: once the
+model call is dispatched, the host stages next step's page-table rows
+(`_stage_next_step`, numpy only) before the logits sync; staging
+allocates nothing and draws nothing, so the streams equal the sync
+loop's.  Snapshot cuts call `quiesce` first.  With a `Journal` attached
+(`engine/snapshot.py`'s `SnapshotManager`), every admission, token,
+cancellation, expiry and finish is recorded as it happens.
+
+Sampling with temperature > 0 draws the k-th token of a request from a
+generator seeded by ``(SamplingParams.seed, k)`` alone
+(`sample_generator`), so a restored or resumed request continues its
+stream from the count of its tokens.  Sampled streams are deterministic
+but differ from the JAX engine's, which splits a JAX key per token.
+The JAX engine's mesh sharding, prefix store and request tracing are not
+ported: asking for mesh sharding raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -69,6 +79,15 @@ from attention_tpu_torch.ops.ragged_paged import (
 _NONFINITE_SKIP_LIMIT = 8
 
 
+def sample_generator(seed: int, k: int) -> torch.Generator:
+    """The CPU generator that draws a request's ``k``-th sampled token
+    (k counts the tokens it already sampled): a function of ``(seed, k)``
+    only, so nothing of the chain has to be saved to continue it."""
+    hi, lo = np.random.SeedSequence(
+        [seed & (2**64 - 1), k]).generate_state(2, np.uint32)
+    return torch.Generator().manual_seed(int(hi) << 32 | int(lo))
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Serving-engine knobs (the JAX engine's, same defaults)."""
@@ -83,6 +102,8 @@ class EngineConfig:
     watermark_pages: int = 1       # admission must leave this reserve
     cache_dtype: Any = None        # None -> model dtype
     step_mode: str = "ragged"
+    # double buffer: stage next step's page-table rows on the host while
+    # the current model call runs on the device (ragged mode only)
     async_steps: bool = False
     mesh_shards: int = 0
 
@@ -91,8 +112,6 @@ class EngineConfig:
             raise ValueError(
                 f"unknown step_mode {self.step_mode!r}; one of "
                 "['ragged', 'two_call']")
-        if self.async_steps:
-            raise NotImplementedError("async_steps is not ported yet")
         if self.mesh_shards:
             raise NotImplementedError(
                 "mesh_shards is not ported yet (single device only)")
@@ -162,12 +181,23 @@ class ServingEngine:
         self._step = 0
         self._next_seq = 0
         self._finished_in_step = 0
-        self._generators: dict[str, torch.Generator] = {}
         self._wall: dict[str, dict[str, float]] = {}
+        #: the virtual duration of the last step: ``step_cost_multiplier``
+        #: (1.0 = healthy), which a harness may raise to pin the engine
+        #: "slow" for a window (the JAX engine's health signal)
+        self.last_step_virtual_cost = 1.0
+        self.step_cost_multiplier = 1.0
         #: logits rows the finite guard held back from sampling
         self.nonfinite_events = 0
         self._nonfinite_skips: dict[str, int] = {}
+        #: the async double buffer: page-table rows staged for next step
+        #: while the current model call runs, {request_id: (pages, row)};
+        #: `ScheduledStep.pack` takes a row only if its page count holds
+        self._staged_rows: dict[str, tuple[int, np.ndarray]] = {}
         self._last_fetch_s = 0.0
+        #: the write-ahead `Journal` between snapshots, attached by
+        #: `SnapshotManager`; None when durability is off
+        self.journal: Any = None
 
     # -- request intake ---------------------------------------------------
 
@@ -175,14 +205,10 @@ class ServingEngine:
     def current_step(self) -> int:
         return self._step
 
-    def add_request(self, prompt, sampling: SamplingParams | None = None,
-                    *, request_id: str | None = None,
-                    arrival: int | None = None,
-                    deadline_step: int | None = None) -> Request:
-        """Enqueue one request.  ``arrival`` (engine step) defaults to
-        now; ``deadline_step`` (exclusive) arms the deadline sweep, and
-        an already-expired one raises `DeadlineExceededError`."""
-        sampling = sampling or SamplingParams()
+    def _validate_intake(self, prompt, sampling: SamplingParams,
+                         deadline_step: int | None) -> tuple[int, ...]:
+        """Admission checks shared by `add_request` and
+        `resume_request`; returns the prompt as a tuple of ints."""
         sampling.validate(self.model.vocab)
         prompt = tuple(int(t) for t in prompt)
         if any(not (0 <= t < self.model.vocab) for t in prompt):
@@ -199,6 +225,12 @@ class ServingEngine:
             raise DeadlineExceededError(
                 f"deadline step {deadline_step} is not after the current "
                 f"step {self._step}: expired before admission")
+        return prompt
+
+    def _admit(self, prompt: tuple[int, ...], sampling: SamplingParams,
+               request_id: str | None, arrival: int | None,
+               deadline_step: int | None,
+               output_tokens: list[int]) -> Request:
         seq = self._next_seq
         self._next_seq += 1
         req = Request(
@@ -209,14 +241,54 @@ class ServingEngine:
             seq=seq,
             deadline_step=deadline_step,
         )
+        if output_tokens:
+            # between steps every emitted token has been fed back except
+            # the newest, which waits in pending_token (`Request.emit`)
+            req.tokens = list(prompt) + output_tokens[:-1]
+            req.output_tokens = list(output_tokens)
+            req.pending_token = output_tokens[-1]
         self._wall[req.request_id] = {"added": time.perf_counter()}
         self.scheduler.add(req)
+        if self.journal is not None:
+            self.journal.record_admit(req)
         return req
+
+    def add_request(self, prompt, sampling: SamplingParams | None = None,
+                    *, request_id: str | None = None,
+                    arrival: int | None = None,
+                    deadline_step: int | None = None) -> Request:
+        """Enqueue one request.  ``arrival`` (engine step) defaults to
+        now; ``deadline_step`` (exclusive) arms the deadline sweep, and
+        an already-expired one raises `DeadlineExceededError`."""
+        sampling = sampling or SamplingParams()
+        prompt = self._validate_intake(prompt, sampling, deadline_step)
+        return self._admit(prompt, sampling, request_id, arrival,
+                           deadline_step, [])
+
+    def resume_request(self, prompt, sampling: SamplingParams, *,
+                       request_id: str,
+                       output_tokens: list[int] | None = None,
+                       arrival: int | None = None,
+                       deadline_step: int | None = None) -> Request:
+        """Re-admit a partly generated request: ``output_tokens`` are the
+        tokens already streamed to the client (by this engine before a
+        fault, or by another replica).  The request re-prefills prompt
+        and fed tokens and decodes on without resampling any of them;
+        its sampler continues from the count of its tokens, so a sampled
+        stream goes on as the uninterrupted run's would."""
+        out = [int(t) for t in (output_tokens or [])]
+        prompt = self._validate_intake(prompt, sampling, deadline_step)
+        if len(out) >= sampling.max_tokens:
+            raise ValueError(
+                f"request {request_id}: {len(out)} streamed tokens leave "
+                f"nothing to resume (max_tokens {sampling.max_tokens})")
+        return self._admit(prompt, sampling, request_id, arrival,
+                           deadline_step, out)
 
     def cancel(self, request_id: str) -> bool:
         """Cancel a queued or running request between steps: free its
-        pages, drop its generator, move it to CANCELLED.  False when no
-        live request has that id."""
+        pages and move it to CANCELLED.  False when no live request has
+        that id."""
         for queue in (self.scheduler.waiting, self.scheduler.running):
             for req in queue:
                 if req.request_id != request_id:
@@ -226,8 +298,9 @@ class ServingEngine:
                     self.allocator.free(req.pages)
                 req.pages = []
                 req.transition(RequestState.CANCELLED)
-                self._generators.pop(req.request_id, None)
                 self._wall.pop(req.request_id, None)
+                if self.journal is not None:
+                    self.journal.record_cancel(request_id)
                 return True
         return False
 
@@ -247,8 +320,9 @@ class ServingEngine:
             req.pages = []
             req.transition(RequestState.TIMED_OUT)
             req.finish_step = self._step
-            self._generators.pop(req.request_id, None)
             self._wall.pop(req.request_id, None)
+            if self.journal is not None:
+                self.journal.record_timeout(req.request_id)
             if self.on_timeout is not None:
                 self.on_timeout(req)
         return len(expired)
@@ -260,6 +334,7 @@ class ServingEngine:
         packed model call, stream out the sampled tokens."""
         t0 = time.perf_counter()
         self._finished_in_step = 0
+        self.last_step_virtual_cost = self.step_cost_multiplier
         self._last_fetch_s = 0.0
         pad_tokens = 0
         occupancy = 0.0
@@ -330,10 +405,39 @@ class ServingEngine:
                     "(needs more pages than the pool can ever free)")
         return self.metrics.summary()
 
+    # -- health / drain ---------------------------------------------------
+
+    def health(self) -> dict[str, Any]:
+        """Host-side pressure snapshot (the JAX engine's keys): no
+        device sync, safe between steps at any frequency."""
+        return {
+            "step": self._step,
+            "waiting": len(self.scheduler.waiting),
+            "running": len(self.scheduler.running),
+            "free_pages": self.pool.free_pages,
+            "used_pages": self.pool.used_pages,
+            "page_utilization": self.pool.used_pages / self.pool.num_pages,
+            "cached_pages": self.allocator.cached_pages,
+            "preemptions": self.scheduler.num_preemptions,
+            "nonfinite_events": self.nonfinite_events,
+            "step_virtual_cost": self.last_step_virtual_cost,
+        }
+
+    def drain(self, *, max_steps: int | None = None) -> dict[str, Any]:
+        """Graceful shutdown: serve the current queue dry and return the
+        metrics summary; afterwards every page is free or held by the
+        prefix cache alone."""
+        return self.run(max_steps=max_steps)
+
     # -- batch lowering ---------------------------------------------------
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    def _place_pool(self, pool: torch.Tensor) -> torch.Tensor:
+        """Put one per-layer pool on the engine's device (snapshot
+        restore routes the pools it reads through here)."""
+        return pool.to(self.device)
 
     def _fetch_logits(self, rows: torch.Tensor) -> np.ndarray:
         """The step's only device sync: copy the needed logits rows to
@@ -352,7 +456,8 @@ class ServingEngine:
         host-side `PackedBatch`.  The query tile covers the longest
         prefill chunk and the width every real token, both bucketed as
         in the JAX engine, so the pad accounting agrees.  Consumes the
-        decode requests' pending tokens: call once per step."""
+        decode requests' pending tokens and the rows the async loop
+        staged: call once per step."""
         cfg = self.config
         model = self.model
         slots = cfg.max_decode_batch + cfg.max_prefill_rows
@@ -362,7 +467,9 @@ class ServingEngine:
         total = sched.num_decode_tokens + sched.num_prefill_tokens
         width = packed_bucket(max(total, q_tile))
         batch = sched.pack(width=width, slots=slots,
-                           table_width=cfg.table_width)
+                           table_width=cfg.table_width,
+                           staged_rows=self._staged_rows)
+        self._staged_rows = {}
         tables, kv_lens, cu, dist, pos, slot = (
             self._dev(a) for a in (batch.tables, batch.kv_lens,
                                    batch.cu_q_lens, batch.distribution,
@@ -375,23 +482,53 @@ class ServingEngine:
 
     def _run_ragged(self, sched: ScheduledStep) -> int:
         """Run the whole step as one packed model call; returns the
-        packed width."""
+        packed width.  With ``async_steps`` the host stages next step's
+        page-table rows between the dispatch and the logits sync."""
         tokens, caches, batch = self.pack_step(sched)
         cu_h = batch.cu_q_lens
         num_decode = len(sched.decode)
         rows = [int(cu_h[i]) for i in range(num_decode)]
         rows += [int(cu_h[num_decode + s]) + real - 1
                  for s, (_, real) in enumerate(sched.prefill)]
+        # copied before the dispatch: a copy to the device waits for the
+        # stream, which would close the overlap window
+        rows = self._dev(np.asarray(rows, np.int64))
         with torch.no_grad():
             logits, _ = self.model(tokens, caches)
-            picked = logits[0, torch.tensor(rows, device=self.device)]
+            picked = logits[0, rows]
         self.model_calls += 1
+        if self.config.async_steps:
+            self._stage_next_step()
         picked = self._fetch_logits(picked)
         for i, req in enumerate(sched.decode):
             self._post_decode(req, picked[i])
         for s, (req, real) in enumerate(sched.prefill):
             self._post_prefill(req, real, picked[num_decode + s])
         return batch.width
+
+    def _stage_next_step(self) -> None:
+        """The host half of the double buffer: render the page-table row
+        of every request that will decode next step while the device
+        still works.  Numpy only: no page allocation, no pool or device
+        work, no sampling, so the async loop's streams equal the sync
+        loop's; `ScheduledStep.pack` drops a row whose page count went
+        stale."""
+        staged: dict[str, tuple[int, np.ndarray]] = {}
+        tw = self.config.table_width
+        for req in self.scheduler.running:
+            if req.state is RequestState.DECODING and req.pages:
+                row = np.full((tw,), -1, np.int32)
+                row[:len(req.pages)] = req.pages
+                staged[req.request_id] = (len(req.pages), row)
+        self._staged_rows = staged
+
+    def quiesce(self) -> None:
+        """Settle the double buffer: drop the staged rows and wait until
+        the pools on the device are final.  Snapshot cuts run this first,
+        so an image never holds a half-staged step."""
+        self._staged_rows = {}
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _baseline_pad(self, sched: ScheduledStep) -> int:
         """Pad tokens the two-call lowering dispatches for this step."""
@@ -496,19 +633,18 @@ class ServingEngine:
     def _sample(self, req: Request, logits_row: np.ndarray) -> int:
         if req.sampling.temperature == 0.0:
             return int(np.argmax(logits_row))
-        gen = self._generators.get(req.request_id)
-        if gen is None:
-            gen = torch.Generator().manual_seed(req.sampling.seed)
-            self._generators[req.request_id] = gen
         warped = warp_logits(
             torch.from_numpy(logits_row)[None],
             temperature=req.sampling.temperature,
             top_k=req.sampling.top_k, top_p=req.sampling.top_p)
         probs = torch.softmax(warped, dim=-1)
+        gen = sample_generator(req.sampling.seed, len(req.output_tokens))
         return int(torch.multinomial(probs, 1, generator=gen)[0, 0])
 
     def _emit(self, req: Request, token: int) -> None:
         done = req.emit(token)
+        if self.journal is not None:
+            self.journal.record_token(req.request_id, token)
         if req.first_token_step < 0:
             req.first_token_step = self._step
             self._wall[req.request_id]["first_token"] = time.perf_counter()
@@ -521,11 +657,12 @@ class ServingEngine:
         req.transition(RequestState.FINISHED)
         req.finish_step = self._step
         self._nonfinite_skips.pop(req.request_id, None)
+        if self.journal is not None:
+            self.journal.record_finish(req.request_id)
         if req.pages:
             self.allocator.free(req.pages)
         req.pages = []
         self.scheduler.remove_finished(req)
-        self._generators.pop(req.request_id, None)
         self._finished_in_step += 1
         wall = self._wall.pop(req.request_id, {})
         now = time.perf_counter()

@@ -15,3 +15,20 @@ class DeadlineExceededError(RuntimeError):
 class StepLimitExceededError(RuntimeError):
     """`ServingEngine.run(max_steps=...)` hit its cap before the queue
     drained."""
+
+
+class SnapshotError(RuntimeError):
+    """Base class for serving-state durability failures.
+
+    `recover_engine` catches this class: any subclass means "warm
+    recovery unavailable, take the cold path", never a crash."""
+
+
+class SnapshotCorruptError(SnapshotError):
+    """A snapshot or journal file failed validation.
+
+    Bad magic, unsupported version, truncated section, per-section CRC
+    mismatch, or a model fingerprint that does not match the engine
+    being restored.  Raised by `engine.snapshot.restore` (and by
+    `recover_engine` when no candidate validates); a torn journal tail
+    is tolerated instead: the valid prefix is used."""

@@ -145,6 +145,26 @@ non-zero unless all of them pass:
             ``"two_call"`` and, without its sinks, in ``"ragged"``; then
             the ragged run once more under `torch.profiler` for device
             time by kernel.
+5e. durability the same model and serving trace at `SERVE_ENGINE`,
+            ``async_steps=True``: greedy sync, async, async, sync runs
+            (streams equal token for token, launches exact, each run's
+            median step ms and host overhead printed), then sampled at
+            temperature 0.8 sync and async (equal) and in two-call mode
+            (the share equal printed).  A `SnapshotManager` (every 16,
+            keep 2) on the async engine: the snapshot cut at step 16
+            (inside decode) restored into a fresh engine, the state
+            fingerprints equal, its drained streams equal to the
+            uninterrupted run's bit for bit; snapshot bytes, `save_s`,
+            `restore_s`.  The managed engine runs 5 steps past the cut
+            and dies (its journal closed, nothing detached):
+            `recover_engine` (warm) and `resume_request` of every live
+            request with its streamed tokens into a fresh engine (cold)
+            each drain, every request finishing with its 32 tokens, every
+            logit finite, free pages plus prefix-held pages equal to the
+            pool; `recover_s`, `journal_events`, each request's seconds to
+            its next token on both paths, and each path's share of tokens
+            equal to the uninterrupted run (the journal's tail is
+            recomputed by chunked prefill, another bf16 order).
 5b. moe     the same model with 8 experts, top 2, capacity factor 1.25
             (Mixtral 8x7B's routing on the repo's 4·d tanh-GELU experts),
             depth 4: greedy `generate` on the 8 prompts of 512 tokens and
@@ -206,7 +226,10 @@ non-zero unless all of them pass:
             scores within the logits' limits, speculative greedy streams
             equal to greedy `generate` on every cache type and between
             the sides, the small encoder-decoder's logits within 1e-4 and
-            its `generate_seq2seq` streams equal.
+            its `generate_seq2seq` streams equal.  The async engine on
+            the small model: a crash between snapshots, then warm
+            recovery: streams equal the uninterrupted run's on each side
+            and card against CPU.
 7. train    the phase 4 model trained on float32 masters of its bf16
             weights (float32 moments): `init_train`, 5 fused steps of
             `make_train_step` on a seeded batch of 4 x 2049 tokens (every
@@ -235,8 +258,9 @@ non-zero unless all of them pass:
 
 Launch counts are reset just before each run of a path (op path, the
 int4 entry points, each distributed backend's run on each rank, each
-generate function, the chunk verify, each serving run, each training run,
-each beam, fork, speculative and encoder-decoder run)
+generate function, the chunk verify, each serving run, each stretch of
+the durability phase's engines, each training run, each beam, fork,
+speculative and encoder-decoder run)
 and read just after it (the MoE model's generate and serving runs
 too); rank 0's distributed launches join the flash
 kernel's count.  Kernel times are CUDA-event
@@ -276,6 +300,12 @@ SERVE_ENGINE = dict(step_mode="ragged", page_size=128, num_pages=512,
                     max_seq_len=2048, max_decode_batch=8,
                     max_prefill_rows=2, prefill_chunk=256,
                     token_budget=512)
+# phase 5e: the sampled serving runs' temperature; the snapshot period
+# (the prefill of the trace's 4,600 prompt tokens ends near step 10, so
+# step 16 lands inside decode); the steps run past it before the crash
+SERVE_TEMPERATURE = 0.8
+SNAPSHOT_EVERY = 16
+CRASH_AFTER = 5
 # the __graft_entry__.entry() model
 SMALL_MODEL = dict(vocab=256, dim=256, depth=2, num_q_heads=8,
                    num_kv_heads=2, rope=True, softcap=50.0)
@@ -2018,12 +2048,12 @@ def phase_window_serving(ops, kernels, model, model_no_sinks) -> None:
     emit(phase="serving", window_seconds=time.perf_counter() - t0)
 
 
-def serve_runs(ops, kernels, trace, runs) -> dict:
+def serve_runs(ops, kernels, trace, runs, **engine_kw) -> dict:
     """Each (step mode, its kernel, model) of ``runs`` serving ``trace``
-    at `SERVE_ENGINE`, its launch counts reset just before and read just
-    after: one launch of the kernel per layer per model call and no
-    other kernel, every request finished, every logit finite.  Returns
-    {mode: outputs}."""
+    at `SERVE_ENGINE` (with ``engine_kw``), its launch counts reset just
+    before and read just after: one launch of the kernel per layer per
+    model call and no other kernel, every request finished, every logit
+    finite.  Returns {mode: outputs}."""
     from attention_tpu_torch.engine import (
         EngineConfig,
         ServingEngine,
@@ -2032,8 +2062,8 @@ def serve_runs(ops, kernels, trace, runs) -> dict:
 
     streams = {}
     for mode, kernel, model in runs:
-        eng = ServingEngine(model, EngineConfig(**dict(SERVE_ENGINE,
-                                                       step_mode=mode)))
+        eng = ServingEngine(model, EngineConfig(**dict(
+            SERVE_ENGINE, step_mode=mode, **engine_kw)))
         ops.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2060,7 +2090,9 @@ def serve_runs(ops, kernels, trace, runs) -> dict:
                                  "non-finite logits")
         kernels[kernel]["launches"] += launches[kernel]
         streams[mode] = outputs
-        emit(phase="serving", step_mode=mode, window=model.window,
+        emit(phase="serving", step_mode=mode,
+             async_steps=eng.config.async_steps,
+             temperature=trace[0]["temperature"], window=model.window,
              sinks=model.attn_sinks, experts=model.moe_experts,
              steps=summary["num_steps"],
              model_calls=eng.model_calls, launches=launches,
@@ -2072,6 +2104,223 @@ def serve_runs(ops, kernels, trace, runs) -> dict:
              pad_tokens=summary["pad_tokens_total"],
              peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
     return streams
+
+
+def served(ops, kernels, eng, run):
+    """``run()`` on ``eng`` with the launch counts reset just before and
+    read just after: one ragged launch per layer per model call it made,
+    at least one, and no other kernel."""
+    calls = eng.model_calls
+    ops.reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    want = (eng.model_calls - calls) * eng.model.depth
+    if not want or launches != {"ragged_paged": want}:
+        raise AssertionError(f"launches {launches} for "
+                             f"{eng.model_calls - calls} model calls")
+    kernels["ragged_paged"]["launches"] += want
+    return out
+
+
+def equal_share(got: dict, want: dict) -> float:
+    same = [a == b for rid in want for a, b in zip(got[rid], want[rid])]
+    return sum(same) / len(same)
+
+
+def phase_durability(ops, kernels, model) -> None:
+    """Phase 5e: the serving engine's async loop and durability at
+    `SERVE_ENGINE` on the serving trace (pools of 512 MiB)."""
+    from attention_tpu_torch.engine import (
+        EngineConfig,
+        RequestState,
+        ServingEngine,
+        SnapshotManager,
+        recover_engine,
+        state_fingerprint,
+    )
+    from attention_tpu_torch.engine.sim import sampling_of
+    from attention_tpu_torch.engine.snapshot import (
+        list_snapshots,
+        restore,
+        save,
+    )
+
+    t_phase = time.perf_counter()
+    trace = serving_trace(model.vocab)
+    ragged = [("ragged", "ragged_paged", model)]
+    # (1) async against sync: greedy in turns (sync, async, async, sync),
+    # then sampled with a seed per request; the two-call oracle sampled
+    runs = [serve_runs(ops, kernels, trace, ragged, async_steps=a)["ragged"]
+            for a in (False, True, True, False)]
+    if any(r != runs[0] for r in runs):
+        raise AssertionError("greedy async streams differ from sync")
+    uninterrupted = runs[0]
+    sampled = [dict(e, temperature=SERVE_TEMPERATURE) for e in trace]
+    s_sync, s_async = (
+        serve_runs(ops, kernels, sampled, ragged, async_steps=a)["ragged"]
+        for a in (False, True))
+    if s_async != s_sync:
+        raise AssertionError("sampled async streams differ from sync")
+    two_call = serve_runs(ops, kernels, sampled,
+                          [("two_call", "paged_decode", model)])
+    emit(phase="durability", async_equals_sync=True,
+         sampled_two_call_vs_ragged_equal_token_share=equal_share(
+             two_call["two_call"], s_sync))
+
+    config = EngineConfig(**dict(SERVE_ENGINE, async_steps=True))
+    streamed: dict[str, list[int]] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (2) a snapshot cut inside decode, restored into a fresh engine
+        snaps = os.path.join(tmp, "snaps")
+        eng = ServingEngine(model, config, on_token=lambda r, t: streamed
+                            .setdefault(r.request_id, []).append(t))
+        SnapshotManager(eng, snaps, every=SNAPSHOT_EVERY, keep=2)
+        for e in trace:
+            eng.add_request(e["prompt"], sampling_of(e), request_id=e["id"])
+
+        def to_cut():
+            while eng.current_step < SNAPSHOT_EVERY:
+                eng.step()
+
+        served(ops, kernels, eng, to_cut)
+        states = {r.state for r in eng.scheduler.running}
+        if states != {RequestState.DECODING} or eng.scheduler.waiting:
+            raise AssertionError(f"the cut is not inside decode: {states}")
+        cut_step, cut_path = list_snapshots(snaps)[-1]
+        t0 = time.perf_counter()
+        saved = save(eng, os.path.join(tmp, "timed", "cut.atpsnap"))
+        save_s = time.perf_counter() - t0
+        restored_out: dict[str, list[int]] = {}
+        t0 = time.perf_counter()
+        restored = restore(cut_path, model, on_finish=lambda r: restored_out
+                           .__setitem__(r.request_id, list(r.output_tokens)))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if state_fingerprint(restored) != state_fingerprint(eng):
+            raise AssertionError("restored fingerprint differs")
+        served(ops, kernels, restored, lambda: restored.drain(max_steps=500))
+        if restored_out != uninterrupted:
+            raise AssertionError("the restored engine's streams differ "
+                                 "from the uninterrupted run's")
+        del restored
+        emit(phase="durability", snapshot_step=cut_step,
+             snapshot_bytes=saved["nbytes"], save_s=save_s,
+             restore_s=restore_s, fingerprint_equal=True,
+             restored_streams_equal=True)
+
+        # (3) the process dies between snapshots: the journal holds the
+        # tail; warm recovery, then every request drained
+        served(ops, kernels, eng, lambda: [eng.step()
+                                           for _ in range(CRASH_AFTER)])
+        live = [(r.request_id, r.prompt, r.sampling)
+                for r in (*eng.scheduler.waiting, *eng.scheduler.running)]
+        eng.journal.close()
+        del eng
+        paths = {}
+        for path in ("warm", "cold"):
+            outs: dict[str, list[int]] = {}
+            first: dict[str, float] = {}
+            t0 = time.perf_counter()
+
+            def on_token(req, token, first=first, t0=t0):
+                first.setdefault(req.request_id, time.perf_counter() - t0)
+
+            def on_finish(req, outs=outs):
+                outs[req.request_id] = list(req.output_tokens)
+
+            if path == "warm":
+                rec, info = recover_engine(model, snaps, on_token=on_token,
+                                           on_finish=on_finish)
+                torch.cuda.synchronize()
+                recover_s = time.perf_counter() - t0
+            else:
+                # (4) the cold path: every live request resumed with its
+                # streamed tokens into a fresh engine
+                rec = ServingEngine(model, config, on_token=on_token,
+                                    on_finish=on_finish)
+                for rid, prompt, sampling in live:
+                    rec.resume_request(prompt, sampling, request_id=rid,
+                                       output_tokens=streamed[rid])
+            with watched(model) as (_, bad):
+                served(ops, kernels, rec,
+                       lambda: rec.drain(max_steps=500))
+            health = rec.health()
+            if (sorted(outs) != sorted(rid for rid, _, _ in live)
+                    or any(len(o) != 32 for o in outs.values())
+                    or bad.item() or rec.nonfinite_events
+                    or health["free_pages"] + health["cached_pages"]
+                    != config.num_pages):
+                raise AssertionError(
+                    f"{path} recovery: {len(outs)} of {len(live)} "
+                    f"finished, {bad.item()} non-finite logits, health "
+                    f"{health}")
+            paths[path] = dict(
+                next_token_s=first,
+                equal_token_share=equal_share(outs, uninterrupted))
+            del rec
+    emit(phase="durability", crash_step=cut_step + CRASH_AFTER,
+         recover_s=recover_s, journal_events=info["journal_events"],
+         recovered_from_step=info["snapshot_step"],
+         warm_next_token_s=paths["warm"]["next_token_s"],
+         cold_next_token_s=paths["cold"]["next_token_s"],
+         warm_equal_token_share=paths["warm"]["equal_token_share"],
+         cold_equal_token_share=paths["cold"]["equal_token_share"],
+         seconds=time.perf_counter() - t_phase)
+
+
+def phase_durability_reference() -> None:
+    """Phase 6's small f32 model on the card against the same weights on
+    the CPU, async loop: a crash between snapshots, then warm recovery;
+    the greedy streams equal the uninterrupted run's on each side and
+    are equal card against CPU."""
+    from attention_tpu_torch.engine import (
+        EngineConfig,
+        ServingEngine,
+        SnapshotManager,
+        recover_engine,
+        replay,
+        synthetic_trace,
+    )
+    from attention_tpu_torch.engine.sim import sampling_of
+    from attention_tpu_torch.models import TinyDecoder, init_params
+
+    trace = synthetic_trace(6, vocab=SMALL_MODEL["vocab"], seed=SEED,
+                            prompt_len_min=4, prompt_len_max=300,
+                            max_tokens=12)
+    config = EngineConfig(num_pages=32, max_seq_len=512, prefill_chunk=64,
+                          async_steps=True)
+    cpu = TinyDecoder(dtype=torch.float32, device="cpu", **SMALL_MODEL)
+    cpu.load_state_dict(init_params(cpu, SEED))
+    gpu = TinyDecoder(dtype=torch.float32, device="cuda", **SMALL_MODEL)
+    gpu.load_state_dict(cpu.state_dict())
+    sides = []
+    for side, m in (("cpu", cpu), ("cuda", gpu)):
+        _, want = replay(ServingEngine(m, config), trace)
+        outs: dict[str, list[int]] = {}
+
+        def on_finish(req, outs=outs):
+            outs[req.request_id] = list(req.output_tokens)
+
+        with tempfile.TemporaryDirectory() as d:
+            eng = ServingEngine(m, config, on_finish=on_finish)
+            SnapshotManager(eng, d, every=4, keep=2)
+            for e in trace:
+                eng.add_request(e["prompt"], sampling_of(e),
+                                request_id=e["id"])
+            for _ in range(6):
+                eng.step()
+            eng.journal.close()
+            rec, info = recover_engine(m, d, on_finish=on_finish)
+            rec.drain(max_steps=500)
+        if outs != want or not info["journal_events"]:
+            raise AssertionError(f"{side}: recovered streams differ from "
+                                 f"the uninterrupted run's ({info})")
+        sides.append(outs)
+    if sides[0] != sides[1]:
+        raise AssertionError("recovered streams differ card against CPU")
+    emit(phase="reference", recovered_streams_equal=True,
+         journal_events=info["journal_events"])
 
 
 def bwd_work(h, hkv, m, n, d, pairs, item, factor, outs):
@@ -4094,6 +4343,7 @@ def main() -> int:
     phase_window_serving(ops, kernels, windowed["sinks"],
                          windowed["no_sinks"])
     del windowed
+    phase_durability(ops, kernels, model)
     phase_profile(model)
     phase_moe(ops, kernels)
     phase_beam(ops, kernels, model)
@@ -4104,6 +4354,7 @@ def main() -> int:
     phase_window_reference()
     phase_moe_reference()
     phase_decoding_reference()
+    phase_durability_reference()
     dense = phase_train(ops, kernels, model)
     del model
     phase_checkpoint(dict(SERVE_MODEL, depth=CKPT_DEPTH))

@@ -1724,3 +1724,68 @@ def test_beam_and_fork_match_cpu():
         outs.append(paged_flash_decode(q, fork).cpu())
     assert outs[1].isfinite().all()
     assert mismatch(outs[1], outs[0])[1] <= 1
+
+
+def _card_engine_model():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from attention_tpu_torch.models import TinyDecoder, init_params
+
+    model = TinyDecoder(vocab=64, dim=512, depth=2, num_q_heads=4,
+                        num_kv_heads=2, rope=True, softcap=30.0,
+                        dtype=torch.bfloat16, device="cuda")
+    model.load_state_dict(init_params(model, 0))
+    return model
+
+
+_CARD_ENGINE = dict(num_pages=32, max_seq_len=512, prefill_chunk=64)
+
+
+def test_engine_snapshot_round_trip_on_the_card(tmp_path):
+    """A bf16 engine on the card cut after 5 steps: the restored pools
+    hold the same bits, the fingerprints are equal, and both engines
+    finish with the same streams (the same bytes into the same
+    kernel)."""
+    from attention_tpu_torch.engine import EngineConfig, ServingEngine, \
+        sampling_of, state_fingerprint, synthetic_trace
+    from attention_tpu_torch.engine.snapshot import restore, save
+
+    model = _card_engine_model()
+    trace = synthetic_trace(5, vocab=64, seed=3, prompt_len_min=4,
+                            prompt_len_max=200, max_tokens=10)
+    outs = [{}, {}]
+    eng = ServingEngine(model, EngineConfig(**_CARD_ENGINE),
+                        on_finish=lambda r: outs[0].__setitem__(
+                            r.request_id, list(r.output_tokens)))
+    for e in trace:
+        eng.add_request(e["prompt"], sampling_of(e), request_id=e["id"])
+    for _ in range(5):
+        eng.step()
+    path = str(tmp_path / "card.atpsnap")
+    save(eng, path)
+    eng2 = restore(path, model, on_finish=lambda r: outs[1].__setitem__(
+        r.request_id, list(r.output_tokens)))
+    for a, b in zip((*eng._k_pools, *eng._v_pools),
+                    (*eng2._k_pools, *eng2._v_pools)):
+        assert b.device.type == "cuda" and b.dtype == torch.bfloat16
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    assert state_fingerprint(eng2) == state_fingerprint(eng)
+    eng.drain(max_steps=200)
+    eng2.drain(max_steps=200)
+    assert outs[1] and all(outs[0][rid] == toks
+                           for rid, toks in outs[1].items())
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+def test_async_steps_equal_sync_on_the_card(temperature):
+    from attention_tpu_torch.engine import EngineConfig, ServingEngine, \
+        replay, synthetic_trace
+
+    model = _card_engine_model()
+    trace = synthetic_trace(6, vocab=64, seed=4, prompt_len_min=4,
+                            prompt_len_max=200, max_tokens=10,
+                            temperature=temperature)
+    sync, asyn = (replay(ServingEngine(model, EngineConfig(
+        **_CARD_ENGINE, async_steps=a)), trace)[1] for a in (False, True))
+    assert asyn == sync
+    assert all(len(sync[e["id"]]) == 10 for e in trace)

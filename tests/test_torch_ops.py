@@ -246,14 +246,17 @@ def test_rope_and_warp_logits_match_jax():
 
 
 def test_port_imports_no_jax():
-    """The port (and its chip smoke script) imports with jax, flax and
-    the JAX package blocked."""
+    """The port (and its chip smoke script) imports with jax, flax,
+    ml_dtypes and the JAX package blocked."""
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'attention_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'ml_dtypes',\n"
+        "             'attention_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import attention_tpu_torch, attention_tpu_torch.cli\n"
         "import attention_tpu_torch.engine, attention_tpu_torch.models\n"
+        "import attention_tpu_torch.engine.snapshot\n"
+        "import attention_tpu_torch.engine.journal\n"
         "import attention_tpu_torch.models.convert, chip_smoke\n"
         "import attention_tpu_torch.models.decode\n"
         "import attention_tpu_torch.models.speculative\n"
@@ -276,7 +279,7 @@ def test_port_imports_no_jax():
         "import attention_tpu_torch.parallel.ring\n"
         "import attention_tpu_torch.parallel.ulysses\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'flax', 'attention_tpu')\n"
+        "       ('jax', 'jaxlib', 'flax', 'ml_dtypes', 'attention_tpu')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
     )
