@@ -16,8 +16,10 @@
 // kv_offset + j), only the first kv_valid key rows attended, under a
 // sliding window (causal only) only the keys of a row's band (j + kv_offset
 // > i + q_offset - window: the sinks of a windowed forward are the
-// caller's `sink_patch`, as they are the TPU kernels' caller's), and
-// softcap in the log2 domain (cap2 = softcap·log2 e).
+// caller's `sink_patch`, as they are the TPU kernels' caller's), softcap
+// in the log2 domain (cap2 = softcap·log2 e), and packed-sequence segment
+// ids (one int32 a query row and a key row, shared across heads: a pair is
+// kept only where they are equal).
 //
 // with lse2 and delta read at row stride ls (the caller pads each head's
 // rows, lse2 with +inf: exp2(s - inf) is the 0 of a row that saw no key).
@@ -91,6 +93,10 @@ struct BwdArgs {
   int causal, q_offset, kv_offset, kv_valid;
   int window;  // causal only: a row keeps the keys of its last `window`
                // positions; 0: no window
+  // segment ids, or null: the rows' (ls, padded) and the keys' (n rounded
+  // up to whole 128-key blocks), the paddings ids no real row holds
+  const int* q_seg;
+  const int* kv_seg;
 };
 
 // P and dS of the pair (query row q, key row key) from its log2-domain
@@ -108,7 +114,8 @@ __device__ __forceinline__ void p_and_ds(const BwdArgs& a, int q, int key,
   const int lag = q + a.q_offset - (key + a.kv_offset);  // causal: >= 0
   const bool keep = key < a.kv_valid && lse2 != -INFINITY &&
                     (!a.causal || (lag >= 0 && (a.window <= 0 ||
-                                                lag < a.window)));
+                                                lag < a.window))) &&
+                    (a.q_seg == nullptr || a.q_seg[q] == a.kv_seg[key]);
   const float p = keep ? exp2f(s - lse2) : 0.f;
   s = p;
   dp = p * (dp - delta) * dcap;

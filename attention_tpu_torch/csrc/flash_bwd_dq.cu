@@ -22,8 +22,12 @@
 // contiguous.  body: 0 = "fma", 1 = "wgmma" (the caller's
 // `flash_bwd_body`), whose lse2 and delta are padded to whole 128-row items
 // (ls a multiple of 128); a body that cannot take the call is refused,
-// never replaced.  Returns cudaGetLastError() after the launch (or the
-// refusal).
+// never replaced.
+// q_seg and kv_seg, both set or both null, are int32 segment ids of the
+// query rows (ls of them, the padding -1) and of the key rows (padded to
+// whole 128-key blocks with -2), 16-byte aligned: a pair is kept only
+// where they are equal.
+// Returns cudaGetLastError() after the launch (or the refusal).
 extern "C" int flash_bwd_dq(
     const void* qs, const void* k, const void* v, const void* dout,
     const float* lse2, const float* delta, void* dq, int dtype, int B, int H,
@@ -31,17 +35,23 @@ extern "C" int flash_bwd_dq(
     long long sqh, long long sqm, long long skb, long long skh, long long skn,
     long long svb, long long svh, long long svn, long long sob, long long soh,
     long long som, float scale, float softcap2, int causal, int q_offset,
-    int kv_offset, int kv_valid, int window, int body, void* stream) {
+    int kv_offset, int kv_valid, int window, int body, const void* q_seg,
+    const void* kv_seg, void* stream) {
   const atb::BwdArgs a{qs,  k,   v,   dout, lse2, delta, nullptr,
                        dq,  nullptr, nullptr, H, Hkv, m, n, d, dvd, ls,
                        sqb, sqh, sqm, skb, skh, skn, svb, svh, svn, sob,
                        soh, som, scale, softcap2 > 0.f ? softcap2 : 0.f,
-                       causal, q_offset, kv_offset, kv_valid, window};
+                       causal, q_offset, kv_offset, kv_valid, window,
+                       static_cast<const int*>(q_seg),
+                       static_cast<const int*>(kv_seg)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!atb::args_ok(a, B)) return (int)cudaErrorInvalidValue;
+  if (!atb::args_ok(a, B) || (q_seg == nullptr) != (kv_seg == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (body == 1) {
     if (dtype != 1 || !atb::wgmma_operands_ok(a) ||
-        a.ls % dq90::ROWS != 0 || !atb::aligned16(dq))
+        a.ls % dq90::ROWS != 0 || !atb::aligned16(dq) ||
+        (q_seg != nullptr &&
+         (!atb::aligned16(q_seg) || !atb::aligned16(kv_seg))))
       return (int)cudaErrorInvalidValue;
     return (int)dq90::launch(a, B, s);
   }

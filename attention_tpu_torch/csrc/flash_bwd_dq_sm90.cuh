@@ -40,6 +40,17 @@
 //   tile tests each row's band start beside its key limit.  Rows past m
 //   and rows the forward fully masked need no test: the wrapper pads lse2
 //   with +inf there.  Softcap on and off are two instances.
+// - Packed-sequence segment ids in an instance of their own, `SEG`: the
+//   walk of a call without ids (its band included), a test of every pair
+//   of every tile (the key limits, the band and the ids), the rows' two
+//   ids in registers (`FlashSched::row_ids`) and each key tile's 128 ids
+//   beside its K and V in the stage (one bulk copy on their barrier).
+//   While the tile's products run, a loop that is not unrolled folds the
+//   id test into one 32-bit mask a row (bit 2j + e of the thread's
+//   columns 8j + 2·(lane % 4) + e), which the P pass reads: the 32 ids of
+//   a thread's columns never sit in registers at once (unrolled, they
+//   spilled at d 128 under softcap).  The key limits and the band are
+//   tested, at run time, in the tiles the plan masks only.
 // - TMA maps are 4-D (d, rows, heads, batch) from the caller's strides, so
 //   the training layer's (b, s, h, d) views load as they are; rows past m
 //   and keys past n read as zeros, keys in [kv_valid, n) are masked.
@@ -71,12 +82,12 @@ struct Args {
 };
 
 // Dynamic shared memory of one CTA: the item's Qs and dO, its rows' lse2
-// and delta, the K and V tiles of each stage, the barriers, and room to
-// align the tiles to 1024 bytes.
-template <int D>
+// and delta, the K and V tiles of each stage, the barriers, with segment
+// ids each stage's key ids, and room to align the tiles to 1024 bytes.
+template <int D, bool SEG = false>
 constexpr size_t smem_bytes() {
   return (size_t)2 * ROWS * D * 2 + 2 * ROWS * 4 + (size_t)ST * 2 * KT * D * 2 +
-         8 * (2 + 2 * ST) + 1024;
+         8 * (2 + 2 * ST) + (SEG ? ST * KT * 4 : 0) + 1024;
 }
 
 // the key tiles of an item, from the forward's plan: the window's band
@@ -105,8 +116,10 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
 // K/V ring runs on across items: the g-th tile a CTA loads sits in stage
 // g % ST.  The Qs/dO buffer is refilled once both consumers finished the
 // item before.  BAND: the call has a window (an instance of its own, so
-// that a call without one runs the code it ran before the band).
-template <int D, bool CAP, bool BAND>
+// that a call without one runs the code it ran before the band).  SEG: the
+// call has segment ids (its band, if any, walked and tested at run time;
+// BAND is false).
+template <int D, bool CAP, bool BAND, bool SEG = false>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tdo,
@@ -133,6 +146,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint32_t q_empty = q_full + 8;
   auto full = [&](int s) { return q_full + 8 * (2 + s); };
   auto empty = [&](int s) { return q_full + 8 * (2 + ST + s); };
+  const uint32_t sid = q_full + 8 * (2 + 2 * ST);  // SEG: stage s's key ids
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     mbar_init(q_empty, CONSUMERS);
@@ -170,15 +184,16 @@ __global__ void __launch_bounds__(THREADS, 1)
       bulk_load(sst + ROWS * 4, a.delta + row, ROWS * 4, q_full);
       for (int i = p.begin; i < p.end; ++i, ++g) {
         const int s = g % ST;
-        const int t = BAND ? p.tile(i) : i;
+        const int t = BAND || SEG ? p.tile(i) : i;
         mbar_wait(empty(s), ((g / ST) & 1) ^ 1);
-        mbar_expect_tx(full(s), 2 * KV_BYTES);
+        mbar_expect_tx(full(s), 2 * KV_BYTES + (SEG ? KT * 4 : 0));
         for (int c = 0; c < D / BOX; ++c) {
           tma_load(sk(s) + c * K_BOX, &tk, full(s), c * BOX, t * KT, k.hk,
                    k.b);
           tma_load(sv(s) + c * K_BOX, &tv, full(s), c * BOX, t * KT, k.hk,
                    k.b);
         }
+        if constexpr (SEG) sc.load_ids(sid + s * KT * 4, full(s), t);
       }
     }
     return;
@@ -207,13 +222,15 @@ __global__ void __launch_bounds__(THREADS, 1)
       int lim[2];
       sc.limits(k, rl, lim);
       const Band band = sc.band(k, rl);  // its sinks unused: none here
+      int qid[2];  // SEG: the rows' segment ids
+      if constexpr (SEG) sc.row_ids(k, rl, qid);
       mbar_wait(q_full, nq & 1);
       ++nq;
       const float l2[2] = {stats[rl], stats[rl + 8]};
       const float dl[2] = {stats[ROWS + rl], stats[ROWS + rl + 8]};
       for (int i = p.begin; i < p.end; ++i, ++g) {
         const int st = g % ST;
-        const int t = BAND ? p.tile(i) : i;
+        const int t = BAND || SEG ? p.tile(i) : i;
         mbar_wait(full(st), (g / ST) & 1);
 
         // S = Qs·Kᵀ and dP = dO·Vᵀ: this warpgroup's 64 rows x KT keys, 16
@@ -240,12 +257,28 @@ __global__ void __launch_bounds__(THREADS, 1)
                         desc_sw128(sv(st) + ko, 16, 1024), kk > 0);
         }
         wgmma_commit();
+        // SEG: bit 2j + e of keep[r] is set where column t·KT + c0 + 8j + e
+        // lies in the segment of row rl + 8r
+        uint32_t keep[2] = {0u, 0u};
+        if constexpr (SEG) {
+          const int* kid = reinterpret_cast<const int*>(
+                               smem_raw + (sid + st * KT * 4 - raw)) + c0;
+#pragma unroll 1
+          for (int j = 0; j < KT / 8; ++j) {
+            const int2 id2 = *reinterpret_cast<const int2*>(kid + 8 * j);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if ((e & 1 ? id2.y : id2.x) == qid[e >> 1])
+                keep[e >> 1] |= 1u << (2 * j + (e & 1));
+          }
+        }
         // P in place of S while dP's product still runs (under softcap
         // P·(1 - tanh²), the factor dS takes); the per-element test only in
-        // the tiles that can hold a masked pair
+        // the tiles that can hold a masked pair (and the ids of every tile
+        // under SEG)
         wgmma_wait<1>();
         pin(s);
-        const bool masked = (BAND && t < p.mask_lo) || t >= p.mask;
+        const bool masked = ((BAND || SEG) && t < p.mask_lo) || t >= p.mask;
         const int col0 = t * KT + c0;
 #pragma unroll
         for (int j = 0; j < KT / 8; ++j)
@@ -259,13 +292,18 @@ __global__ void __launch_bounds__(THREADS, 1)
               dcap = 1.f - th * th;
             }
             float pv = ex2(x - l2[e >> 1]);
-            if (!BAND && masked && col0 + 8 * j + (e & 1) >= lim[e >> 1])
+            if constexpr (SEG) {
+              if (!((keep[e >> 1] >> (2 * j + (e & 1))) & 1u)) pv = 0.f;
+            } else if (!BAND && masked &&
+                       col0 + 8 * j + (e & 1) >= lim[e >> 1]) {
               pv = 0.f;
+            }
             s[4 * j + e] = CAP ? pv * dcap : pv;
           }
-        // a band's masked tiles (its lower edge and the diagonal) in a pass
-        // of their own, which the tiles between them skip
-        if (BAND && masked) {
+        // a band's masked tiles (its lower edge and the diagonal; under SEG
+        // every masked tile, the band NO_BAND without a window) in a pass of
+        // their own, which the tiles between them skip
+        if ((BAND || SEG) && masked) {
 #pragma unroll
           for (int j = 0; j < KT / 8; ++j)
 #pragma unroll
@@ -323,11 +361,11 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // ------------------------------------------------------------------ launch
 
-template <int D, bool CAP, bool BAND>
+template <int D, bool CAP, bool BAND, bool SEG = false>
 cudaError_t launch_t(const CUtensorMap (&maps)[4], const Args& s,
                      cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_wgmma<D, CAP, BAND>;
-  constexpr size_t smem = smem_bytes<D>();
+  auto kernel = flash_bwd_dq_wgmma<D, CAP, BAND, SEG>;
+  constexpr size_t smem = smem_bytes<D, SEG>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -345,10 +383,14 @@ cudaError_t launch_t(const CUtensorMap (&maps)[4], const Args& s,
   return cudaGetLastError();
 }
 
-// The instance of a head dim: softcap on or off, a band or none.
+// The instance of a head dim: softcap on or off, segment ids (with or
+// without a band), else a band or none.
 template <int D>
 cudaError_t launch_d(const CUtensorMap (&maps)[4], const Args& s,
                      cudaStream_t st) {
+  if (s.sc.a.q_seg != nullptr)
+    return s.sc.a.cap2 > 0.f ? launch_t<D, true, false, true>(maps, s, st)
+                             : launch_t<D, false, false, true>(maps, s, st);
   if (s.sc.a.window > 0)
     return s.sc.a.cap2 > 0.f ? launch_t<D, true, true>(maps, s, st)
                              : launch_t<D, false, true>(maps, s, st);
@@ -387,6 +429,8 @@ inline cudaError_t launch(const atb::BwdArgs& a, int B, cudaStream_t st) {
   f.sinks = 0;
   f.splits = 1;
   f.split_tiles = 1 << 30;
+  f.q_seg = a.q_seg;
+  f.kv_seg = a.kv_seg;
   s.lse2 = a.lse2;
   s.delta = a.delta;
   s.dq = static_cast<__nv_bfloat16*>(a.dq);

@@ -28,8 +28,12 @@
 // call is refused, never replaced.  "fma" writes per-Q-head fp32 partials
 // (B, H, n, d) of dK and dV; "wgmma" with `slices` slices of each GQA group
 // writes dK and dV (B, Hkv, n, d) in bf16 for one slice, else fp32
-// partials (B, Hkv, slices, n, d).  Returns cudaGetLastError() after the
-// launch (or the refusal).
+// partials (B, Hkv, slices, n, d).
+// q_seg and kv_seg, both set or both null, are int32 segment ids of the
+// query rows (ls of them, the padding -1) and of the key rows (padded to
+// whole 128-key blocks with -2), 16-byte aligned: a pair is kept only
+// where they are equal.
+// Returns cudaGetLastError() after the launch (or the refusal).
 extern "C" int flash_bwd_fused(
     const void* qs, const void* k, const void* v, const void* dout,
     const float* lse2, const float* delta, float* dq32, void* dk, void* dv,
@@ -38,19 +42,25 @@ extern "C" int flash_bwd_fused(
     long long skn, long long svb, long long svh, long long svn, long long sob,
     long long soh, long long som, float scale, float softcap2, int causal,
     int q_offset, int kv_offset, int kv_valid, int window, int body,
-    int slices, void* stream) {
+    int slices, const void* q_seg, const void* kv_seg, void* stream) {
   const atb::BwdArgs a{qs,  k,   v,   dout, lse2, delta, dq32,
                        nullptr, static_cast<float*>(dk),
                        static_cast<float*>(dv), H, Hkv, m, n, d, dvd, ls,
                        sqb, sqh, sqm, skb, skh, skn, svb, svh, svn, sob,
                        soh, som, scale, softcap2 > 0.f ? softcap2 : 0.f,
-                       causal, q_offset, kv_offset, kv_valid, window};
+                       causal, q_offset, kv_offset, kv_valid, window,
+                       static_cast<const int*>(q_seg),
+                       static_cast<const int*>(kv_seg)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!atb::args_ok(a, B) || slices < 1) return (int)cudaErrorInvalidValue;
+  if (!atb::args_ok(a, B) || slices < 1 ||
+      (q_seg == nullptr) != (kv_seg == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (body == 1) {
     if (dtype != 1 || !atb::wgmma_operands_ok(a) || a.ls % bwd90::QT != 0 ||
         !atb::aligned16(dq32) || !atb::aligned16(dk) || !atb::aligned16(dv) ||
-        (H / Hkv) % slices != 0)
+        (H / Hkv) % slices != 0 ||
+        (q_seg != nullptr &&
+         (!atb::aligned16(q_seg) || !atb::aligned16(kv_seg))))
       return (int)cudaErrorInvalidValue;
     return (int)bwd90::launch<true>(a, B, dk, dv, slices, s);
   }

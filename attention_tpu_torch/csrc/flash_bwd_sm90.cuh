@@ -67,6 +67,14 @@
 //   Rows past m and rows the forward fully masked need no test: the
 //   wrapper pads lse2 with +inf there, so P = exp2(s - inf) = 0.  Softcap
 //   on and off are two instances.
+// - Packed-sequence segment ids in an instance of their own, `SEG`, which
+//   walks the plan of a call without ids (its band included) and tests
+//   the ids of every pair of every tile, the causal and band limits (at
+//   run time) in the tiles the plan masks.  A query tile's 64 ids ride in
+//   its stage beside lse2 and delta (one more bulk copy), the item's 128
+//   key ids beside K and V (one bulk copy on their barrier); a thread
+//   keeps its two keys' ids in registers and reads the rows' from shared
+//   memory in the test.
 // - TMA maps are 4-D (d, rows, heads, batch) from the caller's strides, so
 //   the training layer's (b, s, h, d) views load as they are; rows past m
 //   and keys past n read as zeros, and keys in [kv_valid, n) are masked in
@@ -100,7 +108,10 @@ constexpr int KB = 128;       // keys per work item, 64 per consumer
 constexpr int QT = 64;        // query rows per tile
 constexpr int THREADS = 384;  // the producer warpgroup and two consumers
 constexpr int CONSUMERS = 256;
-constexpr int STAT_BYTES = 2 * QT * 4;  // one tile's lse2 and delta
+// one query tile's lse2 and delta, and with segment ids its rows' ids
+__host__ __device__ constexpr uint32_t stat_bytes(bool seg) {
+  return (seg ? 3 : 2) * QT * 4;
+}
 constexpr float LN2 = 0.6931471805599453f;
 
 // Query tiles in flight: 2 with dQ, 4 without (on the H100 4 was as fast
@@ -118,6 +129,10 @@ struct Args {
   int causal, q_offset, kv_offset, kv_valid;  // kv_valid cut to n
   int window;  // causal only: the keys of a row's last `window`
                // positions; 0: none
+  // segment ids (SEG instances): the rows' (m_pad, padded) and the keys'
+  // (n rounded up to whole blocks of KB, padded)
+  const int* q_seg;
+  const int* kv_seg;
 };
 
 // The query tiles [begin, end) that the item of keys [key0, key0 + KB)
@@ -193,12 +208,14 @@ __device__ __forceinline__ Work work_item(const Args& a, long long w,
 }
 
 // Dynamic shared memory of one CTA: K and V, `stages` Qs and dO tiles,
-// with dQ the dSᵀ tile and two dQ buffers, the tiles' lse2 and delta, the
-// barriers, and room to align the tiles to 1024 bytes.
-constexpr size_t smem_bytes(int d, bool dq) {
+// with dQ the dSᵀ tile and two dQ buffers, the tiles' lse2 and delta (and
+// with segment ids their rows' ids), the barriers, with segment ids the
+// item's key ids, and room to align the tiles to 1024 bytes.
+constexpr size_t smem_bytes(int d, bool dq, bool seg = false) {
   return (size_t)2 * KB * d * 2 + (size_t)stages(dq) * 2 * QT * d * 2 +
          (dq ? (size_t)KB * QT * 2 + (size_t)2 * QT * d * 4 : 0) +
-         (size_t)stages(dq) * STAT_BYTES + 8 * (2 + 2 * stages(dq)) + 1024;
+         (size_t)stages(dq) * stat_bytes(seg) + 8 * (2 + 2 * stages(dq)) +
+         (seg ? KB * 4 : 0) + 1024;
 }
 
 // Thread layout: warpgroup 0 is the producer, warpgroups 1 and 2 the
@@ -209,8 +226,9 @@ constexpr size_t smem_bytes(int d, bool dq) {
 // query tile a CTA loads sits in stage g % ST, and its dQ in buffer
 // g % 2.  Without dQ, `tdq` is not read.  BAND: the call has a window
 // (an instance of its own, so that a call without one runs the code it
-// ran before the band).
-template <int D, bool CAP, bool DQ, bool BAND>
+// ran before the band).  SEG: the call has segment ids (and its window,
+// if any, is tested at run time; BAND is false).
+template <int D, bool CAP, bool DQ, bool BAND, bool SEG = false>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_wgmma(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tdo,
@@ -225,6 +243,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   constexpr uint32_t Q_BOX = QT * 128;  // of a Qs or dO tile, and of the
                                         // 32-wide fp32 boxes of a dQ tile
   constexpr uint32_t DS_BYTES = KB * QT * 2;
+  constexpr uint32_t STAT = stat_bytes(SEG);
+  // the walk's band: a SEG instance walks the band of its call too
+  const int window = BAND || SEG ? a.window : 0;
   const int nkb = (a.n + KB - 1) / KB;
   const long long total = (long long)nkb * a.B * a.Hkv * a.slices;
 
@@ -237,12 +258,13 @@ __global__ void __launch_bounds__(THREADS, 1)
   auto sdo = [&](int s) { return sq0 + s * 2 * Q_BYTES + Q_BYTES; };
   const uint32_t sds = sq0 + ST * 2 * Q_BYTES;  // with dQ only
   const uint32_t sdq = sds + DS_BYTES;          // buffer i at i·DQ_BYTES
-  // stage s: lse2, delta
+  // stage s: lse2, delta (SEG: then the rows' ids)
   const uint32_t sst = DQ ? sdq + 2 * DQ_BYTES : sds;
-  const uint32_t kv_full = sst + ST * STAT_BYTES;
+  const uint32_t kv_full = sst + ST * STAT;
   const uint32_t kv_empty = kv_full + 8;
   auto full = [&](int s) { return kv_full + 8 * (2 + s); };
   auto empty = [&](int s) { return kv_full + 8 * (2 + ST + s); };
+  const uint32_t skid = kv_full + 8 * (2 + 2 * ST);  // SEG: the key ids
   auto ptr = [&](uint32_t addr) { return smem_raw + (addr - raw); };
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -266,29 +288,32 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int r = 0; (long long)r * gridDim.x < total; ++r) {
       const long long w = snake_item(r, total);
       if (w < 0) continue;
-      const Work k = work_item(a, w, BAND ? a.window : 0);
+      const Work k = work_item(a, w, window);
       if (k.ntiles <= 0) continue;
       if (nkv > 0) mbar_wait(kv_empty, (nkv - 1) & 1);
       ++nkv;
-      mbar_expect_tx(kv_full, 2 * KV_BYTES);
+      mbar_expect_tx(kv_full, 2 * KV_BYTES + (SEG ? KB * 4 : 0));
       for (int c = 0; c < D / BOX; ++c) {
         tma_load(sk + c * K_BOX, &tk, kv_full, c * BOX, k.key0, k.hk, k.b);
         tma_load(sv + c * K_BOX, &tv, kv_full, c * BOX, k.key0, k.hk, k.b);
       }
+      if constexpr (SEG) bulk_load(skid, a.kv_seg + k.key0, KB * 4, kv_full);
       for (int i = 0; i < k.ntiles; ++i, ++g) {
         const int s = g % ST;
         const int h = k.h_first + i / k.per_head;
         const int q0 = (k.plan.begin + i % k.per_head) * QT;
         const long long row = ((long long)k.b * a.H + h) * a.m_pad + q0;
         mbar_wait(empty(s), ((g / ST) & 1) ^ 1);
-        mbar_expect_tx(full(s), 2 * Q_BYTES + STAT_BYTES);
+        mbar_expect_tx(full(s), 2 * Q_BYTES + STAT);
         for (int c = 0; c < D / BOX; ++c) {
           tma_load(sq(s) + c * Q_BOX, &tq, full(s), c * BOX, q0, h, k.b);
           tma_load(sdo(s) + c * Q_BOX, &tdo, full(s), c * BOX, q0, h, k.b);
         }
-        bulk_load(sst + s * STAT_BYTES, a.lse2 + row, QT * 4, full(s));
-        bulk_load(sst + s * STAT_BYTES + QT * 4, a.delta + row, QT * 4,
-                  full(s));
+        bulk_load(sst + s * STAT, a.lse2 + row, QT * 4, full(s));
+        bulk_load(sst + s * STAT + QT * 4, a.delta + row, QT * 4, full(s));
+        if constexpr (SEG)
+          bulk_load(sst + s * STAT + 2 * QT * 4, a.q_seg + q0, QT * 4,
+                    full(s));
       }
     }
     return;
@@ -308,13 +333,19 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int r = 0; (long long)r * gridDim.x < total; ++r) {
     const long long w = snake_item(r, total);
     if (w < 0) continue;
-    const Work k = work_item(a, w, BAND ? a.window : 0);
+    const Work k = work_item(a, w, window);
     float dk[D / 2], dv[D / 2];
 #pragma unroll
     for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.f;
     if (k.ntiles > 0) {
       mbar_wait(kv_full, nkv & 1);
       ++nkv;
+      int kid[2];  // SEG: the segment ids of keys kr and kr + 8
+      if constexpr (SEG) {
+        const int* ids = reinterpret_cast<const int*>(ptr(skid));
+        kid[0] = ids[kr];
+        kid[1] = ids[kr + 8];
+      }
       for (int i = 0; i < k.ntiles; ++i, ++g) {
         const int st = g % ST;
         const int h = k.h_first + i / k.per_head;
@@ -357,17 +388,21 @@ __global__ void __launch_bounds__(THREADS, 1)
         // in place of dPᵀ in the same pass), then P rounded to bf16 as the
         // A fragments of dV's product (step kk: queries 16kk .. 16kk + 15,
         // accumulator elements 8kk .. 8kk + 7).  The per-element test only
-        // in the tiles that can hold a masked pair.
+        // in the tiles that can hold a masked pair (and, under SEG, the
+        // ids of every tile).
         const float* lse = reinterpret_cast<const float*>(
-            ptr(sst + st * STAT_BYTES));
+            ptr(sst + st * STAT));
         const float* dl = lse + QT;
+        const int* qid = reinterpret_cast<const int*>(dl + QT) + c0;
         const bool masked =
-            t < k.plan.mask_end || (BAND && t >= k.plan.edge);
+            t < k.plan.mask_end || ((BAND || SEG) && t >= k.plan.edge);
         uint32_t pf[4][4], df[4][4];
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const float2 l2 = *reinterpret_cast<const float2*>(lse + 8 * j + c0);
           const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + c0);
+          int2 q2 = make_int2(0, 0);
+          if constexpr (SEG) q2 = *reinterpret_cast<const int2*>(qid + 8 * j);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             float x = s[4 * j + e];
@@ -381,7 +416,13 @@ __global__ void __launch_bounds__(THREADS, 1)
             if (masked) {
               const int key = k.key0 + kr + 8 * (e >> 1);
               const int q = q0 + 8 * j + c0 + (e & 1);
-              if constexpr (BAND) {
+              if constexpr (SEG) {
+                // the lag as under BAND, the band at run time
+                const int lag = q + a.q_offset - (key + a.kv_offset);
+                if (key >= a.kv_valid ||
+                    (a.causal && (lag < 0 || (window > 0 && lag >= window))))
+                  p = 0.f;
+              } else if constexpr (BAND) {
                 // the key's lag behind the row (a band is causal): kept
                 // in [0, window)
                 const int lag = q + a.q_offset - (key + a.kv_offset);
@@ -392,6 +433,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                 p = 0.f;
               }
             }
+            if constexpr (SEG)
+              if ((e & 1 ? q2.y : q2.x) != kid[e >> 1]) p = 0.f;
             if constexpr (CAP)
               dp[4 * j + e] =
                   p * (dp[4 * j + e] - (e & 1 ? d2.y : d2.x)) * dcap;
@@ -573,11 +616,11 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // ------------------------------------------------------------------ launch
 
-template <int D, bool CAP, bool DQ, bool BAND>
+template <int D, bool CAP, bool DQ, bool BAND, bool SEG = false>
 cudaError_t launch_t(const CUtensorMap (&maps)[5], const Args& s,
                      cudaStream_t stream) {
-  auto kernel = flash_bwd_wgmma<D, CAP, DQ, BAND>;
-  constexpr size_t smem = smem_bytes(D, DQ);
+  auto kernel = flash_bwd_wgmma<D, CAP, DQ, BAND, SEG>;
+  constexpr size_t smem = smem_bytes(D, DQ, SEG);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -595,10 +638,14 @@ cudaError_t launch_t(const CUtensorMap (&maps)[5], const Args& s,
   return cudaGetLastError();
 }
 
-// The instance of a head dim: softcap on or off, a band or none.
+// The instance of a head dim: softcap on or off, segment ids (with or
+// without a band), else a band or none.
 template <int D, bool DQ>
 cudaError_t launch_d(const CUtensorMap (&maps)[5], const Args& s,
                      cudaStream_t st) {
+  if (s.q_seg != nullptr)
+    return s.cap2 > 0.f ? launch_t<D, true, DQ, false, true>(maps, s, st)
+                        : launch_t<D, false, DQ, false, true>(maps, s, st);
   if (s.window > 0)
     return s.cap2 > 0.f ? launch_t<D, true, DQ, true>(maps, s, st)
                         : launch_t<D, false, DQ, true>(maps, s, st);
@@ -648,6 +695,8 @@ cudaError_t launch(const atb::BwdArgs& a, int B, void* dk, void* dv,
   s.kv_offset = a.kv_offset;
   s.kv_valid = a.kv_valid < 0 ? 0 : a.kv_valid > a.n ? a.n : a.kv_valid;
   s.window = a.causal ? a.window : 0;
+  s.q_seg = a.q_seg;
+  s.kv_seg = a.kv_seg;
   if (a.d == 64)
     return launch_d<64, DQ>(maps, s, st);
   return launch_d<128, DQ>(maps, s, st);

@@ -14,7 +14,10 @@
 // softcap maps the scaled scores through cap·tanh(s/cap) before masking.
 // A sliding window (causal only, the TPU kernel's window/sinks) keeps only
 // the last `window` positions at or before a row's, plus the keys at
-// positions below `sinks` (StreamingLLM's attention sinks).
+// positions below `sinks` (StreamingLLM's attention sinks).  Packed-
+// sequence segment ids (the TPU kernel's q_seg/kv_seg, one int32 a query
+// row and a key row, shared across heads) keep a pair only where they are
+// equal, on top of every other mask.
 //
 // What bounds it on the H100: at the testcase and serving shapes it does
 // 2·m·n·(dk + dv) operations on (m + n)·(dk + dv) values, far above the ~295
@@ -61,6 +64,9 @@ struct FlashArgs {
   float qscale, cap2;
   int causal, q_offset, kv_offset, kv_valid;
   int window, sinks;  // the band, causal only (window 0: none)
+  // segment ids (m) and (n rounded up to whole 128-key tiles), or null
+  const int* q_seg;
+  const int* kv_seg;
 };
 
 template <typename T>
@@ -75,6 +81,8 @@ struct FlashProblem : atk::ProblemBase {
   long long sqm, skn, svn, som;
   int m0, m, n_end, kv_valid, q_offset, kv_offset, window, sinks;
   bool causal;
+  const int* q_seg;  // segment ids, or null
+  const int* kv_seg;
 
   __device__ const T* q_row(int r) const {
     const int row = m0 + r;
@@ -100,13 +108,15 @@ struct FlashProblem : atk::ProblemBase {
   __device__ const T* k_row(int c) const { return k + c * skn; }
   __device__ const T* v_row(int c) const { return v + c * svn; }
   // exact per element: the band's keys are those at positions p - window
-  // + 1 .. p of the row at position p, plus the positions below sinks
+  // + 1 .. p of the row at position p, plus the positions below sinks;
+  // with segment ids, only the keys of the row's segment
   __device__ bool keep(int r, int c) const {
     const int p = m0 + r + q_offset;
     const int kp = c + kv_offset;
     return c < kv_valid &&
            (!causal || (kp <= p && (window == 0 || kp > p - window ||
-                                    kp < sinks)));
+                                    kp < sinks))) &&
+           (q_seg == nullptr || (m0 + r < m && q_seg[m0 + r] == kv_seg[c]));
   }
 };
 
@@ -137,6 +147,8 @@ __device__ FlashProblem<T> flash_problem(const FlashArgs& a) {
   pb.causal = a.causal != 0;
   pb.window = pb.causal ? a.window : 0;
   pb.sinks = a.sinks;
+  pb.q_seg = a.q_seg;
+  pb.kv_seg = a.kv_seg;
   // causal: no key past the block's last row; with a band, the walk
   // starts at the block's first row's band after the sink tiles
   pb.n_end = pb.causal ? max(0, min(pb.kv_valid, pb.m0 + BM + a.q_offset -
@@ -187,12 +199,12 @@ bool wgmma_ok(const FlashArgs& a) {
          tmap::aligned16(a.v) && (a.acc != nullptr || tmap::aligned16(a.o));
 }
 
-template <int DK, int DV, bool CAP>
+template <int DK, int DV, bool CAP, bool SEG>
 cudaError_t launch_wgmma_t(const CUtensorMap& tq, const CUtensorMap& tk,
                            const CUtensorMap& tv, const sm90::Args& s, int B,
                            cudaStream_t stream) {
-  auto kernel = sm90::flash_fwd_wgmma<DK, DV, CAP, sm90::FlashSched>;
-  constexpr size_t smem = sm90::smem_bytes(DK, DV);
+  auto kernel = sm90::flash_fwd_wgmma<DK, DV, CAP, sm90::FlashSched, SEG>;
+  constexpr size_t smem = sm90::smem_bytes(DK, DV, SEG);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -216,17 +228,27 @@ cudaError_t launch_wgmma_t(const CUtensorMap& tq, const CUtensorMap& tk,
   return cudaGetLastError();
 }
 
-template <bool CAP>
+template <bool CAP, bool SEG>
 cudaError_t launch_wgmma_cap(const CUtensorMap& tq, const CUtensorMap& tk,
                              const CUtensorMap& tv, const sm90::Args& s,
                              int dk, int B, cudaStream_t st) {
   if (dk == 64 && s.dv == 64)
-    return launch_wgmma_t<64, 64, CAP>(tq, tk, tv, s, B, st);
+    return launch_wgmma_t<64, 64, CAP, SEG>(tq, tk, tv, s, B, st);
   if (dk == 64)
-    return launch_wgmma_t<64, 128, CAP>(tq, tk, tv, s, B, st);
+    return launch_wgmma_t<64, 128, CAP, SEG>(tq, tk, tv, s, B, st);
   if (s.dv == 64)
-    return launch_wgmma_t<128, 64, CAP>(tq, tk, tv, s, B, st);
-  return launch_wgmma_t<128, 128, CAP>(tq, tk, tv, s, B, st);
+    return launch_wgmma_t<128, 64, CAP, SEG>(tq, tk, tv, s, B, st);
+  return launch_wgmma_t<128, 128, CAP, SEG>(tq, tk, tv, s, B, st);
+}
+
+// The instance of a call: softcap on or off, segment ids or none.
+template <bool CAP>
+cudaError_t launch_wgmma_seg(const CUtensorMap& tq, const CUtensorMap& tk,
+                             const CUtensorMap& tv, const sm90::Args& s,
+                             int dk, int B, cudaStream_t st) {
+  return s.q_seg != nullptr
+             ? launch_wgmma_cap<CAP, true>(tq, tk, tv, s, dk, B, st)
+             : launch_wgmma_cap<CAP, false>(tq, tk, tv, s, dk, B, st);
 }
 
 // The wgmma body: the tensor maps of q, k and v, then the kernel over
@@ -268,8 +290,10 @@ cudaError_t launch_wgmma(const FlashArgs& a, int B, int splits,
   s.sinks = a.sinks;
   s.splits = splits;
   s.split_tiles = split_tiles;
-  return a.cap2 > 0.f ? launch_wgmma_cap<true>(tq, tk, tv, s, a.dk, B, st)
-                      : launch_wgmma_cap<false>(tq, tk, tv, s, a.dk, B, st);
+  s.q_seg = a.q_seg;
+  s.kv_seg = a.kv_seg;
+  return a.cap2 > 0.f ? launch_wgmma_seg<true>(tq, tk, tv, s, a.dk, B, st)
+                      : launch_wgmma_seg<false>(tq, tk, tv, s, a.dk, B, st);
 }
 
 }  // namespace
@@ -288,6 +312,10 @@ cudaError_t launch_wgmma(const FlashArgs& a, int B, int splits,
 // cannot take the call is refused, never replaced.  The wgmma body cuts
 // each row block's key tiles into splits of split_tiles tiles (splits 1:
 // no cut) and merges them through part, splits·B·H·m·(dv + 2) floats.
+// q_seg and kv_seg, both set or both null, are int32 segment ids of the
+// query rows (m) and the key rows (n, padded with ids no row holds to a
+// whole number of 128-key tiles, and 16-byte aligned, for the wgmma
+// body's bulk copies); a pair is kept only where they are equal.
 // Returns cudaGetLastError() after the launches (or the refusal).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          int dtype, int B, int H, int Hkv, int m, int n,
@@ -300,21 +328,26 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          int kv_valid, int window, int sinks, float* acc,
                          float* row_max,
                          float* row_sum, int body, int splits,
-                         int split_tiles, float* part, void* stream) {
+                         int split_tiles, float* part, const void* q_seg,
+                         const void* kv_seg, void* stream) {
   if (dk < 1 || dv < 1 || dk > atk::MAX_HEAD_DIM || dv > atk::MAX_HEAD_DIM ||
       H % Hkv != 0 || m < 1 || n < 1 || splits < 1 || window < 0 ||
-      sinks < 0 || (window > 0 && !causal) || (sinks > 0 && window == 0))
+      sinks < 0 || (window > 0 && !causal) || (sinks > 0 && window == 0) ||
+      (q_seg == nullptr) != (kv_seg == nullptr))
     return (int)cudaErrorInvalidValue;
   const FlashArgs a{q,   k,   v,   o,   acc, row_max, row_sum, H,
                     Hkv, m,   n,   dk,  dv,  sqb,     sqh,     sqm,
                     skb, skh, skn, svb, svh, svn,     sob,     soh,
                     som, scale * atk::LOG2E,
                     softcap > 0.f ? softcap * atk::LOG2E : 0.f, causal,
-                    q_offset, kv_offset, kv_valid, window, sinks};
+                    q_offset, kv_offset, kv_valid, window, sinks,
+                    static_cast<const int*>(q_seg),
+                    static_cast<const int*>(kv_seg)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (body == 1) {
     if (dtype != 1 || !wgmma_ok(a) || split_tiles < 1 ||
-        (splits > 1 && part == nullptr))
+        (splits > 1 && part == nullptr) ||
+        (kv_seg != nullptr && !tmap::aligned16(kv_seg)))
       return (int)cudaErrorInvalidValue;
     return (int)launch_wgmma(a, B, splits, split_tiles, part, s);
   }

@@ -64,6 +64,13 @@
 //   max then sum.  No atomics: a second call gives the same bits.
 // - Softcap keeps `tanhf`: the backward recomputes P from this forward's
 //   row stats with `tanhf`, and a faster tanh here alone would move them.
+// - Packed-sequence segment ids (the TPU kernel's q_seg/kv_seg) in an
+//   instance of their own, `SEG`, so that a call without ids runs the code
+//   it ran before them.  Ids mask; they do not move the walk: a SEG call
+//   visits the tiles of its plan and tests every element of each.  A row's
+//   two ids sit in registers, loaded once an item; a key tile's 128 ids
+//   ride with its K tile (one bulk copy into the stage, on the K barrier),
+//   and the stage's K is released after the softmax has read them.
 #pragma once
 
 #include "sm90.cuh"
@@ -95,6 +102,10 @@ struct Args {
   // positions p - window + 1 .. p and those below `sinks`; window 0: none
   int window, sinks;
   int splits, split_tiles;
+  // segment ids (SEG instances): the rows' (m) and the keys' (n rounded
+  // up to whole tiles, the tail an id no row holds)
+  const int* q_seg;
+  const int* kv_seg;
 };
 
 // The key tiles a CTA of one row block visits, and where it masks.  The
@@ -166,10 +177,11 @@ struct Band {
 };
 
 // Dynamic shared memory of one CTA: Q, STAGES K and V tiles, the barriers,
-// and room to align the tiles to 1024 bytes.
-constexpr size_t smem_bytes(int dk, int dv) {
+// with segment ids each stage's key ids, and room to align the tiles to
+// 1024 bytes.
+constexpr size_t smem_bytes(int dk, int dv, bool seg = false) {
   return 2 * (size_t)(BM * dk + STAGES * BN * (dk + dv)) +
-         8 * (2 + 4 * STAGES) + 1024;
+         8 * (2 + 4 * STAGES) + (seg ? STAGES * BN * 4 : 0) + 1024;
 }
 
 // Row r (0 or 1) of a consumer thread's accumulator, normalized, as bf16
@@ -257,6 +269,21 @@ struct FlashSched {
                           const Work& k, int t) const {
     for (int c = 0; c < D / BOX; ++c)
       tma_load(dst + c * BOX_BYTES, map, bar, c * BOX, t * BN, k.hk, k.b);
+  }
+
+  // the key ids of tile t into shared memory at dst, one bulk copy
+  // completing on bar (SEG instances)
+  __device__ void load_ids(uint32_t dst, uint32_t bar, int t) const {
+    bulk_load(dst, a.kv_seg + t * BN, BN * 4, bar);
+  }
+
+  // the segment ids of rows rl and rl + 8 (SEG instances; -1 past m)
+  __device__ void row_ids(const Work& k, int rl, int (&id)[2]) const {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = k.m0 + rl + 8 * i;
+      id[i] = row < a.m ? a.q_seg[row] : -1;
+    }
   }
 
   // row r keeps the keys below lim: kv_valid, and under causal masking
@@ -371,8 +398,9 @@ struct FlashSched {
 // accumulator of key columns 16kk .. 16kk + 15 is, element for element,
 // the A operand of the P·V step kk.  The K/V ring runs on across items:
 // the g-th tile a CTA loads sits in stage g % STAGES.  A CTA whose
-// schedule has no work exits before it sets anything up.
-template <int DK, int DV, bool CAP, typename Sched>
+// schedule has no work exits before it sets anything up.  SEG: the call
+// has segment ids (the schedule's `load_ids` and `row_ids`).
+template <int DK, int DV, bool CAP, typename Sched, bool SEG = false>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -399,6 +427,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   auto v_full = [&](int s) { return q_full + 8 * (2 + STAGES + s); };
   auto k_empty = [&](int s) { return q_full + 8 * (2 + 2 * STAGES + s); };
   auto v_empty = [&](int s) { return q_full + 8 * (2 + 3 * STAGES + s); };
+  // SEG: stage s's key ids, after the barriers
+  const uint32_t sid = q_full + 8 * (2 + 4 * STAGES);
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     mbar_init(q_empty, CONSUMERS);
@@ -435,8 +465,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         const uint32_t ph = (g / STAGES) & 1;
         const int t = k.plan.tile(k.plan.begin + i);
         mbar_wait(k_empty(s), ph ^ 1);
-        mbar_expect_tx(k_full(s), K_BYTES);
+        mbar_expect_tx(k_full(s), K_BYTES + (SEG ? BN * 4 : 0));
         sc.template load_kv<DK>(sk + s * K_BYTES, &tk, k_full(s), k, t);
+        if constexpr (SEG) sc.load_ids(sid + s * BN * 4, k_full(s), t);
         mbar_wait(v_empty(s), ph ^ 1);
         mbar_expect_tx(v_full(s), V_BYTES);
         sc.template load_kv<DV>(sv + s * V_BYTES, &tv, v_full(s), k, t);
@@ -477,6 +508,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     int lim[2];
     sc.limits(k, rl, lim);
     const Band band = sc.band(k, rl);
+    int qid[2];  // SEG: the rows' segment ids
+    if constexpr (SEG) sc.row_ids(k, rl, qid);
     float o[DV / 2];
     float s[BN / 2];
     uint32_t p[BN / 16][4];
@@ -510,29 +543,41 @@ __global__ void __launch_bounds__(THREADS, 1)
           wgmma_rs_n64(o, p[kk], db);
       }
     };
-    // tile t's scores, in s: to the log2 domain, capped, masked where the
-    // tile may hold a masked element; then the online softmax: the new row
-    // max, P = exp2(s - max) in place (unrounded, for the row sum) and the
+    // tile t's scores (its K, and its key ids, in stage st), in s: to the
+    // log2 domain, capped, masked where the tile may hold a masked element
+    // (every tile under SEG); then the online softmax: the new row max,
+    // P = exp2(s - max) in place (unrounded, for the row sum) and the
     // factor corr that rescales what O holds so far.  Each thread keeps
     // its own part of the row sums; a row's four threads add them at the
     // end.
-    auto softmax = [&](int t, float (&corr)[2]) {
+    auto softmax = [&](int t, int st, float (&corr)[2]) {
 #pragma unroll
       for (int e = 0; e < BN / 2; ++e) {
         float x = s[e] * qscale;
         if constexpr (CAP) x = Sched::softcap(x, cap2);
         s[e] = x;
       }
-      if (t < plan.mask_lo || t >= plan.mask) {
+      // SEG tests every tile's limits too: a test of them on the tiles
+      // outside [mask_lo, mask) alone, by a run-time flag inside this
+      // unrolled loop, measured 2.3x slower on the H100
+      if (SEG || t < plan.mask_lo || t >= plan.mask) {
         const int col = t * BN + c0;
+        const int* kid = reinterpret_cast<const int*>(
+            smem_raw + (sid + st * BN * 4 - raw)) + c0;
 #pragma unroll
-        for (int j = 0; j < BN / 8; ++j)
+        for (int j = 0; j < BN / 8; ++j) {
+          int2 id2 = make_int2(0, 0);
+          if constexpr (SEG) id2 = *reinterpret_cast<const int2*>(kid + 8 * j);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int c = col + 8 * j + (e & 1);
-            if (c >= lim[e >> 1] || (c < band.lo[e >> 1] && c >= band.sink))
-              s[4 * j + e] = -INFINITY;
+            bool drop = c >= lim[e >> 1] ||
+                        (c < band.lo[e >> 1] && c >= band.sink);
+            if constexpr (SEG)
+              drop = drop || (e & 1 ? id2.y : id2.x) != qid[e >> 1];
+            if (drop) s[4 * j + e] = -INFINITY;
           }
+        }
       }
       float mx[2] = {mrow[0], mrow[1]};
 #pragma unroll
@@ -596,9 +641,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     turn_pass();
     wgmma_wait<0>();
     pin(s);
-    mbar_arrive(k_empty(g % STAGES));
+    if constexpr (!SEG) mbar_arrive(k_empty(g % STAGES));
     if (ntiles == 1) mbar_arrive(q_empty);
-    softmax(plan.tile(plan.begin), corr);
+    softmax(plan.tile(plan.begin), g % STAGES, corr);
+    if constexpr (SEG) mbar_arrive(k_empty(g % STAGES));  // ids read
     pack_p();
     for (int i = 1; i < ntiles; ++i) {
       const int st = (g + i) % STAGES;
@@ -616,9 +662,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       turn_pass();
       wgmma_wait<1>();
       pin(s);
-      mbar_arrive(k_empty(st));
+      if constexpr (!SEG) mbar_arrive(k_empty(st));
       if (i == ntiles - 1) mbar_arrive(q_empty);
-      softmax(plan.tile(plan.begin + i), corr);
+      softmax(plan.tile(plan.begin + i), st, corr);
+      if constexpr (SEG) mbar_arrive(k_empty(st));  // ids read
       wgmma_wait<0>();
       pin_pv();
       mbar_arrive(v_empty(pst));

@@ -19,9 +19,11 @@ first:
 * ``train_layer``: the training layer's call, b = 4, m = n = 2048,
   (b, s, h, d) views, causal, softcap 50, partials.
 
-Each line: ``ms`` (CUDA events over back-to-back calls, median of 7
-windows of 5 calls after two warm-up calls: a call whose host work
-outlasts its kernels is timed by its host work), ``device_ms`` (the
+Each line: ``digest`` (a hash of the output's bits: equal digests from
+two checkouts mean equal bits), ``ms`` (CUDA events over back-to-back
+calls, median of 7 windows of 5 calls after two warm-up calls: a call
+whose host work outlasts its kernels is timed by its host work),
+``device_ms`` (the
 call's kernels by `torch.profiler`, mean over 30 calls), ``host_us``
 (host time per call, 200 calls enqueued back to back), the body and
 split where the checkout names them, and SDPA's ``library_ms`` and
@@ -33,6 +35,7 @@ and fails without one.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -77,6 +80,17 @@ def device_ms(fn, calls: int = 30) -> float:
         torch.cuda.synchronize()
     return sum(e.time_range.elapsed_us() for e in prof.events()
                if e.device_type == DeviceType.CUDA) / calls / 1e3
+
+
+def digest(out) -> str:
+    """A hash of the bits of a tensor or of a tuple of tensors."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in (out,) if torch.is_tensor(out) else out:
+        ints = {2: torch.int16, 4: torch.int32}[t.element_size()]
+        h.update(t.contiguous().view(ints).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def host_us(fn, calls: int = 200) -> float:
@@ -153,8 +167,9 @@ def main(argv=None) -> int:
         def run(fn=fn, qkv=qkv, kw=kw):
             return fn(*qkv, **kw)
 
-        rec = dict(label=args.label, case=name, ms=time_ms(run),
-                   device_ms=device_ms(run), host_us=host_us(run))
+        rec = dict(label=args.label, case=name, digest=digest(run()),
+                   ms=time_ms(run), device_ms=device_ms(run),
+                   host_us=host_us(run))
         if plan_of is not None:
             plan = plan_of(*qkv, kv_valid=kw.get("kv_valid"))
             rec.update(body=plan["body"], splits=plan["splits"])

@@ -19,7 +19,9 @@ bf16, softcap 50, page 128, 10 slots of 16 pages):
   run; `chip_smoke.ragged_step`, as the smoke's decode-only case);
 * ``prefill``: two 256-token chunks at lengths 512 and 1024.
 
-Each line: ``by_kernel`` (device ms per call of each kernel name),
+Each line: ``digest`` (a hash of the output's bits: equal digests from
+two checkouts mean equal bits), ``by_kernel`` (device ms per call of
+each kernel name),
 ``device_ms`` (every kernel of a call), ``ms`` (CUDA events over
 back-to-back calls, median of 7 windows of 5 calls), ``host_us`` (host
 time per call, 200 calls enqueued back to back), ``bound_ms`` (the
@@ -41,6 +43,7 @@ without one.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -114,6 +117,14 @@ def host_us(fn, calls: int = 200) -> float:
     return elapsed / calls * 1e6
 
 
+def digest(out) -> str:
+    """A hash of a bf16 tensor's bits."""
+    import torch
+
+    return hashlib.sha256(out.contiguous().view(torch.int16).cpu().numpy()
+                          .tobytes()).hexdigest()[:16]
+
+
 def smoke_module(here: str):
     """This checkout's chip_smoke.py (its step builders), whichever
     checkout ``attention_tpu_torch`` comes from."""
@@ -180,7 +191,8 @@ def main(argv=None) -> int:
     for name, (q, step) in steps.items():
         fn = (lambda step=step, q=q:
               rp.ragged_paged_attention(q, step, softcap=SOFTCAP))
-        rec = dict(label=args.label, case=name, **device_ms(fn),
+        rec = dict(label=args.label, case=name, digest=digest(fn()),
+                   **device_ms(fn),
                    ms=time_ms(fn), host_us=host_us(fn),
                    bound_ms=bound(q, step), width=q.shape[2],
                    q_tile=step.q_tile, kv_lens=step.kv_lens.tolist(),

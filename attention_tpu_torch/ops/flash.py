@@ -3,8 +3,9 @@
 `flash_attention` keeps the JAX entry point's keywords for the set the
 port supports (``scale``, ``causal``, ``softcap``, the offsets
 ``q_offset``/``kv_offset`` and ``kv_valid`` of cached prefill, the
-sliding ``window`` with attention ``sinks``, GQA over 2-D, 3-D and 4-D
-inputs); `flash_attention_partials` returns the
+sliding ``window`` with attention ``sinks``, packed-sequence segment
+ids, GQA over 2-D, 3-D and 4-D inputs); `flash_attention_partials`
+returns the
 unnormalized output with the row stats instead, as training's forward
 saves them.  For a CUDA tensor both launch the hand-written Hopper kernel
 ``csrc/flash_fwd.cu`` (which replaces the TPU kernel `_flash_kernel`);
@@ -19,7 +20,9 @@ The kernel has two bodies, and `flash_body` names the one a call runs:
 row block's key tiles across CTAs where the grid would leave SMs idle
 (`flash_split_plan`) and merges the splits' partials in a second kernel.
 Under a window both bodies walk only a row block's sink tiles and its
-band, as the TPU kernel's banded grid does.  `tile_plan` and
+band, as the TPU kernel's banded grid does.  Segment ids mask and do
+not move the walk: a call with ids visits the tiles it would visit
+without them and tests every element of each.  `tile_plan` and
 `flash_split_partials` are the kernel's tiles and split in PyTorch,
 which the CPU tests hold against the plain mask and against the JAX
 package (the main path runs them only inside the kernel).
@@ -49,7 +52,8 @@ from attention_tpu_torch.ops.reference import (
 
 KERNEL = "flash_fwd"
 _ARGTYPES = [P, P, P, P, I, I, I, I, I, I, I, I,
-             *([L] * 12), F, F, I, I, I, I, I, I, P, P, P, I, I, I, P, P]
+             *([L] * 12), F, F, I, I, I, I, I, I, P, P, P, I, I, I, P, P, P,
+             P]
 
 #: the C entry point's codes of the two bodies
 BODY_CODES = {"fma": 0, "wgmma": 1}
@@ -207,12 +211,39 @@ def _offsets(n, q_offset, kv_offset, kv_valid) -> dict:
 
 
 def _unsupported(**features) -> None:
+    """Raise `NotImplementedError` for a keyword the port still lacks
+    (``block_sizes`` of the backward and the autograd entry)."""
     for name, value in features.items():
         if value is not None:
             raise NotImplementedError(
                 f"flash attention's {name}=... is not ported yet; the port "
                 "supports scale, causal, softcap, q_offset, kv_offset, "
-                "kv_valid, window and sinks")
+                "kv_valid, window, sinks and segment ids")
+
+
+def check_segments(q, k, q_segment_ids, kv_segment_ids):
+    """The JAX entry points' contract for packed-sequence segment ids
+    (attention_tpu/ops/flash.py:885-887, :1222-1240, :1354-1358), as
+    `ValueError`: the two go together, the inputs are 2-D or 3-D (the
+    ids are shared across heads and batch rows), and each is a 1-D
+    vector of its sequence's length (q's m, k's n).  Returns them as
+    contiguous int32 on q's device, or (None, None) without ids."""
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError("q_segment_ids and kv_segment_ids go together")
+    if q_segment_ids is None:
+        return None, None
+    if q.dim() == 4:
+        raise ValueError(
+            "segment ids support 2D/3D inputs (ids shared across heads); "
+            "loop over the batch for per-sequence ids")
+    ids = [torch.as_tensor(x, device=q.device)
+           for x in (q_segment_ids, kv_segment_ids)]
+    if (any(x.dim() != 1 for x in ids) or ids[0].shape[0] != q.shape[-2]
+            or ids[1].shape[0] != k.shape[-2]):
+        raise ValueError(
+            f"segment id shapes {tuple(ids[0].shape)}/{tuple(ids[1].shape)}"
+            f" != ({q.shape[-2]},)/({k.shape[-2]},)")
+    return tuple(x.to(torch.int32).contiguous() for x in ids)
 
 
 def check_window(causal, window, sinks, segmented=False) -> None:
@@ -232,28 +263,34 @@ def check_window(causal, window, sinks, segmented=False) -> None:
 
 def flash_attention_plain(q, k, v, *, scale=None, causal=False,
                           softcap=None, q_offset=0, kv_offset=0,
-                          kv_valid=None, window=None,
-                          sinks=None) -> torch.Tensor:
+                          kv_valid=None, window=None, sinks=None,
+                          q_segment_ids=None,
+                          kv_segment_ids=None) -> torch.Tensor:
     """The plain PyTorch version of `flash_attention` (same inputs,
     same output dtype: ``v.dtype``)."""
     _canon(q, k, v)
-    check_window(causal, window, sinks)
+    ids = check_segments(q, k, q_segment_ids, kv_segment_ids)
+    check_window(causal, window, sinks, ids[0] is not None)
     return attention_reference(q, k, v, scale=scale, causal=causal,
                                softcap=softcap, q_offset=q_offset,
                                kv_offset=kv_offset, kv_valid=kv_valid,
-                               window=window, sinks=sinks)
+                               window=window, sinks=sinks,
+                               q_segment_ids=ids[0], kv_segment_ids=ids[1])
 
 
 def flash_attention_partials_plain(q, k, v, *, scale=None, causal=False,
                                    softcap=None, q_offset=0, kv_offset=0,
-                                   kv_valid=None, window=None, sinks=None):
+                                   kv_valid=None, window=None, sinks=None,
+                                   q_segment_ids=None, kv_segment_ids=None):
     """The plain PyTorch version of `flash_attention_partials`."""
     _canon(q, k, v)
-    check_window(causal, window, sinks)
+    ids = check_segments(q, k, q_segment_ids, kv_segment_ids)
+    check_window(causal, window, sinks, ids[0] is not None)
     return attention_reference_partials(
         q, k, v, scale=scale, causal=causal, softcap=softcap,
         q_offset=q_offset, kv_offset=kv_offset, kv_valid=kv_valid,
-        window=window, sinks=sinks)
+        window=window, sinks=sinks, q_segment_ids=ids[0],
+        kv_segment_ids=ids[1])
 
 
 def flash_split_partials(q, k, v, *, splits: int, split_tiles: int,
@@ -313,7 +350,8 @@ def _plan(q4, k4, v4, kv_valid, window, sinks) -> dict:
 
 
 def _launch(q4, k4, v4, *, scale, causal, softcap, q_offset, kv_offset,
-            kv_valid, window, sinks, partials=False):
+            kv_valid, window, sinks, q_ids=None, kv_ids=None,
+            partials=False):
     dtype = q4.dtype
     if dtype not in DTYPE_CODES or k4.dtype != dtype or v4.dtype != dtype:
         raise TypeError(
@@ -338,6 +376,11 @@ def _launch(q4, k4, v4, *, scale, causal, softcap, q_offset, kv_offset,
     splits = plan["splits"]
     part = (torch.empty(splits * b * h * m * (dv + 2), dtype=torch.float32,
                         device=q4.device) if splits > 1 else None)
+    if kv_ids is not None:
+        # whole key tiles of ids, the tail -2 (no real id): the wgmma body
+        # copies a tile's ids into its K/V stage in one bulk copy
+        kv_ids = torch.nn.functional.pad(kv_ids, (0, -n % KEY_TILE),
+                                         value=-2)
     fn = _native.function(KERNEL, "flash_fwd", _ARGTYPES)
     with torch.cuda.device(q4.device):
         stream = torch.cuda.current_stream(q4.device).cuda_stream
@@ -351,7 +394,9 @@ def _launch(q4, k4, v4, *, scale, causal, softcap, q_offset, kv_offset,
                               stats[1].data_ptr()) if partials
                              else (None, None, None)),
                  BODY_CODES[plan["body"]], splits, plan["split_tiles"],
-                 None if part is None else part.data_ptr(), stream)
+                 None if part is None else part.data_ptr(),
+                 *((None, None) if q_ids is None
+                   else (q_ids.data_ptr(), kv_ids.data_ptr())), stream)
     _native.check(KERNEL, err)
     _native.count_launch(KERNEL)
     return (o4, stats[0], stats[1]) if partials else o4
@@ -362,8 +407,8 @@ def _dispatch(q, k, v, plain, *, scale, causal, softcap, window, sinks,
               max_mode, partials):
     """Shared argument handling of the two entry points: validate, then
     the plain version for CPU tensors or the kernel for CUDA ones."""
-    check_window(causal, window, sinks, q_segment_ids is not None)
-    _unsupported(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids)
+    q_ids, kv_ids = check_segments(q, k, q_segment_ids, kv_segment_ids)
+    check_window(causal, window, sinks, q_ids is not None)
     if max_mode != "online":
         raise NotImplementedError(
             f"max_mode={max_mode!r} is not ported yet; only 'online'")
@@ -375,13 +420,15 @@ def _dispatch(q, k, v, plain, *, scale, causal, softcap, window, sinks,
     band = dict(window=window, sinks=sinks)
     if q.device.type == "cpu":
         return plain(q, k, v, scale=scale, causal=causal, softcap=softcap,
+                     q_segment_ids=q_ids, kv_segment_ids=kv_ids,
                      **offsets, **band)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device.type}")
     lead = (0,) * (4 - q.dim())
     out = _launch(q4, k4, v4, scale=scale, causal=causal, softcap=softcap,
-                  partials=partials, **offsets, **band)
+                  q_ids=q_ids, kv_ids=kv_ids, partials=partials, **offsets,
+                  **band)
     if partials:
         return tuple(t[lead] for t in out)
     return out[lead]
@@ -415,9 +462,13 @@ def flash_attention(
     masking.  ``window`` (causal only) keeps, of the keys at or before a
     query's position p, those after p - window, and ``sinks`` (with a
     window) the keys at positions below it too (StreamingLLM); the
-    kernel then walks only those keys' tiles.  A row that sees no key
-    comes out zero.  Output dtype is ``v.dtype``.  CUDA tensors run the
-    Hopper kernel; CPU tensors run `flash_attention_plain`."""
+    kernel then walks only those keys' tiles.  ``q_segment_ids`` (m,)
+    and ``kv_segment_ids`` (n,) (integers, together, 2-D and 3-D inputs
+    only: shared across heads) keep a pair only where they are equal, on
+    top of every other mask: packed sequences attend within their own
+    document.  A row that sees no key comes out zero.  Output dtype is
+    ``v.dtype``.  CUDA tensors run the Hopper kernel; CPU tensors run
+    `flash_attention_plain`."""
     return _dispatch(q, k, v, flash_attention_plain, scale=scale,
                      causal=causal, softcap=softcap, window=window,
                      sinks=sinks, q_segment_ids=q_segment_ids,

@@ -38,6 +38,12 @@ as the TPU kernels' banded grids do, with a window-only mask, and
 ``sinks`` add the sink pairs outside the band by `sink_patch`, the
 port of JAX's `_sink_patch`: an m x sinks sliver in PyTorch products,
 as JAX leaves it to XLA.
+
+Packed-sequence segment ids mask every kernel's pairs on top of the
+rest, as in the forward: the kernels walk the tiles they walk without
+ids and test each element of each (the wgmma bodies in instances of
+their own, `SEG`, so that a call without ids runs the code it ran
+before them).
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from attention_tpu_torch.ops.flash import (
     _offsets,
     _strides,
     _unsupported,
+    check_segments,
     check_window,
 )
 from attention_tpu_torch.ops.reference import band_keep, check_softcap
@@ -82,10 +89,11 @@ WINDOW_CAP = 1 << 30
 BALANCE = 1.1
 _ARGS = [*([I] * 9), *([L] * 12), F, F, I, I, I, I, I]
 #: the C entry points' argument types: the operands and outputs, the
-#: call's shape and options (`_ARGS`), the body and its slices, the stream
-ARGTYPES = {FUSED: [*([P] * 9), *_ARGS, I, I, P],
-            DQ: [*([P] * 7), *_ARGS, I, P],
-            DKV: [*([P] * 8), *_ARGS, I, I, P]}
+#: call's shape and options (`_ARGS`), the body and its slices, the
+#: segment ids (two pointers, null without ids), the stream
+ARGTYPES = {FUSED: [*([P] * 9), *_ARGS, I, I, P, P, P],
+            DQ: [*([P] * 7), *_ARGS, I, P, P, P],
+            DKV: [*([P] * 8), *_ARGS, I, I, P, P, P]}
 
 # Send CUDA calls to the two-kernel pair (dQ, then dK/dV) instead of the
 # fused kernel: a module global, as in the JAX package, that tests and
@@ -111,12 +119,17 @@ def _round(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def flash_backward_plain(q, k, v, out, lse, dout, *, scale, causal=False,
                          softcap=None, q_offset=0, kv_offset=0,
-                         kv_valid=None, window=None, sinks=None, chunk=512):
+                         kv_valid=None, window=None, sinks=None,
+                         q_segment_ids=None, kv_segment_ids=None,
+                         chunk=512):
     """The plain PyTorch version of `flash_backward` (same inputs and
     outputs), blocked over ``chunk`` query rows so that memory stays
     O(chunk·n) per head.  Under a ``window`` it takes the whole mask of
     the forward, band and ``sinks`` together (`reference.band_keep`),
-    where the kernels take the band and `sink_patch` the sinks."""
+    where the kernels take the band and `sink_patch` the sinks; segment
+    ids mask the scores as JAX's blocked XLA backward does
+    (attention_tpu/ops/flash_vjp.py:189-190)."""
+    q_ids, kv_ids = check_segments(q, k, q_segment_ids, kv_segment_ids)
     (q4, k4, v4, o4, l4, do4), lead = _four_d(
         q, k, v, out, lse[..., None], dout)
     dtype = q.dtype
@@ -151,6 +164,8 @@ def flash_backward_plain(q, k, v, out, lse, dout, *, scale, causal=False,
                            + q_offset)
             keep = keep & band_keep(col[None, :] + kv_offset,
                                     row[:, None] + q_offset, window, sinks)
+        if q_ids is not None:
+            keep = keep & (q_ids[rows, None] == kv_ids[None, :])
         p = torch.where(keep, torch.exp2(s2 - l2), 0.0)
         dp = torch.matmul(do[:, :, rows], vx.transpose(-1, -2))
         ds = p * (dp - delta[:, :, rows, None])
@@ -417,11 +432,13 @@ def _lse2(lse4: torch.Tensor, rows: int) -> torch.Tensor:
 class _Staged:
     """The 4-D CUDA operands checked and staged as the kernels read them
     (Qs and dO in the input dtype, lse2 and delta in float32 padded to
-    whole dQ items), the fused kernel's plan and the pair's, and their
-    launches."""
+    whole dQ items, the segment ids in int32 padded to whole dQ items
+    with -1 and to whole key blocks with -2, ids no real row holds), the
+    fused kernel's plan and the pair's, and their launches."""
 
     def __init__(self, q4, k4, v4, o4, lse4, do4, *, scale, causal, softcap,
-                 q_offset, kv_offset, kv_valid, window=None):
+                 q_offset, kv_offset, kv_valid, window=None, q_ids=None,
+                 kv_ids=None):
         dtype = q4.dtype
         if (dtype not in DTYPE_CODES or k4.dtype != dtype
                 or v4.dtype != dtype):
@@ -445,6 +462,9 @@ class _Staged:
         self.lse2 = _lse2(lse4, self.ls)
         self.delta = torch.nn.functional.pad(_delta(do4, o4),
                                              (0, self.ls - m))
+        self.ids = (None, None) if q_ids is None else (
+            torch.nn.functional.pad(q_ids, (0, self.ls - m), value=-1),
+            torch.nn.functional.pad(kv_ids, (0, -n % KEY_BLOCK), value=-2))
         self.strides = [x for t in (self.qs, self.k, self.v, self.do)
                         for x in _strides(t)]
         self.args = (DTYPE_CODES[dtype], b, h, hkv, m, n, d, dv, self.ls,
@@ -475,7 +495,9 @@ class _Staged:
             err = fn(self.qs.data_ptr(), self.k.data_ptr(), self.v.data_ptr(),
                      self.do.data_ptr(), self.lse2.data_ptr(),
                      self.delta.data_ptr(), *(t.data_ptr() for t in pointers),
-                     *self.args, *extra, stream)
+                     *self.args, *extra,
+                     *(None if t is None else t.data_ptr() for t in self.ids),
+                     stream)
         _native.check(kernel, err)
         _native.count_launch(kernel)
 
@@ -635,33 +657,39 @@ def flash_backward(
     dout (..., h, m, dv), lse (..., h, m) in the natural-log domain (-inf
     for a row that saw no key); 3-D or 4-D, hkv dividing h (GQA).
     ``scale``, ``causal``, ``softcap``, ``q_offset``/``kv_offset``,
-    ``kv_valid``, ``window`` and ``sinks`` must be the forward's.
+    ``kv_valid``, ``window``, ``sinks`` and the segment ids must be the
+    forward's.
     Gradients come back in the inputs' dtypes.  CUDA tensors run the
     fused Hopper kernel (or the dQ and dK/dV pair under
     `_FORCE_TWO_KERNEL`), float32 or bfloat16, head dims up to 128; CPU
     tensors run `flash_backward_plain`.  Under a ``window`` the kernels
     walk only its band, with a window-only mask, and ``sinks`` add the
     sink pairs outside the band by `sink_patch`, as the JAX backward
-    does.  Its refusals are JAX's, as `ValueError`: a window without
+    does.  ``q_segment_ids`` (m,) and ``kv_segment_ids`` (n,) (3-D
+    inputs) mask the pairs of different packed sequences in every
+    kernel.  Its refusals are JAX's, as `ValueError`: a window without
     ``causal``, sinks without a window, sinks with ``kv_offset`` (their
-    positions are absolute) or with segment ids.  Segment ids and
-    ``block_sizes`` are not ported and raise `NotImplementedError`."""
+    positions are absolute) or with segment ids, unpaired ids, ids with
+    4-D inputs or of the wrong length.  ``block_sizes`` is not ported
+    and raises `NotImplementedError`."""
+    q_ids, kv_ids = check_segments(q, k, q_segment_ids, kv_segment_ids)
     check_backward_band(causal, window, sinks, kv_offset,
-                        q_segment_ids is not None)
-    _unsupported(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
-                 block_sizes=block_sizes)
+                        q_ids is not None)
+    _unsupported(block_sizes=block_sizes)
     check_softcap(softcap)
     offsets = _offsets(k.shape[-2], q_offset, kv_offset, kv_valid)
     band = dict(window=window, sinks=sinks)
     if q.device.type == "cpu":
         return flash_backward_plain(q, k, v, out, lse, dout, scale=scale,
                                     causal=causal, softcap=softcap,
-                                    **offsets, **band)
+                                    q_segment_ids=q_ids,
+                                    kv_segment_ids=kv_ids, **offsets,
+                                    **band)
     if q.device.type != "cuda":
         raise ValueError(f"flash_backward runs on cuda or cpu, not "
                          f"{q.device.type}")
     tensors, lead = _four_d(q, k, v, out, lse[..., None], dout)
     tensors[4] = tensors[4][..., 0]
     return tuple(t[lead] for t in _launch(
-        *tensors, scale=scale, causal=causal, softcap=softcap, **offsets,
-        **band))
+        *tensors, scale=scale, causal=causal, softcap=softcap, q_ids=q_ids,
+        kv_ids=kv_ids, **offsets, **band))

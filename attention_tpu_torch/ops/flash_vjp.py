@@ -6,6 +6,8 @@ kernels.  Its forward runs `flash_attention_partials` and normalizes, as
 JAX's `_flash_fwd_impl` does, saving only (q, k, v, out, lse) instead of
 the probability matrix; its backward is `ops.flash_bwd.flash_backward`,
 which recomputes the probabilities from the saved log-sum-exp.
+Packed-sequence segment ids ride through both as arguments without a
+gradient.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from attention_tpu_torch.ops.flash import (
     _canon,
     _offsets,
     _unsupported,
+    check_segments,
     flash_attention_partials,
 )
 from attention_tpu_torch.ops.flash_bwd import (
@@ -37,28 +40,34 @@ def _flash_fwd_impl(q, k, v, **kw):
 
 
 class _FlashDiff(torch.autograd.Function):
+    """q, k, v differentiable; the segment ids (int32 or None) are not,
+    and their gradient is None, where JAX returns a float0 cotangent
+    (attention_tpu/ops/flash_vjp.py:61)."""
+
     @staticmethod
-    def forward(ctx, q, k, v, opts):
-        out, lse = _flash_fwd_impl(q, k, v, **opts["fwd"])
-        ctx.save_for_backward(q, k, v, out, lse)
+    def forward(ctx, q, k, v, q_ids, kv_ids, opts):
+        ids = dict(q_segment_ids=q_ids, kv_segment_ids=kv_ids)
+        out, lse = _flash_fwd_impl(q, k, v, **opts["fwd"], **ids)
+        ctx.save_for_backward(q, k, v, out, lse, q_ids, kv_ids)
         ctx.opts = opts
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, q_ids, kv_ids = ctx.saved_tensors
         opts, fwd = ctx.opts, ctx.opts["fwd"]
+        ids = dict(q_segment_ids=q_ids, kv_segment_ids=kv_ids)
         if opts["bwd_impl"] == "xla":
             grads = flash_backward_plain(
                 q, k, v, out, lse, dout, scale=fwd["scale"],
                 causal=fwd["causal"], softcap=fwd["softcap"],
                 window=fwd["window"], sinks=fwd["sinks"],
-                chunk=opts["bwd_chunk"],
+                chunk=opts["bwd_chunk"], **ids,
                 **_offsets(k.shape[-2], fwd["q_offset"], fwd["kv_offset"],
                            fwd["kv_valid"]))
         else:
-            grads = flash_backward(q, k, v, out, lse, dout, **fwd)
-        return (*grads, None)
+            grads = flash_backward(q, k, v, out, lse, dout, **fwd, **ids)
+        return (*grads, None, None, None)
 
 
 def flash_attention_diff(
@@ -95,25 +104,32 @@ def flash_attention_diff(
     the online recurrence, which gives the same output and lse.  A
     ``window`` (causal only) with ``sinks`` runs the forward kernel over
     the band and its sinks, and the backward kernels over the band with
-    the sink pairs outside it added by `flash_bwd.sink_patch`; the
-    refusals are `flash_bwd.flash_backward`'s.  Segment ids and
-    ``block_sizes`` raise `NotImplementedError`."""
+    the sink pairs outside it added by `flash_bwd.sink_patch`.
+    ``q_segment_ids`` (m,) and ``kv_segment_ids`` (n,) (2-D and 3-D
+    inputs, shared across heads) mask attention across packed-sequence
+    boundaries in the forward and both backwards.  The refusals are
+    `flash_bwd.flash_backward`'s; ``block_sizes`` raises
+    `NotImplementedError`."""
     if bwd_impl not in ("pallas", "xla"):
         raise ValueError(f"unknown bwd_impl {bwd_impl!r}")
     if max_mode not in ("online", "bound"):
         raise NotImplementedError(
             f"max_mode={max_mode!r} is not ported yet; 'online' and "
             "'bound' run the online recurrence")
+    q_ids, kv_ids = check_segments(q, k, q_segment_ids, kv_segment_ids)
     check_backward_band(causal, window, sinks, kv_offset,
-                        q_segment_ids is not None)
-    _unsupported(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
-                 block_sizes=block_sizes)
+                        q_ids is not None)
+    _unsupported(block_sizes=block_sizes)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     q4, k4, v4 = _canon(q, k, v)
+    if q_ids is not None:
+        # ids take 2-D and 3-D inputs: one (h, m, d) call
+        q4, k4, v4 = q4[0], k4[0], v4[0]
     fwd = dict(scale=scale, causal=causal, softcap=softcap,
                q_offset=q_offset, kv_offset=kv_offset, kv_valid=kv_valid,
                window=window, sinks=sinks)
-    out = _FlashDiff.apply(q4, k4, v4, dict(fwd=fwd, bwd_impl=bwd_impl,
-                                            bwd_chunk=bwd_chunk))
-    return out[(0,) * (4 - q.dim())]
+    out = _FlashDiff.apply(q4, k4, v4, q_ids, kv_ids,
+                           dict(fwd=fwd, bwd_impl=bwd_impl,
+                                bwd_chunk=bwd_chunk))
+    return out[(0,) * (q4.dim() - q.dim())]

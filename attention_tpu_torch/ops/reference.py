@@ -140,7 +140,8 @@ def _partials_pv(scores: torch.Tensor, v: torch.Tensor):
 
 
 def _masked_scores(q, k, *, scale, causal, softcap, q_offset, kv_offset,
-                   kv_valid, window=None, sinks=None):
+                   kv_valid, window=None, sinks=None, q_segment_ids=None,
+                   kv_segment_ids=None):
     """float32 scores of `attention_reference` with masked entries -inf,
     and k's heads repeated over their GQA group."""
     check_softcap(softcap)
@@ -152,7 +153,8 @@ def _masked_scores(q, k, *, scale, causal, softcap, q_offset, kv_offset,
     keep = attention_mask(*scores.shape[-2:], causal=causal,
                           q_offset=q_offset, kv_offset=kv_offset,
                           kv_valid=kv_valid, window=window, sinks=sinks,
-                          device=q.device)
+                          q_segment_ids=q_segment_ids,
+                          kv_segment_ids=kv_segment_ids, device=q.device)
     return scores.masked_fill(~keep, float("-inf"))
 
 
@@ -169,11 +171,14 @@ def band_keep(col, pos, window, sinks):
 
 def attention_mask(m: int, n: int, *, causal=False, q_offset=0,
                    kv_offset=0, kv_valid=None, window=None, sinks=None,
+                   q_segment_ids=None, kv_segment_ids=None,
                    device=None) -> torch.Tensor:
     """(m, n) bool, True where query row i attends key row j: j below
     ``kv_valid`` and, under ``causal``, ``kv_offset + j <=
     q_offset + i``; with a ``window`` (causal only) also in the band of
-    `band_keep` at those positions."""
+    `band_keep` at those positions; with segment ids ((m,) and (n,)
+    integer vectors, packed sequences) also ``q_segment_ids[i] ==
+    kv_segment_ids[j]``."""
     row = torch.arange(m, device=device)[:, None]
     col = torch.arange(n, device=device)[None, :]
     keep = col < (n if kv_valid is None else kv_valid)
@@ -181,6 +186,9 @@ def attention_mask(m: int, n: int, *, causal=False, q_offset=0,
         keep = keep & (col + kv_offset <= row + q_offset)
         keep = keep & band_keep(col + kv_offset, row + q_offset, window,
                                 sinks)
+    if q_segment_ids is not None:
+        keep = keep & (q_segment_ids.to(device)[:, None]
+                       == kv_segment_ids.to(device)[None, :])
     return keep.expand(m, n)
 
 
@@ -206,6 +214,8 @@ def attention_reference(
     kv_valid: int | None = None,
     window: int | None = None,
     sinks: int | None = None,
+    q_segment_ids: torch.Tensor | None = None,
+    kv_segment_ids: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """softmax(q kᵀ · scale) v over the last two axes.
 
@@ -215,18 +225,21 @@ def attention_reference(
     key rows are attended.  ``causal`` masks key j against query i when
     ``kv_offset + j > q_offset + i``, and a ``window`` (causal only) also
     when ``kv_offset + j <= q_offset + i - window`` unless ``kv_offset + j
-    < sinks``; ``softcap`` maps the scaled scores through cap·tanh(s/cap)
-    before masking."""
+    < sinks``; segment ids ((m,) and (n,), shared across heads) keep a
+    pair only where they are equal; ``softcap`` maps the scaled scores
+    through cap·tanh(s/cap) before masking."""
     k, v = _gqa_repeat(q, k, v)
     return _softmax_pv(_masked_scores(
         q, k, scale=scale, causal=causal, softcap=softcap,
         q_offset=q_offset, kv_offset=kv_offset, kv_valid=kv_valid,
-        window=window, sinks=sinks), v)
+        window=window, sinks=sinks, q_segment_ids=q_segment_ids,
+        kv_segment_ids=kv_segment_ids), v)
 
 
 def attention_reference_partials(q, k, v, *, scale=None, causal=False,
                                  softcap=None, q_offset=0, kv_offset=0,
-                                 kv_valid=None, window=None, sinks=None):
+                                 kv_valid=None, window=None, sinks=None,
+                                 q_segment_ids=None, kv_segment_ids=None):
     """The unnormalized form of `attention_reference` (same inputs):
     float32 (sum of exp(s - max)·v, row max, row sum) of `_partials_pv`,
     the row max in the natural-log domain."""
@@ -234,7 +247,8 @@ def attention_reference_partials(q, k, v, *, scale=None, causal=False,
     return _partials_pv(_masked_scores(
         q, k, scale=scale, causal=causal, softcap=softcap,
         q_offset=q_offset, kv_offset=kv_offset, kv_valid=kv_valid,
-        window=window, sinks=sinks), v)
+        window=window, sinks=sinks, q_segment_ids=q_segment_ids,
+        kv_segment_ids=kv_segment_ids), v)
 
 
 def decode_reference(

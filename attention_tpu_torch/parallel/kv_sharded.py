@@ -18,10 +18,14 @@ The reference's distributed algorithm (`attention-mpi.c:191-407`):
 
 Every rank passes the full tensors, as JAX's functions take global
 arrays, slices its own shard at entry (``shard_map``'s ``in_specs``) and
-returns the full output.  The keywords that the port's flash kernel does
-not take yet (``window``, ``sinks``, segment ids, ``block_sizes``) raise
-`NotImplementedError`; ``max_mode="bound"``, JAX's default here, runs
-the online recurrence, which the JAX package pins to the same outputs.
+returns the full output.  The kernel's masking surface flows through, as
+in JAX (attention_tpu/parallel/kv_sharded.py:163-197): ``window`` and
+``sinks`` in global positions through each shard's ``kv_offset``, and
+packed-sequence segment ids with their rows (Q's whole on every rank,
+K/V's cut with K/V, the padded tail -2, an id no real row holds).
+``block_sizes`` raises `NotImplementedError`; ``max_mode="bound"``,
+JAX's default here, runs the online recurrence, which the JAX package
+pins to the same outputs.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from __future__ import annotations
 import torch
 
 from attention_tpu_torch.ops.flash import (
+    check_segments,
+    check_window,
     flash_attention,
     flash_attention_partials,
 )
@@ -38,27 +44,31 @@ from attention_tpu_torch.parallel.mesh import Mesh, default_mesh
 NEG_INF = float("-inf")
 
 
-def _unported(*, q, k, v, block_sizes=None, window=None, sinks=None,
-              q_segment_ids=None, kv_segment_ids=None,
-              max_mode="bound") -> None:
+def _unported(*, q, k, v, block_sizes=None, max_mode="bound") -> None:
     """Raise `NotImplementedError` for what the sharded paths do not
-    carry yet: the flash kernel's unported keywords, ``max_mode`` other
-    than "online"/"bound", and gradients (the collectives are not
-    differentiable yet)."""
+    carry yet: ``block_sizes``, ``max_mode`` other than "online"/"bound",
+    and gradients (the collectives are not differentiable yet)."""
     if max_mode not in ("online", "bound"):
         raise NotImplementedError(
             f"max_mode={max_mode!r} is not ported yet; 'online' and "
             "'bound' run the online recurrence")
-    for name, value in (("block_sizes", block_sizes), ("window", window),
-                        ("sinks", sinks), ("q_segment_ids", q_segment_ids),
-                        ("kv_segment_ids", kv_segment_ids)):
-        if value is not None:
-            raise NotImplementedError(
-                f"{name}=... is not ported to the sharded paths yet")
+    if block_sizes is not None:
+        raise NotImplementedError(
+            "block_sizes=... is not ported to the sharded paths yet")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
             "the sharded paths are forward-only in the port: their "
             "collectives are not differentiable yet")
+
+
+def pad_ids(ids, length: int, fill: int):
+    """Segment ids padded to ``length`` with ``fill`` (None stays None):
+    -1 for query rows, -2 for key rows, as JAX's `_ring_pad_ids`, ids no
+    real (non-negative) row holds and that match each other neither."""
+    if ids is None or ids.shape[0] == length:
+        return ids
+    return torch.nn.functional.pad(ids, (0, length - ids.shape[0]),
+                                   value=fill)
 
 
 def _rows(x: torch.Tensor, lo: int, width: int) -> torch.Tensor:
@@ -85,7 +95,8 @@ def merge_partials(out_un, lmax, lsum, axis_name: str, *, mesh: Mesh):
 
 
 def _local_partials(q, k, v, *, impl, scale, kv_valid, causal=False,
-                    q_offset=0, kv_offset=0, softcap=None):
+                    q_offset=0, kv_offset=0, softcap=None, window=None,
+                    sinks=None, q_segment_ids=None, kv_segment_ids=None):
     """One rank's partials: ``impl="flash"`` the flash kernel's partials
     epilogue (its plain version for CPU tensors), ``impl="torch"`` the
     plain PyTorch partials (JAX's ``impl="xla"``)."""
@@ -94,7 +105,9 @@ def _local_partials(q, k, v, *, impl, scale, kv_valid, causal=False,
     if fn is None:
         raise ValueError(f"unknown impl {impl!r}; 'flash' or 'torch'")
     return fn(q, k, v, scale=scale, kv_valid=kv_valid, causal=causal,
-              q_offset=q_offset, kv_offset=kv_offset, softcap=softcap)
+              q_offset=q_offset, kv_offset=kv_offset, softcap=softcap,
+              window=window, sinks=sinks, q_segment_ids=q_segment_ids,
+              kv_segment_ids=kv_segment_ids)
 
 
 def kv_sharded_attention(
@@ -124,10 +137,13 @@ def kv_sharded_attention(
     ``kv_valid``; the two-phase merge makes the softmax shard-invariant.
     Every rank returns the full output, in q's dtype.  Shapes as
     `flash_attention`: (m, d), (h, m, d) or (b, h, m, d), GQA for 3-D
-    and 4-D; the key axis (-2) is the sharded one."""
-    _unported(q=q, k=k, v=v, block_sizes=block_sizes, window=window,
-              sinks=sinks, q_segment_ids=q_segment_ids,
-              kv_segment_ids=kv_segment_ids, max_mode=max_mode)
+    and 4-D; the key axis (-2) is the sharded one.  ``window`` and
+    ``sinks`` are masked in global positions (each shard's
+    ``kv_offset``); segment ids ((m,) and (n,), 2-D and 3-D inputs) go
+    whole for Q and cut with their K/V rows."""
+    _unported(q=q, k=k, v=v, block_sizes=block_sizes, max_mode=max_mode)
+    q_ids, kv_ids = check_segments(q, k, q_segment_ids, kv_segment_ids)
+    check_window(causal, window, sinks, q_ids is not None)
     if mesh is None:
         mesh = default_mesh(axis_name)
     n_dev, idx = mesh.shape[axis_name], mesh.index(axis_name)
@@ -136,10 +152,13 @@ def kv_sharded_attention(
         scale = 1.0 / (q.shape[-1] ** 0.5)
     n_local = -(-n // n_dev)
     lo = idx * n_local
+    kv_ids = pad_ids(kv_ids, n_local * n_dev, -2)
     out_un, lmax, lsum = _local_partials(
         q, _rows(k, lo, n_local), _rows(v, lo, n_local), impl=impl,
         scale=scale, kv_valid=min(max(n - lo, 0), n_local), causal=causal,
-        kv_offset=lo, softcap=softcap)
+        kv_offset=lo, softcap=softcap, window=window, sinks=sinks,
+        q_segment_ids=q_ids,
+        kv_segment_ids=None if kv_ids is None else kv_ids[lo:lo + n_local])
     return merge_partials(out_un, lmax, lsum, axis_name,
                           mesh=mesh).to(q.dtype)
 

@@ -21,6 +21,14 @@ the schedule is built; of (q_lo, kv_lo) and (q_hi, kv_hi) the kernel's
 causal range skips the tiles of whichever sees nothing this step, whose
 partials come out as row max -inf and sum 0.
 
+The kernel's masking surface flows through both schedules, as in JAX
+(attention_tpu/parallel/ring.py:365-411, :547-580, :680): ``window`` and
+``sinks`` in global positions through each call's ``kv_offset``, and
+packed-sequence segment ids as global vectors that every rank holds,
+padded (-1 for query rows, -2 for key rows: ids no real row holds), each
+call slicing the ids of its rows and keys.  Under a window no step is
+skipped: the launch counts stay R per call and 3R for zigzag.
+
 Every rank passes the full tensors, takes its contiguous block of the
 sequence at entry and returns the full output (an all_gather of the
 blocks).  The differentiable ring (`ring_attention_diff` and the zigzag
@@ -33,8 +41,12 @@ from typing import NamedTuple
 
 import torch
 
-from attention_tpu_torch.ops.flash import flash_attention_partials
-from attention_tpu_torch.parallel.kv_sharded import _rows, _unported
+from attention_tpu_torch.ops.flash import (
+    check_segments,
+    check_window,
+    flash_attention_partials,
+)
+from attention_tpu_torch.parallel.kv_sharded import _rows, _unported, pad_ids
 from attention_tpu_torch.parallel.mesh import Mesh, default_mesh
 
 NEG_INF = float("-inf")
@@ -65,10 +77,13 @@ def ring_attention(
     Q and K/V are cut into one block per rank, padded to a multiple of
     the ring, padded keys masked by each step's ``kv_valid`` and padded
     query rows dropped.  ``schedule="zigzag"`` balances causal work (see
-    the module docstring; self-attention shapes, m == n)."""
-    _unported(q=q, k=k, v=v, block_sizes=block_sizes, window=window,
-              sinks=sinks, q_segment_ids=q_segment_ids,
-              kv_segment_ids=kv_segment_ids, max_mode=max_mode)
+    the module docstring; self-attention shapes, m == n).  ``window``,
+    ``sinks`` and segment ids ((m,) and (n,), 2-D and 3-D inputs) as
+    `flash_attention` takes them, in global positions."""
+    _unported(q=q, k=k, v=v, block_sizes=block_sizes, max_mode=max_mode)
+    ids = check_segments(q, k, q_segment_ids, kv_segment_ids)
+    check_window(causal, window, sinks, ids[0] is not None)
+    seg = None if ids[0] is None else ids
     if mesh is None:
         mesh = default_mesh(axis_name)
     n_dev, idx = mesh.shape[axis_name], mesh.index(axis_name)
@@ -83,16 +98,23 @@ def ring_attention(
                 "ring work is already balanced); use schedule='contiguous'"
             )
         return _zigzag_ring(q, k, v, mesh=mesh, axis_name=axis_name,
-                            scale=scale, softcap=softcap)
+                            scale=scale, softcap=softcap, window=window,
+                            sinks=sinks, seg=seg)
 
     m, n = q.shape[-2], k.shape[-2]
     m_local, n_local = -(-m // n_dev), -(-n // n_dev)
     cfg = _RingCfg(axis_name=axis_name, n_dev=n_dev, n=n, m_local=m_local,
                    n_local=n_local, scale=scale, causal=causal,
-                   softcap=softcap)
+                   softcap=softcap, window=window, sinks=sinks)
+    if seg is not None:
+        # Q ids cut with Q's rows; K/V ids whole, sliced at each step
+        seg = (pad_ids(seg[0], m_local * n_dev, -1)[
+            idx * m_local:(idx + 1) * m_local],
+               pad_ids(seg[1], n_local * n_dev, -2))
     out, _ = _ring_fwd_loop(_rows(q, idx * m_local, m_local),
                             _rows(k, idx * n_local, n_local),
-                            _rows(v, idx * n_local, n_local), cfg, mesh)
+                            _rows(v, idx * n_local, n_local), cfg, mesh,
+                            seg=seg)
     return mesh.all_gather(out, axis_name, dim=-2)[..., :m, :]
 
 
@@ -105,13 +127,17 @@ class _RingCfg(NamedTuple):
     scale: float
     causal: bool
     softcap: "float | None"
+    window: "int | None" = None
+    sinks: "int | None" = None
 
 
-def _ring_fwd_loop(q, k, v, cfg: _RingCfg, mesh: Mesh):
+def _ring_fwd_loop(q, k, v, cfg: _RingCfg, mesh: Mesh, seg=None):
     """Contiguous ring forward on this rank's blocks: the one copy of the
     rotate/merge schedule (`ring_attention` drops the lse, the training
-    path will save it).  Returns (normalised out in q's dtype, natural-
-    log lse, -inf for a row that saw no key)."""
+    path will save it).  ``seg``: None, or (this block's query ids, the
+    whole padded key ids), each step slicing the arriving shard's.
+    Returns (normalised out in q's dtype, natural-log lse, -inf for a row
+    that saw no key)."""
     idx = mesh.index(cfg.axis_name)
     perm = [(j, (j + 1) % cfg.n_dev) for j in range(cfg.n_dev)]
     acc = torch.zeros(q.shape[:-1] + (v.shape[-1],), dtype=torch.float32,
@@ -125,11 +151,14 @@ def _ring_fwd_loop(q, k, v, cfg: _RingCfg, mesh: Mesh):
         if t + 1 < cfg.n_dev:
             nxt = mesh.ppermute((k_cur, v_cur), cfg.axis_name, perm)
         shard = (idx - t) % cfg.n_dev
+        ids = {} if seg is None else dict(
+            q_segment_ids=seg[0], kv_segment_ids=seg[1][
+                shard * cfg.n_local:(shard + 1) * cfg.n_local])
         parts = flash_attention_partials(
             q, k_cur, v_cur, scale=cfg.scale, causal=cfg.causal,
             q_offset=idx * cfg.m_local, kv_offset=shard * cfg.n_local,
             kv_valid=min(max(cfg.n - shard * cfg.n_local, 0), cfg.n_local),
-            softcap=cfg.softcap)
+            softcap=cfg.softcap, window=cfg.window, sinks=cfg.sinks, **ids)
         acc, m_run, l_run = _merge_step((acc, m_run, l_run), *parts)
         if t + 1 < cfg.n_dev:
             k_cur, v_cur = nxt.wait()
@@ -177,9 +206,12 @@ class _ZigCfg(NamedTuple):
     chunk: int
     scale: float
     softcap: "float | None"
+    window: "int | None" = None
+    sinks: "int | None" = None
 
 
-def _zigzag_ring(q, k, v, *, mesh: Mesh, axis_name: str, scale, softcap):
+def _zigzag_ring(q, k, v, *, mesh: Mesh, axis_name: str, scale, softcap,
+                 window=None, sinks=None, seg=None):
     """Causal ring attention with the zigzag layout (llama-3 style).
 
     The sequence is cut into 2R chunks; rank d holds chunks (d, 2R-1-d),
@@ -189,15 +221,22 @@ def _zigzag_ring(q, k, v, *, mesh: Mesh, axis_name: str, scale, softcap):
     per-step analog of the reference's ±1-row owner balance,
     `attention-mpi.c:19-27`).  Each rank takes its contiguous block
     (chunks 2d, 2d+1), `_zigzag_exchange` trades it for its zigzag pair
-    and back, and an all_gather of the blocks gives the full output."""
+    and back, and an all_gather of the blocks gives the full output.
+    Segment ids (``seg``: the global (q, kv) pair) stay in global order,
+    padded to the 2R chunks, and each chunk-pair call slices its chunks'
+    ids by chunk id (JAX's `_zig_pad_ids` and `_zig_chunk_ids`)."""
     n_dev, idx = mesh.shape[axis_name], mesh.index(axis_name)
     chunk = _zig_prepare(q, k, n_dev)
     width = 2 * chunk
     blocks = [_rows(x, idx * width, width) for x in (q, k, v)]
     q_z, k_z, v_z = _zigzag_exchange(blocks, mesh, axis_name, n_dev, chunk)
     zcfg = _ZigCfg(axis_name=axis_name, n_dev=n_dev, n=k.shape[-2],
-                   chunk=chunk, scale=scale, softcap=softcap)
-    out_lo, _, out_hi, _ = _zig_fwd_loop(q_z, k_z, v_z, zcfg, mesh)
+                   chunk=chunk, scale=scale, softcap=softcap, window=window,
+                   sinks=sinks)
+    if seg is not None:
+        seg = (pad_ids(seg[0], 2 * n_dev * chunk, -1),
+               pad_ids(seg[1], 2 * n_dev * chunk, -2))
+    out_lo, _, out_hi, _ = _zig_fwd_loop(q_z, k_z, v_z, zcfg, mesh, seg=seg)
     out, = _zigzag_exchange([torch.cat([out_lo, out_hi], dim=-2)], mesh,
                             axis_name, n_dev, chunk, inverse=True)
     return mesh.all_gather(out, axis_name, dim=-2)[..., :q.shape[-2], :]
@@ -209,10 +248,12 @@ def _zig_slices(ndim: int, chunk: int):
     return sl_lo, sl_hi
 
 
-def _zig_fwd_loop(q_local, k_local, v_local, z: _ZigCfg, mesh: Mesh):
+def _zig_fwd_loop(q_local, k_local, v_local, z: _ZigCfg, mesh: Mesh,
+                  seg=None):
     """The one copy of the zigzag rotate/merge schedule on this rank's
-    (early, late) chunk pair.  Returns (out_lo, lse_lo, out_hi, lse_hi)
-    for its two chunks."""
+    (early, late) chunk pair.  ``seg``: None, or the global (q, kv) id
+    vectors padded to the 2R chunks.  Returns (out_lo, lse_lo, out_hi,
+    lse_hi) for its two chunks."""
     n_chunks = 2 * z.n_dev
     idx_d = mesh.index(z.axis_name)
     a = idx_d  # early chunk id
@@ -229,11 +270,14 @@ def _zig_fwd_loop(q_local, k_local, v_local, z: _ZigCfg, mesh: Mesh):
                 torch.zeros(shape, device=q_c.device))
 
     def partial_call(q_c, k_c, v_c, q_cid, kv_cid):
+        ids = {} if seg is None else dict(
+            q_segment_ids=seg[0][q_cid * z.chunk:(q_cid + 1) * z.chunk],
+            kv_segment_ids=seg[1][kv_cid * z.chunk:(kv_cid + 1) * z.chunk])
         return flash_attention_partials(
             q_c, k_c, v_c, scale=z.scale, causal=True,
             q_offset=q_cid * z.chunk, kv_offset=kv_cid * z.chunk,
             kv_valid=min(max(z.n - kv_cid * z.chunk, 0), z.chunk),
-            softcap=z.softcap)
+            softcap=z.softcap, window=z.window, sinks=z.sinks, **ids)
 
     lo, hi = fresh(q_lo), fresh(q_hi)
     k_cur, v_cur = k_local, v_local

@@ -12,6 +12,11 @@ repeated just enough to make the reshard uniform, normally up to the
 mesh size (32 q / 4 kv heads on 8 ranks repeat 2x), falling back to the
 full Q head count only for ratios that divide neither way.
 
+After the first all_to_all each rank holds the whole sequence for its
+heads, so the kernel's whole masking surface applies as it is: ``window``
+and ``sinks`` in absolute positions and the global segment ids (3-D
+inputs), as in JAX (attention_tpu/parallel/ulysses.py:131-140).
+
 Every rank passes the full tensors, takes its block of the sequence (and
 of the batch, over ``batch_axis``) at entry and returns the full output
 (all_gathers of the blocks).  The inner call is
@@ -23,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from attention_tpu_torch.ops.flash import check_segments, check_window
 from attention_tpu_torch.ops.flash_vjp import flash_attention_diff
 from attention_tpu_torch.parallel.kv_sharded import _unported
 from attention_tpu_torch.parallel.mesh import Mesh, _maybe_axis, \
@@ -52,10 +58,12 @@ def ulysses_attention(
     Shapes: (h, m, d) or (b, h, m, d); the sequence axes are cut over
     ``axis_name`` (4-D batches also over ``batch_axis`` where the mesh
     has it and it divides).  The Q head count and both sequence lengths
-    must be multiples of the mesh size."""
-    _unported(q=q, k=k, v=v, block_sizes=block_sizes, window=window,
-              sinks=sinks, q_segment_ids=q_segment_ids,
-              kv_segment_ids=kv_segment_ids, max_mode=max_mode)
+    must be multiples of the mesh size.  ``window``, ``sinks`` and the
+    segment ids ((m,) and (n,), 3-D inputs) as `flash_attention` takes
+    them."""
+    _unported(q=q, k=k, v=v, block_sizes=block_sizes, max_mode=max_mode)
+    q_ids, kv_ids = check_segments(q, k, q_segment_ids, kv_segment_ids)
+    check_window(causal, window, sinks, q_ids is not None)
     if mesh is None:
         mesh = default_mesh(axis_name)
     n_dev, idx = mesh.shape[axis_name], mesh.index(axis_name)
@@ -102,7 +110,8 @@ def ulysses_attention(
                   for x, rows in ((q, m // n_dev), (k, n // n_dev),
                                   (v, n // n_dev)))
     out = flash_attention_diff(qh, kh, vh, scale=scale, causal=causal,
-                               softcap=softcap)
+                               softcap=softcap, window=window, sinks=sinks,
+                               q_segment_ids=q_ids, kv_segment_ids=kv_ids)
     # head-sharded -> sequence-sharded, then every rank the whole output
     out = mesh.all_to_all(out, axis_name, seq_axis, head_axis)
     out = mesh.all_gather(out, axis_name, dim=seq_axis)

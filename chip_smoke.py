@@ -60,7 +60,18 @@ non-zero unless all of them pass:
             the "fma" body (dk != dv, window 100, 5 sinks); the
             ragged kernel with window 256 and 4 sinks on the scheduler's
             packed step and the decode-only step.  A band one key tile
-            longer and a dropped sink tile must fail.
+            longer and a dropped sink tile must fail.  Packed sequences
+            (segment ids): flash at 32 q / 4 kv heads over 8192 rows
+            packed from documents of 3072, 1187, 96, 1, 2048, 517 and
+            1271 tokens, causal, bf16, the same ids under window 1024,
+            interleaved ids (row i in segment i % 3), each on "wgmma"
+            against the plain version, the same bits twice, the kernel
+            with the key ids shifted by one key failing the check, timed
+            beside the call without ids, SDPA under the mask and the
+            bound of the kept pairs (25.2% of the causal ones); all-equal
+            ids give the bits of no ids; an f32 call on "fma" with m != n
+            and rows whose id no key holds.  The build prints registers
+            and spills of every segment-id instance.
 2b. backward the training forward's partials and the three backward
             kernels (fused, dQ, dK/dV) at the serving geometry as a
             training call (b = 1, 32 q / 4 kv heads, m = n = 4096, d 128,
@@ -93,7 +104,15 @@ non-zero unless all of them pass:
             (window 4096 at or under the causal call's, 1024 under half);
             an f32 case on the FMA bodies (dk != dv, window 100, 5 sinks)
             and the edges (m 1000, n 1003, kv_valid 900, window 200, 3
-            sinks, q_offset 37).
+            sinks, q_offset 37).  Packed sequences: the three kernels at
+            phase 2's packed case against the plain backward, "wgmma" on
+            both paths, the same bits twice (the fused dQ within the
+            limit), the kernels with shifted key ids failing, all-equal
+            ids giving the bits of no ids, each kernel timed beside the
+            call without ids (SDPA's backward under the mask beside the
+            fused one); a packed `flash_attention_diff` forward and
+            backward on each path, its launches exact; f32 on "fma" with
+            m != n and rows that see no key (dQ 0).
 3. op path  the ``scale4`` testcase (m = n = 8192, dk = dv = 128) from
             the port's generator, through ``cli run --backend flash`` in
             f32 and bf16: both must print ``Correct!``; then the flash
@@ -111,7 +130,9 @@ non-zero unless all of them pass:
             forward (32 q / 4 kv heads, 4096 rows, d 128, bf16, without and
             with softcap 50) on kv-sharded, ring (contiguous and zigzag) and
             ulysses, each against one `flash_attention` call under
-            `reference.mismatch`, the same bits on every rank.  (3) Each
+            `reference.mismatch`, the same bits on every rank; the same
+            on 3-D views with window 4096 and 4 sinks, window 1024 and 4
+            sinks, and packed ids (the phase 2 documents halved).  (3) Each
             rank's partials against `flash_attention_partials_plain`: the
             shards of n = 5 (the last all padding, ``kv_valid`` 0: row max
             -inf, sum 0), of ``scale4`` and of n = 8195 (the thin grid's key
@@ -260,10 +281,10 @@ Launch counts are reset just before each run of a path (op path, the
 int4 entry points, each distributed backend's run on each rank, each
 generate function, the chunk verify, each serving run, each stretch of
 the durability phase's engines, each training run, each beam, fork,
-speculative and encoder-decoder run)
-and read just after it (the MoE model's generate and serving runs
-too); rank 0's distributed launches join the flash
-kernel's count.  Kernel times are CUDA-event
+speculative and encoder-decoder run, each packed
+`flash_attention_diff` run) and read just after it (the MoE model's
+generate and serving runs too); rank 0's distributed launches join the
+flash kernel's count.  Kernel times are CUDA-event
 medians after warm-up, over back-to-back calls of the wrapper, so a call
 whose host work outlasts its kernels is timed by its host work.  The second-to-last stdout line is the
 ``{"kernels": [...]}`` record, the last ``{"ok": true, "device":
@@ -276,6 +297,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -336,6 +358,13 @@ WINDOW_BWD_BANDS = (("window4096_sinks4", 4096, 4, None),
                     ("window1024", 1024, None, None),
                     ("causal", None, None, None),
                     ("window1024_softcap50", 1024, None, 50.0))
+# the packed-sequence cases of phases 2 and 2b: the same geometry (3-D
+# tensors, as segment ids take them), 8192 rows packed from 7 documents
+# of uneven lengths (a long one, a one-token one, short ones), causal:
+# 8,470,298 of the 33,558,528 causal pairs (25.2%) are kept.  Phase 3b
+# packs its 4096 rows from the same documents, each about halved
+PACKED_DOCS = (3072, 1187, 96, 1, 2048, 517, 1271)
+DIST_PACKED_DOCS = (1536, 593, 48, 1, 1024, 258, 636)
 # the windowed serving model of phases 2 and 4-6: window 256, so that the
 # band and the ring wrap on the trace's 128-1024-token prompts (at 4096
 # nothing would wrap below 2048 rows), with 4 sinks; the small f32 model
@@ -645,11 +674,49 @@ def hold(kernels, kernel, case, *, run, plain, faults, work, dtype,
     return rec
 
 
+def ptxas_instances(report) -> list:
+    """Registers and spill bytes of every wgmma-body instance in nvcc's
+    ``-Xptxas -v`` reports (`ops.build`), each marked ``seg`` where its
+    last template argument, segment ids, is true."""
+    out, cur = [], None
+    for kernel, rec in report.items():
+        for line in rec["ptxas"].splitlines():
+            found = re.search(r"Compiling entry function '([^']+)'", line)
+            if found:
+                name = found.group(1)
+                cur = dict(kernel=kernel, function=name,
+                           seg="Lb1EEEv" in name) if "wgmma" in name \
+                    else None
+                if cur is not None:
+                    out.append(cur)
+                continue
+            if cur is None:
+                continue
+            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", line)
+            if found:
+                cur["spill_bytes"] = [int(x) for x in found.groups()]
+            found = re.search(r"Used (\d+) registers", line)
+            if found:
+                cur["registers"] = int(found.group(1))
+    return out
+
+
 def phase_build(ops) -> None:
     t0 = time.perf_counter()
     report = ops.build()
     emit(phase="build", seconds=time.perf_counter() - t0,
          kernels={k: v["seconds"] for k, v in report.items()})
+    # the segment-id instances' registers at launch and spills (the
+    # consumers' 240 registers a thread are set by setmaxnreg)
+    for rec in ptxas_instances(report):
+        if rec["seg"]:
+            emit(phase="build", ptxas=rec)
+    # ptxas's performance warnings (wgmma serialized, and the like)
+    for kernel, rec in report.items():
+        for line in rec["ptxas"].splitlines():
+            if "Performance" in line or "serializ" in line:
+                emit(phase="build", kernel=kernel, ptxas_warning=line)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -1113,6 +1180,136 @@ def phase_window_kernels(kernels, step, q_step) -> None:
             ms=rec["ms"], device_ms=dms, plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"])
     emit(phase="kernels", window_seconds=time.perf_counter() - t0)
+
+
+def packed_ids(docs) -> torch.Tensor:
+    """int32 segment ids of documents of these lengths packed in a row,
+    on the card."""
+    return torch.repeat_interleave(
+        torch.arange(len(docs), dtype=torch.int32),
+        torch.tensor(docs)).cuda()
+
+
+def shifted(ids: torch.Tensor) -> torch.Tensor:
+    """A planted fault's key ids: each key takes the id of the key before
+    it, which moves every boundary by one key."""
+    return torch.cat([ids[:1], ids[:-1]])
+
+
+def phase_segment_kernels(kernels) -> None:
+    """Phase 2's packed sequences.  The flash kernel at the served
+    geometry over 8192 rows (`WINDOW_FLASH`, 3-D) with segment ids:
+    `PACKED_DOCS` causal, the same ids under window 1024, interleaved ids
+    (row i in segment i % 3) causal; each on the wgmma body, held against
+    the plain version, the same bits on a second call, and the kernel run
+    with the key ids shifted by one key must fail the check; timed beside
+    the same call without ids, with SDPA under the mask as a boolean mask
+    and the bound of the kept pairs.  The share of the causal pairs the
+    packing keeps.  With ids all equal the kernel gives the bits of the
+    call without them.  An f32 call on the FMA body with m != n (a cached
+    prefill's offset, rows whose id no key holds)."""
+    from torch.nn import functional as F
+
+    from attention_tpu_torch.ops.flash import (
+        flash_attention,
+        flash_attention_plain,
+    )
+    from attention_tpu_torch.ops.reference import attention_mask
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    h, hkv, m, d = WINDOW_FLASH
+    q, k, v = (torch.randn((heads, m, d), generator=gen, device="cuda")
+               .to(torch.bfloat16) for heads in (h, hkv, hkv))
+    kx, vx = (t.repeat_interleave(h // hkv, dim=0)[None] for t in (k, v))
+    packed = packed_ids(PACKED_DOCS)
+    interleaved = (torch.arange(m, device="cuda") % 3).to(torch.int32)
+    cases = kernels["flash_fwd"].setdefault("segment_cases", {})
+    unsegmented = {}
+    for window in (None, 1024):
+        unsegmented[window] = device_ms(
+            lambda window=window: flash_attention(q, k, v, causal=True,
+                                                  window=window))
+    zeros = torch.zeros(m, dtype=torch.int32, device="cuda")
+    same_bits(flash_attention(q, k, v, causal=True, q_segment_ids=zeros,
+                              kv_segment_ids=zeros),
+              flash_attention(q, k, v, causal=True),
+              "all-equal ids and no ids")
+    causal_pairs = m * (m + 1) // 2
+    for case, ids, window in (("packed_causal", packed, None),
+                              ("packed_window1024", packed, 1024),
+                              ("interleaved_causal", interleaved, None)):
+        kw = dict(causal=True, window=window, q_segment_ids=ids,
+                  kv_segment_ids=ids)
+
+        def run(kw=kw):
+            return flash_attention(q, k, v, **kw)
+
+        def plain(kw=kw):
+            return flash_attention_plain(q, k, v, **kw)
+
+        plan = flash_plan(q, k, v, window=window)
+        if plan["body"] != "wgmma":
+            raise AssertionError(f"{case}: {plan}")
+        got = run()
+        same_bits(got, run())
+        want = plain()
+        err, ratio = held(got, want)
+        faults = rejected({"kv_ids_shifted_one_key": flash_attention(
+            q, k, v, **dict(kw, kv_segment_ids=shifted(ids)))}, want)
+        del got, want
+        mask = attention_mask(m, m, causal=True, window=window,
+                              q_segment_ids=ids, kv_segment_ids=ids,
+                              device="cuda")
+        pairs = int(mask.sum())
+
+        def library(mask=mask):
+            return F.scaled_dot_product_attention(q[None], kx, vx,
+                                                  attn_mask=mask)
+
+        rec = dict(ms=time_ms(run), device_ms=device_ms(run),
+                   unsegmented_device_ms=unsegmented[window],
+                   plain_ms=time_ms(plain, calls=1, reps=3),
+                   library_ms=time_ms(library),
+                   library_device_ms=device_ms(library))
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            (2 * h + 2 * hkv) * m * d * 2, 2.0 * (d + d) * h * pairs,
+            torch.bfloat16)
+        del mask
+        cases[case] = rec
+        kernels["flash_fwd"]["max_abs_err"] = max(
+            kernels["flash_fwd"]["max_abs_err"], err)
+        emit(phase="kernels", kernel="flash_fwd", case=case,
+             shape=[h, hkv, m, d], window=window, **plan,
+             kept_pairs=h * pairs, share_of_causal_pairs=pairs / causal_pairs,
+             max_abs_err=err, share_of_limit=ratio,
+             planted_faults_share_of_limit=faults,
+             over_unsegmented=rec["device_ms"] / unsegmented[window],
+             over_kept_pairs_bound=rec["device_ms"] / rec["bound_ms"], **rec)
+    del q, k, v, kx, vx
+
+    # the FMA body: f32, m != n, a cached prefill's offset, rows 0-9 of
+    # an id no key holds
+    q, k, v = (torch.randn(s, generator=gen, device="cuda")
+               for s in ((4, 200, 64), (2, 333, 64), (2, 333, 96)))
+    q_ids = (torch.arange(200, device="cuda") // 50).to(torch.int32)
+    q_ids[:10] = 9
+    kv_ids = (torch.arange(333, device="cuda") // 80).to(torch.int32)
+    kw = dict(causal=True, q_offset=133, q_segment_ids=q_ids,
+              kv_segment_ids=kv_ids)
+    pairs = 4 * int(attention_mask(200, 333, causal=True, q_offset=133,
+                                   q_segment_ids=q_ids,
+                                   kv_segment_ids=kv_ids,
+                                   device="cuda").sum())
+    hold(kernels, "flash_fwd", "f32_fma_m_ne_n_segments",
+         run=lambda: flash_attention(q, k, v, **kw),
+         plain=lambda: flash_attention_plain(q, k, v, **kw),
+         faults={"kv_ids_shifted_one_key": lambda: flash_attention(
+             q, k, v, **dict(kw, kv_segment_ids=shifted(kv_ids)))},
+         work=(4 * (4 * 200 * 64 + 2 * 333 * (64 + 96) + 4 * 200 * 96),
+               2.0 * (64 + 96) * pairs), dtype=torch.float32,
+         **flash_plan(q, k, v))
+    emit(phase="kernels", segment_seconds=time.perf_counter() - t0)
 
 
 def phase_decode_kernels(kernels):
@@ -1724,6 +1921,51 @@ def distributed_checks(rank: int, world: int, bin_path: str) -> dict:
                 shape=[h, hkv, s, d], flash_launches=n,
                 vs_flash_max_abs_err=err, share_of_limit=ratio,
                 same_bits_on_every_rank=True)
+
+    # 2b. the masking surface on 3-D views of the same inputs: window
+    # 4096 with 4 sinks (at 4096 rows the band holds every causal pair:
+    # the sinks' path), window 1024 with 4 sinks (the band crosses the
+    # shards) and packed ids (`DIST_PACKED_DOCS`), each backend against
+    # one flash call
+    ids = packed_ids(DIST_PACKED_DOCS)
+    q3, k3, v3 = q[0], k[0], v[0]
+    masked_runs = {
+        "kv-sharded": lambda m, **kw: kv_sharded_attention(
+            q3, k3, v3, causal=True, mesh=m, axis_name="kv", **kw),
+        "ring": lambda m, **kw: ring_attention(
+            q3, k3, v3, causal=True, mesh=m, axis_name="kv", **kw),
+        "ring_zigzag": lambda m, **kw: ring_attention(
+            q3, k3, v3, causal=True, schedule="zigzag", mesh=m,
+            axis_name="kv", **kw),
+        "ulysses": lambda m, **kw: ulysses_attention(
+            q3, k3, v3, causal=True, mesh=m, axis_name="kv", **kw),
+    }
+    for feature, fkw in (
+            ("window4096_sinks4", dict(window=4096, sinks=4)),
+            ("window1024_sinks4", dict(window=1024, sinks=4)),
+            ("packed", dict(q_segment_ids=ids, kv_segment_ids=ids))):
+        want = flash_attention(q3, k3, v3, causal=True, **fkw)
+        for name, run in masked_runs.items():
+            ops.reset_launch_counts()
+            got = run(mesh, **fkw)
+            torch.cuda.synchronize()
+            n = ops.launch_counts()["flash_fwd"]
+            if n != DIST_LAUNCHES[name]:
+                raise AssertionError(f"rank {rank}: {name} {feature} "
+                                     f"launched {n} flash kernels")
+            launches += n
+            err, ratio = held(got, want)
+            max_err = max(max_err, err)
+            every = mesh.all_gather(got[None], "kv", dim=0)
+            same = [torch.equal(every[0], x) for x in every]
+            if not all(same):
+                raise AssertionError(f"{name} {feature}: ranks differ from "
+                                     f"rank 0: {same}")
+            say(case="served_forward_masked", backend=name, feature=feature,
+                shape=[h, hkv, s, d], flash_launches=n,
+                vs_flash_max_abs_err=err, share_of_limit=ratio,
+                same_bits_on_every_rank=True)
+    del q3, k3, v3, want, got, every
 
     # 3. the edge cases, each shard's partials against the plain version
     edges = []
@@ -2669,6 +2911,223 @@ def phase_window_backward(kernels) -> None:
             q.dtype)
         window_bwd_case(kernels, case, (q, k, v, out, lse, dout), kw)
     emit(phase="backward", window_seconds=time.perf_counter() - t0)
+
+
+def phase_segment_backward(ops, kernels) -> None:
+    """Phase 2b's packed sequences.  At phase 2's packed geometry
+    (`WINDOW_FLASH`, `PACKED_DOCS`, causal, bf16, 3-D) the fused kernel
+    and the dQ + dK/dV pair with segment ids against
+    `flash_backward_plain` under `reference.grad_mismatch`, both on the
+    "wgmma" body; the same bits on a second call (the fused dQ within the
+    limit of the first); the kernels run with the key ids shifted by one
+    key must fail; with ids all equal the bits of the call without ids
+    (the fused dQ within the limit).  Each kernel timed alone beside the
+    same call without ids, with the bound of the kept pairs and, beside
+    the fused kernel, SDPA's backward under the mask as a boolean mask.
+    Then a packed `flash_attention_diff` forward and backward at that
+    geometry on each path, its launches counted (one flash forward, and
+    one fused kernel or one dQ and one dK/dV kernel), its output and
+    gradients held against the plain versions.  Then the f32 FMA bodies
+    with m != n and rows whose id no key holds."""
+    from torch.nn import functional as F
+
+    from attention_tpu_torch.ops import flash_bwd
+    from attention_tpu_torch.ops.flash import flash_attention_plain
+    from attention_tpu_torch.ops.flash_vjp import (
+        _flash_fwd_impl,
+        flash_attention_diff,
+    )
+    from attention_tpu_torch.ops.reference import (
+        attention_mask,
+        grad_mismatch,
+    )
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    h, hkv, m, d = WINDOW_FLASH
+    q, k, v, dout = (torch.randn((heads, m, d), generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+                     for heads in (h, hkv, hkv, h))
+    ids = packed_ids(PACKED_DOCS)
+    seg = dict(q_segment_ids=ids, kv_segment_ids=ids)
+    zeros = torch.zeros(m, dtype=torch.int32, device="cuda")
+    kw = dict(scale=d ** -0.5, causal=True, softcap=None)
+    out, lse = _flash_fwd_impl(q, k, v, **kw, **seg)
+    args = (q, k, v, out, lse, dout)
+    plan = flash_bwd.bwd_launch_plan(*args, causal=True)
+    pair_plan = plan.pop("pair")
+    if plan["body"] != "wgmma" or pair_plan["body"] != "wgmma":
+        raise AssertionError(f"packed: the fused kernel runs {plan}, the "
+                             f"pair {pair_plan}")
+    want = flash_bwd.flash_backward_plain(*args, **kw, **seg)
+
+    def within(got, ref, what):
+        errs = [grad_mismatch(g, w) for g, w in zip(got, ref)]
+        if not all(ratio <= 1.0 for _, ratio in errs):
+            raise AssertionError(f"{what}: {errs}")
+        return errs
+
+    names = ("dq", "dk", "dv")
+    for path in ("fused", "pair"):
+        flash_bwd._FORCE_TWO_KERNEL = path == "pair"
+        try:
+            got = flash_bwd.flash_backward(*args, **kw, **seg)
+            again = flash_bwd.flash_backward(*args, **kw, **seg)
+            fault = max(grad_mismatch(g, w)[1] for g, w in zip(
+                flash_bwd.flash_backward(*args, **kw, q_segment_ids=ids,
+                                         kv_segment_ids=shifted(ids)),
+                want))
+            equal_ids = flash_bwd.flash_backward(
+                q, k, v, *_flash_fwd_impl(q, k, v, **kw), dout, **kw,
+                q_segment_ids=zeros, kv_segment_ids=zeros)
+            no_ids = flash_bwd.flash_backward(
+                q, k, v, *_flash_fwd_impl(q, k, v, **kw), dout, **kw)
+        finally:
+            flash_bwd._FORCE_TWO_KERNEL = False
+        torch.cuda.synchronize()
+        errs = within(got, want, f"packed {path} off its plain version")
+        if not fault > 1.0:
+            raise AssertionError(f"packed {path}: the check passes the "
+                                 f"kernels with shifted key ids: {fault}")
+        run_to_run = equal_dq = None
+        if path == "fused":
+            same_bits(got[1:], again[1:])
+            run_to_run = within(again[:1], got[:1], "fused dQ run to run")
+            same_bits(equal_ids[1:], no_ids[1:], "all-equal ids and no ids")
+            equal_dq = within(equal_ids[:1], no_ids[:1],
+                              "fused dQ, all-equal ids and no ids")
+        else:
+            same_bits(got, again)
+            same_bits(equal_ids, no_ids, "all-equal ids and no ids")
+        for kernel, idx in ((flash_bwd.FUSED, (0, 1, 2)),) \
+                if path == "fused" else ((flash_bwd.DQ, (0,)),
+                                         (flash_bwd.DKV, (1, 2))):
+            kernels[kernel]["max_abs_err"] = max(
+                kernels[kernel]["max_abs_err"], *(errs[i][0] for i in idx))
+        emit(phase="backward", path=path, case="packed_causal",
+             **(dict(fused_plan=plan) if path == "fused"
+                else dict(pair_plan=pair_plan)),
+             max_abs_err=dict(zip(names, (e for e, _ in errs))),
+             share_of_limit=dict(zip(names, (r for _, r in errs))),
+             fused_dq_run_to_run=run_to_run,
+             fused_dq_all_equal_ids=equal_dq,
+             planted_faults_share_of_limit={"kv_ids_shifted_one_key": fault})
+        del got, again, equal_ids, no_ids
+
+    # each kernel alone, with and without ids, on staged operands
+    kw4 = dict(scale=kw["scale"], causal=True, softcap=None, q_offset=0,
+               kv_offset=0, kv_valid=m)
+    args4 = [t[None] for t in args]
+    staged = {"packed": flash_bwd._Staged(*args4, **kw4, q_ids=ids,
+                                          kv_ids=ids),
+              "unsegmented": flash_bwd._Staged(*args4, **kw4)}
+    times = {}
+    for name, st in staged.items():
+        fused, pair = st.fused_buffers(), st.pair_buffers()
+        for kernel, launch in (
+                (flash_bwd.FUSED, lambda st=st, b=fused: st.fused(**b)),
+                (flash_bwd.DQ, lambda st=st, b=pair: st.pair(
+                    flash_bwd.DQ, dq=b["dq"])),
+                (flash_bwd.DKV, lambda st=st, b=pair: st.pair(
+                    flash_bwd.DKV, dk=b["dk"], dvo=b["dvo"]))):
+            times[name, kernel] = (time_ms(launch), device_ms(launch))
+        del fused, pair
+    del staged
+    mask = attention_mask(m, m, causal=True, device="cuda", **seg)
+    pairs = int(mask.sum())
+    kx, vx = (t.repeat_interleave(h // hkv, dim=0)[None] for t in (k, v))
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q[None], kx, vx))
+    o = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
+
+    def sdpa():
+        return torch.autograd.grad(o, (qq, kk, vv), dout[None],
+                                   retain_graph=True)
+
+    library_ms, library_device_ms = time_ms(sdpa), device_ms(sdpa)
+    del o, qq, kk, vv, kx, vx, mask
+    plain_ms = time_ms(lambda: flash_bwd.flash_backward_plain(
+        *args, **kw, **seg), calls=1, reps=3)
+    cases = {kernel: kernels[kernel].setdefault("segment_cases", {})
+             for kernel in (flash_bwd.FUSED, flash_bwd.DQ, flash_bwd.DKV)}
+    for kernel, factor, outs in ((flash_bwd.FUSED, 10, "qkv"),
+                                 (flash_bwd.DQ, 6, "q"),
+                                 (flash_bwd.DKV, 8, "kv")):
+        b_ms, b_by = bound_ms(*bwd_work(h, hkv, m, m, d, pairs, 2, factor,
+                                        outs), torch.bfloat16)
+        ms, dev = times["packed", kernel]
+        rec = dict(ms=ms, device_ms=dev,
+                   unsegmented_device_ms=times["unsegmented", kernel][1],
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=library_ms if kernel == flash_bwd.FUSED
+                   else None,
+                   library_device_ms=library_device_ms
+                   if kernel == flash_bwd.FUSED else None)
+        cases[kernel]["packed_causal"] = rec
+        emit(phase="backward", kernel=kernel, case="packed_causal",
+             shape=list(WINDOW_FLASH), kept_pairs=h * pairs,
+             share_of_causal_pairs=pairs / (m * (m + 1) // 2),
+             over_unsegmented=dev / rec["unsegmented_device_ms"],
+             over_kept_pairs_bound=dev / b_ms,
+             tflop_s=factor * d * h * pairs / dev / 1e9, **rec)
+
+    # the packed flash_attention_diff, forward and backward, each path:
+    # the launches of a training layer's call
+    want_out = flash_attention_plain(q, k, v, causal=True, **seg)
+    for path in ("fused", "pair"):
+        flash_bwd._FORCE_TWO_KERNEL = path == "pair"
+        try:
+            qq, kk, vv = (t.detach().clone().requires_grad_()
+                          for t in (q, k, v))
+            ops.reset_launch_counts()
+            o = flash_attention_diff(qq, kk, vv, causal=True, **seg)
+            o.backward(dout)
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+        finally:
+            flash_bwd._FORCE_TWO_KERNEL = False
+        expect = {"flash_fwd": 1, **({flash_bwd.FUSED: 1} if path == "fused"
+                                     else {flash_bwd.DQ: 1,
+                                           flash_bwd.DKV: 1})}
+        if {x: n for x, n in launches.items() if n} != expect:
+            raise AssertionError(f"packed diff {path}: launched {launches}")
+        for kernel, n in expect.items():
+            kernels[kernel]["launches"] += n
+        err, ratio = held(o.detach(), want_out)
+        errs = within((qq.grad, kk.grad, vv.grad), want,
+                      f"packed flash_attention_diff {path}")
+        emit(phase="backward", case="packed_flash_attention_diff",
+             path=path, launches=expect, out_max_abs_err=err,
+             out_share_of_limit=ratio,
+             grad_share_of_limit=dict(zip(names, (r for _, r in errs))))
+        del qq, kk, vv, o
+    del q, k, v, dout, out, lse, args, args4, want, want_out
+
+    # the FMA bodies: f32, m != n, a cached prefill's offset, rows 0-9 of
+    # an id no key holds (their dQ 0)
+    q, k, v = (torch.randn(s, generator=gen, device="cuda")
+               for s in ((4, 200, 64), (2, 333, 64), (2, 333, 64)))
+    q_ids = (torch.arange(200, device="cuda") // 50).to(torch.int32)
+    q_ids[:10] = 9
+    kv_ids = (torch.arange(333, device="cuda") // 80).to(torch.int32)
+    kw = dict(scale=0.125, causal=True, softcap=None, q_offset=133,
+              q_segment_ids=q_ids, kv_segment_ids=kv_ids)
+    out, lse = _flash_fwd_impl(q, k, v, **kw)
+    dout = torch.randn(out.shape, generator=gen, device="cuda")
+    want = flash_bwd.flash_backward_plain(q, k, v, out, lse, dout, **kw)
+    for path in ("fused", "pair"):
+        flash_bwd._FORCE_TWO_KERNEL = path == "pair"
+        try:
+            got = flash_bwd.flash_backward(q, k, v, out, lse, dout, **kw)
+        finally:
+            flash_bwd._FORCE_TWO_KERNEL = False
+        torch.cuda.synchronize()
+        errs = within(got, want, f"f32 fma {path}")
+        if not bool((got[0][:, :10] == 0).all()):
+            raise AssertionError("rows that see no key: dQ not 0")
+        emit(phase="backward", path=path, case="f32_fma_m_ne_n_segments",
+             max_abs_err=dict(zip(names, (e for e, _ in errs))),
+             share_of_limit=dict(zip(names, (r for _, r in errs))))
+    emit(phase="backward", segment_seconds=time.perf_counter() - t0)
 
 
 def backward_times(kernels, case, args, kw) -> None:
@@ -4324,11 +4783,13 @@ def main() -> int:
     model.load_state_dict(init_params(model, SEED))
     step, q = phase_kernels(kernels, model)
     phase_window_kernels(kernels, step, q)
+    phase_segment_kernels(kernels)
     k, v = phase_decode_kernels(kernels)
     phase_quant_kernels(ops, kernels, k, v)
     del k, v
     phase_backward(kernels)
     phase_window_backward(kernels)
+    phase_segment_backward(ops, kernels)
     phase_op_path(ops, kernels)
     phase_distributed(kernels)
     phase_generate(ops, kernels, model)

@@ -1789,3 +1789,163 @@ def test_async_steps_equal_sync_on_the_card(temperature):
         **_CARD_ENGINE, async_steps=a)), trace)[1] for a in (False, True))
     assert asyn == sync
     assert all(len(sync[e["id"]]) == 10 for e in trace)
+
+
+# ------------------------------------------------------- packed sequences
+
+def _docs_ids(*lengths):
+    """int32 segment ids of packed documents of these lengths, on the
+    card."""
+    return torch.repeat_interleave(
+        torch.arange(len(lengths), dtype=torch.int32),
+        torch.tensor(lengths)).cuda()
+
+
+# name: (dtype, (q shape, k shape), (q docs, kv docs) or "interleaved",
+# keywords): both bodies ("wgmma" for bf16 at d 64/128, "fma" for f32 and
+# d 40), causal and not, a window, softcap, offsets and kv_valid, m != n,
+# rows whose id no key holds (the q docs' last id, 9, no key has)
+SEGMENT_CASES = {
+    "bf16_d128_packed_causal": (
+        torch.bfloat16, ((8, 700, 128), (2, 700, 128)),
+        ((300, 1, 99, 300), (300, 1, 99, 300)), dict(causal=True)),
+    "bf16_d64_interleaved": (
+        torch.bfloat16, ((4, 333, 64), (2, 333, 64)), "interleaved", {}),
+    "bf16_d128_window_softcap": (
+        torch.bfloat16, ((8, 600, 128), (2, 600, 128)),
+        ((250, 350), (250, 350)), dict(causal=True, window=130,
+                                       softcap=30.0)),
+    "bf16_d128_m_ne_n_offsets": (
+        torch.bfloat16, ((8, 300, 128), (2, 520, 128)),
+        ((100, 200), (200, 150, 170)),
+        dict(causal=True, q_offset=220, kv_valid=500)),
+    "f32_fma_m_ne_n": (
+        torch.float32, ((4, 150, 40), (2, 230, 40)),
+        ((40, 60, 50), (90, 140)), dict(causal=True, q_offset=80)),
+}
+
+
+def _segment_case(gen, name):
+    dtype, (qshape, kshape), docs, kw = SEGMENT_CASES[name]
+    q, dout = (torch.randn(qshape, generator=gen, device="cuda").to(dtype)
+               for _ in "qo")
+    k, v = (torch.randn(kshape, generator=gen, device="cuda").to(dtype)
+            for _ in "kv")
+    if docs == "interleaved":
+        q_ids = (torch.arange(qshape[-2], device="cuda") % 3).int()
+        kv_ids = (torch.arange(kshape[-2], device="cuda") % 3).int()
+    else:
+        q_ids, kv_ids = _docs_ids(*docs[0]), _docs_ids(*docs[1])
+        q_ids[-10:] = 9
+    ids = dict(q_segment_ids=q_ids, kv_segment_ids=kv_ids)
+    return q, k, v, dout, ids, dict(kw, scale=qshape[-1] ** -0.5)
+
+
+def _shifted(ids):
+    return torch.cat([ids[:1], ids[:-1]])
+
+
+@pytest.mark.parametrize("name", list(SEGMENT_CASES))
+def test_flash_segments_match_plain(gen, name):
+    """The forward and its partials with segment ids against the plain
+    versions, on the body the case names; the same bits on a second call;
+    the kernel with the key ids shifted by one key fails the check."""
+    q, k, v, _, ids, kw = _segment_case(gen, name)
+    wgmma = q.dtype == torch.bfloat16 and q.shape[-1] in (64, 128)
+    assert flash_launch_plan(q, k, v)["body"] == ("wgmma" if wgmma
+                                                  else "fma")
+    got = flash_attention(q, k, v, **ids, **kw)
+    again = flash_attention(q, k, v, **ids, **kw)
+    want = flash_attention_plain(q, k, v, **ids, **kw)
+    ints = torch.int16 if q.dtype == torch.bfloat16 else torch.int32
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(ints), again.view(ints))
+    assert _share_of_limit(got, want) <= 1
+    fault = flash_attention(q, k, v, **dict(
+        ids, kv_segment_ids=_shifted(ids["kv_segment_ids"])), **kw)
+    assert _share_of_limit(fault, want) > 1
+    part = flash_attention_partials(q, k, v, **ids, **kw)
+    plain = flash_attention_partials_plain(q, k, v, **ids, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(part[1].isfinite(), plain[1].isfinite())
+    assert bool((part[2][..., -10:] == 0).all()) or name.endswith("leaved")
+    norm = [(o / s.clamp(min=1e-30)[..., None]).to(q.dtype)
+            for o, _, s in (part, plain)]
+    assert _share_of_limit(*norm) <= 1
+
+
+@pytest.mark.parametrize("name", list(SEGMENT_CASES))
+@pytest.mark.parametrize("path", ["fused", "pair"])
+def test_bwd_segments_match_plain(gen, monkeypatch, path, name):
+    """The three backward kernels with segment ids against the plain
+    backward: no NaN (rows that see no key give dQ 0), the same bits on
+    a second call (the fused dQ within the limit), the kernels with
+    shifted key ids failing the check."""
+    q, k, v, dout, ids, kw = _segment_case(gen, name)
+    monkeypatch.setattr(flash_bwd, "_FORCE_TWO_KERNEL", path == "pair")
+    out, lse = _flash_fwd_impl(q, k, v, **ids, **kw)
+    args = (q, k, v, out, lse, dout)
+    got = flash_bwd.flash_backward(*args, **ids, **kw)
+    again = flash_bwd.flash_backward(*args, **ids, **kw)
+    want = flash_bwd.flash_backward_plain(*args, **ids, **kw)
+    torch.cuda.synchronize()
+    ints = torch.int16 if q.dtype == torch.bfloat16 else torch.int32
+    for g, a in list(zip(got, again))[path == "fused":]:
+        assert torch.equal(g.view(ints), a.view(ints))
+    for g, w in zip(got, want):
+        assert bool(g.isfinite().all())
+        assert grad_mismatch(g, w)[1] <= 1
+    if not name.endswith("leaved"):
+        assert bool((got[0][:, -10:] == 0).all())
+    fault = flash_bwd.flash_backward(*args, **dict(
+        ids, kv_segment_ids=_shifted(ids["kv_segment_ids"])), **kw)
+    assert max(grad_mismatch(g, w)[1] for g, w in zip(fault, want)) > 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("path", ["fused", "pair"])
+def test_all_equal_segment_ids_give_the_bits_of_no_ids(gen, monkeypatch,
+                                                       path, dtype):
+    """One segment for every row: the forward and the backward kernels
+    (both bodies) give the bits of the call without ids; the fused dQ,
+    whose tiles add in no fixed order, within its limit."""
+    monkeypatch.setattr(flash_bwd, "_FORCE_TWO_KERNEL", path == "pair")
+    q, dout = (torch.randn((8, 500, 128), generator=gen, device="cuda")
+               .to(dtype) for _ in "qo")
+    k, v = (torch.randn((2, 500, 128), generator=gen, device="cuda")
+            .to(dtype) for _ in "kv")
+    zeros = torch.zeros(500, dtype=torch.int32, device="cuda")
+    ids = dict(q_segment_ids=zeros, kv_segment_ids=zeros)
+    kw = dict(causal=True, scale=128 ** -0.5)
+    ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    a = flash_attention(q, k, v, **kw)
+    b = flash_attention(q, k, v, **kw, **ids)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(ints), b.view(ints))
+    out, lse = _flash_fwd_impl(q, k, v, **kw)
+    none = flash_bwd.flash_backward(q, k, v, out, lse, dout, **kw)
+    equal = flash_bwd.flash_backward(q, k, v, out, lse, dout, **kw, **ids)
+    torch.cuda.synchronize()
+    for x, y in list(zip(none, equal))[path == "fused":]:
+        assert torch.equal(x.view(ints), y.view(ints))
+    assert grad_mismatch(equal[0], none[0])[1] <= 1
+
+
+def test_segment_diff_launches_the_kernels(gen):
+    """A packed `flash_attention_diff` forward and backward on the card:
+    one flash forward and one fused backward launch, gradients within
+    the plain backward's limit."""
+    q, k, v, dout, ids, kw = _segment_case(gen, "bf16_d128_packed_causal")
+    out, lse = _flash_fwd_impl(q, k, v, **ids, **kw)
+    want = flash_bwd.flash_backward_plain(q, k, v, out, lse, dout, **ids,
+                                          **kw)
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = launch_counts()
+    flash_attention_diff(*qkv, causal=True, **ids).backward(dout)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert {n: after[n] - before[n] for n in after
+            if after[n] != before[n]} == {"flash_fwd": 1,
+                                          flash_bwd.FUSED: 1}
+    for t, w in zip(qkv, want):
+        assert grad_mismatch(t.grad, w)[1] <= 1

@@ -38,7 +38,13 @@ from attention_tpu_torch.ops.flash import (
     flash_attention_partials,
     flash_attention_plain,
 )
-from attention_tpu_torch.ops.reference import F32_ATOL, mismatch
+from attention_tpu_torch.ops.reference import (
+    F32_ATOL,
+    attention_mask,
+    attention_reference,
+    attention_reference_partials,
+    mismatch,
+)
 from attention_tpu_torch.ops.rope import apply_rope
 
 def _rand(rng, *shape):
@@ -124,14 +130,24 @@ def test_mismatch_rejects_planted_faults(dtype):
 
 def test_flash_unported_features_raise():
     """Forward features the port does not have yet raise, in both
-    forward entry points (the training forward's partials included)."""
-    q = torch.zeros(8, 16)
-    seg = torch.zeros(8, dtype=torch.int32)
-    for kw in ({"q_segment_ids": seg, "kv_segment_ids": seg},
-               {"max_mode": "flashd"}):
-        for fn in (flash_attention, flash_attention_partials):
-            with pytest.raises(NotImplementedError):
-                fn(q, q, q, causal=True, **kw)
+    forward entry points (the training forward's partials included);
+    segment ids, ported since, run in both and equal the plain
+    reference under the segments' mask."""
+    q = torch.from_numpy(_rand(np.random.default_rng(8), 8, 16))
+    seg = torch.tensor([0, 0, 0, 1, 1, 2, 2, 2], dtype=torch.int32)
+    for fn in (flash_attention, flash_attention_partials):
+        with pytest.raises(NotImplementedError):
+            fn(q, q, q, causal=True, max_mode="flashd")
+    ids = dict(q_segment_ids=seg, kv_segment_ids=seg)
+    keep = attention_mask(8, 8, causal=True, **ids)
+    assert torch.equal(keep, torch.ones(8, 8, dtype=torch.bool).tril()
+                       & (seg[:, None] == seg[None, :]))
+    assert torch.equal(flash_attention(q, q, q, causal=True, **ids),
+                       attention_reference(q, q, q, causal=True, **ids))
+    for got, want in zip(
+            flash_attention_partials(q, q, q, causal=True, **ids),
+            attention_reference_partials(q, q, q, causal=True, **ids)):
+        assert torch.equal(got, want)
 
 
 # ----------------------------------------------------------------- ragged

@@ -9,6 +9,12 @@ CPU mesh, its Pallas kernels in interpret mode.  The spawned ranks
 import this module, so it imports JAX only inside the functions that run
 in the test process.
 
+The masking surface (`MASKED`: window 48, window 48 with 8 sinks,
+window 32 with softcap 15, and packed ids of 3 uneven segments, as
+tests/test_distributed_features.py pins JAX's) runs on kv-sharded, ring
+(both schedules) and Ulysses in the world of 4, each also held against
+the port's single-device `flash_attention` on the same inputs.
+
 Tolerances: f32 1e-5 max abs (`reference.mismatch`'s f32 limit; both
 sides compute in full f32 and differ only in summation order); bf16
 `mismatch`'s bf16 limit against JAX's bf16 output and ±0.02 against the
@@ -29,6 +35,7 @@ import torch.multiprocessing as mp
 from attention_tpu_torch.api import attention
 from attention_tpu_torch.core import testcase
 from attention_tpu_torch.core.oracle import attention_oracle
+from attention_tpu_torch.ops.flash import flash_attention
 from attention_tpu_torch.ops.reference import F32_ATOL, mismatch
 from attention_tpu_torch.parallel import (
     choose_kv_placement,
@@ -110,6 +117,25 @@ CASES = {
                              {}),
     "kv_bf16": ((2, 4), _s((64, 64), (256, 64), (256, 64)), "kv_bf16", {}),
 }
+# the masking surface on every sharded path, world 4: the band crossing
+# shard boundaries, the sink prefix, softcap under a band, and packed ids
+# ("packed": 3 uneven segments, the same ids for queries and keys; 125
+# rows where the path takes a length that does not divide the mesh)
+_FEATURES = {"window": {"causal": True, "window": 48},
+             "window_sinks": {"causal": True, "window": 48, "sinks": 8},
+             "window_softcap": {"causal": True, "window": 32,
+                                "softcap": 15.0},
+             "packed": {"causal": True, "packed": True}}
+MASKED = {}
+for _path, _fn, _shape, _extra in (
+        ("kv", "kv", (2, 125, 16), {}),
+        ("ring", "ring", (2, 125, 16), {}),
+        ("ring_zigzag", "ring", (2, 125, 16), {"schedule": "zigzag"}),
+        ("ulysses", "ulysses", (4, 128, 16), {})):
+    for _feat, _kw in _FEATURES.items():
+        MASKED[f"{_path}_{_feat}"] = ((4,), _s(_shape), _fn,
+                                      dict(_kw, **_extra))
+CASES.update(MASKED)
 MERGE_WORLDS = (2, 3, 4)
 
 
@@ -118,6 +144,23 @@ def _inputs(name):
     rng = np.random.default_rng(sorted(CASES).index(name))
     return [rng.standard_normal(s).astype(np.float32)
             for s in CASES[name][1]]
+
+
+def _keywords(name, convert):
+    """The case's keywords, "packed" turned into segment ids (3 uneven
+    segments from the case's own seed) by ``convert`` (a numpy array to
+    the side's tensor)."""
+    kw = dict(CASES[name][3])
+    if kw.pop("packed", False):
+        s = CASES[name][1][0][-2]
+        rng = np.random.default_rng(1000 + sorted(CASES).index(name))
+        cuts = sorted(rng.choice(np.arange(16, s - 16), size=2,
+                                 replace=False))
+        ids = np.zeros(s, np.int32)
+        ids[cuts[0]:cuts[1]] = 1
+        ids[cuts[1]:] = 2
+        kw.update(q_segment_ids=convert(ids), kv_segment_ids=convert(ids))
+    return kw
 
 
 def _partials(rank, h=3, m=20, dv=8):
@@ -137,7 +180,8 @@ def _partials(rank, h=3, m=20, dv=8):
 def _port_call(name):
     """Run case ``name`` on this rank: the output tensor, or the name of
     the exception it raised."""
-    _, _, fn, kw = CASES[name]
+    _, _, fn, _ = CASES[name]
+    kw = _keywords(name, torch.from_numpy)
     q, k, v = (torch.from_numpy(x) for x in _inputs(name))
     try:
         if fn.startswith("api:"):
@@ -223,7 +267,8 @@ def _jax_call(name, world):
     from attention_tpu import attention as jax_attention
     from attention_tpu.parallel import kv_sharded, ring, ulysses
 
-    _, _, fn, kw = CASES[name]
+    _, _, fn, _ = CASES[name]
+    kw = _keywords(name, jnp.asarray)
     q, k, v = (jnp.asarray(x) for x in _inputs(name))
     if kw.get("impl") == "torch":
         kw = dict(kw, impl="xla")
@@ -268,6 +313,20 @@ def test_sharded_matches_jax(world_outputs, name, world):
         return
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
     assert np.abs(got.numpy() - want).max() <= F32_ATOL
+
+
+@pytest.mark.parametrize("name", sorted(MASKED))
+def test_masked_paths_match_single_device(world_outputs, name):
+    """Each sharded path under a band, sinks, softcap or packed ids
+    equals the port's single-device `flash_attention` on the same inputs
+    and keywords (f32, 1e-5)."""
+    got = _same_on_every_rank(world_outputs(4), name)
+    q, k, v = (torch.from_numpy(x) for x in _inputs(name))
+    kw = {x: y for x, y in _keywords(name, torch.from_numpy).items()
+          if x != "schedule"}
+    want = flash_attention(q, k, v, **kw)
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= F32_ATOL
 
 
 @pytest.mark.parametrize("world", CASES["kv_bf16"][0])

@@ -481,18 +481,26 @@ def test_windowed_model_three_adamw_steps_match_jax(jax_run):
 def test_jax_band_refusals_raise_value_error(kw, match):
     """JAX's four refusals of `flash_backward` (attention_tpu/ops/
     flash_bwd.py:797-812) raise `ValueError` in the port's backward and
-    in `flash_attention_diff`, before any work; segment ids and
-    ``block_sizes`` alone stay `NotImplementedError`."""
+    in `flash_attention_diff`, before any work; ``block_sizes`` alone
+    stays `NotImplementedError`.  Segment ids, ported since, run under
+    the band: the backward's gradients equal dense autograd through the
+    plain reference over the band and the segments' mask (f32)."""
     q = torch.zeros(16, 8, requires_grad=True)
     with pytest.raises(ValueError, match=match):
         flash_bwd.flash_backward(q, q, q, q, torch.zeros(16), q, scale=1.0,
                                  **kw)
     with pytest.raises(ValueError, match=match):
         flash_attention_diff(q, q, q, **kw)
-    ids = torch.zeros(16, dtype=torch.int32)
-    for extra in (dict(q_segment_ids=ids, kv_segment_ids=ids),
-                  dict(block_sizes=(8, 8))):
-        with pytest.raises(NotImplementedError):
-            flash_bwd.flash_backward(q, q, q, q, torch.zeros(16), q,
-                                     scale=1.0, causal=True, window=8,
-                                     **extra)
+    with pytest.raises(NotImplementedError):
+        flash_bwd.flash_backward(q, q, q, q, torch.zeros(16), q, scale=1.0,
+                                 causal=True, window=8, block_sizes=(8, 8))
+    x = torch.from_numpy(_rand(np.random.default_rng(11), 2, 16, 8))
+    ids = torch.tensor([0] * 6 + [1] * 10, dtype=torch.int32)
+    band = dict(causal=True, window=8, q_segment_ids=ids, kv_segment_ids=ids)
+    dense = x.clone().requires_grad_()
+    dout = torch.from_numpy(_rand(np.random.default_rng(12), 2, 16, 8))
+    attention_reference(dense, dense, dense, **band).backward(dout)
+    out, lse = _flash_fwd_impl(x, x, x, scale=8 ** -0.5, **band)
+    got = flash_bwd.flash_backward(x, x, x, out, lse, dout, scale=8 ** -0.5,
+                                   **band)
+    assert (sum(got) - dense.grad).abs().max().item() <= F32_TOL
