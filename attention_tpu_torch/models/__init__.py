@@ -54,5 +54,7 @@ from attention_tpu_torch.models.train import (  # noqa: F401
     MasterAdamW,
     init_train,
     loss_fn,
+    make_mesh_3d,
     make_train_step,
+    value_and_grad,
 )

@@ -43,8 +43,17 @@ absolute rotations.
 Dense, rolling and int8 caches are updated in place and returned with
 their new length.  Writing past a dense cache's capacity makes that
 output NaN, loudly (an int8 cache poisons the scales it writes, to the
-same end).  The JAX layer's context parallelism (``cp_axis``) and
-head-sharded serving (``tp_axis``) are not ported.
+same end).
+
+Context parallelism (``cp_axis`` of a ``mesh``, `CP_IMPLS`): the
+uncached forward takes this rank's block of the sequence (the train
+step cuts it, `models.train.make_train_step`), rotates it at its global
+positions and runs a differentiable sharded core on local blocks:
+"allgather" (`parallel.cp.cp_attention_local`), "ring" and "zigzag"
+(`parallel.ring.ring_diff_local`, `zigzag_diff_local`) or "ulysses"
+(`parallel.ulysses.ulysses_local`); activations stay O(S/sp) per rank.
+Cached paths are unaffected.  The JAX layer's head-sharded serving
+(``tp_axis``) is not ported.
 """
 
 from __future__ import annotations
@@ -84,6 +93,10 @@ from attention_tpu_torch.ops.reference import (
     attention_reference,
 )
 from attention_tpu_torch.ops.rope import apply_rope
+from attention_tpu_torch.parallel.cp import cp_attention_local
+from attention_tpu_torch.parallel.ring import ring_diff_local, \
+    zigzag_diff_local
+from attention_tpu_torch.parallel.ulysses import ulysses_local
 
 
 class KVCache(NamedTuple):
@@ -278,6 +291,31 @@ def check_impl(impl: str) -> None:
         raise ValueError(f"impl {impl!r} not in {sorted(ATTN_IMPLS)}")
 
 
+#: the context-parallel local-block cores by ``cp_impl``, in JAX's order
+_CP_LOCAL = {"allgather": cp_attention_local, "ring": ring_diff_local,
+             "zigzag": zigzag_diff_local, "ulysses": ulysses_local}
+CP_IMPLS = tuple(_CP_LOCAL)
+
+
+def check_cp(cp_axis, cp_impl: str, mesh, impl: str) -> None:
+    """The JAX layer's refusals of a context-parallel configuration, as
+    `ValueError`: ``cp_axis`` needs the flash path and a ``mesh`` that
+    has the axis, and ``cp_impl`` one of `CP_IMPLS`."""
+    if cp_axis is None:
+        return
+    if impl != "flash":
+        raise ValueError(
+            "cp_axis (context-parallel attention) runs the fused flash "
+            f"path; impl {impl!r} is not supported")
+    if mesh is None:
+        raise ValueError("cp_axis requires mesh=")
+    if cp_axis not in mesh.axis_names:
+        raise ValueError(f"mesh {mesh.axis_names} has no axis {cp_axis!r}")
+    if cp_impl not in CP_IMPLS:
+        raise ValueError(f"unknown cp_impl {cp_impl!r} (supported: "
+                         f"{list(CP_IMPLS)})")
+
+
 class GQASelfAttention(nn.Module):
     """(B, S, D) -> (B, S, D) with ``num_q_heads`` query heads sharing
     ``num_kv_heads`` key/value heads.  Projections carry no bias; the
@@ -285,17 +323,22 @@ class GQASelfAttention(nn.Module):
     makes it sliding-window attention and ``attn_sinks`` keeps the first
     positions attendable beside the window (StreamingLLM).  ``impl``
     "flash" runs the kernels; "xla" runs the uncached and the dense-cache
-    paths in PyTorch ops (`ATTN_IMPLS`) and refuses every other cache."""
+    paths in PyTorch ops (`ATTN_IMPLS`) and refuses every other cache.
+    ``cp_axis`` (an axis of ``mesh``) runs the uncached forward context-
+    parallel on this rank's block of the sequence by ``cp_impl`` (see the
+    module docstring)."""
 
     def __init__(self, dim: int, num_q_heads: int, num_kv_heads: int,
                  head_dim: int, *, causal: bool = True, impl: str = "flash",
                  dtype: torch.dtype = torch.bfloat16,
                  window: int | None = None, attn_sinks: int = 0,
                  rope: bool = False, rope_theta: float = 10000.0,
-                 softcap: float | None = None,
+                 softcap: float | None = None, cp_axis: str | None = None,
+                 cp_impl: str = "allgather", mesh=None,
                  device: str | torch.device = "cuda"):
         super().__init__()
         check_impl(impl)
+        check_cp(cp_axis, cp_impl, mesh, impl)
         if num_q_heads % num_kv_heads != 0:
             raise ValueError(
                 f"q heads {num_q_heads} not a multiple of kv heads "
@@ -319,6 +362,7 @@ class GQASelfAttention(nn.Module):
         self.rope = rope
         self.rope_theta = rope_theta
         self.softcap = softcap
+        self.cp_axis, self.cp_impl, self.mesh = cp_axis, cp_impl, mesh
         kw = dict(bias=False, dtype=dtype, device=device)
         self.q_proj = nn.Linear(dim, num_q_heads * head_dim, **kw)
         self.k_proj = nn.Linear(dim, num_kv_heads * head_dim, **kw)
@@ -343,6 +387,8 @@ class GQASelfAttention(nn.Module):
             else:
                 pos = torch.arange(s, device=x.device)
                 off = 0 if cache is None else cache.length
+                if cache is None and self.cp_axis is not None:
+                    off = self.mesh.index(self.cp_axis) * s
                 if isinstance(off, torch.Tensor):
                     # per-sequence (B,) offsets -> (B, 1, S) positions
                     pos = (off.to(pos.device)[:, None] + pos)[:, None, :]
@@ -355,7 +401,9 @@ class GQASelfAttention(nn.Module):
         if self.impl != "flash" and flash_only:
             raise ValueError(f"impl {self.impl!r} has no {flash_only} path "
                              "(supported: ['flash'])")
-        if cache is None:
+        if cache is None and self.cp_axis is not None:
+            out = self._cp_attention(q, k, v)
+        elif cache is None:
             out = ATTN_IMPLS[self.impl](q, k, v, causal=self.causal,
                                         window=self.window,
                                         softcap=self.softcap,
@@ -386,6 +434,14 @@ class GQASelfAttention(nn.Module):
         out = out.transpose(1, 2).reshape(b, s, -1)
         proj = self.o_proj(out.to(x.dtype))
         return proj if cache is None else (proj, cache)
+
+    def _cp_attention(self, q, k, v):
+        """Context-parallel attention of this rank's block (B, H, s, dh)
+        of the sequence, each rank's block s rows at s·index."""
+        return _CP_LOCAL[self.cp_impl](
+            q, k, v, mesh=self.mesh, axis_name=self.cp_axis,
+            causal=self.causal, softcap=self.softcap, window=self.window,
+            sinks=self.attn_sinks or None)
 
     @property
     def _band(self) -> dict:

@@ -69,14 +69,16 @@ class TransformerBlock(nn.Module):
                  rope_theta: float = 10000.0,
                  softcap: float | None = None,
                  moe_experts: int | None = None, moe_top_k: int = 2,
-                 moe_capacity_factor: float = 1.25, device):
+                 moe_capacity_factor: float = 1.25,
+                 cp_axis: str | None = None, cp_impl: str = "allgather",
+                 mesh=None, device):
         super().__init__()
         self.norm1 = RMSNorm(dim, dtype=dtype, device=device)
         self.attn = GQASelfAttention(
             dim, num_q_heads, num_kv_heads, head_dim, causal=causal,
             impl=impl, dtype=dtype, window=window, attn_sinks=attn_sinks,
             rope=rope, rope_theta=rope_theta, softcap=softcap,
-            device=device)
+            cp_axis=cp_axis, cp_impl=cp_impl, mesh=mesh, device=device)
         self.norm2 = RMSNorm(dim, dtype=dtype, device=device)
         self.mlp = (MoEMLP(dim, moe_experts, top_k=moe_top_k,
                            capacity_factor=moe_capacity_factor, dtype=dtype,
@@ -111,9 +113,16 @@ class TinyDecoder(nn.Module):
     a dense model).  ``remat=True`` recomputes each block's activations
     in the backward pass (`torch.utils.checkpoint`), and is ignored on
     cached calls.  ``impl="xla"`` runs attention in PyTorch ops on the
-    uncached and dense-cache paths (a baseline; `ATTN_IMPLS`).  Options
-    of the JAX model that the port does not have yet (context, tensor
-    and expert parallelism) raise `NotImplementedError`."""
+    uncached and dense-cache paths (a baseline; `ATTN_IMPLS`).
+
+    ``cp_axis`` (an axis of ``mesh``, a `parallel.mesh.Mesh`) trains
+    context-parallel: the uncached forward takes this rank's block of
+    the sequence, ``tokens`` (B, S / sp) at global positions index · S /
+    sp, and attention runs ``cp_impl`` ("allgather", "ring", "zigzag" or
+    "ulysses"; `attention_layer.CP_IMPLS`) over the axis;
+    `models.train.make_train_step` cuts the blocks.  Options of the JAX
+    model that the port does not have yet (``tp_axis``, ``ep_axis``, and
+    ``cp_axis`` on a mixture of experts) raise `NotImplementedError`."""
 
     def __init__(self, vocab: int = 256, dim: int = 256, depth: int = 2,
                  num_q_heads: int = 8, num_kv_heads: int = 2,
@@ -123,11 +132,21 @@ class TinyDecoder(nn.Module):
                  softcap: float | None = None, remat: bool = False,
                  moe_experts: int | None = None, moe_top_k: int = 2,
                  moe_capacity_factor: float = 1.25,
-                 device: str | torch.device = "cuda", **unported):
+                 cp_axis: str | None = None, cp_impl: str = "allgather",
+                 mesh=None, device: str | torch.device = "cuda",
+                 **unported):
         super().__init__()
         if unported:
             raise NotImplementedError(
-                f"TinyDecoder options not ported yet: {sorted(unported)}")
+                f"TinyDecoder options not ported yet: {sorted(unported)}: "
+                "tp_axis comes with the tensor-parallel layout "
+                "(shard_params) and ep_axis with expert parallelism, "
+                "ROADMAP.md Queue 1 item 5")
+        if cp_axis is not None and moe_experts:
+            raise NotImplementedError(
+                "cp_axis with moe_experts: the router's statistics would be "
+                "per sequence shard; it comes with expert parallelism, "
+                "ROADMAP.md Queue 1 item 5")
         check_impl(impl)
         device = resolve_device(device)
         self.vocab = vocab
@@ -143,6 +162,7 @@ class TinyDecoder(nn.Module):
         self.softcap = softcap
         self.remat = remat
         self.moe_experts = moe_experts
+        self.cp_axis, self.cp_impl, self.mesh = cp_axis, cp_impl, mesh
         self.head_dim = dim // num_q_heads
         self.embed = nn.Embedding(vocab, dim, dtype=dtype, device=device)
         self.blocks = nn.ModuleList(
@@ -152,6 +172,7 @@ class TinyDecoder(nn.Module):
                              rope_theta=rope_theta, softcap=softcap,
                              moe_experts=moe_experts, moe_top_k=moe_top_k,
                              moe_capacity_factor=moe_capacity_factor,
+                             cp_axis=cp_axis, cp_impl=cp_impl, mesh=mesh,
                              device=device)
             for _ in range(depth))
         self.norm = RMSNorm(dim, dtype=dtype, device=device)

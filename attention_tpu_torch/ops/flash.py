@@ -221,13 +221,14 @@ def _unsupported(**features) -> None:
                 "kv_valid, window, sinks and segment ids")
 
 
-def check_segments(q, k, q_segment_ids, kv_segment_ids):
+def check_segments(q, k, q_segment_ids, kv_segment_ids, n=None):
     """The JAX entry points' contract for packed-sequence segment ids
     (attention_tpu/ops/flash.py:885-887, :1222-1240, :1354-1358), as
     `ValueError`: the two go together, the inputs are 2-D or 3-D (the
     ids are shared across heads and batch rows), and each is a 1-D
-    vector of its sequence's length (q's m, k's n).  Returns them as
-    contiguous int32 on q's device, or (None, None) without ids."""
+    vector of its sequence's length (q's m, k's n, or ``n`` where the
+    keys are gathered from k's blocks).  Returns them as contiguous
+    int32 on q's device, or (None, None) without ids."""
     if (q_segment_ids is None) != (kv_segment_ids is None):
         raise ValueError("q_segment_ids and kv_segment_ids go together")
     if q_segment_ids is None:
@@ -238,11 +239,12 @@ def check_segments(q, k, q_segment_ids, kv_segment_ids):
             "loop over the batch for per-sequence ids")
     ids = [torch.as_tensor(x, device=q.device)
            for x in (q_segment_ids, kv_segment_ids)]
+    n = k.shape[-2] if n is None else n
     if (any(x.dim() != 1 for x in ids) or ids[0].shape[0] != q.shape[-2]
-            or ids[1].shape[0] != k.shape[-2]):
+            or ids[1].shape[0] != n):
         raise ValueError(
             f"segment id shapes {tuple(ids[0].shape)}/{tuple(ids[1].shape)}"
-            f" != ({q.shape[-2]},)/({k.shape[-2]},)")
+            f" != ({q.shape[-2]},)/({n},)")
     return tuple(x.to(torch.int32).contiguous() for x in ids)
 
 

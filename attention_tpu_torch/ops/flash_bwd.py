@@ -367,7 +367,7 @@ class WorkPlan(NamedTuple):
 def bwd_work_plan(batch: int, kv_heads: int, group: int, m: int, n: int,
                   kv_valid: int, causal: bool, q_offset: int,
                   kv_offset: int, window: int | None = None, *,
-                  sms: int) -> WorkPlan:
+                  sms: int, min_slices: int = 1) -> WorkPlan:
     """The wgmma body's work items for a call: each is one block of 128
     keys of one kv head and one of ``slices`` equal slices of its group's
     q heads, walked in order (so dK and dV are summed over the group in a
@@ -377,7 +377,9 @@ def bwd_work_plan(batch: int, kv_heads: int, group: int, m: int, n: int,
     failing that, the slices of the lightest heaviest CTA.  One slice
     writes dK and dV directly, more write fp32 partials that the wrapper
     sums, so fewer slices are cheaper where they balance.  Under a
-    ``window`` an item's load is its block's band of query tiles."""
+    ``window`` an item's load is its block's band of query tiles.
+    ``min_slices`` (at most the group) is the fewest slices to take: 2
+    makes the body write float32 partials wherever the group splits."""
     per_head = []
     for kb in range(-(-n // KEY_BLOCK)):
         plan = bwd_tile_plan(kb * KEY_BLOCK, m, kv_valid, causal, q_offset,
@@ -385,7 +387,8 @@ def bwd_work_plan(batch: int, kv_heads: int, group: int, m: int, n: int,
         per_head.append(plan.end - plan.begin)
     mean = batch * kv_heads * group * sum(per_head) / sms
     best = None
-    for slices in (s for s in range(1, group + 1) if group % s == 0):
+    for slices in (s for s in range(min(min_slices, group), group + 1)
+                   if group % s == 0):
         items = len(per_head) * batch * kv_heads * slices
         loads = []
         for w in range(items):
@@ -438,7 +441,7 @@ class _Staged:
 
     def __init__(self, q4, k4, v4, o4, lse4, do4, *, scale, causal, softcap,
                  q_offset, kv_offset, kv_valid, window=None, q_ids=None,
-                 kv_ids=None):
+                 kv_ids=None, grad_dtype=None):
         dtype = q4.dtype
         if (dtype not in DTYPE_CODES or k4.dtype != dtype
                 or v4.dtype != dtype):
@@ -455,6 +458,7 @@ class _Staged:
             raise ValueError(f"empty attention: m={m} n={n}")
         self.shape = (b, h, hkv, m, n, d, dv)
         self.dtype, self.device = dtype, q4.device
+        self.grad_dtype = grad_dtype or dtype
         self.ls = -(-m // DQ_ROWS) * DQ_ROWS
         self.qs, self.k, self.v, self.do = (
             t if t.stride(-1) == 1 else t.contiguous()
@@ -481,7 +485,8 @@ class _Staged:
         if body == "wgmma":
             sms = _native.sm_count(q4.device.index)
             work = bwd_work_plan(b, hkv, h // hkv, m, n, kv_valid, causal,
-                                 q_offset, kv_offset, window, sms=sms)
+                                 q_offset, kv_offset, window, sms=sms,
+                                 min_slices=1 if grad_dtype is None else 2)
             self.plan.update(work._asdict())
             items = b * h * -(-m // DQ_ROWS)
             self.pair_plan.update(
@@ -522,9 +527,10 @@ class _Staged:
                     dvo=torch.empty(kv[1], **kv[2]))
 
     def _kv_grads(self, dq, dk, dvo, patch):
-        """(dQ, dK, dV) in the input dtype from the kernels' outputs:
-        per-Q-head or slice partials of dK and dV summed over the group in
-        order, and the sink ``patch`` of `_sink_rows` (or None) added
+        """(dQ, dK, dV) in the gradient dtype (the input dtype unless the
+        call asked for another) from the kernels' outputs: per-Q-head or
+        slice partials of dK and dV summed over the group in order, and
+        the sink ``patch`` of `_sink_rows` (or None) added
         (`_add_patch`)."""
         b, h, hkv, m, n, d, dv = self.shape
         if dk.dim() == 4 and dk.shape[1] != hkv:
@@ -534,7 +540,7 @@ class _Staged:
             dk, dvo = dk.sum(2), dvo.sum(2)
         if patch is not None:
             _add_patch((dq, dk, dvo), patch)
-        return tuple(t.to(self.dtype) for t in (dq, dk, dvo))
+        return tuple(t.to(self.grad_dtype) for t in (dq, dk, dvo))
 
     def fused_buffers(self) -> dict:
         """The fused kernel's outputs for this call's plan: dq32 (zeroed)
@@ -650,6 +656,7 @@ def flash_backward(
     q_segment_ids=None,
     kv_segment_ids=None,
     block_sizes=None,
+    grad_dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """dQ, dK, dV of flash attention from the saved forward.
 
@@ -671,7 +678,12 @@ def flash_backward(
     ``causal``, sinks without a window, sinks with ``kv_offset`` (their
     positions are absolute) or with segment ids, unpaired ids, ids with
     4-D inputs or of the wrong length.  ``block_sizes`` is not ported
-    and raises `NotImplementedError`."""
+    and raises `NotImplementedError`.  ``grad_dtype=torch.float32``
+    returns the gradients in float32 without their last rounding where
+    the kernels sum in float32 (the fused kernel's dQ; dK and dV, for
+    which the wgmma body then cuts each GQA group into at least two
+    slices, whose float32 partials the wrapper sums): the sharded
+    backward paths add per-shard gradients and round the sum once."""
     q_ids, kv_ids = check_segments(q, k, q_segment_ids, kv_segment_ids)
     check_backward_band(causal, window, sinks, kv_offset,
                         q_ids is not None)
@@ -680,11 +692,11 @@ def flash_backward(
     offsets = _offsets(k.shape[-2], q_offset, kv_offset, kv_valid)
     band = dict(window=window, sinks=sinks)
     if q.device.type == "cpu":
-        return flash_backward_plain(q, k, v, out, lse, dout, scale=scale,
-                                    causal=causal, softcap=softcap,
-                                    q_segment_ids=q_ids,
-                                    kv_segment_ids=kv_ids, **offsets,
-                                    **band)
+        grads = flash_backward_plain(
+            q, k, v, out, lse, dout, scale=scale, causal=causal,
+            softcap=softcap, q_segment_ids=q_ids, kv_segment_ids=kv_ids,
+            **offsets, **band)
+        return tuple(t.to(grad_dtype or t.dtype) for t in grads)
     if q.device.type != "cuda":
         raise ValueError(f"flash_backward runs on cuda or cpu, not "
                          f"{q.device.type}")
@@ -692,4 +704,4 @@ def flash_backward(
     tensors[4] = tensors[4][..., 0]
     return tuple(t[lead] for t in _launch(
         *tensors, scale=scale, causal=causal, softcap=softcap, q_ids=q_ids,
-        kv_ids=kv_ids, **offsets, **band))
+        kv_ids=kv_ids, grad_dtype=grad_dtype, **offsets, **band))

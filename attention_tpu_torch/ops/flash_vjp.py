@@ -12,6 +12,8 @@ gradient.
 
 from __future__ import annotations
 
+from typing import Callable, NamedTuple
+
 import torch
 
 from attention_tpu_torch.ops.flash import (
@@ -26,6 +28,19 @@ from attention_tpu_torch.ops.flash_bwd import (
     flash_backward,
     flash_backward_plain,
 )
+
+
+class KVGather(NamedTuple):
+    """How a context-parallel caller (`parallel.cp`) hands
+    `flash_attention_diff` this rank's blocks of the keys: ``gather(x)``
+    gives the whole sequence's (rows on axis -2), ``sum_block(g)`` of a
+    float32 gradient of the whole keys this rank's block of its sum over
+    the ranks (JAX's ``psum_scatter``), ``rows`` the whole sequence's key
+    rows."""
+
+    gather: Callable
+    sum_block: Callable
+    rows: int
 
 
 def _flash_fwd_impl(q, k, v, **kw):
@@ -47,6 +62,8 @@ class _FlashDiff(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, q_ids, kv_ids, opts):
         ids = dict(q_segment_ids=q_ids, kv_segment_ids=kv_ids)
+        if opts["kv_gather"] is not None:
+            k, v = (opts["kv_gather"].gather(x) for x in (k, v))
         out, lse = _flash_fwd_impl(q, k, v, **opts["fwd"], **ids)
         ctx.save_for_backward(q, k, v, out, lse, q_ids, kv_ids)
         ctx.opts = opts
@@ -57,6 +74,7 @@ class _FlashDiff(torch.autograd.Function):
         q, k, v, out, lse, q_ids, kv_ids = ctx.saved_tensors
         opts, fwd = ctx.opts, ctx.opts["fwd"]
         ids = dict(q_segment_ids=q_ids, kv_segment_ids=kv_ids)
+        gather = opts["kv_gather"]
         if opts["bwd_impl"] == "xla":
             grads = flash_backward_plain(
                 q, k, v, out, lse, dout, scale=fwd["scale"],
@@ -66,7 +84,14 @@ class _FlashDiff(torch.autograd.Function):
                 **_offsets(k.shape[-2], fwd["q_offset"], fwd["kv_offset"],
                            fwd["kv_valid"]))
         else:
-            grads = flash_backward(q, k, v, out, lse, dout, **fwd, **ids)
+            grads = flash_backward(
+                q, k, v, out, lse, dout, **fwd, **ids,
+                grad_dtype=None if gather is None else torch.float32)
+        if gather is not None:
+            dq, dk, dv = grads
+            grads = (dq.to(q.dtype),
+                     gather.sum_block(dk.float()).to(k.dtype),
+                     gather.sum_block(dv.float()).to(v.dtype))
         return (*grads, None, None, None)
 
 
@@ -89,6 +114,7 @@ def flash_attention_diff(
     kv_offset=None,
     kv_valid=None,
     max_mode: str = "online",
+    kv_gather=None,
 ) -> torch.Tensor:
     """Differentiable fused attention with `flash_attention`'s shape
     contract: (m, d), (h, m, d) or (b, h, m, d) inputs, dk != dv allowed,
@@ -109,14 +135,23 @@ def flash_attention_diff(
     inputs, shared across heads) mask attention across packed-sequence
     boundaries in the forward and both backwards.  The refusals are
     `flash_bwd.flash_backward`'s; ``block_sizes`` raises
-    `NotImplementedError`."""
+    `NotImplementedError`.
+
+    ``kv_gather`` (a `KVGather`, from a context-parallel caller,
+    `parallel.cp`): ``k`` and ``v`` are this rank's blocks of the keys,
+    gathered whole for the forward (``kv_valid``, ``kv_segment_ids`` and
+    the mask are the whole sequence's); the backward keeps dQ, dK and dV
+    in float32 (`flash_backward`'s ``grad_dtype``) until dK and dV are
+    summed over the ranks, and rounds each once."""
     if bwd_impl not in ("pallas", "xla"):
         raise ValueError(f"unknown bwd_impl {bwd_impl!r}")
     if max_mode not in ("online", "bound"):
         raise NotImplementedError(
             f"max_mode={max_mode!r} is not ported yet; 'online' and "
             "'bound' run the online recurrence")
-    q_ids, kv_ids = check_segments(q, k, q_segment_ids, kv_segment_ids)
+    q_ids, kv_ids = check_segments(
+        q, k, q_segment_ids, kv_segment_ids,
+        n=None if kv_gather is None else kv_gather.rows)
     check_backward_band(causal, window, sinks, kv_offset,
                         q_ids is not None)
     _unsupported(block_sizes=block_sizes)
@@ -131,5 +166,5 @@ def flash_attention_diff(
                window=window, sinks=sinks)
     out = _FlashDiff.apply(q4, k4, v4, q_ids, kv_ids,
                            dict(fwd=fwd, bwd_impl=bwd_impl,
-                                bwd_chunk=bwd_chunk))
+                                bwd_chunk=bwd_chunk, kv_gather=kv_gather))
     return out[(0,) * (q4.dim() - q.dim())]

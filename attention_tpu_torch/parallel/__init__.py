@@ -1,18 +1,24 @@
 """Distributed attention over ``torch.distributed``: the port of
 `attention_tpu.parallel` (meshes and the placement policy, the
-KV-sharded two-phase merge, Q-sharded, ring and Ulysses; forward
-only)."""
+KV-sharded two-phase merge, Q-sharded, ring and Ulysses, and the
+differentiable context-parallel paths that training runs:
+`cp_flash_attention`, `ring_attention_diff` and Ulysses)."""
 
 from attention_tpu_torch.parallel.mesh import (  # noqa: F401
     KV_REPLICATE_THRESHOLD_BYTES,
     choose_kv_placement,
     default_mesh,
+    grid_mesh,
 )
 from attention_tpu_torch.parallel.kv_sharded import (  # noqa: F401
     kv_sharded_attention,
     q_sharded_attention,
 )
-from attention_tpu_torch.parallel.ring import ring_attention  # noqa: F401
+from attention_tpu_torch.parallel.cp import cp_flash_attention  # noqa: F401
+from attention_tpu_torch.parallel.ring import (  # noqa: F401
+    ring_attention,
+    ring_attention_diff,
+)
 from attention_tpu_torch.parallel.ulysses import (  # noqa: F401
     ulysses_attention,
 )

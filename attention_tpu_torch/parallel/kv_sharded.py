@@ -44,10 +44,10 @@ from attention_tpu_torch.parallel.mesh import Mesh, default_mesh
 NEG_INF = float("-inf")
 
 
-def _unported(*, q, k, v, block_sizes=None, max_mode="bound") -> None:
+def _unported(*, block_sizes=None, max_mode="bound") -> None:
     """Raise `NotImplementedError` for what the sharded paths do not
-    carry yet: ``block_sizes``, ``max_mode`` other than "online"/"bound",
-    and gradients (the collectives are not differentiable yet)."""
+    carry yet: ``block_sizes`` and ``max_mode`` other than
+    "online"/"bound"."""
     if max_mode not in ("online", "bound"):
         raise NotImplementedError(
             f"max_mode={max_mode!r} is not ported yet; 'online' and "
@@ -55,10 +55,17 @@ def _unported(*, q, k, v, block_sizes=None, max_mode="bound") -> None:
     if block_sizes is not None:
         raise NotImplementedError(
             "block_sizes=... is not ported to the sharded paths yet")
+
+
+def _forward_only(q, k, v) -> None:
+    """Raise `NotImplementedError` for gradients: kv-sharded, q-sharded
+    and `ring_attention` are forward-only, as in JAX, whose versions call
+    kernels without a VJP."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
-            "the sharded paths are forward-only in the port: their "
-            "collectives are not differentiable yet")
+            "kv-sharded, q-sharded and ring_attention are forward-only, as "
+            "in the JAX package; train through cp_flash_attention, "
+            "ring_attention_diff or ulysses_attention")
 
 
 def pad_ids(ids, length: int, fill: int):
@@ -141,7 +148,8 @@ def kv_sharded_attention(
     ``sinks`` are masked in global positions (each shard's
     ``kv_offset``); segment ids ((m,) and (n,), 2-D and 3-D inputs) go
     whole for Q and cut with their K/V rows."""
-    _unported(q=q, k=k, v=v, block_sizes=block_sizes, max_mode=max_mode)
+    _unported(block_sizes=block_sizes, max_mode=max_mode)
+    _forward_only(q, k, v)
     q_ids, kv_ids = check_segments(q, k, q_segment_ids, kv_segment_ids)
     check_window(causal, window, sinks, q_ids is not None)
     if mesh is None:
@@ -183,7 +191,8 @@ def q_sharded_attention(
     multiple of the mesh) against the whole K/V, with no collective in
     the attention itself; an all_gather of the blocks gives every rank
     the full output."""
-    _unported(q=q, k=k, v=v, block_sizes=block_sizes, max_mode=max_mode)
+    _unported(block_sizes=block_sizes, max_mode=max_mode)
+    _forward_only(q, k, v)
     if mesh is None:
         mesh = default_mesh(axis_name)
     n_dev, idx = mesh.shape[axis_name], mesh.index(axis_name)

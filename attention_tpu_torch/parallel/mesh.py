@@ -14,7 +14,23 @@ SUM, the two-phase softmax merge), all_gather, all_to_all (Ulysses) and
 `Mesh.ppermute` (the ring's neighbour exchange, JAX's ``lax.ppermute``).
 Without an initialised process group a mesh has one rank and every
 collective returns its input: the reference's ``mpirun -np 1``, with the
-kernels still on the card.
+kernels still on the card.  `grid_mesh` lays a world out as an N-D grid
+with a process group per axis (the training mesh's dp x sp x tp).
+
+Training goes through these collectives under autograd, in two
+conventions.  On local blocks (what JAX runs inside ``shard_map``, the
+model's path): `all_to_all_diff` (backward: the inverse all_to_all) and
+`ppermute_diff` (backward: the inverse permutation); the all-gather of
+K/V and its backward (JAX's ``psum_scatter``: gloo has no
+reduce_scatter, so an all_reduce and a slice) sit inside the flash
+autograd function (`parallel.cp.cp_attention_local`), which keeps the
+gradients float32 until the sum.  On whole tensors that every rank holds
+alike (the public functions' convention): `shard_whole` takes this
+rank's block and `gather_whole` gives every rank the whole, each the
+other's adjoint: the backward of `gather_whole` takes this rank's block
+of the whole gradient and that of `shard_whole` all-gathers the blocks,
+with no sum, since every rank computes the same loss of the same whole
+output.
 
 gloo runs a world of several ranks on one card (NCCL refuses two ranks
 on one device).  It takes CUDA tensors for some collectives and not for
@@ -196,6 +212,134 @@ class Pending:
             return [t.to(self._device) for t in self._tensors]
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_dim, concat_dim):
+        ctx.args = (mesh, axis, split_dim, concat_dim)
+        return mesh.all_to_all(x, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, split_dim, concat_dim = ctx.args
+        return (mesh.all_to_all(g.contiguous(), axis, concat_dim, split_dim),
+                None, None, None, None)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, perm, *xs):
+        ctx.args = (mesh, axis, [(d, s) for s, d in perm])
+        out = mesh.ppermute(xs, axis, perm).wait()
+        return tuple(y.clone() if y is x else y for x, y in zip(xs, out))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh, axis, inverse = ctx.args
+        gs = [g.contiguous() for g in gs]
+        return (None, None, None,
+                *mesh.ppermute(gs, axis, inverse).wait())
+
+
+class _ShardWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        width = x.shape[dim] // mesh.shape[axis]
+        return x.narrow(dim, mesh.index(axis) * width, width).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.args
+        return mesh.all_gather(g.contiguous(), axis, dim), None, None, None
+
+
+class _GatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return mesh.all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.args
+        width = g.shape[dim] // mesh.shape[axis]
+        return (g.narrow(dim, mesh.index(axis) * width, width), None, None,
+                None)
+
+
+def all_to_all_diff(x: torch.Tensor, mesh: Mesh, axis: str, split_dim: int,
+                    concat_dim: int) -> torch.Tensor:
+    """`Mesh.all_to_all` under autograd; the backward is the inverse
+    all_to_all (``split_dim`` and ``concat_dim`` swapped)."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _AllToAll.apply(x, mesh, axis, split_dim, concat_dim)
+
+
+def ppermute_diff(xs, mesh: Mesh, axis: str, perm) -> list[torch.Tensor]:
+    """`Mesh.ppermute` of the tensors ``xs``, waited for, under autograd;
+    the backward sends the gradients along the inverse permutation."""
+    return list(_PPermute.apply(mesh, axis, perm, *xs))
+
+
+def shard_whole(x: torch.Tensor, mesh: Mesh, axis: str,
+                dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` (a multiple of the axis's size) of
+    a tensor that every rank holds whole; the backward all-gathers the
+    ranks' gradient blocks into the whole gradient, with no sum."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _ShardWhole.apply(x, mesh, axis, dim)
+
+
+def gather_whole(x: torch.Tensor, mesh: Mesh, axis: str,
+                 dim: int) -> torch.Tensor:
+    """The ranks' blocks along ``axis`` concatenated on ``dim``, on every
+    rank; the backward takes this rank's block of the whole gradient,
+    with no sum (every rank computes the same loss of the whole)."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _GatherWhole.apply(x, mesh, axis, dim)
+
+
+def whole_layout(q, k, mesh: Mesh, axis_name: str, batch_axis, head_axis):
+    """The (mesh axis, dim) pairs that cut a whole (b, h, s, d) or (h, s,
+    d) tensor into this rank's block, in order: the sequence over
+    ``axis_name``, the batch over ``batch_axis`` and the heads over
+    ``head_axis`` where the mesh has them and they divide (the heads only
+    where both q's and k's head counts divide), as JAX's ``in_specs``."""
+    seq = q.dim() - 2
+    layout = [(axis_name, seq)]
+    if q.dim() == 4:
+        b_axis = _maybe_axis(mesh, batch_axis, q.shape[0])
+        if b_axis is not None:
+            layout.append((b_axis, 0))
+    h_axis = _maybe_axis(mesh, head_axis, q.shape[-3])
+    if h_axis is not None and k.shape[-3] % mesh.shape[h_axis] == 0:
+        layout.append((h_axis, q.dim() - 3))
+    return layout
+
+
+def shard_blocks(xs, mesh: Mesh, layout):
+    """Each whole tensor of ``xs`` cut to this rank's block (`shard_whole`
+    along each axis of ``layout``)."""
+    out = []
+    for x in xs:
+        for axis, dim in layout:
+            x = shard_whole(x, mesh, axis, dim)
+        out.append(x)
+    return out
+
+
+def gather_blocks(x, mesh: Mesh, layout):
+    """The whole tensor from every rank's block (`gather_whole` along the
+    axes of ``layout`` in reverse)."""
+    for axis, dim in reversed(layout):
+        x = gather_whole(x, mesh, axis, dim)
+    return x
+
+
 def _world() -> tuple[int, int]:
     """(size, rank) of the default process group; (1, 0) without one."""
     if dist.is_available() and dist.is_initialized():
@@ -211,6 +355,38 @@ def default_mesh(axis_name: str = "kv") -> Mesh:
                 (None,))
 
 
+def grid_mesh(axis_names, sizes) -> Mesh:
+    """The world laid out as a grid of ``sizes`` (row-major: the last
+    axis varies fastest between consecutive ranks), one process group
+    per line of ranks along each axis.  Every rank must call it, in the
+    same order (process groups are created collectively)."""
+    size, rank = _world()
+    total = 1
+    for s in sizes:
+        total *= s
+    if total != size:
+        raise ValueError(f"mesh {tuple(sizes)} needs {total} ranks; the "
+                         f"world has {size}")
+    strides = [1] * len(sizes)
+    for a in range(len(sizes) - 2, -1, -1):
+        strides[a] = strides[a + 1] * sizes[a + 1]
+    coords = [rank // st % s for st, s in zip(strides, sizes)]
+    ranks, groups = [], []
+    for a, (st, s) in enumerate(zip(strides, sizes)):
+        ranks.append([rank + (j - coords[a]) * st for j in range(s)])
+        mine = None
+        if size > 1 and s > 1:
+            for base in range(size):
+                if base // st % s:
+                    continue
+                line = [base + j * st for j in range(s)]
+                group = dist.new_group(line)
+                if rank in line:
+                    mine = group
+        groups.append(mine)
+    return Mesh(axis_names, sizes, coords, ranks, groups)
+
+
 def hybrid_mesh(inner_axis: str = "kv", outer_axis: str = "dp", *,
                 outer: int | None = None) -> Mesh:
     """A 2-D (outer, inner) mesh: rank r sits at (r // inner, r % inner),
@@ -221,30 +397,12 @@ def hybrid_mesh(inner_axis: str = "kv", outer_axis: str = "dp", *,
     hosts, the world size over ``LOCAL_WORLD_SIZE`` (which
     ``torch.distributed.run`` sets; 1 without it, the single-host
     (1, world) mesh of the JAX package).  Every rank must call it."""
-    size, rank = _world()
+    size, _ = _world()
     if outer is None:
         outer = size // int(os.environ.get("LOCAL_WORLD_SIZE", size))
     if outer < 1 or size % outer:
         raise ValueError(f"outer axis {outer} does not divide {size} ranks")
-    inner = size // outer
-    rows = [list(range(o * inner, (o + 1) * inner)) for o in range(outer)]
-    cols = [list(range(i, size, inner)) for i in range(inner)]
-    row_group = col_group = None
-    if size > 1:
-        # new_group is collective: every rank creates every group, in
-        # one order
-        for ranks in rows:
-            group = dist.new_group(ranks)
-            if rank in ranks:
-                row_group = group
-        for ranks in cols:
-            group = dist.new_group(ranks)
-            if rank in ranks:
-                col_group = group
-    o, i = divmod(rank, inner)
-    return Mesh((outer_axis, inner_axis), (outer, inner), (o, i),
-                (cols[i], rows[o]),
-                (col_group, row_group))
+    return grid_mesh((outer_axis, inner_axis), (outer, size // outer))
 
 
 def _maybe_axis(mesh: Mesh, axis: str | None, dim: int) -> str | None:

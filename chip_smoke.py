@@ -144,6 +144,40 @@ non-zero unless all of them pass:
             backend beside the flash call alone, and the collectives' host
             ms in one more call: four processes share the card, so these are
             not scaling numbers.
+3c. cp training a gloo world of 4 ranks on the one card, spawned as 3b is; a
+            failed rank fails the phase; rank 0 prints the card's name and
+            power limit.  (1) The differentiable paths on whole tensors
+            (`cp_flash_attention`, `ring_attention_diff` contiguous and
+            zigzag, `ulysses_attention`) at 32 q / 4 kv heads, 8192 rows,
+            d 128, causal, bf16, with a fixed random dout: output, dq, dk,
+            dv against one single-device `flash_attention_diff` call
+            (`mismatch`, `grad_mismatch`) and against a float64 recompute
+            of the first kv head's group (each path's largest error at most
+            `CP_F64_SLACK` times the single call's), the same bits on every
+            rank, launches exact (1, R, 3R, 1 forward and backward calls);
+            the causal case on the dQ + dK/dV pair too; 3-D views with
+            window 4096 + 4 sinks on every path, window 1024 + 4 sinks on
+            both ring schedules, phase 2's packed ids on the ring and the
+            all-gather; the ring's backward calls where a shard sees
+            nothing (n = 8195: the last shard partly padding, shards above
+            the diagonal; a shard all padding): dK, dV zero past the keys
+            any query sees, dQ zero where nothing is seen, no NaN.  (2) The
+            serving widths at depth 2 (four replicas of float32 masters and
+            moments share the card) on one sequence of 8193 tokens, 2 steps
+            of `make_train_step` on the flat sp mesh for every `cp_impl`,
+            ring and zigzag also under `TRAIN_BAND`, then the ring on
+            `make_mesh_3d` (dp 2 x sp 2, 2 x 8193 tokens): step 1's loss
+            within `CP_LOSS_RTOL` of the single-device loss, the norm of
+            every parameter's step-1 gradient (summed over the ranks) within
+            `CP_GRAD_NORM_RTOL` of the single device's and step 2's loss
+            (after step 1's update) within `CP_STEP2_RTOL` of its, the
+            losses and every parameter's bits the same on every rank after
+            each step,
+            launches exact; step ms, the collectives' share of the second
+            step (`Mesh.timings`), each rank's peak memory.  (3) Phase 6's
+            small f32 model (the FMA bodies) under each `cp_impl` against
+            its single-device step on the card: loss 1e-5 relative,
+            gradients 3e-5.
 4. generate `TinyDecoder` at the BASELINE.md config-5 attention geometry
             (32 q / 4 kv heads, head_dim 128, dim 4096), depth 4, vocab
             32000, rope, softcap 50, bf16, random weights from a seed:
@@ -279,12 +313,13 @@ non-zero unless all of them pass:
 
 Launch counts are reset just before each run of a path (op path, the
 int4 entry points, each distributed backend's run on each rank, each
-generate function, the chunk verify, each serving run, each stretch of
-the durability phase's engines, each training run, each beam, fork,
+phase 3c path and training run on each rank, each generate function,
+the chunk verify, each serving run, each stretch of the durability
+phase's engines, each training run, each beam, fork,
 speculative and encoder-decoder run, each packed
 `flash_attention_diff` run) and read just after it (the MoE model's
-generate and serving runs too); rank 0's distributed launches join the
-flash kernel's count.  Kernel times are CUDA-event
+generate and serving runs too); rank 0's distributed and phase 3c
+launches join the kernels' counts.  Kernel times are CUDA-event
 medians after warm-up, over back-to-back calls of the wrapper, so a call
 whose host work outlasts its kernels is timed by its host work.  The second-to-last stdout line is the
 ``{"kernels": [...]}`` record, the last ``{"ok": true, "device":
@@ -381,6 +416,43 @@ DIST_FORWARD = (32, 4, 4096, 128)
 DIST_LAUNCHES = {"kv-sharded": 1, "q-sharded": 1, "auto": 1,
                  "ring": DIST_WORLD, "ring_zigzag": 3 * DIST_WORLD,
                  "ulysses": 1}
+# phase 3c: context-parallel training on a gloo world of ranks on the one
+# card.  The ops at the served attention geometry (q heads, kv heads,
+# rows, d) at 8192 rows; each path's largest error against a float64
+# recompute of the first kv
+# head's group may be this many times the single-device call's; the
+# edge calls' rows (the last ring shard partly padding)
+CP_WORLD = 4
+CP_OPS = (32, 4, 8192, 128)
+CP_IMPLS = ("allgather", "ring", "zigzag", "ulysses")
+CP_F64_SLACK = 1.5
+CP_EDGE_ROWS = 8195
+# training at the serving widths: four replicas of the weights with
+# float32 masters and AdamW moments share the card (about 10 GB a rank
+# at depth 2; depth is the only cut); (cp_impl, TRAIN_BAND, mesh) runs
+# of CP_TRAIN_STEPS steps on one sequence of 8193 tokens on the flat sp
+# mesh, two on make_mesh_3d (dp 2 x sp 2); step 1's loss within
+# CP_LOSS_RTOL of the single-device loss (bf16 in another order), each
+# parameter's step-1 gradient norm within CP_GRAD_NORM_RTOL of the single
+# device's (AdamW's first update is nearly the gradient's sign, so a
+# gradient off by a factor would not show in the loss), and step 2's loss,
+# which step 1's gradients and update decide, within CP_STEP2_RTOL.  Each
+# bar is about 4-9x the largest error measured on the H100 (step 1
+# 1.1e-5, deterministic; step 2 9.8e-5; gradient norms 4.6e-4)
+CP_TRAIN_DEPTH = 2
+CP_TRAIN_STEPS = 2
+CP_TRAIN_BATCH = {"flat": (1, 8193), "mesh3d": (2, 8193)}
+CP_RUNS = (("allgather", False, "flat"), ("ring", False, "flat"),
+           ("zigzag", False, "flat"), ("ulysses", False, "flat"),
+           ("ring", True, "flat"), ("zigzag", True, "flat"),
+           ("ring", False, "mesh3d"))
+CP_LOSS_RTOL = 1e-4
+CP_GRAD_NORM_RTOL = 2e-3
+CP_STEP2_RTOL = 5e-4
+# phase 6's small f32 model under each cp_impl against its single-device
+# step on the card: JAX's tests/test_cp.py tolerances
+CP_F32_LOSS_RTOL = 1e-5
+CP_F32_GRAD_ATOL = 3e-5
 # decode steps of the generate phase
 GEN_STEPS = 32
 # beam search: 4 beams over phase 4's 8 prompts of 512 tokens (32 cache
@@ -2076,6 +2148,485 @@ def phase_distributed(kernels) -> None:
         kernels["flash_fwd"]["max_abs_err"], rec["max_abs_err"])
     emit(phase="distributed", seconds=time.perf_counter() - t0,
          rank0_flash_launches=rec["launches"])
+
+
+# ------------------------------------------------ phase 3c: cp training
+
+
+def cp_launches(impl: str, sp: int) -> int:
+    """Flash forward (and backward) kernel calls of one attention call of
+    ``impl`` on each rank of an sp axis of ``sp`` ranks: the ring makes
+    one a step, zigzag three, the all-gather and Ulysses one."""
+    return {"ring": sp, "zigzag": 3 * sp}.get(impl, 1)
+
+
+def cp_exact_group(q, k, v, dout, *, scale, window=None, sinks=None,
+                   ids=None):
+    """out, dq of the first kv head's q heads and dk, dv of that kv head,
+    in float64 from the (h, n, d) bf16 operands of a causal call (the
+    mask of `reference.attention_mask`), one q head at a time: the witness
+    that each path's and the single-device call's errors are measured
+    against."""
+    from attention_tpu_torch.ops.reference import attention_mask
+
+    group = q.shape[0] // k.shape[0]
+    n = k.shape[1]
+    keep = attention_mask(n, n, causal=True, window=window, sinks=sinks,
+                          q_segment_ids=ids, kv_segment_ids=ids,
+                          device=q.device)
+    k0, v0 = k[0].double(), v[0].double()
+    outs, dqs = [], []
+    dk = torch.zeros_like(k0)
+    dv = torch.zeros_like(v0)
+    for j in range(group):
+        qj, doj = q[j].double(), dout[j].double()
+        s = (qj @ k0.T * scale).masked_fill(~keep, float("-inf"))
+        p = torch.softmax(s, dim=-1)
+        del s
+        out = p @ v0
+        ds = p * (doj @ v0.T - (doj * out).sum(-1, keepdim=True))
+        dqs.append(ds @ k0 * scale)
+        dk += ds.T @ qj * scale
+        dv += p.T @ doj
+        outs.append(out)
+        del p, ds
+    return torch.stack(outs), torch.stack(dqs), dk, dv
+
+
+def cp_digest(tensors) -> torch.Tensor:
+    """int64 (2,) checksum of the bits of ``tensors`` (each element's
+    bits summed plain and weighted by its index mod 8191): two ranks whose
+    digests agree hold the same bits."""
+    total = torch.zeros(2, dtype=torch.int64, device="cuda")
+    for t in tensors:
+        bits = t.detach().contiguous().view(
+            {2: torch.int16, 4: torch.int32}[t.element_size()]).reshape(-1)
+        bits = bits.to(torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device) % 8191 + 1
+        total[0] += bits.sum()
+        total[1] += (bits * w).sum()
+    return total
+
+
+def cp_ops(rank: int, world: int, say, launches: dict,
+           failures: list) -> float:
+    """Part 1 of phase 3c: the four differentiable paths on whole tensors
+    at the served attention geometry against one single-device
+    `flash_attention_diff` call and a float64 witness; the edges.  A
+    check that fails joins ``failures``.  Returns the largest error
+    against the single-device call."""
+    import torch.distributed as dist
+
+    from attention_tpu_torch import ops
+    from attention_tpu_torch.ops import flash_bwd
+    from attention_tpu_torch.ops.flash_vjp import flash_attention_diff
+    from attention_tpu_torch.ops.reference import grad_mismatch
+    from attention_tpu_torch.parallel import (
+        cp_flash_attention,
+        ring_attention_diff,
+        ulysses_attention,
+    )
+    from attention_tpu_torch.parallel.mesh import default_mesh
+
+    mesh = default_mesh("sp")
+    h, hkv, s, d = CP_OPS
+    scale = d ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    q, k, v, dout = (torch.randn((1, heads, s, d), generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+                     for heads in (h, hkv, hkv, h))
+    paths = {
+        "allgather": lambda *a, **kw: cp_flash_attention(
+            *a, mesh=mesh, **kw),
+        "ring": lambda *a, **kw: ring_attention_diff(*a, mesh=mesh, **kw),
+        "zigzag": lambda *a, **kw: ring_attention_diff(
+            *a, mesh=mesh, schedule="zigzag", **kw),
+        "ulysses": lambda *a, **kw: ulysses_attention(*a, mesh=mesh, **kw)}
+    ids = packed_ids(PACKED_DOCS)
+    # feature: (keywords, paths, 3-D views)
+    features = {
+        "causal": ({}, tuple(paths), False),
+        "window4096_sinks4": (dict(window=4096, sinks=4), tuple(paths),
+                              True),
+        "window1024_sinks4": (dict(window=1024, sinks=4),
+                              ("ring", "zigzag"), True),
+        "packed": (dict(q_segment_ids=ids, kv_segment_ids=ids),
+                   ("allgather", "ring"), True)}
+    worst = 0.0
+
+    def grads(fn, args, kw):
+        xs = [x.detach().requires_grad_() for x in args]
+        out = fn(*xs, causal=True, **kw)
+        out.backward(dout[0] if args[0].dim() == 3 else dout)
+        torch.cuda.synchronize()
+        return [out.detach()] + [x.grad for x in xs]
+
+    for feature, (kw, names, three_d) in features.items():
+        args = [x[0] for x in (q, k, v)] if three_d else [q, k, v]
+        want = exact = None
+        if rank == 0:
+            want = grads(flash_attention_diff, args, kw)
+            g3 = [t[0] if t.dim() == 4 else t for t in
+                  (*args, dout[0])]
+            exact = cp_exact_group(
+                *g3, scale=scale, window=kw.get("window"),
+                sinks=kw.get("sinks"), ids=kw.get("q_segment_ids"))
+        for name in names:
+            for pair in ((False, True) if feature == "causal"
+                         else (False,)):
+                flash_bwd._FORCE_TWO_KERNEL = pair
+                ops.reset_launch_counts()
+                got = grads(paths[name], args, kw)
+                counts = {kn: c for kn, c in ops.launch_counts().items()
+                          if c}
+                flash_bwd._FORCE_TWO_KERNEL = False
+                per = cp_launches(name, world)
+                bwd = ({"flash_bwd_dq": per, "flash_bwd_dkv": per} if pair
+                       else {"flash_bwd_fused": per})
+                if counts != {"flash_fwd": per, **bwd}:
+                    failures.append(f"rank {rank} {name} {feature}: "
+                                    f"launched {counts}")
+                for kn, c in counts.items():
+                    launches[kn] = launches.get(kn, 0) + c
+                finite = all(bool(t.isfinite().all()) for t in got)
+                every = mesh.all_gather(cp_digest(got)[None], "sp", dim=0)
+                if not (finite and all(torch.equal(every[0], x)
+                                       for x in every)):
+                    failures.append(f"{name} {feature}: finite {finite}, "
+                                    f"digests {every.tolist()}")
+                if rank:
+                    continue
+                vs_single = {}
+                for what, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+                    err, ratio = (held(a, b) if what == "out"
+                                  else grad_mismatch(a, b))
+                    vs_single[what] = dict(max_abs_err=err,
+                                           share_of_limit=ratio)
+                    worst = max(worst, err)
+                group = h // hkv
+                sel = [t[0] if t.dim() == 4 else t for t in got]
+                ref = [t[0] if t.dim() == 4 else t for t in want]
+                picks = [lambda t: t[:group], lambda t: t[:group],
+                         lambda t: t[0], lambda t: t[0]]
+                vs_f64 = {}
+                for what, pick, a, b, x in zip(("out", "dq", "dk", "dv"),
+                                               picks, sel, ref, exact):
+                    e_path = (pick(a).double() - x).abs().max().item()
+                    e_one = (pick(b).double() - x).abs().max().item()
+                    vs_f64[what] = dict(path=e_path, single=e_one,
+                                        ratio=e_path / e_one)
+                say(case="cp_op", path=name, feature=feature,
+                    backward="pair" if pair else "fused",
+                    shape=[h, hkv, s, d], launches=counts,
+                    vs_single_device=vs_single, vs_f64=vs_f64,
+                    same_bits_on_every_rank=True)
+                bad = [w for w, r in vs_single.items()
+                       if not r["share_of_limit"] <= 1.0]
+                bad += [w for w, r in vs_f64.items()
+                        if not r["ratio"] <= CP_F64_SLACK]
+                if bad:
+                    failures.append(f"{name} {feature} "
+                                    f"{'pair' if pair else 'fused'}: {bad}")
+        dist.barrier()
+    edges = [None] * world
+    dist.all_gather_object(edges, cp_edges(rank, world, failures))
+    for rec in (rec for rank_edges in edges for rec in rank_edges):
+        say(case="cp_edge", **rec)
+    return worst
+
+
+def cp_edges(rank: int, world: int, failures: list) -> list:
+    """The ring's backward calls where a shard sees nothing: every step
+    of the contiguous ring over n = `CP_EDGE_ROWS` (the last shard partly
+    padding; shards above the diagonal), and a shard all padding
+    (``kv_valid`` 0): dK and dV exactly zero on every row that is
+    padding or sees no query, dQ zero where nothing is seen, no NaN.
+    Returns this rank's records."""
+    from attention_tpu_torch.ops.flash_bwd import flash_backward
+    from attention_tpu_torch.ops.flash_vjp import _flash_fwd_impl
+
+    h, hkv, _, d = CP_OPS
+    n = CP_EDGE_ROWS
+    n_local = -(-n // world)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 37 + rank)
+    qb, do = (torch.randn((h, n_local, d), generator=gen, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    cases = []
+    for shard in range(world):
+        valid = min(max(n - shard * n_local, 0), n_local)
+        cases.append((f"ring_shard{shard}", shard * n_local, valid))
+    cases.append(("all_padding", (world - 1) * n_local, 0))
+    q_offset = rank * n_local
+    records = []
+    for case, kv_offset, valid in cases:
+        kb, vb = (torch.randn((hkv, n_local, d), generator=gen,
+                              device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        kw = dict(scale=d ** -0.5, causal=True, q_offset=q_offset,
+                  kv_offset=kv_offset, kv_valid=valid)
+        out, lse = _flash_fwd_impl(qb, kb, vb, **kw)
+        dq, dk, dv = flash_backward(qb, kb, vb, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        seen = min(valid, max(0, q_offset + n_local - kv_offset))
+        finite = all(bool(t.isfinite().all()) for t in (dq, dk, dv))
+        zero_tail = bool((dk[:, seen:] == 0).all()
+                         and (dv[:, seen:] == 0).all())
+        sees_none = seen == 0
+        zero_dq = bool((dq == 0).all()) if sees_none else None
+        rec = dict(edge=case, rank=rank, kv_offset=kv_offset,
+                   q_offset=q_offset, kv_valid=valid, keys_seen=seen,
+                   finite=finite, dkv_zero_past_seen=zero_tail,
+                   dq_zero=zero_dq)
+        if not (finite and zero_tail and zero_dq in (None, True)):
+            failures.append(f"cp edge: {rec}")
+        records.append(rec)
+    return records
+
+
+def cp_train(rank: int, world: int, say, launches: dict, single: dict,
+             failures: list) -> None:
+    """Part 2 of phase 3c: the serving model's widths at depth
+    `CP_TRAIN_DEPTH` trained `CP_TRAIN_STEPS` steps under each cp_impl
+    on the flat sp mesh of the world (and the ring and zigzag under
+    `TRAIN_BAND`), then the ring on `make_mesh_3d` (dp 2 x sp 2): step
+    1's loss against the single-device run's (``single``, by batch and
+    band; `cp_single_device`), each parameter's step-1 gradient norm and
+    step 2's loss against its, the loss and every parameter's bits the
+    same on every rank after each step, launches exact; step ms, the
+    collectives' share of the second step (`Mesh.timings`) and each
+    rank's peak."""
+    from attention_tpu_torch import ops
+    from attention_tpu_torch.models import (
+        TinyDecoder,
+        init_train,
+        make_mesh_3d,
+        make_train_step,
+    )
+    from attention_tpu_torch.parallel.mesh import default_mesh
+
+    flat, mesh3d = default_mesh("sp"), make_mesh_3d(world)
+    for impl, band, mesh_name in CP_RUNS:
+        mesh = mesh3d if mesh_name == "mesh3d" else flat
+        batch_shape = CP_TRAIN_BATCH[mesh_name]
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+        batch = torch.randint(0, SERVE_MODEL["vocab"], batch_shape,
+                              generator=gen, device="cuda")
+        model = TinyDecoder(dtype=torch.bfloat16, device="cuda",
+                            cp_axis="sp", cp_impl=impl, mesh=mesh,
+                            **dict(SERVE_MODEL, depth=CP_TRAIN_DEPTH),
+                            **(TRAIN_BAND if band else {}))
+        optimizer = init_train(model, seed=SEED, lr=TRAIN_LR, mesh=mesh)
+        step = make_train_step(model, optimizer, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms, digests, coll = [], [], [], None
+        ops.reset_launch_counts()
+        for i in range(CP_TRAIN_STEPS):
+            if i == CP_TRAIN_STEPS - 1:
+                mesh.timings = {}
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in "se")
+            start.record()
+            losses.append(step(batch).item())
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            digests.append(cp_digest([p for p in model.parameters()]))
+            if i == 0:
+                norms = grad_norms(optimizer)
+        coll, mesh.timings = mesh.timings, None
+        counts = {kn: c for kn, c in ops.launch_counts().items() if c}
+        per = (cp_launches(impl, mesh.shape["sp"]) * CP_TRAIN_DEPTH
+               * CP_TRAIN_STEPS)
+        if counts != {"flash_fwd": per, "flash_bwd_fused": per}:
+            failures.append(f"rank {rank} {impl}: launched {counts}")
+        for kn, c in counts.items():
+            launches[kn] = launches.get(kn, 0) + c
+        record = torch.tensor([*losses, torch.cuda.max_memory_allocated()],
+                              dtype=torch.float64, device="cuda")
+        bits = flat.all_gather(torch.stack(digests)[None], "sp", dim=0)
+        every = flat.all_gather(record[None], "sp", dim=0)
+        same = all(torch.equal(bits[0], x) for x in bits) and all(
+            torch.equal(every[0, :-1], x[:-1]) for x in every)
+        one = single[f"{mesh_name}_{'band' if band else 'dense'}"]
+        want = one["losses"]
+        rel, rel2 = (abs(losses[i] - want[i]) / abs(want[i]) for i in (0, 1))
+        norm_err = {n: abs(x - one["grad_norms"][n]) / one["grad_norms"][n]
+                    for n, x in norms.items()}
+        worst = max(norm_err, key=norm_err.get)
+        cell = f"{impl}{'_band' if band else ''}_{mesh_name}"
+        say(case="cp_train", run=cell, shape=list(batch_shape),
+            mesh=dict(mesh.shape), depth=CP_TRAIN_DEPTH, losses=losses,
+            single_device_losses=want, step1_rel_err=rel,
+            step2_rel_err=rel2,
+            grad_norm_worst={"param": worst, "rel_err": norm_err[worst]},
+            tol={"step1": CP_LOSS_RTOL, "step2": CP_STEP2_RTOL,
+                 "grad_norm": CP_GRAD_NORM_RTOL},
+            same_loss_and_weights_on_every_rank=same,
+            step_ms=step_ms, single_device_step_ms=one["step_ms"],
+            collectives_ms={
+                kn: t * 1e3 for kn, t in coll.items()},
+            collectives_share=sum(coll.values()) * 1e3 / step_ms[-1],
+            peak_memory_gib=[x[-1].item() / 2**30 for x in every],
+            launches=counts)
+        if not (same and rel <= CP_LOSS_RTOL and rel2 <= CP_STEP2_RTOL
+                and norm_err[worst] <= CP_GRAD_NORM_RTOL
+                and all(np.isfinite(losses))):
+            failures.append(f"cp train {cell}: losses {losses} against "
+                            f"{want}, {worst} norm {norm_err[worst]}, "
+                            f"same {same}")
+        del model, optimizer, step
+        torch.cuda.empty_cache()
+
+
+def cp_f32(rank: int, say, failures: list) -> None:
+    """Part 3 of phase 3c: phase 6's small f32 model (the FMA bodies)
+    under each cp_impl on the flat sp mesh against its single-device
+    step on the card, loss within `CP_F32_LOSS_RTOL`, every gradient
+    within `CP_F32_GRAD_ATOL` (JAX's tests/test_cp.py tolerances)."""
+    from attention_tpu_torch.models import (
+        TinyDecoder,
+        init_params,
+        value_and_grad,
+    )
+    from attention_tpu_torch.parallel.mesh import default_mesh
+
+    mesh = default_mesh("sp")
+    tokens = torch.as_tensor(np.random.default_rng(SEED + 3).integers(
+        0, SMALL_MODEL["vocab"], (2, 257))).cuda()
+    one = TinyDecoder(dtype=torch.float32, device="cuda", **SMALL_MODEL)
+    weights = init_params(one, SEED)
+    one.load_state_dict(weights)
+    want_loss, want = value_and_grad(one, tokens)
+    for impl in CP_IMPLS:
+        model = TinyDecoder(dtype=torch.float32, device="cuda",
+                            cp_axis="sp", cp_impl=impl, mesh=mesh,
+                            **SMALL_MODEL)
+        model.load_state_dict(weights)
+        loss, got = value_and_grad(model, tokens, mesh)
+        rel = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        say(case="cp_f32", cp_impl=impl, loss=loss.item(),
+            single_device_loss=want_loss.item(), loss_rel_err=rel,
+            grads_max_abs_err=err, tol=[CP_F32_LOSS_RTOL, CP_F32_GRAD_ATOL])
+        if not (rel <= CP_F32_LOSS_RTOL and err <= CP_F32_GRAD_ATOL):
+            failures.append(f"cp f32 {impl}: loss {rel}, grads {err}")
+
+
+def cp_rank(rank: int, world: int, init_file: str, out_file: str,
+            single: dict) -> None:
+    """One rank of phase 3c; rank 0 prints the lines and writes the
+    launches and largest error to ``out_file``.  Every part runs to its
+    end; the rank fails after them if a check failed."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+
+    def say(**record):
+        if rank == 0:
+            emit(phase="cp_training", **record)
+
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip().splitlines()[0]
+        say(world=world, card=smi, backend=dist.get_backend())
+        launches, failures = {}, []
+        t0 = time.perf_counter()
+        worst = cp_ops(rank, world, say, launches, failures)
+        t1 = time.perf_counter()
+        cp_train(rank, world, say, launches, single, failures)
+        t2 = time.perf_counter()
+        cp_f32(rank, say, failures)
+        say(seconds={"ops": t1 - t0, "train": t2 - t1,
+                     "f32": time.perf_counter() - t2})
+        if failures:
+            raise AssertionError(f"rank {rank}: {failures}")
+        if rank == 0:
+            with open(out_file, "w") as f:
+                json.dump(dict(launches=launches, max_abs_err=worst), f)
+    finally:
+        dist.destroy_process_group()
+
+
+def grad_norms(optimizer) -> dict:
+    """{name: L2 norm} of the float32 gradients a `MasterAdamW` step just
+    applied (each master keeps its ``.grad`` until the next step)."""
+    return {n: torch.linalg.vector_norm(optimizer.masters[n].grad).item()
+            for n, _ in optimizer.named}
+
+
+def cp_single_device() -> dict:
+    """The single-device runs beside phase 3c's: the depth-
+    `CP_TRAIN_DEPTH` model on each training batch (without and with
+    `TRAIN_BAND` on one sequence), `CP_TRAIN_STEPS` steps of
+    `make_train_step` from the same seeded start on the card: {run:
+    {losses, step 1's gradient norms, step ms, peak GiB}}; every CP run
+    is held against it."""
+    from attention_tpu_torch.models import (
+        TinyDecoder,
+        init_train,
+        make_train_step,
+    )
+
+    out = {}
+    for key, band, shape in (("flat_dense", False, CP_TRAIN_BATCH["flat"]),
+                             ("flat_band", True, CP_TRAIN_BATCH["flat"]),
+                             ("mesh3d_dense", False,
+                              CP_TRAIN_BATCH["mesh3d"])):
+        model = TinyDecoder(dtype=torch.bfloat16, device="cuda",
+                            **dict(SERVE_MODEL, depth=CP_TRAIN_DEPTH),
+                            **(TRAIN_BAND if band else {}))
+        optimizer = init_train(model, seed=SEED, lr=TRAIN_LR)
+        step = make_train_step(model, optimizer)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+        batch = torch.randint(0, SERVE_MODEL["vocab"], shape, generator=gen,
+                              device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = [], []
+        for _ in range(CP_TRAIN_STEPS):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in "se")
+            start.record()
+            losses.append(step(batch).item())
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            if len(losses) == 1:
+                norms = grad_norms(optimizer)
+        out[key] = dict(losses=losses, grad_norms=norms, step_ms=step_ms,
+                        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del model, optimizer, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_cp_training(kernels) -> None:
+    """Spawn phase 3c's gloo world on the card; a failed rank fails the
+    phase."""
+    import torch.multiprocessing as mp
+
+    from attention_tpu_torch.ops._native import BUILD_DIR
+
+    t0 = time.perf_counter()
+    single = cp_single_device()
+    init = os.path.join(BUILD_DIR, f"cp-{os.getpid()}.init")
+    out = os.path.join(BUILD_DIR, f"cp-{os.getpid()}.json")
+    for stale in (init, out):
+        if os.path.exists(stale):
+            os.remove(stale)
+    mp.spawn(cp_rank, nprocs=CP_WORLD, args=(CP_WORLD, init, out, single))
+    with open(out) as f:
+        rec = json.load(f)
+    for kn, c in rec["launches"].items():
+        kernels[kn]["launches"] += c
+    emit(phase="cp_training", seconds=time.perf_counter() - t0,
+         single_device=single, rank0_launches=rec["launches"])
 
 
 @contextlib.contextmanager
@@ -4792,6 +5343,7 @@ def main() -> int:
     phase_segment_backward(ops, kernels)
     phase_op_path(ops, kernels)
     phase_distributed(kernels)
+    phase_cp_training(kernels)
     phase_generate(ops, kernels, model)
     windowed = {}
     for name, band in (("sinks", SERVE_BAND),

@@ -95,7 +95,7 @@ def test_unported_engine_modes_raise(small_pair):
     with pytest.raises(NotImplementedError):
         ServingEngine(model, EngineConfig(**ENGINE, mesh_shards=2))
     with pytest.raises(NotImplementedError):
-        TinyDecoder(device="cpu", cp_axis="cp")
+        TinyDecoder(device="cpu", tp_axis="tp")
 
 
 def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):

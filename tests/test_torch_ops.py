@@ -291,6 +291,7 @@ def test_port_imports_no_jax():
         "import attention_tpu_torch.measure_train\n"
         "import attention_tpu_torch.parallel\n"
         "import attention_tpu_torch.parallel.mesh\n"
+        "import attention_tpu_torch.parallel.cp\n"
         "import attention_tpu_torch.parallel.kv_sharded\n"
         "import attention_tpu_torch.parallel.ring\n"
         "import attention_tpu_torch.parallel.ulysses\n"
