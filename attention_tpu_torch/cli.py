@@ -20,6 +20,8 @@ Usage:
   python -m attention_tpu_torch.cli backends
   python -m attention_tpu_torch.cli serve-sim [--num-requests 8 ...]
       [--bursty | --diurnal] [--snapshot-dir DIR --snapshot-every N]
+      [--mesh-shards N]   # under python -m torch.distributed.run
+                          # --nproc-per-node N
       [--device cuda|cpu]
       # the single-engine continuous-batching engine over a synthetic
       # or JSON request trace; prints metrics JSON; with a snapshot
@@ -237,12 +239,27 @@ def _cmd_serve_sim(args: argparse.Namespace) -> int:
         prefill_chunk=args.prefill_chunk,
         token_budget=args.token_budget,
         watermark_pages=args.watermark_pages,
+        mesh_shards=args.mesh_shards,
     )
-    engine = ServingEngine(model, config)
-    if args.snapshot_dir is not None:
-        SnapshotManager(engine, args.snapshot_dir,
-                        every=args.snapshot_every)
-    summary, outputs = replay(engine, trace, max_steps=args.max_steps)
+    # under torch.distributed.run every rank serves the trace on its
+    # heads (gloo, which also runs several ranks on one card); rank 0
+    # prints the one summary
+    joined = (int(os.environ.get("WORLD_SIZE", "1")) > 1
+              and not dist.is_initialized())
+    if joined:
+        dist.init_process_group("gloo")
+    try:
+        engine = ServingEngine(model, config)
+        if args.snapshot_dir is not None:
+            SnapshotManager(engine, args.snapshot_dir,
+                            every=args.snapshot_every)
+        summary, outputs = replay(engine, trace, max_steps=args.max_steps)
+        rank = dist.get_rank() if dist.is_initialized() else 0
+    finally:
+        if joined:
+            dist.destroy_process_group()
+    if rank != 0:
+        return 0
     if args.per_step:
         for m in engine.metrics.steps:
             print(m.to_json())
@@ -362,6 +379,13 @@ def _add_serve_sim_args(ss) -> None:
     ss.add_argument("--snapshot-every", type=int, default=None,
                     help="snapshot period in engine steps; requires "
                          "--snapshot-dir")
+    ss.add_argument("--mesh-shards", type=int, default=0,
+                    help="serve through the KV-head-sharded kernels on a "
+                         "'tp' mesh of N ranks (0 = one device; tokens "
+                         "are the same either way; --kv-heads must divide "
+                         "by N); run under python -m torch.distributed.run "
+                         "--nproc-per-node N, which gives the world its N "
+                         "ranks")
     # model knobs (weights from --model-seed)
     ss.add_argument("--vocab", type=int, default=64)
     ss.add_argument("--dim", type=int, default=64)

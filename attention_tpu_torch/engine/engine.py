@@ -1,5 +1,6 @@
 """The continuous-batching serving engine: the port of
-`attention_tpu.engine.engine`, single device.
+`attention_tpu.engine.engine`, on one device or tensor-parallel over a
+mesh of ranks (``mesh_shards``).
 
 ``step_mode="ragged"`` (the default): every step packs decode tokens and
 prefill chunks onto one token axis (`ScheduledStep.pack`) and makes ONE
@@ -33,8 +34,25 @@ generator seeded by ``(SamplingParams.seed, k)`` alone
 (`sample_generator`), so a restored or resumed request continues its
 stream from the count of its tokens.  Sampled streams are deterministic
 but differ from the JAX engine's, which splits a JAX key per token.
-The JAX engine's mesh sharding, prefix store and request tracing are not
-ported: asking for mesh sharding raises `NotImplementedError`.
+
+``mesh_shards=N`` serves every model call, both step modes and the
+async loop, through the KV-head-sharded kernels
+(`parallel.serving`): the world of ``torch.distributed`` ranks is cut
+into blocks of N consecutive ranks (`parallel.serving.serving_mesh`; a
+world of N ranks is one block, more blocks are replicas), every rank of
+a block runs the same engine on the same requests, and each holds the
+model's whole weights and its own ``Hkv / N`` kv heads of every pool.
+The step model is the model's `TinyDecoder.clone` with its ``tp_axis``
+on that mesh (`parallel.serving.TP_AXIS`), sharing its parameters; a
+model that is tensor-parallel already is refused without ``mesh_shards``,
+the engine's only source of a mesh, as in JAX.  Host state (allocator,
+scheduler, packing, sampling) is replicated, so page ids agree; every
+rank samples from the same gathered logits with the same generators,
+and after each step the ranks check, with one small collective of the
+emitted tokens' digest, that they emitted the same tokens (a rank that
+parts raises `RuntimeError` on every rank rather than serve on).  A
+geometry the world cannot hold is `MeshConfigError`.  The JAX engine's
+prefix store and request tracing are not ported.
 """
 
 from __future__ import annotations
@@ -73,6 +91,12 @@ from attention_tpu_torch.ops.ragged_paged import (
     packed_bucket,
     recommended_q_tile,
 )
+from attention_tpu_torch.parallel.serving import (
+    TP_AXIS,
+    MeshConfigError,
+    head_block,
+    serving_mesh,
+)
 
 #: consecutive non-finite-logits steps a request is held back before the
 #: finite guard gives up and samples anyway (the JAX engine's limit)
@@ -105,6 +129,11 @@ class EngineConfig:
     # double buffer: stage next step's page-table rows on the host while
     # the current model call runs on the device (ragged mode only)
     async_steps: bool = False
+    # 0 = one device.  N >= 1 serves every model call through the
+    # KV-head-sharded kernels on a "tp" mesh of N ranks: one pool slice a
+    # rank, page tables replicated, host-side packing unchanged; needs
+    # num_kv_heads % N == 0 and a world of a multiple of N ranks
+    # (MeshConfigError at engine construction otherwise)
     mesh_shards: int = 0
 
     def validate(self) -> None:
@@ -112,9 +141,9 @@ class EngineConfig:
             raise ValueError(
                 f"unknown step_mode {self.step_mode!r}; one of "
                 "['ragged', 'two_call']")
-        if self.mesh_shards:
-            raise NotImplementedError(
-                "mesh_shards is not ported yet (single device only)")
+        if self.mesh_shards < 0:
+            raise ValueError(f"mesh_shards {self.mesh_shards} must be >= 0 "
+                             "(0 = single-device)")
         if min(self.num_pages, self.page_size, self.max_seq_len,
                self.max_decode_batch, self.max_prefill_rows,
                self.prefill_chunk, self.token_budget) < 1:
@@ -135,7 +164,9 @@ class EngineConfig:
 class ServingEngine:
     """Deterministic continuous-batching engine over a `TinyDecoder`
     (its weights and device included); one model call per busy step
-    (``ragged``), or one per non-empty half of it (``two_call``)."""
+    (``ragged``), or one per non-empty half of it (``two_call``).  With
+    ``mesh_shards`` every rank of the mesh constructs and steps its
+    engine alike (see the module docstring)."""
 
     def __init__(self, model, config: EngineConfig, *,
                  on_token: Callable[[Request, int], None] | None = None,
@@ -155,9 +186,30 @@ class ServingEngine:
         self.on_token = on_token
         self.on_finish = on_finish
         self.on_timeout = on_timeout
+        self.mesh = None
+        #: the model the step loop calls: ``model`` itself, or its clone
+        #: serving tensor-parallel on the engine's mesh
+        self.step_model = model
+        if config.mesh_shards:
+            self.mesh = serving_mesh(config.mesh_shards)
+            if model.num_kv_heads % config.mesh_shards:
+                raise MeshConfigError(
+                    f"kv heads {model.num_kv_heads} not divisible by "
+                    f"mesh_shards {config.mesh_shards}")
+            if not hasattr(model, "clone"):
+                raise MeshConfigError(
+                    f"model {type(model).__name__} lacks the tp_axis/mesh "
+                    "fields mesh serving clones (TinyDecoder-family "
+                    "contract)")
+            self.step_model = model.clone(tp_axis=TP_AXIS, mesh=self.mesh)
+        elif getattr(model, "tp_axis", None) is not None:
+            raise MeshConfigError(
+                f"model is tensor-parallel (tp_axis={model.tp_axis!r}) but "
+                "mesh_shards is 0: the engine takes its mesh only from "
+                "mesh_shards")
 
         dtype = config.cache_dtype or model.dtype
-        pool_shape = (config.num_pages, model.num_kv_heads,
+        pool_shape = (config.num_pages, self.step_model.kv_heads_local,
                       config.page_size, model.head_dim)
         self._k_pools = [torch.zeros(pool_shape, dtype=dtype,
                                      device=self.device)
@@ -198,6 +250,9 @@ class ServingEngine:
         #: the write-ahead `Journal` between snapshots, attached by
         #: `SnapshotManager`; None when durability is off
         self.journal: Any = None
+        #: (request id, token) emitted this step: what the mesh's ranks
+        #: check they agree on
+        self._emitted: list[tuple[str, int]] = []
 
     # -- request intake ---------------------------------------------------
 
@@ -336,6 +391,7 @@ class ServingEngine:
         self._finished_in_step = 0
         self.last_step_virtual_cost = self.step_cost_multiplier
         self._last_fetch_s = 0.0
+        self._emitted = []
         pad_tokens = 0
         occupancy = 0.0
         timed_out = self._expire_deadlines()
@@ -354,6 +410,8 @@ class ServingEngine:
             pad_tokens = self._baseline_pad(sched)
             if total:
                 occupancy = total / (total + pad_tokens)
+        if self.mesh is not None and self.mesh.shape[TP_AXIS] > 1:
+            self._check_ranks_agree()
         wall_s = time.perf_counter() - t0
         m = StepMetrics(
             step=self._step,
@@ -435,8 +493,12 @@ class ServingEngine:
         return torch.from_numpy(a).to(self.device)
 
     def _place_pool(self, pool: torch.Tensor) -> torch.Tensor:
-        """Put one per-layer pool on the engine's device (snapshot
-        restore routes the pools it reads through here)."""
+        """Put one whole per-layer pool (num_pages, Hkv, page, d) on the
+        engine's device: on a mesh engine only this rank's KV-head slice
+        of it (snapshot restore routes the pools it reads through
+        here)."""
+        if self.mesh is not None:
+            pool = head_block(pool, self.mesh, TP_AXIS)
         return pool.to(self.device)
 
     def _fetch_logits(self, rows: torch.Tensor) -> np.ndarray:
@@ -494,7 +556,7 @@ class ServingEngine:
         # stream, which would close the overlap window
         rows = self._dev(np.asarray(rows, np.int64))
         with torch.no_grad():
-            logits, _ = self.model(tokens, caches)
+            logits, _ = self.step_model(tokens, caches)
             picked = logits[0, rows]
         self.model_calls += 1
         if self.config.async_steps:
@@ -530,6 +592,24 @@ class ServingEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _check_ranks_agree(self) -> None:
+        """Raise on every rank of the mesh unless all of them emitted the
+        same tokens this step: one all_gather of a 2-int64 digest (the
+        count, and a hash of the emitted pairs), on the host."""
+        digest = 0
+        for rid, tok in self._emitted:
+            for b in f"{rid}:{tok};".encode():
+                digest = (digest * 131 + b) % (2**61 - 1)
+        mine = torch.tensor([len(self._emitted), digest], dtype=torch.int64)
+        group = self.mesh.group(TP_AXIS)
+        every = [torch.empty_like(mine)
+                 for _ in range(self.mesh.shape[TP_AXIS])]
+        torch.distributed.all_gather(every, mine, group=group)
+        if any(not torch.equal(e, every[0]) for e in every):
+            raise RuntimeError(
+                f"mesh ranks parted at step {self._step}: (tokens, digest) "
+                f"by rank {[e.tolist() for e in every]}")
+
     def _baseline_pad(self, sched: ScheduledStep) -> int:
         """Pad tokens the two-call lowering dispatches for this step."""
         pad = 0
@@ -550,7 +630,7 @@ class ServingEngine:
             PagedKV(self._k_pools[layer], self._v_pools[layer], tables, lens)
             for layer in range(self.model.depth))
         with torch.no_grad():
-            logits, _ = self.model(self._dev(tokens).long(), caches)
+            logits, _ = self.step_model(self._dev(tokens).long(), caches)
             picked = logits[torch.arange(len(rows), device=self.device),
                             torch.tensor(rows, device=self.device)]
         self.model_calls += 1
@@ -642,6 +722,7 @@ class ServingEngine:
         return int(torch.multinomial(probs, 1, generator=gen)[0, 0])
 
     def _emit(self, req: Request, token: int) -> None:
+        self._emitted.append((req.request_id, token))
         done = req.emit(token)
         if self.journal is not None:
             self.journal.record_token(req.request_id, token)

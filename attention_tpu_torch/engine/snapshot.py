@@ -12,7 +12,10 @@ section    contents
            (vocab/dim/depth/heads/dtype/impl), engine step, seq counter,
            the pools' dtype and shape
 ``pools``  the raw bytes of every per-layer K pool, then every V pool
-           (bf16 as its 16-bit patterns, named ``"bfloat16"``)
+           (bf16 as its 16-bit patterns, named ``"bfloat16"``); a mesh
+           engine (``mesh_shards`` N > 1) writes ``pools.0`` ...
+           ``pools.N-1`` instead, section s holding shard s's
+           contiguous KV-head slice of every pool, each CRC'd alone
 ``state``  `PagePool` free list (exact order) and refcounts, the prefix
            cache (keys, pages, parent/children links, LRU stamps),
            allocator counters, scheduler knobs
@@ -32,9 +35,17 @@ target directory, ``os.fsync`` of the temp file, ``os.replace``, then an
 fsync of the directory.  Any validation failure (bad magic, stale
 version, truncated or flipped section, model mismatch) raises the typed
 `SnapshotCorruptError`; recovery treats it as "this candidate does not
-count" and falls back.  A JAX mesh engine's snapshot (``shards`` > 1, or
-any ``mesh_shards``) raises plain `SnapshotError`: the file is sound,
-but this engine serves one device.
+count" and falls back, so one damaged shard section is a typed refusal
+that names it.  A snapshot whose mesh geometry this world cannot hold
+(``mesh_shards`` above the ranks there are) raises plain `SnapshotError`
+matching "mesh geometry": the file is sound, the world is short.
+
+On a mesh engine `serialize` (and so `state_fingerprint` and `save`) is
+collective: every rank of the mesh calls it, the pool slices are
+all-gathered, and every rank gets the same bytes; `save` writes the file
+from the mesh's rank 0 and returns on every rank once it has landed.
+`restore` on the world re-slices the pools: each rank reads the file and
+keeps its own KV heads.
 
 Not serialized: wall-clock bookkeeping (``_wall`` restarts at restore)
 and `EngineMetrics` history.
@@ -70,6 +81,7 @@ from attention_tpu_torch.engine.request import (
     RequestState,
     SamplingParams,
 )
+from attention_tpu_torch.parallel.serving import TP_AXIS, MeshConfigError
 
 SNAPSHOT_MAGIC = "atp-snapshot"
 SNAPSHOT_VERSION = 1
@@ -195,10 +207,47 @@ def _pool_bytes(pool: torch.Tensor) -> bytes:
         .numpy().tobytes()
 
 
+def _shards(engine: ServingEngine) -> int:
+    """The pool sections an engine's snapshot carries: its mesh's size,
+    1 for one device."""
+    return 1 if engine.mesh is None else engine.mesh.shape[TP_AXIS]
+
+
+def _writes_files(engine: ServingEngine) -> bool:
+    """Whether this rank writes the engine's files: every single-device
+    engine, and rank 0 of a mesh (the others serve the same steps)."""
+    return engine.mesh is None or engine.mesh.index(TP_AXIS) == 0
+
+
+def _pool_section_names(shards: int) -> tuple[str, ...]:
+    return ("pools",) if shards == 1 else tuple(
+        f"pools.{s}" for s in range(shards))
+
+
+def _pool_sections(engine: ServingEngine) -> list[tuple[str, bytes]]:
+    """The pools as sections: one ``pools`` of every whole pool, or on a
+    mesh of N > 1 ranks one ``pools.s`` a shard, each the bytes shard s
+    holds (its KV-head slice of every pool), gathered from the ranks."""
+    arrays = (*engine._k_pools, *engine._v_pools)
+    mesh = engine.mesh
+    if _shards(engine) == 1:
+        return [("pools", b"".join(_pool_bytes(a) for a in arrays))]
+    parts: list[list[bytes]] = [[] for _ in range(mesh.shape[TP_AXIS])]
+    for a in arrays:
+        # (N, num_pages, Hkv / N, page, d): the ranks' slices in order
+        every = mesh.all_gather(a.contiguous()[None], TP_AXIS, dim=0)
+        for s, part in enumerate(parts):
+            part.append(_pool_bytes(every[s]))
+    return [(f"pools.{s}", b"".join(part)) for s, part in enumerate(parts)]
+
+
 def _serialize_sections(engine: ServingEngine) -> list[tuple[str, bytes]]:
     # a cut must not capture a half-staged async step: settle the double
     # buffer (drop staged rows, wait for the pools) before reading bytes
     engine.quiesce()
+    shape = list(engine._k_pools[0].shape)
+    if engine.mesh is not None:
+        shape[1] *= engine.mesh.shape[TP_AXIS]  # the whole pool's heads
     cfg = dataclasses.asdict(engine.config)
     if cfg["cache_dtype"] is not None:
         cfg["cache_dtype"] = _dtype_name(cfg["cache_dtype"])
@@ -208,10 +257,9 @@ def _serialize_sections(engine: ServingEngine) -> list[tuple[str, bytes]]:
         "step": engine.current_step,
         "next_seq": engine._next_seq,
         "pool_dtype": _dtype_name(engine._k_pools[0].dtype),
-        "pool_shape": list(engine._k_pools[0].shape),
+        "pool_shape": shape,
     }
-    pools = b"".join(_pool_bytes(a)
-                     for a in (*engine._k_pools, *engine._v_pools))
+    pools = _pool_sections(engine)
     alloc = engine.allocator
     sched = engine.scheduler
     state = {
@@ -244,7 +292,7 @@ def _serialize_sections(engine: ServingEngine) -> list[tuple[str, bytes]]:
         [_request_to_dict(r, "waiting") for r in sched.waiting]
         + [_request_to_dict(r, "running") for r in sched.running]
     )
-    return [("meta", _jbytes(meta)), ("pools", pools),
+    return [("meta", _jbytes(meta)), *pools,
             ("state", _jbytes(state)), ("requests", _jbytes(requests))]
 
 
@@ -254,7 +302,7 @@ def serialize(engine: ServingEngine) -> bytes:
     manifest = {
         "magic": SNAPSHOT_MAGIC,
         "version": SNAPSHOT_VERSION,
-        "shards": 1,
+        "shards": _shards(engine),
         "sections": [
             {"name": name, "nbytes": len(payload),
              "crc32": zlib.crc32(payload)}
@@ -287,8 +335,19 @@ def _fsync_dir(directory: str) -> None:
 def save(engine: ServingEngine, path: str) -> dict:
     """Write one snapshot durably and atomically (temp file in the
     target directory, fsync, ``os.replace``, fsync of the directory);
-    returns ``{path, nbytes, step}``."""
+    returns ``{path, nbytes, step}``.  On a mesh engine every rank calls
+    it: the mesh's rank 0 writes, and each returns once the file has
+    landed."""
     blob = serialize(engine)
+    if _writes_files(engine):
+        _write(blob, path)
+    if _shards(engine) > 1:
+        torch.distributed.barrier(group=engine.mesh.group(TP_AXIS))
+    return {"path": path, "nbytes": len(blob),
+            "step": engine.current_step}
+
+
+def _write(blob: bytes, path: str) -> None:
     directory = os.path.dirname(os.path.abspath(path))
     os.makedirs(directory, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
@@ -307,8 +366,6 @@ def save(engine: ServingEngine, path: str) -> dict:
         except OSError:
             pass
         raise
-    return {"path": path, "nbytes": len(blob),
-            "step": engine.current_step}
 
 
 def _read_sections(path: str) -> tuple[dict, dict[str, bytes]]:
@@ -356,9 +413,8 @@ def _read_sections(path: str) -> tuple[dict, dict[str, bytes]]:
     if not isinstance(shards, int) or isinstance(shards, bool) \
             or shards < 1:
         raise _corrupt(path, f"bad shards count {shards!r}")
-    pools = ("pools",) if shards == 1 else tuple(
-        f"pools.{s}" for s in range(shards))
-    for name in ("meta", *pools, "state", "requests"):
+    for name in ("meta", *_pool_section_names(shards), "state",
+                 "requests"):
         if name not in sections:
             raise _corrupt(path, f"missing section {name!r}")
     return manifest, sections
@@ -409,17 +465,30 @@ def inspect(path: str) -> dict:
 
 
 def _restore_pools(engine: ServingEngine, path: str, meta: dict,
-                   payload: bytes) -> None:
+                   sections: dict, shards: int) -> None:
+    """Each whole pool reassembled from the ``shards`` sections (their
+    slices concatenated on the head axis), then placed by the engine: on
+    a mesh engine each rank keeps its own heads, whatever ``shards``
+    the snapshot was cut on."""
     dtype = _torch_dtype(meta["pool_dtype"])
     shape = tuple(int(n) for n in meta["pool_shape"])
     depth = engine.model.depth
-    want = torch.Size(shape).numel() * dtype.itemsize
-    if len(payload) != 2 * depth * want:
-        raise _corrupt(path, f"section 'pools' holds {len(payload)} bytes, "
-                             f"expected {2 * depth * want}")
-    arrays = [engine._place_pool(torch.frombuffer(
-        bytearray(payload[i * want:(i + 1) * want]), dtype=dtype
-    ).reshape(shape)) for i in range(2 * depth)]
+    if shape[1] % shards:
+        raise _corrupt(path, f"pool head dim {shape[1]} not divisible by "
+                             f"{shards} shard section(s)")
+    part = (shape[0], shape[1] // shards, *shape[2:])
+    want = torch.Size(part).numel() * dtype.itemsize
+    slices: list[list[torch.Tensor]] = [[] for _ in range(2 * depth)]
+    for name in _pool_section_names(shards):
+        payload = sections[name]
+        if len(payload) != 2 * depth * want:
+            raise _corrupt(path, f"section {name!r} holds {len(payload)} "
+                                 f"bytes, expected {2 * depth * want}")
+        for i in range(2 * depth):
+            slices[i].append(torch.frombuffer(
+                bytearray(payload[i * want:(i + 1) * want]), dtype=dtype
+            ).reshape(part))
+    arrays = [engine._place_pool(torch.cat(s, dim=1)) for s in slices]
     engine._k_pools = arrays[:depth]
     engine._v_pools = arrays[depth:]
 
@@ -429,8 +498,10 @@ def restore(path: str, model, *, on_token=None, on_finish=None,
     """An engine over ``model`` (its weights and device) whose further
     outputs equal the snapshotted engine's.  Raises
     `SnapshotCorruptError` on any validation failure (the caller's cue
-    to fall back cold), and plain `SnapshotError` for a sound snapshot
-    of a mesh engine."""
+    to fall back cold), and plain `SnapshotError` matching "mesh
+    geometry" for a sound snapshot whose ``mesh_shards`` this world
+    cannot hold.  A mesh snapshot restores on every rank of the world
+    (each keeps its own heads of the pools)."""
     manifest, sections = _read_sections(path)
     try:
         meta = json.loads(sections["meta"])
@@ -446,15 +517,17 @@ def restore(path: str, model, *, on_token=None, on_finish=None,
         cfg = dict(meta["config"])
         if cfg.get("cache_dtype") is not None:
             cfg["cache_dtype"] = _torch_dtype(cfg["cache_dtype"])
-        if manifest.get("shards", 1) > 1 or cfg.get("mesh_shards"):
-            raise SnapshotError(
-                f"{path}: a mesh engine's snapshot ({manifest.get('shards')}"
-                f" shard section(s), mesh_shards "
-                f"{cfg.get('mesh_shards')}); this engine serves one device")
-        engine = ServingEngine(model, EngineConfig(**cfg),
-                               on_token=on_token, on_finish=on_finish,
-                               on_timeout=on_timeout)
-        _restore_pools(engine, path, meta, sections["pools"])
+        try:
+            engine = ServingEngine(model, EngineConfig(**cfg),
+                                   on_token=on_token, on_finish=on_finish,
+                                   on_timeout=on_timeout)
+        except MeshConfigError as e:
+            # the file is sound: this world cannot provide the mesh it
+            # was cut on, so not a SnapshotCorruptError
+            raise SnapshotError(f"{path}: snapshot needs mesh geometry "
+                                f"this host cannot provide: {e}") from e
+        _restore_pools(engine, path, meta, sections,
+                       manifest.get("shards", 1))
 
         engine.pool._free = [int(p) for p in state["free"]]
         engine.pool._refs = [int(r) for r in state["refs"]]
@@ -556,6 +629,10 @@ class SnapshotManager:
     ``crash_next`` is a crash point: when armed, the next save dies
     mid-write, leaving a partial ``.tmp`` file and never touching the
     final path, which recovery must not even notice.
+
+    On a mesh engine every rank attaches a manager to its engine; the
+    snapshots are collective (`save`), and only the mesh's rank 0 writes,
+    journals, clears and prunes files.
     """
 
     def __init__(self, engine: ServingEngine, directory: str, *,
@@ -574,7 +651,9 @@ class SnapshotManager:
         self.last_snapshot_step = -1
         self._inner_step = engine.step
         engine.step = self._step
-        self._clear_stale()
+        self._writer = _writes_files(engine)
+        if self._writer:
+            self._clear_stale()
         # the genesis snapshot creates the incarnation's first journal
         engine.journal = None
         self.snapshot()
@@ -606,14 +685,19 @@ class SnapshotManager:
         if self.crash_next:
             self.crash_next = False
             blob = serialize(engine)
-            fd, tmp = tempfile.mkstemp(dir=self.directory, suffix=".tmp")
-            # deliberately torn: the process dies mid-write, and the
-            # final snapshot path is never touched
-            with os.fdopen(fd, "wb") as f:
-                f.write(blob[:max(1, len(blob) // 2)])
+            if self._writer:
+                fd, tmp = tempfile.mkstemp(dir=self.directory, suffix=".tmp")
+                # deliberately torn: the process dies mid-write, and the
+                # final snapshot path is never touched
+                with os.fdopen(fd, "wb") as f:
+                    f.write(blob[:max(1, len(blob) // 2)])
             return None
         path = snapshot_path(self.directory, step)
         save(engine, path)
+        self.saves += 1
+        self.last_snapshot_step = step
+        if not self._writer:
+            return path
         # rotate after the snapshot lands: the outgoing journal stays
         # whole on disk, so replay can chain from an older snapshot if
         # this one is later damaged
@@ -621,8 +705,6 @@ class SnapshotManager:
             engine.journal.close()
         engine.journal = Journal(journal_path(self.directory, step),
                                  snapshot_step=step)
-        self.saves += 1
-        self.last_snapshot_step = step
         self._prune()
         return path
 

@@ -52,13 +52,24 @@ positions and runs a differentiable sharded core on local blocks:
 "allgather" (`parallel.cp.cp_attention_local`), "ring" and "zigzag"
 (`parallel.ring.ring_diff_local`, `zigzag_diff_local`) or "ulysses"
 (`parallel.ulysses.ulysses_local`); activations stay O(S/sp) per rank.
-Cached paths are unaffected.  The JAX layer's head-sharded serving
-(``tp_axis``) is not ported.
+Cached paths are unaffected.
+
+Tensor-parallel serving (``tp_axis`` of a ``mesh``, JAX's layout, not
+Megatron's): the projections stay whole on every rank and compute every
+head; on a cached call the layer then keeps this rank's contiguous block
+of the heads (``Hkv / tp`` kv heads and the ``H / tp`` q heads that read
+them), every cache and pool holding only that block
+(`TinyDecoder.init_caches`, the engine's pools), and each kernel call
+goes through its ``*_local`` form in `parallel.serving`, which runs the
+unchanged kernel on the block and all-gathers the output heads, so every
+rank projects the same whole output.  The uncached forward (training,
+``cp_axis``) is unaffected, as in JAX; the two axes may share one mesh.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import NamedTuple
 
 import torch
@@ -93,6 +104,7 @@ from attention_tpu_torch.ops.reference import (
     attention_reference,
 )
 from attention_tpu_torch.ops.rope import apply_rope
+from attention_tpu_torch.parallel import serving
 from attention_tpu_torch.parallel.cp import cp_attention_local
 from attention_tpu_torch.parallel.ring import ring_diff_local, \
     zigzag_diff_local
@@ -316,6 +328,28 @@ def check_cp(cp_axis, cp_impl: str, mesh, impl: str) -> None:
                          f"{list(CP_IMPLS)})")
 
 
+def check_tp(tp_axis, mesh, impl: str, num_kv_heads: int) -> None:
+    """The JAX layer's refusals of a tensor-parallel serving
+    configuration, as `ValueError` with its messages: ``tp_axis`` needs
+    the flash path, a ``mesh`` that has the axis, and kv heads that the
+    axis size divides."""
+    if tp_axis is None:
+        return
+    if impl != "flash":
+        raise ValueError(
+            "tp_axis (head-sharded serving) runs the fused flash kernels; "
+            f"impl {impl!r} is not supported")
+    if mesh is None:
+        raise ValueError("tp_axis requires mesh=")
+    if tp_axis not in mesh.axis_names:
+        raise ValueError(f"tp_axis {tp_axis!r} is not an axis of the mesh "
+                         f"{tuple(mesh.axis_names)}")
+    tp_size = mesh.shape[tp_axis]
+    if num_kv_heads % tp_size:
+        raise ValueError(f"kv heads {num_kv_heads} not divisible by tp_axis "
+                         f"{tp_axis!r} size {tp_size}")
+
+
 class GQASelfAttention(nn.Module):
     """(B, S, D) -> (B, S, D) with ``num_q_heads`` query heads sharing
     ``num_kv_heads`` key/value heads.  Projections carry no bias; the
@@ -325,8 +359,9 @@ class GQASelfAttention(nn.Module):
     "flash" runs the kernels; "xla" runs the uncached and the dense-cache
     paths in PyTorch ops (`ATTN_IMPLS`) and refuses every other cache.
     ``cp_axis`` (an axis of ``mesh``) runs the uncached forward context-
-    parallel on this rank's block of the sequence by ``cp_impl`` (see the
-    module docstring)."""
+    parallel on this rank's block of the sequence by ``cp_impl``;
+    ``tp_axis`` (an axis of ``mesh``) serves every cached path on this
+    rank's block of the heads (see the module docstring)."""
 
     def __init__(self, dim: int, num_q_heads: int, num_kv_heads: int,
                  head_dim: int, *, causal: bool = True, impl: str = "flash",
@@ -334,15 +369,16 @@ class GQASelfAttention(nn.Module):
                  window: int | None = None, attn_sinks: int = 0,
                  rope: bool = False, rope_theta: float = 10000.0,
                  softcap: float | None = None, cp_axis: str | None = None,
-                 cp_impl: str = "allgather", mesh=None,
-                 device: str | torch.device = "cuda"):
+                 cp_impl: str = "allgather", tp_axis: str | None = None,
+                 mesh=None, device: str | torch.device = "cuda"):
         super().__init__()
         check_impl(impl)
-        check_cp(cp_axis, cp_impl, mesh, impl)
         if num_q_heads % num_kv_heads != 0:
             raise ValueError(
                 f"q heads {num_q_heads} not a multiple of kv heads "
                 f"{num_kv_heads}")
+        check_cp(cp_axis, cp_impl, mesh, impl)
+        check_tp(tp_axis, mesh, impl, num_kv_heads)
         if window is not None:
             if not causal:
                 raise ValueError("window requires causal=True")
@@ -363,6 +399,7 @@ class GQASelfAttention(nn.Module):
         self.rope_theta = rope_theta
         self.softcap = softcap
         self.cp_axis, self.cp_impl, self.mesh = cp_axis, cp_impl, mesh
+        self.tp_axis = tp_axis
         kw = dict(bias=False, dtype=dtype, device=device)
         self.q_proj = nn.Linear(dim, num_q_heads * head_dim, **kw)
         self.k_proj = nn.Linear(dim, num_kv_heads * head_dim, **kw)
@@ -379,6 +416,10 @@ class GQASelfAttention(nn.Module):
         q = heads(self.q_proj(x), self.num_q_heads)
         k = heads(self.k_proj(x), self.num_kv_heads)
         v = heads(self.v_proj(x), self.num_kv_heads)
+        if self.tp_axis is not None and cache is not None:
+            # this rank's head block: its caches hold only these heads
+            q, k, v = (serving.head_block(t, self.mesh, self.tp_axis)
+                       for t in (q, k, v))
         if self.rope:
             # keys are cached already rotated at their absolute
             # positions; a packed step carries each token's own position
@@ -415,9 +456,13 @@ class GQASelfAttention(nn.Module):
                     "copy (paged_sink_decode), which the packed step does "
                     "not carry; serve such models with "
                     "step_mode='two_call'")
-            cache = ragged_paged_append(cache, k, v)
-            out = ragged_paged_attention(q, cache, softcap=self.softcap,
-                                         **band)
+            if self.tp_axis is not None:
+                out, cache = serving.head_sharded_ragged_step_local(
+                    q, cache, k, v, softcap=self.softcap, **self._tp, **band)
+            else:
+                cache = ragged_paged_append(cache, k, v)
+                out = ragged_paged_attention(q, cache, softcap=self.softcap,
+                                             **band)
         elif isinstance(cache, RollingKVCache):
             out, cache = self._rolling_attention(q, k, v, cache)
         elif isinstance(cache, KVCache):
@@ -444,6 +489,20 @@ class GQASelfAttention(nn.Module):
             sinks=self.attn_sinks or None)
 
     @property
+    def _tp(self) -> dict:
+        """The mesh keywords of the `parallel.serving` local forms."""
+        return dict(mesh=self.mesh, axis_name=self.tp_axis)
+
+    def _flash_call(self, q, k, v, **kw):
+        """The flash kernel of a cached prefill or chunked append:
+        head-sharded over ``tp_axis`` (`serving.head_sharded_prefill_local`)
+        when serving tensor-parallel."""
+        if self.tp_axis is not None:
+            return serving.head_sharded_prefill_local(q, k, v, **self._tp,
+                                                      **kw)
+        return flash_attention(q, k, v, **kw)
+
+    @property
     def _band(self) -> dict:
         """The model's window and sinks as the kernels' keywords."""
         return dict(window=self.window, sinks=self.attn_sinks or None)
@@ -467,9 +526,15 @@ class GQASelfAttention(nn.Module):
         mode (``lens`` after the append) for S > 1; with the model's
         band unless ``band`` is False."""
         kw = dict(softcap=self.softcap, **(self._band if band else {}))
-        if q.shape[2] == 1:
-            return flash_decode(q[:, :, 0], kc, vc, lens, **kw)[:, :, None]
-        return flash_decode_chunk(q, kc, vc, lens, **kw)
+        one = q.shape[2] == 1
+        q1 = q[:, :, 0] if one else q
+        if self.tp_axis is not None:
+            out = serving.head_sharded_decode_local(q1, kc, vc, lens,
+                                                    **self._tp, **kw)
+        else:
+            out = (flash_decode if one else flash_decode_chunk)(
+                q1, kc, vc, lens, **kw)
+        return out[:, :, None] if one else out
 
     def _cached_attention(self, q, k, v, cache: KVCache):
         """Append the S new rows at ``cache.length`` and attend over the
@@ -498,9 +563,9 @@ class GQASelfAttention(nn.Module):
             with self._sink_read(cache.k, new_len):
                 out = self._decode_call(q, cache.k, cache.v, new_len)
         else:
-            out = flash_attention(q, cache.k, cache.v, causal=self.causal,
-                                  q_offset=cache.length, kv_valid=new_len,
-                                  softcap=self.softcap, **self._band)
+            out = self._flash_call(q, cache.k, cache.v, causal=self.causal,
+                                   q_offset=cache.length, kv_valid=new_len,
+                                   softcap=self.softcap, **self._band)
         if new_len > capacity:
             out = torch.full_like(out, float("nan"))
         return out, cache._replace(length=new_len)
@@ -535,8 +600,8 @@ class GQASelfAttention(nn.Module):
                 out = self._decode_call(q, kc, vc, min(t + 1, sinks + ring),
                                         band=False)
             return out, cache._replace(length=t + 1)
-        out = flash_attention(q, k, v, causal=True, window=ring,
-                              softcap=self.softcap, sinks=sinks or None)
+        out = self._flash_call(q, k, v, causal=True, window=ring,
+                               softcap=self.softcap, sinks=sinks or None)
         if cache.length != 0:
             out = torch.full_like(out, float("nan"))
         head = min(s_new, sinks)
@@ -583,19 +648,27 @@ class GQASelfAttention(nn.Module):
         token decode goes through `paged_sink_decode`: pool pages may be
         shared by sequences with different deltas, so the sink rows are
         rotated in a per-sequence read copy, never in the pool."""
-        band = self._band
+        kw = dict(softcap=self.softcap, **self._band)
+        paged = paged_flash_decode if self.tp_axis is None else \
+            functools.partial(serving.head_sharded_decode_paged_local,
+                              **self._tp)
         if q.shape[2] > 1:
             cache = paged_append_chunk(cache, k, v)
-            out = paged_flash_decode(q, cache, softcap=self.softcap, **band)
+            out = paged(q, cache, **kw)
         elif self._sink_rope:
+            if self.tp_axis is not None:
+                raise ValueError(
+                    "rope+sinks on the paged cache reads a per-sequence "
+                    "rotated sink copy (paged_sink_decode), which has no "
+                    "head-sharded form yet; serve rope+sink models "
+                    "tensor-parallel on the dense/ragged/int8 caches")
             cache = paged_append(cache, k, v)
             out = paged_sink_decode(
                 q[:, :, 0], cache, window=self.window, sinks=self.attn_sinks,
                 theta=self.rope_theta, softcap=self.softcap)[:, :, None]
         else:
             cache = paged_append(cache, k, v)
-            out = paged_flash_decode(q[:, :, 0], cache, softcap=self.softcap,
-                                     **band)[:, :, None]
+            out = paged(q[:, :, 0], cache, **kw)[:, :, None]
         return out.to(q.dtype), cache
 
     def _quantized_attention(self, q, k, v, cache: QuantKVCache):
@@ -606,8 +679,13 @@ class GQASelfAttention(nn.Module):
         kv = update_quantized_kv(cache.kv, k, v, cache.length)
         new_len = cache.length + q.shape[2]
         kw = dict(softcap=self.softcap, **self._band)
+        one, chunk = flash_decode_quantized, flash_decode_quantized_chunk
+        if self.tp_axis is not None:
+            # the local form takes the chunk mode from a 4-D q itself
+            one = chunk = functools.partial(
+                serving.head_sharded_decode_quantized_local, **self._tp)
         if q.shape[2] > 1:
-            out = flash_decode_quantized_chunk(q, kv, new_len, **kw)
+            out = chunk(q, kv, new_len, **kw)
             return out.to(q.dtype), QuantKVCache(kv, new_len)
         reading = contextlib.nullcontext()
         if self._sink_rope:
@@ -617,6 +695,5 @@ class GQASelfAttention(nn.Module):
                                           self.attn_sinks, self.rope_theta)
             reading = _reading([(kv.k_q, rows), (kv.k_scale, scales)])
         with reading:
-            out = flash_decode_quantized(q[:, :, 0], kv, new_len,
-                                         **kw)[:, :, None]
+            out = one(q[:, :, 0], kv, new_len, **kw)[:, :, None]
         return out.to(q.dtype), QuantKVCache(kv, new_len)

@@ -16,6 +16,13 @@ generate on ring-buffer caches (``rolling_cache=True``), whose memory is
 bounded by its window.  `generate_beam` runs beam search over the dense
 or int8 caches, gathering their rows after every step to follow the
 surviving hypotheses.
+
+On a tensor-parallel model (``tp_axis``) every function runs as it is on
+every rank of the mesh: the caches hold the rank's block of kv heads
+(`TinyDecoder.init_caches`), `generate_paged`'s `PagePool`s are host
+state that every rank keeps alike, so page ids agree, beam search
+gathers each rank's caches by the same rows, and every rank samples
+from the same gathered logits: every rank returns the same tokens.
 """
 
 from __future__ import annotations

@@ -17,6 +17,9 @@ by length.  Where the JAX package runs the loop as one
 the acceptance count and the emitted tokens back once an iteration (one
 host sync), which ``return_stats`` counts.
 
+Target and draft may both be tensor-parallel models (``tp_axis``) on
+one mesh: every rank runs the loop alike on its own kv heads.
+
 Sampling draws from the caller's `torch.Generator`, so sampled streams
 are not the JAX package's (greedy streams are equal).  Batch 1 only: a
 per-sequence acceptance count would rag the dense caches' one length.

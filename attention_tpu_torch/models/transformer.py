@@ -12,6 +12,8 @@ device) or from the JAX package's flax params through
 
 from __future__ import annotations
 
+import inspect
+
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -71,14 +73,15 @@ class TransformerBlock(nn.Module):
                  moe_experts: int | None = None, moe_top_k: int = 2,
                  moe_capacity_factor: float = 1.25,
                  cp_axis: str | None = None, cp_impl: str = "allgather",
-                 mesh=None, device):
+                 tp_axis: str | None = None, mesh=None, device):
         super().__init__()
         self.norm1 = RMSNorm(dim, dtype=dtype, device=device)
         self.attn = GQASelfAttention(
             dim, num_q_heads, num_kv_heads, head_dim, causal=causal,
             impl=impl, dtype=dtype, window=window, attn_sinks=attn_sinks,
             rope=rope, rope_theta=rope_theta, softcap=softcap,
-            cp_axis=cp_axis, cp_impl=cp_impl, mesh=mesh, device=device)
+            cp_axis=cp_axis, cp_impl=cp_impl, tp_axis=tp_axis, mesh=mesh,
+            device=device)
         self.norm2 = RMSNorm(dim, dtype=dtype, device=device)
         self.mlp = (MoEMLP(dim, moe_experts, top_k=moe_top_k,
                            capacity_factor=moe_capacity_factor, dtype=dtype,
@@ -120,9 +123,20 @@ class TinyDecoder(nn.Module):
     the sequence, ``tokens`` (B, S / sp) at global positions index · S /
     sp, and attention runs ``cp_impl`` ("allgather", "ring", "zigzag" or
     "ulysses"; `attention_layer.CP_IMPLS`) over the axis;
-    `models.train.make_train_step` cuts the blocks.  Options of the JAX
-    model that the port does not have yet (``tp_axis``, ``ep_axis``, and
-    ``cp_axis`` on a mixture of experts) raise `NotImplementedError`."""
+    `models.train.make_train_step` cuts the blocks.
+
+    ``tp_axis`` (an axis of ``mesh``) serves tensor-parallel, as JAX's
+    ``tp_axis`` does: every parameter stays whole on every rank, each
+    cached call runs this rank's block of ``num_kv_heads / tp`` kv heads
+    (and the q heads that read them) through the kernels and gathers
+    the heads' output, so every rank computes the same logits;
+    `init_caches` (and the engine's pools) hold only the rank's block.
+    Every generate function, beam search and speculative decoding run
+    on such a model; the uncached forward is the single-device one, or
+    ``cp_axis``'s, which may share the mesh.  Options of the JAX model
+    that the port does not have yet raise `NotImplementedError`:
+    ``ep_axis`` (expert parallelism) and ``cp_axis`` on a mixture of
+    experts, ROADMAP.md Queue 1 item 5."""
 
     def __init__(self, vocab: int = 256, dim: int = 256, depth: int = 2,
                  num_q_heads: int = 8, num_kv_heads: int = 2,
@@ -133,21 +147,24 @@ class TinyDecoder(nn.Module):
                  moe_experts: int | None = None, moe_top_k: int = 2,
                  moe_capacity_factor: float = 1.25,
                  cp_axis: str | None = None, cp_impl: str = "allgather",
-                 mesh=None, device: str | torch.device = "cuda",
-                 **unported):
+                 tp_axis: str | None = None, mesh=None,
+                 device: str | torch.device = "cuda", **unported):
+        # every constructor argument but the device: what `clone` rebuilds
+        config = {name: value for name, value in locals().items()
+                  if name in _CLONED_PARAMS}
         super().__init__()
         if unported:
             raise NotImplementedError(
                 f"TinyDecoder options not ported yet: {sorted(unported)}: "
-                "tp_axis comes with the tensor-parallel layout "
-                "(shard_params) and ep_axis with expert parallelism, "
-                "ROADMAP.md Queue 1 item 5")
+                "ep_axis comes with expert parallelism, ROADMAP.md Queue 1 "
+                "item 5")
         if cp_axis is not None and moe_experts:
             raise NotImplementedError(
                 "cp_axis with moe_experts: the router's statistics would be "
                 "per sequence shard; it comes with expert parallelism, "
                 "ROADMAP.md Queue 1 item 5")
         check_impl(impl)
+        self._config = config
         device = resolve_device(device)
         self.vocab = vocab
         self.dim = dim
@@ -163,6 +180,7 @@ class TinyDecoder(nn.Module):
         self.remat = remat
         self.moe_experts = moe_experts
         self.cp_axis, self.cp_impl, self.mesh = cp_axis, cp_impl, mesh
+        self.tp_axis = tp_axis
         self.head_dim = dim // num_q_heads
         self.embed = nn.Embedding(vocab, dim, dtype=dtype, device=device)
         self.blocks = nn.ModuleList(
@@ -172,8 +190,8 @@ class TinyDecoder(nn.Module):
                              rope_theta=rope_theta, softcap=softcap,
                              moe_experts=moe_experts, moe_top_k=moe_top_k,
                              moe_capacity_factor=moe_capacity_factor,
-                             cp_axis=cp_axis, cp_impl=cp_impl, mesh=mesh,
-                             device=device)
+                             cp_axis=cp_axis, cp_impl=cp_impl,
+                             tp_axis=tp_axis, mesh=mesh, device=device)
             for _ in range(depth))
         self.norm = RMSNorm(dim, dtype=dtype, device=device)
         self.head = nn.Linear(dim, vocab, bias=False, dtype=torch.float32,
@@ -182,6 +200,23 @@ class TinyDecoder(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.head.weight.device
+
+    def clone(self, **overrides) -> "TinyDecoder":
+        """This model's configuration with ``overrides`` (JAX's
+        ``Module.clone``), sharing this model's parameters, not copying
+        them: the serving engine's step model on a mesh (``tp_axis=``,
+        ``mesh=``)."""
+        twin = TinyDecoder(**{**self._config, **overrides}, device="meta")
+        twin.load_state_dict(self.state_dict(keep_vars=True), assign=True)
+        return twin
+
+    @property
+    def kv_heads_local(self) -> int:
+        """The kv heads of this rank's caches and pools: all of them,
+        or its block of ``num_kv_heads / tp`` under ``tp_axis``."""
+        if self.tp_axis is None:
+            return self.num_kv_heads
+        return self.num_kv_heads // self.mesh.shape[self.tp_axis]
 
     def forward(self, tokens: torch.Tensor, caches=None,
                 return_aux: bool = False):
@@ -206,23 +241,30 @@ class TinyDecoder(nn.Module):
                     cache_dtype: torch.dtype | None = None,
                     rolling: bool = False) -> tuple:
         """Fresh per-layer dense `KVCache`s of ``capacity`` rows on the
-        model's device, in ``cache_dtype`` (default: the model's).
-        ``rolling=True`` (windowed models only) gives ring-buffer
-        `RollingKVCache`s instead, whose memory is bounded by the window
-        and the sinks, not by ``capacity``."""
+        model's device, in ``cache_dtype`` (default: the model's), over
+        `kv_heads_local` heads.  ``rolling=True`` (windowed models only)
+        gives ring-buffer `RollingKVCache`s instead, whose memory is
+        bounded by the window and the sinks, not by ``capacity``."""
         if rolling:
             if self.window is None:
                 raise ValueError("rolling caches require a windowed model")
             return tuple(
-                RollingKVCache.create(batch, self.num_kv_heads, self.window,
+                RollingKVCache.create(batch, self.kv_heads_local, self.window,
                                       self.head_dim,
                                       cache_dtype or self.dtype,
                                       self.device, sinks=self.attn_sinks)
                 for _ in range(self.depth))
         return tuple(
-            KVCache.create(batch, self.num_kv_heads, capacity, self.head_dim,
-                           cache_dtype or self.dtype, self.device)
+            KVCache.create(batch, self.kv_heads_local, capacity,
+                           self.head_dim, cache_dtype or self.dtype,
+                           self.device)
             for _ in range(self.depth))
+
+
+#: the `TinyDecoder` constructor's arguments that `TinyDecoder.clone`
+#: carries over: all but the device (a clone shares the parameters)
+_CLONED_PARAMS = frozenset(inspect.signature(TinyDecoder).parameters) \
+    - {"device", "unported"}
 
 
 def _fan_in(name: str, shape: torch.Size) -> int:

@@ -2,7 +2,9 @@
 `attention_tpu.parallel` (meshes and the placement policy, the
 KV-sharded two-phase merge, Q-sharded, ring and Ulysses, and the
 differentiable context-parallel paths that training runs:
-`cp_flash_attention`, `ring_attention_diff` and Ulysses)."""
+`cp_flash_attention`, `ring_attention_diff` and Ulysses, and sharded
+serving: the head-sharded cached-path kernels and the cache-sharded
+decode of `parallel.serving`)."""
 
 from attention_tpu_torch.parallel.mesh import (  # noqa: F401
     KV_REPLICATE_THRESHOLD_BYTES,
@@ -21,4 +23,13 @@ from attention_tpu_torch.parallel.ring import (  # noqa: F401
 )
 from attention_tpu_torch.parallel.ulysses import (  # noqa: F401
     ulysses_attention,
+)
+from attention_tpu_torch.parallel.serving import (  # noqa: F401
+    MeshConfigError,
+    cache_sharded_decode,
+    head_sharded_decode,
+    head_sharded_decode_paged,
+    head_sharded_decode_quantized,
+    head_sharded_prefill,
+    head_sharded_ragged_step,
 )

@@ -220,6 +220,45 @@ non-zero unless all of them pass:
             its next token on both paths, and each path's share of tokens
             equal to the uninterrupted run (the journal's tail is
             recomputed by chunked prefill, another bf16 order).
+5f. tp serving a gloo world of 4 ranks on the one card, spawned as 3b
+            is, after the single-device side has run on the card alone; a
+            failed rank fails the phase.  Each rank holds the whole
+            weights and one of the serving model's 4 kv heads (8 q heads)
+            of every cache and pool.  (a) Each public function of
+            `parallel.serving` at the serving geometry (bf16): the cache-
+            sharded decode of 8 sequences over 4096 rows (all valid, and
+            3000), the head-sharded decode, int8 decode and paged decode
+            at `DECODE_LENS`, the ragged step (append and attention) of 8
+            decode slots at those lengths and a 256-token prefill slot,
+            and the prefill of 2048 rows: held against the kernel's plain
+            version (`mismatch`), beside the single-device call on the
+            same inputs (max abs difference, same bits or not printed),
+            the kernel launched once a call, the same result on every
+            rank.  (b) `TinyDecoder(tp_axis="tp")` at the serving widths
+            (depth 4): greedy `generate` on 8 prompts of 512 tokens,
+            `generate_paged` on the trace's prompts, `generate(
+            int8_cache=True)`, the `SERVE_BAND` model's rolling cache,
+            `generate_beam` (3 beams), 16 steps each, and speculative
+            decoding (32 steps, gamma 4, the depth-1 seed-1 draft tp
+            too): launches exact, the first-step logits within
+            `mismatch`'s bf16 limit of the single device's, the share of
+            tokens equal to the single device's printed, every rank's
+            tokens equal to rank 0's.  (c) `ServingEngine(mesh_shards=
+            4)` at `SERVE_ENGINE` on the serving trace, ragged and two-
+            call, greedy and sampled: launches exact, every request
+            finished, every rank's streams equal to rank 0's, each run's
+            median step ms beside the single engine's (the same call);
+            one more greedy run with the mesh's collectives timed (the
+            card synchronised around each): the all-gather's share of
+            the run, each rank's pool bytes and peak memory.  (d) A mesh
+            snapshot cut at step 16 (inside decode): `save` (every rank;
+            ``pools.0..3``), `restore` on the world, the fingerprints
+            equal, the restored and the live engine drained to the
+            uninterrupted mesh run's streams; a byte flipped in
+            ``pools.2`` is a `SnapshotCorruptError` naming it.  (e) The
+            small f32 model (2 kv heads: blocks of 2 ranks) through (b)
+            and (c): tokens and streams exactly equal to the single
+            device's.
 5b. moe     the same model with 8 experts, top 2, capacity factor 1.25
             (Mixtral 8x7B's routing on the repo's 4·d tanh-GELU experts),
             depth 4: greedy `generate` on the 8 prompts of 512 tokens and
@@ -315,11 +354,12 @@ Launch counts are reset just before each run of a path (op path, the
 int4 entry points, each distributed backend's run on each rank, each
 phase 3c path and training run on each rank, each generate function,
 the chunk verify, each serving run, each stretch of the durability
-phase's engines, each training run, each beam, fork,
+phase's engines, each phase 5f call, run and drain on each rank, each
+training run, each beam, fork,
 speculative and encoder-decoder run, each packed
 `flash_attention_diff` run) and read just after it (the MoE model's
 generate and serving runs too); rank 0's distributed and phase 3c
-launches join the kernels' counts.  Kernel times are CUDA-event
+and phase 5f launches join the kernels' counts.  Kernel times are CUDA-event
 medians after warm-up, over back-to-back calls of the wrapper, so a call
 whose host work outlasts its kernels is timed by its host work.  The second-to-last stdout line is the
 ``{"kernels": [...]}`` record, the last ``{"ok": true, "device":
@@ -453,6 +493,19 @@ CP_STEP2_RTOL = 5e-4
 # step on the card: JAX's tests/test_cp.py tolerances
 CP_F32_LOSS_RTOL = 1e-5
 CP_F32_GRAD_ATOL = 3e-5
+# phase 5f: tensor-parallel serving on a gloo world of ranks on the one
+# card, each rank the whole weights and a quarter of the kv heads (one of
+# the serving model's four).  (b)'s decode steps, speculative steps and
+# beams; the small f32 model's 2 kv heads split over blocks of 2 ranks,
+# on prompts of this many tokens; its first-step logits against the
+# single device's, max abs (the f32 bar of phase 6's logits)
+TP_WORLD = 4
+TP_STEPS = 16
+TP_SPEC_STEPS = 32
+TP_BEAMS = 3
+TP_SMALL_SHARDS = 2
+TP_SMALL_ROWS = 128
+TP_F32_LOGITS_TOL = 1e-4
 # decode steps of the generate phase
 GEN_STEPS = 32
 # beam search: 4 beams over phase 4's 8 prompts of 512 tokens (32 cache
@@ -3116,6 +3169,548 @@ def phase_durability_reference() -> None:
          journal_events=info["journal_events"])
 
 
+def tp_prompts(vocab: int, equal_rows: int = 512):
+    """Phase 5f (b)'s prompts: 8 equal prompts of ``equal_rows`` tokens,
+    the serving trace's 8 prompts right-padded with their lengths, and
+    one prompt of 512 tokens for speculative decoding."""
+    equal = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, vocab, (8, equal_rows))).cuda()
+    ragged, lens = trace_prompts(vocab)
+    spec = torch.as_tensor(np.random.default_rng(SEED + 9).integers(
+        0, vocab, (1, 512))).cuda()
+    return equal, ragged, lens, spec
+
+
+def tp_runs(model, draft, band: dict, equal_rows: int = 512) -> dict:
+    """{run: (call, the kernels it launches and how often, None where
+    the count depends on the acceptance)} of phase 5f (b): ``model``
+    (single-device or tp) and its windowed clone, ``draft`` the
+    speculative draft."""
+    from attention_tpu_torch.models import decode as gen
+    from attention_tpu_torch.models.speculative import generate_speculative
+
+    equal, ragged, lens, spec = tp_prompts(model.vocab, equal_rows)
+    windowed = model.clone(**band)
+    d, s = model.depth, TP_STEPS
+    return {
+        "generate": (lambda: gen.generate(model, equal, steps=s),
+                     {"flash_fwd": d, "decode": s * d}),
+        "generate_paged": (lambda: gen.generate_paged(
+            model, ragged, lens, steps=s)[0],
+            {"flash_fwd": d, "paged_decode": s * d}),
+        "generate_int8": (lambda: gen.generate(model, equal, steps=s,
+                                               int8_cache=True),
+                          {"flash_fwd": d, "quant_decode": s * d}),
+        "rolling": (lambda: gen.generate(windowed, equal, steps=s,
+                                         rolling_cache=True),
+                    {"flash_fwd": d, "decode": s * d}),
+        "beam": (lambda: gen.generate_beam(model, equal, steps=s,
+                                           beams=TP_BEAMS),
+                 {"flash_fwd": d, "decode": (s - 1) * d}),
+        "speculative": (lambda: generate_speculative(
+            model, draft, spec, steps=TP_SPEC_STEPS, gamma=SPEC_GAMMA),
+            None),
+    }
+
+
+def tp_models(dtype, model_kw: dict, mesh=None):
+    """The served model and its depth-1 draft (seed 1) at ``model_kw``,
+    weights from `init_params` on the card; tensor-parallel on ``mesh``
+    when given."""
+    from attention_tpu_torch.models import TinyDecoder, init_params
+
+    out = []
+    for kw, seed in ((model_kw, SEED), (dict(model_kw, depth=1), SEED + 1)):
+        m = TinyDecoder(dtype=dtype, device="cuda", **kw)
+        m.load_state_dict(init_params(m, seed))
+        out.append(m if mesh is None else m.clone(tp_axis="tp", mesh=mesh))
+    return out
+
+
+def tp_engine_runs(model, trace, mesh_shards: int) -> dict:
+    """Phase 5f (c)'s engine runs of ``model`` at `SERVE_ENGINE`: {(step
+    mode, temperature): (streams, summary, model calls, launches)}."""
+    from attention_tpu_torch import ops
+    from attention_tpu_torch.engine import EngineConfig, ServingEngine, \
+        replay
+
+    out = {}
+    for mode in ("ragged", "two_call"):
+        for temperature in (0.0, SERVE_TEMPERATURE):
+            eng = ServingEngine(model, EngineConfig(**dict(
+                SERVE_ENGINE, step_mode=mode, mesh_shards=mesh_shards)))
+            ops.reset_launch_counts()
+            summary, streams = replay(eng, [dict(e, temperature=temperature)
+                                            for e in trace], max_steps=500)
+            torch.cuda.synchronize()
+            calls = sum(bool(m.decode_tokens) + bool(m.prefill_tokens)
+                        if mode == "two_call"
+                        else bool(m.decode_tokens or m.prefill_tokens)
+                        for m in eng.metrics.steps)
+            launches = {k: v for k, v in ops.launch_counts().items() if v}
+            out[mode, temperature] = (streams, summary, calls, launches,
+                                      eng.nonfinite_events)
+    return out
+
+
+def tp_single_device(model) -> dict:
+    """The single-device side of phase 5f, on the card before the world
+    starts: (b)'s tokens and first-step logits and (c)'s streams and
+    step times, for the serving model and the small f32 model."""
+    from attention_tpu_torch.models import decode as gen
+
+    ref = {}
+    draft = tp_models(torch.bfloat16, SERVE_MODEL)[1]
+    for key, m, d, band, rows in (
+            ("serve", model, draft, SERVE_BAND, 512),
+            ("small", *tp_models(torch.float32, SMALL_MODEL), SMALL_BAND,
+             TP_SMALL_ROWS)):
+        runs = tp_runs(m, d, band, rows)
+        ref[key] = dict(
+            tokens={name: call().cpu() for name, (call, _) in runs.items()},
+            first_logits=gen.prefill(m, tp_prompts(m.vocab, rows)[0],
+                                     rows + 128)[0].float().cpu(),
+            engines={k: (v[0], v[1]["median_step_ms"])
+                     for k, v in tp_engine_runs(
+                         m, serving_trace(m.vocab), 0).items()})
+        del runs, d
+    return ref
+
+
+def tp_ragged_inputs(gen, pages_per_slot: int):
+    """(q, the step before its append, k_new, v_new) of phase 5f (a)'s
+    ragged step: 8 decode slots whose lengths after the append are
+    `DECODE_LENS` (an empty one read as 1) and one 256-token prefill
+    slot ending at 1024, every real token appended at its slot's next
+    position (`ragged_step`'s pools and tables)."""
+    spans = [(1, max(n, 1)) for n in DECODE_LENS] + [(256, 1024)]
+    q, post = ragged_step(gen, spans, pages_per_slot=pages_per_slot)
+    q_lens = post.cu_q_lens[1:] - post.cu_q_lens[:-1]
+    real = int(q_lens.sum())
+    slots = torch.repeat_interleave(
+        torch.arange(len(q_lens), device="cuda"), q_lens.long())
+    start = (post.cu_q_lens[:-1] - (post.kv_lens - q_lens)).long()
+    pos = torch.arange(real, device="cuda") - start[slots]
+    token_slot = post.token_slot.clone()
+    token_pos = post.token_pos.clone()
+    token_slot[:real], token_pos[:real] = slots.int(), pos.int()
+    pre = post._replace(kv_lens=post.kv_lens - q_lens, token_pos=token_pos,
+                        token_slot=token_slot)
+    shape = (1, post.k_pool.shape[1], q.shape[2], q.shape[3])
+    k_new, v_new = (torch.randn(shape, generator=gen, device="cuda").to(
+        q.dtype) for _ in "kv")
+    return q, pre, k_new, v_new
+
+
+def tp_sharded_ops(rank, say, launches, failures) -> None:
+    """Phase 5f (a): each public serving function on the world at the
+    serving geometry, held against the single-device call on the same
+    inputs (the max abs difference and whether the bits are equal
+    printed) and against the kernel's plain version under `mismatch`;
+    the kernel launched once a call on every rank; the same bits on
+    every rank."""
+    import torch.distributed as dist
+
+    from attention_tpu_torch import ops
+    from attention_tpu_torch.ops.decode import flash_decode, \
+        flash_decode_plain
+    from attention_tpu_torch.ops.flash import flash_attention, \
+        flash_attention_plain
+    from attention_tpu_torch.ops.paged import PagePool, \
+        paged_flash_decode, paged_flash_decode_plain, paged_from_dense
+    from attention_tpu_torch.ops.quant import flash_decode_quantized, \
+        quant_decode_plain, quantize_kv
+    from attention_tpu_torch.ops.ragged_paged import \
+        ragged_paged_append, ragged_paged_attention, \
+        ragged_paged_attention_plain
+    from attention_tpu_torch.parallel import serving
+    from attention_tpu_torch.parallel.mesh import default_mesh
+
+    tp, sp = default_mesh("tp"), default_mesh("sp")
+    h, hkv, n, d = 32, 4, 4096, 128
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device="cuda")
+    b = len(DECODE_LENS)
+    q, k, v = randn(b, h, d), randn(b, hkv, n, d), randn(b, hkv, n, d)
+    int8 = quantize_kv(k, v)
+    paged = paged_from_dense(k, v, lens, PagePool(b * n // 128),
+                             num_pages=b * n // 128, page_size=128,
+                             total_pages_per_seq=n // 128)
+    rq, pre, k_new, v_new = tp_ragged_inputs(gen, n // 128)
+
+    def appended():
+        step = pre._replace(k_pool=pre.k_pool.clone(),
+                            v_pool=pre.v_pool.clone())
+        return ragged_paged_append(step, k_new, v_new)
+
+    post = appended()
+    pq, pk, pv = randn(1, h, 2048, d), randn(1, hkv, 2048, d), \
+        randn(1, hkv, 2048, d)
+    cases = {
+        # name: (kernel, sharded call, single-device call, plain call)
+        "cache_sharded_b8_4096": (
+            "flash_fwd",
+            lambda: serving.cache_sharded_decode(q, k, v, n, mesh=sp),
+            lambda: flash_decode(q, k, v, n),
+            lambda: flash_decode_plain(q, k, v, n)),
+        "cache_sharded_b8_3000": (
+            "flash_fwd",
+            lambda: serving.cache_sharded_decode(q, k, v, 3000, mesh=sp),
+            lambda: flash_decode(q, k, v, 3000),
+            lambda: flash_decode_plain(q, k, v, 3000)),
+        "decode": ("decode",
+                   lambda: serving.head_sharded_decode(q, k, v, lens,
+                                                       mesh=tp),
+                   lambda: flash_decode(q, k, v, lens),
+                   lambda: flash_decode_plain(q, k, v, lens)),
+        "decode_int8": ("quant_decode",
+                        lambda: serving.head_sharded_decode_quantized(
+                            q, int8, lens, mesh=tp),
+                        lambda: flash_decode_quantized(q, int8, lens),
+                        lambda: quant_decode_plain(q, int8, lens)),
+        "decode_paged": ("paged_decode",
+                         lambda: serving.head_sharded_decode_paged(
+                             q, paged, mesh=tp),
+                         lambda: paged_flash_decode(q, paged),
+                         lambda: paged_flash_decode_plain(q, paged)),
+        # the sharded step appends to copies of the pools, the single
+        # device's and the plain version read the same append's pools
+        "ragged_step": ("ragged_paged",
+                        lambda: serving.head_sharded_ragged_step(
+                            rq, pre._replace(k_pool=pre.k_pool.clone(),
+                                             v_pool=pre.v_pool.clone()),
+                            k_new, v_new, mesh=tp)[0],
+                        lambda: ragged_paged_attention(rq, post),
+                        lambda: ragged_paged_attention_plain(rq, post)),
+        "prefill_2048": ("flash_fwd",
+                         lambda: serving.head_sharded_prefill(
+                             pq, pk, pv, mesh=tp, causal=True),
+                         lambda: flash_attention(pq, pk, pv, causal=True),
+                         lambda: flash_attention_plain(pq, pk, pv,
+                                                       causal=True)),
+    }
+    for name, (kernel, sharded, single, plain) in cases.items():
+        ops.reset_launch_counts()
+        got = sharded()
+        torch.cuda.synchronize()
+        counted = {kn: c for kn, c in ops.launch_counts().items() if c}
+        one, want = single(), plain()
+        torch.cuda.synchronize()
+        err, ratio = held(got, want)
+        diff = (got.float() - one.float()).abs().nan_to_num().max().item()
+        digests = [None] * dist.get_world_size()
+        dist.all_gather_object(digests, got.float().sum().item())
+        if counted != {kernel: 1}:
+            failures.append(f"{name}: launches {counted}")
+        if len(set(digests)) != 1:
+            failures.append(f"{name}: ranks differ {digests}")
+        launches[kernel] = launches.get(kernel, 0) + counted.get(kernel, 0)
+        say(part="ops", case=name, kernel=kernel, launches=counted,
+            max_abs_err=err, share_of_limit=ratio,
+            vs_single_device_max_abs=diff,
+            same_bits_as_single_device=bool(torch.equal(got, one)),
+            single_share_of_limit=mismatch_ratio(one, want))
+        del got, one, want
+
+
+def mismatch_ratio(got, want) -> float:
+    from attention_tpu_torch.ops.reference import mismatch
+
+    return mismatch(got, want)[1]
+
+
+def tp_generate(rank, say, launches, failures, tp, draft, ref, band,
+                rows, exact) -> None:
+    """Phase 5f (b) on one model: each run's launches exact on every
+    rank, the first-step logits against the single device's, the share
+    of tokens equal to the single device's stream (all of them where
+    ``exact``), every rank's tokens equal to rank 0's."""
+    import torch.distributed as dist
+
+    from attention_tpu_torch import ops
+    from attention_tpu_torch.models import decode as gen
+
+    prompt = tp_prompts(tp.vocab, rows)[0]
+    first = gen.prefill(tp, prompt, rows + 128)[0].float().cpu()
+    err = (first - ref["first_logits"]).abs().max().item()
+    ratio = mismatch_ratio(first.to(torch.bfloat16),
+                           ref["first_logits"].to(torch.bfloat16))
+    if not ratio <= 1.0 or (exact and err > TP_F32_LOGITS_TOL):
+        failures.append(f"first-step logits {err} ({ratio} x the limit)")
+    say(part="generate", model=str(tp.dtype), first_logits_max_abs=err,
+        first_logits_share_of_bf16_limit=ratio)
+    for name, (call, want) in tp_runs(tp, draft, band, rows).items():
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counted = {k: c for k, c in ops.launch_counts().items() if c}
+        if want is not None and counted != want:
+            failures.append(f"{name}: launches {counted}, want {want}")
+        if want is None and set(counted) != {"flash_fwd", "decode"}:
+            failures.append(f"{name}: launches {counted}")
+        for kn, c in counted.items():
+            launches[kn] = launches.get(kn, 0) + c
+        toks = toks.cpu()
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, toks)
+        if any(not torch.equal(t, toks) for t in every):
+            failures.append(f"{name}: ranks' tokens differ")
+        want_toks = ref["tokens"][name]
+        share = (toks == want_toks).float().mean().item()
+        if exact and share != 1.0:
+            failures.append(f"{name}: {share} of the tokens equal")
+        say(part="generate", model=str(tp.dtype), run=name,
+            launches=counted, wall_s=wall, equal_token_share=share,
+            ranks_equal=True)
+
+
+def tp_engine(rank, say, launches, failures, tp_model, ref, shards,
+              exact) -> dict:
+    """Phase 5f (c) on one model: the mesh engine's four runs, launches
+    exact (one kernel launch a layer a model call), every request
+    finished, every logit finite, every rank's streams equal to rank
+    0's, the share equal to the single device's (all where ``exact``),
+    the median step ms beside the single engine's.  Returns the greedy
+    ragged streams."""
+    import torch.distributed as dist
+
+    runs = tp_engine_runs(tp_model, serving_trace(tp_model.vocab), shards)
+    for (mode, temperature), (streams, summary, calls, counted,
+                              nonfinite) in runs.items():
+        kernel = "ragged_paged" if mode == "ragged" else "paged_decode"
+        if counted != {kernel: calls * tp_model.depth} or nonfinite:
+            failures.append(f"{mode}/{temperature}: launches {counted} "
+                            f"for {calls} calls, {nonfinite} non-finite")
+        if not all(len(t) == 32 for t in streams.values()):
+            failures.append(f"{mode}/{temperature}: unfinished")
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, streams)
+        if any(s != streams for s in every):
+            failures.append(f"{mode}/{temperature}: ranks' streams differ")
+        want, single_ms = ref["engines"][mode, temperature]
+        share = equal_share(streams, want)
+        if exact and share != 1.0:
+            failures.append(f"{mode}/{temperature}: {share} equal")
+        launches[kernel] = launches.get(kernel, 0) + counted.get(kernel, 0)
+        say(part="engine", model=str(tp_model.dtype), step_mode=mode,
+            temperature=temperature, mesh_shards=shards,
+            steps=summary["num_steps"], launches=counted,
+            median_step_ms=summary["median_step_ms"],
+            single_device_median_step_ms=single_ms,
+            mean_host_overhead_ms=summary["mean_host_overhead_ms"],
+            equal_token_share_vs_single_device=share, ranks_equal=True)
+    return runs["ragged", 0.0][0]
+
+
+def tp_gather_share(rank, say, tp_model) -> None:
+    """One more greedy ragged run of the mesh engine with the mesh's
+    collectives timed (the card synchronised around each): the
+    all-gather's share of the run's wall time; each rank's pool bytes
+    and peak memory."""
+    import torch.distributed as dist
+
+    from attention_tpu_torch.engine import EngineConfig, ServingEngine, \
+        replay
+
+    eng = ServingEngine(tp_model, EngineConfig(**dict(
+        SERVE_ENGINE, mesh_shards=TP_WORLD)))
+    eng.mesh.timings = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary, _ = replay(eng, serving_trace(tp_model.vocab), max_steps=500)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gather_s = eng.mesh.timings.get("all_gather", 0.0)
+    eng.mesh.timings = None
+    pool_bytes = sum(p.numel() * p.element_size()
+                     for p in (*eng._k_pools, *eng._v_pools))
+    rec = [None] * dist.get_world_size()
+    dist.all_gather_object(rec, dict(
+        rank=rank, pool_bytes=pool_bytes,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30))
+    say(part="gather_share", wall_s=wall, all_gather_s=gather_s,
+        all_gather_share=gather_s / wall,
+        median_step_ms_timed=summary["median_step_ms"],
+        pool_shape_per_rank=list(eng._k_pools[0].shape), ranks=rec)
+
+
+def tp_snapshot(rank, say, launches, failures, tp_model, greedy,
+                tmp: str) -> None:
+    """Phase 5f (d): a mesh engine cut inside decode, saved (every rank
+    calls `save`; rank 0 writes ``pools.0..3``) and restored on the
+    world: the fingerprints equal, the restored and the live engine
+    drained to the uninterrupted mesh run's streams; one shard's section
+    flipped is a typed refusal naming it."""
+    import torch.distributed as dist
+
+    from attention_tpu_torch import ops
+    from attention_tpu_torch.engine import EngineConfig, RequestState, \
+        ServingEngine, SnapshotCorruptError, state_fingerprint
+    from attention_tpu_torch.engine.sim import sampling_of
+    from attention_tpu_torch.engine.snapshot import inspect, restore, save
+
+    config = EngineConfig(**dict(SERVE_ENGINE, mesh_shards=TP_WORLD))
+    outs = {}
+    eng = ServingEngine(tp_model, config, on_finish=lambda r: outs
+                        .__setitem__(r.request_id, list(r.output_tokens)))
+    for e in serving_trace(tp_model.vocab):
+        eng.add_request(e["prompt"], sampling_of(e), request_id=e["id"])
+    ops.reset_launch_counts()
+    while eng.current_step < SNAPSHOT_EVERY:
+        eng.step()
+    if {r.state for r in eng.scheduler.running} != {RequestState.DECODING}:
+        failures.append("the cut is not inside decode")
+    path = os.path.join(tmp, "mesh.atpsnap")
+    t0 = time.perf_counter()
+    saved = save(eng, path)
+    save_s = time.perf_counter() - t0
+    info = inspect(path)
+    back = {}
+    t0 = time.perf_counter()
+    restored = restore(path, tp_model, on_finish=lambda r: back
+                       .__setitem__(r.request_id, list(r.output_tokens)))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same_print = state_fingerprint(restored) == state_fingerprint(eng)
+    for e in (restored, eng):
+        e.drain(max_steps=500)
+    torch.cuda.synchronize()
+    counted = {k: c for k, c in ops.launch_counts().items() if c}
+    launches["ragged_paged"] = launches.get("ragged_paged", 0) + \
+        counted.get("ragged_paged", 0)
+    if not (same_print and back == greedy and outs == greedy):
+        failures.append(f"snapshot: fingerprints equal {same_print}, "
+                        f"restored equal {back == greedy}, live equal "
+                        f"{outs == greedy}")
+    bad = os.path.join(tmp, "bad.atpsnap")
+    if rank == 0:
+        blob = bytearray(open(path, "rb").read())
+        nl = blob.find(b"\n")
+        off = nl + 1
+        for s in json.loads(blob[:nl])["sections"]:
+            if s["name"] == "pools.2":
+                blob[off + s["nbytes"] // 2] ^= 0xFF
+                break
+            off += s["nbytes"]
+        with open(bad, "wb") as f:
+            f.write(bytes(blob))
+    dist.barrier()
+    refusal = None
+    try:
+        restore(bad, tp_model)
+    except SnapshotCorruptError as e:
+        refusal = str(e)
+    if not refusal or "pools.2" not in refusal:
+        failures.append(f"a flipped shard section restored: {refusal}")
+    say(part="snapshot", snapshot_step=SNAPSHOT_EVERY, shards=info["shards"],
+        sections=[s["name"] for s in info["sections"]],
+        snapshot_bytes=saved["nbytes"], save_s=save_s, restore_s=restore_s,
+        fingerprint_equal=same_print, drained_streams_equal=True,
+        corrupt_shard_refusal=refusal, launches=counted)
+
+
+def tp_rank(rank: int, world: int, init_file: str, ref_file: str,
+            out_file: str, tmp: str) -> None:
+    """One rank of phase 5f; rank 0 prints the lines and writes its
+    launches to ``out_file``.  Every part runs to its end; the rank
+    fails after them if a check failed."""
+    import torch.distributed as dist
+
+    from attention_tpu_torch.parallel.serving import serving_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+
+    def say(**record):
+        if rank == 0:
+            emit(phase="tp_serving", **record)
+
+    try:
+        refs = torch.load(ref_file, weights_only=False)
+        launches, failures, seconds = {}, [], {}
+        t0 = time.perf_counter()
+        tp_sharded_ops(rank, say, launches, failures)
+        seconds["ops"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mesh = serving_mesh(world)
+        tp, draft = tp_models(torch.bfloat16, SERVE_MODEL, mesh)
+        tp_generate(rank, say, launches, failures, tp, draft, refs["serve"],
+                    SERVE_BAND, 512, exact=False)
+        del draft
+        seconds["generate"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        greedy = tp_engine(rank, say, launches, failures, tp, refs["serve"],
+                           world, exact=False)
+        tp_gather_share(rank, say, tp)
+        seconds["engine"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tp_snapshot(rank, say, launches, failures, tp, greedy, tmp)
+        seconds["snapshot"] = time.perf_counter() - t0
+        del tp
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        small, small_draft = tp_models(torch.float32, SMALL_MODEL,
+                                       serving_mesh(TP_SMALL_SHARDS))
+        tp_generate(rank, say, launches, failures, small, small_draft,
+                    refs["small"], SMALL_BAND, TP_SMALL_ROWS, exact=True)
+        tp_engine(rank, say, launches, failures, small, refs["small"],
+                  TP_SMALL_SHARDS, exact=True)
+        seconds["small_f32"] = time.perf_counter() - t0
+        say(seconds=seconds, peak_gib=torch.cuda.max_memory_allocated()
+            / 2**30)
+        if failures:
+            raise AssertionError(f"rank {rank}: {failures}")
+        if rank == 0:
+            with open(out_file, "w") as f:
+                json.dump(dict(launches=launches), f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp_serving(kernels, model) -> None:
+    """Spawn phase 5f's gloo world on the card after the single-device
+    side has run; a failed rank fails the phase."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    from attention_tpu_torch.ops._native import BUILD_DIR
+
+    t0 = time.perf_counter()
+    ref = tp_single_device(model)
+    t_single = time.perf_counter() - t0
+    init = os.path.join(BUILD_DIR, f"tp-{os.getpid()}.init")
+    out = os.path.join(BUILD_DIR, f"tp-{os.getpid()}.json")
+    ref_file = os.path.join(BUILD_DIR, f"tp-{os.getpid()}.pt")
+    for stale in (init, out):
+        if os.path.exists(stale):
+            os.remove(stale)
+    torch.save(ref, ref_file)
+    tmp = tempfile.mkdtemp(prefix="tp-snap-")
+    try:
+        mp.spawn(tp_rank, nprocs=TP_WORLD,
+                 args=(TP_WORLD, init, ref_file, out, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.remove(ref_file)
+    with open(out) as f:
+        rec = json.load(f)
+    for kn, c in rec["launches"].items():
+        kernels[kn]["launches"] += c
+    emit(phase="tp_serving", seconds=time.perf_counter() - t0,
+         single_device_seconds=t_single, rank0_launches=rec["launches"])
+
+
 def bwd_work(h, hkv, m, n, d, pairs, item, factor, outs):
     """(bytes, operations) of one backward call: Qs, K, V and dO read
     once in the input dtype, lse and delta once in fp32, ``outs`` (the
@@ -5357,6 +5952,7 @@ def main() -> int:
                          windowed["no_sinks"])
     del windowed
     phase_durability(ops, kernels, model)
+    phase_tp_serving(kernels, model)
     phase_profile(model)
     phase_moe(ops, kernels)
     phase_beam(ops, kernels, model)

@@ -467,7 +467,8 @@ REFUSALS = {
         _small_model(), mesh=_mesh((1, 1, 1)), fsdp=True)),
     "model_cp_moe": (NotImplementedError, "expert", lambda: _small_model(
         cp_axis="sp", mesh=default_mesh("sp"), moe_experts=4)),
-    "model_tp_axis": (NotImplementedError, "shard_params", lambda:
+    # tensor-parallel serving is ported: JAX's refusal without a mesh
+    "model_tp_axis": (ValueError, "tp_axis requires mesh=", lambda:
                       _small_model(tp_axis="tp")),
     "model_ep_axis": (NotImplementedError, "expert", lambda: _small_model(
         ep_axis="ep")),

@@ -1949,3 +1949,120 @@ def test_segment_diff_launches_the_kernels(gen):
                                           flash_bwd.FUSED: 1}
     for t, w in zip(qkv, want):
         assert grad_mismatch(t.grad, w)[1] <= 1
+
+
+# ------------------------------------- tensor-parallel serving (gloo)
+
+TP_CASES = ("decode", "decode_int8", "decode_paged", "prefill",
+            "cache_sharded")
+
+
+def _tp_card_rank(rank, world, init_file, out_dir):
+    """One rank of a 2-rank gloo world on cuda:0: each sharded serving
+    function (bf16, 8 q / 2 kv heads, d 128) with the launches of its
+    call and its single-device call's output; the tp small f32 model's
+    greedy tokens and the mesh engine's streams."""
+    import torch.distributed as dist
+
+    from attention_tpu_torch.engine import EngineConfig, ServingEngine, \
+        replay, synthetic_trace
+    from attention_tpu_torch.models import TinyDecoder, generate, \
+        init_params
+    from attention_tpu_torch.parallel import serving
+    from attention_tpu_torch.parallel.mesh import default_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    torch.manual_seed(0)  # `_paged`'s page order, the same on each rank
+    try:
+        tp, sp = default_mesh("tp"), default_mesh("sp")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(
+                torch.bfloat16)
+
+        lens = torch.tensor([0, 1, 300, 1024], dtype=torch.int32,
+                            device="cuda")
+        q, k, v = randn(4, 8, 128), randn(4, 2, 1024, 128), \
+            randn(4, 2, 1024, 128)
+        int8 = quant.quantize_kv(k, v)
+        paged = _paged(k, v, lens)
+        pq, pk, pv = randn(1, 8, 700, 128), randn(1, 2, 700, 128), \
+            randn(1, 2, 700, 128)
+        calls = {
+            "decode": (lambda: serving.head_sharded_decode(
+                q, k, v, lens, mesh=tp), lambda: flash_decode(q, k, v, lens)),
+            "decode_int8": (lambda: serving.head_sharded_decode_quantized(
+                q, int8, lens, mesh=tp),
+                lambda: quant.flash_decode_quantized(q, int8, lens)),
+            "decode_paged": (lambda: serving.head_sharded_decode_paged(
+                q, paged, mesh=tp), lambda: paged_flash_decode(q, paged)),
+            "prefill": (lambda: serving.head_sharded_prefill(
+                pq, pk, pv, mesh=tp, causal=True),
+                lambda: flash_attention(pq, pk, pv, causal=True)),
+            "cache_sharded": (lambda: serving.cache_sharded_decode(
+                q, k, v, 700, mesh=sp), lambda: flash_decode(q, k, v, 700)),
+        }
+        out = {}
+        for name, (sharded, single) in calls.items():
+            before = launch_counts()
+            got = sharded()
+            torch.cuda.synchronize()
+            after = launch_counts()
+            out[name] = dict(out=got.cpu(), single=single().cpu(),
+                             launches={n: after[n] - before[n]
+                                       for n in after
+                                       if after[n] != before[n]})
+        small = dict(vocab=64, dim=64, depth=2, num_q_heads=4,
+                     num_kv_heads=2, rope=True)
+        model = TinyDecoder(dtype=torch.float32, device="cuda", **small)
+        model.load_state_dict(init_params(model, 0))
+        prompt = torch.randint(1, 64, (2, 40), generator=gen,
+                               device="cuda")
+        out["tokens"] = [generate(m, prompt, steps=8).cpu()
+                         for m in (model.clone(tp_axis="tp", mesh=tp),
+                                   model)]
+        trace = synthetic_trace(5, vocab=64, seed=3, prompt_len_min=4,
+                                prompt_len_max=200, max_tokens=8)
+        out["streams"] = [replay(ServingEngine(model, EngineConfig(
+            **_CARD_ENGINE, mesh_shards=s)), trace)[1] for s in (2, 0)]
+        torch.save(out, f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def tp_card_world(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import torch.multiprocessing as mp
+
+    out = tmp_path_factory.mktemp("tp_card")
+    mp.spawn(_tp_card_rank, nprocs=2, args=(2, str(out / "init"), str(out)))
+    return [torch.load(out / f"rank{r}.pt") for r in range(2)]
+
+
+@pytest.mark.parametrize("name", TP_CASES)
+def test_tp_serving_functions_on_the_card(tp_card_world, name):
+    """Each sharded serving function on a 2-rank gloo world on cuda:0:
+    its kernel launched once a call, within `mismatch` of the
+    single-device call (the kernels' key splits depend on the head
+    count), the same bits on both ranks."""
+    kernel = {"decode_int8": "quant_decode", "decode_paged": "paged_decode",
+              "decode": "decode"}.get(name, "flash_fwd")
+    ranks = [r[name] for r in tp_card_world]
+    assert all(r["launches"] == {kernel: 1} for r in ranks)
+    assert all(mismatch(r["out"], r["single"])[1] <= 1 for r in ranks)
+    assert torch.equal(ranks[0]["out"], ranks[1]["out"])
+
+
+def test_tp_model_and_mesh_engine_on_the_card(tp_card_world):
+    """The small f32 model tp over 2 ranks on cuda:0: greedy tokens and
+    the mesh engine's streams equal the single device's, on both
+    ranks."""
+    for r in tp_card_world:
+        tp_tokens, single = r["tokens"]
+        assert torch.equal(tp_tokens, single)
+        mesh, one = r["streams"]
+        assert mesh == one and all(len(t) == 8 for t in one.values())

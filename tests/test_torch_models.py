@@ -91,11 +91,19 @@ def test_engine_sampled_streams_are_deterministic(small_pair):
 
 
 def test_unported_engine_modes_raise(small_pair):
+    """Mesh serving is ported: without a world of its ranks an engine's
+    ``mesh_shards`` is JAX's typed refusal, and ``tp_axis`` without a
+    mesh JAX's `ValueError`; options still unported raise
+    `NotImplementedError`."""
+    from attention_tpu_torch.parallel import MeshConfigError
+
     model = small_pair[2]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(MeshConfigError, match="available device"):
         ServingEngine(model, EngineConfig(**ENGINE, mesh_shards=2))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="tp_axis requires mesh="):
         TinyDecoder(device="cpu", tp_axis="tp")
+    with pytest.raises(NotImplementedError):
+        ServingEngine(model, EngineConfig(**ENGINE), prefix_store=None)
 
 
 def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):

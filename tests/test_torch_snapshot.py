@@ -167,8 +167,9 @@ def test_jax_restores_port_snapshot_to_jax_streams(pair, cut):
 
 def test_jax_mesh_snapshot_is_a_plain_snapshot_error(pair, cut,
                                                      tmp_path):
-    """A sound snapshot of a mesh engine is refused as `SnapshotError`,
-    not as corrupt: the port serves one device."""
+    """A sound snapshot of a mesh engine, restored in a world without the
+    ranks for its mesh, is refused as `SnapshotError` matching "mesh
+    geometry", not as corrupt."""
     _, paths = cut
     blob = open(paths["jax"], "rb").read()
     nl = blob.find(b"\n")
@@ -186,7 +187,7 @@ def test_jax_mesh_snapshot_is_a_plain_snapshot_error(pair, cut,
                            separators=(",", ":")).encode() + b"\n"
                 + new_meta + blob[nl + 1 + len(meta):])
     assert verify(path) == []
-    with pytest.raises(SnapshotError) as info:
+    with pytest.raises(SnapshotError, match="mesh geometry") as info:
         restore(path, pair[2])
     assert not isinstance(info.value, SnapshotCorruptError)
 

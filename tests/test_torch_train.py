@@ -278,7 +278,9 @@ def test_unported_training_features_raise():
                                  causal=True, block_sizes=(8, 8))
     with pytest.raises(ValueError):
         flash_attention_diff(q, q, q, bwd_impl="mosaic")
-    with pytest.raises(NotImplementedError):
+    # tp_axis is tensor-parallel serving (ported): JAX's refusal of it
+    # without a mesh
+    with pytest.raises(ValueError, match="tp_axis requires mesh="):
         TinyDecoder(device="cpu", tp_axis="tp", **SMALL)
     with pytest.raises(ValueError):
         make_train_step(TinyDecoder(device="cpu", **SMALL), None,
