@@ -64,6 +64,21 @@ goes through its ``*_local`` form in `parallel.serving`, which runs the
 unchanged kernel on the block and all-gathers the output heads, so every
 rank projects the same whole output.  The uncached forward (training,
 ``cp_axis``) is unaffected, as in JAX; the two axes may share one mesh.
+
+The trainer's tensor-parallel layout (`models.train.shard_params` on a
+mesh with a "tp" axis, Megatron's split; ``tp_split`` names the weights
+it split) changes the uncached forward: q, k and v are column-parallel
+over this rank's ``H / tp`` heads (the input enters through
+`parallel.mesh.tp_copy`); where the kv heads do not divide, k and v stay
+whole and each rank projects only its q heads' kv group (the weights
+through `tp_copy`, so that their gradient is whole on every rank); the
+attention (the flash kernels or a context-parallel core) runs on the
+rank's heads, and ``o_proj`` is row-parallel, its partial products
+kept float32 through the sum over tp and rounded once
+(`parallel.mesh.row_parallel_linear`).  Where the q
+heads do not divide, every rank attends over every head and ``o_proj``,
+if it is split, is gathered at use.  Cached calls need whole weights and
+refuse a split layer.
 """
 
 from __future__ import annotations
@@ -74,6 +89,7 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from attention_tpu_torch.ops.decode import flash_decode, flash_decode_chunk
 from attention_tpu_torch.ops.flash import flash_attention
@@ -106,6 +122,11 @@ from attention_tpu_torch.ops.reference import (
 from attention_tpu_torch.ops.rope import apply_rope
 from attention_tpu_torch.parallel import serving
 from attention_tpu_torch.parallel.cp import cp_attention_local
+from attention_tpu_torch.parallel.mesh import (
+    gather_whole,
+    row_parallel_linear,
+    tp_copy,
+)
 from attention_tpu_torch.parallel.ring import ring_diff_local, \
     zigzag_diff_local
 from attention_tpu_torch.parallel.ulysses import ulysses_local
@@ -405,17 +426,64 @@ class GQASelfAttention(nn.Module):
         self.k_proj = nn.Linear(dim, num_kv_heads * head_dim, **kw)
         self.v_proj = nn.Linear(dim, num_kv_heads * head_dim, **kw)
         self.o_proj = nn.Linear(num_q_heads * head_dim, dim, **kw)
+        #: set by `models.train.shard_params`: the mesh whose "tp" axis
+        #: splits this layer's weights, and the names of those it splits
+        self.tp_mesh, self.tp_split = None, frozenset()
+
+    def _split_projections(self, x: torch.Tensor):
+        """q, k and v of this rank's q heads and their kv group under
+        the trainer's tp split (see the module docstring)."""
+        w = [m.weight for m in (self.q_proj, self.k_proj, self.v_proj)]
+        mesh = self.tp_mesh
+        if "k_proj.weight" not in self.tp_split:
+            # kv heads whole: keep those this rank's q heads read
+            rows = self._kv_rows()
+            hd = self.head_dim
+            w[1:] = (tp_copy(t, mesh, "tp").view(self.num_kv_heads, hd, -1)
+                     [rows].reshape(len(rows) * hd, -1) for t in w[1:])
+        x = tp_copy(x, mesh, "tp")
+        return tuple(F.linear(x, t) for t in w)
+
+    def _kv_rows(self) -> list[int]:
+        """The kv heads this rank's block of q heads reads, in order: the
+        group of each whole group, one head for a block inside a group,
+        else one kv head per q head (plain multi-head)."""
+        n, r = self.tp_mesh.shape["tp"], self.tp_mesh.index("tp")
+        local = self.num_q_heads // n
+        group = self.num_q_heads // self.num_kv_heads
+        reads = [h // group for h in range(r * local, (r + 1) * local)]
+        heads = sorted(set(reads))
+        if local % len(heads) == 0 and reads == [
+                h for h in heads for _ in range(local // len(heads))]:
+            return heads
+        return reads
+
+    def _project_out(self, out: torch.Tensor) -> torch.Tensor:
+        if "o_proj.weight" not in self.tp_split:
+            return self.o_proj(out)
+        mesh = self.tp_mesh
+        if "q_proj.weight" in self.tp_split:
+            return row_parallel_linear(out, self.o_proj.weight, mesh, "tp")
+        # every head on every rank: the split weight gathered at use
+        return F.linear(out, gather_whole(self.o_proj.weight, mesh, "tp", 1))
 
     def forward(self, x: torch.Tensor, cache=None):
         b, s, _ = x.shape
         hd = self.head_dim
+        if self.tp_split and cache is not None:
+            raise ValueError(
+                "cached calls need whole weights; this layer's "
+                f"{sorted(self.tp_split)} are split over tp by shard_params "
+                "(serve with tp_axis= on whole weights)")
 
-        def heads(t, n):  # (B, S, n*hd) -> (B, n, S, hd)
-            return t.view(b, s, n, hd).transpose(1, 2)
+        def heads(t):  # (B, S, n*hd) -> (B, n, S, hd)
+            return t.view(b, s, -1, hd).transpose(1, 2)
 
-        q = heads(self.q_proj(x), self.num_q_heads)
-        k = heads(self.k_proj(x), self.num_kv_heads)
-        v = heads(self.v_proj(x), self.num_kv_heads)
+        if "q_proj.weight" in self.tp_split:
+            q, k, v = map(heads, self._split_projections(x))
+        else:
+            q, k, v = (heads(m(x))
+                       for m in (self.q_proj, self.k_proj, self.v_proj))
         if self.tp_axis is not None and cache is not None:
             # this rank's head block: its caches hold only these heads
             q, k, v = (serving.head_block(t, self.mesh, self.tp_axis)
@@ -477,7 +545,7 @@ class GQASelfAttention(nn.Module):
             raise NotImplementedError(
                 f"cache type {type(cache).__name__} is not ported yet")
         out = out.transpose(1, 2).reshape(b, s, -1)
-        proj = self.o_proj(out.to(x.dtype))
+        proj = self._project_out(out.to(x.dtype))
         return proj if cache is None else (proj, cache)
 
     def _cp_attention(self, q, k, v):

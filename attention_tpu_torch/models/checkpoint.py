@@ -11,6 +11,15 @@ directory without the marker (a torn write, or a foreign one) is not a
 checkpoint: `complete_steps` and `latest_step` skip it, and
 `restore_checkpoint` walks the complete steps newest first past any that
 fails to load.
+
+A model laid out on a mesh (`models.train.shard_params`, ``model.layout``)
+checkpoints in the same format: every rank all-gathers the whole float32
+masters and moments (a collective), rank 0 writes them by the same
+protocol, and a barrier follows, so that no rank reads or dies before the
+step is durable.  Restore loads the whole tensors on every rank and cuts
+each rank's block for the mesh and ``fsdp`` it runs now, as JAX's orbax
+restore lays global arrays out on the caller's template: a checkpoint
+written on one mesh restores on any other, or on one device.
 """
 
 from __future__ import annotations
@@ -21,8 +30,10 @@ import shutil
 import tempfile
 
 import torch
+import torch.distributed as dist
 
 from attention_tpu_torch.models.train import MasterAdamW
+from attention_tpu_torch.parallel.mesh import _world
 
 _logger = logging.getLogger(__name__)
 
@@ -50,20 +61,48 @@ def _fsync(path: str) -> None:
         os.close(fd)
 
 
+def _whole_state(model, optimizer: MasterAdamW) -> dict:
+    """The masters and the optimizer's state as whole tensors on the
+    host: gathered from every rank's block under a layout (every rank
+    calls this, in the same order)."""
+    layout = getattr(model, "layout", None)
+
+    def whole(name, t):
+        t = t.detach()
+        return (t if layout is None else layout.whole(name, t)).cpu()
+
+    masters = {n: whole(n, m) for n, m in _masters(model, optimizer).items()}
+    opt = optimizer.state_dict()
+    names = [n for n, _ in optimizer.named]
+    # the packed state's dicts are the optimizer's own: copies are changed
+    opt["state"] = {i: {**st, **{key: whole(names[i], st[key])
+                                 for key in ("exp_avg", "exp_avg_sq")}}
+                    for i, st in opt["state"].items()}
+    return {"masters": masters, "optimizer": opt}
+
+
 def save_checkpoint(ckpt_dir: str | os.PathLike, step: int, model,
                     optimizer: MasterAdamW) -> str:
     """Write an atomic checkpoint of ``step`` of ``model`` trained by
     ``optimizer`` (`init_train`'s; an existing checkpoint of that step
-    is replaced); returns its path."""
+    is replaced); returns its path.  Collective under a layout: every
+    rank calls it, rank 0 writes, and a barrier follows; without one the
+    caller writes, whatever its rank."""
     ckpt_dir = os.path.abspath(os.fspath(ckpt_dir))
-    os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, str(step))
+    state = {"step": step, **_whole_state(model, optimizer)}
+    laid_out = getattr(model, "layout", None) is not None
+    if not laid_out or _world()[1] == 0:
+        _write(ckpt_dir, path, step, state)
+    if laid_out and dist.is_initialized():
+        dist.barrier()
+    return path
+
+
+def _write(ckpt_dir: str, path: str, step: int, state: dict) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=f".tmp-{step}-", dir=ckpt_dir)
     try:
-        state = {"step": step,
-                 "masters": {n: m.detach().cpu() for n, m in
-                             _masters(model, optimizer).items()},
-                 "optimizer": optimizer.state_dict()}
         torch.save(state, os.path.join(tmp, STATE))
         with open(os.path.join(tmp, COMPLETE), "w") as f:
             f.write(f"{step}\n")
@@ -77,7 +116,6 @@ def save_checkpoint(ckpt_dir: str | os.PathLike, step: int, model,
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     _fsync(ckpt_dir)
-    return path
 
 
 def _is_complete(path: str) -> bool:
@@ -110,10 +148,20 @@ def _restore(path: str, model, optimizer: MasterAdamW) -> int:
     if sorted(state["masters"]) != sorted(masters):
         raise ValueError(f"{path}: parameters {sorted(state['masters'])} "
                          f"do not match the model's {sorted(masters)}")
+    layout = getattr(model, "layout", None)
+
+    def block(name, whole):
+        return whole if layout is None else layout.block(name, whole)
+
     with torch.no_grad():
         for name, m in masters.items():
-            m.copy_(state["masters"][name])
-    optimizer.load_state_dict(state["optimizer"])
+            m.copy_(block(name, state["masters"][name]))
+    opt = state["optimizer"]
+    names = [n for n, _ in optimizer.named]
+    for i, st in opt["state"].items():
+        for key in ("exp_avg", "exp_avg_sq"):
+            st[key] = block(names[i], st[key])
+    optimizer.load_state_dict(opt)
     optimizer.sync()
     return int(state["step"])
 

@@ -6,8 +6,11 @@ simply call again: the loop finds the newest checkpoint and continues
 where it left off.  Data is a pure function of the global step
 (``batch_fn(step)``), so an interrupted and resumed run reproduces the
 uninterrupted one bit for bit on the same device, wherever its backward
-gives the same bits every call.  The JAX package's ``mesh`` and
-``fsdp`` are not ported: this loop trains on one device.
+gives the same bits every call.  On a ``mesh`` (JAX's signature) every
+rank calls the loop with the same arguments and passes the whole batch;
+the parameters are laid out by `init_train(mesh=, fsdp=)` and the
+checkpoints hold the whole state (`models.checkpoint`), so a run may
+resume on another mesh or ``fsdp`` setting.
 """
 
 from __future__ import annotations
@@ -24,10 +27,12 @@ from attention_tpu_torch.models.checkpoint import (
 )
 from attention_tpu_torch.models.train import init_train, make_train_step
 from attention_tpu_torch.models.transformer import TinyDecoder
+from attention_tpu_torch.parallel.mesh import Mesh
 
 
 def train_with_recovery(
     model: TinyDecoder,
+    mesh: Mesh | None,
     batch_fn: Callable[[int], torch.Tensor],  # step -> (B, S+1) tokens
     *,
     steps: int,
@@ -36,6 +41,7 @@ def train_with_recovery(
     seed: int = 0,
     lr: float = 1e-3,
     accum_steps: int = 1,
+    fsdp: bool = False,
     on_step: Callable[[int, float], None] | None = None,
 ):
     """Run (or resume) training of ``model`` to ``steps``; returns
@@ -45,15 +51,18 @@ def train_with_recovery(
     ``on_step(step, loss)`` fires after each optimizer update and after
     the checkpoint it may write (fault injection in tests, logging in
     real use).  A crash anywhere, between a checkpoint and the next
-    included, then another call, replays from the last checkpoint."""
+    included, then another call, replays from the last checkpoint.
+    ``mesh`` None trains on one device; on a mesh (with ``fsdp``) the
+    model's parameters are laid out on it as `init_train` lays them."""
     if ckpt_every < 1:
         raise ValueError(f"ckpt_every must be >= 1, got {ckpt_every}")
-    optimizer = init_train(model, seed=seed, lr=lr)
+    optimizer = init_train(model, seed=seed, lr=lr, mesh=mesh, fsdp=fsdp)
     start = 0
     last = latest_step(ckpt_dir)
     if last is not None:
         start = restore_checkpoint(ckpt_dir, model, optimizer, step=last)
-    step_fn = make_train_step(model, optimizer, accum_steps=accum_steps)
+    step_fn = make_train_step(model, optimizer, mesh,
+                              accum_steps=accum_steps)
     losses = []
     for step in range(start, steps):
         loss = step_fn(batch_fn(step).to(model.device)).item()

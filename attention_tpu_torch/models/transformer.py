@@ -8,6 +8,16 @@ compute in the model dtype, the norms, the MoE router and the head in
 float32.  Weights come from `init_params` (seeded, on the model's
 device) or from the JAX package's flax params through
 `models.convert.params_from_jax`.
+
+Under the trainer's tensor-parallel layout (`models.train.shard_params`
+on a mesh with a "tp" axis) each rank holds its block of the weights and
+the uncached forward runs Megatron's split: the MLP column-parallel up
+and row-parallel down, the embedding vocab-parallel (a masked lookup of
+this rank's rows, summed over tp), the attention on this rank's heads
+(`attention_layer`), the MoE experts on their block (`moe`); `features`
+stops before the float32 head, whose vocab-parallel cross entropy the
+trainer takes without building whole logits, and ``forward`` gathers
+the head's vocab blocks into whole logits.
 """
 
 from __future__ import annotations
@@ -27,6 +37,12 @@ from attention_tpu_torch.models.attention_layer import (
     check_impl,
 )
 from attention_tpu_torch.models.moe import MoEMLP
+from attention_tpu_torch.parallel.mesh import (
+    gather_whole,
+    row_parallel_linear,
+    tp_copy,
+    tp_reduce,
+)
 
 RMS_EPS = 1e-6  # flax.linen.RMSNorm's default epsilon
 
@@ -51,9 +67,18 @@ class MLP(nn.Module):
         kw = dict(bias=False, dtype=dtype, device=device)
         self.up = nn.Linear(dim, dim * hidden_mult, **kw)
         self.down = nn.Linear(dim * hidden_mult, dim, **kw)
+        #: set by `models.train.shard_params`: the mesh whose "tp" axis
+        #: splits the hidden dim of both weights, and their names
+        self.tp_mesh, self.tp_split = None, frozenset()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down(F.gelu(self.up(x), approximate="tanh"))
+        if not self.tp_split:
+            return self.down(F.gelu(self.up(x), approximate="tanh"))
+        # column-parallel up, row-parallel down, summed in float32
+        mesh = self.tp_mesh
+        h = F.gelu(F.linear(tp_copy(x, mesh, "tp"), self.up.weight),
+                   approximate="tanh")
+        return row_parallel_linear(h, self.down.weight, mesh, "tp")
 
 
 class TransformerBlock(nn.Module):
@@ -73,7 +98,8 @@ class TransformerBlock(nn.Module):
                  moe_experts: int | None = None, moe_top_k: int = 2,
                  moe_capacity_factor: float = 1.25,
                  cp_axis: str | None = None, cp_impl: str = "allgather",
-                 tp_axis: str | None = None, mesh=None, device):
+                 tp_axis: str | None = None, ep_axis: str | None = None,
+                 mesh=None, device):
         super().__init__()
         self.norm1 = RMSNorm(dim, dtype=dtype, device=device)
         self.attn = GQASelfAttention(
@@ -84,7 +110,8 @@ class TransformerBlock(nn.Module):
             device=device)
         self.norm2 = RMSNorm(dim, dtype=dtype, device=device)
         self.mlp = (MoEMLP(dim, moe_experts, top_k=moe_top_k,
-                           capacity_factor=moe_capacity_factor, dtype=dtype,
+                           capacity_factor=moe_capacity_factor,
+                           ep_axis=ep_axis, mesh=mesh, dtype=dtype,
                            device=device)
                     if moe_experts else MLP(dim, dtype=dtype, device=device))
 
@@ -133,10 +160,13 @@ class TinyDecoder(nn.Module):
     `init_caches` (and the engine's pools) hold only the rank's block.
     Every generate function, beam search and speculative decoding run
     on such a model; the uncached forward is the single-device one, or
-    ``cp_axis``'s, which may share the mesh.  Options of the JAX model
-    that the port does not have yet raise `NotImplementedError`:
-    ``ep_axis`` (expert parallelism) and ``cp_axis`` on a mixture of
-    experts, ROADMAP.md Queue 1 item 5."""
+    ``cp_axis``'s, which may share the mesh.
+
+    ``ep_axis`` (an axis of ``mesh``, JAX's `ValueError` if the mesh
+    lacks it) splits each MoE layer's experts over that axis (`MoEMLP`);
+    the trainer splits them over "tp" in any case (`shard_params`).  A
+    mixture of experts trains on any mesh, ``cp_axis`` included, with
+    JAX's global capacity, slots and aux loss."""
 
     def __init__(self, vocab: int = 256, dim: int = 256, depth: int = 2,
                  num_q_heads: int = 8, num_kv_heads: int = 2,
@@ -147,22 +177,12 @@ class TinyDecoder(nn.Module):
                  moe_experts: int | None = None, moe_top_k: int = 2,
                  moe_capacity_factor: float = 1.25,
                  cp_axis: str | None = None, cp_impl: str = "allgather",
-                 tp_axis: str | None = None, mesh=None,
-                 device: str | torch.device = "cuda", **unported):
+                 tp_axis: str | None = None, ep_axis: str | None = None,
+                 mesh=None, device: str | torch.device = "cuda"):
         # every constructor argument but the device: what `clone` rebuilds
         config = {name: value for name, value in locals().items()
                   if name in _CLONED_PARAMS}
         super().__init__()
-        if unported:
-            raise NotImplementedError(
-                f"TinyDecoder options not ported yet: {sorted(unported)}: "
-                "ep_axis comes with expert parallelism, ROADMAP.md Queue 1 "
-                "item 5")
-        if cp_axis is not None and moe_experts:
-            raise NotImplementedError(
-                "cp_axis with moe_experts: the router's statistics would be "
-                "per sequence shard; it comes with expert parallelism, "
-                "ROADMAP.md Queue 1 item 5")
         check_impl(impl)
         self._config = config
         device = resolve_device(device)
@@ -180,7 +200,12 @@ class TinyDecoder(nn.Module):
         self.remat = remat
         self.moe_experts = moe_experts
         self.cp_axis, self.cp_impl, self.mesh = cp_axis, cp_impl, mesh
-        self.tp_axis = tp_axis
+        self.tp_axis, self.ep_axis = tp_axis, ep_axis
+        #: set by `models.train.shard_params`: the trainer's `ParamLayout`,
+        #: the mesh whose "tp" axis splits the embedding's and the head's
+        #: vocab, and which of the two it splits
+        self.layout = None
+        self.tp_mesh, self.tp_split = None, frozenset()
         self.head_dim = dim // num_q_heads
         self.embed = nn.Embedding(vocab, dim, dtype=dtype, device=device)
         self.blocks = nn.ModuleList(
@@ -191,7 +216,8 @@ class TinyDecoder(nn.Module):
                              moe_experts=moe_experts, moe_top_k=moe_top_k,
                              moe_capacity_factor=moe_capacity_factor,
                              cp_axis=cp_axis, cp_impl=cp_impl,
-                             tp_axis=tp_axis, mesh=mesh, device=device)
+                             tp_axis=tp_axis, ep_axis=ep_axis, mesh=mesh,
+                             device=device)
             for _ in range(depth))
         self.norm = RMSNorm(dim, dtype=dtype, device=device)
         self.head = nn.Linear(dim, vocab, bias=False, dtype=torch.float32,
@@ -220,7 +246,33 @@ class TinyDecoder(nn.Module):
 
     def forward(self, tokens: torch.Tensor, caches=None,
                 return_aux: bool = False):
-        x = self.embed(tokens)
+        h, new_caches, aux = self.features(tokens, caches)
+        if "head.weight" in self.tp_split:
+            mesh = self.tp_mesh
+            logits = gather_whole(
+                F.linear(tp_copy(h, mesh, "tp"), self.head.weight), mesh,
+                "tp", -1)
+        else:
+            logits = self.head(h)
+        out = logits if caches is None else (logits, new_caches)
+        return (out, aux) if return_aux else out
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        if "embed.weight" not in self.tp_split:
+            return self.embed(tokens)
+        # vocab-parallel: this rank's rows looked up, the rest zero, the
+        # ranks' rows summed (exactly: one of them is not zero)
+        mesh, w = self.tp_mesh, self.embed.weight
+        local = tokens - mesh.index("tp") * w.shape[0]
+        inside = (local >= 0) & (local < w.shape[0])
+        rows = F.embedding(local.clamp(0, w.shape[0] - 1), w)
+        return tp_reduce(torch.where(inside[..., None], rows, 0), mesh, "tp")
+
+    def features(self, tokens: torch.Tensor, caches=None):
+        """(the final norm's output in float32 (B, S, D), the new caches
+        (a tuple; empty on an uncached call), the sum of the blocks' MoE
+        aux losses): the forward up to the logits head."""
+        x = self._embed(tokens)
         new_caches, aux = [], 0.0
         for i, block in enumerate(self.blocks):
             if caches is None:
@@ -233,9 +285,7 @@ class TinyDecoder(nn.Module):
                 new_caches.append(c)
             if block_aux is not None:
                 aux = aux + block_aux
-        logits = self.head(self.norm(x).float())
-        out = logits if caches is None else (logits, tuple(new_caches))
-        return (out, aux) if return_aux else out
+        return self.norm(x).float(), tuple(new_caches), aux
 
     def init_caches(self, batch: int, capacity: int,
                     cache_dtype: torch.dtype | None = None,
@@ -264,7 +314,7 @@ class TinyDecoder(nn.Module):
 #: the `TinyDecoder` constructor's arguments that `TinyDecoder.clone`
 #: carries over: all but the device (a clone shares the parameters)
 _CLONED_PARAMS = frozenset(inspect.signature(TinyDecoder).parameters) \
-    - {"device", "unported"}
+    - {"device"}
 
 
 def _fan_in(name: str, shape: torch.Size) -> int:

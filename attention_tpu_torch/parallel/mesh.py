@@ -32,6 +32,17 @@ of the whole gradient and that of `shard_whole` all-gathers the blocks,
 with no sum, since every rank computes the same loss of the same whole
 output.
 
+Tensor parallelism (the trainer's Megatron split of the projections)
+adds the pair `tp_copy` (identity forward, all-reduce backward: a
+replicated tensor entering weights split over the axis) and `tp_reduce`
+(all-reduce forward in float32, identity backward: partial products),
+and `row_parallel_linear`, which carries each rank's float32
+accumulator into the sum so that the result is rounded once, as one
+device's product is.  FSDP adds `Mesh.reduce_scatter` (each rank's
+block of the sum), which has one route on every backend and device: an
+all_reduce of the whole and this rank's slice (gloo has no
+reduce-scatter for CUDA tensors).
+
 gloo runs a world of several ranks on one card (NCCL refuses two ranks
 on one device).  It takes CUDA tensors for some collectives and not for
 others; `GLOO_CUDA_ROUTES` fixes, per collective, whether the device
@@ -143,6 +154,21 @@ class Mesh:
             y = self._staged("all_reduce", x, copy=True)
             dist.all_reduce(y, op=_REDUCE_OPS[op], group=self._groups[axis])
             return y.to(x.device)
+
+    def reduce_scatter(self, x: torch.Tensor, axis: str,
+                       dim: int) -> torch.Tensor:
+        """This rank's block along ``dim`` (a multiple of the axis's size)
+        of the sum of ``x`` over the ranks along ``axis``
+        (``lax.psum_scatter(..., tiled=True)``), by one route on every
+        backend and device: an all_reduce of the whole and this rank's
+        slice, so that FSDP's gradient is the bits of the replicated
+        one."""
+        r = self.shape[axis]
+        if r == 1:
+            return x
+        width = x.shape[dim] // r
+        whole = self.all_reduce(x, axis, "sum")
+        return whole.narrow(dim, self.index(axis) * width, width).contiguous()
 
     def all_gather(self, x: torch.Tensor, axis: str,
                    dim: int) -> torch.Tensor:
@@ -266,6 +292,96 @@ class _GatherWhole(torch.autograd.Function):
         width = g.shape[dim] // mesh.shape[axis]
         return (g.narrow(dim, mesh.index(axis) * width, width), None, None,
                 None)
+
+
+class _TPCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.args = (mesh, axis)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis = ctx.args
+        return _sum_float32(g, mesh, axis), None, None
+
+
+class _TPReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _sum_float32(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def _sum_float32(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The sum of ``x`` over ``axis`` taken in float32 and rounded once to
+    ``x``'s dtype: a bf16 sum over ranks would round at every add."""
+    return mesh.all_reduce(x.float(), axis, "sum").to(x.dtype)
+
+
+def tp_copy(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """Megatron's ``f``: ``x`` as it is, whose gradient is summed over
+    ``axis`` (in float32, rounded once).  A tensor that every rank along
+    the axis holds alike goes through it before weights split over the
+    axis (column-parallel), so that each rank's partial gradient of it
+    adds up to the whole."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _TPCopy.apply(x, mesh, axis)
+
+
+def tp_reduce(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """Megatron's ``g``: the sum of the ranks' partial ``x`` over
+    ``axis`` (in float32, rounded once to ``x``'s dtype), whose gradient
+    passes to each rank as it is.  Row-parallel products end with it."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _TPReduce.apply(x, mesh, axis)
+
+
+def _product_float32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (2-D) accumulated and returned in float32."""
+    if x.dtype == torch.float32:
+        return x @ w
+    if x.is_cuda:
+        return torch.mm(x, w, out_dtype=torch.float32)
+    # the CPU's matmul has no float32 output for bf16 operands: the
+    # operands widened exactly give the same products and sums
+    return x.float() @ w.float()
+
+
+class _Float32Product(torch.autograd.Function):
+    """``x @ w.T`` of bf16 (or f16) operands, accumulated and returned in
+    float32; the backward is a ``Linear``'s in the operands' dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _product_float32(x.reshape(-1, x.shape[-1]), w.T).view(
+            *x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return g @ w, g.reshape(-1, g.shape[-1]).T @ x.reshape(
+            -1, x.shape[-1])
+
+
+def row_parallel_linear(x: torch.Tensor, weight: torch.Tensor, mesh: Mesh,
+                        axis: str) -> torch.Tensor:
+    """A row-parallel product: this rank's input block ``x`` (..., k / n)
+    times its block of a weight split on its input dim (out, k / n),
+    summed over ``axis``.  Each rank's partial stays float32 through the
+    sum (`tp_reduce`) and the result is rounded once to ``x``'s dtype, as
+    the single device's product rounds its float32 accumulator once."""
+    if x.dtype == torch.float32:
+        return tp_reduce(torch.nn.functional.linear(x, weight), mesh, axis)
+    return tp_reduce(_Float32Product.apply(x, weight), mesh,
+                     axis).to(x.dtype)
 
 
 def all_to_all_diff(x: torch.Tensor, mesh: Mesh, axis: str, split_dim: int,

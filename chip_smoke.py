@@ -178,6 +178,34 @@ non-zero unless all of them pass:
             small f32 model (the FMA bodies) under each `cp_impl` against
             its single-device step on the card: loss 1e-5 relative,
             gradients 3e-5.
+3d. mesh training the trainer's parameter layouts (JAX's `shard_params`
+            table, Megatron's tp split, FSDP, experts over tp) on a gloo
+            world of 4 ranks on the one card, after each model's
+            single-device run on the card alone.  At the serving widths,
+            `CP_TRAIN_STEPS` steps each: the dense model (depth 2) on
+            (dp, sp, tp) = (1, 1, 4) and on (2, 1, 2) with FSDP (4 x 2049
+            tokens), on (1, 2, 2) with the ring over sp (1 x 8193), and
+            the MoE model (`SERVE_MOE`, depth 1) on (2, 1, 2) with FSDP:
+            step 1's loss within `CP_LOSS_RTOL` of the single device's,
+            step 2's within `CP_STEP2_RTOL` (the MoE run's within
+            `MESH_MOE_STEP2_RTOL`: top-k routing turns any reordering of
+            the forward into other choices for tokens whose top two
+            nearly tie; the single device's own ``impl="xla"`` run's
+            distance is printed beside it), every parameter's whole
+            step-1 gradient norm within `CP_GRAD_NORM_RTOL`, the losses
+            the same on every rank, each parameter block the same bits on
+            every rank that holds it, the flash forward and the fused
+            backward exactly once a layer a step on each rank (twice under
+            the ring); step ms beside the single device's, the
+            collectives' share of the second step, each rank's peak and
+            float32 state bytes (masters and moments) beside the single
+            device's (about 1 / (dp·tp) under FSDP, or the phase fails).
+            Then `train_with_recovery(model, mesh, ..., fsdp=True)` of the
+            small bf16 model on (2, 1, 2) on the dQ + dK/dV pair: run to
+            `RECOVERY_STEPS`; again, every rank dying after
+            `RECOVERY_CRASH` steps (exit 17, the world's every rank); a
+            second world resumes from the checkpoint, its losses and
+            whole masters the uninterrupted run's bits, launches exact.
 4. generate `TinyDecoder` at the BASELINE.md config-5 attention geometry
             (32 q / 4 kv heads, head_dim 128, dim 4096), depth 4, vocab
             32000, rope, softcap 50, bf16, random weights from a seed:
@@ -353,12 +381,13 @@ non-zero unless all of them pass:
 Launch counts are reset just before each run of a path (op path, the
 int4 entry points, each distributed backend's run on each rank, each
 phase 3c path and training run on each rank, each generate function,
-the chunk verify, each serving run, each stretch of the durability
+the chunk verify, each phase 3d run and recovery run on each rank,
+each serving run, each stretch of the durability
 phase's engines, each phase 5f call, run and drain on each rank, each
 training run, each beam, fork,
 speculative and encoder-decoder run, each packed
 `flash_attention_diff` run) and read just after it (the MoE model's
-generate and serving runs too); rank 0's distributed and phase 3c
+generate and serving runs too); rank 0's distributed and phase 3c, 3d
 and phase 5f launches join the kernels' counts.  Kernel times are CUDA-event
 medians after warm-up, over back-to-back calls of the wrapper, so a call
 whose host work outlasts its kernels is timed by its host work.  The second-to-last stdout line is the
@@ -372,6 +401,7 @@ import contextlib
 import io
 import json
 import os
+import pickle
 import re
 import statistics
 import subprocess
@@ -581,6 +611,39 @@ TRAIN_GRAD_REL_TOL = 2.0 ** -6
 # gradient is near 0)
 TRAIN_F32_LOSS_TOL = 1e-5
 TRAIN_F32_STEP_LOSS_TOL = 1e-4
+# phase 3d: the trainer's parameter layouts on a gloo world of ranks on
+# the one card, at the serving widths (depth is the only cut), each run
+# CP_TRAIN_STEPS steps held to its single-device run on the card by phase
+# 3c's tolerances: (run, model, (dp, sp, tp), model keywords, fsdp,
+# batch); the MoE run's step 2 is held to MESH_MOE_STEP2_RTOL instead.
+# The MoE run is cut to depth 1: at depth 2 one device needs
+# about 55 GB alone (SERVE_MOE's comment); depth 1 is 1.4e9 parameters,
+# about 28 GB on one device, and 4 FSDP ranks of it hold a quarter of the
+# state each (about 4.9 GB) beside the gathered tp block and its gradients
+MESH_WORLD = 4
+MESH_MOE_DEPTH = 1
+# top-2 routing turns any reordering of the forward into other choices
+# where a token's top two nearly tie, and step 1's update carries them
+# into step 2: on the H100 the MoE mesh run's step 2 read 6.8e-4-8.4e-4
+# from the single device's, the single device's own impl="xla" run
+# 3.1e-3 (printed beside it as the witness of such a reordering), so the
+# bar sits between the two
+MESH_MOE_STEP2_RTOL = 2e-3
+MESH_RUNS = (
+    ("tp4", "dense", (1, 1, 4), {}, False, TRAIN_BATCH),
+    ("dp2_tp2_fsdp", "dense", (2, 1, 2), {}, True, TRAIN_BATCH),
+    ("sp2_tp2_ring", "dense", (1, 2, 2), dict(cp_axis="sp", cp_impl="ring"),
+     False, (1, 8193)),
+    ("moe_dp2_tp2_fsdp", "moe", (2, 1, 2), dict(ep_axis="tp"), True,
+     TRAIN_BATCH))
+# phase 3d's train_with_recovery check: the small model in bf16 on the
+# dQ + dK/dV pair (deterministic bits), (2, 1, 2) with FSDP, RECOVERY_STEPS
+# steps of (4, 129) tokens, a checkpoint every RECOVERY_EVERY; every rank
+# of the first world dies after RECOVERY_CRASH steps, a second resumes
+RECOVERY_STEPS = 4
+RECOVERY_EVERY = 2
+RECOVERY_CRASH = 3
+RECOVERY_BATCH = (4, 129)
 
 
 def emit(**record) -> None:
@@ -2679,6 +2742,424 @@ def phase_cp_training(kernels) -> None:
     for kn, c in rec["launches"].items():
         kernels[kn]["launches"] += c
     emit(phase="cp_training", seconds=time.perf_counter() - t0,
+         single_device=single, rank0_launches=rec["launches"])
+
+
+# ------------------------------------------- phase 3d: mesh training layouts
+
+
+def mesh_model_kw(kind: str) -> dict:
+    """Phase 3d's model at the serving widths: dense at `CP_TRAIN_DEPTH`,
+    or `SERVE_MOE` at `MESH_MOE_DEPTH`."""
+    if kind == "moe":
+        return dict(SERVE_MODEL, depth=MESH_MOE_DEPTH, **SERVE_MOE)
+    return dict(SERVE_MODEL, depth=CP_TRAIN_DEPTH)
+
+
+def mesh_batch(shape) -> torch.Tensor:
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    return torch.randint(0, SERVE_MODEL["vocab"], shape, generator=gen,
+                         device="cuda")
+
+
+def mesh_single_device() -> dict:
+    """The single-device runs beside phase 3d's, on the card alone before
+    the world starts: each (model, batch) of `MESH_RUNS` trained
+    `CP_TRAIN_STEPS` steps of `make_train_step` from the seeded start:
+    {key: {losses, step 1's gradient norms, step ms, peak GiB, float32
+    state bytes}}.  The MoE model also runs with ``impl="xla"`` (the
+    attention in PyTorch ops: a sound reordering of the forward), whose
+    distance from the kernels' run (``"xla"``: each step's loss and the
+    worst gradient norm, relative) bounds its mesh run's step 2."""
+    from attention_tpu_torch.models import (
+        TinyDecoder,
+        init_train,
+        make_train_step,
+    )
+
+    out = {}
+    for _, kind, _, _, _, shape in MESH_RUNS:
+        key = f"{kind}_{shape[0]}x{shape[1]}"
+        if key in out:
+            continue
+        for impl in ("flash", "xla") if kind == "moe" else ("flash",):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            model = TinyDecoder(dtype=torch.bfloat16, device="cuda",
+                                impl=impl, **mesh_model_kw(kind))
+            optimizer = init_train(model, seed=SEED, lr=TRAIN_LR)
+            step = make_train_step(model, optimizer)
+            batch = mesh_batch(shape)
+            losses, step_ms = [], []
+            for _ in range(CP_TRAIN_STEPS):
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in "se")
+                start.record()
+                losses.append(step(batch).item())
+                end.record()
+                end.synchronize()
+                step_ms.append(start.elapsed_time(end))
+                if len(losses) == 1:
+                    norms = grad_norms(optimizer)
+            if impl == "xla":
+                one = out[key]
+                one["xla"] = dict(
+                    losses=losses,
+                    rel_err=[abs(a - b) / abs(b)
+                             for a, b in zip(losses, one["losses"])],
+                    grad_norm_rel_err=max(
+                        abs(norms[n] - x) / x
+                        for n, x in one["grad_norms"].items()))
+            else:
+                out[key] = dict(
+                    losses=losses, grad_norms=norms, step_ms=step_ms,
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                    state_bytes=state_bytes(optimizer))
+            del model, optimizer, step
+            torch.cuda.empty_cache()
+    return out
+
+
+def state_bytes(optimizer) -> int:
+    """The bytes of a `MasterAdamW`'s float32 masters and moments on this
+    rank."""
+    total = 0
+    for _, m in optimizer.pairs():
+        total += m.numel() * m.element_size()
+        total += sum(t.numel() * t.element_size()
+                     for k, t in optimizer.state[m].items() if k != "step")
+    return total
+
+
+def mesh_grad_norms(optimizer, layout) -> dict:
+    """{name: L2 norm of the whole float32 gradient} from this rank's
+    blocks (each master's ``.grad``): the blocks' sums of squares summed
+    over every axis that splits the parameter (a replicated value divided
+    by the axis's size first, exactly), then the root."""
+    names = [n for n, _ in optimizer.named]
+    sq = torch.stack([optimizer.masters[n].grad.double().square().sum()
+                      for n in names])
+    for axis in ("dp", "sp", "tp"):
+        size = layout.mesh.shape.get(axis, 1)
+        if size == 1:
+            continue
+        split = torch.tensor([layout.split(n, axis) for n in names],
+                             device=sq.device)
+        sq = layout.mesh.all_reduce(torch.where(split, sq, sq / size), axis)
+    return {n: v.sqrt().item() for n, v in zip(names, sq)}
+
+
+def mesh_train(rank: int, world: int, say, launches: dict, single: dict,
+               failures: list) -> None:
+    """Phase 3d's runs (`MESH_RUNS`): each model trained `CP_TRAIN_STEPS`
+    steps on its mesh, held to its single-device run: step 1's loss
+    within `CP_LOSS_RTOL`, step 2's within `CP_STEP2_RTOL` (the MoE
+    run's within `MESH_MOE_STEP2_RTOL`), every parameter's whole step-1
+    gradient norm within `CP_GRAD_NORM_RTOL`; the losses the same on
+    every rank, and each block the same bits on every rank that holds it
+    (every rank for a replicated parameter);
+    the flash forward and the fused backward launched exactly once a
+    layer a step on each rank (the ring's count under sp); step ms, the
+    collectives' share of the second step (`Mesh.timings`), each rank's
+    peak and float32 state bytes beside the whole model's."""
+    from attention_tpu_torch import ops
+    from attention_tpu_torch.models import (
+        TinyDecoder,
+        init_train,
+        make_train_step,
+    )
+    from attention_tpu_torch.parallel.mesh import default_mesh, grid_mesh
+
+    every_rank = default_mesh("world")
+    for run, kind, sizes, kw, fsdp, shape in MESH_RUNS:
+        mesh = grid_mesh(("dp", "sp", "tp"), sizes)
+        model_kw = mesh_model_kw(kind)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model = TinyDecoder(dtype=torch.bfloat16, device="cuda", mesh=mesh,
+                            **model_kw, **kw)
+        optimizer = init_train(model, seed=SEED, lr=TRAIN_LR, mesh=mesh,
+                               fsdp=fsdp)
+        layout = model.layout
+        step = make_train_step(model, optimizer, mesh)
+        batch = mesh_batch(shape)
+        losses, step_ms = [], []
+        ops.reset_launch_counts()
+        for i in range(CP_TRAIN_STEPS):
+            if i == CP_TRAIN_STEPS - 1:
+                mesh.timings = {}
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in "se")
+            start.record()
+            losses.append(step(batch).item())
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            if i == 0:
+                norms = mesh_grad_norms(optimizer, layout)
+        coll, mesh.timings = mesh.timings, None
+        counts = {kn: c for kn, c in ops.launch_counts().items() if c}
+        per = (cp_launches(kw.get("cp_impl", "allgather"), sizes[1])
+               * model_kw["depth"] * CP_TRAIN_STEPS)
+        if counts != {"flash_fwd": per, "flash_bwd_fused": per}:
+            failures.append(f"rank {rank} {run}: launched {counts}, want "
+                            f"{per} each")
+        for kn, c in counts.items():
+            launches[kn] = launches.get(kn, 0) + c
+        names = [n for n, _ in model.named_parameters()]
+        digests = torch.stack([cp_digest([p]) for _, p in
+                               model.named_parameters()])
+        coords = torch.tensor(
+            [[mesh.index(a) if a is not None else -1
+              for a in layout.specs[n] + (None,) * (3 - len(layout.specs[n]))]
+             for n in names], device="cuda")
+        mine = state_bytes(optimizer)
+        record = torch.tensor([*losses, torch.cuda.max_memory_allocated(),
+                               mine], dtype=torch.float64, device="cuda")
+        every = every_rank.all_gather(record[None], "world", dim=0)
+        bits = every_rank.all_gather(digests[None], "world", dim=0)
+        where = every_rank.all_gather(coords[None], "world", dim=0)
+        same_loss = all(torch.equal(every[0, :CP_TRAIN_STEPS],
+                                    x[:CP_TRAIN_STEPS]) for x in every)
+        parted, replicated = [], 0
+        for j, n in enumerate(names):
+            groups = {}
+            for r in range(world):
+                groups.setdefault(tuple(where[r, j].tolist()), []).append(r)
+            replicated += len(groups) == 1
+            for ranks in groups.values():
+                if any(not torch.equal(bits[ranks[0], j], bits[r, j])
+                       for r in ranks[1:]):
+                    parted.append(n)
+        one = single[f"{kind}_{shape[0]}x{shape[1]}"]
+        want = one["losses"]
+        rel, rel2 = (abs(losses[i] - want[i]) / abs(want[i]) for i in (0, 1))
+        step2_tol = MESH_MOE_STEP2_RTOL if kind == "moe" else CP_STEP2_RTOL
+        norm_err = {n: abs(x - one["grad_norms"][n]) / one["grad_norms"][n]
+                    for n, x in norms.items()}
+        worst = max(norm_err, key=norm_err.get)
+        per_rank = [x[-1].item() for x in every]
+        say(case="mesh_train", run=run, mesh=dict(mesh.shape), fsdp=fsdp,
+            model=model_kw, shape=list(shape), losses=losses,
+            single_device_losses=want, step1_rel_err=rel,
+            step2_rel_err=rel2,
+            grad_norm_worst={"param": worst, "rel_err": norm_err[worst]},
+            tol={"step1": CP_LOSS_RTOL, "step2": step2_tol,
+                 "grad_norm": CP_GRAD_NORM_RTOL},
+            single_device_xla=one.get("xla"),
+            same_loss_on_every_rank=same_loss,
+            blocks_parted_between_ranks=parted,
+            replicated_params=replicated,
+            step_ms=step_ms, single_device_step_ms=one["step_ms"],
+            collectives_ms={kn: t * 1e3 for kn, t in coll.items()},
+            collectives_share=sum(coll.values()) * 1e3 / step_ms[-1],
+            peak_memory_gib=[x[-2].item() / 2**30 for x in every],
+            single_device_peak_gib=one["peak_gib"],
+            state_bytes_per_rank=per_rank,
+            single_device_state_bytes=one["state_bytes"],
+            state_share_per_rank=[b / one["state_bytes"] for b in per_rank],
+            launches=counts)
+        if not (same_loss and not parted and rel <= CP_LOSS_RTOL
+                and rel2 <= step2_tol
+                and norm_err[worst] <= CP_GRAD_NORM_RTOL
+                and all(np.isfinite(losses))):
+            failures.append(f"mesh train {run}: losses {losses} against "
+                            f"{want}, {worst} norm {norm_err[worst]}, "
+                            f"same loss {same_loss}, parted {parted}")
+        if fsdp and max(per_rank) > 1.1 * one["state_bytes"] / (
+                sizes[0] * sizes[2]):
+            failures.append(f"mesh train {run}: state bytes {per_rank} of "
+                            f"{one['state_bytes']} over 1/(dp tp)")
+        del model, optimizer, step, layout
+        torch.cuda.empty_cache()
+
+
+def recovery_batch(step: int) -> torch.Tensor:
+    return torch.as_tensor(np.random.default_rng(SEED + 40 + step).integers(
+        0, SMALL_MODEL["vocab"], RECOVERY_BATCH))
+
+
+def recovery_run(rank: int, ckpt_dir: str, launches: dict, *,
+                 crash: int = 0) -> torch.Tensor:
+    """`train_with_recovery` of the small bf16 model on (2, 1, 2) with
+    FSDP on the dQ + dK/dV pair, to `RECOVERY_STEPS` (every rank dying
+    by ``os._exit(17)`` after ``crash`` steps of this call, if set);
+    the launches of its steps join ``launches``.  Returns the digest of
+    the whole float32 masters, gathered on every rank."""
+    import torch.distributed as dist
+
+    from attention_tpu_torch import ops
+    from attention_tpu_torch.models import TinyDecoder, train_with_recovery
+    from attention_tpu_torch.ops import flash_bwd
+    from attention_tpu_torch.parallel.mesh import grid_mesh
+
+    mesh = grid_mesh(("dp", "sp", "tp"), (2, 1, 2))
+    model = TinyDecoder(dtype=torch.bfloat16, device="cuda", **SMALL_MODEL)
+    done = [0]
+
+    def on_step(step, loss):
+        done[0] += 1
+        if crash and done[0] >= crash:
+            dist.barrier()
+            os._exit(17)  # every rank at the same step, no cleanup
+
+    flash_bwd._FORCE_TWO_KERNEL = True
+    ops.reset_launch_counts()
+    try:
+        optimizer, losses = train_with_recovery(
+            model, mesh, recovery_batch, steps=RECOVERY_STEPS,
+            ckpt_dir=ckpt_dir, ckpt_every=RECOVERY_EVERY, seed=SEED,
+            lr=TRAIN_LR, fsdp=True, on_step=on_step)
+    finally:
+        flash_bwd._FORCE_TWO_KERNEL = False
+    counts = {kn: c for kn, c in ops.launch_counts().items() if c}
+    per = SMALL_MODEL["depth"] * len(losses)
+    if counts != {"flash_fwd": per, "flash_bwd_dq": per,
+                  "flash_bwd_dkv": per}:
+        raise AssertionError(f"rank {rank} recovery: launched {counts}")
+    for kn, c in counts.items():
+        launches[kn] = launches.get(kn, 0) + c
+    whole = [model.layout.whole(n, m)
+             for (n, _), (_, m) in zip(optimizer.named, optimizer.pairs())]
+    return cp_digest(whole), losses
+
+
+def mesh_rank(rank: int, world: int, init_file: str, out_file: str,
+              single: dict, ckpt_dir: str) -> None:
+    """One rank of phase 3d's first world: the runs, the uninterrupted
+    recovery run, then the crashed one (every rank exits 17 after
+    `RECOVERY_CRASH` steps).  Rank 0 prints the lines and writes the
+    launches and the uninterrupted run's digest and losses to
+    ``out_file`` before the crash."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+
+    def say(**record):
+        if rank == 0:
+            emit(phase="mesh_training", **record)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    say(world=world, card=smi, backend=dist.get_backend())
+    launches, failures = {}, []
+    t0 = time.perf_counter()
+    mesh_train(rank, world, say, launches, single, failures)
+    t1 = time.perf_counter()
+    digest, losses = recovery_run(rank, os.path.join(ckpt_dir, "ref"),
+                                  launches)
+    if failures:
+        raise AssertionError(f"rank {rank}: {failures}")
+    if rank == 0:
+        with open(out_file, "w") as f:
+            json.dump(dict(launches=launches, digest=digest.tolist(),
+                           losses=losses, seconds={
+                               "runs": t1 - t0,
+                               "recovery": time.perf_counter() - t1}), f)
+    dist.barrier()
+    recovery_run(rank, os.path.join(ckpt_dir, "crash"), {},
+                 crash=RECOVERY_CRASH)
+    raise AssertionError(f"rank {rank} outlived its crash")
+
+
+def resume_rank(rank: int, world: int, init_file: str, out_file: str,
+                ckpt_dir: str) -> None:
+    """One rank of phase 3d's second world: `train_with_recovery` resumed
+    from the crashed run's checkpoints; rank 0 writes the digest, the
+    losses of the steps it ran and its launches to ``out_file``."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        launches = {}
+        digest, losses = recovery_run(rank, os.path.join(ckpt_dir, "crash"),
+                                      launches)
+        if rank == 0:
+            with open(out_file, "w") as f:
+                json.dump(dict(digest=digest.tolist(), losses=losses,
+                               launches=launches), f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawned(fn, args, want_code: int) -> None:
+    """Run ``fn(rank, MESH_WORLD, *args)`` on a world of `MESH_WORLD`
+    processes; every rank must exit with ``want_code``.  A rank that
+    exits otherwise stops the others (they would wait in a collective)
+    and fails the phase."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.spawn(fn, nprocs=MESH_WORLD, join=False,
+                   args=(MESH_WORLD, *args))
+    while any(p.exitcode is None for p in ctx.processes):
+        if any(p.exitcode not in (None, want_code) for p in ctx.processes):
+            for p in ctx.processes:
+                p.kill()
+            break
+        time.sleep(0.5)
+    for p in ctx.processes:
+        p.join()
+    codes = [p.exitcode for p in ctx.processes]
+    if codes != [want_code] * MESH_WORLD:
+        errors = []
+        for path in ctx.error_files:  # a rank's traceback, where it raised
+            if os.path.exists(path) and os.path.getsize(path):
+                with open(path, "rb") as f:
+                    errors.append(pickle.load(f))
+        raise AssertionError(f"{fn.__name__}: exit codes {codes}, want "
+                             f"{want_code} on every rank; {errors}")
+
+
+def phase_mesh_training(kernels) -> None:
+    """Phase 3d: the single-device runs on the card alone, then a gloo
+    world of `MESH_WORLD` ranks on the one card (`mesh_rank`: the runs,
+    the uninterrupted recovery run, the crashed one), then a second world
+    resuming (`resume_rank`), whose masters must be the uninterrupted
+    run's bits; a rank that fails, or exits otherwise than the crash,
+    fails the phase."""
+    from attention_tpu_torch.ops._native import BUILD_DIR
+
+    t0 = time.perf_counter()
+    single = mesh_single_device()
+    t1 = time.perf_counter()
+    init = os.path.join(BUILD_DIR, f"mesh-{os.getpid()}.init")
+    resume_init = os.path.join(BUILD_DIR, f"mesh-resume-{os.getpid()}.init")
+    out = os.path.join(BUILD_DIR, f"mesh-{os.getpid()}.json")
+    resumed = os.path.join(BUILD_DIR, f"mesh-resume-{os.getpid()}.json")
+    for stale in (init, resume_init, out, resumed):
+        if os.path.exists(stale):
+            os.remove(stale)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        spawned(mesh_rank, (init, out, single, ckpt_dir), 17)
+        spawned(resume_rank, (resume_init, resumed, ckpt_dir), 0)
+    with open(out) as f:
+        rec = json.load(f)
+    with open(resumed) as f:
+        res = json.load(f)
+    same = res["digest"] == rec["digest"]
+    emit(phase="mesh_training", case="recovery", mesh=[2, 1, 2], fsdp=True,
+         backward="pair", steps=RECOVERY_STEPS, crash_after=RECOVERY_CRASH,
+         uninterrupted_losses=rec["losses"], resumed_losses=res["losses"],
+         masters_same_bits=same)
+    if not (same and res["losses"]
+            == rec["losses"][RECOVERY_STEPS - len(res["losses"]):]
+            and len(res["losses"]) == RECOVERY_STEPS - RECOVERY_EVERY):
+        raise AssertionError(f"mesh resume: digests {res['digest']} against "
+                             f"{rec['digest']}, losses {res['losses']} "
+                             f"against {rec['losses']}")
+    for kn, c in rec["launches"].items():
+        kernels[kn]["launches"] += c
+    for kn, c in res["launches"].items():
+        kernels[kn]["launches"] += c
+    emit(phase="mesh_training", seconds=time.perf_counter() - t0,
+         single_device_seconds=t1 - t0, world_seconds=rec["seconds"],
          single_device=single, rank0_launches=rec["launches"])
 
 
@@ -5939,6 +6420,7 @@ def main() -> int:
     phase_op_path(ops, kernels)
     phase_distributed(kernels)
     phase_cp_training(kernels)
+    phase_mesh_training(kernels)
     phase_generate(ops, kernels, model)
     windowed = {}
     for name, band in (("sinks", SERVE_BAND),

@@ -196,7 +196,7 @@ def main(argv) -> int:
 
     model = _model()
     optimizer, losses = train_with_recovery(
-        model, _batch, steps=int(steps), ckpt_dir=ckpt_dir,
+        model, None, _batch, steps=int(steps), ckpt_dir=ckpt_dir,
         ckpt_every=int(every), seed=5, on_step=on_step)
     state = np.concatenate([t.detach().float().reshape(-1).numpy() for t in
                             _state(model, optimizer).values()])

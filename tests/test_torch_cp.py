@@ -458,20 +458,25 @@ REFUSALS = {
     "grad_ring_attention": (NotImplementedError, "forward-only", lambda:
                             ring_attention(_x(8, 8, grad=True), _x(8, 8),
                                            _x(8, 8))),
-    # what comes with the tensor-parallel layout and expert parallelism
-    "train_tp2": (NotImplementedError, "shard_params", lambda:
-                  make_train_step(_small_model(), None, _mesh((1, 1, 2)))),
-    "init_tp2": (NotImplementedError, "shard_params", lambda: init_train(
-        _small_model(), mesh=_mesh((1, 1, 2)))),
-    "init_fsdp": (NotImplementedError, "shard_params", lambda: init_train(
-        _small_model(), mesh=_mesh((1, 1, 1)), fsdp=True)),
-    "model_cp_moe": (NotImplementedError, "expert", lambda: _small_model(
-        cp_axis="sp", mesh=default_mesh("sp"), moe_experts=4)),
+    # the tensor-parallel layout, FSDP and expert parallelism are ported
+    # (tests/test_torch_mesh_train.py): what stays refused around them,
+    # JAX's ValueErrors, and pipeline parallelism, not ported yet
+    "train_tp2": (ValueError, "accum_steps", lambda: make_train_step(
+        _small_model(), None, _mesh((1, 1, 2)), accum_steps=0)),
+    "init_tp2": (NotImplementedError, "Queue 1 item 2", lambda: init_train(
+        _small_model(), mesh=Mesh(("pp", "tp"), (2, 2), (0, 0),
+                                  [[0, 0], [0, 0]], (None, None)))),
+    "init_fsdp": (ValueError, "mesh=", lambda: init_train(
+        _small_model(), fsdp=True)),
+    "model_cp_moe": (ValueError, "not in the current mesh", lambda:
+                     _small_model(cp_axis="sp", mesh=default_mesh("sp"),
+                                  moe_experts=4, ep_axis="ep")),
     # tensor-parallel serving is ported: JAX's refusal without a mesh
     "model_tp_axis": (ValueError, "tp_axis requires mesh=", lambda:
                       _small_model(tp_axis="tp")),
-    "model_ep_axis": (NotImplementedError, "expert", lambda: _small_model(
-        ep_axis="ep")),
+    "model_ep_axis": (ValueError, "not in the current mesh", lambda:
+                      _small_model(ep_axis="ep", moe_experts=4,
+                                   mesh=default_mesh("sp"))),
 }
 
 

@@ -2066,3 +2066,82 @@ def test_tp_model_and_mesh_engine_on_the_card(tp_card_world):
         assert torch.equal(tp_tokens, single)
         mesh, one = r["streams"]
         assert mesh == one and all(len(t) == 8 for t in one.values())
+
+
+# the trainer's layouts on the card: a small bf16 model whose head dim
+# (64) runs the wgmma bodies, 2 steps on a 2-rank gloo world on cuda:0
+MESH_MODEL = dict(vocab=256, dim=512, depth=2, num_q_heads=8,
+                  num_kv_heads=2, rope=True, softcap=50.0)
+MESH_CASES = {"tp2": ((1, 1, 2), False), "dp2_fsdp": ((2, 1, 1), True)}
+
+
+def _mesh_train_card_rank(rank, world, init_file, out_dir):
+    """One rank of a 2-rank gloo world on cuda:0: each `MESH_CASES` mesh
+    trains the small bf16 model 2 steps from the seeded start, beside
+    the single-device model; the losses and each run's launches."""
+    import torch.distributed as dist
+
+    from attention_tpu_torch.models import TinyDecoder, init_train, \
+        make_train_step
+    from attention_tpu_torch.ops import reset_launch_counts
+    from attention_tpu_torch.parallel.mesh import grid_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        batch = torch.randint(
+            0, MESH_MODEL["vocab"], (2, 257), device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(0))
+        out = {}
+        for name, (sizes, fsdp) in (("single", (None, False)),
+                                    *MESH_CASES.items()):
+            mesh = None if sizes is None else grid_mesh(("dp", "sp", "tp"),
+                                                        sizes)
+            model = TinyDecoder(dtype=torch.bfloat16, device="cuda",
+                                **MESH_MODEL)
+            step = make_train_step(model, init_train(
+                model, seed=0, mesh=mesh, fsdp=fsdp), mesh)
+            reset_launch_counts()
+            losses = [step(batch).item() for _ in range(2)]
+            torch.cuda.synchronize()
+            out[name] = dict(losses=losses, launches={
+                n: c for n, c in launch_counts().items() if c})
+        torch.save(out, f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def mesh_train_card_world(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import torch.multiprocessing as mp
+
+    out = tmp_path_factory.mktemp("mesh_train_card")
+    mp.spawn(_mesh_train_card_rank, nprocs=2,
+             args=(2, str(out / "init"), str(out)))
+    return [torch.load(out / f"rank{r}.pt") for r in range(2)]
+
+
+@pytest.mark.parametrize("name", sorted(MESH_CASES))
+def test_mesh_train_step_matches_single_device_on_the_card(
+        mesh_train_card_world, name):
+    """A tp 2 step (Megatron's split, 4 q heads and one kv head a rank)
+    and a dp 2 FSDP step on cuda:0: the single device's loss within
+    1e-4 relative at step 1 and 5e-4 at step 2 (after the update; phase
+    3c's tolerances), the same losses on both ranks."""
+    ranks = [r[name]["losses"] for r in mesh_train_card_world]
+    want = mesh_train_card_world[0]["single"]["losses"]
+    assert ranks[0] == ranks[1]
+    assert abs(ranks[0][0] - want[0]) <= 1e-4 * abs(want[0])
+    assert abs(ranks[0][1] - want[1]) <= 5e-4 * abs(want[1])
+
+
+@pytest.mark.parametrize("name", sorted(MESH_CASES))
+def test_mesh_train_launches_on_the_card(mesh_train_card_world, name):
+    """One flash forward and one fused backward per layer per step on
+    each rank, nothing else."""
+    per = MESH_MODEL["depth"] * 2
+    for r in mesh_train_card_world:
+        assert r[name]["launches"] == {"flash_fwd": per,
+                                       "flash_bwd_fused": per}

@@ -56,6 +56,7 @@ from attention_tpu_torch.models import (
 from attention_tpu_torch.models import decode as gen
 from attention_tpu_torch.models.moe import capacity, route
 from attention_tpu_torch.models.train import loss_fn
+from attention_tpu_torch.parallel.mesh import default_mesh
 from test_moe import _reference_moe
 
 F32_TOL = 1e-5
@@ -165,8 +166,12 @@ def test_moe_refusals_match_jax():
     with pytest.raises(ValueError, match="top_k"):
         TinyDecoder(dtype=torch.float32, device="cpu",
                     **dict(SMALL, moe_top_k=5))
-    with pytest.raises(NotImplementedError, match="ep_axis"):
-        MoEMLP(16, 4, ep_axis="ep", dtype=torch.float32, device="cpu")
+    # expert parallelism is ported: JAX's refusal of an ep_axis that the
+    # mesh lacks (without a mesh the axis is no constraint, as in JAX)
+    with pytest.raises(ValueError, match="not in the current mesh"):
+        MoEMLP(16, 8, ep_axis="exp", mesh=default_mesh("ep"),
+               dtype=torch.float32, device="cpu")
+    MoEMLP(16, 4, ep_axis="ep", dtype=torch.float32, device="cpu")
 
 
 # ------------------------------------------------------------ the model

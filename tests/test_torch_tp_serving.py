@@ -30,6 +30,8 @@ init (`params_from_jax`).
   model's top logit leads by 0.82, so not at a near tie; the port's tp
   and single-device models equal JAX's single-device model and JAX's
   rolling cache there.
+* `paged_fork` on the tp model's per-rank pools: the forks' greedy
+  streams equal the single-device fork's.
 * Engine: ``mesh_shards`` 2 and 4 (ragged greedy and sampled, two-call,
   async, preemption under page pressure) equal to the single-device
   engine's streams, tests/test_mesh_engine.py's contract.
@@ -127,6 +129,10 @@ ENGINE = dict(num_pages=24, page_size=128, max_seq_len=256,
               token_budget=80, watermark_pages=1)
 TIGHT = dict(num_pages=3, watermark_pages=0)
 SNAP_SHARDS = 4
+# `paged_fork` on the tp model's per-rank pools: the prompt's length, and
+# the first token fed to each fork
+FORK_PROMPT = 300
+FORK_FIRST = (3, 17, 42)
 
 # name: (function, keywords)
 OPS = {
@@ -311,6 +317,38 @@ def _port_generate(model, name):
     run = generate_paged if fn == "generate_paged" else generate_ragged
     out = run(model, prompt, torch.tensor(lengths), **kw)
     return (out[0] if fn == "generate_paged" else out).numpy()
+
+
+def _port_fork(params, mesh=None):
+    """Greedy streams of `paged_fork`'s forks of one prompt of
+    `FORK_PROMPT` tokens (2 full pages of 128 and a 44-row tail), its
+    caches scattered into one pool a layer (on a tp model each rank's
+    pools hold its block of the kv heads), forked `FORK_COPIES` ways
+    with a reserve page each, each fork fed its own first token; and the
+    pages the pools use."""
+    from attention_tpu_torch.models import decode as gen
+    from attention_tpu_torch.ops.paged import (
+        PagePool,
+        paged_fork,
+        paged_from_dense,
+    )
+
+    model = _model(params, mesh=mesh)
+    prompt = _t(np.random.default_rng(5).integers(1, MODEL["vocab"],
+                                                  (1, FORK_PROMPT)))
+    with torch.no_grad():
+        _, dense = gen.prefill(model, prompt, 512)
+        pools = [PagePool(16) for _ in dense]
+        forks = tuple(
+            paged_fork(paged_from_dense(c.k, c.v, [FORK_PROMPT], pool,
+                                        num_pages=16),
+                       pool, 0, len(FORK_FIRST), reserve_pages=1)
+            for c, pool in zip(dense, pools))
+        logits, forks = gen.decode_step(model, torch.tensor(FORK_FIRST),
+                                        forks)
+        toks, _ = gen._token_loop(model, logits, forks, 6, None,
+                                  temperature=0.0, top_k=None, top_p=None)
+    return toks.numpy(), [pool.used_pages for pool in pools]
 
 
 def _spec_models(params, mesh):
@@ -525,6 +563,7 @@ def _worker(rank, world, init_file, out_dir):
             outs["models"][name] = (
                 _port_generate(_model(params, mesh=mesh, **extras), name),
                 _port_generate(_model(params, **extras), name))
+        outs["fork"] = (_port_fork(params, mesh), _port_fork(params))
         pair = serving_mesh(2)
         target, draft = _spec_models(params, pair)
         prompt = _t(_tokens("spec", SPEC_TARGET["vocab"]))
@@ -1002,13 +1041,27 @@ def test_clone_keeps_every_constructor_argument():
               rope_theta=500.0, remat=True, cp_impl="ring")
     model = TinyDecoder(device="cpu", **kw)
     params = set(signature(TinyDecoder).parameters)
-    assert set(model._config) == params - {"device", "unported"}
+    assert set(model._config) == params - {"device"}
     mesh = _fake_mesh(1)
     twin = model.clone(tp_axis="tp", mesh=mesh)
     assert twin._config == {**model._config, "tp_axis": "tp", "mesh": mesh}
     assert all(getattr(twin, k) == v for k, v in kw.items()
                if hasattr(twin, k))
     assert all(a is b for a, b in zip(twin.parameters(), model.parameters()))
+
+
+def test_paged_fork_on_tp_pools_equals_single_device(world):
+    """`paged_fork` on the tp model's per-rank pools (each rank a block
+    of the kv heads, the same page tables on every rank): the forks'
+    greedy streams equal the single-device fork's, every rank's equal
+    rank 0's, and the pools use the pages the single device's do."""
+    ranks, _ = world
+    (toks, used), (want, want_used) = ranks[0]["fork"]
+    for r in ranks[1:]:
+        assert np.array_equal(r["fork"][0][0], toks)
+    np.testing.assert_array_equal(toks, want)
+    assert used == want_used
+    assert len({tuple(row) for row in toks.tolist()}) > 1
 
 
 def test_engine_kv_heads_indivisible_on_the_world(world):
