@@ -33,6 +33,13 @@ from attention_tpu_torch.models.decode import (  # noqa: F401
     prefill,
 )
 from attention_tpu_torch.models.moe import MoEMLP  # noqa: F401
+from attention_tpu_torch.models.pipeline import (  # noqa: F401
+    init_pipelined_train,
+    make_pipelined_train_step,
+    pipelined_forward,
+    pipelined_loss,
+    stack_block_params,
+)
 from attention_tpu_torch.models.resilient import (  # noqa: F401
     train_with_recovery,
 )

@@ -36,9 +36,17 @@ JAX's.  Experts split over an axis whose ranks hold the same tokens
 (``ep_axis``, or "tp" where `models.train.shard_params` split them):
 each rank runs its E / n experts on the slots its tokens own (the
 others' slots stay zero rows) and the outputs are summed over the axis
-in float32 (`parallel.mesh.tp_reduce`), so no all-to-all moves tokens;
-the expert inputs and the combine weights enter through
-`parallel.mesh.tp_copy`, which sums their gradients over the axis.
+in float32 (`parallel.mesh.tp_reduce`); the expert inputs and the
+combine weights enter through `parallel.mesh.tp_copy`, which sums their
+gradients over the axis.  Experts split over an axis whose ranks hold
+other tokens (an ``ep_axis`` of "dp" or the cp axis, where JAX's XLA
+moves the tokens with all-to-alls): each rank fills its own tokens'
+slots of the whole (E, C, d) buffer, an all-to-all
+(`parallel.mesh.all_to_all_diff`, whose backward is the inverse one)
+sends each expert's block to the rank that holds the expert, which sums
+the senders' blocks (their slots are disjoint: each row exactly), runs
+its experts, and a second all-to-all brings every expert's outputs back
+to every rank, which takes its own tokens' rows.
 """
 
 from __future__ import annotations
@@ -49,7 +57,11 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from attention_tpu_torch.parallel.mesh import tp_copy, tp_reduce
+from attention_tpu_torch.parallel.mesh import (
+    all_to_all_diff,
+    tp_copy,
+    tp_reduce,
+)
 
 
 def capacity(tokens: int, num_experts: int, top_k: int,
@@ -98,9 +110,11 @@ class MoEMLP(nn.Module):
     recomputes the layer (remat) or splits the batch counts it once.
     ``ep_axis`` (an axis of ``mesh``; JAX's `ValueError` when the mesh
     lacks it, no effect without a mesh) splits the experts over that
-    axis, whose ranks pass the same tokens: each holds the whole
-    experts, or its block of them once `models.train.shard_params` cut
-    them, and runs only its block (see the module docstring)."""
+    axis: each rank holds the whole experts, or its block of them once
+    `models.train.shard_params` cut them, and runs only its block, on
+    the tokens of every rank of the axis where a trainer's
+    `TokenShards` split the tokens over it (see the module
+    docstring)."""
 
     def __init__(self, dim: int, num_experts: int, *, top_k: int = 2,
                  capacity_factor: float = 1.25, ep_axis: str | None = None,
@@ -219,27 +233,44 @@ class MoEMLP(nn.Module):
         split = self._split()
         lo, w_up, w_down = self._experts(split)
         local = w_up.shape[0]
-        mine = keep & (ids >= lo) & (ids < lo + local)
+        # experts over an axis whose ranks hold other tokens: this rank's
+        # tokens fill their slots of the whole (E, C, d) buffer, each
+        # expert's block goes to the rank that holds the expert and its
+        # outputs come back (all-to-alls); else this rank's tokens fill
+        # the slots of its own experts and the outputs are summed
+        shards = self.token_shards
+        a2a = split is not None and shards is not None \
+            and split[1] in (shards.batch_axis, shards.seq_axis)
+        first, count = (0, e) if a2a else (lo, local)
         weights, xe = topv, xt
-        if split is not None:
+        if split is not None and not a2a:
             weights, xe = (tp_copy(z, *split) for z in (topv, xt))
         weight = weights.T.reshape(-1) * keep
-        # each pair's row in this rank's flattened (E_local*C,) buffer;
-        # pairs dropped or on another rank's experts point past it, at a
-        # zero row
-        dest = torch.where(mine, (ids - lo) * cap + slot, local * cap)
-        owner = torch.full((local * cap + 1,), t, dtype=torch.long,
+        # each pair's row in the flattened (count*C,) buffer; pairs
+        # dropped or on another rank's experts point past it, at a zero
+        # row
+        mine = keep & (ids >= first) & (ids < first + count)
+        dest = torch.where(mine, (ids - first) * cap + slot, count * cap)
+        owner = torch.full((count * cap + 1,), t, dtype=torch.long,
                            device=x.device)
         owner.scatter_(0, dest, torch.arange(t, device=x.device).repeat(k))
         rows = torch.cat([xe.to(self.dtype),
                           xe.new_zeros(1, d, dtype=self.dtype)])
-        xin = rows[owner[:-1]].view(local, cap, d)
+        xin = rows[owner[:-1]].view(count, cap, d)
+        if a2a:
+            # the senders' rows of one expert lie in disjoint slots, so
+            # their sum is each row exactly
+            n = e // local
+            xin = all_to_all_diff(xin, *split, 0, 0).view(
+                n, local, cap, d).sum(0)
         hmid = F.gelu(torch.bmm(xin, w_up), approximate="tanh")
         xout = torch.bmm(hmid, w_down).to(x.dtype)
-        out = torch.cat([xout.reshape(local * cap, d), xout.new_zeros(1, d)])
+        if a2a:
+            xout = all_to_all_diff(xout.repeat(n, 1, 1), *split, 0, 0)
+        out = torch.cat([xout.reshape(count * cap, d), xout.new_zeros(1, d)])
         y = (weight.to(x.dtype).float()[:, None] * out[dest].float()) \
             .view(k, t, d).sum(0)
-        if split is not None:
+        if split is not None and not a2a:
             y = tp_reduce(y, *split)
 
         # switch aux loss over first choices

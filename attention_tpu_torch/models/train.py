@@ -41,7 +41,10 @@ their global aux losses.  The float32 gradients are summed over dp x sp
 (flax's gradients are float32; a bf16 sum over ranks would round at
 every add), an FSDP gradient reduce-scattered over dp, and every rank
 applies the same update to its block, so that a replicated parameter
-stays the same bits on every rank.
+stays the same bits on every rank.  An MoE model's ``ep_axis`` over the
+tokens' axes ("dp" or the ``cp_axis``) holds each rank's block of the
+experts there (`param_spec`), their gradients whole over that axis by
+`MoEMLP`'s all-to-alls; a "pp" axis is `models.pipeline`'s.
 """
 
 from __future__ import annotations
@@ -105,18 +108,18 @@ def make_mesh_3d(n: int | None = None) -> Mesh:
 def _check_mesh(model: TinyDecoder, mesh: Mesh | None) -> tuple[str, ...]:
     """The mesh axes a step sums its gradients over (dp and the model's
     ``cp_axis``, those of more than one rank), after the refusals: a
-    pipeline axis (not ported), an axis of more than one rank that is
-    neither "dp", "tp", the model's ``cp_axis`` nor its ``ep_axis``, an
-    ``ep_axis`` of more than one rank whose ranks hold different tokens
-    ("dp" or the ``cp_axis``) or beside a "tp" that splits the experts
-    (`MoEMLP` runs a rank's experts on the tokens it holds, with no
-    all-to-all)."""
+    pipeline axis (`models.pipeline.make_pipelined_train_step` trains
+    on one), an axis of more than one rank that is neither "dp", "tp",
+    the model's ``cp_axis`` nor its ``ep_axis``, and an MoE ``ep_axis``
+    of more than one rank other than "tp" beside a "tp" that splits the
+    experts (JAX's table)."""
     if mesh is None:
         return ()
     if mesh.shape.get("pp", 1) > 1:
-        raise NotImplementedError(
-            "pipeline parallelism (a 'pp' mesh axis, JAX's "
-            "parallel.pipeline) is not ported: ROADMAP.md Queue 1 item 2")
+        raise ValueError(
+            "a 'pp' mesh axis pipelines the blocks, which this step does "
+            "not (nor does JAX's make_train_step); train it with "
+            "models.pipeline.make_pipelined_train_step")
     for axis in mesh.axis_names:
         if axis not in ("dp", "tp", model.cp_axis, model.ep_axis) \
                 and mesh.shape[axis] > 1:
@@ -127,12 +130,6 @@ def _check_mesh(model: TinyDecoder, mesh: Mesh | None) -> tuple[str, ...]:
     ep = model.ep_axis if model.moe_experts else None
     if ep is not None and ep != "tp" and mesh.shape.get(ep, 1) > 1:
         tp = mesh.shape.get("tp", 1)
-        if ep in tokens:
-            raise ValueError(
-                f"ep_axis {ep!r} splits the tokens: the port runs a rank's "
-                "experts on the tokens it holds (no all-to-all dispatch), "
-                "so the experts ride an axis whose ranks hold the same "
-                "tokens; pass ep_axis='tp'")
         if tp > 1 and model.moe_experts % tp == 0:
             raise ValueError(
                 f"ep_axis {ep!r} beside a 'tp' of {tp} ranks, which splits "
@@ -144,15 +141,17 @@ def _check_mesh(model: TinyDecoder, mesh: Mesh | None) -> tuple[str, ...]:
 # ------------------------------------------------- the parameter layout
 
 
-def param_spec(name: str, ndim: int) -> tuple:
+def param_spec(name: str, ndim: int, ep_axis: str = "tp") -> tuple:
     """The tp layout table (JAX's ``_param_spec``) by the port's
     parameter name: one mesh axis or None per dim, in JAX's axis order
     (`jax_shape`).  Norms and every 1-D tensor replicated; the embedding
     (vocab, dim) and the lm head (dim, vocab) on the vocab; q, k, v
     (dim, heads, head_dim) on the heads; ``o_proj`` (heads·head_dim,
     dim) on the head-derived dim; the MLP's up (dim, hidden) and down
-    (hidden, dim) on the hidden dim; MoE experts (E, ...) on E; the
-    router replicated."""
+    (hidden, dim) on the hidden dim; MoE experts (E, ...) on E over
+    ``ep_axis`` (JAX's table: "tp"; a model's ``ep_axis`` over the
+    tokens' axes holds them there, where `MoEMLP` moves the tokens to
+    them); the router replicated."""
     if ndim == 1:
         spec = (None,)
     elif name == "embed.weight":
@@ -162,7 +161,7 @@ def param_spec(name: str, ndim: int) -> tuple:
     elif name.endswith(("o_proj.weight", "mlp.down.weight")):
         spec = ("tp", None)
     elif name.endswith(("experts_up", "experts_down")):
-        spec = ("tp", None, None)
+        spec = (ep_axis, None, None)
     elif name.endswith("router.weight"):
         spec = (None, None)
     else:  # the MLP's up, the lm head and anything else 2-D
@@ -236,23 +235,38 @@ def jax_shape(model: TinyDecoder, name: str, shape) -> tuple:
 class ParamLayout:
     """Each trained parameter's spec on ``mesh`` (JAX's order), and the
     moves between whole tensors and this rank's blocks.  ``specs`` and
-    ``shapes`` (whole, JAX's order) by name."""
+    ``shapes`` (whole, JAX's order) by name; ``fsdp`` the names that
+    FSDP split over "dp" (the MoE experts of an ``ep_axis="dp"`` model
+    ride "dp" by the table, not by FSDP)."""
 
     def __init__(self, model: TinyDecoder, mesh: Mesh, *, fsdp: bool):
         self.mesh = mesh
         self.specs, self.shapes, self.views = {}, {}, {}
+        self.fsdp = set()
+        # the experts ride the model's ep_axis where its layers split
+        # them over it (`MoEMLP`: with a mesh), else JAX's "tp"
+        ep = (model.ep_axis if model.moe_experts and model.ep_axis
+              and model.mesh is not None else "tp")
         for name, p in model.named_parameters():
             shape = jax_shape(model, name, p.shape)
-            spec = legal_spec(param_spec(name, len(shape)), shape,
+            spec = legal_spec(param_spec(name, len(shape), ep), shape,
                               mesh.shape)
             if fsdp:
-                spec = fsdp_spec(spec, shape, mesh.shape)
+                cut = fsdp_spec(spec, shape, mesh.shape)
+                if cut != spec:
+                    self.fsdp.add(name)
+                spec = cut
             self.specs[name], self.shapes[name] = spec, shape
             self.views[name] = _view(name, len(p.shape))
 
     def split(self, name: str, axis: str) -> bool:
         """Whether ``axis`` (of more than one rank) splits ``name``."""
         return axis in self.specs[name] and self.mesh.shape[axis] > 1
+
+    def gathered(self, name: str) -> bool:
+        """Whether FSDP splits ``name`` over a "dp" of more than one rank:
+        gathered at use, its gradient reduce-scattered."""
+        return name in self.fsdp and self.split(name, "dp")
 
     def _shape(self, name: str, axes) -> tuple:
         return tuple(d // self.mesh.shape[a] if a is not None and a in axes
@@ -481,7 +495,7 @@ def _step_context(model: TinyDecoder, mesh: Mesh | None, seq_len: int):
     layout = _layout(model, mesh)
     used, swapped = [], []
     for name, p in named:
-        if layout is not None and layout.split(name, "dp"):
+        if layout is not None and layout.gathered(name):
             full = layout.gather_dp(name, p.detach()).requires_grad_()
             owner, _, leaf = name.rpartition(".")
             module = model.get_submodule(owner)
@@ -544,11 +558,12 @@ def value_and_grad(model: TinyDecoder, batch: torch.Tensor,
                 t.grad = None
     loss = _all_reduce(loss, mesh, axes) / accum_steps
     for i, (name, g) in enumerate(zip(names, grads)):
-        if layout is not None and layout.split(name, "dp"):
+        if layout is not None and layout.gathered(name):
             g = layout.scatter_dp(name, g)
-            g = _all_reduce(g, mesh, [a for a in axes if a != "dp"])
-        else:
-            g = _all_reduce(g, mesh, axes)
+        # a block split over a token axis (FSDP's over dp, the experts
+        # over an ep_axis there) already holds that axis's whole sum
+        g = _all_reduce(g, mesh, [a for a in axes if layout is None
+                                  or not layout.split(name, a)])
         if accum_steps > 1:
             g.div_(accum_steps)
         grads[i] = g

@@ -11,7 +11,8 @@ slicing its own block of rows; its Bcast-vs-Scatterv choice
 
 Every collective of the port is a method of `Mesh`: all_reduce (MAX and
 SUM, the two-phase softmax merge), all_gather, all_to_all (Ulysses) and
-`Mesh.ppermute` (the ring's neighbour exchange, JAX's ``lax.ppermute``).
+`Mesh.ppermute` (the ring's neighbour exchange and the pipeline's open
+chain, JAX's ``lax.ppermute``, partial permutations included).
 Without an initialised process group a mesh has one rank and every
 collective returns its input: the reference's ``mpirun -np 1``, with the
 kernels still on the card.  `grid_mesh` lays a world out as an N-D grid
@@ -200,24 +201,35 @@ class Mesh:
     def ppermute(self, xs, axis: str, perm) -> "Pending":
         """Start ``lax.ppermute`` of the tensors ``xs``: the rank of
         index ``src`` along ``axis`` sends them to the one of index
-        ``dst``, for each ``(src, dst)`` of ``perm`` (a permutation).
-        Returns at once; `Pending.wait` gives the tensors received."""
+        ``dst``, for each ``(src, dst)`` of ``perm``, a permutation or,
+        as ``lax.ppermute`` takes it, a partial one: a rank that is no
+        ``src`` sends nothing, and one that is no ``dst`` receives zeros
+        (of the shapes of its ``xs``).  Returns at once; `Pending.wait`
+        gives the tensors received."""
         me = self._coords[axis]
-        dst = dict(perm)[me]
-        src = {d: s for s, d in perm}[me]
+        dst = dict(perm).get(me)
+        src = {d: s for s, d in perm}.get(me)
         if dst == me:
             return Pending(list(xs), [], None, None)
         device = xs[0].device
+        if dst is None and src is None:
+            return Pending([torch.zeros_like(x) for x in xs], [], device,
+                           self)
         with self._timed("ppermute", device):
             send = [self._staged("ppermute", x) for x in xs]
-            recv = [torch.empty_like(x) for x in send]
             group, peers = self._groups[axis], self._ranks[axis]
             # one tag per tensor: the sends to one peer match its
             # receives by tag, not by order
-            ops = [dist.P2POp(dist.isend, x, peers[dst], group, tag)
-                   for tag, x in enumerate(send)]
-            ops += [dist.P2POp(dist.irecv, x, peers[src], group, tag)
-                    for tag, x in enumerate(recv)]
+            ops = []
+            if dst is not None:
+                ops += [dist.P2POp(dist.isend, x, peers[dst], group, tag)
+                        for tag, x in enumerate(send)]
+            if src is None:
+                recv = [torch.zeros_like(x) for x in xs]
+            else:
+                recv = [torch.empty_like(x) for x in send]
+                ops += [dist.P2POp(dist.irecv, x, peers[src], group, tag)
+                        for tag, x in enumerate(recv)]
             works = dist.batch_isend_irecv(ops)
         return Pending(recv, works, device, self)
 

@@ -179,13 +179,17 @@ non-zero unless all of them pass:
             its single-device step on the card: loss 1e-5 relative,
             gradients 3e-5.
 3d. mesh training the trainer's parameter layouts (JAX's `shard_params`
-            table, Megatron's tp split, FSDP, experts over tp) on a gloo
-            world of 4 ranks on the one card, after each model's
-            single-device run on the card alone.  At the serving widths,
-            `CP_TRAIN_STEPS` steps each: the dense model (depth 2) on
-            (dp, sp, tp) = (1, 1, 4) and on (2, 1, 2) with FSDP (4 x 2049
-            tokens), on (1, 2, 2) with the ring over sp (1 x 8193), and
-            the MoE model (`SERVE_MOE`, depth 1) on (2, 1, 2) with FSDP:
+            table, Megatron's tp split, FSDP, experts over tp or over the
+            tokens' axis, pipeline stages) on a gloo world of 4 ranks on
+            the one card, after each model's single-device run on the card
+            alone.  At the serving widths, `CP_TRAIN_STEPS` steps each: the
+            dense model (depth 2) on (dp, sp, tp) = (1, 1, 4) and on (2, 1,
+            2) with FSDP (4 x 2049 tokens), on (1, 2, 2) with the ring over
+            sp (1 x 8193), the MoE model (`SERVE_MOE`, depth 1) on (2, 1,
+            2) with FSDP, and on (4, 1, 1) with its experts over "dp"
+            (``moe_dp4_ep``: all-to-alls move the tokens to the rank that
+            holds their expert; each rank's expert state a quarter of the
+            whole, or the phase fails):
             step 1's loss within `CP_LOSS_RTOL` of the single device's,
             step 2's within `CP_STEP2_RTOL` (the MoE run's within
             `MESH_MOE_STEP2_RTOL`: top-k routing turns any reordering of
@@ -200,6 +204,16 @@ non-zero unless all of them pass:
             collectives' share of the second step, each rank's peak and
             float32 state bytes (masters and moments) beside the single
             device's (about 1 / (dp·tp) under FSDP, or the phase fails).
+            The pipelined run (``pp4``): the dense model at `PP_DEPTH` on
+            ("pp",) of 4 ranks, one block a stage, 4 x 2049 tokens in
+            `PP_MICRO` microbatches, from `init_pipelined_train` through
+            `make_pipelined_train_step`, held to `make_train_step` on one
+            device by the same bars (each block's gradient norm from the
+            rank whose stage holds it), the embedding, norm and head the
+            same bits on every rank after each step, the flash forward
+            and the fused backward once a microbatch a step on each rank;
+            step ms, the point-to-point and collective share, each rank's
+            peak and float32 state beside the single device's.
             Then `train_with_recovery(model, mesh, ..., fsdp=True)` of the
             small bf16 model on (2, 1, 2) on the dQ + dK/dV pair: run to
             `RECOVERY_STEPS`; again, every rank dying after
@@ -635,7 +649,17 @@ MESH_RUNS = (
     ("sp2_tp2_ring", "dense", (1, 2, 2), dict(cp_axis="sp", cp_impl="ring"),
      False, (1, 8193)),
     ("moe_dp2_tp2_fsdp", "moe", (2, 1, 2), dict(ep_axis="tp"), True,
+     TRAIN_BATCH),
+    # the experts over "dp", whose ranks hold other tokens: all-to-alls
+    # move the tokens to their experts; a quarter of them a rank
+    ("moe_dp4_ep", "moe", (4, 1, 1), dict(ep_axis="dp"), False,
      TRAIN_BATCH))
+# phase 3d's pipelined run: the serving model at depth 4 on ("pp",) of
+# MESH_WORLD ranks (one block a stage), TRAIN_BATCH in PP_MICRO
+# microbatches, CP_TRAIN_STEPS steps, held to make_train_step on one
+# device by phase 3c's bars
+PP_DEPTH = 4
+PP_MICRO = 4
 # phase 3d's train_with_recovery check: the small model in bf16 on the
 # dQ + dK/dV pair (deterministic bits), (2, 1, 2) with FSDP, RECOVERY_STEPS
 # steps of (4, 129) tokens, a checkpoint every RECOVERY_EVERY; every rank
@@ -2750,10 +2774,12 @@ def phase_cp_training(kernels) -> None:
 
 def mesh_model_kw(kind: str) -> dict:
     """Phase 3d's model at the serving widths: dense at `CP_TRAIN_DEPTH`,
-    or `SERVE_MOE` at `MESH_MOE_DEPTH`."""
+    `SERVE_MOE` at `MESH_MOE_DEPTH`, or the pipelined run's dense model
+    at `PP_DEPTH`."""
     if kind == "moe":
         return dict(SERVE_MODEL, depth=MESH_MOE_DEPTH, **SERVE_MOE)
-    return dict(SERVE_MODEL, depth=CP_TRAIN_DEPTH)
+    return dict(SERVE_MODEL, depth=PP_DEPTH if kind == "pp"
+                else CP_TRAIN_DEPTH)
 
 
 def mesh_batch(shape) -> torch.Tensor:
@@ -2767,10 +2793,11 @@ def mesh_single_device() -> dict:
     the world starts: each (model, batch) of `MESH_RUNS` trained
     `CP_TRAIN_STEPS` steps of `make_train_step` from the seeded start:
     {key: {losses, step 1's gradient norms, step ms, peak GiB, float32
-    state bytes}}.  The MoE model also runs with ``impl="xla"`` (the
-    attention in PyTorch ops: a sound reordering of the forward), whose
-    distance from the kernels' run (``"xla"``: each step's loss and the
-    worst gradient norm, relative) bounds its mesh run's step 2."""
+    state bytes}}, and the pipelined run's model on `TRAIN_BATCH` (key
+    "pp").  The MoE model also runs with ``impl="xla"`` (the attention
+    in PyTorch ops: a sound reordering of the forward), whose distance
+    from the kernels' run (``"xla"``: each step's loss and the worst
+    gradient norm, relative) bounds its mesh run's step 2."""
     from attention_tpu_torch.models import (
         TinyDecoder,
         init_train,
@@ -2778,8 +2805,9 @@ def mesh_single_device() -> dict:
     )
 
     out = {}
-    for _, kind, _, _, _, shape in MESH_RUNS:
-        key = f"{kind}_{shape[0]}x{shape[1]}"
+    runs = [(f"{kind}_{shape[0]}x{shape[1]}", kind, shape)
+            for _, kind, _, _, _, shape in MESH_RUNS]
+    for key, kind, shape in runs + [("pp", "pp", TRAIN_BATCH)]:
         if key in out:
             continue
         for impl in ("flash", "xla") if kind == "moe" else ("flash",):
@@ -2829,6 +2857,19 @@ def state_bytes(optimizer) -> int:
         total += sum(t.numel() * t.element_size()
                      for k, t in optimizer.state[m].items() if k != "step")
     return total
+
+
+def expert_state_share(optimizer, layout) -> float | None:
+    """This rank's float32 state of the MoE experts (masters and
+    moments) as a share of the whole experts' (None without experts)."""
+    mine = whole = 0
+    for n, _ in optimizer.named:
+        if "experts" in n:
+            m = optimizer.masters[n]
+            mine += m.numel() + sum(t.numel() for k, t in
+                                    optimizer.state[m].items() if k != "step")
+            whole += 3 * int(np.prod(layout.shapes[n]))
+    return mine / whole if whole else None
 
 
 def mesh_grad_norms(optimizer, layout) -> dict:
@@ -2914,6 +2955,7 @@ def mesh_train(rank: int, world: int, say, launches: dict, single: dict,
               for a in layout.specs[n] + (None,) * (3 - len(layout.specs[n]))]
              for n in names], device="cuda")
         mine = state_bytes(optimizer)
+        experts = expert_state_share(optimizer, layout)
         record = torch.tensor([*losses, torch.cuda.max_memory_allocated(),
                                mine], dtype=torch.float64, device="cuda")
         every = every_rank.all_gather(record[None], "world", dim=0)
@@ -2958,6 +3000,7 @@ def mesh_train(rank: int, world: int, say, launches: dict, single: dict,
             state_bytes_per_rank=per_rank,
             single_device_state_bytes=one["state_bytes"],
             state_share_per_rank=[b / one["state_bytes"] for b in per_rank],
+            expert_state_share_rank0=experts,
             launches=counts)
         if not (same_loss and not parted and rel <= CP_LOSS_RTOL
                 and rel2 <= step2_tol
@@ -2970,8 +3013,122 @@ def mesh_train(rank: int, world: int, say, launches: dict, single: dict,
                 sizes[0] * sizes[2]):
             failures.append(f"mesh train {run}: state bytes {per_rank} of "
                             f"{one['state_bytes']} over 1/(dp tp)")
+        ep = kw.get("ep_axis")
+        if ep is not None and not fsdp and experts != 1 / mesh.shape[ep]:
+            failures.append(f"mesh train {run}: rank {rank} holds "
+                            f"{experts} of the experts' state, not 1/"
+                            f"{mesh.shape[ep]}")
         del model, optimizer, step, layout
         torch.cuda.empty_cache()
+
+
+def pipeline_train(rank: int, world: int, say, launches: dict, single: dict,
+                   failures: list) -> None:
+    """Phase 3d's pipelined run: the serving model at `PP_DEPTH` on
+    ("pp",) of ``world`` ranks, `TRAIN_BATCH` in `PP_MICRO` microbatches,
+    `CP_TRAIN_STEPS` steps of `make_pipelined_train_step` from
+    `init_pipelined_train`'s seeded start, held to the single device's
+    `make_train_step` run by phase 3c's bars (step 1, step 2, every
+    parameter's step-1 gradient norm, each from the rank whose stage
+    holds it); the losses the same on every rank and the replicated
+    embedding, norm and head the same bits after each step; the flash
+    forward and the fused backward launched exactly once a block a
+    microbatch a step; step ms, the point-to-point and collective share
+    of the second step (`Mesh.timings`), each rank's peak and float32
+    state beside the single device's."""
+    from attention_tpu_torch import ops
+    from attention_tpu_torch.models import (
+        TinyDecoder,
+        init_pipelined_train,
+        make_pipelined_train_step,
+    )
+    from attention_tpu_torch.parallel.mesh import default_mesh, grid_mesh
+
+    every_rank = default_mesh("world")
+    mesh = grid_mesh(("pp",), (world,))
+    model_kw = mesh_model_kw("pp")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = TinyDecoder(dtype=torch.bfloat16, device="cuda", **model_kw)
+    optimizer = init_pipelined_train(model, mesh, seed=SEED, lr=TRAIN_LR)
+    step = make_pipelined_train_step(model, optimizer, mesh,
+                                     n_micro=PP_MICRO)
+    batch = mesh_batch(TRAIN_BATCH)
+    replicated = [p for n, p in model.named_parameters()
+                  if not n.startswith("blocks.")]
+    losses, step_ms, same_bits = [], [], []
+    ops.reset_launch_counts()
+    for i in range(CP_TRAIN_STEPS):
+        if i == CP_TRAIN_STEPS - 1:
+            mesh.timings = {}
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        losses.append(step(batch).item())
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        if i == 0:
+            norms = grad_norms(optimizer)
+        bits = every_rank.all_gather(cp_digest(replicated)[None], "world",
+                                     dim=0)
+        same_bits.append(all(torch.equal(bits[0], b) for b in bits))
+    coll, mesh.timings = mesh.timings, None
+    counts = {kn: c for kn, c in ops.launch_counts().items() if c}
+    per = PP_DEPTH // world * PP_MICRO * CP_TRAIN_STEPS
+    if counts != {"flash_fwd": per, "flash_bwd_fused": per}:
+        failures.append(f"rank {rank} pp: launched {counts}, want {per} "
+                        "each")
+    for kn, c in counts.items():
+        launches[kn] = launches.get(kn, 0) + c
+    # each parameter's norm from the rank that holds it (the replicated
+    # ones from every rank: the same bits)
+    names = [n for n, _ in model.named_parameters()]
+    held = torch.tensor([norms.get(n, -1.0) for n in names],
+                        dtype=torch.float64, device="cuda")
+    held = every_rank.all_reduce(held, "world", "max")
+    whole_norms = dict(zip(names, held.tolist()))
+    record = torch.tensor([*losses, torch.cuda.max_memory_allocated(),
+                           state_bytes(optimizer)], dtype=torch.float64,
+                          device="cuda")
+    every = every_rank.all_gather(record[None], "world", dim=0)
+    same_loss = all(torch.equal(every[0, :CP_TRAIN_STEPS],
+                                x[:CP_TRAIN_STEPS]) for x in every)
+    one = single["pp"]
+    want = one["losses"]
+    rel, rel2 = (abs(losses[i] - want[i]) / abs(want[i]) for i in (0, 1))
+    norm_err = {n: abs(x - one["grad_norms"][n]) / one["grad_norms"][n]
+                for n, x in whole_norms.items()}
+    worst = max(norm_err, key=norm_err.get)
+    per_rank = [x[-1].item() for x in every]
+    say(case="pipeline_train", run="pp4", mesh=dict(mesh.shape),
+        model=model_kw, shape=list(TRAIN_BATCH), n_micro=PP_MICRO,
+        bubble_share=(world - 1) / (PP_MICRO + world - 1), losses=losses,
+        single_device_losses=want, step1_rel_err=rel, step2_rel_err=rel2,
+        grad_norm_worst={"param": worst, "rel_err": norm_err[worst]},
+        block_grad_norm_rel_err={n: e for n, e in norm_err.items()
+                                 if n.startswith("blocks.")},
+        tol={"step1": CP_LOSS_RTOL, "step2": CP_STEP2_RTOL,
+             "grad_norm": CP_GRAD_NORM_RTOL},
+        same_loss_on_every_rank=same_loss,
+        replicated_same_bits_after_each_step=same_bits,
+        step_ms=step_ms, single_device_step_ms=one["step_ms"],
+        collectives_ms={kn: t * 1e3 for kn, t in coll.items()},
+        collectives_share=sum(coll.values()) * 1e3 / step_ms[-1],
+        peak_memory_gib=[x[-2].item() / 2**30 for x in every],
+        single_device_peak_gib=one["peak_gib"],
+        state_bytes_per_rank=per_rank,
+        single_device_state_bytes=one["state_bytes"],
+        state_share_per_rank=[b / one["state_bytes"] for b in per_rank],
+        launches=counts)
+    if not (same_loss and all(same_bits) and rel <= CP_LOSS_RTOL
+            and rel2 <= CP_STEP2_RTOL
+            and norm_err[worst] <= CP_GRAD_NORM_RTOL
+            and all(np.isfinite(losses))):
+        failures.append(f"pp: losses {losses} against {want}, {worst} norm "
+                        f"{norm_err[worst]}, same loss {same_loss}, "
+                        f"replicated bits equal {same_bits}")
+    del model, optimizer, step, replicated
+    torch.cuda.empty_cache()
 
 
 def recovery_batch(step: int) -> torch.Tensor:
@@ -3050,6 +3207,8 @@ def mesh_rank(rank: int, world: int, init_file: str, out_file: str,
     launches, failures = {}, []
     t0 = time.perf_counter()
     mesh_train(rank, world, say, launches, single, failures)
+    t_pp = time.perf_counter()
+    pipeline_train(rank, world, say, launches, single, failures)
     t1 = time.perf_counter()
     digest, losses = recovery_run(rank, os.path.join(ckpt_dir, "ref"),
                                   launches)
@@ -3059,7 +3218,7 @@ def mesh_rank(rank: int, world: int, init_file: str, out_file: str,
         with open(out_file, "w") as f:
             json.dump(dict(launches=launches, digest=digest.tolist(),
                            losses=losses, seconds={
-                               "runs": t1 - t0,
+                               "runs": t_pp - t0, "pipeline": t1 - t_pp,
                                "recovery": time.perf_counter() - t1}), f)
     dist.barrier()
     recovery_run(rank, os.path.join(ckpt_dir, "crash"), {},

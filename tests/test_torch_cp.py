@@ -460,10 +460,11 @@ REFUSALS = {
                                            _x(8, 8))),
     # the tensor-parallel layout, FSDP and expert parallelism are ported
     # (tests/test_torch_mesh_train.py): what stays refused around them,
-    # JAX's ValueErrors, and pipeline parallelism, not ported yet
+    # JAX's ValueErrors, and a "pp" axis, which the pipelined step trains
+    # (tests/test_torch_pipeline.py)
     "train_tp2": (ValueError, "accum_steps", lambda: make_train_step(
         _small_model(), None, _mesh((1, 1, 2)), accum_steps=0)),
-    "init_tp2": (NotImplementedError, "Queue 1 item 2", lambda: init_train(
+    "init_tp2": (ValueError, "make_pipelined_train_step", lambda: init_train(
         _small_model(), mesh=Mesh(("pp", "tp"), (2, 2), (0, 0),
                                   [[0, 0], [0, 0]], (None, None)))),
     "init_fsdp": (ValueError, "mesh=", lambda: init_train(

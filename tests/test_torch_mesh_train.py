@@ -1,9 +1,9 @@
 """The mesh trainer's parameter layouts in the port against the JAX
 package, on the CPU: `param_spec` / `legal_spec` / `fsdp_spec` and
 `shard_params`, Megatron's tp split of `TinyDecoder`, FSDP, MoE experts
-over tp with JAX's global capacity, slots and aux loss, `MoEMLP(
-ep_axis=)`, the checkpoint on a mesh and `train_with_recovery(model,
-mesh, ...)`.
+over tp with JAX's global capacity, slots and aux loss, experts over the
+tokens' axes by all-to-alls, `MoEMLP(ep_axis=)`, the checkpoint on a
+mesh and `train_with_recovery(model, mesh, ...)`.
 
 The port's side runs in gloo worlds of 4 CPU processes
 (`torch.multiprocessing.spawn`): one for the module, every rank running
@@ -22,22 +22,30 @@ process, which computes the JAX side while the world runs.
   `params_from_jax`, on (dp, sp, tp) = (1, 1, 4), (2, 1, 2) with FSDP,
   (1, 2, 2) with ``cp_axis="sp"`` ring (129 positions, padded), and the
   MoE model (4 experts, top 2, capacity factor 1.25, so that pairs drop)
-  on (2, 1, 2) with ``ep_axis="tp"`` (with and without FSDP) and on
-  (1, 2, 2) ring, and head counts tp does not divide (6 / 3 heads on tp
-  4, 12 / 3 on tp 2): the whole gradients gathered from the blocks against
+  on (2, 1, 2) with ``ep_axis="tp"`` (with and without FSDP), on
+  (1, 2, 2) ring, on (4, 1, 1) with ``ep_axis="dp"`` and on (1, 4, 1)
+  ring with ``ep_axis="sp"`` (the experts over the tokens' axis: a
+  quarter a rank, the tokens moved by all-to-alls), and head counts tp
+  does not divide (6 / 3 heads on tp 4, 12 / 3 on tp 2): the whole
+  gradients gathered from the blocks against
   ``jax.value_and_grad(loss_fn)`` of JAX's single-device ``impl="xla"``
-  model, loss rtol 1e-5, gradients 3e-5 max abs (tests/test_cp.py's).
-* Three steps on (2, 1, 2) against JAX's own `init_sharded` +
-  `make_train_step` on a (2, 1, 2) JAX mesh, loss rtol 1e-5, dense with
-  and without FSDP and the MoE model (experts over tp) with it; the FSDP
+  model, loss rtol 1e-5, gradients 3e-5 max abs (tests/test_cp.py's);
+  the two expert-parallel cases also against the same model with its
+  experts replicated on the same mesh.
+* Three steps against JAX's own `init_sharded` (its flax init jitted) +
+  `make_train_step` on a JAX mesh of the same shape, loss rtol 1e-5: on (2, 1, 2) dense with
+  and without FSDP and the MoE model (experts over tp) with it, the MoE
+  model with ``ep_axis="dp"`` on (4, 1, 1) and with ``ep_axis="sp"`` on
+  (1, 4, 1) (the port's attention by the ring, JAX's by XLA over the
+  sequence); each rank of those two holds E / 4 experts and a quarter of
+  their float32 state; the FSDP
   run's losses and masters the bits of the replicated run's; a 2-D
   parameter split over dp; each rank's masters and moments 1 / (dp·tp)
   of the whole; replicated parameters (and blocks) the same bits on
   every rank that holds them.
 * `MoEMLP(ep_axis="ep")` on a 4-rank "ep" mesh against the unsharded
   layer and JAX's, 1e-5 (tests/test_moe.py's); the trainer refuses an
-  ``ep_axis`` whose ranks hold different tokens or that sits beside a
-  "tp" splitting the experts.
+  ``ep_axis`` that sits beside a "tp" splitting the experts.
 * A checkpoint written on (2, 1, 2) with FSDP restores on (1, 1, 4) to
   the same whole tensors; a single-device model's checkpoint is written
   on every rank of the world; `train_with_recovery` on (2, 1, 2) with FSDP,
@@ -75,7 +83,7 @@ LOSS_RTOL, GRAD_ATOL = 1e-5, 3e-5
 MOE_ATOL = 1e-5
 MODEL = dict(vocab=64, dim=64, depth=1, num_q_heads=4, num_kv_heads=2)
 MOE = dict(moe_experts=4, moe_capacity_factor=1.25)
-TOKENS = {"short": (4, 33), "long": (4, 130)}
+TOKENS = {"short": (4, 33), "long": (4, 130), "sp4": (4, 132)}
 # the models beside MODEL: MoE, and head counts that tp does not divide
 KINDS = {"dense": {}, "moe": MOE,
          # 6 q heads on tp 4: every head on every rank, o_proj gathered
@@ -98,12 +106,31 @@ GRADS = {
     "tp4_heads6": ((1, 1, 4), KINDS["heads6"], False, "short", "heads6"),
     "dp2_tp2_heads12": ((2, 1, 2), KINDS["heads12"], False, "short",
                         "heads12"),
+    # experts over the axes that split the tokens: an all-to-all each way
+    "moe_dp4_ep": ((4, 1, 1), dict(MOE, ep_axis="dp"), False, "short",
+                   "moe"),
+    "moe_sp4_ring_ep": ((1, 4, 1), dict(MOE, ep_axis="sp", cp_axis="sp",
+                                        cp_impl="ring"), False, "long",
+                        "moe"),
 }
+# the expert-parallel cases of GRADS, each also run with its experts
+# replicated (no ep_axis) on the same mesh
+EP_CASES = ("moe_dp4_ep", "moe_sp4_ring_ep")
 STEP_MESH = (2, 1, 2)
 STEPS = 3
-# the port's models of the three-step runs (JAX's sharded step runs the
-# MoE model with ep_axis="tp" too)
-STEP_MODELS = {"dense": {}, "moe": dict(MOE, ep_axis="tp")}
+# the three-step runs: (mesh sizes, the port's model keywords, fsdp,
+# tokens, kind); JAX's sharded step runs the kind's model with the same
+# ep_axis, its attention by XLA over the sequence where the port's runs
+# the ring
+STEP_RUNS = {
+    "dense": (STEP_MESH, {}, False, "short", "dense"),
+    "dense_fsdp": (STEP_MESH, {}, True, "short", "dense"),
+    "moe_fsdp": (STEP_MESH, dict(MOE, ep_axis="tp"), True, "short", "moe"),
+    "moe_dp4_ep": ((4, 1, 1), dict(MOE, ep_axis="dp"), False, "short",
+                   "moe"),
+    "moe_sp4_ep": ((1, 4, 1), dict(MOE, ep_axis="sp", cp_axis="sp",
+                                   cp_impl="ring"), False, "sp4", "moe"),
+}
 # the layout cases: (mesh sizes, model keywords)
 LAYOUTS = {f"{'x'.join(map(str, sizes))}_{kind}": (sizes, kw)
            for sizes in ((1, 1, 4), (2, 1, 2), (1, 2, 2))
@@ -140,8 +167,12 @@ def _whole(model, tensors):
             for n, t in zip(names, tensors)}
 
 
-def _port_grads(name, params):
+def _port_grads(name, params, replicated=False):
+    """`value_and_grad` of a `GRADS` case: the loss and whole gradients;
+    with ``replicated``, of its model without ``ep_axis``."""
     sizes, kw, fsdp, tokens, kind = GRADS[name]
+    if replicated:
+        kw = {k: v for k, v in kw.items() if k != "ep_axis"}
     mesh = grid_mesh(AXES, sizes)
     model = _model(mesh, **kw)
     init_train(model, params=params[kind], mesh=mesh, fsdp=fsdp)
@@ -150,29 +181,40 @@ def _port_grads(name, params):
     return loss.item(), _whole(model, grads)
 
 
-def _port_steps(params, mesh, fsdp, kind="dense"):
-    """`STEPS` steps from JAX's weights: the losses, the whole masters,
-    this rank's blocks and its specs, and the numbers of elements of
-    this rank's masters + moments and of the whole model's."""
-    model = _model(mesh, **STEP_MODELS[kind])
+def _port_steps(params, run):
+    """`STEPS` steps of a `STEP_RUNS` run from JAX's weights: the losses,
+    the whole masters, this rank's blocks and its specs, the numbers of
+    elements of this rank's masters + moments and of the whole model's,
+    and of its experts' alone."""
+    sizes, kw, fsdp, tokens, kind = STEP_RUNS[run]
+    mesh = grid_mesh(AXES, sizes)
+    model = _model(mesh, **kw)
     optimizer = init_train(model, params=params[kind], mesh=mesh,
                            fsdp=fsdp)
     step = make_train_step(model, optimizer, mesh)
-    tokens = torch.from_numpy(_tokens("short"))
+    tokens = torch.from_numpy(_tokens(tokens))
     losses = [step(tokens).item() for _ in range(STEPS)]
     masters = _whole(model, [m for _, m in optimizer.pairs()])
-    local = sum(m.numel() + sum(t.numel() for k, t in
-                                optimizer.state[m].items() if k != "step")
-                for _, m in optimizer.pairs())
+    def state(keep):
+        return sum(m.numel() + sum(t.numel() for k, t in
+                                   optimizer.state[m].items() if k != "step")
+                   for (n, _), (_, m) in zip(optimizer.named,
+                                             optimizer.pairs()) if keep(n))
+
+    local = state(lambda n: True)
     whole = 3 * sum(p.size for p in masters.values())
     blocks = {n: p.detach().numpy().copy()
               for n, p in model.named_parameters()}
     coords = {n: tuple(mesh.index(a) if a is not None else None
                        for a in spec)
               for n, spec in model.layout.specs.items()}
+    expert_whole = 3 * sum(p.size for n, p in masters.items()
+                           if "experts" in n)
     return dict(losses=losses, masters=masters, blocks=blocks,
                 coords=coords, specs=dict(model.layout.specs),
-                state_fraction=local / whole)
+                state_fraction=local / whole,
+                expert_fraction=state(lambda n: "experts" in n)
+                / max(expert_whole, 1))
 
 
 def _port_ep():
@@ -238,10 +280,9 @@ def _worker(rank, world, init_file, out_dir):
             time.sleep(0.1)
         params = torch.load(params_file)
         outs["grads"] = {n: _port_grads(n, params) for n in GRADS}
-        mesh = grid_mesh(AXES, STEP_MESH)
-        outs["steps"] = {fsdp: _port_steps(params, mesh, fsdp)
-                         for fsdp in (False, True)}
-        outs["moe_steps"] = _port_steps(params, mesh, True, "moe")
+        outs["ep_replicated"] = {n: _port_grads(n, params, replicated=True)
+                                 for n in EP_CASES}
+        outs["steps"] = {run: _port_steps(params, run) for run in STEP_RUNS}
         outs["ckpt"] = _port_checkpoint(params,
                                         os.path.join(out_dir, "ckpt"))
         outs["single_ckpt"] = _port_single_checkpoint(
@@ -272,9 +313,33 @@ def _jax_mesh(sizes):
     return JaxMesh(np.asarray(jax.devices()[:WORLD]).reshape(sizes), AXES)
 
 
+def _jax_init_sharded(jmodel, mesh, fsdp):
+    """JAX's `init_sharded(jmodel, mesh, seed=0, lr=1e-3, fsdp=fsdp)`
+    with its flax init under ``jax.jit`` (the eager init's bits; eager,
+    an MoE model's sharding constraints take seconds op by op): the
+    params placed by JAX's `shard_params`, adamw's state of them, its
+    scalars replicated."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    from attention_tpu.models import train as jax_train
+
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
+                                  jnp.zeros((4, 32), jnp.int32))["params"]
+    params = jax_train.shard_params(params, mesh, fsdp=fsdp)
+    replicated = NamedSharding(mesh, PartitionSpec())
+    state = jax.tree_util.tree_map(
+        lambda x: jax.device_put(x, replicated)
+        if getattr(x, "ndim", None) == 0 else x,
+        optax.adamw(1e-3).init(params))
+    return params, state
+
+
 def _jax_reference(models):
     """JAX's loss and gradients of each (model, tokens) of `GRADS` on
-    one device, and its sharded 3 steps on (2, 1, 2)."""
+    one device, and its sharded 3 steps of each `STEP_RUNS` run."""
     import jax
     import jax.numpy as jnp
     import optax
@@ -292,22 +357,23 @@ def _jax_reference(models):
         grads[kind, tokens] = (float(loss), {
             n: t.numpy() for n, t in
             params_from_jax(jax.device_get(g)).items()})
-    mesh = _jax_mesh(STEP_MESH)
-    batch = jnp.asarray(_tokens("short"), jnp.int32)
     steps = {}
-    for kind, fsdp in (("dense", False), ("moe", True)):
+    for run, (sizes, kw, fsdp, tokens, kind) in STEP_RUNS.items():
+        if run == "dense_fsdp":  # FSDP's trajectory is the replicated one's
+            continue
+        mesh = _jax_mesh(sizes)
+        batch = jnp.asarray(_tokens(tokens), jnp.int32)
         jmodel = models[kind][0]
-        if kind == "moe":
-            jmodel = jmodel.clone(ep_axis="tp")
+        if "ep_axis" in kw:
+            jmodel = jmodel.clone(ep_axis=kw["ep_axis"])
         with mesh_context(mesh):
-            params, _, state = jax_train.init_sharded(
-                jmodel, mesh, batch=4, seq=32, seed=0, lr=1e-3, fsdp=fsdp)
+            params, state = _jax_init_sharded(jmodel, mesh, fsdp)
             step = jax_train.make_train_step(jmodel, optax.adamw(1e-3), mesh)
             losses = []
             for _ in range(STEPS):
                 params, state, loss = step(params, state, batch)
                 losses.append(float(loss))
-        steps[kind] = losses
+        steps[run] = losses
     return dict(grads=grads, steps=steps)
 
 
@@ -459,24 +525,21 @@ def test_loss_and_grads_match_jax_single_device(world, name):
         assert np.abs(g - want[n]).max() <= GRAD_ATOL, n
 
 
-@pytest.mark.parametrize("run", ("dense", "dense_fsdp", "moe_fsdp"))
+@pytest.mark.parametrize("run", sorted(STEP_RUNS))
 def test_three_steps_match_jax_sharded_step(world, run):
-    """Three steps on (2, 1, 2) from JAX's weights against JAX's own
-    `init_sharded` + `make_train_step` on a (2, 1, 2) JAX mesh: the
-    dense model with and without FSDP, and the MoE model (experts over
+    """Three steps from JAX's weights against JAX's own `init_sharded` +
+    `make_train_step` on a JAX mesh of the same shape: on (2, 1, 2) the
+    dense model with and without FSDP and the MoE model (experts over
     tp, pairs dropped) with FSDP, whose blocks a misplaced expert or
-    FSDP block would carry into the second and third losses."""
+    FSDP block would carry into the second and third losses; the MoE
+    model with its experts over the tokens' axis, "dp" on (4, 1, 1) and
+    the ring's "sp" on (1, 4, 1), where the tokens reach their experts
+    by all-to-alls (JAX's: by XLA's)."""
     ranks, jax_side = world
-    kind = run.split("_")[0]
-
-    def runs(outs):
-        return outs["moe_steps"] if kind == "moe" else \
-            outs["steps"][run.endswith("fsdp")]
-
-    losses = runs(ranks[0])["losses"]
-    assert all(runs(r)["losses"] == losses for r in ranks)
-    np.testing.assert_allclose(losses, jax_side["steps"][kind],
-                               rtol=LOSS_RTOL, atol=0)
+    losses = ranks[0]["steps"][run]["losses"]
+    assert all(r["steps"][run]["losses"] == losses for r in ranks)
+    want = jax_side["steps"]["dense" if run == "dense_fsdp" else run]
+    np.testing.assert_allclose(losses, want, rtol=LOSS_RTOL, atol=0)
     assert losses[-1] < losses[0]
 
 
@@ -487,16 +550,16 @@ def test_fsdp_equals_replicated(world):
     split over dp, and each rank's masters and moments are 1 / (dp·tp)
     of the whole (the replicated layout's 1 / tp and more)."""
     ranks, _ = world
-    rep, fs = ranks[0]["steps"][False], ranks[0]["steps"][True]
+    rep, fs = ranks[0]["steps"]["dense"], ranks[0]["steps"]["dense_fsdp"]
     assert fs["losses"] == rep["losses"]
     for n, m in rep["masters"].items():
         assert np.array_equal(fs["masters"][n], m), n
     assert any("dp" in s and len(s) == 2 for s in fs["specs"].values())
     dp, _, tp = STEP_MESH
     for r in ranks:
-        assert r["steps"][True]["state_fraction"] == pytest.approx(
+        assert r["steps"]["dense_fsdp"]["state_fraction"] == pytest.approx(
             1 / (dp * tp), rel=0.02)
-        assert r["steps"][False]["state_fraction"] > 1.5 / (dp * tp)
+        assert r["steps"]["dense"]["state_fraction"] > 1.5 / (dp * tp)
 
 
 @pytest.mark.parametrize("fsdp", (False, True))
@@ -507,12 +570,13 @@ def test_step_leaves_same_bits_on_every_rank_that_holds_a_block(world,
     replicated one) hold the same bits: the norms, the replicated k and
     v of (1, 1, 4) aside, every tp-replicated tensor included."""
     ranks, _ = world
-    names = ranks[0]["steps"][fsdp]["blocks"]
+    key = "dense_fsdp" if fsdp else "dense"
+    names = ranks[0]["steps"][key]["blocks"]
     shared = replicated = 0
     for n in names:
         by_block = {}
         for r in ranks:
-            run = r["steps"][fsdp]
+            run = r["steps"][key]
             by_block.setdefault(run["coords"][n], []).append(
                 run["blocks"][n])
         for blocks in by_block.values():
@@ -547,14 +611,45 @@ def test_moe_ep_sharded_matches_unsharded_and_jax(world):
     np.testing.assert_allclose(whole, want, atol=MOE_ATOL, rtol=MOE_ATOL)
 
 
+@pytest.mark.parametrize("name", EP_CASES)
+def test_ep_over_the_tokens_matches_replicated_experts(world, name):
+    """The MoE model with its experts over "dp" on (4, 1, 1), or over the
+    ring's "sp" on (1, 4, 1), whose tokens reach their experts by
+    all-to-alls, against the same model with its experts replicated on
+    the same mesh: the loss rtol 1e-5, the whole gradients 3e-5 max abs
+    (the routing, capacity and slots are the same global ones)."""
+    ranks, _ = world
+    loss, grads = ranks[0]["grads"][name]
+    want_loss, want = ranks[0]["ep_replicated"][name]
+    assert abs(loss - want_loss) <= LOSS_RTOL * abs(want_loss)
+    assert sorted(grads) == sorted(want)
+    for n, g in grads.items():
+        assert np.abs(g - want[n]).max() <= GRAD_ATOL, n
+
+
+@pytest.mark.parametrize("run", ("moe_dp4_ep", "moe_sp4_ep"))
+def test_ep_rank_holds_a_quarter_of_the_experts(world, run):
+    """Each of the 4 ranks of the tokens' axis holds its own E / 4
+    experts, of both weights, and their masters and moments: a quarter
+    of the experts' float32 state."""
+    ranks, _ = world
+    axis = STEP_RUNS[run][1]["ep_axis"]
+    held = set()
+    for r in ranks:
+        steps = r["steps"][run]
+        for n in ("blocks.0.mlp.experts_up", "blocks.0.mlp.experts_down"):
+            assert steps["specs"][n] == (axis, None, None), n
+            assert steps["blocks"][n].shape[0] == MOE["moe_experts"] // 4
+        held.add(steps["coords"]["blocks.0.mlp.experts_up"])
+        assert steps["expert_fraction"] == pytest.approx(1 / 4, rel=1e-12)
+    assert len(held) == WORLD
+
+
 # the ep_axis the trainer refuses: (mesh axes, sizes, model keywords,
 # the refusal's words)
-TOKEN_SPLIT, BESIDE_TP = "splits the tokens", "beside a 'tp'"
+BESIDE_TP = "beside a 'tp'"
 EP_REFUSED = {
-    "dp": (AXES, (4, 1, 1), dict(MOE, ep_axis="dp"), TOKEN_SPLIT),
-    "dp_tp2": (AXES, (2, 1, 2), dict(MOE, ep_axis="dp"), TOKEN_SPLIT),
-    "cp_axis": (AXES, (1, 4, 1), dict(MOE, ep_axis="sp", cp_axis="sp",
-                                      cp_impl="ring"), TOKEN_SPLIT),
+    "dp_tp2": (AXES, (2, 1, 2), dict(MOE, ep_axis="dp"), BESIDE_TP),
     "beside_tp": (AXES + ("ep",), (1, 1, 2, 2), dict(MOE, ep_axis="ep"),
                   BESIDE_TP),
 }
@@ -562,10 +657,11 @@ EP_REFUSED = {
 
 @pytest.mark.parametrize("case", sorted(EP_REFUSED))
 def test_trainer_refuses_an_ep_axis_it_cannot_split(case):
-    """An ``ep_axis`` of more than one rank whose ranks hold different
-    tokens (dp, the cp axis), or that sits beside a "tp" splitting the
-    experts, raises `ValueError` in `init_train`, `value_and_grad` and
-    `make_train_step` rather than summing other tokens' expert outputs."""
+    """An ``ep_axis`` of more than one rank other than "tp" that sits
+    beside a "tp" splitting the experts (JAX's table) raises
+    `ValueError` in `init_train`, `value_and_grad` and `make_train_step`
+    (the cases "dp" and "cp_axis", which the trainer now trains with
+    all-to-alls, went with their refusal)."""
     axes, sizes, kw, words = EP_REFUSED[case]
     mesh = Mesh(axes, sizes, (0,) * len(axes), [[0] * s for s in sizes],
                 (None,) * len(axes))
