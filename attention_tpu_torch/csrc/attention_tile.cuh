@@ -42,6 +42,26 @@
 // the Problem names another as `Tiles`).  The quantized caches' loop
 // (quant_tiles.cuh) is its own, over the online-softmax step and the
 // key-group merge below (`softmax_tile`, `merge_key_groups`).
+//
+// The rescaling math of the recurrence is a compile-time parameter `VAR`
+// of the softmax step (the TPU kernels' max_mode, attention_tpu/ops/
+// flash.py:654-762), ONLINE by default, so every existing instance is the
+// code it was:
+// - ONLINE: the running row max m and sum l; O and l rescaled by
+//   exp2(m_old - m_new) each tile.
+// - BOUND (`attend` only, the flash forward's FMA body): m is a row bound
+//   b >= every score of the row, computed once from the row's query and
+//   the Problem's `knmax` (Cauchy-Schwarz); a tile is one exp2 a score and
+//   the sum, no max, no rescale.  Stats (b, sum of exp2(s - b)).
+// - FLASHD (FLASH-D): m carries mu, the running log2-sum-exp, O stays
+//   normalized: each tile takes t = exp2(mu - b) + sum exp2(s - b) over
+//   b = max(mu, tile max), scales P by 1/t before it is rounded and O by
+//   exp2(mu - b)/t, and mu becomes b + log2 t.  Stats (mu, 1), (-inf, 0)
+//   for a row that saw nothing: the two-phase merges hold unchanged.
+// - AMLA: m is the running max ceiled to an integer, so each rescale is a
+//   power of two, applied by adding the (non-positive) integer to the fp32
+//   exponent fields of O and l (`exp_add`).  Stats (m, l).
+// Every variant keeps the NaN behaviour `softmax_tile` documents.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -91,6 +111,25 @@ inline size_t smem_bytes(int dk, int dv) {
 
 constexpr float LN2 = 0.6931471805599453f;
 
+// the rescaling-math variants (the C entry points' max_mode codes)
+constexpr int ONLINE = 0, BOUND = 1, FLASHD = 2, AMLA = 3;
+
+// The least CTAs an SM the variants' CUDA-core and mma.sync kernels ask of
+// ptxas (their second launch bound): left to its own choice, ptxas held
+// some of them to 128 registers a thread and spilled 2-36 bytes.
+constexpr int VARIANT_MIN_BLOCKS = 1;
+
+// x · 2^e for an integer e <= 0 as an add on the fp32 exponent field (the
+// TPU kernel's `_exponent_add`, attention_tpu/ops/flash.py:748): zero and
+// a result below the normal range give 0, inf and NaN pass through.
+__device__ __forceinline__ float exp_add(float x, int e) {
+  const int bits = __float_as_int(x);
+  const int ex = (bits >> 23) & 0xFF;
+  if (ex == 0xFF) return x;
+  e = max(e, -255);
+  return ex + e <= 0 ? 0.f : __int_as_float(bits + (e << 23));
+}
+
 // The key tiles of width W that a CTA visits, in order: those covering the
 // pinned columns [0, sink_end), then every tile from the one holding
 // kv_begin up to the one holding column n_end - 1.  A tile holding both a
@@ -117,6 +156,8 @@ struct TileWalk {
 struct ProblemBase {
   int kv_begin = 0;
   int sink_end = 0;
+  float knmax = 0.f;     // BOUND: the largest key norm of the kv head
+  bool demoted = false;  // BOUND: the guard's verdict, take the online step
   __device__ float* acc_row(int) const { return nullptr; }
   __device__ void put_stats(int, float, float) const {}
 };
@@ -139,6 +180,76 @@ __device__ __forceinline__ float4 lds4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
+// One row's softmax step of `attend`'s tile under a variant other than
+// ONLINE: the row's scores in s become P (rounded to T), and its m, l and
+// O are updated.  BOUND where its guard passed (`bnd`): m is the row
+// bound, one exp2 a score and the sum, no max, no rescale; BOUND demoted
+// takes the online step.  FLASHD scales P by 1/t before the rounding;
+// AMLA ceils the max and rescales O and l by exponent adds.
+template <typename T, int NQ, int VAR>
+__device__ __forceinline__ void variant_row_step(float (&s)[CPT], float mx,
+                                                 float& m, float& l,
+                                                 float (&o)[NQ][4],
+                                                 bool bnd) {
+  if (VAR == BOUND && bnd) {
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const float p = exp2f(s[j] - m);
+      sum += p;
+      s[j] = to_f(from_f<T>(p));
+    }
+    l += row_sum8(sum);
+    return;
+  }
+  mx = row_max8(mx);
+  float m_new = fmaxf(m, VAR == AMLA ? ceilf(mx) : mx);
+  float corr = 1.f;
+  float sum = 0.f;
+  if (m_new != -INFINITY) {
+    corr = exp2f(m - m_new);
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const float p = exp2f(s[j] - m_new);
+      sum += p;
+      s[j] = p;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) s[j] = 0.f;
+  }
+  sum = row_sum8(sum);
+  if constexpr (VAR == FLASHD) {
+    // corr is exp2(mu - b); t the new denominator over exp2(b), taken out
+    // of P before its rounding and out of the carried O
+    const float t = corr + sum;
+    const float rt = t == 0.f ? 0.f : 1.f / t;
+    corr *= rt;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) s[j] *= rt;
+    m_new += log2f(t);
+    l = m_new == -INFINITY ? 0.f : 1.f;
+  } else if constexpr (VAR == AMLA) {
+    const int e = m == -INFINITY ? 0 : (int)(m - m_new);
+    l = exp_add(l, e) + sum;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) o[q][x] = exp_add(o[q][x], e);
+  } else {
+    l = l * corr + sum;
+  }
+  m = m_new;
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) s[j] = to_f(from_f<T>(s[j]));
+  if constexpr (VAR != AMLA) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[q][e] *= corr;
+  }
+}
+
 // One CTA's attention over the rows and key/value stream a Problem
 // describes.  A Problem derives from ProblemBase and provides:
 //   n_end               columns below n_end are visited (masked beyond),
@@ -152,7 +263,7 @@ __device__ __forceinline__ float4 lds4(const float* p) {
 // NJ output columns per thread: dv <= 8*NJ, NJ a multiple of 4.  Thread
 // (tr, tc) owns rows 4*tr .. 4*tr+3, score columns 4*tc .. 4*tc+3 of each
 // tile and output columns 4*tc + 32*q + e (q < NJ/4, e < 4).
-template <typename T, int NJ, typename Problem>
+template <typename T, int NJ, int VAR = ONLINE, typename Problem>
 __device__ void attend(const Problem& pb, int dk, int dv, float qscale,
                        float cap2) {
   static_assert(RPT == 4 && CPT == 4 && NJ % 4 == 0, "float4 tiles");
@@ -185,6 +296,25 @@ __device__ void attend(const Problem& pb, int dk, int dv, float qscale,
     for (int q = 0; q < NQ; ++q)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[i][q][e] = 0.f;
+  }
+  // BOUND takes the online step on every tile where the guard demoted the
+  // call (`bnd` false: the same for every CTA)
+  bool bnd = false;
+  if constexpr (VAR == BOUND) bnd = !pb.demoted;
+  if (bnd) {
+    // the row bound from the (scaled) query rows in Qt: a row's 8 threads
+    // each sum every 8th column's squares
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      float ss = 0.f;
+      for (int c = tc; c < dk; c += 8) {
+        const float x = Qt[c * QT_STRIDE + RPT * tr + i];
+        ss = fmaf(x, x, ss);
+      }
+      const float b = sqrtf(row_sum8(ss)) * pb.knmax;
+      mrow[i] = cap2 > 0.f ? fminf(b, cap2) : b;
+    }
   }
 
   const TileWalk walk(pb.n_end, pb.kv_begin, pb.sink_end, BN);
@@ -238,30 +368,34 @@ __device__ void attend(const Problem& pb, int dk, int dv, float qscale,
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
-      mx = row_max8(mx);
-      const float m_new = fmaxf(mrow[i], mx);
-      float corr = 1.f;
-      float sum = 0.f;
-      if (m_new != -INFINITY) {
-        // exp2f(-inf) == 0: a row's first live tile zeroes nothing
-        corr = exp2f(mrow[i] - m_new);
+      if constexpr (VAR == ONLINE) {
+        mx = row_max8(mx);
+        const float m_new = fmaxf(mrow[i], mx);
+        float corr = 1.f;
+        float sum = 0.f;
+        if (m_new != -INFINITY) {
+          // exp2f(-inf) == 0: a row's first live tile zeroes nothing
+          corr = exp2f(mrow[i] - m_new);
 #pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          const float p = exp2f(s[i][j] - m_new);
-          sum += p;
-          s[i][j] = to_f(from_f<T>(p));
+          for (int j = 0; j < CPT; ++j) {
+            const float p = exp2f(s[i][j] - m_new);
+            sum += p;
+            s[i][j] = to_f(from_f<T>(p));
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
         }
+        sum = row_sum8(sum);
+        lrow[i] = lrow[i] * corr + sum;
+        mrow[i] = m_new;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[i][q][e] *= corr;
       } else {
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
+        variant_row_step<T, NQ, VAR>(s[i], mx, mrow[i], lrow[i], o[i], bnd);
       }
-      sum = row_sum8(sum);
-      lrow[i] = lrow[i] * corr + sum;
-      mrow[i] = m_new;
-#pragma unroll
-      for (int q = 0; q < NQ; ++q)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[i][q][e] *= corr;
 #pragma unroll
       for (int j = 0; j < CPT; ++j)
         Pt[(CPT * tc + j) * QT_STRIDE + r] = s[i][j];
@@ -454,20 +588,27 @@ __device__ __forceinline__ void tile_row_max(const float (&s)[NT][4],
 // its exponents against 0, so a masked entry gives P = 0 and a NaN score
 // (a NaN-scaled key) a NaN P and row sum, also when nothing finite is
 // visible: the row comes out NaN, as the plain versions' amax makes it.
-template <int NT, int OT>
+//
+// VAR (ONLINE, FLASHD or AMLA; see the top of this file) is the rescaling
+// math; mrow then holds the running max, mu, or the ceiled max.
+template <int NT, int OT, int VAR = ONLINE>
 __device__ __forceinline__ void softmax_tile(float (&s)[NT][4],
                                              const float (&mx)[2],
                                              float (&mrow)[2],
                                              float (&lrow)[2],
                                              float (&o)[OT][4]) {
+  static_assert(VAR != BOUND, "bound mode has its own tile body");
   float corr[2];
   float base[2];
+  float mold[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const float mnew = fmaxf(mrow[i], mx[i]);
+    const float mnew = fmaxf(mrow[i], VAR == AMLA ? ceilf(mx[i]) : mx[i]);
     // exp2f(-inf) == 0: a row's first live tile zeroes nothing
     corr[i] = mnew == -INFINITY ? 1.f : exp2f(mrow[i] - mnew);
+    if (VAR == FLASHD && mrow[i] == -INFINITY) corr[i] = 0.f;
     base[i] = mnew == -INFINITY ? 0.f : mnew;
+    mold[i] = mrow[i];
     mrow[i] = mnew;
   }
   float sum[2] = {0.f, 0.f};
@@ -483,12 +624,37 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NT][4],
   for (int i = 0; i < 2; ++i) {
     sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
     sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
-    lrow[i] = lrow[i] * corr[i] + sum[i];
+    if constexpr (VAR == FLASHD) {
+      // t: the denominator over exp2(b), taken out of P and of O
+      const float t = corr[i] + sum[i];
+      const float rt = t == 0.f ? 0.f : 1.f / t;
+      corr[i] *= rt;
+      sum[i] = rt;  // P's factor
+      mrow[i] = mrow[i] + log2f(t);
+      lrow[i] = mrow[i] == -INFINITY ? 0.f : 1.f;
+    } else if constexpr (VAR == AMLA) {
+      // the integer step of the ceiled max, as an exponent add
+      corr[i] = mold[i] == -INFINITY ? 0.f : mold[i] - mrow[i];
+      lrow[i] = exp_add(lrow[i], (int)corr[i]) + sum[i];
+    } else {
+      lrow[i] = lrow[i] * corr[i] + sum[i];
+    }
+  }
+  if constexpr (VAR == FLASHD) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= sum[e >> 1];
   }
 #pragma unroll
   for (int j = 0; j < OT; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (VAR == AMLA)
+        o[j][e] = exp_add(o[j][e], (int)corr[e >> 1]);
+      else
+        o[j][e] *= corr[e >> 1];
+    }
 }
 
 // The key groups of each 16-row tile (warps w, w + 1, .. w + KG - 1 of a
@@ -571,7 +737,8 @@ __device__ __forceinline__ bool merge_key_groups(float (&o)[DV / 8][4],
 // at GQA group 8 has 8).  The key groups' (m, l, o) merge through shared
 // memory once the walk is done (`merge_key_groups`).  STAGES tiles are in
 // flight at once (cp.async, one commit group per tile).
-template <int DK, int DV, int KG = 1, int STAGES = 2, typename Problem>
+template <int DK, int DV, int KG = 1, int STAGES = 2, int VAR = ONLINE,
+          typename Problem>
 __device__ void attend_mma(const Problem& pb, float qscale, float cap2) {
   using Tiles = typename tiles_of<Problem>::type;
   static_assert(KG == 1 || KG == 4, "key groups");
@@ -667,7 +834,7 @@ __device__ void attend_mma(const Problem& pb, float qscale, float cap2) {
       }
     float mx[2];
     tile_row_max(s, mx);
-    softmax_tile(s, mx, mrow, lrow, o);
+    softmax_tile<NT, OT, VAR>(s, mx, mrow, lrow, o);
 
     // P (two score n-tiles per k16 step) as the A operand, V transposed
 #pragma unroll

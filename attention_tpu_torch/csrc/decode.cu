@@ -3,7 +3,8 @@
 //
 // Replaces the TPU kernel `_decode_kernel` (attention_tpu/ops/decode.py:90,
 // launched by `flash_decode` at :355 and `flash_decode_chunk` at :489),
-// online max mode.  q (B, H, S, d) against caches k (B, Hkv, N, d) and
+// its max modes online, FLASH-D and AMLA (the call's `variant`; the online
+// instances here, the others' in builds of decode_variant.cu).  q (B, H, S, d) against caches k (B, Hkv, N, d) and
 // v (B, Hkv, N, dv) with per-sequence lengths lens (B,) taken after the S
 // rows were appended; row (g, s) of kv head h sits at position
 // lens[b] - S + s, causal within the chunk, with the optional window band
@@ -26,41 +27,15 @@
 // at group 8 has 8), the four warps share it and split every key tile
 // between them instead of three of them computing on padding, and three
 // cp.async stages keep about 64 KB of key/value tiles in flight per CTA.
-#include "decode_rows.cuh"
+#include "decode.cuh"
 
-namespace {
-
-// a dense (B, Hkv, N, d) cache, any element strides with a contiguous last
-// dim
-struct DenseSource {
-  const void* k;
-  const void* v;
-  long long skb, skh, skn, svb, svh, svn;
-
-  template <typename T>
-  struct Rows {
-    using Tiles = atk::SpanTiles;
-    const T* k;
-    const T* v;
-    long long skn, svn;
-    __device__ const T* k_row(int c) const { return k + c * skn; }
-    __device__ const T* v_row(int c) const { return v + c * svn; }
-    __device__ atk::TileSpan<T> k_tile(int c) const {
-      return {k_row(c), skn, atk::MMA_BN};
-    }
-    __device__ atk::TileSpan<T> v_tile(int c) const {
-      return {v_row(c), svn, atk::MMA_BN};
-    }
-  };
-
-  template <typename T>
-  __device__ Rows<T> rows(int b, int kvh) const {
-    return {static_cast<const T*>(k) + b * skb + kvh * skh,
-            static_cast<const T*>(v) + b * svb + kvh * svh, skn, svn};
-  }
-};
-
-}  // namespace
+// the other variants' instances, built from decode_variant.cu
+extern template cudaError_t ddec::run<atk::FLASHD>(
+    const atk::DecodeArgs&, const ddec::DenseSource&, int, int, bool,
+    cudaStream_t);
+extern template cudaError_t ddec::run<atk::AMLA>(
+    const atk::DecodeArgs&, const ddec::DenseSource&, int, int, bool,
+    cudaStream_t);
 
 // Plain C entry point, loaded through ctypes.  dtype: 0 = fp32, 1 = bf16.
 // q and o are (B, H, S, d) and the caches (B, Hkv, N, d), each with element
@@ -69,6 +44,7 @@ struct DenseSource {
 // means none.  A negative length reads as 0.  splits and chunk are the key
 // split of `split_plan` (attention_tpu_torch/ops/decode.py); with splits >
 // 1, part is contiguous fp32 scratch of B·H·S·splits·(dv + 2) values.
+// variant: the max mode, 0 = online, 2 = FLASH-D, 3 = AMLA.
 // Returns cudaGetLastError().
 extern "C" int decode_fwd(const void* q, const void* k, const void* v,
                           const void* lens, void* o, void* part, int dtype,
@@ -78,7 +54,8 @@ extern "C" int decode_fwd(const void* q, const void* k, const void* v,
                           long long svb, long long svh, long long svn,
                           long long sob, long long soh, long long sos,
                           int window, int sinks, float scale, float softcap,
-                          int splits, int chunk, void* stream) {
+                          int splits, int chunk, int variant,
+                          void* stream) {
   atk::DecodeArgs a{};
   a.q = q;
   a.o = o;
@@ -100,11 +77,19 @@ extern "C" int decode_fwd(const void* q, const void* k, const void* v,
   a.qscale = scale * atk::LOG2E;
   a.cap2 = softcap > 0.f ? softcap * atk::LOG2E : 0.f;
   atk::set_splits(a, B, splits, chunk, part);
-  const DenseSource src{k, v, skb, skh, skn, svb, svh, svn};
+  const ddec::DenseSource src{k, v, skb, skh, skn, svb, svh, svn};
   const bool mma_ok = atk::rows_aligned(a) && skb % 8 == 0 &&
                       skh % 8 == 0 && skn % 8 == 0 && svb % 8 == 0 &&
                       svh % 8 == 0 && svn % 8 == 0 && atk::aligned16(k) &&
                       atk::aligned16(v);
-  return (int)atk::dispatch_decode(a, src, B, dtype, mma_ok,
-                                   static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (variant) {
+    case atk::ONLINE:
+      return (int)ddec::run<atk::ONLINE>(a, src, B, dtype, mma_ok, st);
+    case atk::FLASHD:
+      return (int)ddec::run<atk::FLASHD>(a, src, B, dtype, mma_ok, st);
+    case atk::AMLA:
+      return (int)ddec::run<atk::AMLA>(a, src, B, dtype, mma_ok, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -46,6 +46,13 @@
 // Nothing seen (sum 0) gives a zero row, a poisoned sequence NaN rows, and a
 // split whose sum is NaN (it saw a NaN score, `softmax_tile`) NaN rows too,
 // whatever its max.
+//
+// VAR is the rescaling math of the tile loops (attention_tile.cuh: ONLINE,
+// FLASHD or AMLA; bound is forward-only, as in the TPU kernels).  Under
+// FLASHD a split's partials are its normalized output with (mu, 1), and
+// under AMLA its ceiled max with its sum: the merge weighs them as it
+// weighs online's.  The variants' tensor-core instances exist at dk == dv
+// only; elsewhere they take the FMA loop.
 #pragma once
 
 #include "attention_tile.cuh"
@@ -230,8 +237,13 @@ constexpr int DECODE_STAGES = KG > 1 ? 3 : 2;
 // of one sequence's kv head, whose loader (`Tiles`) may bring its own tile
 // loop (OWN_LOOP: the quantized caches).  KG: the bf16 loop's key groups (1
 // or 4); the fp32 loop (NJ > 0) takes 64-row blocks.
-template <typename T, int NJ, int DK, int DV, int KG, typename Source>
-__global__ void __launch_bounds__(THREADS)
+// VAR: the rescaling math; a variant's kernel asks ptxas for
+// `VARIANT_MIN_BLOCKS` CTAs an SM, an online one for none (0), as it
+// always has.
+template <typename T, int NJ, int DK, int DV, int KG, typename Source,
+          int VAR = ONLINE>
+__global__ void __launch_bounds__(THREADS,
+                                  VAR == ONLINE ? 0 : VARIANT_MIN_BLOCKS)
     decode_kernel(DecodeArgs a, Source src) {
   constexpr int ROWS = NJ > 0 ? BM : BM / KG;  // rows per CTA
   const int b = blockIdx.y / a.Hkv;
@@ -313,12 +325,13 @@ __global__ void __launch_bounds__(THREADS)
     return;
   }
   if constexpr (NJ > 0)
-    attend<T, NJ>(pb, a.dk, a.dv, a.qscale, a.cap2);
-  else if constexpr (Problem::Tiles::OWN_LOOP)
+    attend<T, NJ, VAR>(pb, a.dk, a.dv, a.qscale, a.cap2);
+  else if constexpr (Problem::Tiles::OWN_LOOP) {
+    static_assert(VAR == ONLINE, "the quantized loops run online");
     Problem::Tiles::template attend<DK, KG, DECODE_STAGES<KG>>(pb, a.qscale,
                                                                a.cap2);
-  else
-    attend_mma<DK, DV, KG, DECODE_STAGES<KG>>(pb, a.qscale, a.cap2);
+  } else
+    attend_mma<DK, DV, KG, DECODE_STAGES<KG>, VAR>(pb, a.qscale, a.cap2);
 }
 
 constexpr int MERGE_THREADS = 128;
@@ -394,10 +407,11 @@ size_t decode_smem(int dk, int dv) {
     return smem_bytes_mma(dk, dv, KG, DECODE_STAGES<KG>);
 }
 
-template <typename T, int NJ, int DK, int DV, int KG, typename Source>
+template <typename T, int NJ, int DK, int DV, int KG, typename Source,
+          int VAR = ONLINE>
 cudaError_t launch_decode(const DecodeArgs& a, const Source& src, int B,
                           cudaStream_t stream) {
-  auto kernel = decode_kernel<T, NJ, DK, DV, KG, Source>;
+  auto kernel = decode_kernel<T, NJ, DK, DV, KG, Source, VAR>;
   const size_t smem = decode_smem<T, NJ, DK, DV, KG, Source>(a.dk, a.dv);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -441,37 +455,50 @@ inline bool decode_args_ok(const DecodeArgs& a, int B) {
 // f32 and for bf16 at other head dims, tensor cores for bf16 at head dims
 // 64/128 when the caller found the rows 16-byte aligned (mma_ok), with the
 // keys split across the four warps where the rows fit one 16-row tile.
-template <typename Source>
+// VAR's tensor-core instances: every pair of 64 and 128 for ONLINE, dk ==
+// dv for the others.
+template <typename Source, int VAR = ONLINE>
 cudaError_t dispatch_decode(const DecodeArgs& a, const Source& src, int B,
                             int dtype, bool mma_ok, cudaStream_t s) {
   if (!decode_args_ok(a, B)) return cudaErrorInvalidValue;
   using bf16 = __nv_bfloat16;
   if (dtype == 1 && mma_ok && (a.dk == 64 || a.dk == 128) &&
-      (a.dv == 64 || a.dv == 128)) {
+      (a.dv == 64 || a.dv == 128) && (VAR == ONLINE || a.dk == a.dv)) {
     const bool few = a.H / a.Hkv * a.S <= 16;
     if (a.dk == 64 && a.dv == 64)
-      return few ? launch_decode<bf16, 0, 64, 64, 4>(a, src, B, s)
-                 : launch_decode<bf16, 0, 64, 64, 1>(a, src, B, s);
-    if (a.dk == 64)
-      return few ? launch_decode<bf16, 0, 64, 128, 4>(a, src, B, s)
-                 : launch_decode<bf16, 0, 64, 128, 1>(a, src, B, s);
-    if (a.dv == 64)
-      return few ? launch_decode<bf16, 0, 128, 64, 4>(a, src, B, s)
-                 : launch_decode<bf16, 0, 128, 64, 1>(a, src, B, s);
-    return few ? launch_decode<bf16, 0, 128, 128, 4>(a, src, B, s)
-               : launch_decode<bf16, 0, 128, 128, 1>(a, src, B, s);
+      return few ? launch_decode<bf16, 0, 64, 64, 4, Source, VAR>(a, src, B, s)
+                 : launch_decode<bf16, 0, 64, 64, 1, Source, VAR>(a, src, B,
+                                                                  s);
+    if constexpr (VAR == ONLINE) {
+      if (a.dk == 64)
+        return few ? launch_decode<bf16, 0, 64, 128, 4>(a, src, B, s)
+                   : launch_decode<bf16, 0, 64, 128, 1>(a, src, B, s);
+      if (a.dv == 64)
+        return few ? launch_decode<bf16, 0, 128, 64, 4>(a, src, B, s)
+                   : launch_decode<bf16, 0, 128, 64, 1>(a, src, B, s);
+    }
+    return few
+               ? launch_decode<bf16, 0, 128, 128, 4, Source, VAR>(a, src, B, s)
+               : launch_decode<bf16, 0, 128, 128, 1, Source, VAR>(a, src, B,
+                                                                  s);
   }
   if (dtype == 0) {
-    if (a.dv <= 32) return launch_decode<float, 4, 0, 0, 1>(a, src, B, s);
-    if (a.dv <= 64) return launch_decode<float, 8, 0, 0, 1>(a, src, B, s);
-    if (a.dv <= 128) return launch_decode<float, 16, 0, 0, 1>(a, src, B, s);
-    return launch_decode<float, 32, 0, 0, 1>(a, src, B, s);
+    if (a.dv <= 32)
+      return launch_decode<float, 4, 0, 0, 1, Source, VAR>(a, src, B, s);
+    if (a.dv <= 64)
+      return launch_decode<float, 8, 0, 0, 1, Source, VAR>(a, src, B, s);
+    if (a.dv <= 128)
+      return launch_decode<float, 16, 0, 0, 1, Source, VAR>(a, src, B, s);
+    return launch_decode<float, 32, 0, 0, 1, Source, VAR>(a, src, B, s);
   }
   if (dtype != 1) return cudaErrorInvalidValue;
-  if (a.dv <= 32) return launch_decode<bf16, 4, 0, 0, 1>(a, src, B, s);
-  if (a.dv <= 64) return launch_decode<bf16, 8, 0, 0, 1>(a, src, B, s);
-  if (a.dv <= 128) return launch_decode<bf16, 16, 0, 0, 1>(a, src, B, s);
-  return launch_decode<bf16, 32, 0, 0, 1>(a, src, B, s);
+  if (a.dv <= 32)
+    return launch_decode<bf16, 4, 0, 0, 1, Source, VAR>(a, src, B, s);
+  if (a.dv <= 64)
+    return launch_decode<bf16, 8, 0, 0, 1, Source, VAR>(a, src, B, s);
+  if (a.dv <= 128)
+    return launch_decode<bf16, 16, 0, 0, 1, Source, VAR>(a, src, B, s);
+  return launch_decode<bf16, 32, 0, 0, 1, Source, VAR>(a, src, B, s);
 }
 
 inline bool aligned16(const void* p) {

@@ -1,9 +1,12 @@
 // Forward flash attention for Hopper (sm_90a), normalized output or partials.
 //
 // Replaces the TPU kernel `_flash_kernel` (attention_tpu/ops/flash.py:310,
-// launched by `_flash_call`), online max mode, normalized output or, given
-// an fp32 accumulator, the partials of `flash_attention_partials`: the
-// unnormalized output, each row's max (natural-log domain) and its sum of
+// launched by `_flash_call`), each of its max modes (the `variant` of the
+// call: online, bound with its overshoot guard, FLASH-D, AMLA;
+// attention_tile.cuh and flash_fwd_sm90.cuh say how each runs here),
+// normalized output or, given an fp32 accumulator, the partials of
+// `flash_attention_partials`: the unnormalized output, the value each
+// row's scores were taken against (natural-log domain) and its sum of
 // exponentials, which training saves for the backward.  Computes
 // softmax(Q Kᵀ · scale) V for q (B, H, m, dk), k (B, Hkv, n, dk),
 // v (B, Hkv, n, dv); q head h reads kv head h / (H / Hkv).  Only the first
@@ -38,153 +41,30 @@
 // masks only where a tile needs them, heaviest-first order on a persistent
 // grid and a key split for thin grids; its note says what each does), and
 // "fma" for everything else (`atk::attend`, fp32 FMA on the CUDA cores,
-// 64-row CTAs).
-#include "attention_tile.cuh"
-#include "flash_fwd_sm90.cuh"
-#include "tensor_map.cuh"
+// 64-row CTAs).  The online instances live here, each other variant's in
+// its own build of flash_fwd_variant.cu (flash_fwd.cuh).
+#include "flash_fwd.cuh"
+
+// the other variants' instances, built from flash_fwd_variant.cu
+extern template cudaError_t ffwd::run_fma<atk::BOUND>(
+    const ffwd::FlashArgs&, int, int, cudaStream_t);
+extern template cudaError_t ffwd::run_fma<atk::FLASHD>(
+    const ffwd::FlashArgs&, int, int, cudaStream_t);
+extern template cudaError_t ffwd::run_fma<atk::AMLA>(
+    const ffwd::FlashArgs&, int, int, cudaStream_t);
+extern template cudaError_t ffwd::run_wgmma<atk::BOUND>(
+    const CUtensorMap&, const CUtensorMap&, const CUtensorMap&,
+    const sm90::Args&, int, int, cudaStream_t);
+extern template cudaError_t ffwd::run_wgmma<atk::FLASHD>(
+    const CUtensorMap&, const CUtensorMap&, const CUtensorMap&,
+    const sm90::Args&, int, int, cudaStream_t);
+extern template cudaError_t ffwd::run_wgmma<atk::AMLA>(
+    const CUtensorMap&, const CUtensorMap&, const CUtensorMap&,
+    const sm90::Args&, int, int, cudaStream_t);
 
 namespace {
 
-using atk::BM;
-using atk::THREADS;
-
-struct FlashArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  // partials mode when acc is set: the fp32 unnormalized output (o's
-  // strides) and the (B, H, m) row max and row sum, contiguous
-  float* acc;
-  float* row_max;
-  float* row_sum;
-  int H, Hkv, m, n, dk, dv;
-  // element strides (batch, head, row) of q, k, v, o
-  long long sqb, sqh, sqm, skb, skh, skn, svb, svh, svn, sob, soh, som;
-  float qscale, cap2;
-  int causal, q_offset, kv_offset, kv_valid;
-  int window, sinks;  // the band, causal only (window 0: none)
-  // segment ids (m) and (n rounded up to whole 128-key tiles), or null
-  const int* q_seg;
-  const int* kv_seg;
-};
-
-template <typename T>
-struct FlashProblem : atk::ProblemBase {
-  const T* q;
-  const T* k;
-  const T* v;
-  T* o;
-  float* acc;
-  float* mx;
-  float* sm;
-  long long sqm, skn, svn, som;
-  int m0, m, n_end, kv_valid, q_offset, kv_offset, window, sinks;
-  bool causal;
-  const int* q_seg;  // segment ids, or null
-  const int* kv_seg;
-
-  __device__ const T* q_row(int r) const {
-    const int row = m0 + r;
-    return row < m ? q + row * sqm : nullptr;
-  }
-  __device__ T* o_row(int r) const {
-    const int row = m0 + r;
-    return row < m ? o + row * som : nullptr;
-  }
-  __device__ float* acc_row(int r) const {
-    const int row = m0 + r;
-    return acc != nullptr && row < m ? acc + row * som : nullptr;
-  }
-  // the tile loops keep the max in the log2 domain; JAX's stats are in
-  // the natural-log domain (attention_tpu/ops/flash.py:498)
-  __device__ void put_stats(int r, float mrow, float lrow) const {
-    const int row = m0 + r;
-    if (row < m) {
-      mx[row] = mrow * atk::LN2;
-      sm[row] = lrow;
-    }
-  }
-  __device__ const T* k_row(int c) const { return k + c * skn; }
-  __device__ const T* v_row(int c) const { return v + c * svn; }
-  // exact per element: the band's keys are those at positions p - window
-  // + 1 .. p of the row at position p, plus the positions below sinks;
-  // with segment ids, only the keys of the row's segment
-  __device__ bool keep(int r, int c) const {
-    const int p = m0 + r + q_offset;
-    const int kp = c + kv_offset;
-    return c < kv_valid &&
-           (!causal || (kp <= p && (window == 0 || kp > p - window ||
-                                    kp < sinks))) &&
-           (q_seg == nullptr || (m0 + r < m && q_seg[m0 + r] == kv_seg[c]));
-  }
-};
-
-// the (batch*head, query block) of this CTA
-template <typename T>
-__device__ FlashProblem<T> flash_problem(const FlashArgs& a) {
-  const int bh = blockIdx.y;
-  const int b = bh / a.H;
-  const int h = bh - b * a.H;
-  const int hk = h / (a.H / a.Hkv);
-  FlashProblem<T> pb;
-  pb.q = static_cast<const T*>(a.q) + b * a.sqb + h * a.sqh;
-  pb.k = static_cast<const T*>(a.k) + b * a.skb + hk * a.skh;
-  pb.v = static_cast<const T*>(a.v) + b * a.svb + hk * a.svh;
-  pb.o = static_cast<T*>(a.o) + b * a.sob + h * a.soh;
-  pb.acc = a.acc == nullptr ? nullptr : a.acc + b * a.sob + h * a.soh;
-  pb.mx = a.row_max + (long long)bh * a.m;
-  pb.sm = a.row_sum + (long long)bh * a.m;
-  pb.sqm = a.sqm;
-  pb.skn = a.skn;
-  pb.svn = a.svn;
-  pb.som = a.som;
-  pb.m0 = blockIdx.x * BM;
-  pb.m = a.m;
-  pb.kv_valid = min(a.kv_valid, a.n);
-  pb.q_offset = a.q_offset;
-  pb.kv_offset = a.kv_offset;
-  pb.causal = a.causal != 0;
-  pb.window = pb.causal ? a.window : 0;
-  pb.sinks = a.sinks;
-  pb.q_seg = a.q_seg;
-  pb.kv_seg = a.kv_seg;
-  // causal: no key past the block's last row; with a band, the walk
-  // starts at the block's first row's band after the sink tiles
-  pb.n_end = pb.causal ? max(0, min(pb.kv_valid, pb.m0 + BM + a.q_offset -
-                                                     a.kv_offset))
-                       : pb.kv_valid;
-  if (pb.window > 0) {
-    pb.kv_begin = max(0, pb.m0 + a.q_offset - a.kv_offset - a.window + 1);
-    pb.sink_end = max(0, a.sinks - a.kv_offset);
-  }
-  return pb;
-}
-
-template <typename T, int NJ>
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(FlashArgs a) {
-  atk::attend<T, NJ>(flash_problem<T>(a), a.dk, a.dv, a.qscale, a.cap2);
-}
-
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, const FlashArgs& a, int B,
-                   cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.m + BM - 1) / BM, B * a.H);
-  kernel<<<grid, THREADS, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_fma(const FlashArgs& a, int B, cudaStream_t s) {
-  const size_t smem = atk::smem_bytes(a.dk, a.dv);
-  if (a.dv <= 32) return launch(flash_fwd_kernel<T, 4>, smem, a, B, s);
-  if (a.dv <= 64) return launch(flash_fwd_kernel<T, 8>, smem, a, B, s);
-  if (a.dv <= 128) return launch(flash_fwd_kernel<T, 16>, smem, a, B, s);
-  return launch(flash_fwd_kernel<T, 32>, smem, a, B, s);
-}
+using ffwd::FlashArgs;
 
 // the wgmma body's tiles come by TMA: bf16, head dims 64/128, 16-byte
 // aligned bases, and (batch, head, row) strides that are positive
@@ -199,63 +79,39 @@ bool wgmma_ok(const FlashArgs& a) {
          tmap::aligned16(a.v) && (a.acc != nullptr || tmap::aligned16(a.o));
 }
 
-template <int DK, int DV, bool CAP, bool SEG>
-cudaError_t launch_wgmma_t(const CUtensorMap& tq, const CUtensorMap& tk,
-                           const CUtensorMap& tv, const sm90::Args& s, int B,
-                           cudaStream_t stream) {
-  auto kernel = sm90::flash_fwd_wgmma<DK, DV, CAP, sm90::FlashSched, SEG>;
-  constexpr size_t smem = sm90::smem_bytes(DK, DV, SEG);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  // a persistent grid: at most one CTA an SM, over every work item
-  int device = 0, sms = 0;
-  err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  const long long items = (long long)B * s.H *
-                          ((s.m + sm90::BM - 1) / sm90::BM) * s.splits;
-  const unsigned grid = (unsigned)(items < sms ? items : sms);
-  kernel<<<grid, sm90::THREADS, smem, stream>>>(tq, tk, tv,
-                                                 sm90::FlashSched{s});
-  err = cudaGetLastError();
-  if (err != cudaSuccess || s.splits == 1) return err;
-  const long long bhm = (long long)B * s.H * s.m;
-  sm90::flash_merge<<<(unsigned)((bhm + sm90::MERGE_ROWS - 1) /
-                                 sm90::MERGE_ROWS),
-                      32 * sm90::MERGE_ROWS, 0, stream>>>(s, bhm);
-  return cudaGetLastError();
+cudaError_t run_wgmma(int variant, const CUtensorMap& tq,
+                      const CUtensorMap& tk, const CUtensorMap& tv,
+                      const sm90::Args& s, int dk, int B, cudaStream_t st) {
+  switch (variant) {
+    case atk::ONLINE:
+      return ffwd::run_wgmma<atk::ONLINE>(tq, tk, tv, s, dk, B, st);
+    case atk::BOUND:
+      return ffwd::run_wgmma<atk::BOUND>(tq, tk, tv, s, dk, B, st);
+    case atk::FLASHD:
+      return ffwd::run_wgmma<atk::FLASHD>(tq, tk, tv, s, dk, B, st);
+    case atk::AMLA:
+      return ffwd::run_wgmma<atk::AMLA>(tq, tk, tv, s, dk, B, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
-template <bool CAP, bool SEG>
-cudaError_t launch_wgmma_cap(const CUtensorMap& tq, const CUtensorMap& tk,
-                             const CUtensorMap& tv, const sm90::Args& s,
-                             int dk, int B, cudaStream_t st) {
-  if (dk == 64 && s.dv == 64)
-    return launch_wgmma_t<64, 64, CAP, SEG>(tq, tk, tv, s, B, st);
-  if (dk == 64)
-    return launch_wgmma_t<64, 128, CAP, SEG>(tq, tk, tv, s, B, st);
-  if (s.dv == 64)
-    return launch_wgmma_t<128, 64, CAP, SEG>(tq, tk, tv, s, B, st);
-  return launch_wgmma_t<128, 128, CAP, SEG>(tq, tk, tv, s, B, st);
+cudaError_t run_fma(int variant, const FlashArgs& a, int dtype, int B,
+                    cudaStream_t s) {
+  switch (variant) {
+    case atk::ONLINE: return ffwd::run_fma<atk::ONLINE>(a, dtype, B, s);
+    case atk::BOUND: return ffwd::run_fma<atk::BOUND>(a, dtype, B, s);
+    case atk::FLASHD: return ffwd::run_fma<atk::FLASHD>(a, dtype, B, s);
+    case atk::AMLA: return ffwd::run_fma<atk::AMLA>(a, dtype, B, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
-// The instance of a call: softcap on or off, segment ids or none.
-template <bool CAP>
-cudaError_t launch_wgmma_seg(const CUtensorMap& tq, const CUtensorMap& tk,
-                             const CUtensorMap& tv, const sm90::Args& s,
-                             int dk, int B, cudaStream_t st) {
-  return s.q_seg != nullptr
-             ? launch_wgmma_cap<CAP, true>(tq, tk, tv, s, dk, B, st)
-             : launch_wgmma_cap<CAP, false>(tq, tk, tv, s, dk, B, st);
-}
-
-// The wgmma body: the tensor maps of q, k and v, then the kernel over
-// `splits` key splits of split_tiles tiles each (and the merge when
-// splits > 1, its scratch in part).
+// The wgmma body: the tensor maps of q, k and v, then the kernel of the
+// variant over `splits` key splits of split_tiles tiles each (and the
+// merge when splits > 1, its scratch in part).
 cudaError_t launch_wgmma(const FlashArgs& a, int B, int splits,
-                         int split_tiles, float* part, cudaStream_t st) {
+                         int split_tiles, float* part, int variant,
+                         cudaStream_t st) {
   const tmap::EncodeTiled enc = tmap::encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
@@ -292,8 +148,21 @@ cudaError_t launch_wgmma(const FlashArgs& a, int B, int splits,
   s.split_tiles = split_tiles;
   s.q_seg = a.q_seg;
   s.kv_seg = a.kv_seg;
-  return a.cap2 > 0.f ? launch_wgmma_seg<true>(tq, tk, tv, s, a.dk, B, st)
-                      : launch_wgmma_seg<false>(tq, tk, tv, s, a.dk, B, st);
+  s.variant = variant;
+  s.knmax = a.knmax;
+  s.demote = a.demote;
+  s.q = static_cast<const __nv_bfloat16*>(a.q);
+  s.sqb = a.sqb;
+  s.sqh = a.sqh;
+  s.sqm = a.sqm;
+  s.dk = a.dk;
+  cudaError_t err = run_wgmma(variant, tq, tk, tv, s, a.dk, B, st);
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long bhm = (long long)B * s.H * s.m;
+  sm90::flash_merge<<<(unsigned)((bhm + sm90::MERGE_ROWS - 1) /
+                                 sm90::MERGE_ROWS),
+                      32 * sm90::MERGE_ROWS, 0, st>>>(s, bhm);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -316,6 +185,12 @@ cudaError_t launch_wgmma(const FlashArgs& a, int B, int splits,
 // query rows (m) and the key rows (n, padded with ids no row holds to a
 // whole number of 128-key tiles, and 16-byte aligned, for the wgmma
 // body's bulk copies); a pair is kept only where they are equal.
+// variant: the max mode, 0 = online, 1 = bound (knmax: (B, Hkv) fp32
+// largest key norms, demote: the guard's int32 verdict, both on the
+// device; non-zero runs the online body), 2 = FLASH-D, 3 = AMLA; the
+// wgmma body has the instances `ffwd::wgmma_instance` names and refuses
+// the others.  A row that sees no key gets sum 0 (and max -inf, except
+// under bound: its bound).
 // Returns cudaGetLastError() after the launches (or the refusal).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          int dtype, int B, int H, int Hkv, int m, int n,
@@ -329,11 +204,14 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          float* row_max,
                          float* row_sum, int body, int splits,
                          int split_tiles, float* part, const void* q_seg,
-                         const void* kv_seg, void* stream) {
+                         const void* kv_seg, int variant, const void* knmax,
+                         const void* demote, void* stream) {
   if (dk < 1 || dv < 1 || dk > atk::MAX_HEAD_DIM || dv > atk::MAX_HEAD_DIM ||
       H % Hkv != 0 || m < 1 || n < 1 || splits < 1 || window < 0 ||
       sinks < 0 || (window > 0 && !causal) || (sinks > 0 && window == 0) ||
-      (q_seg == nullptr) != (kv_seg == nullptr))
+      (q_seg == nullptr) != (kv_seg == nullptr) || variant < atk::ONLINE ||
+      variant > atk::AMLA ||
+      (variant == atk::BOUND && (knmax == nullptr || demote == nullptr)))
     return (int)cudaErrorInvalidValue;
   const FlashArgs a{q,   k,   v,   o,   acc, row_max, row_sum, H,
                     Hkv, m,   n,   dk,  dv,  sqb,     sqh,     sqm,
@@ -342,17 +220,18 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                     softcap > 0.f ? softcap * atk::LOG2E : 0.f, causal,
                     q_offset, kv_offset, kv_valid, window, sinks,
                     static_cast<const int*>(q_seg),
-                    static_cast<const int*>(kv_seg)};
+                    static_cast<const int*>(kv_seg),
+                    static_cast<const float*>(knmax),
+                    static_cast<const int*>(demote)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (body == 1) {
     if (dtype != 1 || !wgmma_ok(a) || split_tiles < 1 ||
         (splits > 1 && part == nullptr) ||
-        (kv_seg != nullptr && !tmap::aligned16(kv_seg)))
+        (kv_seg != nullptr && !tmap::aligned16(kv_seg)) ||
+        !ffwd::wgmma_instance(variant, dk, dv, q_seg != nullptr))
       return (int)cudaErrorInvalidValue;
-    return (int)launch_wgmma(a, B, splits, split_tiles, part, s);
+    return (int)launch_wgmma(a, B, splits, split_tiles, part, variant, s);
   }
   if (body != 0 || splits != 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return (int)launch_fma<float>(a, B, s);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  return (int)launch_fma<__nv_bfloat16>(a, B, s);
+  return (int)run_fma(variant, a, dtype, B, s);
 }

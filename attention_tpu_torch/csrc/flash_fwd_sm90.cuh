@@ -64,6 +64,22 @@
 //   max then sum.  No atomics: a second call gives the same bits.
 // - Softcap keeps `tanhf`: the backward recomputes P from this forward's
 //   row stats with `tanhf`, and a faster tanh here alone would move them.
+// - The rescaling math (the TPU kernel's max_mode) is the kernel's `VAR`
+//   (attention_tile.cuh's list), one instance each, so the online instance
+//   is the code it was.  BOUND takes each row's bound b = ||q|| · qscale ·
+//   knmax (capped at cap2) from the Q tile in shared memory at the item's
+//   start, and its tile drops the row max, its quad shuffles and the
+//   rescale of O: one exp2 a score, the sum and P·V.  Its guard runs on
+//   the device before the launch and leaves a verdict in global memory;
+//   the kernel reads it at its start and, where it says the bound could
+//   leave fp32's range, takes the online step on every tile instead (the
+//   instance holds both steps around one pipeline): one launch, a branch
+//   the same for every CTA, no host sync.  FLASHD reduces each
+//   tile's row sum across the row's four threads (two shuffles more a row
+//   and tile) for its one reciprocal a row, and scales P by it before the
+//   bf16 rounding; AMLA ceils the max and rescales O and l by exponent
+//   adds.  A split that saw no key is told by its sum (under BOUND its max
+//   is b, not -inf), and an item with no key writes b as its max.
 // - Packed-sequence segment ids (the TPU kernel's q_seg/kv_seg) in an
 //   instance of their own, `SEG`, so that a call without ids runs the code
 //   it ran before them.  Ids mask; they do not move the walk: a SEG call
@@ -73,6 +89,7 @@
 //   and the stage's K is released after the softmax has read them.
 #pragma once
 
+#include "attention_tile.cuh"
 #include "sm90.cuh"
 
 namespace sm90 {
@@ -106,6 +123,14 @@ struct Args {
   // up to whole tiles, the tail an id no row holds)
   const int* q_seg;
   const int* kv_seg;
+  int variant;  // the instance's VAR, for the split merge
+  // BOUND: (B, Hkv) largest key norms, the guard's verdict (non-zero: run
+  // the online body) and q (its bound for an item that sees no key)
+  const float* knmax;
+  const int* demote;
+  const __nv_bfloat16* q;
+  long long sqb, sqh, sqm;
+  int dk;
 };
 
 // The key tiles a CTA of one row block visits, and where it masks.  The
@@ -310,6 +335,47 @@ struct FlashSched {
     return b;
   }
 
+  // BOUND: the item's kv head's largest key norm, and the guard's verdict
+  __device__ float knmax(const Work& k) const {
+    return a.knmax[k.b * a.Hkv + k.hk];
+  }
+  __device__ bool demoted() const { return *a.demote != 0; }
+
+  // BOUND, an item that sees no key: its rows' bound as the row max (from
+  // q in global memory, a thread a row), sum 0 and zero outputs, as the
+  // plain version gives them.  `count` threads from thread `first` on.
+  __device__ void store_empty_bound(const Work& k, int first,
+                                    int count) const {
+    const long long hm = bhm();
+    for (int r = threadIdx.x - first; r < BM; r += count) {
+      const int row = k.m0 + r;
+      if (row >= a.m) continue;
+      const __nv_bfloat16* qr = a.q + k.b * a.sqb + k.h * a.sqh + row * a.sqm;
+      float ss = 0.f;
+      for (int c = 0; c < a.dk; ++c) {
+        const float x = __bfloat162float(qr[c]);
+        ss = fmaf(x, x, ss);
+      }
+      float b = sqrtf(ss) * a.qscale * knmax(k);
+      if (a.cap2 > 0.f) b = fminf(b, a.cap2);
+      const long long stat = (long long)k.bh * a.m + row;
+      const long long out = k.b * a.sob + k.h * a.soh + row * a.som;
+      if (a.part != nullptr) {
+        const long long pr = k.split * hm + stat;
+        for (int c = 0; c < a.dv; ++c) a.part[pr * a.dv + c] = 0.f;
+        a.part[a.splits * hm * a.dv + pr] = b;
+        a.part[a.splits * hm * (a.dv + 1) + pr] = 0.f;
+      } else if (a.acc != nullptr) {
+        for (int c = 0; c < a.dv; ++c) a.acc[out + c] = 0.f;
+        a.row_max[stat] = b * LN2;
+        a.row_sum[stat] = 0.f;
+      } else {
+        for (int c = 0; c < a.dv; ++c)
+          static_cast<__nv_bfloat16*>(a.o)[out + c] = __float2bfloat16(0.f);
+      }
+    }
+  }
+
   // Rows that see no key in their split: zero output rows, or row max
   // -inf and sum 0 (a split's scratch output is left unwritten; the merge
   // skips it).  Written by `count` threads from thread `first` on.
@@ -400,11 +466,11 @@ struct FlashSched {
 // the g-th tile a CTA loads sits in stage g % STAGES.  A CTA whose
 // schedule has no work exits before it sets anything up.  SEG: the call
 // has segment ids (the schedule's `load_ids` and `row_ids`).
-template <int DK, int DV, bool CAP, typename Sched, bool SEG = false>
-__global__ void __launch_bounds__(THREADS, 1)
-    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
-                    const __grid_constant__ CUtensorMap tk,
-                    const __grid_constant__ CUtensorMap tv, const Sched sc) {
+template <int DK, int DV, bool CAP, typename Sched, bool SEG, int VAR>
+__device__ __forceinline__ void fwd_body(const CUtensorMap& tq,
+                                         const CUtensorMap& tk,
+                                         const CUtensorMap& tv,
+                                         const Sched sc, const bool bnd) {
   constexpr uint32_t Q_BYTES = BM * DK * 2;
   constexpr uint32_t K_BYTES = BN * DK * 2;
   constexpr uint32_t V_BYTES = BN * DV * 2;
@@ -501,6 +567,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     const TilePlan plan = k.plan;
     const int ntiles = plan.end - plan.begin;
     if (ntiles <= 0) {
+      if constexpr (VAR == atk::BOUND) {
+        if (bnd) {
+          sc.store_empty_bound(k, THREADS - CONSUMERS, CONSUMERS);
+          continue;
+        }
+      }
       sc.store_empty(k, THREADS - CONSUMERS, CONSUMERS);
       continue;
     }
@@ -545,11 +617,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     };
     // tile t's scores (its K, and its key ids, in stage st), in s: to the
     // log2 domain, capped, masked where the tile may hold a masked element
-    // (every tile under SEG); then the online softmax: the new row max,
-    // P = exp2(s - max) in place (unrounded, for the row sum) and the
-    // factor corr that rescales what O holds so far.  Each thread keeps
-    // its own part of the row sums; a row's four threads add them at the
-    // end.
+    // (every tile under SEG); then the variant's softmax step: the new row
+    // max (ONLINE; mu under FLASHD, the ceiled max under AMLA, none under
+    // BOUND), P = exp2(s - max) in place (unrounded, for the row sum;
+    // under FLASHD scaled by 1/t) and corr, what rescales O so far (AMLA:
+    // the exponent step).  Each thread keeps its own part of the row sums;
+    // a row's four threads add them at the end (FLASHD: every tile).
     auto softmax = [&](int t, int st, float (&corr)[2]) {
 #pragma unroll
       for (int e = 0; e < BN / 2; ++e) {
@@ -579,6 +652,17 @@ __global__ void __launch_bounds__(THREADS, 1)
           }
         }
       }
+      if constexpr (VAR == atk::BOUND) {
+        if (bnd) {
+          // b bounds every score of the row: no max, no rescale
+#pragma unroll
+          for (int e = 0; e < BN / 2; ++e) {
+            s[e] = ex2(s[e] - mrow[(e >> 1) & 1]);
+            lrow[(e >> 1) & 1] += s[e];
+          }
+          return;
+        }
+      }
       float mx[2] = {mrow[0], mrow[1]};
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j)
@@ -592,8 +676,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int r = 0; r < 2; ++r) {
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        if constexpr (VAR == atk::AMLA) mx[r] = ceilf(mx[r]);
         msub[r] = mx[r] == -INFINITY ? 0.f : mx[r];
-        corr[r] = ex2(mrow[r] - msub[r]);
+        corr[r] = VAR == atk::AMLA
+                      ? (mrow[r] == -INFINITY ? 0.f : mrow[r] - mx[r])
+                      : ex2(mrow[r] - msub[r]);
         mrow[r] = mx[r];
       }
       float sum[2] = {0.f, 0.f};
@@ -602,8 +689,30 @@ __global__ void __launch_bounds__(THREADS, 1)
         s[e] = ex2(s[e] - msub[(e >> 1) & 1]);
         sum[(e >> 1) & 1] += s[e];
       }
+      if constexpr (VAR == atk::FLASHD) {
+        // t = exp2(mu - b) + the row's sum: the denominator over exp2(b),
+        // taken out of P (before its rounding) and out of O
+        float rt[2];
 #pragma unroll
-      for (int r = 0; r < 2; ++r) lrow[r] = lrow[r] * corr[r] + sum[r];
+        for (int r = 0; r < 2; ++r) {
+          sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+          sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+          const float t = corr[r] + sum[r];
+          rt[r] = t == 0.f ? 0.f : 1.f / t;
+          corr[r] *= rt[r];
+          mrow[r] += log2f(t);
+          lrow[r] = mrow[r] == -INFINITY ? 0.f : 1.f;
+        }
+#pragma unroll
+        for (int e = 0; e < BN / 2; ++e) s[e] *= rt[(e >> 1) & 1];
+      } else if constexpr (VAR == atk::AMLA) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          lrow[r] = atk::exp_add(lrow[r], (int)corr[r]) + sum[r];
+      } else {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) lrow[r] = lrow[r] * corr[r] + sum[r];
+      }
     };
     // P rounded to bf16 as the A operand: the S accumulator of key columns
     // 16kk .. 16kk + 15 is element for element the A fragment of step kk
@@ -615,8 +724,15 @@ __global__ void __launch_bounds__(THREADS, 1)
           p[kk][q] = pack_bf16(s[8 * kk + 2 * q], s[8 * kk + 2 * q + 1]);
     };
     auto rescale_o = [&](const float (&corr)[2]) {
+      if constexpr (VAR == atk::AMLA) {
 #pragma unroll
-      for (int e = 0; e < DV / 2; ++e) o[e] *= corr[(e >> 1) & 1];
+        for (int e = 0; e < DV / 2; ++e)
+          o[e] = atk::exp_add(o[e], (int)corr[(e >> 1) & 1]);
+      } else {
+        if (VAR == atk::BOUND && bnd) return;
+#pragma unroll
+        for (int e = 0; e < DV / 2; ++e) o[e] *= corr[(e >> 1) & 1];
+      }
     };
     auto pin_pv = [&]() {
       pin(o);
@@ -626,6 +742,39 @@ __global__ void __launch_bounds__(THREADS, 1)
 
     mbar_wait(q_full, nq & 1);
     ++nq;
+    if constexpr (VAR == atk::BOUND) {
+      if (bnd) {
+        // each row's bound from its Q line in shared memory: a 128-byte line
+        // a box (the swizzle permutes its 16-byte chunks, which a sum of
+        // squares does not see), a quarter of it a thread
+        const float kn = sc.knmax(k) * qscale;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float ss = 0.f;
+#pragma unroll
+          for (int c = 0; c < DK / BOX; ++c) {
+            const uint4* src = reinterpret_cast<const uint4*>(
+                smem_raw + (sq - raw) + c * BOX_BYTES + (rl + 8 * r) * 128 +
+                (lane & 3) * 32);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const uint4 w = src[h];
+              const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+              for (int x = 0; x < 4; ++x) {
+                const float lo = __uint_as_float(ws[x] << 16);
+                const float hi = __uint_as_float(ws[x] & 0xffff0000u);
+                ss = fmaf(lo, lo, fmaf(hi, hi, ss));
+              }
+            }
+          }
+          ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+          ss += __shfl_xor_sync(0xffffffffu, ss, 2);
+          mrow[r] = sqrtf(ss) * kn;
+          if constexpr (CAP) mrow[r] = fminf(mrow[r], cap2);
+        }
+      }
+    }
     // Tile i's scores are computed while tile i - 1's P·V runs: S_i is
     // issued, then O += P_{i-1}·V_{i-1}; once S_i lands its softmax runs
     // beside the product, which must land before O is rescaled and P
@@ -685,20 +834,39 @@ __global__ void __launch_bounds__(THREADS, 1)
     mbar_arrive(v_empty(last));
     g += ntiles;
 
+    if constexpr (VAR != atk::FLASHD) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 1);
-      lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 2);
+      for (int r = 0; r < 2; ++r) {
+        lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 1);
+        lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 2);
+      }
     }
     sc.template store<DV>(k, rl, o, mrow, lrow, lane);
   }
 }
 
+// The kernel of a schedule and variant.  BOUND reads the guard's verdict
+// first; where it demotes the call, the kernel takes the online step on
+// every tile (`bnd` false: a branch the same for every CTA).
+template <int DK, int DV, bool CAP, typename Sched, bool SEG = false,
+          int VAR = atk::ONLINE>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const Sched sc) {
+  bool bnd = false;
+  if constexpr (VAR == atk::BOUND) bnd = !sc.demoted();
+  fwd_body<DK, DV, CAP, Sched, SEG, VAR>(tq, tk, tv, sc, bnd);
+}
+
 // The splits' partials of each row merged in split order: the largest of
-// their maxima, each split weighed by exp2(max_i - max), then the sums.
-// A warp a row (B·H·m of them), a lane every 32nd column; the normalized
-// bf16 output, or the partials of the whole row.
-__global__ void __launch_bounds__(32 * MERGE_ROWS)
+// their maxima, each split weighed by exp2(max_i - max), then the sums; a
+// split whose sum is 0 saw nothing and is skipped (its output may be
+// unwritten; under BOUND its max is the row's bound, not -inf).  A warp a
+// row (B·H·m of them), a lane every 32nd column; the normalized bf16
+// output, or the partials of the whole row (FLASHD's as (lse, 1) over the
+// normalized output).
+static __global__ void __launch_bounds__(32 * MERGE_ROWS)
     flash_merge(const Args a, long long bhm) {
   const long long row = (long long)blockIdx.x * MERGE_ROWS + threadIdx.x / 32;
   if (row >= bhm) return;
@@ -715,10 +883,11 @@ __global__ void __launch_bounds__(32 * MERGE_ROWS)
   float x[4] = {0.f, 0.f, 0.f, 0.f};
   for (int i = 0; i < a.splits; ++i) {
     const float mi = pm[i * bhm + row];
-    // a split that saw nothing weighs 0, and its output was never written
-    if (mi == -INFINITY) continue;
+    const float li = pl[i * bhm + row];
+    // a split that saw nothing weighs 0, and its output may be unwritten
+    if (li == 0.f) continue;
     const float w = exp2f(mi - mx);
-    l += w * pl[i * bhm + row];
+    l += w * li;
     const float* src = a.part + (i * bhm + row) * a.dv;
 #pragma unroll
     for (int q = 0; q < 4; ++q)
@@ -726,12 +895,15 @@ __global__ void __launch_bounds__(32 * MERGE_ROWS)
   }
   const long long out = b * a.sob + h * a.soh + r * a.som;
   if (a.acc != nullptr) {
+    const bool fd = a.variant == atk::FLASHD;
+    const float inv = fd ? (l == 0.f ? 0.f : 1.f / l) : 1.f;
 #pragma unroll
     for (int q = 0; q < 4; ++q)
-      if (lane + 32 * q < a.dv) a.acc[out + lane + 32 * q] = x[q];
+      if (lane + 32 * q < a.dv) a.acc[out + lane + 32 * q] = x[q] * inv;
     if (lane == 0) {
-      a.row_max[row] = mx * LN2;
-      a.row_sum[row] = l;
+      a.row_max[row] = fd ? (l == 0.f ? -INFINITY : (mx + log2f(l)) * LN2)
+                          : mx * LN2;
+      a.row_sum[row] = fd ? (l == 0.f ? 0.f : 1.f) : l;
     }
     return;
   }

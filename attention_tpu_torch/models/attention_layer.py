@@ -294,15 +294,16 @@ def _xla_mha(q, k, v, *, causal: bool, window=None, softcap=None,
 
 def _flash_mha(q, k, v, *, causal: bool, window=None, softcap=None,
                sinks: int = 0):
-    """The kernels: the differentiable `flash_attention_diff` when
-    autograd needs a gradient (training; the JAX layer's max_mode
-    "bound", which the port runs as the online recurrence), else the
-    flash kernel."""
-    band = dict(window=window, sinks=sinks or None)
+    """The kernels, under max_mode "bound" as the JAX layer runs them
+    for training and inference alike: the differentiable
+    `flash_attention_diff` when autograd needs a gradient, else the
+    flash kernel.  "bound" resolves to the online body under a window
+    and on small calls (`ops.flash.resolve_max_mode`)."""
+    band = dict(window=window, sinks=sinks or None, max_mode="bound")
     if torch.is_grad_enabled() and (
             q.requires_grad or k.requires_grad or v.requires_grad):
         return flash_attention_diff(q, k, v, causal=causal, softcap=softcap,
-                                    max_mode="bound", **band)
+                                    **band)
     return flash_attention(q, k, v, causal=causal, softcap=softcap, **band)
 
 

@@ -3,8 +3,10 @@ wrappers of the hand-written Hopper kernels (see `_native`)."""
 
 from attention_tpu_torch.ops._native import (  # noqa: F401
     build,
+    demotion_count,
     launch_counts,
     reset_launch_counts,
+    variant_counts,
 )
 from attention_tpu_torch.ops.paged import (  # noqa: F401
     OutOfPagesError,

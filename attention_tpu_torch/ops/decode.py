@@ -31,8 +31,12 @@ from attention_tpu_torch.ops._native import DTYPE_CODES, MAX_HEAD_DIM, F, \
 from attention_tpu_torch.ops.reference import check_softcap, \
     decode_reference
 
+#: the C entry points' numbers of the rescaling-math variants of the
+#: softmax recurrence (`ops.flash.MAX_MODES`)
+VARIANT_CODES = {"online": 0, "bound": 1, "flashd": 2, "amla": 3}
+
 KERNEL = "decode"
-_ARGTYPES = [P] * 6 + [I] * 8 + [L] * 12 + [I, I, F, F, I, I, P]
+_ARGTYPES = [P] * 6 + [I] * 8 + [L] * 12 + [I, I, F, F, I, I, I, P]
 
 #: key rows per tile of the kernels' loops: a split is a whole number of
 #: them
@@ -40,6 +44,9 @@ KEY_TILE = 64
 #: query rows per row block of the grid (rows that fit one 16-row tile
 #: are one block, of a 16-row CTA)
 ROW_BLOCK = 64
+#: the rescaling-math variants the decode kernels take; "bound" is
+#: forward-only, as in JAX: the decode grid carries no key norms
+DECODE_MAX_MODES = ("online", "flashd", "amla")
 #: CTAs per SM a split launch aims at.  Two of the bf16 one-token CTAs fit
 #: an SM's shared memory at once; four per SM, two waves of short splits,
 #: measured fastest of 2, 3, 4 and 8 on an H100 (PERF.md section 6)
@@ -133,6 +140,21 @@ def split_launch(q4, kv_heads: int, n_cap: int, dv: int, window):
     return splits, chunk, part
 
 
+def check_max_mode(max_mode: str, allowed=tuple(VARIANT_CODES)) -> None:
+    """JAX's ``max_mode`` contract on an entry that takes the variants
+    ``allowed``: "auto" asks the tuning table, which the port does not
+    carry yet (`NotImplementedError`); anything else outside ``allowed``
+    is a `ValueError` ("bound" on the decode side: forward-only)."""
+    if max_mode == "auto":
+        raise NotImplementedError(
+            "max_mode='auto' picks a variant from the tuning table, which "
+            "is not ported yet; pass one of " + ", ".join(allowed))
+    if max_mode not in allowed:
+        note = " (bound mode is forward-only)" if max_mode == "bound" else ""
+        raise ValueError(
+            f"unknown max_mode {max_mode!r}; one of {allowed}{note}")
+
+
 def check_band(window, sinks) -> None:
     """The decode-side window/sinks contract (mirrors
     flash_attention's): sinks require a window, both >= 1."""
@@ -178,7 +200,7 @@ def _validate(q, k_cache, v_cache, *, chunk: bool) -> None:
 
 
 def _launch(q4, k_cache, v_cache, lens, *, scale, softcap, window,
-            sinks) -> torch.Tensor:
+            sinks, variant="online") -> torch.Tensor:
     dtype = q4.dtype
     if (dtype not in DTYPE_CODES or k_cache.dtype != dtype
             or v_cache.dtype != dtype):
@@ -207,9 +229,11 @@ def _launch(q4, k_cache, v_cache, lens, *, scale, softcap, window,
                  b, h, hkv, s_new, n, d, dv, *q4.stride()[:3],
                  *k_cache.stride()[:3], *v_cache.stride()[:3],
                  *out.stride()[:3], window or 0, sinks or 0, float(scale),
-                 float(softcap or 0.0), splits, chunk, stream)
+                 float(softcap or 0.0), splits, chunk,
+                 VARIANT_CODES[variant],
+                 stream)
     _native.check(KERNEL, err)
-    _native.count_launch(KERNEL)
+    _native.count_launch(KERNEL, variant)
     return out
 
 
@@ -232,9 +256,7 @@ def flash_decode_plain(q, k_cache, v_cache, lengths, *, scale=None,
 
 def _decode(q, k_cache, v_cache, lengths, *, chunk, scale, softcap,
             window, sinks, max_mode) -> torch.Tensor:
-    if max_mode != "online":
-        raise NotImplementedError(
-            f"max_mode={max_mode!r} is not ported yet; only 'online'")
+    check_max_mode(max_mode, DECODE_MAX_MODES)
     check_softcap(softcap)
     check_band(window, sinks)
     _validate(q, k_cache, v_cache, chunk=chunk)
@@ -248,7 +270,8 @@ def _decode(q, k_cache, v_cache, lengths, *, chunk, scale, softcap,
                          f"{q.device.type}")
     lens = lengths_tensor(lengths, q.shape[0], q.device)
     out = _launch(q if chunk else q[:, :, None], k_cache, v_cache, lens,
-                  scale=scale, softcap=softcap, window=window, sinks=sinks)
+                  scale=scale, softcap=softcap, window=window, sinks=sinks,
+                  variant=max_mode)
     return out if chunk else out[:, :, 0]
 
 
@@ -263,7 +286,10 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     scores; ``window`` attends only the last ``window`` valid rows
     (each query sits at its sequence's ``len - 1``), ``sinks``
     additionally the first ``sinks`` rows.  A length of 0 gives a zero
-    row."""
+    row.  ``max_mode`` is the kernel's rescaling math, "online", "flashd"
+    or "amla" (the same output; the plain version is one for all three);
+    "bound" is `ValueError` (forward-only), "auto"
+    `NotImplementedError`."""
     return _decode(q, k_cache, v_cache, lengths, chunk=False, scale=scale,
                    softcap=softcap, window=window, sinks=sinks,
                    max_mode=max_mode)
@@ -279,7 +305,7 @@ def flash_decode_chunk(q: torch.Tensor, k_cache: torch.Tensor,
     d), the S rows already in the caches, ``new_lengths`` the lengths
     after the append -> (B, H, S, dv).  Token s of sequence b sits at
     position ``new_lengths[b] - S + s`` and attends its causal prefix,
-    with the window band per row."""
+    with the window band per row.  ``max_mode`` as `flash_decode`."""
     return _decode(q, k_cache, v_cache, new_lengths, chunk=True,
                    scale=scale, softcap=softcap, window=window, sinks=sinks,
                    max_mode=max_mode)

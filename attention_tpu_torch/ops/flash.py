@@ -11,8 +11,15 @@ saves them.  For a CUDA tensor both launch the hand-written Hopper kernel
 ``csrc/flash_fwd.cu`` (which replaces the TPU kernel `_flash_kernel`);
 for a CPU tensor they run `flash_attention_plain` and
 `flash_attention_partials_plain`, the plain PyTorch versions of the same
-functions.  The remaining keywords of the JAX entry point raise
-`NotImplementedError` until a later slice ports them.
+functions.  ``max_mode`` picks the rescaling math of the softmax
+recurrence, as in JAX: "online" (the running max), "bound" (a
+Cauchy-Schwarz row bound in place of the max, guarded at run time),
+"flashd" (FLASH-D: the accumulator kept normalized) and "amla" (AMLA:
+the max ceiled to an integer, rescales as exponent adds).  All four give
+the same output; `flash_attention_partials`' row stats follow each
+variant's contract (`resolve_max_mode`, `variant_partials_plain`).
+"auto" and ``block_sizes`` raise `NotImplementedError` until a later
+slice ports the tuning table.
 
 The kernel has two bodies, and `flash_body` names the one a call runs:
 "wgmma" (``csrc/flash_fwd_sm90.cuh``) for bf16 at head dims 64/128 with
@@ -30,6 +37,7 @@ package (the main path runs them only inside the kernel).
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -43,8 +51,13 @@ from attention_tpu_torch.ops._native import (
     L,
     P,
 )
-from attention_tpu_torch.ops.decode import check_band
+from attention_tpu_torch.ops.decode import (
+    VARIANT_CODES,
+    check_band,
+    check_max_mode,
+)
 from attention_tpu_torch.ops.reference import (
+    attention_mask,
     attention_reference,
     attention_reference_partials,
     check_softcap,
@@ -53,7 +66,7 @@ from attention_tpu_torch.ops.reference import (
 KERNEL = "flash_fwd"
 _ARGTYPES = [P, P, P, P, I, I, I, I, I, I, I, I,
              *([L] * 12), F, F, I, I, I, I, I, I, P, P, P, I, I, I, P, P, P,
-             P]
+             I, P, P, P]
 
 #: the C entry point's codes of the two bodies
 BODY_CODES = {"fma": 0, "wgmma": 1}
@@ -64,16 +77,40 @@ KEY_TILE = 128
 #: most splits of one row block's keys
 MAX_SPLITS = 16
 
+#: the rescaling-math variants of the softmax recurrence, in the order
+#: of their C entry points' numbers (`decode.VARIANT_CODES`)
+MAX_MODES = tuple(VARIANT_CODES)
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+#: bound mode's overshoot limit in log2 units: the bound b exceeds a row's
+#: largest score by at most this, so the row's largest probability
+#: exp2(s - b) stays a normal float (fp32 normals reach 2^-126) with 30
+#: units of margin; a call whose estimate exceeds it runs the online body
+SAFE_OVERSHOOT_LOG2 = 96.0
+#: "bound" resolves to "online" below this many score elements (heads ·
+#: m · n over whole 128-row tiles, halved when causal), JAX's static
+#: resolution at JAX's value; a module global so that tests can pin it to
+#: 0.  On the H100 the guard (the key norms and the estimate, torch ops
+#: on the card) cost more than the bound body saved at every size
+#: ``chip_smoke.py``'s max_modes phase measured (`PERF.md`).
+_BOUND_MIN_SCORE_ELEMS = 24 * 2**20
 
-def flash_body(dtype, dk: int, dv: int, strides, ptrs) -> str:
+
+def flash_body(dtype, dk: int, dv: int, strides, ptrs,
+               variant: str = "online", segmented: bool = False) -> str:
     """The kernel body that runs a call: "wgmma" for bfloat16 at head
     dims 64 or 128 whose (batch, head, row) ``strides`` (in elements, of
     q, k, v and the output) are positive multiples of 8 and whose base
-    pointers ``ptrs`` are 16-byte aligned, as the body's TMA copies need;
-    "fma" (fp32 FMA on the CUDA cores) for everything else."""
+    pointers ``ptrs`` are 16-byte aligned, as the body's TMA copies need,
+    where the body has an instance of the ``variant``: "online" at every
+    such head dim, "bound" at dk == dv, "flashd" and "amla" at dk == dv
+    without segment ids; "fma" (fp32 FMA on the CUDA cores) for
+    everything else."""
     if (dtype == torch.bfloat16 and dk in (64, 128) and dv in (64, 128)
             and all(x > 0 and x % 8 == 0 for x in strides)
-            and all(p % 16 == 0 for p in ptrs)):
+            and all(p % 16 == 0 for p in ptrs)
+            and (variant == "online" or (dk == dv and (
+                variant == "bound" or not segmented)))):
         return "wgmma"
     return "fma"
 
@@ -263,6 +300,191 @@ def check_window(causal, window, sinks, segmented=False) -> None:
             "absolute, not per-segment); unpack the batch")
 
 
+def resolve_max_mode(max_mode: str, *, heads: int, m: int, n: int,
+                     causal: bool, window=None) -> str:
+    """The variant a call runs, resolved statically as JAX's
+    `_flash_call` does: "bound" becomes "online" under a window (the band
+    is short, the guard a fixed cost) and below `_BOUND_MIN_SCORE_ELEMS`
+    score elements (``heads`` counts every batch row's heads).  Same
+    output either way."""
+    check_max_mode(max_mode)
+    if max_mode != "bound":
+        return max_mode
+    elems = heads * -(-m // ROW_BLOCK) * ROW_BLOCK * -(-n // KEY_TILE) \
+        * KEY_TILE * (0.5 if causal else 1.0)
+    if window is not None or elems < _BOUND_MIN_SCORE_ELEMS:
+        return "online"
+    return "bound"
+
+
+def key_norm_max(k4: torch.Tensor) -> torch.Tensor:
+    """(B, Hkv) float32: the largest L2 norm among each kv head's key
+    rows, every row of k counted (JAX's ``knmax``)."""
+    return k4.float().square().sum(-1).sqrt().amax(-1)
+
+
+def _row_bound(q4, knmax, qscale: float, softcap2) -> torch.Tensor:
+    """(B, H, m) bound mode's row bound in the log2 domain: ||q|| ·
+    qscale · knmax of the row's kv head (|s| <= ||q|| ||k||), capped at
+    softcap · log2 e where a softcap is set (|cap · tanh(s / cap)| <=
+    cap)."""
+    group = q4.shape[1] // knmax.shape[1]
+    b = torch.linalg.vector_norm(q4, dim=-1, dtype=torch.float32) * qscale \
+        * knmax.repeat_interleave(group, dim=1)[..., None]
+    return b if softcap2 is None else b.clamp(max=softcap2)
+
+
+def bound_overshoot_estimate(q4, k4, knmax, *, scale, causal=False,
+                             q_offset=0, kv_offset=0, kv_valid=None,
+                             window=None, sinks=None, softcap=None,
+                             q_segment_ids=None, kv_segment_ids=None,
+                             static_diag=False) -> torch.Tensor:
+    """A 0-d float32 upper bound on bound mode's overshoot b - max s over
+    every row (log2 units), JAX's `_bound_overshoot_estimate`: any column
+    certified attended by a row gives s_ref <= max s, so b - s_ref bounds
+    b - max s, from one key row per query row.  The reference column: 0
+    without causal masking; under it the row's diagonal cut into the
+    valid prefix; under a window the cut diagonal where it lies in the
+    band, else column 0 when there are sinks.  Rows that attend nothing
+    count 0 (their zeros are right whatever b is); with segment ids a row
+    whose reference column lies in another segment counts +inf.
+    ``static_diag``: plain causal self-attention (m == n, no offsets, no
+    kv_valid), row i's reference is key row i.  q4 (B, H, m, d), k4 (B,
+    Hkv, n, d), knmax (B, Hkv); device ops only, no sync."""
+    b, h, m, d = q4.shape
+    hkv, n = k4.shape[1], k4.shape[2]
+    group = h // hkv
+    qscale = scale * LOG2E
+    softcap2 = None if softcap is None else softcap * LOG2E
+    valid = n if kv_valid is None else kv_valid
+    dev = q4.device
+    bnd = _row_bound(q4, knmax, qscale, softcap2)
+    rows = torch.arange(m, device=dev)
+    c_ref = None
+    excluded = torch.zeros(m, dtype=torch.bool, device=dev)
+    if causal and static_diag:
+        kr = k4[:, :, :m]
+    elif causal:
+        diag = rows + q_offset - kv_offset
+        excluded = diag < 0
+        c_ref = torch.clamp(torch.clamp(diag, max=valid - 1), 0, n - 1)
+        if window is not None:
+            in_win = c_ref >= diag - (window - 1)
+            if sinks is not None:
+                c_ref = torch.where(in_win, c_ref, 0)
+            else:
+                excluded = excluded | ~in_win
+        kr = k4[:, :, c_ref]
+    else:
+        kr = k4[:, :, :1]
+    if valid <= 0:
+        excluded = torch.ones_like(excluded)
+    # each query row against its reference key row, one product per kv
+    # head and row over the group's heads
+    s_ref = torch.matmul(q4.reshape(b, hkv, group, m, d).transpose(2, 3),
+                         kr.unsqueeze(-1)).squeeze(-1).float()
+    s_ref = s_ref.transpose(2, 3).reshape(b, h, m) * qscale
+    if softcap2 is not None:
+        s_ref = softcap2 * torch.tanh(s_ref / softcap2)
+    over = bnd - s_ref
+    if q_segment_ids is not None:
+        kv_ids = kv_segment_ids.to(torch.int32)
+        if causal and static_diag:
+            ref = kv_ids[:m]
+        elif c_ref is None:
+            ref = kv_ids[:1].expand(m)
+        else:
+            ref = kv_ids[c_ref]
+        over = torch.where(ref == q_segment_ids.to(torch.int32), over,
+                           math.inf)
+    return torch.where(excluded, 0.0, over).amax()
+
+
+def _static_diag(m, n, causal, q_offset, kv_offset, kv_valid) -> bool:
+    """Whether row i's reference column is key row i: plain causal
+    self-attention (the training layer's call)."""
+    return bool(causal and m == n and not q_offset and not kv_offset
+                and kv_valid in (None, n))
+
+
+def _log2_scores(q, k, *, scale, softcap, **mask):
+    """float32 scores in the log2 domain (scale · log2 e folded in, as
+    the kernels take them), capped by softcap · log2 e, masked entries
+    -inf; k's heads repeated over their GQA group."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    if q.dim() >= 3 and q.shape[-3] != k.shape[-3]:
+        k = k.repeat_interleave(q.shape[-3] // k.shape[-3], dim=-3)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
+        * (scale * LOG2E)
+    if softcap is not None:
+        cap2 = softcap * LOG2E
+        s = cap2 * torch.tanh(s / cap2)
+    keep = attention_mask(*s.shape[-2:], device=q.device, **mask)
+    return s.masked_fill(~keep, float("-inf"))
+
+
+def variant_partials_plain(q, k, v, variant: str, *, scale=None,
+                           causal=False, softcap=None, q_offset=0,
+                           kv_offset=0, kv_valid=None, window=None,
+                           sinks=None, q_segment_ids=None,
+                           kv_segment_ids=None):
+    """`flash_attention_partials` under a resolved ``variant``, each
+    variant's stats in closed form (none depends on the tiling):
+
+    * "online": the row's largest score and the sum of exp(s - max);
+    * "bound": the row bound b (`_row_bound`, natural-log units) and the
+      sum of exp(s - b), for every row, also one that sees no key (sum
+      0), unless the overshoot estimate exceeds `SAFE_OVERSHOOT_LOG2`,
+      when the call takes online's stats, as the kernel's guard does;
+    * "flashd": the normalized output, the row's log-sum-exp and 1;
+    * "amla": the largest score ceiled to a whole number of log2 units
+      (natural-log units out), and the sum of exp(s - that).
+
+    A row that sees no key has sum 0, output 0, and row max -inf except
+    under "bound".  P is rounded to v's dtype for the product; the sums
+    use it unrounded."""
+    mask = dict(causal=causal, q_offset=q_offset, kv_offset=kv_offset,
+                kv_valid=kv_valid, window=window, sinks=sinks,
+                q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids)
+    if variant == "flashd":
+        out_un, mx, l_ = attention_reference_partials(
+            q, k, v, scale=scale, softcap=softcap, **mask)
+        seen = l_ != 0.0
+        l_safe = torch.where(seen, l_, 1.0)
+        return (out_un / l_safe[..., None],
+                torch.where(seen, mx + torch.log(l_safe), -math.inf),
+                seen.float())
+    if variant == "online":
+        return attention_reference_partials(q, k, v, scale=scale,
+                                            softcap=softcap, **mask)
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = _log2_scores(q, k, scale=scale, softcap=softcap, **mask)
+    if variant == "amla":
+        sub = torch.ceil(s.amax(dim=-1))
+    else:
+        q4, k4, _ = _canon(q, k, v)
+        lead = (0,) * (4 - q.dim())
+        knmax = key_norm_max(k4)
+        est = bound_overshoot_estimate(
+            q4, k4, knmax, scale=scale, softcap=softcap,
+            static_diag=_static_diag(q.shape[-2], k.shape[-2], causal,
+                                     q_offset, kv_offset, kv_valid),
+            **mask)
+        if float(est) > SAFE_OVERSHOOT_LOG2:
+            return attention_reference_partials(q, k, v, scale=scale,
+                                                softcap=softcap, **mask)
+        sub = _row_bound(q4, knmax, scale * LOG2E,
+                         None if softcap is None else softcap * LOG2E)[lead]
+    if q.dim() >= 3 and q.shape[-3] != v.shape[-3]:
+        v = v.repeat_interleave(q.shape[-3] // v.shape[-3], dim=-3)
+    safe = torch.where(torch.isfinite(sub), sub, 0.0)
+    p = torch.exp2(s - safe[..., None])
+    out = torch.matmul(p.to(v.dtype).float(), v.float())
+    return out, sub * LN2, p.sum(dim=-1)
+
+
 def flash_attention_plain(q, k, v, *, scale=None, causal=False,
                           softcap=None, q_offset=0, kv_offset=0,
                           kv_valid=None, window=None, sinks=None,
@@ -283,13 +505,19 @@ def flash_attention_plain(q, k, v, *, scale=None, causal=False,
 def flash_attention_partials_plain(q, k, v, *, scale=None, causal=False,
                                    softcap=None, q_offset=0, kv_offset=0,
                                    kv_valid=None, window=None, sinks=None,
-                                   q_segment_ids=None, kv_segment_ids=None):
-    """The plain PyTorch version of `flash_attention_partials`."""
-    _canon(q, k, v)
+                                   q_segment_ids=None, kv_segment_ids=None,
+                                   max_mode="online"):
+    """The plain PyTorch version of `flash_attention_partials`:
+    ``max_mode`` resolved as the kernel's wrapper resolves it
+    (`resolve_max_mode`), then `variant_partials_plain`."""
+    q4, k4, _ = _canon(q, k, v)
     ids = check_segments(q, k, q_segment_ids, kv_segment_ids)
     check_window(causal, window, sinks, ids[0] is not None)
-    return attention_reference_partials(
-        q, k, v, scale=scale, causal=causal, softcap=softcap,
+    variant = resolve_max_mode(
+        max_mode, heads=q4.shape[0] * q4.shape[1], m=q.shape[-2],
+        n=k.shape[-2], causal=causal, window=window)
+    return variant_partials_plain(
+        q, k, v, variant, scale=scale, causal=causal, softcap=softcap,
         q_offset=q_offset, kv_offset=kv_offset, kv_valid=kv_valid,
         window=window, sinks=sinks, q_segment_ids=ids[0],
         kv_segment_ids=ids[1])
@@ -323,25 +551,29 @@ def flash_split_partials(q, k, v, *, splits: int, split_tiles: int,
 
 
 def flash_launch_plan(q, k, v, *, kv_valid=None, window=None,
-                      sinks=None) -> dict:
+                      sinks=None, variant="online",
+                      segmented=False) -> dict:
     """How the kernel runs a call on these inputs (CUDA tensors, as the
-    entry points take them): the body (`flash_body`) and the key split
-    (`flash_split_plan`; one split for the "fma" body).  The output lies
-    in storage the wrapper allocates, always aligned, with (b, m, h, dv)
-    strides."""
+    entry points take them) under a resolved ``variant``: the body
+    (`flash_body`) and the key split (`flash_split_plan`; one split for
+    the "fma" body).  The output lies in storage the wrapper allocates,
+    always aligned, with (b, m, h, dv) strides."""
     q4, k4, v4 = (t if t.stride(-1) == 1 else t.contiguous()
                   for t in _canon(q, k, v))
     return _plan(q4, k4, v4, _offsets(k4.shape[2], None, None,
-                                      kv_valid)["kv_valid"], window, sinks)
+                                      kv_valid)["kv_valid"], window, sinks,
+                 variant, segmented)
 
 
-def _plan(q4, k4, v4, kv_valid, window, sinks) -> dict:
+def _plan(q4, k4, v4, kv_valid, window, sinks, variant="online",
+          segmented=False) -> dict:
     b, h, m, dk = q4.shape
     dv = v4.shape[-1]
     o_strides = [m * h * dv, dv, h * dv]
     strides = [*_strides(q4), *_strides(k4), *_strides(v4), *o_strides]
     body = flash_body(q4.dtype, dk, dv, strides,
-                      [t.data_ptr() for t in (q4, k4, v4)])
+                      [t.data_ptr() for t in (q4, k4, v4)], variant,
+                      segmented)
     splits, split_tiles = 1, 0
     if body == "wgmma":
         splits, split_tiles = flash_split_plan(
@@ -353,7 +585,7 @@ def _plan(q4, k4, v4, kv_valid, window, sinks) -> dict:
 
 def _launch(q4, k4, v4, *, scale, causal, softcap, q_offset, kv_offset,
             kv_valid, window, sinks, q_ids=None, kv_ids=None,
-            partials=False):
+            partials=False, variant="online"):
     dtype = q4.dtype
     if dtype not in DTYPE_CODES or k4.dtype != dtype or v4.dtype != dtype:
         raise TypeError(
@@ -369,7 +601,8 @@ def _launch(q4, k4, v4, *, scale, causal, softcap, q_offset, kv_offset,
         raise ValueError(f"empty attention: m={m} n={n}")
     q4, k4, v4 = (t if t.stride(-1) == 1 else t.contiguous()
                   for t in (q4, k4, v4))
-    plan = _plan(q4, k4, v4, kv_valid, window, sinks)
+    plan = _plan(q4, k4, v4, kv_valid, window, sinks, variant,
+                 q_ids is not None)
     # (b, m, h, dv) storage: the attention layer's head merge is a view
     o4 = torch.empty((b, m, h, dv), dtype=torch.float32 if partials
                      else dtype, device=q4.device).transpose(1, 2)
@@ -383,6 +616,20 @@ def _launch(q4, k4, v4, *, scale, causal, softcap, q_offset, kv_offset,
         # copies a tile's ids into its K/V stage in one bulk copy
         kv_ids = torch.nn.functional.pad(kv_ids, (0, -n % KEY_TILE),
                                          value=-2)
+    knmax = demote = None
+    if variant == "bound":
+        # the guard on the device: the key norms and the overshoot
+        # estimate are a few small launches, the verdict an int32 the
+        # kernel reads at its start (1: run the online body); no sync
+        knmax = key_norm_max(k4)
+        demote = (bound_overshoot_estimate(
+            q4, k4, knmax, scale=scale, causal=causal, q_offset=q_offset,
+            kv_offset=kv_offset, kv_valid=kv_valid, window=window,
+            sinks=sinks, softcap=softcap, q_segment_ids=q_ids,
+            kv_segment_ids=kv_ids,
+            static_diag=_static_diag(m, n, causal, q_offset, kv_offset,
+                                     kv_valid))
+            > SAFE_OVERSHOOT_LOG2).to(torch.int32)
     fn = _native.function(KERNEL, "flash_fwd", _ARGTYPES)
     with torch.cuda.device(q4.device):
         stream = torch.cuda.current_stream(q4.device).cuda_stream
@@ -398,9 +645,14 @@ def _launch(q4, k4, v4, *, scale, causal, softcap, q_offset, kv_offset,
                  BODY_CODES[plan["body"]], splits, plan["split_tiles"],
                  None if part is None else part.data_ptr(),
                  *((None, None) if q_ids is None
-                   else (q_ids.data_ptr(), kv_ids.data_ptr())), stream)
+                   else (q_ids.data_ptr(), kv_ids.data_ptr())),
+                 VARIANT_CODES[variant],
+                 None if knmax is None else knmax.data_ptr(),
+                 None if demote is None else demote.data_ptr(), stream)
     _native.check(KERNEL, err)
-    _native.count_launch(KERNEL)
+    _native.count_launch(KERNEL, variant)
+    if demote is not None:
+        _native.count_demotion(demote)
     return (o4, stats[0], stats[1]) if partials else o4
 
 
@@ -411,9 +663,7 @@ def _dispatch(q, k, v, plain, *, scale, causal, softcap, window, sinks,
     the plain version for CPU tensors or the kernel for CUDA ones."""
     q_ids, kv_ids = check_segments(q, k, q_segment_ids, kv_segment_ids)
     check_window(causal, window, sinks, q_ids is not None)
-    if max_mode != "online":
-        raise NotImplementedError(
-            f"max_mode={max_mode!r} is not ported yet; only 'online'")
+    check_max_mode(max_mode)
     check_softcap(softcap)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
@@ -421,16 +671,20 @@ def _dispatch(q, k, v, plain, *, scale, causal, softcap, window, sinks,
     offsets = _offsets(k.shape[-2], q_offset, kv_offset, kv_valid)
     band = dict(window=window, sinks=sinks)
     if q.device.type == "cpu":
+        extra = dict(max_mode=max_mode) if partials else {}
         return plain(q, k, v, scale=scale, causal=causal, softcap=softcap,
                      q_segment_ids=q_ids, kv_segment_ids=kv_ids,
-                     **offsets, **band)
+                     **offsets, **band, **extra)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device.type}")
+    variant = resolve_max_mode(max_mode, heads=q4.shape[0] * q4.shape[1],
+                               m=q4.shape[2], n=k4.shape[2], causal=causal,
+                               window=window)
     lead = (0,) * (4 - q.dim())
     out = _launch(q4, k4, v4, scale=scale, causal=causal, softcap=softcap,
                   q_ids=q_ids, kv_ids=kv_ids, partials=partials, **offsets,
-                  **band)
+                  **band, variant=variant)
     if partials:
         return tuple(t[lead] for t in out)
     return out[lead]
@@ -469,8 +723,13 @@ def flash_attention(
     only: shared across heads) keep a pair only where they are equal, on
     top of every other mask: packed sequences attend within their own
     document.  A row that sees no key comes out zero.  Output dtype is
-    ``v.dtype``.  CUDA tensors run the Hopper kernel; CPU tensors run
-    `flash_attention_plain`."""
+    ``v.dtype``.  ``max_mode`` ("online", "bound", "flashd", "amla")
+    picks the kernel's rescaling math, resolved by `resolve_max_mode`
+    ("bound" runs online under a window and on small calls; its guard
+    demotes a call whose overshoot estimate could leave fp32's range to
+    the online body, on the device); every variant gives the same output.
+    "auto" raises `NotImplementedError`.  CUDA tensors run the Hopper
+    kernel; CPU tensors run `flash_attention_plain`."""
     return _dispatch(q, k, v, flash_attention_plain, scale=scale,
                      causal=causal, softcap=softcap, window=window,
                      sinks=sinks, q_segment_ids=q_segment_ids,
@@ -498,11 +757,17 @@ def flash_attention_partials(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Unnormalized attention with its row stats, as JAX's
     `flash_attention_partials`: ``(out_unnorm, row_max, row_sum)`` in
-    float32, shapes (..., m, dv), (..., m), (..., m).  ``out_unnorm`` is
-    the sum over keys of exp(s - row_max)·v, ``row_max`` the row's
-    largest masked score in the natural-log domain (-inf for a row that
-    sees no key, whose sum is then 0), ``row_sum`` the sum of
-    exp(s - row_max).  Same inputs and keywords as `flash_attention`.
+    float32, shapes (..., m, dv), (..., m), (..., m).  ``row_max`` is
+    the value the recurrence subtracted from the row's scores, in the
+    natural-log domain, ``out_unnorm`` the sum over keys of
+    exp(s - row_max)·v and ``row_sum`` the sum of exp(s - row_max).
+    What was subtracted depends on the resolved ``max_mode``
+    (`variant_partials_plain`): the row's largest score ("online"), the
+    row bound ("bound"), the log-sum-exp with sum 1 and the output
+    normalized ("flashd"), the largest score ceiled to a whole number of
+    log2 units ("amla").  A row that sees no key has sum 0 and output 0,
+    and row max -inf except under "bound": a merge of partials weighs a
+    part by its sum.  Same inputs and keywords as `flash_attention`.
     CUDA tensors run the Hopper kernel's partials epilogue; CPU tensors
     run `flash_attention_partials_plain`."""
     return _dispatch(q, k, v, flash_attention_partials_plain, scale=scale,

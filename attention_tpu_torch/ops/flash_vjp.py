@@ -20,6 +20,7 @@ from attention_tpu_torch.ops.flash import (
     _canon,
     _offsets,
     _unsupported,
+    check_max_mode,
     check_segments,
     flash_attention_partials,
 )
@@ -45,12 +46,15 @@ class KVGather(NamedTuple):
 
 def _flash_fwd_impl(q, k, v, **kw):
     """(out in q's dtype, lse (..., m) float32 in the natural-log
-    domain, -inf for a row that sees no key)."""
+    domain, -inf for a row that sees no key), from the variant's stats
+    as JAX's `_flash_fwd_impl` derives them: lse = row max + log(row
+    sum) for each variant (flashd's row max is the lse, its sum 1), and a
+    row whose sum is 0 saw no key, whatever its max (bound's is finite)."""
     out_un, row_max, row_sum = flash_attention_partials(q, k, v, **kw)
-    l_safe = torch.where(row_sum == 0.0, 1.0, row_sum)
+    seen = row_sum != 0.0
+    l_safe = torch.where(seen, row_sum, 1.0)
     out = (out_un / l_safe[..., None]).to(q.dtype)
-    lse = torch.where(row_max == float("-inf"), row_max,
-                      row_max + torch.log(l_safe))
+    lse = torch.where(seen, row_max + torch.log(l_safe), float("-inf"))
     return out, lse
 
 
@@ -64,7 +68,8 @@ class _FlashDiff(torch.autograd.Function):
         ids = dict(q_segment_ids=q_ids, kv_segment_ids=kv_ids)
         if opts["kv_gather"] is not None:
             k, v = (opts["kv_gather"].gather(x) for x in (k, v))
-        out, lse = _flash_fwd_impl(q, k, v, **opts["fwd"], **ids)
+        out, lse = _flash_fwd_impl(q, k, v, **opts["fwd"], **ids,
+                                   max_mode=opts["max_mode"])
         ctx.save_for_backward(q, k, v, out, lse, q_ids, kv_ids)
         ctx.opts = opts
         return out
@@ -126,8 +131,11 @@ def flash_attention_diff(
     pair under `flash_bwd._FORCE_TWO_KERNEL`) and on CPU tensors runs
     their plain version; ``"xla"`` runs the plain blocked recompute
     `flash_backward_plain` on any device, in blocks of ``bwd_chunk``
-    query rows.  ``max_mode`` takes ``"online"`` and ``"bound"``; both run
-    the online recurrence, which gives the same output and lse.  A
+    query rows.  ``max_mode`` ("online", "bound", "flashd", "amla")
+    is the forward's rescaling math (`flash_attention_partials`, resolved
+    as there); every variant gives the same output and lse, and the
+    backward kernels read only the lse.  "auto" raises
+    `NotImplementedError`.  A
     ``window`` (causal only) with ``sinks`` runs the forward kernel over
     the band and its sinks, and the backward kernels over the band with
     the sink pairs outside it added by `flash_bwd.sink_patch`.
@@ -145,10 +153,7 @@ def flash_attention_diff(
     summed over the ranks, and rounds each once."""
     if bwd_impl not in ("pallas", "xla"):
         raise ValueError(f"unknown bwd_impl {bwd_impl!r}")
-    if max_mode not in ("online", "bound"):
-        raise NotImplementedError(
-            f"max_mode={max_mode!r} is not ported yet; 'online' and "
-            "'bound' run the online recurrence")
+    check_max_mode(max_mode)
     q_ids, kv_ids = check_segments(
         q, k, q_segment_ids, kv_segment_ids,
         n=None if kv_gather is None else kv_gather.rows)
@@ -166,5 +171,6 @@ def flash_attention_diff(
                window=window, sinks=sinks)
     out = _FlashDiff.apply(q4, k4, v4, q_ids, kv_ids,
                            dict(fwd=fwd, bwd_impl=bwd_impl,
+                                max_mode=max_mode,
                                 bwd_chunk=bwd_chunk, kv_gather=kv_gather))
     return out[(0,) * (q4.dim() - q.dim())]

@@ -52,7 +52,7 @@ from attention_tpu_torch.ops.reference import (
 )
 
 KERNEL = "ragged_paged"
-_ARGTYPES = [P] * 9 + [I] * 11 + [L] * 4 + [F, F] + [I] * 7 + [P]
+_ARGTYPES = [P] * 9 + [I] * 11 + [L] * 4 + [F, F] + [I] * 8 + [P]
 #: query rows of a decode slot's CTA (the four warps' one 16-row tile): a
 #: slot of at most DECODE_ROWS // group tokens is a decode slot
 DECODE_ROWS = 16
@@ -176,7 +176,7 @@ def decode_tokens(group: int) -> int:
 
 
 def ragged_body(dtype, dk: int, dv: int, group: int, page: int, strides,
-                ptrs) -> str:
+                ptrs, variant: str = "online") -> str:
     """The body the prefill slots of a call run: "wgmma" for bfloat16 at
     head dims 64 or 128 whose (head, token) ``strides`` (in elements, of
     q and the output) are positive multiples of 8, whose base pointers
@@ -187,10 +187,13 @@ def ragged_body(dtype, dk: int, dv: int, group: int, page: int, strides,
     blocks) for the other bfloat16 calls at head dims 64/128 with such
     strides and pointers; "fma" (fp32 FMA on the CUDA cores) for the
     rest.  The decode slots run the tensor-core split (four warps on one
-    16-row tile) wherever this is not "fma"."""
+    16-row tile) wherever this is not "fma".  The ``variant``s other than
+    "online" ("flashd", "amla") have tensor-core instances at dk == dv
+    only, and run "fma" elsewhere."""
     if (dtype != torch.bfloat16 or dk not in (64, 128) or dv not in (64, 128)
             or not all(x > 0 and x % 8 == 0 for x in strides)
-            or not all(p % 16 == 0 for p in ptrs)):
+            or not all(p % 16 == 0 for p in ptrs)
+            or (variant != "online" and dk != dv)):
         return "fma"
     if ROW_BLOCK % group == 0 and (
             page % KEY_TILE == 0 or (page >= 8 and KEY_TILE % page == 0)):
@@ -199,12 +202,14 @@ def ragged_body(dtype, dk: int, dv: int, group: int, page: int, strides,
 
 
 def ragged_launch_plan(q: torch.Tensor, step: "RaggedPagedStep", *,
-                       sms: int, window: int | None = None) -> dict:
+                       sms: int, window: int | None = None,
+                       variant: str = "online") -> dict:
     """The launches of a `ragged_paged_attention` call on the card, from
     sizes the host knows (slots, heads, widths, the table's capacity,
     the page, the head dims, ``sms``), never the lengths or spans:
 
-    ``body`` of the prefill slots (`ragged_body`); ``smax``, the most
+    ``body`` of the prefill slots (`ragged_body` under ``variant``);
+    ``smax``, the most
     tokens of a decode slot; the decode slots' key split (``splits``,
     ``chunk``: `decode.split_plan` over the capacity ``max_pages *
     page``, or under a ``window`` its band, at `CTAS_PER_SM`), its key
@@ -225,7 +230,7 @@ def ragged_launch_plan(q: torch.Tensor, step: "RaggedPagedStep", *,
     body = ragged_body(q.dtype, dk, dv, group, page,
                        (q.stride(1), q.stride(2), *out_strides),
                        (q.data_ptr(), step.k_pool.data_ptr(),
-                        step.v_pool.data_ptr()))
+                        step.v_pool.data_ptr()), variant)
     plan = dict(body=body, smax=smax, splits=1,
                 chunk=max_pages * page, kg=1, decode_grid=None)
     if smax:
@@ -334,7 +339,8 @@ def prefill_items(step: "RaggedPagedStep", group: int,
     return items
 
 
-def _launch(q, cache, *, scale, softcap, window, sinks) -> torch.Tensor:
+def _launch(q, cache, *, scale, softcap, window, sinks,
+            variant="online") -> torch.Tensor:
     dtype = cache.v_pool.dtype
     if (dtype not in DTYPE_CODES or q.dtype != dtype
             or cache.k_pool.dtype != dtype):
@@ -362,7 +368,7 @@ def _launch(q, cache, *, scale, softcap, window, sinks) -> torch.Tensor:
         q = q.contiguous()
     idx = q.device.index
     plan = ragged_launch_plan(q, cache, sms=_native.sm_count(idx),
-                              window=window)
+                              window=window, variant=variant)
     # (1, T, Hq, dv) storage makes the attention layer's head merge a
     # view; the kernel writes every row, pad rows as zeros
     out = torch.empty((1, t_pad, hq, dv), dtype=dtype,
@@ -384,9 +390,10 @@ def _launch(q, cache, *, scale, softcap, window, sinks) -> torch.Tensor:
                  out.stride(2), float(scale), float(softcap or 0.0),
                  window or 0, sinks or 0,
                  BODIES[plan["body"]], plan["smax"], plan["splits"],
-                 plan["chunk"], plan["prefill_grid"][0], stream)
+                 plan["chunk"], plan["prefill_grid"][0],
+                 decode.VARIANT_CODES[variant], stream)
     _native.check(KERNEL, err)
-    _native.count_launch(KERNEL)
+    _native.count_launch(KERNEL, variant)
     return out
 
 
@@ -402,13 +409,13 @@ def ragged_paged_attention(q: torch.Tensor, cache: RaggedPagedStep, *,
     `ragged_paged_append` first); pad tokens return zeros, poisoned
     slots NaN.  ``window``/``sinks``: the decode kernels' per-request
     band (a token at position p keeps the positions after p - window
-    and the first ``sinks``), which the kernel's walks start at.  CUDA
-    tensors run the Hopper kernel, CPU tensors
-    `ragged_paged_attention_plain`."""
+    and the first ``sinks``), which the kernel's walks start at.
+    ``max_mode`` as `ops.decode.flash_decode`: "online", "flashd" or
+    "amla" (the same output, one plain version), "bound" `ValueError`
+    (forward-only), "auto" `NotImplementedError`.  CUDA tensors run the
+    Hopper kernel, CPU tensors `ragged_paged_attention_plain`."""
     check_band(window, sinks)
-    if max_mode != "online":
-        raise NotImplementedError(
-            f"max_mode={max_mode!r} is not ported yet; only 'online'")
+    decode.check_max_mode(max_mode, decode.DECODE_MAX_MODES)
     check_softcap(softcap)
     _validate(q, cache)
     if scale is None:
@@ -421,7 +428,7 @@ def ragged_paged_attention(q: torch.Tensor, cache: RaggedPagedStep, *,
         raise ValueError(f"ragged_paged_attention runs on cuda or cpu, "
                          f"not {q.device.type}")
     return _launch(q, cache, scale=scale, softcap=softcap, window=window,
-                   sinks=sinks)
+                   sinks=sinks, variant=max_mode)
 
 
 def ragged_paged_append(cache: RaggedPagedStep, k_new: torch.Tensor,

@@ -88,6 +88,14 @@ def grad_mismatch(got: torch.Tensor,
     float32: 2^-16·(|want| + rms(want's row)) + 2^-20·rms(want): the
     same arithmetic in another order (and other P values by 1 ulp from
     exp2), whose relative error grows with the length of the sums."""
+    err, ratio = grad_ratios(got, want)
+    return err.max().item(), ratio.max().item()
+
+
+def grad_ratios(got: torch.Tensor, want: torch.Tensor):
+    """`grad_mismatch` element by element: (each element's abs
+    difference, its ratio to the element's limit), float32 tensors of
+    want's shape."""
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{tuple(got.shape)}/{got.dtype} vs "
                              f"{tuple(want.shape)}/{want.dtype}")
@@ -103,8 +111,7 @@ def grad_mismatch(got: torch.Tensor,
         limit = 2.0 ** -16 * (w.abs() + row_rms) + 2.0 ** -20 * rms
     else:
         raise TypeError(f"no tolerance for {want.dtype}")
-    ratio = torch.where(err == 0, 0.0, err / limit)
-    return err.max().item(), ratio.max().item()
+    return err, torch.where(err == 0, 0.0, err / limit)
 
 
 def check_softcap(softcap) -> None:

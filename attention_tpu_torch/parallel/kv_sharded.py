@@ -23,9 +23,10 @@ in JAX (attention_tpu/parallel/kv_sharded.py:163-197): ``window`` and
 ``sinks`` in global positions through each shard's ``kv_offset``, and
 packed-sequence segment ids with their rows (Q's whole on every rank,
 K/V's cut with K/V, the padded tail -2, an id no real row holds).
-``block_sizes`` raises `NotImplementedError`; ``max_mode="bound"``,
-JAX's default here, runs the online recurrence, which the JAX package
-pins to the same outputs.
+``max_mode`` (JAX's default here, "bound") reaches each shard's
+`flash_attention_partials`; the merge weighs a shard by its row sum,
+since under "bound" a shard that saw no key has a finite row max.
+``block_sizes`` and ``max_mode="auto"`` raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from attention_tpu_torch.ops.flash import (
+    check_max_mode,
     check_segments,
     check_window,
     flash_attention,
@@ -46,12 +48,9 @@ NEG_INF = float("-inf")
 
 def _unported(*, block_sizes=None, max_mode="bound") -> None:
     """Raise `NotImplementedError` for what the sharded paths do not
-    carry yet: ``block_sizes`` and ``max_mode`` other than
-    "online"/"bound"."""
-    if max_mode not in ("online", "bound"):
-        raise NotImplementedError(
-            f"max_mode={max_mode!r} is not ported yet; 'online' and "
-            "'bound' run the online recurrence")
+    carry yet: ``block_sizes`` and ``max_mode="auto"`` (an unknown mode
+    is JAX's `ValueError`)."""
+    check_max_mode(max_mode)
     if block_sizes is not None:
         raise NotImplementedError(
             "block_sizes=... is not ported to the sharded paths yet")
@@ -92,7 +91,10 @@ def merge_partials(out_un, lmax, lsum, axis_name: str, *, mesh: Mesh):
 
     Inputs are each rank's (contrib, row max, row sum of exp); returns
     the globally normalised output on every rank: steps 2-4 of the
-    reference (`attention-mpi.c:340-380`)."""
+    reference (`attention-mpi.c:340-380`).  A shard whose row sum is 0
+    saw no key and weighs 0, whatever its row max (under "bound" it is
+    finite, and could exceed the others')."""
+    lmax = torch.where(lsum == 0.0, NEG_INF, lmax)
     gmax = mesh.all_reduce(lmax, axis_name, "max")  # phase 1: MAX
     corr = torch.where(lmax == NEG_INF, 0.0, torch.exp(lmax - gmax))
     gsum = mesh.all_reduce(lsum * corr, axis_name, "sum")  # phase 2: SUM
@@ -103,15 +105,18 @@ def merge_partials(out_un, lmax, lsum, axis_name: str, *, mesh: Mesh):
 
 def _local_partials(q, k, v, *, impl, scale, kv_valid, causal=False,
                     q_offset=0, kv_offset=0, softcap=None, window=None,
-                    sinks=None, q_segment_ids=None, kv_segment_ids=None):
+                    sinks=None, q_segment_ids=None, kv_segment_ids=None,
+                    max_mode="online"):
     """One rank's partials: ``impl="flash"`` the flash kernel's partials
-    epilogue (its plain version for CPU tensors), ``impl="torch"`` the
-    plain PyTorch partials (JAX's ``impl="xla"``)."""
+    epilogue under ``max_mode`` (its plain version for CPU tensors),
+    ``impl="torch"`` the plain PyTorch partials (JAX's ``impl="xla"``,
+    whose exact max is the online recurrence's)."""
     fn = {"flash": flash_attention_partials,
           "torch": attention_reference_partials}.get(impl)
     if fn is None:
         raise ValueError(f"unknown impl {impl!r}; 'flash' or 'torch'")
-    return fn(q, k, v, scale=scale, kv_valid=kv_valid, causal=causal,
+    extra = dict(max_mode=max_mode) if impl == "flash" else {}
+    return fn(q, k, v, scale=scale, kv_valid=kv_valid, causal=causal, **extra,
               q_offset=q_offset, kv_offset=kv_offset, softcap=softcap,
               window=window, sinks=sinks, q_segment_ids=q_segment_ids,
               kv_segment_ids=kv_segment_ids)
@@ -166,7 +171,8 @@ def kv_sharded_attention(
         scale=scale, kv_valid=min(max(n - lo, 0), n_local), causal=causal,
         kv_offset=lo, softcap=softcap, window=window, sinks=sinks,
         q_segment_ids=q_ids,
-        kv_segment_ids=None if kv_ids is None else kv_ids[lo:lo + n_local])
+        kv_segment_ids=None if kv_ids is None else kv_ids[lo:lo + n_local],
+        max_mode=max_mode)
     return merge_partials(out_un, lmax, lsum, axis_name,
                           mesh=mesh).to(q.dtype)
 
@@ -200,5 +206,6 @@ def q_sharded_attention(
     m_local = -(-m // n_dev)
     out = flash_attention(_rows(q, idx * m_local, m_local), k, v,
                           scale=scale, causal=causal,
-                          q_offset=idx * m_local, softcap=softcap)
+                          q_offset=idx * m_local, softcap=softcap,
+                          max_mode=max_mode)
     return mesh.all_gather(out, axis_name, dim=-2)[..., :m, :]

@@ -129,13 +129,14 @@ def ring_attention(
             )
         return _zigzag_ring(q, k, v, mesh=mesh, axis_name=axis_name,
                             scale=scale, softcap=softcap, window=window,
-                            sinks=sinks, seg=seg)
+                            sinks=sinks, seg=seg, max_mode=max_mode)
 
     m, n = q.shape[-2], k.shape[-2]
     m_local, n_local = -(-m // n_dev), -(-n // n_dev)
     cfg = _RingCfg(axis_name=axis_name, n_dev=n_dev, n=n, m_local=m_local,
                    n_local=n_local, scale=scale, causal=causal,
-                   softcap=softcap, window=window, sinks=sinks)
+                   softcap=softcap, window=window, sinks=sinks,
+                   max_mode=max_mode)
     if seg is not None:
         # Q ids cut with Q's rows; K/V ids whole, sliced at each step
         seg = (pad_ids(seg[0], m_local * n_dev, -1)[
@@ -159,6 +160,7 @@ class _RingCfg(NamedTuple):
     softcap: "float | None"
     window: "int | None" = None
     sinks: "int | None" = None
+    max_mode: str = "bound"
 
 
 def _ring_fwd_loop(q, k, v, cfg: _RingCfg, mesh: Mesh, seg=None):
@@ -188,7 +190,8 @@ def _ring_fwd_loop(q, k, v, cfg: _RingCfg, mesh: Mesh, seg=None):
             q, k_cur, v_cur, scale=cfg.scale, causal=cfg.causal,
             q_offset=idx * cfg.m_local, kv_offset=shard * cfg.n_local,
             kv_valid=min(max(cfg.n - shard * cfg.n_local, 0), cfg.n_local),
-            softcap=cfg.softcap, window=cfg.window, sinks=cfg.sinks, **ids)
+            softcap=cfg.softcap, window=cfg.window, sinks=cfg.sinks,
+            max_mode=cfg.max_mode, **ids)
         acc, m_run, l_run = _merge_step((acc, m_run, l_run), *parts)
         if t + 1 < cfg.n_dev:
             k_cur, v_cur = nxt.wait()
@@ -198,8 +201,10 @@ def _ring_fwd_loop(q, k, v, cfg: _RingCfg, mesh: Mesh, seg=None):
 def _merge_step(state, out_un, lmax, lsum):
     """Online merge of one partials call into a running (acc, m, l)
     state: the rmax/rsum recurrence (`attention-mpi.c:179-181`) across
-    ring steps; a call that saw nothing (lmax -inf) changes nothing."""
+    ring steps; a call that saw nothing (row sum 0, whatever its row max:
+    under "bound" that is finite) changes nothing."""
     acc, m_run, l_run = state
+    lmax = torch.where(lsum == 0.0, NEG_INF, lmax)
     m_new = torch.maximum(m_run, lmax)
     c_old = torch.where(m_run == NEG_INF, 0.0, torch.exp(m_run - m_new))
     c_new = torch.where(lmax == NEG_INF, 0.0, torch.exp(lmax - m_new))
@@ -238,10 +243,11 @@ class _ZigCfg(NamedTuple):
     softcap: "float | None"
     window: "int | None" = None
     sinks: "int | None" = None
+    max_mode: str = "bound"
 
 
 def _zigzag_ring(q, k, v, *, mesh: Mesh, axis_name: str, scale, softcap,
-                 window=None, sinks=None, seg=None):
+                 window=None, sinks=None, seg=None, max_mode="bound"):
     """Causal ring attention with the zigzag layout (llama-3 style).
 
     The sequence is cut into 2R chunks; rank d holds chunks (d, 2R-1-d),
@@ -262,7 +268,7 @@ def _zigzag_ring(q, k, v, *, mesh: Mesh, axis_name: str, scale, softcap,
     q_z, k_z, v_z = _zigzag_exchange(blocks, mesh, axis_name, n_dev, chunk)
     zcfg = _ZigCfg(axis_name=axis_name, n_dev=n_dev, n=k.shape[-2],
                    chunk=chunk, scale=scale, softcap=softcap, window=window,
-                   sinks=sinks)
+                   sinks=sinks, max_mode=max_mode)
     if seg is not None:
         seg = (pad_ids(seg[0], 2 * n_dev * chunk, -1),
                pad_ids(seg[1], 2 * n_dev * chunk, -2))
@@ -307,7 +313,8 @@ def _zig_fwd_loop(q_local, k_local, v_local, z: _ZigCfg, mesh: Mesh,
             q_c, k_c, v_c, scale=z.scale, causal=True,
             q_offset=q_cid * z.chunk, kv_offset=kv_cid * z.chunk,
             kv_valid=min(max(z.n - kv_cid * z.chunk, 0), z.chunk),
-            softcap=z.softcap, window=z.window, sinks=z.sinks, **ids)
+            softcap=z.softcap, window=z.window, sinks=z.sinks,
+            max_mode=z.max_mode, **ids)
 
     lo, hi = fresh(q_lo), fresh(q_hi)
     k_cur, v_cur = k_local, v_local
@@ -421,7 +428,8 @@ def ring_attention_diff(
     layout = whole_layout(q, k, mesh, axis_name, batch_axis, head_axis)
     m, n = q.shape[-2], k.shape[-2]
     kw = dict(mesh=mesh, axis_name=axis_name, scale=scale, causal=causal,
-              softcap=softcap, window=window, sinks=sinks, kv_valid=n)
+              softcap=softcap, window=window, sinks=sinks, kv_valid=n,
+              max_mode=max_mode)
     if schedule == "zigzag":
         rows = 2 * n_dev * _zig_prepare(q, k, n_dev)
         blocks = shard_blocks([_rows(x, 0, rows) for x in (q, k, v)], mesh,
@@ -448,12 +456,14 @@ def ring_attention_diff(
 def ring_diff_local(q, k, v, *, mesh: Mesh, axis_name: str = "sp",
                     scale=None, causal: bool = False, softcap=None,
                     window=None, sinks=None, kv_valid=None,
-                    q_segment_ids=None, kv_segment_ids=None):
+                    q_segment_ids=None, kv_segment_ids=None,
+                    max_mode: str = "bound"):
     """The differentiable contiguous ring on this rank's blocks (JAX's
     `_ring_diff`, what it runs inside ``shard_map``).  ``kv_valid``
     masks a padded key tail (global count); ``q_segment_ids`` are this
-    block's, ``kv_segment_ids`` the whole (padded) sequence's.  Sinks
-    must fit in one shard (`ValueError`)."""
+    block's, ``kv_segment_ids`` the whole (padded) sequence's; each
+    step's partials run under ``max_mode``.  Sinks must fit in one shard
+    (`ValueError`)."""
     n_dev, n_local = mesh.shape[axis_name], k.shape[-2]
     if sinks is not None and sinks > n_local:
         raise ValueError(f"sinks ({sinks}) must fit in one KV shard "
@@ -463,7 +473,8 @@ def ring_diff_local(q, k, v, *, mesh: Mesh, axis_name: str = "sp",
         n=n_dev * n_local if kv_valid is None else kv_valid,
         m_local=q.shape[-2], n_local=n_local,
         scale=1.0 / (q.shape[-1] ** 0.5) if scale is None else scale,
-        causal=causal, softcap=softcap, window=window, sinks=sinks)
+        causal=causal, softcap=softcap, window=window, sinks=sinks,
+        max_mode=max_mode)
     return _RingDiff.apply(q, k, v, q_segment_ids, kv_segment_ids, cfg,
                            mesh)
 
@@ -471,7 +482,8 @@ def ring_diff_local(q, k, v, *, mesh: Mesh, axis_name: str = "sp",
 def zigzag_diff_local(q, k, v, *, mesh: Mesh, axis_name: str = "sp",
                       scale=None, causal: bool = True, softcap=None,
                       window=None, sinks=None, kv_valid=None,
-                      q_segment_ids=None, kv_segment_ids=None):
+                      q_segment_ids=None, kv_segment_ids=None,
+                      max_mode: str = "bound"):
     """The differentiable zigzag ring on this rank's contiguous blocks
     (chunks 2d, 2d+1, each half the block's rows): the exchange to the
     zigzag pair, JAX's `_zig_diff` and the exchange back, each
@@ -494,7 +506,8 @@ def zigzag_diff_local(q, k, v, *, mesh: Mesh, axis_name: str = "sp",
                 n=n_dev * rows if kv_valid is None else kv_valid,
                 chunk=chunk,
                 scale=1.0 / (q.shape[-1] ** 0.5) if scale is None else scale,
-                softcap=softcap, window=window, sinks=sinks)
+                softcap=softcap, window=window, sinks=sinks,
+                max_mode=max_mode)
     q_z, k_z, v_z = _zigzag_exchange([q, k, v], mesh, axis_name, n_dev,
                                      chunk)
     out = _ZigDiff.apply(q_z, k_z, v_z, q_segment_ids, kv_segment_ids, z,

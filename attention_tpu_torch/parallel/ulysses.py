@@ -88,14 +88,15 @@ def ulysses_attention(
     out = ulysses_local(*shard_blocks((q, k, v), mesh, layout), mesh=mesh,
                         axis_name=axis_name, scale=scale, causal=causal,
                         softcap=softcap, window=window, sinks=sinks,
-                        q_segment_ids=q_ids, kv_segment_ids=kv_ids)
+                        q_segment_ids=q_ids, kv_segment_ids=kv_ids,
+                        max_mode=max_mode)
     return gather_blocks(out, mesh, layout)
 
 
 def ulysses_local(q, k, v, *, mesh: Mesh, axis_name: str = "sp",
                   scale=None, causal: bool = False, softcap=None,
                   window=None, sinks=None, q_segment_ids=None,
-                  kv_segment_ids=None):
+                  kv_segment_ids=None, max_mode: str = "bound"):
     """Ulysses on this rank's blocks of the sequence (what JAX runs inside
     ``shard_map``): the GQA repeat where the mesh size does not divide the
     KV heads, the all_to_all to head shards (whole sequence), the flash
@@ -125,6 +126,7 @@ def ulysses_local(q, k, v, *, mesh: Mesh, axis_name: str = "sp",
     out = flash_attention_diff(qh, kh, vh, scale=scale, causal=causal,
                                softcap=softcap, window=window, sinks=sinks,
                                q_segment_ids=q_segment_ids,
-                               kv_segment_ids=kv_segment_ids)
+                               kv_segment_ids=kv_segment_ids,
+                               max_mode=max_mode)
     # head-sharded -> sequence-sharded
     return all_to_all_diff(out, mesh, axis_name, seq_axis, head_axis)

@@ -9,8 +9,10 @@ nothing of JAX.  Every phase raises on a failure, so the script exits
 non-zero unless all of them pass:
 
 1. build    all nine CUDA kernels from ``attention_tpu_torch/csrc`` (one
-            ``nvcc`` each, started together); print the card's name and
-            power limit.
+            ``nvcc`` a translation unit, as many at once as there are
+            cores; three kernels have their max_mode variants' instances
+            in units of their own); print the card's name and power
+            limit.
 2. kernels  each kernel against its plain PyTorch version on the card,
             under the limits of `reference.mismatch`: flash in f32 with
             dk != dv and ragged edges, in bf16 causal GQA with softcap,
@@ -71,7 +73,26 @@ non-zero unless all of them pass:
             bound of the kept pairs (25.2% of the causal ones); all-equal
             ids give the bits of no ids; an f32 call on "fma" with m != n
             and rows whose id no key holds.  The build prints registers
-            and spills of every segment-id instance.
+            and spills of every segment-id instance, and of every kernel's
+            instances by max_mode variant (an instance of a kernel over the
+            variant steps that spills, online or not, fails), and each
+            translation unit's CPU seconds.
+2a. max_modes  the rescaling-math variants (`phase_max_modes`): flash at
+            32 q / 4 kv heads over 8192 rows, causal, bf16, without and
+            with softcap 50, under "online", "bound", "flashd" and "amla",
+            normalized and as partials (each variant's stats by its
+            contract), each held against its plain version with planted
+            faults, "bound" under torch.cuda.set_sync_debug_mode("error")
+            and its guard's verdicts printed; an f32 call on the "fma"
+            body under each; a planted outlier key (norm 4000) whose guard
+            demotes the call to the online body's bits; decode at the
+            serving width (8 sequences to 2048 rows) and the ragged mixed
+            step under "flashd" and "amla"; each variant's device ms
+            beside online's in the same call; the bound-against-online
+            crossover at 512 to 8192 rows.  Phase 7 counts the forward's
+            launches by variant (the layer runs "bound") and the guard's
+            demotions, and runs the fused steps again under "online" from
+            the same start: step 1's loss, and both runs' step ms.
 2b. backward the training forward's partials and the three backward
             kernels (fused, dQ, dK/dV) at the serving geometry as a
             training call (b = 1, 32 q / 4 kv heads, m = n = 4096, d 128,
@@ -149,12 +170,21 @@ non-zero unless all of them pass:
             power limit.  (1) The differentiable paths on whole tensors
             (`cp_flash_attention`, `ring_attention_diff` contiguous and
             zigzag, `ulysses_attention`) at 32 q / 4 kv heads, 8192 rows,
-            d 128, causal, bf16, with a fixed random dout: output, dq, dk,
-            dv against one single-device `flash_attention_diff` call
-            (`mismatch`, `grad_mismatch`) and against a float64 recompute
-            of the first kv head's group (each path's largest error at most
-            `CP_F64_SLACK` times the single call's), the same bits on every
-            rank, launches exact (1, R, 3R, 1 forward and backward calls);
+            d 128, causal, bf16, with a fixed random dout, each under its
+            default max_mode ("bound", resolved by each call's size):
+            output, dq, dk, dv against one single-device
+            `flash_attention_diff` call under the variant the path's calls
+            ran (`mismatch`, `grad_mismatch`) and against a float64
+            recompute of the first kv head's group (each path's largest
+            error at most `CP_F64_SLACK` times the single call's), the
+            same bits on every rank, launches exact (1, R, 3R, 1 forward
+            and backward calls), the root mean square error against the
+            witness at most `CP_F64_SLACK` times the single call's.  The
+            ring's calls bound a row by their own shard's keys, which no
+            single call reproduces: its elements and largest witness error
+            are printed, and the ring and the zigzag run again with every
+            call bounded by the whole sequence's key norms
+            (`cp_same_bound`), held on every element and the witness;
             the causal case on the dQ + dK/dV pair too; 3-D views with
             window 4096 + 4 sinks on every path, window 1024 + 4 sinks on
             both ring schedules, phase 2's packed ids on the ring and the
@@ -414,6 +444,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import pickle
 import re
@@ -422,6 +453,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -704,18 +736,7 @@ def device_ms(fn, *, calls: int = 30) -> float:
     """Device time per call of every kernel ``fn`` launches, by
     `torch.profiler`, after two warm-up calls: the card's share of a
     call whose host time `time_ms` would measure instead."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / calls / 1e3
+    return kernel_device_ms(fn, "", calls=calls)[0]
 
 
 def held(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -886,21 +907,37 @@ def hold(kernels, kernel, case, *, run, plain, faults, work, dtype,
     return rec
 
 
+#: the kernel templates whose last template argument is the max_mode
+#: variant (0 online, 1 bound, 2 FLASH-D, 3 AMLA): the wgmma body, the
+#: decode rows' kernel, and the other variants' kernels of the flash and
+#: ragged CUDA-core loops
+VARIANT_TEMPLATES = ("flash_fwd_wgmma", "decode_kernel", "_kernel_var")
+#: the kernels built over the softmax steps that take a variant
+#: (attention_tile.cuh's `attend`, `attend_mma` and `softmax_tile`,
+#: decode_rows.cuh, the wgmma body): none of their instances may spill
+VARIANT_STEP_KERNELS = ("flash_fwd", "ragged_paged", "decode",
+                        "paged_decode", "quant_decode", "quant_tok4")
+
+
 def ptxas_instances(report) -> list:
-    """Registers and spill bytes of every wgmma-body instance in nvcc's
-    ``-Xptxas -v`` reports (`ops.build`), each marked ``seg`` where its
-    last template argument, segment ids, is true."""
+    """Registers and spill bytes of every kernel instance in nvcc's
+    ``-Xptxas -v`` reports (`ops.build`): its kernel, function, ``seg``
+    where its segment-id argument is true, and its max_mode ``variant``
+    (0 for online and for a kernel that takes none)."""
     out, cur = [], None
     for kernel, rec in report.items():
         for line in rec["ptxas"].splitlines():
             found = re.search(r"Compiling entry function '([^']+)'", line)
             if found:
                 name = found.group(1)
+                var = re.search(r"Li(\d)EEEv", name)
+                variant = int(var.group(1)) if var and any(
+                    t in name for t in VARIANT_TEMPLATES) else 0
                 cur = dict(kernel=kernel, function=name,
-                           seg="Lb1EEEv" in name) if "wgmma" in name \
-                    else None
-                if cur is not None:
-                    out.append(cur)
+                           seg=bool(re.search(r"Lb1E(Li\dE)?EEv", name)),
+                           variant=variant, registers=None,
+                           spill_bytes=[0, 0])
+                out.append(cur)
                 continue
             if cur is None:
                 continue
@@ -918,12 +955,33 @@ def phase_build(ops) -> None:
     t0 = time.perf_counter()
     report = ops.build()
     emit(phase="build", seconds=time.perf_counter() - t0,
-         kernels={k: v["seconds"] for k, v in report.items()})
-    # the segment-id instances' registers at launch and spills (the
-    # consumers' 240 registers a thread are set by setmaxnreg)
-    for rec in ptxas_instances(report):
+         kernels={k: v["seconds"] for k, v in report.items()},
+         cpu_seconds={k: v.get("cpu_seconds") for k, v in report.items()},
+         units={k: v["units"] for k, v in report.items() if "units" in v})
+    # every instance's registers at launch and spills (the wgmma
+    # consumers' 240 registers a thread are set by setmaxnreg): the
+    # segment-id instances one by one, the rest by kernel and variant
+    # (0 online, 1 bound, 2 FLASH-D, 3 AMLA): how many, their registers'
+    # range, how many spill; an instance of a kernel over the variant
+    # steps that spills, online or not, fails the build
+    instances = ptxas_instances(report)
+    groups = {}
+    for rec in instances:
         if rec["seg"]:
             emit(phase="build", ptxas=rec)
+        agg = groups.setdefault(f"{rec['kernel']}/{rec['variant']}",
+                                dict(instances=0, registers=[999, 0],
+                                     spilling=0))
+        agg["instances"] += 1
+        if rec["registers"] is not None:
+            agg["registers"] = [min(agg["registers"][0], rec["registers"]),
+                                max(agg["registers"][1], rec["registers"])]
+        agg["spilling"] += any(rec["spill_bytes"])
+    emit(phase="build", instances=groups)
+    spilling = [rec for rec in instances if any(rec["spill_bytes"])
+                and rec["kernel"] in VARIANT_STEP_KERNELS]
+    if spilling:
+        raise AssertionError(f"instances spill: {spilling}")
     # ptxas's performance warnings (wgmma serialized, and the like)
     for kernel, rec in report.items():
         for line in rec["ptxas"].splitlines():
@@ -1181,6 +1239,271 @@ def phase_kernels(kernels, serve_model):
              share_of_limit=ratio, planted_faults_share_of_limit=faults)
     phase_ragged_decode(kernels, gen)
     return step, q
+
+
+#: the max_mode phase's flash cases (PERF.md row 1): 32 q / 4 kv heads,
+#: head dim 128, causal, bf16, without and with softcap 50
+MODE_FLASH = (32, 4, 8192, 128)
+MODE_DECODE_LENS = [1, 100, 517, 1024, 1500, 2000, 2047, 2048]
+#: sequence lengths of the bound-against-online crossover (32/4 heads,
+#: causal, bf16, the threshold pinned to 0 so that bound runs at each)
+MODE_CROSSOVER = (512, 1024, 2048, 4096, 8192)
+
+
+def kernel_device_ms(fn, name: str, *, calls: int = 20) -> tuple:
+    """(device ms per call of every kernel ``fn`` launches, of those
+    whose name holds ``name``), by `torch.profiler` after two warm-up
+    calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    total = sum(e.time_range.elapsed_us() for e in events)
+    own = sum(e.time_range.elapsed_us() for e in events if name in e.name)
+    return total / calls / 1e3, own / calls / 1e3
+
+
+def mode_device_ms(run, modes, kernel: str = "flash_fwd") -> dict:
+    """Each variant's device ms of ``run(mode)``, all its kernels and the
+    kernel's own (its name holds ``kernel``; the rest is a guard's or a
+    merge's work), measured in turns in one call: online, the others,
+    online again (its two readings bracket the others')."""
+    order = ["online", *(m for m in modes if m != "online"), "online"]
+    out = {}
+    for mode in order:
+        total, own = kernel_device_ms(lambda: run(mode), kernel)
+        rec = dict(device_ms=total, kernel_device_ms=own)
+        out[mode] = rec if mode not in out else [out[mode], rec]
+    return out
+
+
+def held_variant_stats(parts, plain, mode) -> float:
+    """A variant's partials stats (`flash_attention_partials`) against
+    its plain version's: the same rows see no key; elsewhere the
+    log-sum-exp (row max + log row sum) within relative 1e-5 (the same
+    arithmetic in another order), and the variant's own contract: the
+    row bound ("bound") and the largest score ("online") within relative
+    1e-5, sums of 1 ("flashd"), whole log2 units at most one apart
+    ("amla": a score within rounding of a whole unit may ceil either
+    way on the two sides).  Returns the lse's relative error."""
+    (_, mx, sm), (_, pmx, psm) = parts, plain
+    seen = psm != 0
+    if not torch.equal(sm != 0, seen):
+        raise AssertionError(f"{mode}: the rows that see no key differ")
+    lse, plse = (a[seen] + torch.log(b[seen]) for a, b in ((mx, sm),
+                                                          (pmx, psm)))
+    rel = ((lse - plse).abs().max() / plse.abs().max()).item()
+    units = mx[seen] / math.log(2)
+    ok = {"online": lambda: ((mx - pmx)[seen].abs().max()
+                             <= 1e-5 * pmx[seen].abs().max()),
+          "bound": lambda: ((mx - pmx).abs().max()
+                            <= 1e-5 * pmx.abs().max()),
+          "flashd": lambda: torch.equal(sm, seen.float()),
+          "amla": lambda: ((units - units.round()).abs().max() <= 1e-5
+                           and (mx - pmx)[seen].abs().max()
+                           <= math.log(2) * 1.0001)}[mode]()
+    if not rel <= 1e-5 or not bool(ok):
+        raise AssertionError(f"{mode} stats: lse off by {rel}, contract "
+                             f"{bool(ok)}")
+    return rel
+
+
+def phase_max_modes(kernels, step, q_step) -> None:
+    """The rescaling-math variants (the TPU kernels' max_mode) on the
+    card, each held against its plain version: the flash forward at
+    `MODE_FLASH` (normalized and partials, without and with softcap 50,
+    and an f32 FMA-body case), "bound" under
+    ``torch.cuda.set_sync_debug_mode("error")`` (its guard adds no host
+    sync); a planted outlier key whose guard demotes the call to the
+    online body's bits; decode at the serving width (B 8, lengths to
+    2048) and the ragged mixed step under "flashd" and "amla"; the
+    bound-against-online crossover.  Each line carries the variant's
+    device ms beside online's in the same call."""
+    from attention_tpu_torch.ops import _native, decode, flash
+    from attention_tpu_torch.ops import ragged_paged as rp
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    h, hkv, m, d = MODE_FLASH
+    q, k, v = randn(1, h, m, d), randn(1, hkv, m, d), randn(1, hkv, m, d)
+    variants = {}
+    for cap in (None, 50.0):
+        kw = dict(causal=True, softcap=cap)
+        want = flash.flash_attention_plain(q, k, v, **kw)
+        planted = {
+            "dropped_last_key_tile": flash.flash_attention_plain(
+                q, k[..., :-KEY_TILE, :], v[..., :-KEY_TILE, :], **kw),
+            "scale_off_2pct": flash.flash_attention_plain(
+                q, k, v, scale=1.02 * d ** -0.5, **kw)}
+        faults = rejected(planted, want)
+        del planted
+        plain_ms = time_ms(lambda: flash.flash_attention_plain(q, k, v, **kw),
+                           calls=1, reps=3)
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + want.numel())
+        b_ms, b_by = bound_ms(nbytes, 2.0 * h * m * (m + 1) / 2 * 2 * d,
+                              q.dtype)
+
+        def run(mode, partials=False):
+            fn = (flash.flash_attention_partials if partials
+                  else flash.flash_attention)
+            return fn(q, k, v, max_mode=mode, **kw)
+
+        dev = mode_device_ms(run, flash.MAX_MODES)
+        case = f"causal{'_softcap50' if cap else ''}"
+        for mode in flash.MAX_MODES:
+            resolved = flash.resolve_max_mode(mode, heads=h, m=m, n=m,
+                                              causal=True)
+            before = _native.demotion_count()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got, again = run(mode), run(mode)
+                parts = run(mode, partials=True)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            demoted = _native.demotion_count() - before
+            same_bits(got, again)
+            err, ratio = held(got, want)
+            pw = flash.variant_partials_plain(q, k, v, resolved, **kw)
+            stat_rel = held_variant_stats(parts, pw, resolved)
+            perr, pratio = held(
+                (parts[0] / parts[2].clamp(min=1e-30)[..., None]).to(q.dtype),
+                (pw[0] / pw[2].clamp(min=1e-30)[..., None]).to(q.dtype))
+            if demoted:
+                raise AssertionError(f"the guard demoted {demoted}")
+            kernels["flash_fwd"]["max_abs_err"] = max(
+                kernels["flash_fwd"]["max_abs_err"], err, perr)
+            ms = time_ms(lambda: run(mode))
+            variants.setdefault("flash_fwd", {})[f"{case}_{mode}"] = dict(
+                ms=ms, **(dev[mode] if mode != "online" else dev[mode][0]))
+            emit(phase="max_modes", kernel="flash_fwd", case=case,
+                 variant=mode, resolved=resolved, shape=list(MODE_FLASH),
+                 **flash_plan(q, k, v), max_abs_err=err, share_of_limit=ratio,
+                 partials_max_abs_err=perr, partials_share_of_limit=pratio,
+                 partials_stats_rel=stat_rel, guard_demoted=demoted,
+                 planted_faults_share_of_limit=faults, ms=ms,
+                 device=dev[mode], online_device=dev["online"],
+                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        del want
+
+    # the f32 FMA body
+    qf, kf, vf = (randn(1, s, 1000, 64, dtype=torch.float32)
+                  for s in (8, 2, 2))
+    want = flash.flash_attention_plain(qf, kf, vf, causal=True)
+    for mode in flash.MAX_MODES:
+        with_pin = contextlib.ExitStack()
+        if mode == "bound":
+            # below the threshold "bound" resolves to online: pin it so
+            # that the FMA body's bound instance runs
+            old = flash._BOUND_MIN_SCORE_ELEMS
+            flash._BOUND_MIN_SCORE_ELEMS = 0
+            with_pin.callback(setattr, flash, "_BOUND_MIN_SCORE_ELEMS", old)
+        with with_pin:
+            got = flash.flash_attention(qf, kf, vf, causal=True,
+                                        max_mode=mode)
+            parts = flash.flash_attention_partials(qf, kf, vf, causal=True,
+                                                   max_mode=mode)
+            pw = flash.variant_partials_plain(qf, kf, vf, mode, causal=True)
+            plan = flash.flash_launch_plan(qf, kf, vf, variant=mode)
+        err, ratio = held(got, want)
+        stat = held_variant_stats(parts, pw, mode)
+        perr, pratio = held(*(o / s.clamp(min=1e-30)[..., None]
+                              for o, _, s in (parts, pw)))
+        if plan["body"] != "fma":
+            raise AssertionError(f"f32 {mode} runs {plan['body']}")
+        emit(phase="max_modes", kernel="flash_fwd", case="f32_fma",
+             variant=mode, body=plan["body"], max_abs_err=err,
+             share_of_limit=ratio, partials_max_abs_err=perr,
+             partials_share_of_limit=pratio, partials_stats_rel=stat)
+
+    # a planted outlier key: the guard demotes, the online body's bits
+    k[0, 1, m // 2] *= 4000.0 / k[0, 1, m // 2].float().norm()
+    before = _native.demotion_count()
+    got = flash.flash_attention(q, k, v, causal=True, max_mode="bound")
+    demoted = _native.demotion_count() - before
+    online = flash.flash_attention(q, k, v, causal=True, max_mode="online")
+    if demoted != 1 or not torch.equal(got, online) \
+            or not got.isfinite().all():
+        raise AssertionError(f"planted overshoot: demoted {demoted}")
+    emit(phase="max_modes", case="planted_overshoot", guard_demoted=demoted,
+         online_bits=True, finite=True)
+    del q, k, v, got, online
+
+    # decode at the serving width, and the ragged mixed step
+    lens = torch.tensor(MODE_DECODE_LENS, dtype=torch.int32, device="cuda")
+    b, n = len(MODE_DECODE_LENS), max(MODE_DECODE_LENS)
+    qd, kc, vc = randn(b, h, d), randn(b, hkv, n, d), randn(b, hkv, n, d)
+    want = decode.flash_decode_plain(qd, kc, vc, lens)
+    split = split_of(b, hkv, h, 1, n)
+    faults = rejected({"dropped_middle_split": without_middle_split(
+        qd, kc, vc, lens, split)}, want)
+    dev = mode_device_ms(
+        lambda mode: decode.flash_decode(qd, kc, vc, lens, max_mode=mode),
+        decode.DECODE_MAX_MODES, kernel="decode")
+    rdev = mode_device_ms(
+        lambda mode: rp.ragged_paged_attention(q_step, step, softcap=50.0,
+                                               max_mode=mode),
+        decode.DECODE_MAX_MODES, kernel="")
+    rwant = rp.ragged_paged_attention_plain(q_step, step, softcap=50.0)
+    live = ~rwant.isnan()
+    for mode in decode.DECODE_MAX_MODES[1:]:
+        got = decode.flash_decode(qd, kc, vc, lens, max_mode=mode)
+        same_bits(got, decode.flash_decode(qd, kc, vc, lens, max_mode=mode))
+        err, ratio = held(got, want)
+        kernels["decode"]["max_abs_err"] = max(
+            kernels["decode"]["max_abs_err"], err)
+        ms = time_ms(lambda: decode.flash_decode(qd, kc, vc, lens,
+                                                 max_mode=mode))
+        variants.setdefault("decode", {})[mode] = dict(ms=ms, **dev[mode])
+        emit(phase="max_modes", kernel="decode", variant=mode,
+             lens=MODE_DECODE_LENS, **split, max_abs_err=err,
+             share_of_limit=ratio, planted_faults_share_of_limit=faults,
+             ms=ms, device=dev[mode], online_device=dev["online"])
+        got = rp.ragged_paged_attention(q_step, step, softcap=50.0,
+                                        max_mode=mode)
+        same_bits(got, rp.ragged_paged_attention(q_step, step, softcap=50.0,
+                                                 max_mode=mode))
+        if not torch.equal(got.isnan(), ~live):
+            raise AssertionError(f"ragged {mode}: NaN rows moved")
+        # the poisoned slot's NaN rows apart, each row under its own limit
+        err, ratio = held(got.nan_to_num(), rwant.nan_to_num())
+        kernels["ragged_paged"]["max_abs_err"] = max(
+            kernels["ragged_paged"]["max_abs_err"], err)
+        variants.setdefault("ragged_paged", {})[mode] = rdev[mode]
+        emit(phase="max_modes", kernel="ragged_paged", variant=mode,
+             plan=ragged_plan(q_step, step), max_abs_err=err,
+             share_of_limit=ratio, device=rdev[mode],
+             online_device=rdev["online"])
+    del qd, kc, vc, want
+
+    # where bound overtakes online on this card
+    old = flash._BOUND_MIN_SCORE_ELEMS
+    flash._BOUND_MIN_SCORE_ELEMS = 0
+    try:
+        for rows in MODE_CROSSOVER:
+            qx, kx, vx = (randn(1, s, rows, d) for s in (h, hkv, hkv))
+            cdev = mode_device_ms(
+                lambda mode: flash.flash_attention(qx, kx, vx, causal=True,
+                                                   max_mode=mode),
+                ("online", "bound"))
+            emit(phase="max_modes", case="bound_crossover", rows=rows,
+                 score_elements=h * rows * rows // 2, device=cdev)
+    finally:
+        flash._BOUND_MIN_SCORE_ELEMS = old
+    for name, rec in variants.items():
+        kernels[name]["variants"] = rec
+    emit(phase="max_modes", seconds=time.perf_counter() - t0,
+         launches=_native.variant_counts())
 
 
 def phase_ragged_decode(kernels, gen) -> None:
@@ -2348,19 +2671,41 @@ def cp_digest(tensors) -> torch.Tensor:
     return total
 
 
+@contextlib.contextmanager
+def cp_same_bound(k):
+    """Every flash call's bound from the key norms of the whole of ``k``
+    and the bound threshold at 0: each call of a path runs the bound body
+    and bounds a row as one call over every key does."""
+    from attention_tpu_torch.ops import flash
+
+    whole = flash.key_norm_max(k if k.dim() == 4 else k[None])
+    saved = flash.key_norm_max, flash._BOUND_MIN_SCORE_ELEMS
+    flash.key_norm_max = lambda k4: whole
+    flash._BOUND_MIN_SCORE_ELEMS = 0
+    try:
+        yield
+    finally:
+        flash.key_norm_max, flash._BOUND_MIN_SCORE_ELEMS = saved
+
+
 def cp_ops(rank: int, world: int, say, launches: dict,
            failures: list) -> float:
     """Part 1 of phase 3c: the four differentiable paths on whole tensors
-    at the served attention geometry against one single-device
-    `flash_attention_diff` call and a float64 witness; the edges.  A
-    check that fails joins ``failures``.  Returns the largest error
-    against the single-device call."""
+    at the served attention geometry, each under its default max_mode
+    ("bound"), against one single-device `flash_attention_diff` call
+    under the variant the path's calls ran and a float64 witness; the
+    edges.  A check that fails joins ``failures``.  Returns the largest
+    error of a held run against the single-device call."""
     import torch.distributed as dist
 
     from attention_tpu_torch import ops
     from attention_tpu_torch.ops import flash_bwd
     from attention_tpu_torch.ops.flash_vjp import flash_attention_diff
-    from attention_tpu_torch.ops.reference import grad_mismatch
+    from attention_tpu_torch.ops.reference import (
+        attention_mask,
+        grad_ratios,
+        mismatch,
+    )
     from attention_tpu_torch.parallel import (
         cp_flash_attention,
         ring_attention_diff,
@@ -2383,6 +2728,20 @@ def cp_ops(rank: int, world: int, say, launches: dict,
             *a, mesh=mesh, schedule="zigzag", **kw),
         "ulysses": lambda *a, **kw: ulysses_attention(*a, mesh=mesh, **kw)}
     ids = packed_ids(PACKED_DOCS)
+    # Each path runs its default, "bound", which every call resolves by
+    # its own size as JAX's does, and is held against one call under the
+    # variant its calls ran (`ops.variant_counts`): the all-gather and
+    # Ulysses make one bound call over every key, as the single call
+    # does; windowed calls, and the zigzag's chunk pairs at this size,
+    # resolve to online.  The ring's calls run bound with each row's bound
+    # from its own shard's largest key norm (as JAX's ring does), so P =
+    # exp(s - b) rounds against a b no single call has: its elements and
+    # its largest error against the witness are printed, not held (its
+    # root mean square error against the witness is), and the ring and
+    # the zigzag run again with every call bounded by the whole
+    # sequence's key norms (`cp_same_bound`), held on every element and
+    # the witness.  Every run: the root mean square error against the
+    # witness at most CP_F64_SLACK times the single call's.
     # feature: (keywords, paths, 3-D views)
     features = {
         "causal": ({}, tuple(paths), False),
@@ -2401,33 +2760,90 @@ def cp_ops(rank: int, world: int, say, launches: dict,
         torch.cuda.synchronize()
         return [out.detach()] + [x.grad for x in xs]
 
+    def compare(got, want, exact, keys_seen):
+        """({what: vs single}, {what: vs float64}, the checks beyond
+        their limits, those of the root mean square error against the
+        witness, dQ's rows beyond the limit and the most keys one of them
+        sees)."""
+        vs_single, bad, bad_rms = {}, [], []
+        for what, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+            if what == "out":
+                err, ratio = mismatch(a, b)
+            else:
+                e, r = grad_ratios(a, b)
+                err, ratio = e.max().item(), r.max().item()
+                if what == "dq":
+                    over = r.reshape(-1, s, d).amax(dim=(0, 2)) > 1.0
+                    dq_over = dict(rows=int(over.sum()), most_keys_seen=int(
+                        keys_seen.masked_fill(~over, 0).max()))
+            vs_single[what] = dict(max_abs_err=err, share_of_limit=ratio)
+            if not ratio <= 1.0:
+                bad.append(what)
+        group = h // hkv
+        picks = [lambda t: t[:group], lambda t: t[:group],
+                 lambda t: t[0], lambda t: t[0]]
+        vs_f64 = {}
+        for what, pick, a, b, x in zip(
+                ("out", "dq", "dk", "dv"), picks,
+                [t[0] if t.dim() == 4 else t for t in got],
+                [t[0] if t.dim() == 4 else t for t in want], exact):
+            err = (pick(a).double() - x).abs()
+            one = (pick(b).double() - x).abs()
+            rms = [err.square().mean().sqrt().item(),
+                   one.square().mean().sqrt().item()]
+            vs_f64[what] = dict(
+                path=err.max().item(), single=one.max().item(),
+                ratio=err.max().item() / one.max().item(), rms=rms,
+                rms_ratio=rms[0] / rms[1])
+            if not vs_f64[what]["ratio"] <= CP_F64_SLACK:
+                bad.append(f"{what}_f64")
+            if not vs_f64[what]["rms_ratio"] <= CP_F64_SLACK:
+                bad_rms.append(f"{what}_f64_rms")
+        return vs_single, vs_f64, bad, bad_rms, dq_over
+
     for feature, (kw, names, three_d) in features.items():
         args = [x[0] for x in (q, k, v)] if three_d else [q, k, v]
-        want = exact = None
+        want = exact = keys_seen = None
         if rank == 0:
-            want = grads(flash_attention_diff, args, kw)
+            want = {mode: grads(flash_attention_diff, args,
+                                {**kw, "max_mode": mode})
+                    for mode in ("bound", "online")}
             g3 = [t[0] if t.dim() == 4 else t for t in
                   (*args, dout[0])]
             exact = cp_exact_group(
                 *g3, scale=scale, window=kw.get("window"),
                 sinks=kw.get("sinks"), ids=kw.get("q_segment_ids"))
+            keys_seen = attention_mask(
+                s, s, causal=True, window=kw.get("window"),
+                sinks=kw.get("sinks"), q_segment_ids=kw.get("q_segment_ids"),
+                kv_segment_ids=kw.get("kv_segment_ids"),
+                device=q.device).sum(-1)
         for name in names:
-            for pair in ((False, True) if feature == "causal"
-                         else (False,)):
+            runs = [("default", pair) for pair in
+                    ((False, True) if feature == "causal" else (False,))]
+            if name in ("ring", "zigzag") and "window" not in kw:
+                runs.append(("same_bound", False))
+            for bound, pair in runs:
+                same = bound == "same_bound"
                 flash_bwd._FORCE_TWO_KERNEL = pair
                 ops.reset_launch_counts()
-                got = grads(paths[name], args, kw)
+                with cp_same_bound(k) if same else contextlib.nullcontext():
+                    got = grads(paths[name], args, kw)
                 counts = {kn: c for kn, c in ops.launch_counts().items()
                           if c}
+                variants = ops.variant_counts().get("flash_fwd", {})
                 flash_bwd._FORCE_TWO_KERNEL = False
                 per = cp_launches(name, world)
                 bwd = ({"flash_bwd_dq": per, "flash_bwd_dkv": per} if pair
                        else {"flash_bwd_fused": per})
-                if counts != {"flash_fwd": per, **bwd}:
+                if counts != {"flash_fwd": per, **bwd} or len(variants) != 1:
                     failures.append(f"rank {rank} {name} {feature}: "
-                                    f"launched {counts}")
-                for kn, c in counts.items():
-                    launches[kn] = launches.get(kn, 0) + c
+                                    f"launched {counts}, {variants}")
+                if same and variants != {"bound": per}:
+                    failures.append(f"{name} {feature} {bound}: {variants}")
+                if not same:
+                    for kn, c in counts.items():
+                        launches[kn] = launches.get(kn, 0) + c
                 finite = all(bool(t.isfinite().all()) for t in got)
                 every = mesh.all_gather(cp_digest(got)[None], "sp", dim=0)
                 if not (finite and all(torch.equal(every[0], x)
@@ -2436,36 +2852,25 @@ def cp_ops(rank: int, world: int, say, launches: dict,
                                     f"digests {every.tolist()}")
                 if rank:
                     continue
-                vs_single = {}
-                for what, a, b in zip(("out", "dq", "dk", "dv"), got, want):
-                    err, ratio = (held(a, b) if what == "out"
-                                  else grad_mismatch(a, b))
-                    vs_single[what] = dict(max_abs_err=err,
-                                           share_of_limit=ratio)
-                    worst = max(worst, err)
-                group = h // hkv
-                sel = [t[0] if t.dim() == 4 else t for t in got]
-                ref = [t[0] if t.dim() == 4 else t for t in want]
-                picks = [lambda t: t[:group], lambda t: t[:group],
-                         lambda t: t[0], lambda t: t[0]]
-                vs_f64 = {}
-                for what, pick, a, b, x in zip(("out", "dq", "dk", "dv"),
-                                               picks, sel, ref, exact):
-                    e_path = (pick(a).double() - x).abs().max().item()
-                    e_one = (pick(b).double() - x).abs().max().item()
-                    vs_f64[what] = dict(path=e_path, single=e_one,
-                                        ratio=e_path / e_one)
+                ran = next(iter(variants))
+                # the ring's own per-shard bounds: held on the witness's
+                # root mean square error, the rest printed
+                held_here = same or not (name == "ring" and ran == "bound")
+                vs_single, vs_f64, bad, bad_rms, dq_over = compare(
+                    got, want[ran], exact, keys_seen)
+                if held_here:
+                    worst = max(worst, *(r["max_abs_err"]
+                                         for r in vs_single.values()))
                 say(case="cp_op", path=name, feature=feature,
-                    backward="pair" if pair else "fused",
+                    backward="pair" if pair else "fused", bound=bound,
                     shape=[h, hkv, s, d], launches=counts,
-                    vs_single_device=vs_single, vs_f64=vs_f64,
+                    flash_fwd_variants=variants, single_call=ran,
+                    held=held_here, vs_single_device=vs_single,
+                    vs_f64=vs_f64, dq_rows_over_limit=dq_over,
                     same_bits_on_every_rank=True)
-                bad = [w for w, r in vs_single.items()
-                       if not r["share_of_limit"] <= 1.0]
-                bad += [w for w, r in vs_f64.items()
-                        if not r["ratio"] <= CP_F64_SLACK]
+                bad = bad_rms + (bad if held_here else [])
                 if bad:
-                    failures.append(f"{name} {feature} "
+                    failures.append(f"{name} {feature} {bound} "
                                     f"{'pair' if pair else 'fused'}: {bad}")
         dist.barrier()
     edges = [None] * world
@@ -2677,7 +3082,11 @@ def cp_rank(rank: int, world: int, init_file: str, out_file: str,
         say(world=world, card=smi, backend=dist.get_backend())
         launches, failures = {}, []
         t0 = time.perf_counter()
-        worst = cp_ops(rank, world, say, launches, failures)
+        try:
+            worst = cp_ops(rank, world, say, launches, failures)
+        except Exception:
+            traceback.print_exc()
+            raise
         t1 = time.perf_counter()
         cp_train(rank, world, say, launches, single, failures)
         t2 = time.perf_counter()
@@ -5045,13 +5454,13 @@ def phase_train(ops, kernels, model, *, batch_shape=TRAIN_BATCH,
     from torch.profiler import ProfilerActivity, profile
 
     from attention_tpu_torch.models import init_train, make_train_step
-    from attention_tpu_torch.ops import flash_bwd
+    from attention_tpu_torch.ops import flash, flash_bwd
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     batch = torch.randint(0, model.vocab, batch_shape, generator=gen,
                           device="cuda")
     tokens = batch_shape[0] * (batch_shape[1] - 1)
-    losses = {}
+    losses, medians = {}, {}
     for path, steps, bwd in (("fused", TRAIN_STEPS, (flash_bwd.FUSED,)),
                              ("pair", 2, (flash_bwd.DQ, flash_bwd.DKV))):
         flash_bwd._FORCE_TWO_KERNEL = path == "pair"
@@ -5075,7 +5484,20 @@ def phase_train(ops, kernels, model, *, batch_shape=TRAIN_BATCH,
                 aux.append(sum(a.item() for a in layer_aux))
                 layer_aux.clear()
         launches = ops.launch_counts()
+        by_variant = ops.variant_counts().get("flash_fwd", {})
+        # the guard's verdicts, summed on the card during the run
+        demoted = ops.demotion_count()
         flash_bwd._FORCE_TWO_KERNEL = False
+        # the layer's flash path runs max_mode "bound" (JAX's): it lowers
+        # the bound body unless a window or a small call resolves it to
+        # online
+        lowered = flash.resolve_max_mode(
+            "bound", heads=batch_shape[0] * model.num_q_heads,
+            m=batch_shape[1] - 1, n=batch_shape[1] - 1, causal=True,
+            window=model.window)
+        if by_variant != {lowered: steps * model.depth}:
+            raise AssertionError(f"{path} forward variants {by_variant}, "
+                                 f"want {lowered}")
         want = {"flash_fwd": steps * model.depth,
                 **{kernel: steps * model.depth for kernel in bwd}}
         if {k: c for k, c in launches.items() if c} != want:
@@ -5087,16 +5509,52 @@ def phase_train(ops, kernels, model, *, batch_shape=TRAIN_BATCH,
             kernels[kernel]["launches"] += launches[kernel]
         kernels["flash_fwd"]["launches"] += launches["flash_fwd"]
         losses[path] = got
-        ms = statistics.median(step_ms[1:])
+        ms = medians[path] = statistics.median(step_ms[1:])
         emit(phase="train", cell=cell, path=path, losses=got,
              aux_losses=aux if model.moe_experts else None,
              step_ms=step_ms, optimizer_step_ms=statistics.median(
                  a.elapsed_time(b) for a, b in spans[1:]),
              median_step_ms=ms, tokens_per_step=tokens,
              tokens_per_s=tokens / ms * 1e3, launches=launches,
+             flash_fwd_variants=by_variant, guard_demoted=demoted,
              peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
     del step, optimizer
     fused, pair = losses["fused"], losses["pair"]
+    if cell == "dense":
+        # the fused steps again from the same start with the forward's
+        # "bound" resolved to online (the threshold out of reach): step 1's
+        # loss within the bf16 tolerance of this phase, and the step ms
+        # beside bound's, the main path's cost of the bound body and guard
+        old = flash._BOUND_MIN_SCORE_ELEMS
+        flash._BOUND_MIN_SCORE_ELEMS = float("inf")
+        try:
+            optimizer = init_train(model, seed=SEED, lr=TRAIN_LR)
+            step = make_train_step(model, optimizer)
+            ops.reset_launch_counts()
+            online, online_ms = [], []
+            for _ in range(TRAIN_STEPS):
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in "se")
+                start.record()
+                loss = step(batch)
+                end.record()
+                end.synchronize()
+                online.append(loss.item())
+                online_ms.append(start.elapsed_time(end))
+            by_variant = ops.variant_counts().get("flash_fwd", {})
+        finally:
+            flash._BOUND_MIN_SCORE_ELEMS = old
+        del step, optimizer
+        if (by_variant != {"online": TRAIN_STEPS * model.depth}
+                or not abs(online[0] - fused[0]) <= TRAIN_LOSS_TOL):
+            raise AssertionError(f"online step {online[0]} ({by_variant}) "
+                                 f"against bound's {fused[0]}")
+        emit(phase="train", cell=cell, online_step1_loss=online[0],
+             bound_step1_loss=fused[0], diff=online[0] - fused[0],
+             tol=TRAIN_LOSS_TOL, flash_fwd_variants=by_variant,
+             online_losses=online, online_step_ms=online_ms,
+             online_median_step_ms=statistics.median(online_ms[1:]),
+             bound_median_step_ms=medians["fused"])
     if not fused[-1] < fused[0]:
         raise AssertionError(f"the loss did not fall: {fused}")
     if not (abs(pair[0] - fused[0]) <= 1e-5 * abs(fused[0])
@@ -6568,6 +7026,7 @@ def main() -> int:
     model = TinyDecoder(dtype=torch.bfloat16, device="cuda", **SERVE_MODEL)
     model.load_state_dict(init_params(model, SEED))
     step, q = phase_kernels(kernels, model)
+    phase_max_modes(kernels, step, q)
     phase_window_kernels(kernels, step, q)
     phase_segment_kernels(kernels)
     k, v = phase_decode_kernels(kernels)

@@ -34,7 +34,7 @@ def _models():
     prompt = np.random.default_rng(1234).integers(0, 29, (2, 6)) \
         .astype(np.int32)
     jmodel = JaxDecoder(impl="flash", dtype=jnp.float32, **KW)
-    params = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(prompt))[
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.asarray(prompt))[
         "params"]
     model = TinyDecoder(dtype=torch.float32, device="cpu", **KW)
     model.load_state_dict(params_from_jax(jax.device_get(params)))

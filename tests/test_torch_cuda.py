@@ -20,7 +20,8 @@ plus 2^-20 of the tensor's).
 import pytest
 import torch
 
-from attention_tpu_torch.ops import launch_counts
+from attention_tpu_torch.ops import demotion_count, launch_counts, \
+    reset_launch_counts
 from attention_tpu_torch.ops import flash as flash_ops
 from attention_tpu_torch.ops._native import KernelLaunchError
 from attention_tpu_torch.ops.decode import flash_decode, \
@@ -2083,7 +2084,6 @@ def _mesh_train_card_rank(rank, world, init_file, out_dir):
 
     from attention_tpu_torch.models import TinyDecoder, init_train, \
         make_train_step
-    from attention_tpu_torch.ops import reset_launch_counts
     from attention_tpu_torch.parallel.mesh import grid_mesh
 
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
@@ -2145,3 +2145,124 @@ def test_mesh_train_launches_on_the_card(mesh_train_card_world, name):
     for r in mesh_train_card_world:
         assert r[name]["launches"] == {"flash_fwd": per,
                                        "flash_bwd_fused": per}
+
+
+# ------------------------------------------------------------- max modes
+
+_MODES = ("online", "bound", "flashd", "amla")
+
+
+@pytest.mark.parametrize("mode", _MODES)
+@pytest.mark.parametrize("dtype,shapes,kw", [
+    (torch.bfloat16, ((1, 8, 1024, 128), (1, 2, 1024, 128),
+                      (1, 2, 1024, 128)), {"causal": True, "softcap": 30.0}),
+    (torch.bfloat16, ((8, 700, 64), (2, 900, 64), (2, 900, 64)),
+     {"causal": True, "q_offset": 250, "kv_valid": 880}),
+    (torch.float32, ((4, 200, 64), (2, 333, 64), (2, 333, 96)), {}),
+], ids=["bf16_wgmma_softcap", "bf16_wgmma_offsets", "f32_fma"])
+def test_max_mode_kernels_match_plain(gen, monkeypatch, dtype, shapes, kw,
+                                      mode):
+    """Each variant's kernel (the threshold pinned to 0 so that "bound"
+    runs at these sizes): the normalized output within `mismatch` of the
+    plain version, the partials' stats those of
+    `variant_partials_plain` (the lse within 1e-5 relative, "flashd"'s
+    sums 1, "bound"'s row max the row bound, also on rows that see no
+    key), launched once a call and counted under its variant."""
+    monkeypatch.setattr(flash_ops, "_BOUND_MIN_SCORE_ELEMS", 0)
+    q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
+               for s in shapes)
+    before = flash_ops._native.variant_counts().get("flash_fwd", {})
+    got = flash_attention(q, k, v, max_mode=mode, **kw)
+    after = flash_ops._native.variant_counts()["flash_fwd"]
+    assert after[mode] == before.get(mode, 0) + 1
+    parts = flash_attention_partials(q, k, v, max_mode=mode, **kw)
+    want = flash_ops.variant_partials_plain(q, k, v, mode, **kw)
+    print(mode, "share against flash_attention_plain",
+          _share_of_limit(got, flash_attention_plain(q, k, v, **kw)))
+    # the variant's own plain stats, normalized: P rounded against the
+    # value the variant subtracts (exactly for "bound" and "amla", whose
+    # rescales are powers of two or none)
+    assert _share_of_limit(got, (want[0] / want[2].clamp(min=1e-30)[
+        ..., None]).to(dtype)) <= 1
+    torch.cuda.synchronize()
+    seen = want[2] != 0
+    assert torch.equal(parts[2] != 0, seen)
+    lse, wlse = (mx[seen] + torch.log(sm[seen]) for _, mx, sm in (parts,
+                                                                 want))
+    assert (lse - wlse).abs().max() <= 1e-5 * wlse.abs().max()
+    if mode == "flashd":
+        assert torch.equal(parts[2], seen.float())
+    if mode == "bound":
+        assert (parts[1] - want[1]).abs().max() <= 1e-5 * want[1].abs().max()
+        assert torch.isfinite(parts[1]).all()
+    norm = [(o / s.clamp(min=1e-30)[..., None]).to(dtype) for o, _, s in
+            (parts, want)]
+    assert _share_of_limit(*norm) <= 1
+
+
+def test_bound_guard_demotes_on_the_card(gen, monkeypatch):
+    """A key row of norm 4000: the guard's verdict on the device demotes
+    the call, whose output is the online body's bits; a call the guard
+    passes runs the bound body, with no host sync either way."""
+    monkeypatch.setattr(flash_ops, "_BOUND_MIN_SCORE_ELEMS", 0)
+    q, k, v = (torch.randn(s, generator=gen, device="cuda").bfloat16()
+               for s in ((1, 8, 512, 128), (1, 2, 512, 128),
+                         (1, 2, 512, 128)))
+    reset_launch_counts()
+    outs, verdicts = [], []
+    for outlier in (False, True):
+        if outlier:
+            k[0, 0, 300] *= 4000.0 / k[0, 0, 300].float().norm()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs.append(flash_attention(q, k, v, causal=True,
+                                        max_mode="bound"))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        verdicts.append(demotion_count())
+    safe, demoted = outs
+    assert verdicts == [0, 1]
+    assert torch.equal(demoted, flash_attention(q, k, v, causal=True))
+    assert demoted.isfinite().all() and safe.isfinite().all()
+
+
+@pytest.mark.parametrize("mode", ["flashd", "amla"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_and_ragged_variants_match_plain(gen, dtype, mode):
+    """flash_decode, flash_decode_chunk (window and sinks) and the ragged
+    kernel under "flashd" and "amla" against the plain versions; "bound"
+    is refused (forward-only, as in JAX)."""
+    lens = torch.tensor([0, 5, 700, 1024], dtype=torch.int32, device="cuda")
+    q = torch.randn(4, 16, 128, generator=gen, device="cuda").to(dtype)
+    kc, vc = (torch.randn(4, 2, 1024, 128, generator=gen,
+                          device="cuda").to(dtype) for _ in "kv")
+    for qq, fn, kw in ((q, flash_decode, {}),
+                       (q[:, :, None].repeat(1, 1, 3, 1), flash_decode_chunk,
+                        {"window": 200, "sinks": 3})):
+        got = fn(qq, kc, vc, lens, max_mode=mode, **kw)
+        assert _share_of_limit(got, flash_decode_plain(qq, kc, vc, lens,
+                                                       **kw)) <= 1
+    with pytest.raises(ValueError, match="forward-only"):
+        flash_decode(q, kc, vc, lens, max_mode="bound")
+    hq, hkv, d, page = 8, 2, 128, 128
+    pools = [torch.randn(6, hkv, page, d, generator=gen,
+                         device="cuda").to(dtype) for _ in "kv"]
+    table = torch.tensor([[0, 1], [2, 3], [4, 5]], dtype=torch.int32,
+                         device="cuda")
+    spans = [(1, 200), (1, 130), (90, 250)]  # (tokens, length after)
+    cu = [0]
+    for n, _ in spans:
+        cu.append(cu[-1] + n)
+    width = packed_bucket(cu[-1])
+    step = RaggedPagedStep(
+        *pools, table,
+        torch.tensor([ln for _, ln in spans], dtype=torch.int32,
+                     device="cuda"),
+        torch.tensor(cu, dtype=torch.int32, device="cuda"),
+        torch.tensor([2, 3], dtype=torch.int32, device="cuda"),
+        torch.zeros(width, dtype=torch.int32, device="cuda"),
+        torch.full((width,), -1, dtype=torch.int32, device="cuda"),
+        recommended_q_tile(90, hq // hkv))
+    qr = torch.randn(1, hq, width, d, generator=gen, device="cuda").to(dtype)
+    got = ragged_paged_attention(qr, step, max_mode=mode)
+    assert _share_of_limit(got, ragged_paged_attention_plain(qr, step)) <= 1

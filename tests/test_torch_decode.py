@@ -286,7 +286,7 @@ SMALL = dict(vocab=43, dim=32, depth=2, num_q_heads=4, num_kv_heads=2,
 @pytest.fixture(scope="module")
 def pair():
     jmodel = JaxDecoder(impl="flash", dtype=jnp.float32, **SMALL)
-    params = jmodel.init(jax.random.PRNGKey(0),
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
                          jnp.zeros((1, 8), jnp.int32))["params"]
     model = TinyDecoder(dtype=torch.float32, device="cpu", **SMALL)
     model.load_state_dict(params_from_jax(jax.device_get(params)))

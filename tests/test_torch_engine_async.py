@@ -45,7 +45,7 @@ ENGINE = dict(num_pages=24, page_size=128, max_seq_len=256,
 @pytest.fixture(scope="module")
 def pair():
     jmodel = JaxDecoder(impl="flash", dtype=jnp.float32, **SMALL)
-    params = jmodel.init(jax.random.PRNGKey(0),
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
                          jnp.zeros((1, 8), jnp.int32))["params"]
     model = TinyDecoder(dtype=torch.float32, device="cpu", **SMALL)
     model.load_state_dict(params_from_jax(jax.device_get(params)))

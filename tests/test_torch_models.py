@@ -38,7 +38,7 @@ ENGINE = dict(num_pages=24, page_size=128, max_seq_len=256,
 
 def _pair(cfg, seq=8):
     jmodel = JaxDecoder(impl="flash", dtype=jnp.float32, **cfg)
-    params = jmodel.init(jax.random.PRNGKey(0),
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
                          jnp.zeros((1, seq), jnp.int32))["params"]
     model = TinyDecoder(dtype=torch.float32, device="cpu", **cfg)
     model.load_state_dict(params_from_jax(jax.device_get(params)))

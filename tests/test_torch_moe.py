@@ -87,8 +87,8 @@ def _case(name):
         x[0, 3] = 0.0
     jmod = JaxMoE(num_experts=e, top_k=k, capacity_factor=cf,
                   dtype=jnp.float32)
-    params = jax.device_get(jmod.init(jax.random.PRNGKey(0),
-                                      jnp.asarray(x))["params"])
+    params = jax.device_get(jax.jit(jmod.init)(jax.random.PRNGKey(0),
+                                              jnp.asarray(x))["params"])
     mod = MoEMLP(shape[-1], e, top_k=k, capacity_factor=cf,
                  dtype=torch.float32, device="cpu")
     mod.load_state_dict(moe_from_jax(params))
@@ -109,8 +109,8 @@ def test_moe_mlp_matches_jax(name):
     respect to x, the router and both expert tensors."""
     jmod, params, mod, x = _case(name)
     w = np.random.default_rng(1).standard_normal(x.shape).astype(np.float32)
-    (_, (want, want_aux)), grads = jax.value_and_grad(
-        _jax_loss(jmod, jnp.asarray(w)), argnums=(0, 1), has_aux=True)(
+    (_, (want, want_aux)), grads = jax.jit(jax.value_and_grad(
+        _jax_loss(jmod, jnp.asarray(w)), argnums=(0, 1), has_aux=True))(
             params, jnp.asarray(x))
     tx = torch.from_numpy(x).requires_grad_()
     got, aux = mod(tx)
@@ -180,7 +180,7 @@ def test_moe_refusals_match_jax():
 @pytest.fixture(scope="module")
 def pair():
     jmodel = JaxDecoder(impl="flash", dtype=jnp.float32, **SMALL)
-    params = jmodel.init(jax.random.PRNGKey(0),
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
                          jnp.zeros((1, 8), jnp.int32))["params"]
     model = TinyDecoder(dtype=torch.float32, device="cpu", **SMALL)
     model.load_state_dict(params_from_jax(jax.device_get(params)))
@@ -213,7 +213,8 @@ def jax_run():
     init = jax.device_get(params)
     loss, grads = jax.jit(jax.value_and_grad(jax_train.loss_fn),
                           static_argnums=1)(params, jmodel, batch)
-    micro = [params_from_jax(jax.device_get(jax.grad(jax_train.loss_fn)(
+    grad_fn = jax.jit(jax.grad(jax_train.loss_fn), static_argnums=1)
+    micro = [params_from_jax(jax.device_get(grad_fn(
         params, jmodel, batch[i:i + 1]))) for i in range(2)]
     accum = jax_train.make_train_step(jmodel, optax.adamw(1e-3), mesh,
                                       accum_steps=2)
@@ -342,7 +343,7 @@ def test_moe_int8_and_rolling_generate_equal_jax(pair):
         gen.generate(model, PROMPT, steps=5, int8_cache=True).numpy(), want)
     band = dict(SMALL, window=16, attn_sinks=2)
     jwin = JaxDecoder(impl="flash", dtype=jnp.float32, **band)
-    wparams = jwin.init(jax.random.PRNGKey(2),
+    wparams = jax.jit(jwin.init)(jax.random.PRNGKey(2),
                         jnp.zeros((1, 8), jnp.int32))["params"]
     win = TinyDecoder(dtype=torch.float32, device="cpu", **band)
     win.load_state_dict(params_from_jax(jax.device_get(wparams)))

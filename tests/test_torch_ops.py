@@ -130,14 +130,25 @@ def test_mismatch_rejects_planted_faults(dtype):
 
 def test_flash_unported_features_raise():
     """Forward features the port does not have yet raise, in both
-    forward entry points (the training forward's partials included);
-    segment ids, ported since, run in both and equal the plain
-    reference under the segments' mask."""
+    forward entry points (the training forward's partials included):
+    max_mode "auto" (the tuning table); an unknown mode is JAX's
+    ValueError.  "flashd", ported since, runs in both and gives the plain
+    reference's output.  Segment ids, ported since, run in both and
+    equal the plain reference under the segments' mask."""
     q = torch.from_numpy(_rand(np.random.default_rng(8), 8, 16))
     seg = torch.tensor([0, 0, 0, 1, 1, 2, 2, 2], dtype=torch.int32)
     for fn in (flash_attention, flash_attention_partials):
         with pytest.raises(NotImplementedError):
-            fn(q, q, q, causal=True, max_mode="flashd")
+            fn(q, q, q, causal=True, max_mode="auto")
+        with pytest.raises(ValueError):
+            fn(q, q, q, causal=True, max_mode="fastest")
+    out = flash_attention(q, q, q, causal=True, max_mode="flashd")
+    assert (out - attention_reference(q, q, q, causal=True)).abs().max() \
+        <= F32_ATOL
+    out_un, lse, ones = flash_attention_partials(q, q, q, causal=True,
+                                                 max_mode="flashd")
+    assert (out_un - out).abs().max() <= F32_ATOL
+    assert torch.equal(ones, torch.ones(8))
     ids = dict(q_segment_ids=seg, kv_segment_ids=seg)
     keep = attention_mask(8, 8, causal=True, **ids)
     assert torch.equal(keep, torch.ones(8, 8, dtype=torch.bool).tril()

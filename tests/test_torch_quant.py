@@ -174,7 +174,7 @@ TOKENS = np.random.default_rng(6).integers(0, 43, (2, 9)).astype(np.int32)
 @pytest.fixture(scope="module")
 def pair():
     jmodel = JaxDecoder(impl="flash", dtype=jnp.float32, **SMALL)
-    params = jmodel.init(jax.random.PRNGKey(0),
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
                          jnp.zeros((1, 8), jnp.int32))["params"]
     model = TinyDecoder(dtype=torch.float32, device="cpu", **SMALL)
     model.load_state_dict(params_from_jax(jax.device_get(params)))

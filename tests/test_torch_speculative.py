@@ -44,7 +44,7 @@ def _models(vocab=41, seed=0, **kw):
     out = []
     for i, mkw in enumerate((target_kw, draft_kw)):
         jmodel = JaxDecoder(impl="flash", dtype=jnp.float32, **mkw)
-        params = jmodel.init(jax.random.PRNGKey(seed + i),
+        params = jax.jit(jmodel.init)(jax.random.PRNGKey(seed + i),
                              jnp.asarray(prompt))["params"]
         model = TinyDecoder(dtype=torch.float32, device="cpu", **mkw)
         model.load_state_dict(params_from_jax(jax.device_get(params)))

@@ -251,14 +251,18 @@ def test_cpu_tensors_never_reach_a_backward_kernel(monkeypatch):
 
 
 def test_unported_training_features_raise():
-    """What training does not have yet raises; segment ids, ported
-    since, run: the forward and the gradients of both backward
-    implementations equal dense autograd through the plain reference
-    under the segments' mask (f32, 1e-5)."""
+    """What training does not have yet raises (``block_sizes``, max_mode
+    "auto"); max_mode "flashd", ported since, runs and gives the online
+    forward; segment ids, ported since, run: the forward and the
+    gradients of both backward implementations equal dense autograd
+    through the plain reference under the segments' mask (f32, 1e-5)."""
     q = torch.zeros(8, 16, requires_grad=True)
-    for kw in ({"block_sizes": (8, 8)}, {"max_mode": "flashd"}):
+    for kw in ({"block_sizes": (8, 8)}, {"max_mode": "auto"}):
         with pytest.raises(NotImplementedError):
             flash_attention_diff(q, q, q, causal=True, **kw)
+    assert torch.equal(flash_attention_diff(q, q, q, causal=True,
+                                            max_mode="flashd"),
+                       flash_attention_diff(q, q, q, causal=True))
     seg = torch.tensor([0, 0, 0, 1, 1, 2, 2, 2], dtype=torch.int32)
     ids = dict(q_segment_ids=seg, kv_segment_ids=seg)
     x = torch.from_numpy(np.random.default_rng(9).standard_normal(

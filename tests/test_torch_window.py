@@ -427,7 +427,7 @@ def pair(request):
     window, sinks = BANDS[request.param]
     jmodel = JaxDecoder(impl="flash", dtype=jnp.float32, window=window,
                         attn_sinks=sinks, **SMALL)
-    params = jmodel.init(jax.random.PRNGKey(0),
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
                          jnp.zeros((1, 8), jnp.int32))["params"]
     model = TinyDecoder(dtype=torch.float32, device="cpu", window=window,
                         attn_sinks=sinks, **SMALL)
@@ -583,7 +583,7 @@ def test_model_refusals_match_jax():
 
     def jax_model(**kw):
         m = JaxDecoder(impl="flash", dtype=jnp.float32, **dict(SMALL, **kw))
-        return m, m.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+        return m, jax.jit(m.init)(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
 
     for kw in ({"window": 0}, {"attn_sinks": 2}, {"window": 8,
                                                   "attn_sinks": -1}):
