@@ -30,9 +30,12 @@
 // `flash_bwd_dq_wgmma` (flash_bwd_dq_sm90.cuh).  This file holds what
 // they share with the FMA bodies (`BwdArgs`, the checks of a call) and
 // the FMA bodies themselves, which take fp32 and bf16 at the other head
-// dims up to 128 or with unaligned operands: fp32 FMA on the CUDA cores,
+// dims up to 256 or with unaligned operands: fp32 FMA on the CUDA cores,
 // bf16 widened on its way into shared memory, thread (tr, tc) owning a
 // 4 x 4 block of each score tile as in `atk::attend`, 128 threads a CTA.
+// Above head dim 128 a CTA owns 32 rows instead of 64 and each thread a
+// 4 x 2 block (`Split`): the fp32 tiles then fit a CTA's shared memory and
+// the accumulators stay at 4 x 16 a thread, as at d = 128.
 //
 // key-major (`kv_major_fma`): a CTA owns a block of KB key rows and walks
 // the query tiles in a loop that takes the place of the TPU grid's
@@ -71,7 +74,7 @@ constexpr int KB = 64;   // key rows per CTA of the key-major kernels
 constexpr int QB = 64;   // query rows per CTA of the query-major kernel
 constexpr int QT = 32;   // query rows per tile of the key-major kernels
 constexpr int FKT = 32;  // key rows per tile of query-major fma kernel
-constexpr int MAX_HEAD_DIM = 128;
+constexpr int MAX_HEAD_DIM = 256;
 
 enum Mode { FUSED = 0, DQ = 1, DKV = 2 };
 
@@ -183,10 +186,28 @@ __device__ __forceinline__ int key_begin(const BwdArgs& a, int q0, int W) {
 
 // --------------------------------------------------------------- fp32 FMA
 
-constexpr int KTS = KB + 4;   // row stride of [col][key] tiles (transposed)
 constexpr int QTS = QT + 4;   // row stride of [col][query] tiles (kv-major)
-constexpr int QBS = QB + 4;   // row stride of [col][query] tiles (q-major)
 constexpr int FKS = FKT + 4;  // row stride of [col][key] tiles (q-major)
+// rows a CTA of the FMA bodies owns above head dim 128: 32 key rows
+// (key-major) or query rows (query-major), so that the fp32 tiles fit a
+// CTA's 227 KB at d = dv = 256 (64 rows would take 297 KB and 255 KB)
+// and each thread keeps 4 rows x 16 columns of each accumulator, as at
+// d = 128
+constexpr int WIDE_ROWS = 32;
+
+// How the 128 threads of an FMA body split a tile of ROWS rows (the CTA's
+// own keys or queries, 4 a thread) by 32 columns (the tile's queries or
+// keys): TR thread rows by TC thread columns, each thread a 4 x J block of
+// scores and columns 4·tc + 4·TC·q + e of each accumulator row.
+template <int ROWS>
+struct Split {
+  static constexpr int TR = ROWS / 4;
+  static constexpr int TC = THREADS / TR;
+  static constexpr int J = 32 / TC;
+  static constexpr int RS = ROWS + 4;  // row stride of [col][row] tiles
+  static_assert(TR * TC == THREADS && J * TC == 32 && (J == 2 || J == 4),
+                "thread split");
+};
 
 __device__ __forceinline__ float4 zero4() {
   return make_float4(0.f, 0.f, 0.f, 0.f);
@@ -209,25 +230,32 @@ __device__ void stage(float* t, int ts, float* rm, int rs, int rows,
   }
 }
 
-// s[i][j] += Σ_c a[c][4·ra + i] · b[c][4·rb + j] over transposed tiles
-__device__ __forceinline__ void outer4(float (&s)[4][4], const float* a,
-                                       int as, const float* b, int bs,
-                                       int depth) {
+// s[i][j] += Σ_c a[c][4·ra + i] · b[c][J·rb + j] over transposed tiles
+template <int J>
+__device__ __forceinline__ void outer(float (&s)[4][J], const float* a,
+                                      int as, const float* b, int bs,
+                                      int depth) {
   for (int c = 0; c < depth; ++c) {
     const float4 x = atk::lds4(a + c * as);
-    const float4 y = atk::lds4(b + c * bs);
     const float xv[4] = {x.x, x.y, x.z, x.w};
-    const float yv[4] = {y.x, y.y, y.z, y.w};
+    float yv[J];
+    if constexpr (J == 4) {
+      const float4 y = atk::lds4(b + c * bs);
+      yv[0] = y.x, yv[1] = y.y, yv[2] = y.z, yv[3] = y.w;
+    } else {
+      const float2 y = *reinterpret_cast<const float2*>(b + c * bs);
+      yv[0] = y.x, yv[1] = y.y;
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(xv[i], yv[j], s[i][j]);
+      for (int j = 0; j < J; ++j) s[i][j] = fmaf(xv[i], yv[j], s[i][j]);
   }
 }
 
-// acc[i][q][e] += Σ_c x[c][4·tr + i] · y[c][4·tc + 32·q + e], x a
+// acc[i][q][e] += Σ_c x[c][4·tr + i] · y[c][4·tc + 4·TC·q + e], x a
 // [depth][xs] tile, y row-major with row stride ys (columns past ys read 0)
-template <int NQ>
+template <int NQ, int TC>
 __device__ __forceinline__ void accumulate(float (&acc)[4][NQ][4],
                                            const float* x, int xs,
                                            const float* y, int ys, int depth,
@@ -237,28 +265,33 @@ __device__ __forceinline__ void accumulate(float (&acc)[4][NQ][4],
     const float p[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
     for (int q = 0; q < NQ; ++q) {
-      const int col = 4 * tc + 32 * q;
+      const int col = 4 * tc + 4 * TC * q;
       const float4 v4 = col < ys ? atk::lds4(y + c * ys + col) : zero4();
       const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][q][e] = fmaf(p[i], vv[e], acc[i][q][e]);
+        for (int e = 0; e < 4; ++e)
+          acc[i][q][e] = fmaf(p[i], vv[e], acc[i][q][e]);
     }
   }
 }
 
-// Shared memory (bytes) of kv_major_fma: Kᵀ, Vᵀ (resident), Qsᵀ, dOᵀ and
-// their row-major copies per tile, Pᵀ and dSᵀ as [query][key].
-inline size_t smem_kv_fma(int d, int dv) {
+// Shared memory (bytes) of kv_major_fma with kb keys a CTA: Kᵀ, Vᵀ
+// (resident), Qsᵀ, dOᵀ and their row-major copies per tile, Pᵀ and dSᵀ as
+// [query][key].  222,208 at d = dv = 256 with kb = 32.
+inline size_t smem_kv_fma(int d, int dv, int kb) {
+  const int ks = kb + 4;
   return sizeof(float) *
-         ((size_t)(d + dv) * (KTS + QTS) +
-          (size_t)QT * (atk::v_stride(d) + atk::v_stride(dv)) + 2 * QT * KTS);
+         ((size_t)(d + dv) * (ks + QTS) +
+          (size_t)QT * (atk::v_stride(d) + atk::v_stride(dv)) + 2 * QT * ks);
 }
 
-template <typename T, int NJ, int MODE>
+template <typename T, int NJ, int MODE, int KB_ = KB>
 __global__ void __launch_bounds__(THREADS) kv_major_fma(BwdArgs a) {
   constexpr int NQ = NJ / 4;
+  using SP = Split<KB_>;
+  constexpr int TC = SP::TC, J = SP::J, KTS = SP::RS;
   extern __shared__ float smem[];
   const int d = a.d, dvd = a.dvd;
   const int dps = atk::v_stride(d), dvs = atk::v_stride(dvd);
@@ -271,21 +304,21 @@ __global__ void __launch_bounds__(THREADS) kv_major_fma(BwdArgs a) {
   float* Pt = Or + QT * dvs;   // [QT][KTS]
   float* St = Pt + QT * KTS;   // [QT][KTS]
   const Heads hd = kv_heads<MODE>(a);
-  const int k0 = blockIdx.x * KB;
+  const int k0 = blockIdx.x * KB_;
   const int tid = threadIdx.x;
-  const int tr = tid >> 3;
-  const int tc = tid & 7;
+  const int tr = tid / TC;
+  const int tc = tid % TC;
   const T* kp = static_cast<const T*>(a.k) + hd.b * a.skb + hd.hk * a.skh;
   const T* vp = static_cast<const T*>(a.v) + hd.b * a.svb + hd.hk * a.svh;
   const int i0 = first_q_tile(a, k0, QT);
   const int per_head = k0 < min(a.kv_valid, a.n)
-                           ? max(q_tile_end(a, k0, KB, QT) - i0, 0) : 0;
+                           ? max(q_tile_end(a, k0, KB_, QT) - i0, 0) : 0;
   const int ntiles = hd.heads * per_head;
 
-  stage<T>(Kt, KTS, nullptr, 0, KB, d, [&](int r) {
+  stage<T>(Kt, KTS, nullptr, 0, KB_, d, [&](int r) {
     return k0 + r < a.n ? kp + (k0 + r) * a.skn : nullptr;
   });
-  stage<T>(Vt, KTS, nullptr, 0, KB, dvd, [&](int r) {
+  stage<T>(Vt, KTS, nullptr, 0, KB_, dvd, [&](int r) {
     return k0 + r < a.n ? vp + (k0 + r) * a.svn : nullptr;
   });
 
@@ -311,27 +344,27 @@ __global__ void __launch_bounds__(THREADS) kv_major_fma(BwdArgs a) {
     });
     __syncthreads();
 
-    // Sᵀ and dPᵀ: key rows 4·tr + i, queries 4·tc + j
-    float s[4][4] = {}, dp[4][4] = {};
-    outer4(s, Kt + 4 * tr, KTS, Qt + 4 * tc, QTS, d);
-    outer4(dp, Vt + 4 * tr, KTS, Ot + 4 * tc, QTS, dvd);
+    // Sᵀ and dPᵀ: key rows 4·tr + i, queries J·tc + j
+    float s[4][J] = {}, dp[4][J] = {};
+    outer<J>(s, Kt + 4 * tr, KTS, Qt + J * tc, QTS, d);
+    outer<J>(dp, Vt + 4 * tr, KTS, Ot + J * tc, QTS, dvd);
     const long long row0 = ((long long)hd.b * a.H + h) * a.m;
     const long long lrow = ((long long)hd.b * a.H + h) * a.ls;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int q = q0 + 4 * tc + j;
+    for (int j = 0; j < J; ++j) {
+      const int q = q0 + J * tc + j;
       const float l2 = q < a.m ? a.lse2[lrow + q] : -INFINITY;
       const float dl = q < a.m ? a.delta[lrow + q] : 0.f;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         p_and_ds(a, q, k0 + 4 * tr + i, l2, dl, s[i][j], dp[i][j]);
-        Pt[(4 * tc + j) * KTS + 4 * tr + i] = round_to<T>(s[i][j]);
-        St[(4 * tc + j) * KTS + 4 * tr + i] = round_to<T>(dp[i][j]);
+        Pt[(J * tc + j) * KTS + 4 * tr + i] = round_to<T>(s[i][j]);
+        St[(J * tc + j) * KTS + 4 * tr + i] = round_to<T>(dp[i][j]);
       }
     }
     __syncthreads();
-    accumulate<NQ>(dv, Pt, KTS, Or, dvs, QT, tr, tc);  // dV += Pᵀ·dO
-    accumulate<NQ>(dk, St, KTS, Qr, dps, QT, tr, tc);  // dK += dSᵀ·Qs
+    accumulate<NQ, TC>(dv, Pt, KTS, Or, dvs, QT, tr, tc);  // dV += Pᵀ·dO
+    accumulate<NQ, TC>(dk, St, KTS, Qr, dps, QT, tr, tc);  // dK += dSᵀ·Qs
 
     if constexpr (MODE == FUSED) {
       // this tile's dQ = scale·dS·K: lane = query row, warps split columns
@@ -341,7 +374,7 @@ __global__ void __launch_bounds__(THREADS) kv_major_fma(BwdArgs a) {
         const int ql = idx - c * QT;
         if (q0 + ql >= a.m) continue;
         float sum = 0.f;
-        for (int r = 0; r < KB; r += 4) {
+        for (int r = 0; r < KB_; r += 4) {
           const float4 x = atk::lds4(St + ql * KTS + r);
           const float4 y = atk::lds4(Kt + c * KTS + r);
           sum = fmaf(x.x, y.x, sum);
@@ -364,23 +397,27 @@ __global__ void __launch_bounds__(THREADS) kv_major_fma(BwdArgs a) {
     for (int q = 0; q < NQ; ++q)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = 4 * tc + 32 * q + e;
+        const int col = 4 * tc + 4 * TC * q + e;
         if (col < d) dko[(long long)key * d + col] = dk[i][q][e] * atk::LN2;
         if (col < dvd) dvo[(long long)key * dvd + col] = dv[i][q][e];
       }
   }
 }
 
-// Shared memory (bytes) of q_major_fma: Qsᵀ, dOᵀ (resident), Kᵀ, Vᵀ and
-// K row-major per tile, dSᵀ as [key][query].
-inline size_t smem_q_fma(int d, int dv) {
-  return sizeof(float) * ((size_t)(d + dv) * (QBS + FKS) +
-                          (size_t)FKT * atk::v_stride(d) + FKT * QBS);
+// Shared memory (bytes) of q_major_fma with qb queries a CTA: Qsᵀ, dOᵀ
+// (resident), Kᵀ, Vᵀ and K row-major per tile, dSᵀ as [key][query].
+// 184,832 at d = dv = 256 with qb = 32.
+inline size_t smem_q_fma(int d, int dv, int qb) {
+  const int qs = qb + 4;
+  return sizeof(float) * ((size_t)(d + dv) * (qs + FKS) +
+                          (size_t)FKT * atk::v_stride(d) + FKT * qs);
 }
 
-template <typename T, int NJ>
+template <typename T, int NJ, int QB_ = QB>
 __global__ void __launch_bounds__(THREADS) q_major_fma(BwdArgs a) {
   constexpr int NQ = NJ / 4;
+  using SP = Split<QB_>;
+  constexpr int TC = SP::TC, J = SP::J, QBS = SP::RS;
   extern __shared__ float smem[];
   const int d = a.d, dvd = a.dvd;
   const int dps = atk::v_stride(d);
@@ -394,20 +431,20 @@ __global__ void __launch_bounds__(THREADS) q_major_fma(BwdArgs a) {
   const int b = bh / a.H;
   const int h = bh - b * a.H;
   const int hk = h / (a.H / a.Hkv);
-  const int q0 = blockIdx.x * QB;
+  const int q0 = blockIdx.x * QB_;
   const int tid = threadIdx.x;
-  const int tr = tid >> 3;
-  const int tc = tid & 7;
+  const int tr = tid / TC;
+  const int tc = tid % TC;
   const T* kp = static_cast<const T*>(a.k) + b * a.skb + hk * a.skh;
   const T* vp = static_cast<const T*>(a.v) + b * a.svb + hk * a.svh;
   const T* qp = static_cast<const T*>(a.qs) + b * a.sqb + h * a.sqh;
   const T* op = static_cast<const T*>(a.dout) + b * a.sob + h * a.soh;
-  const int n_end = key_end(a, q0, QB);
+  const int n_end = key_end(a, q0, QB_);
 
-  stage<T>(Qt, QBS, nullptr, 0, QB, d, [&](int r) {
+  stage<T>(Qt, QBS, nullptr, 0, QB_, d, [&](int r) {
     return q0 + r < a.m ? qp + (q0 + r) * a.sqm : nullptr;
   });
-  stage<T>(Ot, QBS, nullptr, 0, QB, dvd, [&](int r) {
+  stage<T>(Ot, QBS, nullptr, 0, QB_, dvd, [&](int r) {
     return q0 + r < a.m ? op + (q0 + r) * a.som : nullptr;
   });
   const long long row0 = (long long)bh * a.m;
@@ -437,20 +474,20 @@ __global__ void __launch_bounds__(THREADS) q_major_fma(BwdArgs a) {
       return j0 + r < n_end ? vp + (j0 + r) * a.svn : nullptr;
     });
     __syncthreads();
-    // S and dP: query rows 4·tr + i, keys 4·tc + j
-    float s[4][4] = {}, dp[4][4] = {};
-    outer4(s, Qt + 4 * tr, QBS, Kt + 4 * tc, FKS, d);
-    outer4(dp, Ot + 4 * tr, QBS, Vt + 4 * tc, FKS, dvd);
+    // S and dP: query rows 4·tr + i, keys J·tc + j
+    float s[4][J] = {}, dp[4][J] = {};
+    outer<J>(s, Qt + 4 * tr, QBS, Kt + J * tc, FKS, d);
+    outer<J>(dp, Ot + 4 * tr, QBS, Vt + J * tc, FKS, dvd);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p_and_ds(a, q0 + 4 * tr + i, j0 + 4 * tc + j, l2[i], dl[i], s[i][j],
+      for (int j = 0; j < J; ++j) {
+        p_and_ds(a, q0 + 4 * tr + i, j0 + J * tc + j, l2[i], dl[i], s[i][j],
                  dp[i][j]);
-        St[(4 * tc + j) * QBS + 4 * tr + i] = round_to<T>(dp[i][j]);
+        St[(J * tc + j) * QBS + 4 * tr + i] = round_to<T>(dp[i][j]);
       }
     __syncthreads();
-    accumulate<NQ>(dq, St, QBS, Kr, dps, FKT, tr, tc);  // dQ += dS·K
+    accumulate<NQ, TC>(dq, St, QBS, Kr, dps, FKT, tr, tc);  // dQ += dS·K
   }
 
   T* dqo = static_cast<T*>(a.dq) + row0 * d;
@@ -462,7 +499,7 @@ __global__ void __launch_bounds__(THREADS) q_major_fma(BwdArgs a) {
     for (int qq = 0; qq < NQ; ++qq)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = 4 * tc + 32 * qq + e;
+        const int col = 4 * tc + 4 * TC * qq + e;
         if (col < d)
           dqo[(long long)q * d + col] = atk::from_f<T>(dq[i][qq][e] * a.scale);
       }
@@ -501,23 +538,79 @@ inline bool wgmma_operands_ok(const BwdArgs& a) {
   return a.d == a.dvd && (a.d == 64 || a.d == 128);
 }
 
-template <int MODE, typename T, int NJ>
-cudaError_t launch_fma(const BwdArgs& a, int B, cudaStream_t s) {
-  if constexpr (MODE == DQ)
-    return launch(q_major_fma<T, NJ>, dim3((a.m + QB - 1) / QB, B * a.H),
-                  smem_q_fma(a.d, a.dvd), a, s);
-  else
-    return launch(kv_major_fma<T, NJ, MODE>,
-                  dim3((a.n + KB - 1) / KB, B * (MODE == FUSED ? a.H : a.Hkv)),
-                  smem_kv_fma(a.d, a.dvd), a, s);
+// The FMA body of a MODE at NJ columns a thread and ROWS key (key-major)
+// or query (query-major) rows a CTA: its kernel, shared bytes and grid.
+template <int MODE, typename T, int NJ, int ROWS>
+struct FmaInstance {
+  static constexpr int rows = ROWS;
+  static auto kernel() {
+    if constexpr (MODE == DQ)
+      return q_major_fma<T, NJ, ROWS>;
+    else
+      return kv_major_fma<T, NJ, MODE, ROWS>;
+  }
+  static size_t smem(int d, int dv) {
+    return MODE == DQ ? smem_q_fma(d, dv, ROWS) : smem_kv_fma(d, dv, ROWS);
+  }
+  static dim3 grid(const BwdArgs& a, int B) {
+    if (MODE == DQ) return dim3((a.m + ROWS - 1) / ROWS, B * a.H);
+    return dim3((a.n + ROWS - 1) / ROWS, B * (MODE == FUSED ? a.H : a.Hkv));
+  }
+};
+
+// fn(the FmaInstance for head dims d, dv): 64 rows a CTA and 4, 8 or 16
+// columns a thread up to head dim 128, 32 rows and 16 columns (of 16
+// thread columns: 256) above it
+template <int MODE, typename T, typename Fn>
+cudaError_t with_fma(int d, int dv, Fn fn) {
+  constexpr int ROWS = MODE == DQ ? QB : KB;
+  const int widest = d > dv ? d : dv;
+  if (widest <= 32) return fn(FmaInstance<MODE, T, 4, ROWS>{});
+  if (widest <= 64) return fn(FmaInstance<MODE, T, 8, ROWS>{});
+  if (widest <= 128) return fn(FmaInstance<MODE, T, 16, ROWS>{});
+  return fn(FmaInstance<MODE, T, 16, WIDE_ROWS>{});
 }
 
 template <int MODE, typename T>
 cudaError_t dispatch_fma(const BwdArgs& a, int B, cudaStream_t s) {
-  const int widest = a.d > a.dvd ? a.d : a.dvd;
-  if (widest <= 32) return launch_fma<MODE, T, 4>(a, B, s);
-  if (widest <= 64) return launch_fma<MODE, T, 8>(a, B, s);
-  return launch_fma<MODE, T, 16>(a, B, s);
+  return with_fma<MODE, T>(a.d, a.dvd, [&](auto inst) {
+    using I = decltype(inst);
+    return launch(I::kernel(), I::grid(a, B), I::smem(a.d, a.dvd), a, s);
+  });
+}
+
+// What the FMA instance of MODE for dtype (0 fp32, 1 bf16) at head dims
+// (d, dv) costs an SM: out[0] registers a thread, out[1] dynamic shared
+// bytes a CTA, out[2] CTAs an SM can hold, out[3] local (spilled) bytes a
+// thread, out[4] the key (key-major) or query (query-major) rows a CTA
+// owns.  Returns a CUDA error code.
+template <int MODE>
+int fma_resources(int dtype, int d, int dv, int* out) {
+  if (d < 1 || dv < 1 || d > MAX_HEAD_DIM || dv > MAX_HEAD_DIM ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  auto get = [&](auto inst) -> cudaError_t {
+    using I = decltype(inst);
+    auto kernel = I::kernel();
+    const size_t smem = I::smem(d, dv);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaFuncAttributes at;
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&at, kernel);
+    int ctas = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel,
+                                                          THREADS, smem);
+    if (err != cudaSuccess) return err;
+    out[0] = at.numRegs;
+    out[1] = (int)smem;
+    out[2] = ctas;
+    out[3] = (int)at.localSizeBytes;
+    out[4] = I::rows;
+    return cudaSuccess;
+  };
+  return (int)(dtype == 0 ? with_fma<MODE, float>(d, dv, get)
+                          : with_fma<MODE, bf16>(d, dv, get));
 }
 
 // the arguments every backward kernel takes

@@ -9,8 +9,8 @@
 // 16-byte aligned bases and strides (the fused kernel's body,
 // flash_bwd_sm90.cuh, without its dQ: 128-key work items over a deeper ring
 // of TMA-fed query tiles, the same work plan and persistent grid), and
-// "fma" for everything else (flash_bwd.cuh's `kv_major_fma`: 64 keys a CTA
-// walking every Q head of its group, fp32 FMA).
+// "fma" for everything else (flash_bwd.cuh's `kv_major_fma`: 64 keys a CTA,
+// 32 above head dim 128, walking every Q head of its group, fp32 FMA).
 #include "flash_bwd_sm90.cuh"
 
 // Plain C entry point, loaded through ctypes.  Pointers and strides as in
@@ -63,4 +63,12 @@ extern "C" int flash_bwd_dkv(
   if (dtype == 0) return (int)atb::dispatch_fma<atb::DKV, float>(a, B, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   return (int)atb::dispatch_fma<atb::DKV, __nv_bfloat16>(a, B, s);
+}
+
+// Registers, shared bytes, CTAs an SM, spilled bytes and rows a CTA of
+// the "fma" instance a call in dtype (0 fp32, 1 bf16) at head dims (d, dv) runs, as
+// atb::fma_resources.
+extern "C" int flash_bwd_dkv_fma_resources(int dtype, int d, int dv,
+                                           int* out) {
+  return atb::fma_resources<atb::DKV>(dtype, d, dv, out);
 }

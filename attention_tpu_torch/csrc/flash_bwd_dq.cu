@@ -9,8 +9,9 @@
 // its three products on wgmma over TMA-fed key tiles, the flash forward's
 // heaviest-first persistent schedule; its note says what each does), and
 // "fma" for everything else (flash_bwd.cuh's `q_major_fma`: 64 query rows
-// a CTA, fp32 FMA).  Either keeps dQ = scale·dS·K in fp32 registers and
-// writes it once in the input dtype, so dQ is the same bits every call.
+// a CTA, 32 above head dim 128, fp32 FMA).  Either keeps dQ = scale·dS·K
+// in fp32 registers and writes it once in the input dtype, so dQ is the
+// same bits every call.
 #include "flash_bwd_dq_sm90.cuh"
 
 // Plain C entry point, loaded through ctypes.  Pointers and strides as in
@@ -59,4 +60,12 @@ extern "C" int flash_bwd_dq(
   if (dtype == 0) return (int)atb::dispatch_fma<atb::DQ, float>(a, B, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   return (int)atb::dispatch_fma<atb::DQ, __nv_bfloat16>(a, B, s);
+}
+
+// Registers, shared bytes, CTAs an SM, spilled bytes and rows a CTA of
+// the "fma" instance a call in dtype (0 fp32, 1 bf16) at head dims (d, dv) runs, as
+// atb::fma_resources.
+extern "C" int flash_bwd_dq_fma_resources(int dtype, int d, int dv,
+                                          int* out) {
+  return atb::fma_resources<atb::DQ>(dtype, d, dv, out);
 }

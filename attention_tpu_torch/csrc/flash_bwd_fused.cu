@@ -12,9 +12,9 @@
 // GQA sum in a fixed order, a persistent heaviest-first grid; its note
 // says what each does; the dK/dV kernel runs the same body without dQ),
 // and "fma" for everything else (flash_bwd.cuh's
-// `kv_major_fma`: one Q head and 64 keys a CTA, fp32 FMA, per-Q-head
-// partials of dK and dV that the caller sums over the group, dQ by
-// atomicAdd).
+// `kv_major_fma`: one Q head and 64 keys a CTA, 32 above head dim 128,
+// fp32 FMA, per-Q-head partials of dK and dV that the caller sums over the
+// group, dQ by atomicAdd).
 #include "flash_bwd_sm90.cuh"
 
 // Plain C entry point, loaded through ctypes.  Pointers and strides as in
@@ -68,4 +68,12 @@ extern "C" int flash_bwd_fused(
   if (dtype == 0) return (int)atb::dispatch_fma<atb::FUSED, float>(a, B, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   return (int)atb::dispatch_fma<atb::FUSED, __nv_bfloat16>(a, B, s);
+}
+
+// Registers, shared bytes, CTAs an SM, spilled bytes and rows a CTA of
+// the "fma" instance a call in dtype (0 fp32, 1 bf16) at head dims (d, dv) runs, as
+// atb::fma_resources.
+extern "C" int flash_bwd_fused_fma_resources(int dtype, int d, int dv,
+                                             int* out) {
+  return atb::fma_resources<atb::FUSED>(dtype, d, dv, out);
 }

@@ -40,13 +40,25 @@
         qscale, softcap, splits, chunk, kg, stream);                         \
   }
 
+// The int8 and the int4 instances build in two translation units, so that
+// they compile at once (`ops._native.VARIANT_UNITS`): this file alone
+// gives the int8 entry, with -DQUANT_INT4=1 the int4 one.
+#ifndef QUANT_INT4
 QUANT_DECODE_FWD(quant_decode_int8_fwd, atk::Storage::INT8)
-QUANT_DECODE_FWD(quant_decode_int4_fwd, atk::Storage::INT4_FEATURE)
+
+extern "C" int quant_decode_int4_resources(int d, int kg, int* out);
 
 // Registers, shared bytes and CTAs an SM of the (d, kg) instance, as
 // atk::quant_decode_resources; int4 picks the feature-dim layout.
 extern "C" int quant_decode_resources(int int4, int d, int kg, int* out) {
-  return int4 ? atk::quant_decode_resources<atk::Storage::INT4_FEATURE>(
-                    d, kg, out)
+  return int4 ? quant_decode_int4_resources(d, kg, out)
               : atk::quant_decode_resources<atk::Storage::INT8>(d, kg, out);
 }
+#else
+QUANT_DECODE_FWD(quant_decode_int4_fwd, atk::Storage::INT4_FEATURE)
+
+extern "C" int quant_decode_int4_resources(int d, int kg, int* out) {
+  return atk::quant_decode_resources<atk::Storage::INT4_FEATURE>(d, kg,
+                                                                 out);
+}
+#endif

@@ -45,6 +45,23 @@
 // With four key groups (KG = 4) the groups share each tile's row max, so P
 // is rounded against the running max of whole tiles, as with one group.
 //
+// Head dims.  Instances are compiled for D = 32, 64, 128 and 256, two at
+// each (`ANY`).  A call at d = D whose q, output and stored rows are 16-byte
+// aligned runs the instance without ANY: vector loads and stores and 16-byte
+// copies, the code the head dims 32, 64 and 128 ran before the others were
+// taken (one instance for any d in its place took 7-59% longer at d = D on
+// the H100: PERF.md).  Every other call, any head dim d <= D (int4: an even
+// d, as the TPU wrapper requires), runs the ANY instance: its kernel
+// features past d (in the feature-dim int4 layout, past d/2 in each nibble
+// half) take zero q values and are never stored, q and the output move
+// feature by feature, and the stored rows come in by 16-byte copies where
+// every row is whole 16-byte units at 16-byte aligned addresses, else by
+// 4-byte copies, else byte by byte (`gran`), the staged bytes past the row
+// zero, so a cache of any row width runs as it is stored.  At D = 256 the q
+// fragments (64 registers a thread) sit in shared memory, each thread's own,
+// so that the output tile's 128 fp32 registers and the scores fit without a
+// spill.
+//
 // A NaN scale (an overflowing append writes them) makes a NaN score, P and
 // row sum where it is visible (`softmax_tile`), and a NaN P·s_V where it is
 // not, as the plain version's P ∘ s_V over every column does; a row whose
@@ -110,32 +127,84 @@ struct QuantLayout {
   static_assert(RB % 16 == 0 && (VW == 4 || VW == 2), "row layout");
 };
 
-// stored rows holding tokens j0 .. j0 + MMA_BN - 1 of `src` (row stride
-// `stride` bytes) into `dst` (row stride RS), zeros past n_end
+// the logical feature of kernel feature f of an instance at D for head
+// dim d, or -1 where it lies past the row: the feature-dim int4 layout
+// keeps features d/2 .. d - 1 in its high nibbles, whose kernel features
+// start at D/2
 template <Storage ST, int D>
+__device__ __forceinline__ int logical_feature(int f, int d) {
+  if constexpr (ST == Storage::INT4_FEATURE) {
+    const int half = d / 2;
+    if (f < D / 2) return f < half ? f : -1;
+    return f - D / 2 < half ? f - D / 2 + half : -1;
+  } else {
+    return f < d ? f : -1;
+  }
+}
+
+// stored rows holding tokens j0 .. j0 + MMA_BN - 1 of `src` (row stride
+// `stride` bytes, rb bytes a row) into `dst` (row stride RS), in copies of
+// `gran` bytes (16 and 4: cp.async; 1: through registers; without ANY
+// 16, the rows whole at RB bytes), zeros past n_end and past rb; the
+// narrower copies' loops stay rolled, to keep the tile loop's code small
+template <Storage ST, int D, bool ANY>
 __device__ __forceinline__ void stage_rows(unsigned char* dst,
                                            const signed char* src,
                                            long long stride, int j0,
-                                           int n_end) {
+                                           int n_end, int rb, int gran) {
   using L = QuantLayout<ST, D>;
-  constexpr int CH = L::RB / 16;
-  for (int idx = threadIdx.x; idx < L::SROWS * CH; idx += THREADS) {
-    const int r = idx / CH;
-    const int c = (idx - r * CH) * 16;
-    unsigned char* to = dst + r * L::RS + c;
-    if (j0 + L::TPR * r < n_end)
-      cp_async16(to, src + (long long)(j0 / L::TPR + r) * stride + c);
-    else
-      *reinterpret_cast<uint4*>(to) = make_uint4(0, 0, 0, 0);
+  auto from = [&](int r, int c) {
+    return src + (long long)(j0 / L::TPR + r) * stride + c;
+  };
+  if (!ANY || gran == 16) {
+    constexpr int CH = L::RB / 16;
+    for (int idx = threadIdx.x; idx < L::SROWS * CH; idx += THREADS) {
+      const int r = idx / CH;
+      const int c = (idx - r * CH) * 16;
+      unsigned char* to = dst + r * L::RS + c;
+      if (j0 + L::TPR * r < n_end && (!ANY || c < rb))
+        cp_async16(to, from(r, c));
+      else
+        *reinterpret_cast<uint4*>(to) = make_uint4(0, 0, 0, 0);
+    }
+  } else if (gran == 4) {
+    constexpr int CH = L::RB / 4;
+#pragma unroll 1
+    for (int idx = threadIdx.x; idx < L::SROWS * CH; idx += THREADS) {
+      const int r = idx / CH;
+      const int c = (idx - r * CH) * 4;
+      unsigned char* to = dst + r * L::RS + c;
+      if (j0 + L::TPR * r < n_end && c < rb)
+        cp_async4(to, from(r, c));
+      else
+        *reinterpret_cast<uint32_t*>(to) = 0u;
+    }
+  } else {
+#pragma unroll 1
+    for (int idx = threadIdx.x; idx < L::SROWS * L::RB; idx += THREADS) {
+      const int r = idx / L::RB;
+      const int c = idx - r * L::RB;
+      dst[r * L::RS + c] = j0 + L::TPR * r < n_end && c < rb
+                               ? static_cast<unsigned char>(*from(r, c))
+                               : 0;
+    }
   }
+}
+
+// Where the q fragments of an instance at D > 128 start in shared memory:
+// past the ring and the key groups' tile maxima.
+template <Storage ST, int D, int KG, int STAGES>
+__host__ __device__ constexpr int q_frag_offset() {
+  return STAGES * QuantLayout<ST, D>::STAGE +
+         (KG > 1 ? 4 * 16 * (int)sizeof(float) : 0);
 }
 
 // The key-tile loop of one CTA over a quantized cache, for decode_kernel
 // (decode_rows.cuh): the Problem's rows (16 per warp), its TileWalk, its
 // mask, and its output rows or partials, as `attend_mma` takes them, with
 // KG key groups.  qscale is c above; pb.kv.q_f32 says q is fp32 (its row
-// pointers then address fp32 rows).
-template <Storage ST, int D, int KG, int STAGES, typename Problem>
+// pointers then address fp32 rows); ANY as in the head dims' note above.
+template <Storage ST, int D, bool ANY, int KG, int STAGES, typename Problem>
 __device__ void attend_quant(const Problem& pb, float qscale, float cap2) {
   using L = QuantLayout<ST, D>;
   static_assert(KG == 1 || KG == 4, "key groups");
@@ -147,6 +216,7 @@ __device__ void attend_quant(const Problem& pb, float qscale, float cap2) {
   constexpr int OT = D / 8;        // output n-tiles
   constexpr int VW = L::VW;
   constexpr int VB = L::RB / (8 * VW);  // V blocks per stored row
+  constexpr bool QS = D > 128;          // q fragments in shared memory
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -172,8 +242,10 @@ __device__ void attend_quant(const Problem& pb, float qscale, float cap2) {
       else
         *to = 0.f;
       unsigned char* rows = st + L::SCALES;
-      stage_rows<ST, D>(rows, kv.k, kv.skn, j0, pb.n_end);
-      stage_rows<ST, D>(rows + L::SROWS * L::RS, kv.v, kv.svn, j0, pb.n_end);
+      stage_rows<ST, D, ANY>(rows, kv.k, kv.skn, j0, pb.n_end, kv.rb,
+                             kv.gran);
+      stage_rows<ST, D, ANY>(rows + L::SROWS * L::RS, kv.v, kv.svn, j0,
+                             pb.n_end, kv.rb, kv.gran);
     }
     cp_async_commit();
   };
@@ -182,20 +254,28 @@ __device__ void attend_quant(const Problem& pb, float qscale, float cap2) {
   for (int t = 0; t < STAGES - 1; ++t) prefetch(t);
 
   // q rows g and g + 8 of the warp's 16, scaled and rounded to bf16, in the
-  // scores' feature order
-  uint32_t qf[KS][4];
+  // scores' feature order, zero past the row; in registers, or at D > 128
+  // in this thread's own slots [KS][THREADS] of shared memory past the ring
+  uint32_t qf[QS ? 1 : KS][4];
+  uint4* qsm = reinterpret_cast<uint4*>(
+                   smem_raw + q_frag_offset<ST, D, KG, STAGES>()) +
+               threadIdx.x;
+  const __nv_bfloat16* qrow[2] = {pb.q_row(wr + g), pb.q_row(wr + g + 8)};
+  // q and the output rows whole at D and 16-byte aligned (not ANY):
+  // vector loads and paired stores; else feature by feature
+  constexpr bool whole = !ANY;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const __nv_bfloat16* row = pb.q_row(wr + g + 8 * i);
+  for (int j = 0; j < KS; ++j) {
+    uint32_t w[4];
 #pragma unroll
-    for (int j = 0; j < KS; ++j) {
+    for (int i = 0; i < 2; ++i) {
       float x[4] = {0.f, 0.f, 0.f, 0.f};
-      if (row != nullptr) {
+      const __nv_bfloat16* row = qrow[i];
+      if (row != nullptr && whole) {
         const int f = 16 * j + 4 * tq;
         if (kv.q_f32) {
-          const float4 v =
-              *reinterpret_cast<const float4*>(
-                  reinterpret_cast<const float*>(row) + f);
+          const float4 v = *reinterpret_cast<const float4*>(
+              reinterpret_cast<const float*>(row) + f);
           x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
         } else {
           const uint2 v = *reinterpret_cast<const uint2*>(row + f);
@@ -205,11 +285,36 @@ __device__ void attend_quant(const Problem& pb, float qscale, float cap2) {
         }
 #pragma unroll
         for (int e = 0; e < 4; ++e) x[e] = __fmul_rn(x[e], qscale);
+      } else if (row != nullptr) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int f = logical_feature<ST, D>(16 * j + 4 * tq + e, kv.d);
+          if (f < 0) continue;
+          x[e] = __fmul_rn(kv.q_f32 ? reinterpret_cast<const float*>(row)[f]
+                                    : __bfloat162float(row[f]),
+                           qscale);
+        }
       }
-      qf[j][i] = pack_bf16(x[0], x[2]);
-      qf[j][2 + i] = pack_bf16(x[1], x[3]);
+      w[i] = pack_bf16(x[0], x[2]);
+      w[2 + i] = pack_bf16(x[1], x[3]);
+    }
+    if constexpr (QS) {
+      qsm[j * THREADS] = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) qf[j][e] = w[e];
     }
   }
+  // the fragment of k16 step j
+  auto frag = [&](int j, uint32_t (&f)[4]) {
+    if constexpr (QS) {
+      const uint4 u = qsm[j * THREADS];
+      f[0] = u.x, f[1] = u.y, f[2] = u.z, f[3] = u.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) f[e] = qf[QS ? 0 : j][e];
+    }
+  };
 
   float o[OT][4];
 #pragma unroll
@@ -237,40 +342,47 @@ __device__ void attend_quant(const Problem& pb, float qscale, float cap2) {
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    // k16 step by k16 step, each score n-tile taking its steps in order
     if constexpr (TOK) {
       // packed row (ko/2 + 8p + g): n-tile 2p its low nibbles (token 2·row),
       // n-tile 2p + 1 its high ones
 #pragma unroll
-      for (int p = 0; p < NT / 2; ++p) {
-        const unsigned char* kr = Kr + (ko / 2 + 8 * p + g) * L::RS + 4 * tq;
+      for (int j = 0; j < KS; ++j) {
+        uint32_t f[4];
+        frag(j, f);
 #pragma unroll
-        for (int j = 0; j < KS; ++j) {
-          const uint32_t w = *reinterpret_cast<const uint32_t*>(kr + 16 * j);
-          mma_bf16(s[2 * p], qf[j], i4_pair(w), i4_pair(w >> 8));
-          mma_bf16(s[2 * p + 1], qf[j], i4_pair(w >> 4), i4_pair(w >> 12));
+        for (int p = 0; p < NT / 2; ++p) {
+          const uint32_t w = *reinterpret_cast<const uint32_t*>(
+              Kr + (ko / 2 + 8 * p + g) * L::RS + 4 * tq + 16 * j);
+          mma_bf16(s[2 * p], f, i4_pair(w), i4_pair(w >> 8));
+          mma_bf16(s[2 * p + 1], f, i4_pair(w >> 4), i4_pair(w >> 12));
+        }
+      }
+    } else if constexpr (ST == Storage::INT8) {
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        uint32_t f[4];
+        frag(j, f);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const uint32_t w = *reinterpret_cast<const uint32_t*>(
+              Kr + (ko + 8 * n + g) * L::RS + 4 * tq + 16 * j);
+          mma_bf16(s[n], f, i8_pair(w), i8_pair(w >> 8));
         }
       }
     } else {
+      // low nibbles: features of the first half, high: of the second
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const unsigned char* kr = Kr + (ko + 8 * n + g) * L::RS + 4 * tq;
-        if constexpr (ST == Storage::INT8) {
+      for (int j = 0; j < KS / 2; ++j) {
+        uint32_t lo[4], hi[4];
+        frag(j, lo);
+        frag(j + KS / 2, hi);
 #pragma unroll
-          for (int j = 0; j < KS; ++j) {
-            const uint32_t w =
-                *reinterpret_cast<const uint32_t*>(kr + 16 * j);
-            mma_bf16(s[n], qf[j], i8_pair(w), i8_pair(w >> 8));
-          }
-        } else {
-          // low nibbles: features of the first half, high: of the second
-#pragma unroll
-          for (int j = 0; j < KS / 2; ++j) {
-            const uint32_t w =
-                *reinterpret_cast<const uint32_t*>(kr + 16 * j);
-            mma_bf16(s[n], qf[j], i4_pair(w), i4_pair(w >> 8));
-            mma_bf16(s[n], qf[j + KS / 2], i4_pair(w >> 4),
-                     i4_pair(w >> 12));
-          }
+        for (int n = 0; n < NT; ++n) {
+          const uint32_t w = *reinterpret_cast<const uint32_t*>(
+              Kr + (ko + 8 * n + g) * L::RS + 4 * tq + 16 * j);
+          mma_bf16(s[n], lo, i4_pair(w), i4_pair(w >> 8));
+          mma_bf16(s[n], hi, i4_pair(w >> 4), i4_pair(w >> 12));
         }
       }
     }
@@ -392,13 +504,18 @@ __device__ void attend_quant(const Problem& pb, float qscale, float cap2) {
       return;
   }
 
-  // o[np][2i + h] is row g + 8i, feature `feat(np, h)`: each thread holds
-  // 2·VW consecutive features of each block
+  // o[np][2i + h] is row g + 8i, kernel feature `feat(np, h)` (each
+  // thread holds 2·VW consecutive kernel features of each block); where
+  // the rows are not whole, its logical feature, -1 past the row
   auto feat = [&](int np, int h) {
     const int half = ST == Storage::INT4_FEATURE && np >= OT / 2;
     const int n = np - half * (OT / 2);
-    return half * (D / 2) + 8 * VW * (n / VW) + 2 * VW * tq + VW * h +
-           n % VW;
+    const int f = half * (D / 2) + 8 * VW * (n / VW) + 2 * VW * tq +
+                  VW * h + n % VW;
+    if constexpr (whole)
+      return f;
+    else
+      return logical_feature<ST, D>(f, kv.d);
   };
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -408,7 +525,10 @@ __device__ void attend_quant(const Problem& pb, float qscale, float cap2) {
 #pragma unroll
       for (int np = 0; np < OT; ++np)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) acc[feat(np, h)] = o[np][2 * i + h];
+        for (int h = 0; h < 2; ++h) {
+          const int f = feat(np, h);
+          if (f >= 0) acc[f] = o[np][2 * i + h];
+        }
       if (tq == 0) pb.put_stats(r, mrow[i], lrow[i]);
       continue;
     }
@@ -416,89 +536,112 @@ __device__ void attend_quant(const Problem& pb, float qscale, float cap2) {
     if (dst == nullptr) continue;
     // a row that attended nothing has l == 0 and an all-zero accumulator
     const float inv = lrow[i] == 0.f ? 1.f : 1.f / lrow[i];
-    // features feat(np, h) and feat(np + 1, h) are neighbours for even np
-    // within a block
+    if constexpr (whole) {
+      // features feat(np, h) and feat(np + 1, h) are neighbours for even
+      // np within a block
 #pragma unroll
-    for (int np = 0; np < OT; np += 2)
+      for (int np = 0; np < OT; np += 2)
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<uint32_t*>(dst + feat(np, h)) = pack_bf16(
-            o[np][2 * i + h] * inv, o[np + 1][2 * i + h] * inv);
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<uint32_t*>(dst + feat(np, h)) = pack_bf16(
+              o[np][2 * i + h] * inv, o[np + 1][2 * i + h] * inv);
+      continue;
+    }
+#pragma unroll
+    for (int np = 0; np < OT; ++np)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int f = feat(np, h);
+        if (f >= 0) dst[f] = __float2bfloat16_rn(o[np][2 * i + h] * inv);
+      }
   }
 }
 
 // The tile loop of a quantized cache's rows (decode_kernel's `Tiles`).
-template <Storage ST>
+template <Storage ST, bool ANY>
 struct QuantLoop {
   static constexpr bool OWN_LOOP = true;
   template <int D, int KG, int STAGES, typename Problem>
   __device__ static void attend(const Problem& pb, float qscale,
                                 float cap2) {
-    attend_quant<ST, D, KG, STAGES>(pb, qscale, cap2);
+    attend_quant<ST, D, ANY, KG, STAGES>(pb, qscale, cap2);
   }
-  // the ring and the key groups' tile maxima, or their merge where that
-  // is larger
+  // the ring, the key groups' tile maxima and at D > 128 the q
+  // fragments, or the key groups' merge where that is larger
   template <int D, int KG, int STAGES>
   static constexpr size_t smem_bytes() {
-    const size_t ring = (size_t)STAGES * QuantLayout<ST, D>::STAGE +
-                        (KG > 1 ? 4 * 16 * sizeof(float) : 0);
+    const size_t ring = (size_t)q_frag_offset<ST, D, KG, STAGES>() +
+                        (D > 128 ? (size_t)(D / 16) * THREADS * 16 : 0);
     const size_t merge = KG > 1 ? 4 * 16 * (D + 2) * sizeof(float) : 0;
     return ring > merge ? ring : merge;
   }
 };
 
 // A quantized (B, Hkv, ...) cache: stored rows with byte strides (batch,
-// head, row) and a contiguous last dim, scales contiguous (B, Hkv, N); and
-// whether q is fp32 (else bf16).
-template <Storage ST>
+// head, row) and a contiguous last dim, scales contiguous (B, Hkv, N);
+// whether q is fp32 (else bf16); the head dim d, the bytes rb of a stored
+// row and the copies `gran` (16, 4 or 1 bytes) that stage them (ANY).
+template <Storage ST, bool ANY>
 struct QuantSource {
   const signed char* k;
   const signed char* v;
   const float* ks;
   const float* vs;
-  int Hkv, N, q_f32;
+  int Hkv, N, q_f32, d, rb, gran;
   long long skb, skh, skn, svb, svh, svn;
 
   template <typename T>
   struct Rows {
-    using Tiles = QuantLoop<ST>;
+    using Tiles = QuantLoop<ST, ANY>;
     const signed char* k;
     const signed char* v;
     const float* ks;
     const float* vs;
     long long skn, svn;
-    int q_f32;
+    int q_f32, d, rb, gran;
   };
 
   template <typename T>
   __device__ Rows<T> rows(int b, int kvh) const {
     const long long sc = ((long long)b * Hkv + kvh) * N;
     return {k + b * skb + kvh * skh, v + b * svb + kvh * svh, ks + sc,
-            vs + sc, skn, svn, q_f32};
+            vs + sc, skn, svn, q_f32, d, rb, gran};
   }
 };
 
-// fn(D, KG) for head dim d and key groups kg (1 or 4) as integral
-// constants.
+// fn(D, KG, ANY) for the instance that takes head dim d (1 to 256: D =
+// 32, 64, 128 or 256, the least at or above d), key groups kg (1 or 4)
+// and rows that are whole at D and aligned (any false) or not, as
+// integral constants.
 template <typename Fn>
-int with_quant_kernel(int d, int kg, Fn fn) {
+int with_quant_kernel(int d, int kg, bool any, Fn fn) {
   auto pick = [&](auto dk) -> int {
-    return kg == 4 ? fn(dk, std::integral_constant<int, 4>{})
-                   : fn(dk, std::integral_constant<int, 1>{});
+    using yes = std::true_type;
+    using no = std::false_type;
+    if (kg == 4)
+      return any ? fn(dk, std::integral_constant<int, 4>{}, yes{})
+                 : fn(dk, std::integral_constant<int, 4>{}, no{});
+    return any ? fn(dk, std::integral_constant<int, 1>{}, yes{})
+               : fn(dk, std::integral_constant<int, 1>{}, no{});
   };
-  switch (d) {
-    case 32: return pick(std::integral_constant<int, 32>{});
-    case 64: return pick(std::integral_constant<int, 64>{});
-    case 128: return pick(std::integral_constant<int, 128>{});
-  }
-  return (int)cudaErrorInvalidValue;
+  if (d < 1 || d > 256) return (int)cudaErrorInvalidValue;
+  if (d <= 32) return pick(std::integral_constant<int, 32>{});
+  if (d <= 64) return pick(std::integral_constant<int, 64>{});
+  if (d <= 128) return pick(std::integral_constant<int, 128>{});
+  return pick(std::integral_constant<int, 256>{});
+}
+
+// the D of the instances that take head dim d (1 to 256)
+inline int instance_dim(int d) {
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
 }
 
 // The C entries' body.  q is (B, H, S, d), fp32 (q_f32) or bf16, and o (B,
-// H, S, d) bf16, both with element strides (batch, head, token) and 16-byte
-// aligned rows; k/v and their byte strides as in QuantSource; ks/vs (B,
-// Hkv, N) fp32; lens (B,) int32 after the append (a negative length reads
-// as 0).  Head dims 32, 64 and 128.  qscale is the fp32 of scale·log2(e).
+// H, S, d) bf16, both with element strides (batch, head, token) and a
+// contiguous last dim; k/v and their byte strides as in QuantSource, any
+// alignment; ks/vs (B, Hkv, N) fp32; lens (B,) int32 after the append (a
+// negative length reads as 0).  Head dims 1 to 256, even for int4.
+// qscale is the fp32 of scale·log2(e).
 // window <= 0 means none (sinks then ignored), softcap <= 0 none.  splits
 // and chunk are the key split of `split_plan`
 // (attention_tpu_torch/ops/decode.py); with splits > 1, part is contiguous
@@ -540,36 +683,47 @@ int quant_decode_entry(const void* q, const void* k, const void* v,
   a.qscale = qscale;
   a.cap2 = softcap > 0.f ? softcap * LOG2E : 0.f;
   set_splits(a, B, splits, chunk, part);
-  const QuantSource<ST> src{static_cast<const signed char*>(k),
-                            static_cast<const signed char*>(v),
-                            static_cast<const float*>(ks),
-                            static_cast<const float*>(vs),
-                            Hkv, N, q_f32 ? 1 : 0,
-                            skb, skh, skn, svb, svh, svn};
-  const bool aligned = rows_aligned(a) && skb % 16 == 0 && skh % 16 == 0 &&
-                       skn % 16 == 0 && svb % 16 == 0 && svh % 16 == 0 &&
-                       svn % 16 == 0 && aligned16(k) && aligned16(v) &&
-                       (ST != Storage::INT4_TOKENS || (S == 1 && N % 2 == 0));
+  // the widest copies that every stored row's bytes fill at aligned
+  // addresses
+  const int rb = ST == Storage::INT4_FEATURE ? d / 2 : d;
+  auto whole = [&](int g) {
+    const long long st[6] = {skb, skh, skn, svb, svh, svn};
+    for (long long x : st)
+      if (x % g) return false;
+    return rb % g == 0 && reinterpret_cast<uintptr_t>(k) % g == 0 &&
+           reinterpret_cast<uintptr_t>(v) % g == 0;
+  };
+  const int gran = whole(16) ? 16 : whole(4) ? 4 : 1;
+  const bool any = d != instance_dim(d) || gran != 16 || !rows_aligned(a);
+  const bool layout = (ST == Storage::INT8 || d % 2 == 0) &&
+                      (ST != Storage::INT4_TOKENS || (S == 1 && N % 2 == 0));
   const bool rows_fit = kg == 1 || (kg == 4 && H / Hkv * S <= 16);
-  if (!decode_args_ok(a, B) || !aligned || !rows_fit)
+  if (!decode_args_ok(a, B) || !layout || !rows_fit)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_quant_kernel(d, kg, [&](auto dk, auto g) {
+  return with_quant_kernel(d, kg, any, [&](auto dk, auto g, auto an) {
+    const QuantSource<ST, decltype(an)::value> src{
+        static_cast<const signed char*>(k), static_cast<const signed char*>(v),
+        static_cast<const float*>(ks), static_cast<const float*>(vs), Hkv, N,
+        q_f32 ? 1 : 0, d, rb, gran, skb, skh, skn, svb, svh, svn};
     return (int)launch_decode<__nv_bfloat16, 0, decltype(dk)::value,
                               decltype(dk)::value, decltype(g)::value>(
         a, src, B, s);
   });
 }
 
-// What one instance costs an SM: out[0] registers a thread, out[1] dynamic
-// shared bytes a CTA, out[2] CTAs an SM can hold, out[3] local (spilled)
-// bytes a thread.  Returns a CUDA error code.
+// What the instance a call at head dim d with whole, aligned rows runs
+// costs an SM (the ANY instance where d is not its D): out[0] registers a
+// thread, out[1] dynamic shared bytes a CTA, out[2] CTAs an SM can hold,
+// out[3] local (spilled) bytes a thread, out[4] its D.  Returns a CUDA
+// error code.
 template <Storage ST>
 int quant_decode_resources(int d, int kg, int* out) {
-  return with_quant_kernel(d, kg, [&](auto dk, auto g) {
+  const bool any = d != instance_dim(d);
+  return with_quant_kernel(d, kg, any, [&](auto dk, auto g, auto an) {
     constexpr int D = decltype(dk)::value;
     constexpr int KG = decltype(g)::value;
-    using Src = QuantSource<ST>;
+    using Src = QuantSource<ST, decltype(an)::value>;
     auto kernel = decode_kernel<__nv_bfloat16, 0, D, D, KG, Src>;
     const size_t smem = decode_smem<__nv_bfloat16, 0, D, D, KG, Src>(D, D);
     cudaError_t err = cudaFuncSetAttribute(
@@ -585,6 +739,7 @@ int quant_decode_resources(int d, int kg, int* out) {
     out[1] = (int)smem;
     out[2] = ctas;
     out[3] = (int)at.localSizeBytes;
+    out[4] = D;
     return 0;
   });
 }

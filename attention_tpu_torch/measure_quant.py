@@ -3,6 +3,7 @@
 Run it from the root of a checkout:
 
     python3 attention_tpu_torch/measure_quant.py [--root DIR] [--label L]
+        [--head-dim D --heads H KV] [--cases NAME ...] [--no-split-target]
 
 ``--root`` imports ``attention_tpu_torch`` from another checkout (say the
 parent commit, unpacked beside this one), so that two versions are timed
@@ -11,7 +12,8 @@ prints one JSON line per measurement, the card's name and power limit
 first:
 
 * ``case``: the quantized cases of ``chip_smoke.py`` (8 sequences of 0
-  to 4096 rows, 32 q / 4 kv heads, d 128, bf16 caches quantized three
+  to 4096 rows, 32 q / 4 kv heads, d 128, or ``--heads`` and
+  ``--head-dim``, as phase 8's d 256 cases, bf16 caches quantized three
   ways: int8 one token, with softcap 50, with a 512-row window and 4
   sinks, a chunk of 4 with softcap 50; feature-dim and token-paired
   int4 one token), and the dense and paged bf16 decode (the paged one
@@ -26,7 +28,9 @@ first:
   CTAs per SM;
 * ``split_target``: the quantized cases again at each ``CTAS_PER_SM`` of
   2, 3, 4 and 8 (`ops.decode.split_plan`'s aim), where the checkout
-  splits them.
+  splits them, unless ``--no-split-target``.
+
+``--cases`` keeps only the named cases (the dense and paged ones too).
 
 Device times are means over 30 calls after two warm-up calls.  It needs
 a card and fails without one.
@@ -53,7 +57,11 @@ def emit(**record) -> None:
 
 def device_ms(fn, calls: int = 30) -> dict[str, float]:
     """Mean device ms per call of the split kernel, the merge and every
-    kernel ``fn`` launches, by `torch.profiler`."""
+    kernel ``fn`` launches, by `torch.profiler`, from a profile that
+    recorded every call (each kernel a multiple of ``calls`` times): the
+    profile of the card's activity alone has missed calls on the H100,
+    so a second one is held open a quarter second before and after
+    them."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -61,10 +69,21 @@ def device_ms(fn, calls: int = 30) -> dict[str, float]:
     fn()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    for pad in (0.0, 0.25):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        seen: dict[str, int] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                seen[e.name] = seen.get(e.name, 0) + 1
+        if seen and all(c % calls == 0 for c in seen.values()):
+            break
+    else:
+        raise RuntimeError(f"the profiler missed calls: {seen}")
     out = {"kernel_device_ms": 0.0, "merge_device_ms": 0.0,
            "device_ms": 0.0}
     for e in prof.events():
@@ -127,11 +146,19 @@ def bound_ms(s_new: int, row_bytes: int, window=None, sinks=None) -> float:
 
 
 def main(argv=None) -> int:
+    global H, HKV, D
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))
     parser.add_argument("--label", default="")
+    parser.add_argument("--head-dim", type=int, default=D)
+    parser.add_argument("--heads", type=int, nargs=2, default=(H, HKV),
+                        metavar=("H", "KV"))
+    parser.add_argument("--cases", nargs="+")
+    parser.add_argument("--no-split-target", action="store_true")
     args = parser.parse_args(argv)
+    H, HKV = args.heads
+    D = args.head_dim
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
 
@@ -192,6 +219,9 @@ def main(argv=None) -> int:
     planned = hasattr(quant, "launch_plan")
     kind_of = {"int8": quant.QuantizedKV, "int4": quant.Int4KV,
                "int4_tok": quant.Int4TokKV}
+    if args.cases:
+        quant_cases = {n: c for n, c in quant_cases.items()
+                       if n in args.cases}
     for name, (fmt, qq, kw) in quant_cases.items():
         fn = run_quant(fmt, qq, kw)
         s_new = qq.shape[2] if qq.dim() == 4 else 1
@@ -209,9 +239,11 @@ def main(argv=None) -> int:
             ("decode_bf16_S1", lambda: decode.flash_decode(q, k, v, lens)),
             ("paged_bf16_S1_softcap", lambda: paged.paged_flash_decode(
                 q, pcache, softcap=50.0))):
+        if args.cases and name not in args.cases:
+            continue
         emit(label=args.label, case=name, **device_ms(fn), ms=time_ms(fn),
              host_us=host_us(fn), bound_ms=bound_ms(1, 4 * D))
-    if not planned:
+    if not planned or args.no_split_target:
         return 0
     chosen = decode.CTAS_PER_SM
     try:

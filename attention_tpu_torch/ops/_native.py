@@ -52,8 +52,10 @@ KERNELS = {
 
 #: kernel name -> its other translation units, (source, extra nvcc flags)
 #: each, compiled apart from the entry's source and linked with it: each
-#: max_mode variant's instances in a build of their own
+#: max_mode variant's instances in a build of their own, and the int4
+#: instances of the int8/int4 decode kernel
 VARIANT_UNITS = {
+    "quant_decode": [("quant_decode.cu", ("-DQUANT_INT4=1",))],
     "flash_fwd": [("flash_fwd_variant.cu", (f"-DFLASH_VARIANT={v}",))
                   for v in (1, 2, 3)],
     "ragged_paged": [("ragged_paged_variant.cu", (f"-DRAGGED_VARIANT={v}",))

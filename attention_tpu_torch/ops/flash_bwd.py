@@ -23,9 +23,12 @@ loop have no counterpart here.
 
 Each kernel has two bodies, and `flash_bwd_body` names the one a call
 runs: "wgmma" for bf16 at dk = dv = 64 or 128 with 16-byte aligned
-operands, "fma" for the rest.  The fused and the dK/dV kernels' "wgmma"
-is one key-major body (``csrc/flash_bwd_sm90.cuh``, the dK/dV instance
-without dQ), the dQ kernel's a query-major one
+operands, "fma" for the rest, head dims up to 256 (above 128 a CTA of
+the FMA bodies owns 32 key or query rows instead of 64, as
+`fma_resources` reports).
+The fused and the dK/dV kernels' "wgmma" is one key-major body
+(``csrc/flash_bwd_sm90.cuh``, the dK/dV instance without dQ), the dQ
+kernel's a query-major one
 (``csrc/flash_bwd_dq_sm90.cuh``) on the flash forward's schedule.
 `bwd_tile_plan` and `bwd_work_plan` are the key-major body's query-tile
 range and its cut of the call into work items, in Python, which the CPU
@@ -48,6 +51,7 @@ before them).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import NamedTuple
@@ -71,8 +75,8 @@ LN2 = math.log(2.0)
 
 #: launch counters of the three kernels (one library each)
 FUSED, DQ, DKV = "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"
-#: largest head dim the backward kernels take
-MAX_HEAD_DIM = 128
+#: largest head dim the backward kernels take (the FMA bodies above 128)
+MAX_HEAD_DIM = 256
 #: the C entry points' codes of the two bodies
 BODY_CODES = {"fma": 0, "wgmma": 1}
 #: query rows per tile and keys per work item of the key-major wgmma body
@@ -289,6 +293,20 @@ class BwdTilePlan(NamedTuple):
     end: int
     mask_end: int
     edge: int
+
+
+def fma_resources(kernel: str, dtype, d: int, dv: int) -> dict:
+    """What the "fma" instance of backward ``kernel`` (`FUSED`, `DQ` or
+    `DKV`) that a ``dtype`` call at head dims (``d``, ``dv``) runs costs
+    an SM of the current card: registers a thread, dynamic shared bytes a
+    CTA, CTAs an SM holds, spilled bytes a thread, and the key
+    (key-major) or query (query-major) rows a CTA owns."""
+    fn = _native.function(kernel, f"{kernel}_fma_resources", [I, I, I, P])
+    out = (ctypes.c_int * 5)()
+    _native.check(kernel, fn(DTYPE_CODES[dtype], d, dv,
+                             ctypes.addressof(out)))
+    return dict(zip(("registers", "smem_bytes", "ctas_per_sm",
+                     "spill_bytes", "rows"), out))
 
 
 def bwd_tile_plan(key0: int, m: int, kv_valid: int, causal: bool,
@@ -668,7 +686,7 @@ def flash_backward(
     forward's.
     Gradients come back in the inputs' dtypes.  CUDA tensors run the
     fused Hopper kernel (or the dQ and dK/dV pair under
-    `_FORCE_TWO_KERNEL`), float32 or bfloat16, head dims up to 128; CPU
+    `_FORCE_TWO_KERNEL`), float32 or bfloat16, head dims up to 256; CPU
     tensors run `flash_backward_plain`.  Under a ``window`` the kernels
     walk only its band, with a window-only mask, and ``sinks`` add the
     sink pairs outside the band by `sink_patch`, as the JAX backward

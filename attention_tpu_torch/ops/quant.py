@@ -28,9 +28,11 @@ CUDA tensors `flash_decode_quantized`, `flash_decode_quantized_chunk` and
 `flash_decode_int4` launch ``csrc/quant_decode.cu`` (which replaces the
 TPU kernel `_decode_q_kernel`), `flash_decode_int4_tok` launches
 ``csrc/quant_tok4_decode.cu`` (which replaces `_decode_tok4_kernel`);
-for CPU tensors they run `quant_decode_plain`.  The kernels take head
-dims 32, 64 and 128, and q in float32 or bfloat16, which they scale and
-round themselves.
+for CPU tensors they run `quant_decode_plain`.  The kernels take every
+head dim from 1 to 256 (int4: even, as the JAX package's packing
+requires), caches of any row width and alignment with a contiguous last
+dim, and q in float32 or bfloat16, which they scale and round
+themselves.
 
 On the card each sequence's keys are split across CTAs as the dense
 decode kernel splits them (`ops.decode.split_plan`, the token-paired
@@ -49,15 +51,13 @@ from typing import NamedTuple
 import torch
 
 from attention_tpu_torch.ops import _native
-from attention_tpu_torch.ops._native import F, I, L, P
+from attention_tpu_torch.ops._native import MAX_HEAD_DIM, F, I, L, P
 from attention_tpu_torch.ops.decode import ROW_BLOCK, check_band, \
     lengths_tensor, split_launch, split_owner, split_plan
 from attention_tpu_torch.ops.reference import check_softcap
 from attention_tpu_torch.ops.rope import apply_rope
 
 LOG2E = math.log2(math.e)
-#: head dims the kernels take
-KERNEL_HEAD_DIMS = (32, 64, 128)
 #: rows of a kv head up to which the four warps share one 16-row tile (the
 #: kernels' key groups, KG = 4), else 64-row blocks (KG = 1)
 KEY_GROUP_ROWS = 16
@@ -281,6 +281,8 @@ def _validate(q, cache, *, chunk: bool) -> None:
             f"{tuple(cache.v_scale.shape)} != {(b, hkv, n)}")
     if h % hkv:
         raise ValueError(f"q heads {h} not a multiple of kv heads {hkv}")
+    if d % 2 and not isinstance(cache, QuantizedKV):
+        raise ValueError(f"head_dim {d} must be even for int4 packing")
 
 
 def _plain(q4, cache, lens, *, scale, softcap, window, sinks,
@@ -358,12 +360,19 @@ def split_partials(q4, cache, lens, *, scale, softcap=None, window=None,
     return tuple(torch.stack(t, dim=3) for t in zip(*parts))
 
 
+def _check_head_dim(d: int) -> None:
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"the quantized decode kernels take head dims up "
+                         f"to {MAX_HEAD_DIM}, got {d}")
+
+
 def launch_plan(q, cache, window=None, *, sms: int) -> dict:
     """The launch a kernel call on ``q`` (B, H, d) or (B, H, S, d) and
     ``cache`` makes on a card of ``sms`` SMs: the key split of
     `ops.decode.split_plan` over the capacity in tokens (``splits``,
     ``chunk``), the key groups ``kg`` (4: the four warps share one 16-row
     tile) and the ``grid`` (row blocks, B·Hkv, splits)."""
+    _check_head_dim(q.shape[-1])
     b, h = q.shape[:2]
     s_new = q.shape[2] if q.dim() == 4 else 1
     hkv = cache.k_q.shape[1]
@@ -381,10 +390,13 @@ def _key_groups(rows: int) -> int:
 
 
 def kernel_resources(kind, d: int, kg: int) -> dict:
-    """What the kernel instance for cache type ``kind`` at head dim ``d``
-    with ``kg`` key groups costs an SM of the current card: registers a
-    thread, dynamic shared bytes a CTA, CTAs an SM holds, spilled bytes a
-    thread."""
+    """What the kernel instance that a call on a cache of type ``kind``
+    at head dim ``d`` with ``kg`` key groups runs, its rows whole and
+    aligned (at a ``d`` below the instance's, the one for any rows),
+    costs an SM of the current card: registers a thread, dynamic shared
+    bytes a CTA, CTAs an SM holds, spilled bytes a thread, and the
+    instance's ``head_dim`` (the least of 32, 64, 128 and 256 at or above
+    ``d``)."""
     kernel = _KERNEL_OF[kind][0]
     if kind is Int4TokKV:
         fn = _native.function(kernel, "quant_tok4_resources", [I, I, P])
@@ -393,17 +405,10 @@ def kernel_resources(kind, d: int, kg: int) -> dict:
         fn = _native.function(kernel, "quant_decode_resources",
                               [I, I, I, P])
         args = (int(kind is Int4KV),)
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     _native.check(kernel, fn(*args, d, kg, ctypes.addressof(out)))
     return dict(zip(("registers", "smem_bytes", "ctas_per_sm",
-                     "spill_bytes"), out))
-
-
-def _aligned_rows(t: torch.Tensor) -> bool:
-    """16-byte aligned rows with a contiguous last dim (strides of the
-    first three dims)."""
-    return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
-        st * t.element_size() % 16 == 0 for st in t.stride()[:3])
+                     "spill_bytes", "head_dim"), out))
 
 
 def _launch(kernel, symbol, q4, cache, lens, *, scale, softcap, window,
@@ -419,14 +424,12 @@ def _launch(kernel, symbol, q4, cache, lens, *, scale, softcap, window,
     if any(t.device != q4.device for t in cache):
         raise ValueError("q and the cache must be on one device")
     b, h, s_new, d = q4.shape
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the quantized decode kernels take head dims "
-                         f"{KERNEL_HEAD_DIMS}, got {d}")
+    _check_head_dim(d)
     for t, what in ((cache.k_q, "k_q"), (cache.v_q, "v_q")):
-        if not _aligned_rows(t):
-            raise ValueError(f"{what}: the kernel takes 16-byte aligned "
-                             f"rows with a contiguous last dim")
-    if not _aligned_rows(q4):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{what}: the kernel takes rows with a "
+                             f"contiguous last dim")
+    if q4.stride(-1) != 1:
         q4 = q4.contiguous()
     hkv, n = cache.k_q.shape[1], cache.capacity
     ks, vs = (t if t.is_contiguous() else t.contiguous()

@@ -855,16 +855,26 @@ def test_quant_nan_window_comes_out_nan(gen, fmt, s_new, scales):
 
 
 def test_quant_wrapper_raises_instead_of_falling_back(gen):
-    q = torch.randn(2, 4, 16, generator=gen, device="cuda")
-    k = torch.randn(2, 2, 128, 16, generator=gen, device="cuda")
-    with pytest.raises(ValueError, match="head dims"):
+    """A head dim past the kernels' 256, an odd int4 head dim and a q
+    dtype they do not take raise on the card; no kernel launches and
+    nothing falls back to the plain version."""
+    before = launch_counts()
+    q = torch.randn(2, 4, 257, generator=gen, device="cuda")
+    k = torch.randn(2, 2, 128, 257, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="head dims up to 256"):
         quant.flash_decode_quantized(q, quant.quantize_kv(k, k), 10)
+    odd = quant.Int4TokKV(
+        *(torch.zeros(2, 2, 64, 33, dtype=torch.int8, device="cuda"),
+          torch.ones(2, 2, 128, device="cuda")) * 2)
+    with pytest.raises(ValueError, match="even"):
+        quant.flash_decode_int4_tok(q[..., :33], odd, 10)
     cache = quant.quantize_kv(*(torch.randn(2, 2, 128, 64, generator=gen,
                                             device="cuda"),) * 2)
     with pytest.raises(TypeError):
         quant.flash_decode_quantized(
             torch.zeros(2, 4, 64, device="cuda", dtype=torch.float16),
             cache, 10)
+    assert launch_counts() == before
 
 
 # ------------------------------------------------------------- backward
@@ -1267,8 +1277,8 @@ def test_backward_wrapper_raises_instead_of_falling_back(gen):
     lse = torch.zeros(2, 8, device="cuda")
     with pytest.raises(TypeError):
         flash_bwd.flash_backward(x16, x16, x16, x16, lse, x16, scale=0.25)
-    big = torch.zeros(2, 8, 160, device="cuda")
-    with pytest.raises(ValueError, match="head dims"):
+    big = torch.zeros(2, 8, 257, device="cuda")
+    with pytest.raises(ValueError, match="head dims 257/257 exceed 256"):
         flash_bwd.flash_backward(big, big, big, big, lse, big, scale=0.1)
     assert launch_counts() == before
 
@@ -2266,3 +2276,239 @@ def test_decode_and_ragged_variants_match_plain(gen, dtype, mode):
     qr = torch.randn(1, hq, width, d, generator=gen, device="cuda").to(dtype)
     got = ragged_paged_attention(qr, step, max_mode=mode)
     assert _share_of_limit(got, ragged_paged_attention_plain(qr, step)) <= 1
+
+
+# Head dims past the wgmma bodies' and up to 256 (`-k head_dim`).  The
+# backward kernels above head dim 128 run the FMA bodies at 32 rows a CTA
+# (`flash_bwd.fma_resources`' "rows"); the quantized kernels run the
+# instance of the least of 32, 64, 128 and 256 at or above d
+# (`quant.kernel_resources`' "head_dim"), their stored rows staged in 16-,
+# 4- or 1-byte copies as the rows allow (int8 d 40 and int4 d 80 are
+# 40-byte rows: 4-byte copies; int8 d 42 and int4 d 82 rows of 42 and 41
+# bytes, d 2 rows of 2 and 1 bytes: byte copies).  Each case against its
+# plain version, the same bits on a second call (the fused dQ, added by
+# atomics in no fixed order, within the limit of the first).
+HEAD_DIM_BWD = (80, 96, 160, 192, 256)
+HEAD_DIM_BWD_CASES = {
+    # GQA 4 q / 2 kv, 2 batches, ragged edges past a 32-row CTA, causal
+    # with the keys 20 rows past the queries (the first rows see no key),
+    # kv_valid and softcap
+    "causal_offsets_softcap": (((2, 4, 150, 0), (2, 2, 170, 0)),
+                               dict(causal=True, q_offset=20, kv_valid=160,
+                                    softcap=30.0)),
+    # a window of 40 with 3 sinks (the kernels take the band, `sink_patch`
+    # the sinks)
+    "window40_sinks3": (((1, 4, 200, 0), (1, 2, 200, 0)),
+                        dict(causal=True, window=40, sinks=3)),
+}
+
+
+def _head_dim_bwd_case(gen, name, d, dtype):
+    shapes, kw = HEAD_DIM_BWD_CASES[name]
+    q, k, v = (torch.randn(s[:-1] + (d,), generator=gen,
+                           device="cuda").to(dtype)
+               for s in (shapes[0], shapes[1], shapes[1]))
+    kw = dict(kw, scale=d ** -0.5)
+    out, lse = _flash_fwd_impl(q, k, v, **kw)
+    dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    return (q, k, v, out, lse, dout), kw
+
+
+def _plain_bwd(args, kw):
+    """`flash_backward_plain` on a kernel call's arguments."""
+    plain_kw = dict(kw)
+    offsets = [plain_kw.pop(name, None)
+               for name in ("q_offset", "kv_offset", "kv_valid")]
+    return flash_bwd.flash_backward_plain(
+        *args, **plain_kw, **_offsets(args[1].shape[-2], *offsets))
+
+
+def _bwd_held_twice(args, kw, path):
+    """The kernels' gradients (one launch a kernel a call) within
+    `grad_mismatch` of the plain version's, the same bits on a second
+    call except the fused dQ (within the limit)."""
+    before = launch_counts()
+    got, again = (flash_bwd.flash_backward(*args, **kw) for _ in range(2))
+    after = launch_counts()
+    want_launches = ({flash_bwd.FUSED: 2} if path == "fused"
+                     else {flash_bwd.DQ: 2, flash_bwd.DKV: 2})
+    assert {n: after[n] - before[n] for n in after
+            if after[n] != before[n]} == want_launches
+    want = _plain_bwd(args, kw)
+    torch.cuda.synchronize()
+    for i, (g, a, w) in enumerate(zip(got, again, want)):
+        assert g.dtype == w.dtype and g.device.type == "cuda"
+        assert grad_mismatch(g, w)[1] <= 1
+        if i == 0 and path == "fused":
+            assert grad_mismatch(a, g)[1] <= 1
+        else:
+            assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", HEAD_DIM_BWD)
+@pytest.mark.parametrize("name", list(HEAD_DIM_BWD_CASES))
+@pytest.mark.parametrize("path", ["fused", "pair"])
+def test_head_dim_backward_kernels_match_plain(gen, monkeypatch, path, name,
+                                               d, dtype):
+    args, kw = _head_dim_bwd_case(gen, name, d, dtype)
+    monkeypatch.setattr(flash_bwd, "_FORCE_TWO_KERNEL", path == "pair")
+    plan = flash_bwd.bwd_launch_plan(*args, causal=True,
+                                     window=kw.get("window"))
+    assert plan["body"] == "fma"
+    kernel = flash_bwd.DQ if path == "pair" else flash_bwd.FUSED
+    assert flash_bwd.fma_resources(kernel, dtype, d, d)["rows"] == (
+        64 if d <= 128 else 32)
+    _bwd_held_twice(args, kw, path)
+
+
+@pytest.mark.parametrize("path", ["fused", "pair"])
+def test_head_dim_256_backward_takes_segment_ids(gen, monkeypatch, path):
+    """bf16 at d 256, 3-D, 4 q / 2 kv heads over 200 rows packed from
+    documents of 90, 1 and 109 rows, causal, softcap 30."""
+    monkeypatch.setattr(flash_bwd, "_FORCE_TWO_KERNEL", path == "pair")
+    q, k, v = (torch.randn((h, 200, 256), generator=gen, device="cuda")
+               .to(torch.bfloat16) for h in (4, 2, 2))
+    ids = torch.repeat_interleave(
+        torch.arange(3, device="cuda"),
+        torch.tensor([90, 1, 109], device="cuda")).to(torch.int32)
+    kw = dict(scale=256 ** -0.5, causal=True, softcap=30.0)
+    out, lse = _flash_fwd_impl(q, k, v, q_segment_ids=ids,
+                               kv_segment_ids=ids, **kw)
+    dout = torch.randn(out.shape, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    _bwd_held_twice((q, k, v, out, lse, dout),
+                    dict(kw, q_segment_ids=ids, kv_segment_ids=ids), path)
+
+
+@pytest.mark.parametrize("path", ["fused", "pair"])
+def test_head_dim_256_backward_float32_grads(gen, monkeypatch, path):
+    """``grad_dtype=torch.float32`` (the sharded backward paths' call) on
+    bf16 at d 256: float32 gradients, unrounded, whose bf16 rounding lies
+    within `grad_mismatch` of the plain version's."""
+    args, kw = _head_dim_bwd_case(gen, "causal_offsets_softcap", 256,
+                                  torch.bfloat16)
+    monkeypatch.setattr(flash_bwd, "_FORCE_TWO_KERNEL", path == "pair")
+    got = flash_bwd.flash_backward(*args, **kw, grad_dtype=torch.float32)
+    want = _plain_bwd(args, kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        assert grad_mismatch(g.to(torch.bfloat16), w)[1] <= 1
+
+
+@pytest.mark.parametrize("d", [160, 256])
+def test_head_dim_diff_trains_on_the_fma_bodies(gen, d):
+    """`flash_attention_diff` at d 160 and 256, bf16, causal GQA: one
+    flash forward and one fused backward a step, gradients within
+    `grad_mismatch` of the plain backward on the same forward."""
+    q, k, v = (torch.randn((2, h, 130, d), generator=gen, device="cuda")
+               .to(torch.bfloat16).requires_grad_() for h in (8, 2, 2))
+    w = torch.randn((2, 8, 130, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    before = launch_counts()
+    out = flash_attention_diff(q, k, v, causal=True, softcap=50.0)
+    (out.float() * w.float()).sum().backward()
+    after = launch_counts()
+    assert {n: after[n] - before[n] for n in after
+            if after[n] != before[n]} == {"flash_fwd": 1,
+                                          flash_bwd.FUSED: 1}
+    kw = dict(scale=d ** -0.5, causal=True, softcap=50.0)
+    o, lse = _flash_fwd_impl(q.detach(), k.detach(), v.detach(), **kw)
+    want = flash_bwd.flash_backward_plain(q.detach(), k.detach(), v.detach(),
+                                          o, lse, w, **kw)
+    torch.cuda.synchronize()
+    for t, wg in zip((q, k, v), want):
+        assert grad_mismatch(t.grad, wg)[1] <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("kernel", ["fused", "dq", "dkv"])
+def test_head_dim_256_fma_instances_do_not_spill(gen, kernel, dtype):
+    """The d > 128 instances of the three FMA bodies: no local memory,
+    their shared bytes as `csrc/flash_bwd.cuh` sizes them (fp32 tiles of
+    32 rows), at least one CTA an SM."""
+    name = {"fused": flash_bwd.FUSED, "dq": flash_bwd.DQ,
+            "dkv": flash_bwd.DKV}[kernel]
+    res = flash_bwd.fma_resources(name, dtype, 256, 256)
+    assert res["spill_bytes"] == 0 and res["ctas_per_sm"] >= 1
+    assert res["rows"] == 32
+    assert res["smem_bytes"] == (184_832 if kernel == "dq" else 222_208)
+
+
+HEAD_DIM_QUANT = (16, 40, 96, 192, 256)
+
+
+def _head_dim_quant_case(gen, fmt, s_new, d):
+    b, h, hkv, n = 3, 8, 2, 512
+    q = torch.randn(b, h, *([s_new] if s_new else []), d, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(b, hkv, n, d, generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    lens = torch.tensor([0, 301, n], dtype=torch.int32, device="cuda")
+    return q, QUANTIZE[fmt](k, v), lens
+
+
+@pytest.mark.parametrize("d", (2,) + HEAD_DIM_QUANT + (42, 82))
+@pytest.mark.parametrize("fmt,s_new", [("int8", 0), ("int8", 4),
+                                       ("int4", 0), ("int4_tok", 0)],
+                         ids=["int8", "int8_chunk4", "int4", "tok4"])
+def test_head_dim_quant_kernels_match_plain(gen, fmt, s_new, d):
+    """Softcap 30, lengths 0, 301 and 512, one token (KG = 4) and a chunk
+    of 4 (KG = 1): one launch a call, the same bits twice, within the
+    plain version's limits, a zero row for length 0; the instance the
+    least of 32, 64, 128 and 256 at or above the head dim."""
+    q, cache, lens = _head_dim_quant_case(gen, fmt, s_new, d)
+    inst = quant.kernel_resources(type(cache), d, 4)
+    assert inst["head_dim"] == next(x for x in (32, 64, 128, 256) if d <= x)
+    fn = QUANT_OPS[fmt, bool(s_new)]
+    kernel = "quant_tok4" if fmt == "int4_tok" else "quant_decode"
+    before = launch_counts()[kernel]
+    got = _held_twice(
+        lambda: fn(q, cache, lens, softcap=30.0),
+        lambda: quant.quant_decode_plain(q, cache, lens, softcap=30.0),
+        torch.bfloat16)
+    assert launch_counts()[kernel] == before + 2
+    assert (got[0] == 0).all()
+
+
+def _padded_rows(t: torch.Tensor, extra: int) -> torch.Tensor:
+    """``t`` viewed out of storage whose rows are ``extra`` bytes
+    longer."""
+    buf = torch.zeros(*t.shape[:-1], t.shape[-1] + extra, dtype=t.dtype,
+                      device=t.device)
+    buf[..., :t.shape[-1]] = t
+    return buf[..., :t.shape[-1]]
+
+
+@pytest.mark.parametrize("fmt", ["int8", "int4", "int4_tok"])
+def test_head_dim_256_quant_window_fp32_q_and_strides(gen, fmt):
+    """d 256 with a window of 100 and 4 sinks and q in fp32 (the kernel
+    scales and rounds it); then the cache's rows viewed out of storage 8
+    bytes (4-byte copies) and 3 bytes (byte copies) longer a row, which
+    must give the bits of the contiguous cache."""
+    q, cache, lens = _head_dim_quant_case(gen, fmt, 0, 256)
+    fn = QUANT_OPS[fmt, False]
+    kw = dict(window=100, sinks=4)
+    _held_twice(lambda: fn(q.float(), cache, lens, **kw),
+                lambda: quant.quant_decode_plain(q.float(), cache, lens,
+                                                 **kw), torch.bfloat16)
+    want = fn(q, cache, lens, softcap=30.0)
+    for extra in (8, 3):
+        view = cache._replace(k_q=_padded_rows(cache.k_q, extra),
+                              v_q=_padded_rows(cache.v_q, extra))
+        got = fn(q, view, lens, softcap=30.0)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", [quant.QuantizedKV, quant.Int4KV,
+                                  quant.Int4TokKV],
+                         ids=["int8", "int4", "tok4"])
+@pytest.mark.parametrize("kg", [1, 4])
+def test_head_dim_256_quant_instances_do_not_spill(gen, kind, kg):
+    res = quant.kernel_resources(kind, 256, kg)
+    assert res["spill_bytes"] == 0 and res["ctas_per_sm"] >= 1
+    assert res["head_dim"] == 256
